@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the VC-ASGD system (the JAX package ``repro`` is
+the reference it is held against).
+
+The package mirrors ``repro``'s module paths.  It imports torch, numpy
+and the standard library only.  Every entry point runs on the card
+(``device="cuda"``) unless the caller asks for ``"cpu"``; the three
+hand-written CUDA kernels of the flat bus (``kernels/csrc/``) are built
+at first use, never at import.
+"""

@@ -1,0 +1,47 @@
+"""Device routing for the flat-bus kernels.
+
+A CUDA tensor goes to the hand-written kernel (which raises on anything
+it does not take); a CPU tensor goes to the plain PyTorch version in
+``ref``.  Nothing else: no fallback from one to the other.  The CPU route
+never touches the kernel build.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import ref as R
+from repro_torch.kernels import vc_asgd_update as _vc
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"flat kernels run on cuda or cpu, got {t.device}")
+
+
+def fused_lerp_flat(server_buf, client_buf, alpha):
+    """Eq. 1 over the whole flat bus — ONE launch on the card."""
+    if _on_cuda(server_buf):
+        return _vc.vc_asgd_lerp_flat(server_buf, client_buf, alpha)
+    return R.vc_asgd_lerp(server_buf, client_buf, alpha)
+
+
+def fused_assimilate_flat(server_buf, clients_buf, weights: Sequence[float]):
+    """Eq. 2 over [n_clients, N] stacked flat buffers — ONE launch."""
+    if _on_cuda(server_buf):
+        return _vc.assimilate_flat(server_buf, clients_buf, weights)
+    return R.assimilate(server_buf, clients_buf, weights)
+
+
+def fused_adam_flat(p_buf, g_buf, m_buf, v_buf, lr, b1, b2, eps,
+                    weight_decay, c1, c2):
+    """Whole-model Adam (params + m/v lanes of the flat bus) — ONE launch."""
+    if _on_cuda(p_buf):
+        return _vc.adam_update_flat(p_buf, g_buf, m_buf, v_buf, lr, b1, b2,
+                                    eps, weight_decay, c1, c2)
+    return R.adam_update(p_buf, g_buf, m_buf, v_buf, lr=lr, b1=b1, b2=b2,
+                         eps=eps, c1=c1, c2=c2, weight_decay=weight_decay)

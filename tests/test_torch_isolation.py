@@ -1,0 +1,140 @@
+"""The port stands alone and runs where it is told to.
+
+* every ``repro_torch`` module imports in a fresh interpreter in which
+  ``jax`` and ``repro`` cannot be imported at all;
+* no file under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+  ``jax`` or ``repro`` (AST scan, so a lazy import inside a function is
+  caught too);
+* entry points raise without a GPU unless the caller passes
+  ``device="cpu"``, and the CPU route never touches the kernel build.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.convert as C
+from repro_torch.core.baselines import VCASGD
+from repro_torch.core.flat import BLOCK
+from repro_torch.core.simulator import SimConfig, run_simulation
+from repro_torch.core.tasks import MLPTask, make_classification_data
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import vc_asgd_update as VK
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert sys.modules['jax'] is None\n"
+        "print(len(names))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20          # the whole package walked
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_or_repro_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        bad = FORBIDDEN.intersection(roots)
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the CPU route must not build kernels")
+    monkeypatch.setattr(build, "build_all", refuse)
+    monkeypatch.setattr(build, "load", refuse)
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        MLPTask().init_params(0)
+    with pytest.raises(RuntimeError):
+        C.params_from_reference({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError):
+        C.flat_from_reference(np.zeros(BLOCK, np.float32),
+                              {"shapes": [[3]], "dtypes": ["float32"],
+                               "offsets": [0], "n": 3, "padded": BLOCK})
+    cfg = SimConfig(n_clients=2, n_shards=2, max_epochs=1)
+    with pytest.raises(RuntimeError):
+        run_simulation(MLPTask(), make_classification_data(80, 20),
+                       VCASGD(alpha=0.9), cfg)
+
+
+def test_cpu_run_asked_for_never_builds(no_gpu, no_build):
+    VK.reset_launch_count()
+    cfg = SimConfig(n_clients=2, n_shards=2, max_epochs=1, local_steps=2)
+    res = run_simulation(MLPTask(), make_classification_data(80, 20),
+                         VCASGD(alpha=0.9), cfg, device="cpu")
+    assert res.results_assimilated == 2 and res.client_steps > 0
+    assert VK.launch_counts() == dict.fromkeys(VK.KERNELS, 0)
+
+
+def test_ops_route_cpu_tensors_to_plain_versions(no_build):
+    VK.reset_launch_count()
+    s, c = torch.ones(BLOCK), torch.zeros(BLOCK)
+    assert torch.equal(ops.fused_lerp_flat(s, c, 0.25), torch.full_like(s, 0.25))
+    out = ops.fused_assimilate_flat(s, torch.stack([c, s]), [0.5, 0.25, 0.25])
+    assert torch.equal(out, torch.full_like(s, 0.75))
+    p, m, v = ops.fused_adam_flat(s, c, c, c, 1e-3, 0.9, 0.999, 1e-8, 0.0,
+                                  np.float32(0.1), np.float32(0.001))
+    assert torch.equal(p, s) and torch.count_nonzero(m) == 0
+    assert VK.launch_count() == 0
+
+
+def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
+    s = torch.zeros(BLOCK)
+    with pytest.raises(ValueError, match="CUDA"):
+        VK.vc_asgd_lerp_flat(s, s, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        VK.assimilate_flat(s, s[None], [0.5, 0.5])
+    with pytest.raises(ValueError, match="CUDA"):
+        VK.adam_update_flat(s, s, s, s, 1e-3, 0.9, 0.999, 1e-8, 0.0, 0.1, 0.1)
+    with pytest.raises(ValueError):
+        ops.fused_lerp_flat(torch.zeros(BLOCK, device="meta"),
+                            torch.zeros(BLOCK, device="meta"), 0.5)
+
+
+def test_build_targets_live_in_ignored_build_dir():
+    assert build.BUILD_DIR == ROOT / "build" / "kernels"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert set(build.SOURCES) == {"vc_asgd_update"}
+    for src in build.SOURCES.values():
+        assert src.is_file() and src.suffix == ".cu"

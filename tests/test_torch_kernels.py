@@ -1,0 +1,101 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Every test here is marked ``cuda`` and skips without a GPU
+(decided inside the fixture, never at import); run them on a machine with
+one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
+
+Tolerance: none — Eq. 1, Eq. 2 and Adam are bit-exact against the plain
+versions on the same CUDA tensors (both sides spell out separate f32
+multiplies and adds and IEEE division/sqrt).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.flat import BLOCK
+from repro_torch.kernels import ref as R
+from repro_torch.kernels import vc_asgd_update as VK
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rand(dev, *shape, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                              else torch.int32),
+                       b.view(torch.int16 if b.dtype == torch.bfloat16
+                              else torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alpha", [0.0, 0.5, 2 / 3, 0.999])
+def test_lerp_bit_exact(dev, dtype, alpha):
+    s, c = _rand(dev, 3 * BLOCK, dtype=dtype), _rand(dev, 3 * BLOCK,
+                                                     dtype=dtype, seed=1)
+    VK.reset_launch_count()
+    out = VK.vc_asgd_lerp_flat(s, c, alpha)
+    assert VK.launch_count("vc_asgd_lerp_flat") == 1
+    assert _bits_equal(out, R.vc_asgd_lerp(s, c, alpha))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 4, 9])
+def test_assimilate_bit_exact(dev, dtype, n):
+    s = _rand(dev, 2 * BLOCK, dtype=dtype)
+    c = _rand(dev, n, 2 * BLOCK, dtype=dtype, seed=2)
+    w = [0.3 ** n] + [0.7 * 0.3 ** (n - 1 - j) for j in range(n)]
+    VK.reset_launch_count()
+    out = VK.assimilate_flat(s, c, w)
+    assert VK.launch_count("assimilate_flat") == 1
+    assert _bits_equal(out, R.assimilate(s, c, w))
+
+
+@pytest.mark.parametrize("t,wd", [(1, 0.0), (3, 0.0), (50, 0.01)])
+def test_adam_bit_exact(dev, t, wd):
+    p, g, m = (_rand(dev, 2 * BLOCK, seed=k) for k in range(3))
+    v = _rand(dev, 2 * BLOCK, seed=3).abs()
+    c1 = np.float32(1) - np.float32(0.9) ** np.float32(t)
+    c2 = np.float32(1) - np.float32(0.999) ** np.float32(t)
+    VK.reset_launch_count()
+    got = VK.adam_update_flat(p, g, m, v, 1e-3, 0.9, 0.999, 1e-8, wd, c1, c2)
+    assert VK.launch_count("adam_update_flat") == 1
+    want = R.adam_update(p, g, m, v, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                         c1=c1, c2=c2, weight_decay=wd)
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+
+
+def test_wrappers_reject_bad_buffers(dev):
+    s = _rand(dev, BLOCK)
+    with pytest.raises(ValueError):
+        VK.vc_asgd_lerp_flat(_rand(dev, BLOCK + 4), _rand(dev, BLOCK + 4), 0.5)
+    with pytest.raises(ValueError):
+        VK.vc_asgd_lerp_flat(s, s.to(torch.bfloat16), 0.5)
+    with pytest.raises(ValueError):
+        VK.vc_asgd_lerp_flat(_rand(dev, BLOCK + 1)[1:], s, 0.5)  # misaligned
+    with pytest.raises(ValueError):
+        VK.assimilate_flat(s, _rand(dev, BLOCK, 2).t(), [0.4, 0.3, 0.3])
+    with pytest.raises(ValueError):
+        VK.adam_update_flat(s, s.to(torch.bfloat16), s, s, 1e-3, 0.9, 0.999,
+                            1e-8, 0.0, 0.1, 0.1)
+
+
+def test_inputs_never_written(dev):
+    s, c = _rand(dev, BLOCK), _rand(dev, BLOCK, seed=4)
+    s0, c0 = s.clone(), c.clone()
+    VK.vc_asgd_lerp_flat(s, c, 0.5)
+    VK.assimilate_flat(s, c[None], [0.5, 0.5])
+    VK.adam_update_flat(s, c, c, c.abs(), 1e-3, 0.9, 0.999, 1e-8, 0.0, 0.1,
+                        0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s0) and torch.equal(c, c0)
