@@ -13,12 +13,18 @@ a card, or outside a checkout.  Phases:
 2. build    — nvcc builds every kernel source under
               src/repro_torch/kernels/csrc/ (all at once).
 3. parity   — each kernel against its plain PyTorch version on the card,
-              at the MLP bus (N = 16,384) and at N = 2^27: Eq. 1 and
-              Eq. 2 bit-exact in f32 and bf16 storage (Eq. 2 with 1 and 4
-              clients), Adam bit-exact or within 2e-6 relative.  Each
-              kernel's time, its plain version's, one PyTorch library
-              call's (torch.lerp / torch.addmv / torch._fused_adam_, a
-              yardstick the port never calls) and the bound.
+              at the main path's sizes (the MLP bus, N = 16,384; the
+              sparse payload's k = 656 and 1,313) and at N = 2^27
+              (k = 0.05 * 2^27 = 6,710,886): Eq. 1 and Eq. 2 bit-exact in
+              f32 and bf16 storage (Eq. 2 with 1 and 4 clients), Adam
+              bit-exact or within 2e-6 relative, the elastic EASGD round
+              bit-exact in f32 and bf16 with 1 and 3 replicas, int8
+              quantize / dequantize and the sparse-body pack bit-exact.
+              Each kernel's time, its plain version's, one PyTorch
+              library call's where one computes the same function
+              (torch.lerp / torch.addmv / torch._fused_adam_ / a scale
+              multiply / torch.cat of byte views: yardsticks the port
+              never calls) and the bound.
 4. the main path, through the entry points a user calls:
    a. the quickstart --smoke configuration (examples/quickstart.py:30-45,
       VC-ASGD with var_alpha) on the card and on the CPU from one seed:
@@ -29,7 +35,20 @@ a card, or outside a checkout.  Phases:
       batch, folded by assimilate_many_flat (one Eq. 2 launch), held
       against folding Eq. 1 four times;
    c. the full quickstart configuration on the card: counts, accuracy
-      table, wall time and where the host time goes.
+      table, wall time and where the host time goes;
+   d. the pinned replay: the 12 flat MLP cases of
+      results/PINNED_sim_regression.json (every server scheme, dense and
+      compressed uploads; configurations of tools/pin_sim_regression.py)
+      on the card and on the CPU from one seed.  Every event-trace and
+      wire field equals the pinned JSON and card equals CPU; accuracy
+      agrees card vs CPU within ACC_BAND; each kernel's launches equal
+      what the path implies (quantize = pack = compressed submits,
+      dequantize = compressed submits + sparse assimilations, EASGD =
+      pod barrier rounds, Eq. 1 = VC-ASGD-family assimilations);
+   e. the paper's §IV-C comparison at examples/asgd_comparison.py's full
+      configuration on the card: the eight schemes' table (hours, final
+      accuracy, preemptions, reassignments, wire MB), each scheme's wall
+      time and the host share spent in compress_flat and encode_sparse.
 5. a ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -44,11 +63,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-CSRC = "src/repro_torch/kernels/csrc/vc_asgd_update.cu"
+_CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = {
+    "vc_asgd_lerp_flat": _CSRC + "vc_asgd_update.cu",
+    "assimilate_flat": _CSRC + "vc_asgd_update.cu",
+    "adam_update_flat": _CSRC + "vc_asgd_update.cu",
+    "easgd_elastic_flat": _CSRC + "vc_asgd_update.cu",
+    "quantize_int8": _CSRC + "quantize.cu",
+    "dequantize_int8": _CSRC + "quantize.cu",
+    "pack_body": _CSRC + "sparse_pack.cu",
+}
 REPLACES = {
     "vc_asgd_lerp_flat": "src/repro/kernels/vc_asgd_update.py:49",
     "assimilate_flat": "src/repro/kernels/vc_asgd_update.py:69",
     "adam_update_flat": "src/repro/kernels/vc_asgd_update.py:80",
+    "easgd_elastic_flat": "src/repro/kernels/vc_asgd_update.py:98",
+    "quantize_int8": "src/repro/kernels/quantize.py:17",
+    "dequantize_int8": "src/repro/kernels/quantize.py:26",
+    "pack_body": "src/repro/kernels/sparse_pack.py:51",
 }
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
@@ -56,6 +88,104 @@ MAIN_N = 16384                   # the MLP's 13,130 params on the BLOCK bus
 BIG_N = 2 ** 27                  # order of the ~100M-parameter demo LM
 ADAM_REL_TOL = 2e-6              # tests/test_kernels.py TOL[f32]
 ACC_BAND = 0.03                  # card vs CPU epoch accuracy (6 of 200)
+MAIN_K = (656, 1313)             # sparse payload at densities 0.05 / 0.1
+BIG_K = int(BIG_N * 0.05)        # 6,710,886
+QBLOCK = 256
+
+# results/PINNED_sim_regression.json's 12 flat MLP cases, with the
+# configurations of tools/pin_sim_regression.py:33-62, 90-93:
+# name -> (scheme class in repro_torch.core.baselines, its kwargs,
+# SimConfig overrides of PIN_BASE).  tests/test_torch_simulator.py holds
+# this table to the pin tool's own.
+PIN_BASE = dict(n_param_servers=2, n_clients=3, tasks_per_client=2,
+                n_shards=8, max_epochs=2, local_steps=2,
+                subtask_compute_s=120.0, seed=5)
+PIN_DATA = dict(n_train=1500, n_val=300, seed=0)
+_PREEMPT = dict(preemptible=True, mean_lifetime_s=900.0, restart_delay_s=60.0)
+_TWIN = dict(n_param_servers=1, consistency="strong", tasks_per_client=3,
+             n_shards=9, max_epochs=1)
+PINNED_CASES = {
+    "vc-asgd": ("VCASGD", dict(alpha=0.95), {}),
+    "vc-asgd-preempt": ("VCASGD", dict(alpha=0.95), _PREEMPT),
+    "vc-asgd-compressed": ("CompressedVCASGD",
+                           dict(alpha=0.95, density=0.05), _PREEMPT),
+    "downpour": ("Downpour", dict(server_lr=0.5), {}),
+    "dc-asgd": ("DCASGD", dict(server_lr=0.5, lam=0.05), {}),
+    "easgd-persistent": ("EASGDPersistent", dict(beta=0.05), _PREEMPT),
+    "easgd-flat-pod": ("EASGDFlatPod", dict(n_replicas=3, beta=0.05), {}),
+    "easgd-flat-pod-compressed": (
+        "EASGDFlatPod", dict(n_replicas=3, beta=0.05, compress_density=0.1),
+        {}),
+    "sync-bsp": ("SyncBSP", dict(n_shards=8), {}),
+    "vc-asgd-strong": ("VCASGD", dict(alpha=0.95), dict(consistency="strong")),
+    "vc-asgd-contended": ("VCASGD", dict(alpha=0.95),
+                          dict(n_param_servers=2, tasks_per_client=4,
+                               server_proc_s=45.0)),
+    "tier-flat-twin": ("VCASGD", dict(alpha=0.9), _TWIN),
+}
+# the pinned fields that do not depend on the parameter values
+PIN_TRACE = ("wall_time_s", "epochs_done", "results_assimilated",
+             "reassignments", "preemptions", "lost_updates", "store_updates",
+             "t_complete", "wire_frames_sent", "wire_bytes_sent",
+             "wire_frames_recv", "wire_bytes_recv", "wire_frames_dropped",
+             "wire_bytes_dropped", "wire_dense_frames", "wire_sparse_frames",
+             "wire_handout_frames", "wire_handout_bytes", "leases_expired",
+             "leases_dropped")
+
+
+def pinned_case(name: str):
+    """(scheme, SimConfig) of one pinned case, fresh."""
+    from repro_torch.core import baselines
+    from repro_torch.core.simulator import SimConfig
+    cls, kwargs, overrides = PINNED_CASES[name]
+    return (getattr(baselines, cls)(**kwargs),
+            SimConfig(**{**PIN_BASE, **overrides}))
+
+
+def pinned_fields(res) -> dict:
+    """The pinned fixture's fields of one SimResult (the pin tool's
+    run_case, without the accuracy)."""
+    return {
+        "wall_time_s": float(res.wall_time_s),
+        "epochs_done": int(res.epochs_done),
+        "results_assimilated": int(res.results_assimilated),
+        "reassignments": int(res.reassignments),
+        "preemptions": int(res.preemptions),
+        "lost_updates": int(res.store_stats.lost_updates),
+        "store_updates": int(res.store_stats.updates),
+        "t_complete": [float(p.t_complete) for p in res.points],
+        "wire_frames_sent": int(res.wire.frames_sent),
+        "wire_bytes_sent": int(res.wire.bytes_sent),
+        "wire_frames_recv": int(res.wire.frames_recv),
+        "wire_bytes_recv": int(res.wire.bytes_recv),
+        "wire_frames_dropped": int(res.wire.frames_dropped),
+        "wire_bytes_dropped": int(res.wire.bytes_dropped),
+        "wire_dense_frames": int(res.wire_dense_frames),
+        "wire_sparse_frames": int(res.wire_sparse_frames),
+        "wire_handout_frames": int(res.handout_frames),
+        "wire_handout_bytes": int(res.handout_bytes),
+        "leases_expired": int(res.leases_expired),
+        "leases_dropped": int(res.leases_dropped),
+    }
+
+
+def implied_launches(scheme, res) -> dict:
+    """The launches of each kernel that a run of ``scheme`` implies."""
+    compressed = (getattr(scheme, "density", None) is not None
+                  or getattr(scheme, "compress_density", None) is not None)
+    submits = res.wire.frames_sent - res.handout_frames
+    sparse_submits = submits if compressed else 0
+    vc_family = scheme.name.startswith("vc-asgd")
+    pod = scheme.name == "easgd-flat-pod"
+    return {
+        "vc_asgd_lerp_flat": res.results_assimilated if vc_family else 0,
+        "assimilate_flat": 0,
+        "adam_update_flat": res.client_steps,
+        "easgd_elastic_flat": res.scheme_state.version if pod else 0,
+        "quantize_int8": sparse_submits,
+        "dequantize_int8": sparse_submits + res.wire_sparse_frames,
+        "pack_body": sparse_submits,
+    }
 
 
 class SmokeFailure(SystemExit):
@@ -214,6 +344,114 @@ def parity(torch, np, VK, R, n_elems: int, timed: bool) -> dict:
     return out
 
 
+def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
+                          ) -> dict:
+    """The scheme-comparison path's kernels against their plain versions:
+    the elastic EASGD round (B5) at ``n_elems`` with 1 and 3 replicas in
+    f32 and bf16, int8 quantize / dequantize (B9, B10) and the sparse-body
+    pack (B12) at each payload size in ``ks``.  Timed (B5 f32 with 3
+    replicas, the codec and pack at ``ks[0]``) when ``timed``."""
+    VK, QK, SK = KK
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n_elems + 7)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    iters = 50 if n_elems <= MAIN_N else 10
+    out = {}
+
+    # B5: elastic EASGD round, replicas in slot order
+    beta = 0.05
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 3):
+            c, x = rnd(n_elems).to(dtype), rnd(n, n_elems).to(dtype)
+            (kc, kx), (pc, px) = (VK.easgd_elastic_flat(c, x, beta),
+                                  R.easgd_elastic(c, x, beta))
+            torch.cuda.synchronize()
+            check(bits_equal(torch, kc, pc) and bits_equal(torch, kx, px),
+                  f"EASGD {dtype} n={n} N={n_elems}: kernel != plain version")
+            say(f"parity B5 easgd_elastic_flat {str(dtype)[6:]} n={n} "
+                f"N={n_elems}: bit-exact")
+    n = 3
+    c, x = rnd(n_elems), rnd(n, n_elems)
+    (kc, kx), (pc, px) = (VK.easgd_elastic_flat(c, x, beta),
+                          R.easgd_elastic(c, x, beta))
+    rec = {"max_abs_err": max(float((kc - pc).abs().max()),
+                              float((kx - px).abs().max())),
+           "library_ms": None}
+    if timed:
+        rec["ms"] = time_ms(torch, lambda: VK.easgd_elastic_flat(c, x, beta),
+                            iters)
+        rec["plain_ms"] = time_ms(torch, lambda: R.easgd_elastic(c, x, beta),
+                                  iters)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            2 * 4 * (n + 1) * n_elems, (4 * n + 2) * n_elems)
+    out["easgd_elastic_flat"] = rec
+    del c, x, kc, kx, pc, px
+
+    # B9 / B10 / B12 at each payload size
+    for k in ks:
+        ng = -(-k // QBLOCK)
+        sel = rnd(k) * 0.01
+        sel[k // 3] = 0.0
+        (kq, ks_), (pq, ps) = QK.quantize_int8(sel), R.quantize_int8(sel)
+        torch.cuda.synchronize()
+        check(torch.equal(kq, pq) and bits_equal(torch, ks_, ps),
+              f"quantize k={k}: kernel != plain version")
+        kd, pd = QK.dequantize_int8(kq, ks_, k), R.dequantize_int8(kq, ks_, k)
+        torch.cuda.synchronize()
+        check(bits_equal(torch, kd, pd), f"dequantize k={k}: kernel != plain")
+        idx = torch.arange(k, dtype=torch.int32, device=dev) * 13 + 5
+        kb, pb = SK.pack_body(kq, ks_, idx), R.pack_body(kq, ks_, idx)
+        torch.cuda.synchronize()
+        check(kb.numel() == 5 * k + 4 * ng and torch.equal(kb, pb),
+              f"pack_body k={k}: kernel != plain version")
+        say(f"parity B9/B10/B12 quantize/dequantize/pack_body k={k}: "
+            f"bit-exact")
+        if k != ks[0]:
+            continue
+        recs = {"quantize_int8": {"max_abs_err": float(
+                    (kq.float() - pq.float()).abs().max()), "library_ms": None},
+                "dequantize_int8": {"max_abs_err": float(
+                    (kd - pd).abs().max())},
+                "pack_body": {"max_abs_err": float(
+                    (kb.int() - pb.int()).abs().max())}}
+        if timed:
+            q_pad = torch.zeros(ng * QBLOCK, dtype=torch.int8, device=dev)
+            q_pad[:k] = kq
+            r = recs["quantize_int8"]
+            r["ms"] = time_ms(torch, lambda: QK.quantize_int8(sel), iters)
+            r["plain_ms"] = time_ms(torch, lambda: R.quantize_int8(sel), iters)
+            r["bound_ms"], r["bound_by"] = bound_ms(4 * k + k + 4 * ng, 5 * k)
+            r = recs["dequantize_int8"]
+            r["ms"] = time_ms(torch, lambda: QK.dequantize_int8(kq, ks_, k),
+                              iters)
+            r["plain_ms"] = time_ms(
+                torch, lambda: R.dequantize_int8(kq, ks_, k), iters)
+            r["library_ms"] = time_ms(torch, lambda: torch.mul(
+                q_pad.view(ng, QBLOCK), ks_[:, None]), iters)
+            r["bound_ms"], r["bound_by"] = bound_ms(k + 4 * ng + 4 * k, k)
+            r = recs["pack_body"]
+            r["ms"] = time_ms(torch, lambda: SK.pack_body(kq, ks_, idx), iters)
+            r["plain_ms"] = time_ms(
+                torch, lambda: R.pack_body(kq, ks_, idx), iters)
+            r["library_ms"] = time_ms(torch, lambda: torch.cat(
+                [kq.view(torch.uint8), ks_.view(torch.uint8),
+                 idx.view(torch.uint8)]), iters)
+            r["bound_ms"], r["bound_by"] = bound_ms(2 * (5 * k + 4 * ng), 0)
+        out.update(recs)
+    if timed:
+        for name, r in out.items():
+            size = f"N={n_elems}" if name == "easgd_elastic_flat" \
+                else f"k={ks[0]}"
+            say(f"timing {name} {size}: kernel {r['ms']:.6f} ms")
+            say(f"timing {name} {size}: plain {r['plain_ms']:.6f} ms")
+            lib = r["library_ms"]
+            say(f"timing {name} {size}: library "
+                + ("none" if lib is None else f"{lib:.6f} ms"))
+            say(f"timing {name} {size}: bound {r['bound_ms']:.6f} ms "
+                f"({r['bound_by']})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -288,17 +526,19 @@ def profile_smoke(torch, VK):
             f"x{e.count:<7d} {e.key[:70]}")
 
 
-def host_breakdown(run_fn):
-    """Host wall time spent inside each layer of the loop during
-    ``run_fn()``: client training, the coordinator's wire legs, the
-    server fold and evaluation (each sums to its own sync points, so a
-    layer that waits on the device carries the device work before it)."""
+def host_breakdown(run_fn, targets=None):
+    """Host wall time spent inside each of ``targets`` ((class or module,
+    attribute) pairs; by default the layers of the loop: client training,
+    the coordinator's wire legs, the server fold and evaluation) during
+    ``run_fn()``.  Each sums to its own sync points, so a layer that waits
+    on the device carries the device work before it."""
     from repro_torch.core.tasks import MLPTask
     from repro_torch.protocol.coordinator import Coordinator
     spans = {}
-    targets = [(MLPTask, "client_train"), (MLPTask, "evaluate"),
-               (Coordinator, "issue"), (Coordinator, "submit"),
-               (Coordinator, "deliver"), (Coordinator, "assimilate")]
+    if targets is None:
+        targets = [(MLPTask, "client_train"), (MLPTask, "evaluate"),
+                   (Coordinator, "issue"), (Coordinator, "submit"),
+                   (Coordinator, "deliver"), (Coordinator, "assimilate")]
     saved = [(cls, name, getattr(cls, name)) for cls, name in targets]
 
     def timed(key, fn):
@@ -310,13 +550,121 @@ def host_breakdown(run_fn):
         return wrapper
 
     for cls, name, fn in saved:
-        setattr(cls, name, timed(f"{cls.__name__}.{name}", fn))
+        owner = cls.__name__.rsplit(".", 1)[-1]
+        setattr(cls, name, timed(f"{owner}.{name}", fn))
     try:
         result = run_fn()
     finally:
         for cls, name, fn in saved:
             setattr(cls, name, fn)
     return result, spans
+
+
+def pinned_replay(torch, VK) -> dict:
+    """Phase 4d: the 12 flat MLP cases of the pinned fixture on the card
+    and on the CPU from one seed.  Returns the card runs' launches summed
+    over the cases."""
+    from repro_torch.core.simulator import run_simulation
+    from repro_torch.core.tasks import MLPTask, make_classification_data
+    pin = json.loads((ROOT / "results" / "PINNED_sim_regression.json")
+                     .read_text())
+    check(pin["base_cfg"] == PIN_BASE and pin["data"] == PIN_DATA,
+          "the pinned fixture's base configuration is not the one replayed")
+    data = make_classification_data(**PIN_DATA)
+    totals = dict.fromkeys(VK.KERNELS, 0)
+    for name in PINNED_CASES:
+        want = pin["cases"][name]
+        runs = {}
+        for device in ("cuda", "cpu"):
+            scheme, cfg = pinned_case(name)
+            VK.reset_launch_count()
+            res = run_simulation(MLPTask(), data, scheme, cfg, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            runs[device] = (scheme, res, VK.launch_counts())
+        scheme, res_g, counts = runs["cuda"]
+        _, res_c, counts_cpu = runs["cpu"]
+        check(sum(counts_cpu.values()) == 0,
+              f"pinned {name}: the CPU run launched a CUDA kernel")
+        implied = implied_launches(scheme, res_g)
+        check(counts == implied, f"pinned {name}: launches {counts} != "
+              f"implied by the path {implied}")
+        got_g, got_c = pinned_fields(res_g), pinned_fields(res_c)
+        for f in PIN_TRACE:
+            check(got_g[f] == want[f], f"pinned {name}: {f} on cuda "
+                  f"{got_g[f]} != pinned {want[f]}")
+            check(got_c[f] == want[f], f"pinned {name}: {f} on cpu "
+                  f"{got_c[f]} != pinned {want[f]}")
+        accs_g = [p.acc_mean for p in res_g.points] + [res_g.final_accuracy]
+        accs_c = [p.acc_mean for p in res_c.points] + [res_c.final_accuracy]
+        gap = max(abs(a - b) for a, b in zip(accs_g, accs_c))
+        check(gap <= ACC_BAND, f"pinned {name}: accuracy cuda vs cpu {gap}")
+        buf = res_g.scheme_state.params.buf
+        check(bool(torch.isfinite(buf).all()) and buf.shape == (MAIN_N,),
+              f"pinned {name}: server bus not finite or wrong shape")
+        say(f"pinned {name}: trace == pin (cuda and cpu), acc gap "
+            f"{gap:.4f}, final acc cuda {res_g.final_accuracy:.4f}, "
+            f"launches " + ", ".join(f"{k}={v}" for k, v in counts.items()
+                                     if v))
+        for k, v in counts.items():
+            totals[k] += v
+    return totals
+
+
+def comparison(torch, VK) -> None:
+    """Phase 4e: examples/asgd_comparison.py's full configuration (3,000
+    training rows, 15 shards, 6 epochs, 5 preemptible clients), its eight
+    schemes on the card."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core import compression
+    from repro_torch.core.simulator import SimConfig, run_simulation
+    from repro_torch.core.tasks import MLPTask, make_classification_data
+    from repro_torch.core.vc_asgd import var_alpha
+    from repro_torch.transfer import wire
+    data = make_classification_data(n_train=3000, n_val=800)
+    n_shards = 15
+    schemes = {
+        "vc-asgd(0.95)": lambda: B.VCASGD(0.95),
+        "vc-asgd(var)": lambda: B.VCASGD(var_alpha()),
+        "vc-asgd(0.999)~easgd": lambda: B.VCASGD(0.999),
+        "vc-asgd-compressed": lambda: B.CompressedVCASGD(0.95, density=0.05),
+        "downpour": lambda: B.Downpour(server_lr=0.5),
+        "dc-asgd": lambda: B.DCASGD(server_lr=0.5, lam=0.05),
+        "easgd-persistent": lambda: B.EASGDPersistent(beta=0.05),
+        "sync-bsp": lambda: B.SyncBSP(n_shards),
+    }
+    say(f"{'scheme':>22} {'hours':>7} {'final acc':>10} {'preempt':>8} "
+        f"{'reassigned':>10} {'wire MB':>8} {'wall s':>8} {'steps':>6} "
+        f"{'ms/step':>8} {'compress %':>10} {'encode_sparse %':>15}")
+    for name, make in schemes.items():
+        scheme = make()
+        cfg = SimConfig(n_param_servers=3, n_clients=5, tasks_per_client=2,
+                        n_shards=n_shards, max_epochs=6, local_steps=2,
+                        preemptible=True, mean_lifetime_s=1200.0, seed=3)
+
+        def go():
+            t0 = time.perf_counter()
+            res = run_simulation(MLPTask(), data, scheme, cfg, device="cuda")
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+        VK.reset_launch_count()
+        (res, wall), spans = host_breakdown(
+            go, [(compression, "compress_flat"), (wire, "encode_sparse")])
+        counts = VK.launch_counts()
+        implied = implied_launches(scheme, res)
+        check(counts == implied, f"comparison {name}: launches {counts} != "
+              f"implied by the path {implied}")
+        check(res.epochs_done == 6 and 0.0 <= res.final_accuracy <= 1.0,
+              f"comparison {name}: did not finish its 6 epochs")
+        share = lambda key: 100 * spans.get(key, 0.0) / wall
+        say(f"{name:>22} {res.wall_time_s / 3600:>7.2f} "
+            f"{res.final_accuracy:>10.3f} {res.preemptions:>8} "
+            f"{res.reassignments:>10} {res.wire.bytes_sent / 1e6:>8.1f} "
+            f"{wall:>8.3f} {res.client_steps:>6} "
+            f"{1e3 * wall / res.client_steps:>8.3f} "
+            f"{share('compression.compress_flat'):>10.2f} "
+            f"{share('wire.encode_sparse'):>15.2f}")
 
 
 def main() -> int:
@@ -330,7 +678,9 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import vc_asgd as V
     from repro_torch.kernels import build
+    from repro_torch.kernels import quantize as QK
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels import sparse_pack as SK
     from repro_torch.kernels import vc_asgd_update as VK
 
     # ---- 1. device --------------------------------------------------------
@@ -356,7 +706,12 @@ def main() -> int:
 
     # ---- 3. kernel parity -------------------------------------------------
     numbers = parity(torch, np, VK, R, MAIN_N, timed=True)
+    numbers.update(parity_scheme_kernels(torch, np, (VK, QK, SK), R, MAIN_N,
+                                         MAIN_K, timed=True))
     parity(torch, np, VK, R, BIG_N, timed=True)
+    torch.cuda.empty_cache()
+    parity_scheme_kernels(torch, np, (VK, QK, SK), R, BIG_N, (BIG_K,),
+                          timed=True)
     torch.cuda.empty_cache()
 
     # ---- 4a. quickstart --smoke: card vs CPU ------------------------------
@@ -438,15 +793,24 @@ def main() -> int:
     for key, sec in sorted(spans.items(), key=lambda kv: -kv[1]):
         say(f"host span {key}: {sec:.3f} s ({100 * sec / wall:.1f}% of wall)")
 
+    # ---- 4d. the pinned replay: every scheme, card vs CPU vs the pin ------
+    pinned_counts = pinned_replay(torch, VK)
+    say(f"pinned replay: launches summed over the 12 cases {pinned_counts}")
+
+    # ---- 4e. the §IV-C comparison at the example's full configuration -----
+    comparison(torch, VK)
+
     # ---- 5. result lines --------------------------------------------------
+    path_counts = {"assimilate_flat": eq2_counts,        # 4b
+                   "vc_asgd_lerp_flat": main_counts,     # 4c
+                   "adam_update_flat": main_counts}      # 4c
     kernels = []
     for name in VK.KERNELS:
         r = numbers[name]
-        launches = (eq2_counts[name] if name == "assimilate_flat"
-                    else main_counts[name])
+        launches = path_counts.get(name, pinned_counts)[name]   # else 4d
         check(launches > 0, f"{name} was never launched on its path")
         kernels.append({
-            "name": name, "route": "cuda", "source": CSRC,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

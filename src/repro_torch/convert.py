@@ -1,9 +1,10 @@
-"""Carry weights across from the JAX package.
+"""Carry weights, payloads and scheme state across from the JAX package.
 
-Both functions take the reference's parameters as numpy arrays (a tree of
-them, or a flat bus buffer with its ``TreeSpec.meta()``), so the two
-packages can be fed the same weights and compared.  Nothing here imports
-the reference.
+Every function takes the reference's objects as numpy arrays or anything
+``np.asarray`` reads (a tree of them, a flat bus buffer with its
+``TreeSpec.meta()``, a ``CompressedDelta``, a scheme state), so the two
+packages can be started from the same state and compared.  Nothing here
+imports the reference: its objects are read by attribute.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import flat as F
+from repro_torch.core.compression import CompressedDelta
 from repro_torch.device import resolve_device
 
 
@@ -41,3 +43,42 @@ def flat_from_reference(buf_np, spec_meta: dict, device="cuda",
         raise ValueError(f"buffer has {buf.numel()} elements, layout "
                          f"expects {spec.padded}")
     return F.FlatParams(buf, spec)
+
+
+def compressed_from_reference(p, device="cuda") -> CompressedDelta:
+    """A reference ``CompressedDelta`` (or any object with its fields,
+    arrays readable by ``np.asarray``) -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return CompressedDelta(
+        values=_tensor(np.asarray(p.values, np.int8), dev),
+        scales=_tensor(np.asarray(p.scales, np.float32), dev),
+        indices=_tensor(np.asarray(p.indices, np.int32), dev),
+        shape=tuple(int(d) for d in p.shape), density=float(p.density),
+        block=int(p.block))
+
+
+def _carry(value, spec: F.TreeSpec, dev: torch.device):
+    if hasattr(value, "buf") and hasattr(value, "spec"):      # FlatParams
+        return F.FlatParams(_tensor(np.asarray(value.buf), dev).reshape(-1),
+                            spec)
+    if isinstance(value, dict):
+        return {k: _carry(v, spec, dev) for k, v in value.items()}
+    if isinstance(value, (set, frozenset)):
+        return set(value)
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    return _tensor(np.asarray(value), dev)                     # an array
+
+
+def state_from_reference(ref_state, port_state, device="cuda"):
+    """Copy a reference scheme state onto ``port_state`` (the port scheme's
+    ``init_state`` of the same params): params, version and the scheme's
+    own fields — replica matrix and pending rows of the pod, replicas or
+    backups dicts of FlatParams, BSP's pending buffers, lost slots and
+    slot owners — each converted to ``device`` on the port's bus layout.
+    Returns ``port_state``."""
+    dev = resolve_device(device)
+    spec = port_state.params.spec
+    for name in vars(port_state):
+        setattr(port_state, name, _carry(getattr(ref_state, name), spec, dev))
+    return port_state

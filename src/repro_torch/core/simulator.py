@@ -11,7 +11,8 @@ counters) is identical to the reference's for the same config and seed.
 
 ACCURACY IS REAL: clients run actual training (``MLPTask.client_train``
 on the flat bus, one fused Adam launch per step on the card) and the
-server assimilates by Eq. 1 (one fused lerp launch per result); only
+server folds each result with the scheme's own rule (Eq. 1 is one fused
+lerp launch per result; compressed uploads ride sparse frames); only
 wall-clock time is simulated.  The data goes to ``device`` once, at the
 start.
 

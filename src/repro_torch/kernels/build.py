@@ -6,8 +6,8 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of its source, so an edited source is
-never served a stale build.  Building happens at first use, from the
+The library name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source is never served a stale build.  Building happens at first use, from the
 checkout's sources only; importing this module runs nothing.  All
 sources compile in parallel (one nvcc each, started together).
 """
@@ -25,7 +25,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/kernels (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"vc_asgd_update": CSRC / "vc_asgd_update.cu"}
+SOURCES = {name: CSRC / f"{name}.cu"
+           for name in ("vc_asgd_update", "quantize", "sparse_pack")}
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,8 +46,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):      # shared by every source
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

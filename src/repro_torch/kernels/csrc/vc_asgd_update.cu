@@ -1,24 +1,26 @@
 // Flat-bus kernels of the VC-ASGD main path, for Hopper (sm_90a).
 //
-// Three elementwise passes over the BLOCK-padded flat parameter bus
+// Four elementwise passes over the BLOCK-padded flat parameter bus
 // (core/flat.py): Eq. 1 (lerp), Eq. 2 (the weighted multi-client
-// reduction) and fused Adam.  Each replaces one Pallas kernel of
-// src/repro/kernels/vc_asgd_update.py:
+// reduction), fused Adam and the elastic EASGD round.  Each replaces one
+// Pallas kernel of src/repro/kernels/vc_asgd_update.py:
 //
 //   vc_lerp_*      <- vc_asgd_lerp_flat (:172), _lerp_kernel (:49)
 //   vc_assimilate_*<- assimilate_flat (:188), _assimilate_kernel (:69)
 //   vc_adam_*      <- adam_update_flat (:222), _adam_kernel (:80)
+//   vc_easgd_*     <- easgd_elastic_flat (:251), _easgd_kernel (:98)
 //
-// Bound on the H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32): all three
+// Bound on the H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32): all four
 // are memory-bound by two orders of magnitude.  Per element of an f32 bus
-// they move 12 B (lerp: s, c in, out), 4*(n+2) B (Eq. 2 over n clients)
-// and 28 B (Adam: p, g, m, v in, p, m, v out) for 3, 2n+1 and 14 flops.
+// they move 12 B (lerp: s, c in, out), 4*(n+2) B (Eq. 2 over n clients),
+// 28 B (Adam: p, g, m, v in, p, m, v out) and 8*(n+1) B (EASGD: center
+// and n replicas in and out) for 3, 2n+1, 14 and 4n+2 flops.
 // The design answers that bound with the simplest thing that streams:
 // each thread owns whole 16-byte vectors (N is a multiple of 8192, so no
 // tail), a grid-stride loop over a grid of a few blocks per SM, loads
 // and stores issued straight from registers, nothing staged in shared
-// memory (no reuse to exploit).  Eq. 2 reads the n client rows in
-// arrival order inside the thread, so every output is one pass.
+// memory (no reuse to exploit).  Eq. 2 and EASGD read the n client or
+// replica rows in order inside the thread, so every output is one pass.
 //
 // Numerics: the reference pins these results bit for bit (separate f32
 // multiply and add, no FMA; IEEE division and square root), so every
@@ -33,9 +35,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxWeights = 512;   // Eq. 2: n_clients + 1 <= kMaxWeights
 
 // Eq. 2 weights ride in the kernel's parameter space (read-only, uniform
@@ -64,19 +67,6 @@ template <typename T, int V>
 struct alignas(V * sizeof(T)) Pack {
   T v[V];
 };
-
-int grid_for(int64_t nvec) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  int64_t want = (nvec + kThreads - 1) / kThreads;
-  int64_t cap = static_cast<int64_t>(sms) * 8;
-  return static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
-}
 
 // ---- Eq. 1: out = a*s + (1-a)*c ------------------------------------------
 template <typename T>
@@ -186,6 +176,64 @@ __global__ void adam_kernel(const T* __restrict__ p, const float* __restrict__ g
   }
 }
 
+// ---- elastic EASGD round over the whole pod ---------------------------------
+// diff_j = x_j - c;  acc = ((0 + diff_0) + diff_1) + ...  (replica order,
+// from zero, as the Pallas _easgd_kernel carries it);  c' = c + beta*acc;
+// x_j' = x_j - beta*diff_j.  Separate f32 multiply and add, beta an f32.
+template <typename T>
+__global__ void easgd_kernel(const T* __restrict__ c,
+                             const T* __restrict__ x, T* __restrict__ co,
+                             T* __restrict__ xo, float beta, int n_replicas,
+                             int64_t nvec) {
+  constexpr int V = 16 / sizeof(T);
+  using P = Pack<T, V>;
+  const P* cp = reinterpret_cast<const P*>(c);
+  const P* xp = reinterpret_cast<const P*>(x);
+  P* cop = reinterpret_cast<P*>(co);
+  P* xop = reinterpret_cast<P*>(xo);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < nvec; i += stride) {
+    const P cv = cp[i];
+    float cf[V], acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      cf[k] = widen(cv.v[k]);
+      acc[k] = 0.0f;
+    }
+    for (int j = 0; j < n_replicas; ++j) {
+      const int64_t row = static_cast<int64_t>(j) * nvec + i;
+      const P xv = xp[row];
+      P ov;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float xk = widen(xv.v[k]);
+        const float d = __fsub_rn(xk, cf[k]);
+        acc[k] = __fadd_rn(acc[k], d);
+        ov.v[k] = narrow<T>(__fsub_rn(xk, __fmul_rn(beta, d)));
+      }
+      xop[row] = ov;
+    }
+    P ov;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      ov.v[k] = narrow<T>(__fadd_rn(cf[k], __fmul_rn(beta, acc[k])));
+    cop[i] = ov;
+  }
+}
+
+template <typename T>
+int easgd_launch(const void* c, const void* x, void* co, void* xo,
+                 float beta, int n_replicas, int64_t n, void* stream) {
+  if (n_replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t nvec = n / (16 / sizeof(T));
+  easgd_kernel<T><<<grid_for(nvec), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(c), static_cast<const T*>(x), static_cast<T*>(co),
+      static_cast<T*>(xo), beta, n_replicas, nvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int assimilate_launch(const void* s, const void* clients, void* out,
                       const float* weights, int n_clients, int64_t n,
@@ -273,6 +321,17 @@ int vc_adam_bf16(const void* p, const void* g, const void* m, const void* v,
                  void* po, void* mo, void* vo, const float* scal, int64_t n,
                  void* stream) {
   return adam_launch<uint16_t>(p, g, m, v, po, mo, vo, scal, n, stream);
+}
+
+// center [n], replicas [n_replicas, n] -> center', replicas'
+int vc_easgd_f32(const void* c, const void* x, void* co, void* xo, float beta,
+                 int n_replicas, int64_t n, void* stream) {
+  return easgd_launch<float>(c, x, co, xo, beta, n_replicas, n, stream);
+}
+
+int vc_easgd_bf16(const void* c, const void* x, void* co, void* xo,
+                  float beta, int n_replicas, int64_t n, void* stream) {
+  return easgd_launch<uint16_t>(c, x, co, xo, beta, n_replicas, n, stream);
 }
 
 }  // extern "C"

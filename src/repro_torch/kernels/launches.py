@@ -1,0 +1,70 @@
+"""One launch counter per hand-written CUDA kernel, and the launch helper
+every wrapper goes through.
+
+``launch`` runs a kernel's C entry point on the current stream of the
+tensors' device, raises if the entry returned a CUDA error, and only
+then adds one to that kernel's count.  Nothing else touches the counts:
+they are the evidence that a run went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+KERNELS = (
+    "vc_asgd_lerp_flat",        # B1, csrc/vc_asgd_update.cu
+    "assimilate_flat",          # B2, csrc/vc_asgd_update.cu
+    "adam_update_flat",         # B3, csrc/vc_asgd_update.cu
+    "easgd_elastic_flat",       # B5, csrc/vc_asgd_update.cu
+    "quantize_int8",            # B9, csrc/quantize.cu
+    "dequantize_int8",          # B10, csrc/quantize.cu
+    "pack_body",                # B12, csrc/sparse_pack.cu
+)
+_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def launch_count(kernel: Optional[str] = None) -> int:
+    """Launches of ``kernel`` (all kernels when None)."""
+    if kernel is None:
+        return sum(_launches.values())
+    return _launches[kernel]
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_count() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def launch(kernel: str, error_string, fn, device: torch.device,
+           *args) -> None:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream; a non-zero
+    return (``cudaGetLastError``) raises with ``error_string(rc)``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        msg = error_string(rc).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} (cuda error {rc})")
+    _launches[kernel] += 1
+
+
+def bind_error_string(fn) -> None:
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+
+
+def check_cuda(name: str, t: torch.Tensor, dtypes) -> None:
+    """``t`` must be a contiguous CUDA tensor of one of ``dtypes``."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} dtype {t.dtype} not in {list(dtypes)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

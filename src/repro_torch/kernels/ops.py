@@ -1,4 +1,4 @@
-"""Device routing for the flat-bus kernels.
+"""Device routing for the port's kernels.
 
 A CUDA tensor goes to the hand-written kernel (which raises on anything
 it does not take); a CPU tensor goes to the plain PyTorch version in
@@ -11,7 +11,9 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import sparse_pack as _sp
 from repro_torch.kernels import vc_asgd_update as _vc
 
 
@@ -20,7 +22,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"flat kernels run on cuda or cpu, got {t.device}")
+    raise ValueError(f"kernels run on cuda or cpu, got {t.device}")
 
 
 def fused_lerp_flat(server_buf, client_buf, alpha):
@@ -45,3 +47,32 @@ def fused_adam_flat(p_buf, g_buf, m_buf, v_buf, lr, b1, b2, eps,
                                     eps, weight_decay, c1, c2)
     return R.adam_update(p_buf, g_buf, m_buf, v_buf, lr=lr, b1=b1, b2=b2,
                          eps=eps, c1=c1, c2=c2, weight_decay=weight_decay)
+
+
+def fused_easgd_flat(center_buf, replicas_buf, beta):
+    """Elastic EASGD round: center [N] + replicas [n, N] — ONE launch."""
+    if _on_cuda(center_buf):
+        return _vc.easgd_elastic_flat(center_buf, replicas_buf, beta)
+    return R.easgd_elastic(center_buf, replicas_buf, beta)
+
+
+def quantize_int8(x, block: int = 256):
+    """Per-block int8 of a 1-D f32 buffer -> (q, scales) — ONE launch."""
+    if _on_cuda(x):
+        return _qz.quantize_int8(x, block)
+    return R.quantize_int8(x, block)
+
+
+def dequantize_int8(q, scales, n: int, block: int = 256):
+    """``q * scale`` back to f32 [n] — ONE launch."""
+    if _on_cuda(q):
+        return _qz.dequantize_int8(q, scales, n, block)
+    return R.dequantize_int8(q, scales, n, block)
+
+
+def pack_body(q, scales, idx):
+    """Sparse wire-frame body bytes of an existing payload — ONE launch,
+    byte copies only."""
+    if _on_cuda(q):
+        return _sp.pack_body(q, scales, idx)
+    return R.pack_body(q, scales, idx)

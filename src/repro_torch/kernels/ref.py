@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the flat-bus kernels: what ``ops`` runs for
-CPU tensors and what ``chip_smoke.py`` holds each CUDA kernel against.
+"""Plain PyTorch versions of the port's kernels (the flat-bus updates, the
+int8 codec and the sparse-body pack): what ``ops`` runs for CPU tensors
+and what ``chip_smoke.py`` holds each CUDA kernel against.
 
 Each mirrors the reference's arithmetic operation by operation — separate
 f32 multiplies and adds (eager PyTorch fuses nothing, so there is no FMA),
@@ -63,3 +64,57 @@ def adam_update(p, g, m, v, *, lr, b1, b2, eps, c1, c2, weight_decay=0.0):
     if weight_decay:
         step = step + f32(lr * weight_decay) * p.to(_F32)
     return (p.to(_F32) - step).to(p.dtype), m, v
+
+
+def easgd_elastic(center: torch.Tensor, replicas: torch.Tensor, beta):
+    """One elastic round for the whole pod (Zhang et al.):
+    ``c' = c + beta * sum_j (x_j - c)`` and ``x_j' = x_j - beta * (x_j - c)``
+    for center [N] and replicas [n, N], in f32, stored in the inputs'
+    dtypes.  The sum is accumulated from zero in replica order — the
+    order of the Pallas ``_easgd_kernel`` — and ``beta`` is rounded to f32
+    as JAX rounds a Python float against an f32 array."""
+    b = f32(beta)
+    c = center.to(_F32)
+    x = replicas.to(_F32)
+    diff = x - c[None, :]
+    acc = torch.zeros_like(c)
+    for j in range(x.shape[0]):
+        acc = acc + diff[j]
+    return (c + b * acc).to(center.dtype), (x - b * diff).to(replicas.dtype)
+
+
+def quantize_int8(x: torch.Tensor, block: int = 256):
+    """Symmetric per-block int8: ``x`` (any shape, n elements) ->
+    (q int8 [n], scales f32 [ceil(n/block)]).  Per block,
+    ``scale = max(max|x| / 127, 1e-12)`` and
+    ``q = clip(round_half_even(x / scale), -127, 127)``; the last block is
+    zero-padded.  The scale divides as a 0-dim tensor (IEEE quotient on
+    every device, see the module note)."""
+    n = x.numel()
+    pad = (-n) % block
+    xf = torch.nn.functional.pad(x.reshape(-1).to(_F32), (0, pad))
+    xf = xf.reshape(-1, block)
+    scale = xf.abs().amax(dim=1, keepdim=True) / torch.tensor(
+        127.0, dtype=_F32, device=x.device)
+    scale = torch.maximum(scale, torch.tensor(f32(1e-12), dtype=_F32,
+                                              device=x.device))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q.reshape(-1)[:n], scale[:, 0]
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, n: int,
+                    block: int = 256) -> torch.Tensor:
+    """``q * scale`` per block, in f32 -> [n]."""
+    pad = (-n) % block
+    qf = torch.nn.functional.pad(q.reshape(-1).to(_F32), (0, pad))
+    return (qf.reshape(-1, block) * scales.to(_F32)[:, None]).reshape(-1)[:n]
+
+
+def pack_body(q: torch.Tensor, scales: torch.Tensor, idx: torch.Tensor
+              ) -> torch.Tensor:
+    """Sparse wire-frame body: values int8 [k] || scales f32 [ng] ||
+    indices int32 [k] as one uint8 buffer — the arrays' own bytes
+    (little-endian), no arithmetic."""
+    return torch.cat([q.to(torch.int8).reshape(-1).view(torch.uint8),
+                      scales.to(_F32).reshape(-1).view(torch.uint8),
+                      idx.to(torch.int32).reshape(-1).view(torch.uint8)])

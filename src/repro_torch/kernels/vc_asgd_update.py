@@ -2,9 +2,10 @@
 
 Port of ``repro/kernels/vc_asgd_update.py``'s flat entry points:
 
-* ``vc_asgd_lerp_flat`` — Eq. 1 (replaces the Pallas ``_lerp_kernel``)
-* ``assimilate_flat``   — Eq. 2 (replaces ``_assimilate_kernel``)
-* ``adam_update_flat``  — fused Adam (replaces ``_adam_kernel``)
+* ``vc_asgd_lerp_flat``  — Eq. 1 (replaces the Pallas ``_lerp_kernel``)
+* ``assimilate_flat``    — Eq. 2 (replaces ``_assimilate_kernel``)
+* ``adam_update_flat``   — fused Adam (replaces ``_adam_kernel``)
+* ``easgd_elastic_flat`` — elastic EASGD round (replaces ``_easgd_kernel``)
 
 Each takes CUDA tensors only (``ops`` routes CPU tensors to the plain
 versions in ``ref``), checks device, dtype, shape (1-D, a ``BLOCK``
@@ -13,41 +14,30 @@ never writing into an input, since the consistency store hands earlier
 bus snapshots out by reference — and launches ONE kernel on the current
 stream without synchronising.  A non-zero ``cudaGetLastError`` raises.
 
-``launch_count()`` counts kernel launches (one per call), the evidence
-that a run went through the kernels; nothing else increments it.
+The launch counters of every kernel of the port live in ``launches``
+and are re-exported here.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.flat import BLOCK
 from repro_torch.kernels import build
+from repro_torch.kernels.launches import (KERNELS, bind_error_string, launch,
+                                          launch_count, launch_counts,
+                                          reset_launch_count)
 
-KERNELS = ("vc_asgd_lerp_flat", "assimilate_flat", "adam_update_flat")
-_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+__all__ = ["KERNELS", "launch_count", "launch_counts", "reset_launch_count",
+           "vc_asgd_lerp_flat", "assimilate_flat", "adam_update_flat",
+           "easgd_elastic_flat"]
+
 _lib: Optional[ctypes.CDLL] = None
 
 _STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
-def launch_count(kernel: Optional[str] = None) -> int:
-    """Launches of ``kernel`` (all three kernels when None)."""
-    if kernel is None:
-        return sum(_launches.values())
-    return _launches[kernel]
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
-
-
-def reset_launch_count() -> None:
-    for k in _launches:
-        _launches[k] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -65,8 +55,10 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, f"vc_adam_{sfx}")
             fn.argtypes = [P] * 8 + [I64, P]
             fn.restype = ctypes.c_int
-        lib.vc_error_string.argtypes = [ctypes.c_int]
-        lib.vc_error_string.restype = ctypes.c_char_p
+            fn = getattr(lib, f"vc_easgd_{sfx}")
+            fn.argtypes = [P, P, P, P, F, ctypes.c_int, I64, P]
+            fn.restype = ctypes.c_int
+        bind_error_string(lib.vc_error_string)
         lib.vc_max_weights.argtypes = []
         lib.vc_max_weights.restype = ctypes.c_int
         _lib = lib
@@ -93,13 +85,7 @@ def _same(name: str, buf: torch.Tensor, like: torch.Tensor) -> None:
 
 
 def _launch(kernel: str, fn, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        msg = _library().vc_error_string(rc).decode()
-        raise RuntimeError(f"{kernel} launch failed: {msg} (cuda error {rc})")
-    _launches[kernel] += 1
+    launch(kernel, _library().vc_error_string, fn, device, *args)
 
 
 def vc_asgd_lerp_flat(server: torch.Tensor, client: torch.Tensor, alpha
@@ -173,3 +159,26 @@ def adam_update_flat(p, g, m, v, lr, b1, b2, eps, weight_decay, c1, c2):
             m.data_ptr(), v.data_ptr(), po.data_ptr(), mo.data_ptr(),
             vo.data_ptr(), scal.ctypes.data, n)
     return po, mo, vo
+
+
+def easgd_elastic_flat(center: torch.Tensor, replicas: torch.Tensor, beta
+                       ) -> tuple:
+    """The elastic EASGD round as ONE launch: center [N] and replicas
+    [n, N] (stacked in slot order) -> (center', replicas').  The sum over
+    replicas runs in replica order from zero; ``beta`` is rounded to f32
+    here."""
+    n = _check_flat("center", center)
+    if (replicas.dim() != 2 or replicas.shape[1] != n or replicas.shape[0] < 1
+            or replicas.dtype != center.dtype or not replicas.is_contiguous()):
+        raise ValueError(f"replicas must be a contiguous [n, {n}] "
+                         f"{center.dtype} matrix, got {tuple(replicas.shape)} "
+                         f"{replicas.dtype}")
+    _check_flat("replicas", replicas.view(-1), (center.dtype,))
+    _same("replicas", replicas, center)
+    co = torch.empty_like(center)
+    xo = torch.empty_like(replicas)
+    fn = getattr(_library(), f"vc_easgd_{_STORAGE[center.dtype]}")
+    _launch("easgd_elastic_flat", fn, center.device, center.data_ptr(),
+            replicas.data_ptr(), co.data_ptr(), xo.data_ptr(),
+            float(np.float32(beta)), int(replicas.shape[0]), n)
+    return co, xo

@@ -4,16 +4,21 @@ the plain-bus path of ``repro/protocol/coordinator.py``).
 * **Lease lifecycle** — ``issue`` / ``expire`` / ``drop`` /
   ``assimilate``; every terminal transition consumes a lease exactly once
   and clears its reconstruction-base ref (``LeaseError`` on a double).
+* **Error-feedback residual ledger** — per-client residual buffers on
+  the bus's device plus running l2-norm totals, updated at submit and
+  drop time, so ``residual_norm(cid)`` and ``residual_mass()`` are O(1)
+  reads.
 * **The wire, both legs** — every handout is encoded to one full-model
   dense frame (out of the content-addressed ``HandoutCache``), pushed
   through the ``Transport`` and decoded client-side, and the lease's base
   is rebuilt from the DECODED bytes (f32 round-trips exactly), moved back
-  to the bus's device.  Every result is encoded, sent, and decoded
-  (magic/version/length/crc validated) before assimilation.
+  to the bus's device.  Every result is encoded (dense, or sparse for a
+  compressed payload), sent, and decoded (magic/version/length/crc
+  validated) before assimilation.
 
-This slice ports the float32 plain bus only: bf16 handout frames, a
-sharded bus (per-shard delta frames) and error-feedback residuals raise
-``NotImplementedError`` naming the slice they come with.
+The port covers the float32 plain bus: bf16 handout frames and a sharded
+bus (per-shard delta frames) raise ``NotImplementedError`` naming the
+slice they come with.
 """
 from __future__ import annotations
 
@@ -56,6 +61,10 @@ class Coordinator:
         self._lease_heap: List = []
         self._seq = 0
         self._cid_leases: Dict[int, Dict[tuple, None]] = {}
+        # error-feedback ledger: per-client residual buffer + running norms
+        self._residuals: Dict[int, torch.Tensor] = {}
+        self._res_norms: Dict[int, float] = {}
+        self._res_norm_total = 0.0
         # download-leg ledger of the plain bus (ONE chunk): a monotone
         # write version bumped when the handout bytes change vs the cached
         # copy, so the frame cache encodes once per content change
@@ -66,7 +75,7 @@ class Coordinator:
         self.handout_frames = 0
         self.handout_bytes = 0
         # upload-leg frame kinds, measured at delivery (same keys as the
-        # reference; only dense frames are ported)
+        # reference; aggregate frames are not ported)
         self.frames = {wire.KIND_DENSE: 0, wire.KIND_SPARSE: 0,
                        wire.KIND_AGG: 0}
         self.assimilated = 0
@@ -148,35 +157,51 @@ class Coordinator:
             encode=lambda: wire.encode_dense(self._bus_cache, round=round))
 
     def submit(self, lease: Lease, trained_buf: torch.Tensor) -> Lease:
-        """Client finished local training: encode the payload, push the
-        frame through the transport, and record the wire stats on the
-        lease.  The upload duration is the frame's REAL length."""
+        """Client finished local training: encode the payload (applying
+        error feedback), push the frame through the transport, and record
+        the wire stats on the lease.  The upload duration is the frame's
+        REAL length."""
         if self._live(lease).status != LEASE_ISSUED:
             raise LeaseError(f"lease {lease.key} already submitted "
                              f"({lease.status})")
-        payload, new_res = self.scheme.encode_payload(trained_buf,
-                                                      lease.base, None)
-        if new_res is not None:
-            raise NotImplementedError(
-                "error-feedback residuals come with the compressed-upload "
-                "slice")
-        frame = wire.encode(payload, round=lease.round, residual_norm=0.0)
+        payload, new_res = self.scheme.encode_payload(
+            trained_buf, lease.base, self._residuals.get(lease.cid))
+        # the header carries the POST-payload residual norm; the ledger is
+        # committed only after the send succeeds, so a transport failure
+        # leaves submit() all-or-nothing.  The norm is a reduction whose
+        # order torch need not share with the reference's
+        # jnp.linalg.norm: it may differ in the last bits, which moves
+        # the header's 4-byte field and the crc, never a frame's length.
+        norm = (float(torch.linalg.vector_norm(new_res))
+                if new_res is not None else self.residual_norm(lease.cid))
+        frame = wire.encode(payload, round=lease.round, residual_norm=norm)
         lease.msg_id = self.transport.send(frame)
+        if new_res is not None:
+            self._residuals[lease.cid] = new_res
+            self._res_norm_total += norm - self._res_norms.get(lease.cid, 0.0)
+            self._res_norms[lease.cid] = norm
         lease.frame_bytes = len(frame)
         lease.status = LEASE_IN_FLIGHT
         return lease
 
-    def deliver(self, lease: Lease) -> torch.Tensor:
+    def deliver(self, lease: Lease):
         """Take delivery of the lease's frame: recv (exactly once) +
         decode (magic/version/length/crc validated, so a torn transfer
-        raises WireError and is never assimilated).  The payload comes
-        back on the server bus's device."""
+        raises WireError and is never assimilated).  The payload — a
+        dense buffer, or a sparse payload's three arrays — comes back on
+        the server bus's device."""
         if self._live(lease).status != LEASE_IN_FLIGHT:
             raise LeaseError(f"nothing in flight for lease {lease.key} "
                              f"({lease.status})")
         msg = wire.decode(self.transport.recv(lease.msg_id))
         self.frames[msg.kind] += 1
-        return msg.payload.to(self.state.params.buf.device)
+        dev = self.state.params.buf.device
+        if msg.kind == wire.KIND_SPARSE:
+            p = msg.payload
+            return p._replace(values=p.values.to(dev),
+                              scales=p.scales.to(dev),
+                              indices=p.indices.to(dev))
+        return msg.payload.to(dev)
 
     def assimilate(self, lease: Lease, payload, *, server_version: int,
                    t_arrival: float = 0.0,
@@ -238,11 +263,16 @@ class Coordinator:
         return out
 
     def drop_client(self, cid: int) -> None:
-        """Preemption: scheme-local state is dropped and every lease held
-        by the client is released."""
+        """Preemption: scheme-local state is dropped, every lease held by
+        the client is released, and the residual ledger forgets the
+        client (the residual lived on the dead instance) — running norm
+        total updated, never rescanned."""
         self.scheme.drop_client(self.state, cid)
         for key in list(self._cid_leases.get(cid, ())):
             self.drop(self.leases[key])
+        if cid in self._res_norms:
+            self._res_norm_total -= self._res_norms.pop(cid)
+            self._residuals.pop(cid, None)
 
     def _live(self, lease: Lease) -> Lease:
         if self.leases.get(lease.key) is not lease:
@@ -251,6 +281,18 @@ class Coordinator:
                 f"assimilated/expired/dropped leases are consumed exactly "
                 f"once")
         return lease
+
+    # -- error-feedback ledger (O(1) reads) ----------------------------------
+
+    def residual_norm(self, cid: int) -> float:
+        """l2 norm of the residual ``cid`` carries after its latest
+        payload (0.0 for uncompressed schemes)."""
+        return self._res_norms.get(cid, 0.0)
+
+    def residual_mass(self) -> float:
+        """Running total of per-client residual norms — how much update
+        mass is still in flight client-side across the fleet."""
+        return self._res_norm_total
 
     @property
     def wire_stats(self):

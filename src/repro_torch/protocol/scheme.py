@@ -19,6 +19,12 @@ class ServerScheme:
     leaves the server state valid."""
 
     name = "base"
+    # descriptive metadata (not read by the Coordinator — handout() is
+    # always consulted): schemes that assume every client reports each
+    # round are not fault tolerant, and schemes with client-local
+    # replicas substitute them for the server snapshot at handout
+    requires_all_clients = False    # True -> not fault tolerant (BSP/EASGD-p)
+    has_local_replicas = False      # True -> handout substitutes local state
 
     # -- server-side core ---------------------------------------------------
     def init_state(self, params0) -> SchemeState:
@@ -47,8 +53,12 @@ class ServerScheme:
     def encode_payload(self, trained_buf: torch.Tensor, base: F.FlatParams,
                        residual: Optional[torch.Tensor]
                        ) -> Tuple[Any, Optional[torch.Tensor]]:
-        """What travels client -> server: ``(payload, new_residual)``.
-        Default: the full trained buffer, no error feedback."""
+        """What travels client -> server: ``(payload, new_residual)``, a
+        pure function of the trained buffer, the lease base and the
+        error-feedback residual the Coordinator carries for the client.
+        A buffer ships as a dense frame, a ``CompressedDelta`` as a
+        sparse one.  Default: the full trained buffer, no error
+        feedback."""
         return trained_buf, None
 
     # -- shared helper ------------------------------------------------------

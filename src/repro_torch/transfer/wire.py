@@ -13,21 +13,27 @@ A decoder checks magic and version FIRST and rejects versions newer than
 it speaks; truncated, oversized or bit-flipped frames raise ``WireError``
 and are never assimilated.
 
-This slice speaks the DENSE kind (0): a raw flat buffer, f32 / bf16 /
-f16, emitted at version 2.  Kinds 1 (sparse top-k + int8), 2 (shard) and
-3 (aggregate) are validated like any frame and then refused with
-``NotImplementedError``: they come with the compressed-upload and
-aggregation/sharded-bus slices of the port.  Dense payloads decode to
-CPU torch tensors.
+The port speaks the DENSE kind (0) — a raw flat buffer, f32 / bf16 /
+f16 — and the SPARSE kind (1) — a ``compress_flat`` payload: values int8
+[k] || scales f32 [ceil(k/block)] || indices int32 [k] — both emitted at
+version 2.  The sparse body is packed on the payload's device by ONE
+kernel launch (``kernels/ops.pack_body``, byte copies only) and crosses
+to the host in one copy; the crc is taken there.  Kinds 2 (shard) and 3
+(aggregate) are validated like any frame and then refused with
+``NotImplementedError``: they come with the sharded-bus and
+aggregation-tier slices of the port.  Payloads decode to CPU tensors.
 """
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.core.compression import CompressedDelta
+from repro_torch.kernels import ops as K
 
 MAGIC = b"VCWF"
 WIRE_VERSION = 3
@@ -37,8 +43,7 @@ KIND_SPARSE = 1
 KIND_SHARD = 2
 KIND_AGG = 3
 
-_LATER_SLICE = {KIND_SPARSE: "the compressed-upload slice",
-                KIND_SHARD: "the sharded-bus slice",
+_LATER_SLICE = {KIND_SHARD: "the sharded-bus slice",
                 KIND_AGG: "the aggregation-tier slice"}
 
 _EMIT_VERSION = 2
@@ -60,7 +65,7 @@ class WireError(ValueError):
 
 class WireMessage(NamedTuple):
     kind: int
-    payload: torch.Tensor         # dense body as a CPU tensor
+    payload: Union[torch.Tensor, CompressedDelta]   # CPU tensors
     round: int                    # error-feedback round counter
     residual_norm: float          # client-side residual mass after sending
 
@@ -75,6 +80,12 @@ def dense_frame_bytes(n: int, dtype: str = "float32") -> int:
     """Exact frame length of a dense buffer payload."""
     itemsize = 2 if dtype in ("bfloat16", "float16") else 4
     return HEADER_BYTES + n * itemsize
+
+
+def sparse_frame_bytes(k: int, block: int = 256) -> int:
+    """Exact frame length of a top-k + int8 payload: k int8 values,
+    ceil(k/block) f32 scales, k int32 indices."""
+    return HEADER_BYTES + k + (-(-k // block)) * 4 + k * 4
 
 
 def _dense_bytes(buf):
@@ -104,14 +115,36 @@ def encode_dense(buf, *, round: int = 0, residual_norm: float = 0.0) -> bytes:
     return _frame(header, raw)
 
 
+def encode_sparse(p: CompressedDelta, *, round: int = 0,
+                  residual_norm: float = 0.0) -> bytes:
+    """Encode a compress_flat payload (global top-k + int8).  The body is
+    packed on the payload's device in one launch and crosses to the host
+    as one buffer; the frame is byte-identical to the reference's."""
+    k = int(p.values.numel())
+    ng = int(p.scales.numel())
+    n = 1
+    for s in p.shape:
+        n *= int(s)
+    body = K.pack_body(p.values.reshape(-1).contiguous(),
+                       p.scales.reshape(-1).contiguous(),
+                       p.indices.reshape(-1).contiguous())
+    header = _HDR.pack(MAGIC, _EMIT_VERSION, KIND_SPARSE, 0,
+                       n, k, int(p.block), float(p.density),
+                       int(round), float(residual_norm),
+                       k, 4 * ng, 4 * k)
+    return _frame(header, body.to("cpu").numpy().tobytes())
+
+
 def encode(payload, *, round: int = 0, residual_norm: float = 0.0) -> bytes:
-    """Dispatch on payload type: a buffer goes dense.  Sparse and
-    aggregate payloads are not ported yet."""
+    """Dispatch on payload type: buffers go dense, CompressedDelta sparse.
+    Aggregate payloads are not ported yet."""
+    if isinstance(payload, CompressedDelta):
+        return encode_sparse(payload, round=round, residual_norm=residual_norm)
     if not isinstance(payload, (torch.Tensor, np.ndarray)):
         raise NotImplementedError(
-            f"wire payload {type(payload).__name__}: only dense buffers "
-            f"are ported; sparse frames come with the compressed-upload "
-            f"slice and aggregate frames with the aggregation-tier slice")
+            f"wire payload {type(payload).__name__}: only dense buffers and "
+            f"CompressedDelta are ported; aggregate frames come with the "
+            f"aggregation-tier slice")
     return encode_dense(payload, round=round, residual_norm=residual_norm)
 
 
@@ -147,6 +180,11 @@ def decode(frame: bytes) -> WireMessage:
         raise NotImplementedError(
             f"wire frame kind {kind} is not ported yet: it comes with "
             f"{_LATER_SLICE[kind]}")
+    if kind == KIND_SPARSE:
+        return WireMessage(KIND_SPARSE,
+                           _sparse_payload(body, n, k, block, density,
+                                           len_v, len_s),
+                           rnd, res_norm)
     if kind != KIND_DENSE:
         raise WireError(f"unknown frame kind {kind}")
     if dcode not in _CODE_TORCH:
@@ -156,3 +194,28 @@ def decode(frame: bytes) -> WireMessage:
         raise WireError(f"dense payload {arr.size} elements != declared n={n}")
     payload = torch.from_numpy(arr.copy()).view(_CODE_TORCH[dcode])
     return WireMessage(KIND_DENSE, payload, rnd, res_norm)
+
+
+def _sparse_payload(body: bytes, n: int, k: int, block: int, density: float,
+                    len_v: int, len_s: int) -> CompressedDelta:
+    """The three sections of a validated sparse body, checked against the
+    header's k, block and n, as CPU tensors."""
+    if len_s % 4 or (len(body) - len_v - len_s) % 4:
+        raise WireError(f"sparse scale/index sections of {len_s}B / "
+                        f"{len(body) - len_v - len_s}B are not whole 4-byte "
+                        f"words")
+    vals = np.frombuffer(body[:len_v], np.int8)
+    scls = np.frombuffer(body[len_v:len_v + len_s], np.float32)
+    idxs = np.frombuffer(body[len_v + len_s:], np.int32)
+    if vals.size != k or idxs.size != k:
+        raise WireError(f"sparse sections disagree with k={k}: "
+                        f"{vals.size} values / {idxs.size} indices")
+    if block <= 0 or scls.size != -(-k // block):
+        raise WireError(f"scale count {scls.size} != ceil({k}/{block})")
+    if k > n:
+        raise WireError(f"k={k} exceeds buffer length n={n}")
+    return CompressedDelta(values=torch.from_numpy(vals.copy()),
+                           scales=torch.from_numpy(scls.copy()),
+                           indices=torch.from_numpy(idxs.copy()),
+                           shape=(int(n),), density=float(density),
+                           block=int(block))

@@ -19,12 +19,14 @@ import pytest
 import torch
 
 import repro_torch.convert as C
-from repro_torch.core.baselines import VCASGD
+from repro_torch.core.baselines import VCASGD, CompressedVCASGD, EASGDFlatPod
 from repro_torch.core.flat import BLOCK
 from repro_torch.core.simulator import SimConfig, run_simulation
 from repro_torch.core.tasks import MLPTask, make_classification_data
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import quantize as QK
+from repro_torch.kernels import sparse_pack as SK
 from repro_torch.kernels import vc_asgd_update as VK
 
 torch.set_num_threads(2)
@@ -107,6 +109,30 @@ def test_cpu_run_asked_for_never_builds(no_gpu, no_build):
     assert VK.launch_counts() == dict.fromkeys(VK.KERNELS, 0)
 
 
+@pytest.mark.parametrize("scheme", [
+    lambda: CompressedVCASGD(0.9, density=0.05),
+    lambda: EASGDFlatPod(n_replicas=2, beta=0.1, compress_density=0.1)])
+def test_cpu_scheme_runs_asked_for_never_build(no_gpu, no_build, scheme):
+    VK.reset_launch_count()
+    cfg = SimConfig(n_clients=2, n_shards=2, max_epochs=2, local_steps=2)
+    res = run_simulation(MLPTask(), make_classification_data(80, 20),
+                         scheme(), cfg, device="cpu")
+    assert res.wire_sparse_frames == res.results_assimilated == 4
+    assert VK.launch_counts() == dict.fromkeys(VK.KERNELS, 0)
+
+
+def test_new_converters_raise_without_gpu(no_gpu):
+    from repro_torch.core.compression import CompressedDelta
+    p = CompressedDelta(np.zeros(1, np.int8), np.ones(1, np.float32),
+                        np.zeros(1, np.int32), (4,), 0.25)
+    with pytest.raises(RuntimeError):
+        C.compressed_from_reference(p)
+    state = VCASGD(alpha=0.5).init_state(
+        C.params_from_reference({"w": np.zeros(3, np.float32)}, "cpu"))
+    with pytest.raises(RuntimeError):
+        C.state_from_reference(state, state)
+
+
 def test_ops_route_cpu_tensors_to_plain_versions(no_build):
     VK.reset_launch_count()
     s, c = torch.ones(BLOCK), torch.zeros(BLOCK)
@@ -116,6 +142,15 @@ def test_ops_route_cpu_tensors_to_plain_versions(no_build):
     p, m, v = ops.fused_adam_flat(s, c, c, c, 1e-3, 0.9, 0.999, 1e-8, 0.0,
                                   np.float32(0.1), np.float32(0.001))
     assert torch.equal(p, s) and torch.count_nonzero(m) == 0
+    co, xo = ops.fused_easgd_flat(c, torch.stack([s, s]), 0.25)
+    assert torch.equal(co, torch.full_like(c, 0.5))       # 0 + 0.25 * 2
+    assert torch.equal(xo, torch.full((2, BLOCK), 0.75))  # 1 - 0.25 * 1
+    q, sc = ops.quantize_int8(torch.full((300,), 2.0))
+    assert q.tolist() == [127] * 300 and sc.numel() == 2
+    assert torch.equal(ops.dequantize_int8(q, sc, 300), torch.full((300,),
+                                                                   2.0))
+    body = ops.pack_body(q, sc, torch.arange(300, dtype=torch.int32))
+    assert body.dtype == torch.uint8 and body.numel() == 5 * 300 + 8
     assert VK.launch_count() == 0
 
 
@@ -127,6 +162,15 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
         VK.assimilate_flat(s, s[None], [0.5, 0.5])
     with pytest.raises(ValueError, match="CUDA"):
         VK.adam_update_flat(s, s, s, s, 1e-3, 0.9, 0.999, 1e-8, 0.0, 0.1, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        VK.easgd_elastic_flat(s, s[None], 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        QK.quantize_int8(s)
+    q8 = torch.zeros(4, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        QK.dequantize_int8(q8, torch.ones(1), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        SK.pack_body(q8, torch.ones(1), torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
         ops.fused_lerp_flat(torch.zeros(BLOCK, device="meta"),
                             torch.zeros(BLOCK, device="meta"), 0.5)
@@ -135,6 +179,7 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
 def test_build_targets_live_in_ignored_build_dir():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert set(build.SOURCES) == {"vc_asgd_update"}
+    assert set(build.SOURCES) == {"vc_asgd_update", "quantize",
+                                  "sparse_pack"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"

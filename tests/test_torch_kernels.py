@@ -3,16 +3,20 @@ the card.  Every test here is marked ``cuda`` and skips without a GPU
 (decided inside the fixture, never at import); run them on a machine with
 one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 
-Tolerance: none — Eq. 1, Eq. 2 and Adam are bit-exact against the plain
-versions on the same CUDA tensors (both sides spell out separate f32
-multiplies and adds and IEEE division/sqrt).
+Tolerance: none — Eq. 1, Eq. 2, Adam and the elastic EASGD round are
+bit-exact against the plain versions on the same CUDA tensors (both sides
+spell out separate f32 multiplies and adds and IEEE division/sqrt); the
+int8 quantize/dequantize and the sparse-body pack are bit-exact too (IEEE
+division, round half to even, byte copies).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.flat import BLOCK
+from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import sparse_pack as SK
 from repro_torch.kernels import vc_asgd_update as VK
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +103,64 @@ def test_inputs_never_written(dev):
                         0.1)
     torch.cuda.synchronize()
     assert torch.equal(s, s0) and torch.equal(c, c0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 3])
+def test_easgd_elastic_bit_exact(dev, dtype, n):
+    c = _rand(dev, 2 * BLOCK, dtype=dtype, seed=5)
+    x = _rand(dev, n, 2 * BLOCK, dtype=dtype, seed=6)
+    VK.reset_launch_count()
+    kc, kx = VK.easgd_elastic_flat(c, x, 0.05)
+    assert VK.launch_count("easgd_elastic_flat") == 1
+    pc, px = R.easgd_elastic(c, x, 0.05)
+    assert _bits_equal(kc, pc) and _bits_equal(kx, px)
+
+
+@pytest.mark.parametrize("k", [1, 255, 256, 656, 1313, 70000])
+def test_quantize_dequantize_bit_exact(dev, k):
+    x = _rand(dev, k, seed=k) * 0.01
+    x[k // 2] = 0.0
+    VK.reset_launch_count()
+    q, s = QK.quantize_int8(x)
+    pq, ps = R.quantize_int8(x)
+    assert torch.equal(q, pq) and _bits_equal(s, ps)
+    d = QK.dequantize_int8(q, s, k)
+    assert _bits_equal(d, R.dequantize_int8(q, s, k))
+    assert VK.launch_counts()["quantize_int8"] == 1
+    assert VK.launch_counts()["dequantize_int8"] == 1
+
+
+def test_quantize_rounds_half_to_even(dev):
+    x = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5],
+                     device=dev)
+    q, s = QK.quantize_int8(x)
+    assert q.tolist() == [127, 0, 2, 2, 0, -2, -2, 126] and s.item() == 1.0
+
+
+@pytest.mark.parametrize("k", [1, 656, 1313, 4097])
+def test_pack_body_bytes_equal(dev, k):
+    q, s = QK.quantize_int8(_rand(dev, k, seed=k))
+    idx = torch.arange(k, dtype=torch.int32, device=dev) * 3 + 1
+    VK.reset_launch_count()
+    body = SK.pack_body(q, s, idx)
+    assert VK.launch_counts()["pack_body"] == 1
+    assert body.dtype == torch.uint8 and torch.equal(body,
+                                                     R.pack_body(q, s, idx))
+
+
+def test_scheme_wrappers_reject_bad_inputs(dev):
+    c = _rand(dev, BLOCK)
+    with pytest.raises(ValueError):
+        VK.easgd_elastic_flat(c, _rand(dev, BLOCK, 2).t(), 0.1)
+    with pytest.raises(ValueError):
+        VK.easgd_elastic_flat(c, _rand(dev, 2, BLOCK).to(torch.bfloat16), 0.1)
+    with pytest.raises(ValueError):
+        QK.quantize_int8(_rand(dev, 4, 4))
+    with pytest.raises(ValueError):
+        QK.quantize_int8(torch.zeros(0, device=dev))
+    q, s = QK.quantize_int8(_rand(dev, 300))
+    with pytest.raises(ValueError):
+        QK.dequantize_int8(q, s[:1], 300)
+    with pytest.raises(ValueError):
+        SK.pack_body(q, s, torch.zeros(300, dtype=torch.int64, device=dev))

@@ -1,17 +1,23 @@
-"""Port parity: dense wire frames and the loopback transport against
-repro.transfer.
+"""Port parity: dense and sparse wire frames and the loopback transport
+against repro.transfer.
 
 Tolerance: none — frames are compared byte for byte in both directions
 (port encode == reference encode; each side decodes the other's frame to
-the same values), and every truncated or bit-flipped frame raises
-``WireError``.
+the same values), and every truncated, bit-flipped or inconsistent frame
+raises ``WireError``.
 """
+import struct
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import compression as RC
+from repro.kernels import ref as RR
 from repro.transfer import wire as RW
+from repro_torch.convert import compressed_from_reference
+from repro_torch.kernels import ref as PR
 from repro_torch.transfer import wire as PW
 from repro_torch.transfer.transport import LoopbackTransport, TransportError
 
@@ -102,3 +108,88 @@ def test_loopback_transport_exactly_once_and_drop_accounting():
     assert (s.frames_sent, s.bytes_sent, s.frames_recv, s.bytes_recv,
             s.frames_dropped, s.bytes_dropped) == (2, 8, 1, 3, 1, 5)
     assert t.in_flight == 0
+
+
+def _payloads(density, seed=0):
+    """The same compress_flat payload in both packages (MLP bus)."""
+    d = (np.random.default_rng(seed).standard_normal(16384).astype(np.float32)
+         * (np.arange(16384) < 13130))
+    rp, _ = RC.compress_flat(jnp.asarray(d), density=density,
+                             logical_n=13130)
+    return rp, compressed_from_reference(rp, "cpu")
+
+
+@pytest.mark.parametrize("density,k", [(0.05, 656), (0.1, 1313),
+                                       (1 / 13130, 1)])
+@pytest.mark.parametrize("rnd,norm", [(0, 0.0), (3, 0.125)])
+def test_sparse_frames_byte_identical_both_directions(density, k, rnd, norm):
+    rp, pp = _payloads(density, seed=k)
+    ref = RW.encode_sparse(rp, round=rnd, residual_norm=norm)
+    port = PW.encode(pp, round=rnd, residual_norm=norm)
+    assert port == ref
+    assert len(port) == PW.sparse_frame_bytes(k) == RW.sparse_frame_bytes(k)
+    got = PW.decode(ref)
+    assert (got.kind, got.round, got.residual_norm) == (PW.KIND_SPARSE, rnd,
+                                                        norm)
+    q = got.payload
+    back = RW.decode(port).payload      # density rides the header as f32
+    assert (q.shape, q.density, q.block) == (back.shape, back.density,
+                                             back.block)
+    for f in ("values", "scales", "indices"):
+        assert getattr(q, f).numpy().tobytes() == np.asarray(
+            getattr(rp, f)).tobytes(), f
+    for f in ("values", "scales", "indices"):
+        assert np.asarray(getattr(back, f)).tobytes() == getattr(
+            pp, f).numpy().tobytes(), f
+
+
+def test_sparse_body_is_the_plain_pack():
+    rp, pp = _payloads(0.05)
+    frame = PW.encode_sparse(pp)
+    body = PR.pack_body(pp.values, pp.scales, pp.indices).numpy().tobytes()
+    assert frame[PW.HEADER_BYTES:] == body
+    assert body == np.asarray(RR.pack_body(rp.values, rp.scales,
+                                           rp.indices)).tobytes()
+
+
+def _forge(*, n=100, k=10, block=256, len_v=None, len_s=None, body=None):
+    """A sparse frame with a VALID crc but the given header fields."""
+    len_v = k if len_v is None else len_v
+    len_s = 4 * -(-k // block) if len_s is None else len_s
+    if body is None:
+        body = bytes(len_v + len_s + 4 * k)
+    len_i = len(body) - len_v - len_s
+    header = struct.pack("<4sHBBQQIfIfQQQ", b"VCWF", 2, 1, 0, n, k, block,
+                         0.1, 0, 0.0, len_v, len_s, len_i)
+    return PW._frame(header, body)
+
+
+@pytest.mark.parametrize("case", [
+    "values-section", "index-section", "scale-count", "zero-block",
+    "k-exceeds-n"])
+def test_sparse_frame_inconsistencies_raise(case):
+    frame = {
+        "values-section": lambda: _forge(len_v=11, body=bytes(11 + 4 + 40)),
+        "index-section": lambda: _forge(body=bytes(10 + 4 + 44)),
+        "scale-count": lambda: _forge(len_s=8, body=bytes(10 + 8 + 40)),
+        "zero-block": lambda: _forge(block=0, len_s=4),
+        "k-exceeds-n": lambda: _forge(n=5, k=10),
+    }[case]()
+    with pytest.raises(PW.WireError):
+        PW.decode(frame)
+    with pytest.raises(RW.WireError):
+        RW.decode(frame)                # the reference refuses it too
+
+
+def test_sparse_frame_torn_and_corrupt_raise():
+    _, pp = _payloads(0.05)
+    frame = PW.encode_sparse(pp, round=1, residual_norm=0.5)
+    for cut in (PW.HEADER_BYTES + 10, len(frame) - 1):
+        with pytest.raises(PW.WireError, match="torn"):
+            PW.decode(frame[:cut])
+    for pos in (20, PW.HEADER_BYTES + 3, len(frame) - 2):
+        bad = bytearray(frame)
+        bad[pos] ^= 0x04
+        with pytest.raises(PW.WireError):
+            PW.decode(bytes(bad))
+    assert PW.decode(frame).payload.values.numel() == 656
