@@ -11,7 +11,7 @@ a card, or outside a checkout.  Phases:
 1. device   — torch/CUDA versions, the card's name and power limit;
               TF32 off for matmuls and convolutions.
 2. build    — nvcc builds every kernel source under
-              src/repro_torch/kernels/csrc/ (all at once).
+              src/repro_torch/kernels/csrc/ (one nvcc each, all at once).
 3. parity   — each kernel against its plain PyTorch version on the card,
               at the main path's sizes (the MLP bus, N = 16,384; the
               sparse payload's k = 656 and 1,313) and at N = 2^27
@@ -49,7 +49,26 @@ a card, or outside a checkout.  Phases:
       configuration on the card: the eight schemes' table (hours, final
       accuracy, preemptions, reassignments, wire MB), each scheme's wall
       time and the host share spent in compress_flat and encode_sparse.
-5. a ``kernels`` JSON line, the nvidia-smi line, and the last line
+6. serve — the port's LLM serving path (launch/serve.py) for the dense
+   transformer family:
+   a. flash attention (B13) against its plain version at internlm2's
+      prefill shape ([4,16/8,2048,128] bf16, causal; timed with its bound
+      and torch's scaled_dot_product_attention as the library yardstick,
+      which the port never calls), gemma3's local layers (hd 256, window
+      1,024, a ragged 2,300 tokens), non-causal cross attention with a
+      softcap in f32 and h == kvh at hd 16 (2e-5 in f32, 2e-2 in bf16);
+   b. serve.run at internlm2-1.8b's full width (24 layers, 1.89B
+      parameters from the port's init, --seed 0): batch 4 x 2,048 prompt
+      tokens, 96 greedy decode steps; finite logits, 24 B13 launches in
+      prefill, none in decode, one compaction (after step 64); prefill
+      and decode times and tokens/s, the compaction's time, and the
+      profiler's device-busy share of 32 further decode steps;
+   c. the same architecture at full width cut to 2 layers, batch 2 x 256
+      prompt tokens and 72 decode steps (one compaction) on the card and
+      on the CPU from the same weights, the CPU fed the card's tokens:
+      prefill and every step's logits within CMP_TOL, in f32 and in the
+      shipped bf16 compute; the CPU run launches nothing.
+7. a ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -63,25 +82,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-_CSRC = "src/repro_torch/kernels/csrc/"
-SOURCE = {
-    "vc_asgd_lerp_flat": _CSRC + "vc_asgd_update.cu",
-    "assimilate_flat": _CSRC + "vc_asgd_update.cu",
-    "adam_update_flat": _CSRC + "vc_asgd_update.cu",
-    "easgd_elastic_flat": _CSRC + "vc_asgd_update.cu",
-    "quantize_int8": _CSRC + "quantize.cu",
-    "dequantize_int8": _CSRC + "quantize.cu",
-    "pack_body": _CSRC + "sparse_pack.cu",
-}
-REPLACES = {
-    "vc_asgd_lerp_flat": "src/repro/kernels/vc_asgd_update.py:49",
-    "assimilate_flat": "src/repro/kernels/vc_asgd_update.py:69",
-    "adam_update_flat": "src/repro/kernels/vc_asgd_update.py:80",
-    "easgd_elastic_flat": "src/repro/kernels/vc_asgd_update.py:98",
-    "quantize_int8": "src/repro/kernels/quantize.py:17",
-    "dequantize_int8": "src/repro/kernels/quantize.py:26",
-    "pack_body": "src/repro/kernels/sparse_pack.py:51",
-}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
 MAIN_N = 16384                   # the MLP's 13,130 params on the BLOCK bus
@@ -185,6 +185,7 @@ def implied_launches(scheme, res) -> dict:
         "quantize_int8": sparse_submits,
         "dequantize_int8": sparse_submits + res.wire_sparse_frames,
         "pack_body": sparse_submits,
+        "flash_attention": 0,
     }
 
 
@@ -505,25 +506,11 @@ def check_counts(VK, res, label: str) -> dict:
 
 def profile_smoke(torch, VK):
     """The smoke run on the card under torch.profiler: device busy share
-    and the top kernels/ops.  Prints "not measured" where the profiler
-    saw no device time."""
+    and the top kernels/ops."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = run("cuda", smoke=True)
-    avgs = prof.key_averages()
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    busy_us = sum(dev_us(e) for e in avgs)
-    if busy_us <= 0:
-        say("profile: device time not measured (profiler saw none)")
-        return
-    say(f"profile smoke (profiled wall {wall:.3f} s): device busy "
-        f"{busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.2f}% of wall")
-    for e in sorted(avgs, key=dev_us, reverse=True)[:12]:
-        say(f"profile device {dev_us(e) / 1e3:10.3f} ms  x{e.count:<7d} {e.key[:70]}")
-    for e in sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
-        say(f"profile host   {e.self_cpu_time_total / 1e3:10.3f} ms  "
-            f"x{e.count:<7d} {e.key[:70]}")
+    report_profile(prof, f"smoke (profiled wall {wall:.3f} s)", wall)
 
 
 def host_breakdown(run_fn, targets=None):
@@ -667,6 +654,287 @@ def comparison(torch, VK) -> None:
             f"{share('wire.encode_sparse'):>15.2f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serve
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16, tensor cores
+# kernel vs plain: 2e-5 in f32 (the reference's blocked-vs-plain
+# tolerance), tests/test_kernels.py TOL in bf16 (outputs rounded to bf16)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# B13 at the serving path's shape and the family's others:
+# (b, h, kvh, sq, skv, hd, dtype, causal, window, softcap)
+ATTN_SHAPES = {
+    "a internlm2 prefill": (4, 16, 8, 2048, 2048, 128, "bfloat16", True,
+                            None, None),
+    "b gemma3 local": (2, 8, 4, 2300, 2300, 256, "bfloat16", True, 1024,
+                       None),
+    "c cross softcap": (1, 4, 4, 333, 517, 64, "float32", False, None, 50.0),
+    "d h=kvh hd16": (2, 4, 4, 512, 512, 16, "bfloat16", True, None, None),
+}
+SERVE_ARGS = ["--arch", "internlm2-1.8b", "--batch", "4", "--prompt-len",
+              "2048", "--gen", "96"]
+SERVE_LAYERS = 24                # internlm2-1.8b: one B13 launch a layer
+PROFILE_STEPS = 32               # decode steps under the profiler
+# card vs CPU: internlm2-1.8b's full width, depth cut to 2 layers
+CMP_LAYERS, CMP_BATCH, CMP_PROMPT, CMP_STEPS = 2, 2, 256, 72
+# logits, card vs CPU: 2e-3 in f32 compute (the reference's own
+# prefill/decode tolerance); bf16 as tests/test_torch_models.py states it
+CMP_TOL = {"float32": 2e-3, "bfloat16": 0.15}
+
+
+def attn_pairs(np, sq: int, skv: int, causal: bool, window) -> int:
+    """Visible (query, key) pairs: the work this call's masks leave."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv, q + 1) if causal else np.full(sq, skv)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_parity(torch, np, FK, R) -> dict:
+    """B13 against its plain version at ATTN_SHAPES; kernel, plain and
+    (where one PyTorch call computes the same function) SDPA times and
+    the bound at each.  Returns the record of shape (a)."""
+    import math
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    out = None
+    for name, (b, h, kvh, sq, skv, hd, dt, causal, window,
+               softcap) in ATTN_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(sq + hd)
+        dtype = getattr(torch, dt)
+        q = (torch.randn(b, h, sq, hd, generator=g, device=dev) * 0.5).to(dtype)
+        k = (torch.randn(b, kvh, skv, hd, generator=g, device=dev) * 0.5
+             ).to(dtype)
+        v = torch.randn(b, kvh, skv, hd, generator=g, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        kern, plain = FK.flash_attention(q, k, v, **kw), R.attention(q, k, v,
+                                                                     **kw)
+        torch.cuda.synchronize()
+        err = float((kern.float() - plain.float()).abs().max())
+        tol = ATTN_TOL[dt]
+        check(torch.allclose(kern.float(), plain.float(), rtol=tol, atol=tol),
+              f"B13 {name}: kernel vs plain max abs err {err} (tol {tol})")
+        del kern, plain
+        esize = 2 if dt == "bfloat16" else 4
+        ops = 4 * hd * b * h * attn_pairs(np, sq, skv, causal, window)
+        nbytes = esize * (2 * b * h * sq * hd + 2 * b * kvh * skv * hd)
+        peak = BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S
+        t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+        rec = {"max_abs_err": err, "bound_ms": 1e3 * max(t_mem, t_ops),
+               "bound_by": "bytes" if t_mem >= t_ops else "operations",
+               "ms": time_ms(torch, lambda: FK.flash_attention(q, k, v, **kw),
+                             10),
+               "plain_ms": time_ms(torch, lambda: R.attention(q, k, v, **kw),
+                                   3),
+               "library_ms": None}
+        if window is None and softcap is None:      # SDPA has neither
+            rec["library_ms"] = time_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=causal, scale=1.0 / math.sqrt(hd),
+                enable_gqa=h != kvh), 10)
+        torch.cuda.empty_cache()
+        lib = rec["library_ms"]
+        say(f"B13 {name} [{b},{h}/{kvh},{sq}x{skv},{hd}] {dt} causal={causal} "
+            f"window={window} softcap={softcap}: max abs err {err:.3g} "
+            f"(tol {tol}); kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, SDPA "
+            + ("none" if lib is None else f"{lib:.4f} ms")
+            + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+            f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if out is None:
+            out = rec
+    return out
+
+
+def profile_decode(torch, res) -> None:
+    """PROFILE_STEPS more decode steps from the serve run's state under
+    torch.profiler: the device-busy share of the decode loop."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import greedy
+    caches, tok = res.caches, res.tokens[:, -1].cuda()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j in range(PROFILE_STEPS):
+            lg, caches = res.model.decode_step(res.params, caches, tok,
+                                               res.next_pos + 1 + j)
+            tok = greedy(lg, res.cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, f"decode ({PROFILE_STEPS} steps, profiled wall "
+                         f"{wall:.3f} s, {1e3 * wall / PROFILE_STEPS:.3f} "
+                         f"ms/step)", wall)
+
+
+def serve_full_width(torch, VK) -> dict:
+    """Phase 6b: launch/serve.py at internlm2-1.8b's full width, batch 4 x
+    2,048 prompt tokens, 96 greedy decode steps, weights from the port's
+    own init (--seed 0).  Returns the run's launches."""
+    from repro_torch.launch import serve
+    zero = dict.fromkeys(VK.KERNELS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    VK.reset_launch_count()
+    t0 = time.perf_counter()
+    res = serve.run(SERVE_ARGS)
+    wall = time.perf_counter() - t0
+    counts = VK.launch_counts()
+    arg = lambda flag: int(SERVE_ARGS[SERVE_ARGS.index(flag) + 1])
+    b, s, gen = arg("--batch"), arg("--prompt-len"), arg("--gen")
+    check(res.logits_finite, "serve: non-finite logits")
+    check(tuple(res.tokens.shape) == (b, gen + 1)
+          and int(res.tokens.max()) < res.cfg.vocab_size
+          and int(res.tokens.min()) >= 0, "serve: tokens out of range")
+    check(res.launches_prefill == {**zero, "flash_attention": SERVE_LAYERS},
+          f"serve: prefill launches {res.launches_prefill}")
+    check(res.launches_decode == zero,
+          f"serve: decode launches {res.launches_decode}")
+    check(res.compactions == 1, f"serve: {res.compactions} compactions")
+    check(counts == res.launches_prefill, f"serve: launches {counts}")
+    step_s = (res.decode_s - res.compact_s) / gen
+    say(f"serve {res.cfg.describe()}")
+    say(f"serve prefill {b}x{s}: {1e3 * res.prefill_s:.3f} ms, "
+        f"{b * s / res.prefill_s:.1f} tok/s; B13 launches "
+        f"{res.launches_prefill['flash_attention']}")
+    say(f"serve decode {gen} steps: loop {1e3 * res.decode_s:.3f} ms, "
+        f"{1e3 * step_s:.3f} ms/step without compaction, "
+        f"{b * gen / res.decode_s:.1f} tok/s; B13 launches "
+        f"{res.launches_decode['flash_attention']}")
+    say(f"serve compaction: {res.compactions} in {1e3 * res.compact_s:.3f} ms")
+    say(f"serve peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        f" GB; serve.run wall {wall:.3f} s (weight init included)")
+    profile_prefill(torch, res, b, s)
+    profile_decode(torch, res)
+    del res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_prefill(torch, res, b: int, s: int) -> None:
+    """The serve run's prefill again, warm (its first call includes the
+    first use of every kernel): host-clock time, then once more under
+    torch.profiler for the device-busy share and the top device items."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import make_batch_for
+    tokens = make_batch_for(res.cfg, b, s, 0)["tokens"].cuda()
+    go = lambda: res.model.prefill(res.params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    go()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        go()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    say(f"serve prefill {b}x{s} warm: {1e3 * warm:.3f} ms, "
+        f"{b * s / warm:.1f} tok/s")
+    report_profile(prof, f"prefill (profiled wall {wall:.3f} s)", wall)
+    torch.cuda.empty_cache()
+
+
+def report_profile(prof, label: str, wall: float) -> None:
+    """Device-busy share of ``wall`` and the top device and host items.
+    Busy time sums the device-side events only (kernels, copies, fills):
+    the host-side rows of the ops that launched them carry the same time
+    again as their own device time."""
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    device = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    busy_us = sum(dev_us(e) for e in device)
+    if busy_us <= 0:
+        say(f"profile {label}: device time not measured (profiler saw none)")
+        return
+    say(f"profile {label}: device busy {busy_us / 1e3:.3f} ms = "
+        f"{100 * busy_us / 1e6 / wall:.2f}% of wall")
+    for e in sorted(device, key=dev_us, reverse=True)[:10]:
+        say(f"profile device {dev_us(e) / 1e3:10.3f} ms  x{e.count:<6d} "
+            f"{e.key[:70]}")
+    for e in sorted(avgs, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:6]:
+        say(f"profile host   {e.self_cpu_time_total / 1e3:10.3f} ms  "
+            f"x{e.count:<6d} {e.key[:70]}")
+
+
+def serve_card_vs_cpu(torch, VK) -> None:
+    """Phase 6c: internlm2-1.8b at full width, 2 layers, batch 2 x 256
+    prompt tokens, then 72 decode steps (one compaction), on the card and
+    on the CPU from the same weights; the CPU run is fed the card's
+    tokens.  Prefill and every step's logits compared, in f32 and in the
+    shipped bf16 compute."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import compact_all, greedy
+    from repro_torch.models.common import BlockSpec, uniform_groups
+    from repro_torch.models.layers import RECENT_RING
+    from repro_torch.models.registry import build_model
+    for dt in ("float32", "bfloat16"):
+        cfg = get_config("internlm2-1.8b").replace(
+            layer_groups=uniform_groups(CMP_LAYERS, BlockSpec()),
+            compute_dtype=dt)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        p_cpu = model.compute_params(model.init(0, device="cpu"))
+        p_gpu = {"embed": {k: t.cuda() for k, t in p_cpu["embed"].items()},
+                 "final_norm": {k: t.cuda()
+                                for k, t in p_cpu["final_norm"].items()},
+                 "blocks": [{n: {k: t.cuda() for k, t in sub.items()}
+                             for n, sub in blk.items()}
+                            for blk in p_cpu["blocks"]]}
+        tokens = make_batch_for(cfg, CMP_BATCH, CMP_PROMPT, 0)["tokens"]
+        t_init = time.perf_counter() - t0
+        runs = {}
+        for run, dev, params in (("card", "cuda", p_gpu),
+                                 ("cpu", "cpu", p_cpu)):
+            fed = runs["card"][1] if run == "cpu" else []
+            VK.reset_launch_count()
+            t0 = time.perf_counter()
+            lg, caches = model.prefill(params, {"tokens": tokens.to(dev)})
+            logits = [lg.float().cpu()]
+            for i in range(CMP_STEPS):
+                if run == "card":          # the CPU is fed the card's tokens
+                    fed.append(greedy(lg, cfg))
+                lg, caches = model.decode_step(params, caches,
+                                               fed[i].to(dev), CMP_PROMPT + i)
+                logits.append(lg.float().cpu())
+                if (i + 1) % RECENT_RING == 0:
+                    caches = compact_all(caches, CMP_PROMPT + i)
+            runs[run] = (logits, fed, VK.launch_counts(),
+                         time.perf_counter() - t0)
+        g_logits, _, g_counts, g_wall = runs["card"]
+        c_logits, _, c_counts, c_wall = runs["cpu"]
+        check(g_counts == {**dict.fromkeys(VK.KERNELS, 0),
+                           "flash_attention": CMP_LAYERS},
+              f"card vs cpu {dt}: card launches {g_counts}")
+        check(sum(c_counts.values()) == 0,
+              f"card vs cpu {dt}: the CPU run launched {c_counts}")
+        v = cfg.vocab_size
+        errs = [float((a[:, :v] - b[:, :v]).abs().max())
+                for a, b in zip(g_logits, c_logits)]
+        scale = max(float(a[:, :v].abs().max()) for a in g_logits)
+        agree = sum(bool(torch.equal(a[:, :v].argmax(-1), b[:, :v].argmax(-1)))
+                    for a, b in zip(g_logits, c_logits))
+        finite = all(bool(torch.isfinite(a).all()) for a in g_logits)
+        worst = max(range(CMP_STEPS), key=lambda i: errs[1 + i])
+        say(f"card vs cpu {dt} ({CMP_LAYERS} layers, {CMP_BATCH}x{CMP_PROMPT}"
+            f" + {CMP_STEPS} steps, 1 compaction): logits max abs err "
+            f"prefill {errs[0]:.4g}, decode {max(errs[1:]):.4g} (step "
+            f"{worst}), mean over steps {sum(errs) / len(errs):.4g}; "
+            f"logit scale {scale:.3f}; argmax equal in {agree}/{len(errs)} "
+            f"steps; wall card {g_wall:.2f} s, cpu {c_wall:.2f} s, init "
+            f"{t_init:.2f} s; tol {CMP_TOL[dt]}")
+        check(finite, f"card vs cpu {dt}: non-finite card logits")
+        check(max(errs) <= CMP_TOL[dt],
+              f"card vs cpu {dt}: logits differ by {max(errs)} > "
+              f"{CMP_TOL[dt]}")
+        del p_gpu, runs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -678,10 +946,12 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import vc_asgd as V
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import quantize as QK
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import sparse_pack as SK
     from repro_torch.kernels import vc_asgd_update as VK
+    from repro_torch.kernels.launches import REPLACES, SOURCE
 
     # ---- 1. device --------------------------------------------------------
     smi = subprocess.run(
@@ -800,10 +1070,17 @@ def main() -> int:
     # ---- 4e. the §IV-C comparison at the example's full configuration -----
     comparison(torch, VK)
 
-    # ---- 5. result lines --------------------------------------------------
+    # ---- 6. serve: B13, internlm2-1.8b at full width, card vs CPU -------
+    numbers["flash_attention"] = attention_parity(torch, np, FK, R)   # 6a
+    torch.cuda.empty_cache()
+    serve_counts = serve_full_width(torch, VK)                        # 6b
+    serve_card_vs_cpu(torch, VK)                                      # 6c
+
+    # ---- 7. result lines --------------------------------------------------
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
-                   "adam_update_flat": main_counts}      # 4c
+                   "adam_update_flat": main_counts,      # 4c
+                   "flash_attention": serve_counts}      # 6b
     kernels = []
     for name in VK.KERNELS:
         r = numbers[name]

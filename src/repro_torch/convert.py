@@ -2,7 +2,8 @@
 
 Every function takes the reference's objects as numpy arrays or anything
 ``np.asarray`` reads (a tree of them, a flat bus buffer with its
-``TreeSpec.meta()``, a ``CompressedDelta``, a scheme state), so the two
+``TreeSpec.meta()``, a ``CompressedDelta``, a scheme state, an LM's
+parameter tree or decode caches), so the two
 packages can be started from the same state and compared.  Nothing here
 imports the reference: its objects are read by attribute.
 """
@@ -16,10 +17,15 @@ import torch
 from repro_torch.core import flat as F
 from repro_torch.core.compression import CompressedDelta
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import DecodeCache
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bf16: no numpy view
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)   # exact: bf16 ⊂ f32
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_reference(tree_of_numpy, device="cuda") -> F.FlatParams:
@@ -82,3 +88,42 @@ def state_from_reference(ref_state, port_state, device="cuda"):
     for name in vars(port_state):
         setattr(port_state, name, _carry(getattr(ref_state, name), spec, dev))
     return port_state
+
+
+def lm_params_from_reference(tree_of_numpy, cfg, device="cuda") -> dict:
+    """A reference ``init_lm`` tree (leaves readable by ``np.asarray``) ->
+    the port's LM parameters on ``device``: ``embed`` and ``final_norm``
+    as they are, and each ``group{gi}`` — a list over the group's blocks
+    of dicts stacked ``[repeats, ...]`` for ``lax.scan`` — unstacked into
+    one dict per layer, in ``cfg.all_blocks`` order."""
+    dev = resolve_device(device)
+
+    def conv(node, pick=None):
+        if isinstance(node, dict):
+            return {k: conv(v, pick) for k, v in node.items()}
+        a = np.asarray(node)
+        return _tensor(a if pick is None else a[pick], dev)
+
+    blocks = []
+    for gi, g in enumerate(cfg.layer_groups):
+        group = tree_of_numpy[f"group{gi}"]
+        for r in range(g.repeats):
+            blocks.extend(conv(group[bi], r) for bi in range(len(g.blocks)))
+    return {"embed": conv(tree_of_numpy["embed"]),
+            "final_norm": conv(tree_of_numpy["final_norm"]),
+            "blocks": blocks}
+
+
+def caches_from_reference(caches, cfg, device="cuda") -> list:
+    """The reference's decode caches — a tuple over layer groups of tuples
+    over the group's blocks of ``DecodeCache``s stacked ``[repeats, ...]``
+    — -> the port's list of one ``DecodeCache`` per layer on ``device``."""
+    dev = resolve_device(device)
+    out = []
+    for gi, g in enumerate(cfg.layer_groups):
+        for r in range(g.repeats):
+            for bi in range(len(g.blocks)):
+                c = caches[gi][bi]
+                out.append(DecodeCache(*(_tensor(np.asarray(f)[r], dev)
+                                         for f in c)))
+    return out

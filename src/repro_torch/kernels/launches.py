@@ -1,5 +1,6 @@
-"""One launch counter per hand-written CUDA kernel, and the launch helper
-every wrapper goes through.
+"""One launch counter per hand-written CUDA kernel, each kernel's source
+and the Pallas kernel it replaces, and the launch helper every wrapper
+goes through.
 
 ``launch`` runs a kernel's C entry point on the current stream of the
 tensors' device, raises if the entry returned a CUDA error, and only
@@ -21,7 +22,30 @@ KERNELS = (
     "quantize_int8",            # B9, csrc/quantize.cu
     "dequantize_int8",          # B10, csrc/quantize.cu
     "pack_body",                # B12, csrc/sparse_pack.cu
+    "flash_attention",          # B13, csrc/flash_attention.cu
 )
+_CSRC = "src/repro_torch/kernels/csrc/"
+# each kernel's source in the repo, and the Pallas kernel it replaces
+SOURCE = {
+    "vc_asgd_lerp_flat": _CSRC + "vc_asgd_update.cu",
+    "assimilate_flat": _CSRC + "vc_asgd_update.cu",
+    "adam_update_flat": _CSRC + "vc_asgd_update.cu",
+    "easgd_elastic_flat": _CSRC + "vc_asgd_update.cu",
+    "quantize_int8": _CSRC + "quantize.cu",
+    "dequantize_int8": _CSRC + "quantize.cu",
+    "pack_body": _CSRC + "sparse_pack.cu",
+    "flash_attention": _CSRC + "flash_attention.cu",
+}
+REPLACES = {
+    "vc_asgd_lerp_flat": "src/repro/kernels/vc_asgd_update.py:49",
+    "assimilate_flat": "src/repro/kernels/vc_asgd_update.py:69",
+    "adam_update_flat": "src/repro/kernels/vc_asgd_update.py:80",
+    "easgd_elastic_flat": "src/repro/kernels/vc_asgd_update.py:98",
+    "quantize_int8": "src/repro/kernels/quantize.py:17",
+    "dequantize_int8": "src/repro/kernels/quantize.py:26",
+    "pack_body": "src/repro/kernels/sparse_pack.py:51",
+    "flash_attention": "src/repro/kernels/flash_attention.py:23",
+}
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

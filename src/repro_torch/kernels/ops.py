@@ -11,6 +11,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import sparse_pack as _sp
@@ -76,3 +77,15 @@ def pack_body(q, scales, idx):
     if _on_cuda(q):
         return _sp.pack_body(q, scales, idx)
     return R.pack_body(q, scales, idx)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    softcap=None):
+    """q [b, h, sq, hd], k / v [b, kvh, skv, hd] -> [b, h, sq, hd]:
+    online-softmax attention with GQA, causal mask, window, softcap —
+    ONE launch."""
+    if _on_cuda(q):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    return R.attention(q, k, v, causal=causal, window=window,
+                       softcap=softcap)

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (the flat-bus updates, the
-int8 codec and the sparse-body pack): what ``ops`` runs for CPU tensors
+int8 codec, the sparse-body pack and attention): what ``ops`` runs for CPU tensors
 and what ``chip_smoke.py`` holds each CUDA kernel against.
 
 Each mirrors the reference's arithmetic operation by operation — separate
@@ -15,7 +15,8 @@ reciprocal, which is not the IEEE quotient.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -118,3 +119,30 @@ def pack_body(q: torch.Tensor, scales: torch.Tensor, idx: torch.Tensor
     return torch.cat([q.to(torch.int8).reshape(-1).view(torch.uint8),
                       scales.to(_F32).reshape(-1).view(torch.uint8),
                       idx.to(torch.int32).reshape(-1).view(torch.uint8)])
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None) -> torch.Tensor:
+    """q [b, h, sq, hd]; k / v [b, kvh, skv, hd] (each kv head repeated
+    for its h / kvh query heads) -> [b, h, sq, hd] in q's dtype: the
+    reference's ``ref.attention``, all in f32, masked scores at -1e30,
+    positions counted from 0 for queries and keys alike."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    rep = h // kvh
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(_F32), k.to(_F32)) / math.sqrt(hd)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    s = s.masked_fill(~mask, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.to(_F32)).to(q.dtype)

@@ -180,6 +180,6 @@ def test_build_targets_live_in_ignored_build_dir():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert set(build.SOURCES) == {"vc_asgd_update", "quantize",
-                                  "sparse_pack"}
+                                  "sparse_pack", "flash_attention"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"

@@ -7,13 +7,18 @@ Tolerance: none — Eq. 1, Eq. 2, Adam and the elastic EASGD round are
 bit-exact against the plain versions on the same CUDA tensors (both sides
 spell out separate f32 multiplies and adds and IEEE division/sqrt); the
 int8 quantize/dequantize and the sparse-body pack are bit-exact too (IEEE
-division, round half to even, byte copies).
+division, round half to even, byte copies).  Flash attention (B13) sums
+in another order than the plain version's matmuls and scales the dot
+product where the plain version divides it: 2e-5 in f32 (the reference's
+own blocked-vs-plain tolerance) and tests/test_kernels.py::TOL in bf16
+(2e-2, outputs rounded to bf16).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.flat import BLOCK
+from repro_torch.kernels import flash_attention as FK
 from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import sparse_pack as SK
@@ -164,3 +169,73 @@ def test_scheme_wrappers_reject_bad_inputs(dev):
         QK.dequantize_int8(q, s[:1], 300)
     with pytest.raises(ValueError):
         SK.pack_body(q, s, torch.zeros(300, dtype=torch.int64, device=dev))
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_case(dev, b, h, kvh, sq, skv, hd, dtype, seed=0):
+    q = (_rand(dev, b, h, sq, hd, seed=seed) * 0.5).to(dtype)
+    k = (_rand(dev, b, kvh, skv, hd, seed=seed + 1) * 0.5).to(dtype)
+    v = _rand(dev, b, kvh, skv, hd, seed=seed + 2).to(dtype)
+    return q, k, v
+
+
+# the four shapes of chip_smoke's phase 6, cut down: (a) internlm2's
+# prefill (GQA 2, hd 128, causal, bf16); (b) gemma3's local layers (hd
+# 256, GQA 2, window, ragged); (c) non-causal cross attention with a
+# softcap in f32, ragged both ways; (d) h == kvh at hd 16
+ATTN_CASES = {
+    "a-internlm2": dict(shape=(2, 4, 2, 300, 300, 128), dtype=torch.bfloat16,
+                        causal=True, window=None, softcap=None),
+    "b-gemma3-local": dict(shape=(1, 8, 4, 333, 333, 256),
+                           dtype=torch.bfloat16, causal=True, window=100,
+                           softcap=None),
+    "c-softcap-f32": dict(shape=(1, 4, 4, 133, 217, 64), dtype=torch.float32,
+                          causal=False, window=None, softcap=50.0),
+    "d-mha-hd16": dict(shape=(2, 4, 4, 100, 100, 16), dtype=torch.float32,
+                       causal=True, window=None, softcap=None),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_flash_attention_matches_plain(dev, case):
+    c = ATTN_CASES[case]
+    q, k, v = _attn_case(dev, *c["shape"], c["dtype"])
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"])
+    VK.reset_launch_count()
+    got = FK.flash_attention(q, k, v, **kw)
+    assert VK.launch_count("flash_attention") == 1
+    want = R.attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = ATTN_TOL[c["dtype"]]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd", FK.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_every_head_dim_on_strided_views(dev, hd, dtype):
+    """The model's layout: [b, s, h, hd] projections read through
+    transposed views (no copy), causal with a window, sq = 70 (ragged)."""
+    g = torch.Generator(device=dev).manual_seed(hd)
+    q = torch.randn(2, 70, 6, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 70, 3, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 70, 3, hd, generator=g, device=dev).to(dtype)
+    qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))
+    got = FK.flash_attention(qv, kv, vv, causal=True, window=33)
+    want = R.attention(qv, kv, vv, causal=True, window=33)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert got.transpose(1, 2).is_contiguous()     # [b, s, h, hd] buffer
+
+
+def test_flash_attention_rejects_what_it_does_not_take(dev):
+    q, k, v = _attn_case(dev, 1, 4, 2, 16, 16, 48, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        FK.flash_attention(q, k, v)
+    q, k, v = _attn_case(dev, 1, 4, 2, 16, 16, 64, torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        FK.flash_attention(q, k, v)
+    q, k, v = _attn_case(dev, 1, 4, 2, 16, 16, 64, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        FK.flash_attention(q, k.cpu(), v)

@@ -1,0 +1,130 @@
+"""The port's serving driver and its token source, on the CPU.
+
+* ``make_batch_for`` gives the reference's tokens bit for bit (both draw
+  them with numpy);
+* ``launch.serve`` runs end to end at reduced scale when asked for the
+  CPU (every dense architecture; one run crosses a compaction), builds
+  no kernel there, and its greedy tokens are the model's own greedy
+  decode;
+* without ``--device`` it runs on the card, so with no card it raises,
+  as do the other new entry points.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs import get_reduced as ref_get_reduced
+from repro.data import SyntheticTokenSource as RefSource
+from repro.data import make_batch_for as ref_make_batch_for
+from repro.models.registry import build_model as ref_build_model
+from repro_torch import convert as C
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.data import SyntheticTokenSource, make_batch_for
+from repro_torch.kernels import build, launches
+from repro_torch.launch import serve
+from repro_torch.models.layers import RECENT_RING
+from repro_torch.models.registry import build_model
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("arch,b,s,seed", [
+    ("internlm2-1.8b", 4, 64, 0), ("gemma3-4b", 2, 33, 5),
+    ("qwen2.5-14b", 3, 17, 11), ("stablelm-3b", 1, 128, 2)])
+def test_make_batch_for_tokens_are_the_references(arch, b, s, seed):
+    for cfg, ref_cfg in ((get_reduced(arch), ref_get_reduced(arch)),
+                         (get_config(arch), ref_get_config(arch))):
+        got = make_batch_for(cfg, b, s, seed)["tokens"]
+        want = np.asarray(ref_make_batch_for(ref_cfg, b, s, seed)["tokens"])
+        assert got.dtype == torch.int32 and tuple(got.shape) == (b, s)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_token_source_offsets_are_the_references():
+    for vocab, seed, off in ((256, 0, 0), (92544, 3, 17), (50304, 1, 5)):
+        np.testing.assert_array_equal(
+            SyntheticTokenSource(vocab, seed).sample(2, 40, off),
+            RefSource(vocab, seed).sample(2, 40, off))
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the CPU route must not build kernels")
+    monkeypatch.setattr(build, "build_all", refuse)
+    monkeypatch.setattr(build, "load", refuse)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2.5-14b",
+                                  "stablelm-3b", "gemma3-4b"])
+def test_serve_main_runs_reduced_on_the_cpu(arch, no_build, capsys):
+    assert serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                       "--prompt-len", "24", "--gen", "5",
+                       "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"[serve] {arch}: prefill 2x24 in" in out
+    assert "[serve] generated 5 tokens/seq in" in out
+    assert "[serve] sample continuations:" in out
+
+
+def test_serve_run_crosses_a_compaction_and_decodes_greedily(no_build):
+    launches.reset_launch_count()
+    gen = RECENT_RING + 3
+    res = serve.run(["--arch", "internlm2-1.8b", "--reduced", "--batch",
+                     "2", "--prompt-len", "80", "--gen", str(gen), "--seed",
+                     "3", "--device", "cpu"])
+    assert res.compactions == 1 and res.logits_finite
+    assert tuple(res.tokens.shape) == (2, gen + 1)
+    assert res.next_pos == 80 + gen - 1
+    assert launches.launch_count() == 0
+    assert sum(res.launches_prefill.values()) == 0
+    assert sum(res.launches_decode.values()) == 0
+    # the compaction wrote positions 80..143 over the prompt's oldest 64
+    # slots (the reference's rolling old tier); the ring holds the 3
+    # steps since
+    for c in res.caches:
+        assert sorted(c.old_pos.flatten().tolist()) == list(range(64, 144))
+        assert int((c.rec_pos >= 0).sum()) == 3
+
+    # the same greedy decode through the model's API, from the same seed
+    cfg = get_reduced("internlm2-1.8b")
+    model = build_model(cfg)
+    params = model.compute_params(model.init(3, device="cpu"))
+    tokens = make_batch_for(cfg, 2, 80, 3)["tokens"]
+    lg, caches = model.prefill(params, {"tokens": tokens})
+    tok = serve.greedy(lg, cfg)
+    want = [tok]
+    for i in range(gen):
+        lg, caches = model.decode_step(params, caches, tok, 80 + i)
+        tok = serve.greedy(lg, cfg)
+        want.append(tok)
+        if (i + 1) % RECENT_RING == 0:
+            caches = serve.compact_all(caches, 80 + i)
+    assert torch.equal(res.tokens, torch.stack(want, 1))
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_serve_without_device_raises_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(["--arch", "gemma3-4b", "--reduced", "--gen", "1"])
+
+
+def test_model_entry_points_raise_without_gpu(no_gpu):
+    cfg = get_reduced("internlm2-1.8b")
+    with pytest.raises(RuntimeError):
+        build_model(cfg).init(0)
+    rcfg = ref_get_reduced("internlm2-1.8b")
+    tree = jax.tree.map(np.asarray,
+                        ref_build_model(rcfg).init(jax.random.PRNGKey(0)))
+    with pytest.raises(RuntimeError):
+        C.lm_params_from_reference(tree, cfg)
+    assert C.lm_params_from_reference(tree, cfg, "cpu")["blocks"][1][
+        "attn"]["wq"].device.type == "cpu"
