@@ -68,7 +68,23 @@ a card, or outside a checkout.  Phases:
       on the CPU from the same weights, the CPU fed the card's tokens:
       prefill and every step's logits within CMP_TOL, in f32 and in the
       shipped bf16 compute; the CPU run launches nothing.
-7. a ``kernels`` JSON line, the nvidia-smi line, and the last line
+7. serve rwkv6 — launch/serve.py for the SSM family:
+   a. the WKV6 recurrence (B14) against its plain version at rwkv6's
+      prefill shape ([4,32,2048,64] f32), the reduced head dim (hd 16,
+      a ragged 37 steps), T = 1 and [b, T, h, hd] strided views as the
+      model passes them (2e-5 on out and the final state); kernel,
+      plain and bound ms at each (no PyTorch call computes WKV6);
+   b. serve.run at rwkv6-1.6b's full width and depth (24 layers,
+      1,599,819,776 parameters from the port's init, --seed 0): batch 4
+      x 2,048 prompt tokens, 96 greedy decode steps against the O(1)
+      recurrent state; finite logits, 24 B14 launches in prefill, none in
+      decode, no compaction; prefill (cold and warm) and decode times,
+      tokens/s, peak device memory and the profiler's device-busy share
+      of the warm prefill and of 32 further decode steps;
+   c. the same architecture at full width cut to 2 layers, batch 2 x 256
+      prompt tokens and 72 decode steps on the card and on the CPU from
+      the same weights, as 6c.
+8. a ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -186,6 +202,7 @@ def implied_launches(scheme, res) -> dict:
         "dequantize_int8": sparse_submits + res.wire_sparse_frames,
         "pack_body": sparse_submits,
         "flash_attention": 0,
+        "wkv6": 0,
     }
 
 
@@ -860,21 +877,23 @@ def report_profile(prof, label: str, wall: float) -> None:
             f"x{e.count:<6d} {e.key[:70]}")
 
 
-def serve_card_vs_cpu(torch, VK) -> None:
-    """Phase 6c: internlm2-1.8b at full width, 2 layers, batch 2 x 256
-    prompt tokens, then 72 decode steps (one compaction), on the card and
-    on the CPU from the same weights; the CPU run is fed the card's
-    tokens.  Prefill and every step's logits compared, in f32 and in the
-    shipped bf16 compute."""
+def serve_card_vs_cpu(torch, VK, arch: str, kernel: str) -> None:
+    """Phases 6c and 7c: ``arch`` at full width, 2 layers, batch 2 x 256
+    prompt tokens, then 72 decode steps (across step 64, where attention
+    caches are compacted), on the card and on the CPU from the same
+    weights; the CPU run is fed the card's tokens.  Prefill and every
+    step's logits compared, in f32 and in the shipped bf16 compute; the
+    card's prefill launches ``kernel`` once a layer."""
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch_for
     from repro_torch.launch.serve import compact_all, greedy
-    from repro_torch.models.common import BlockSpec, uniform_groups
+    from repro_torch.models.common import uniform_groups
     from repro_torch.models.layers import RECENT_RING
     from repro_torch.models.registry import build_model
     for dt in ("float32", "bfloat16"):
-        cfg = get_config("internlm2-1.8b").replace(
-            layer_groups=uniform_groups(CMP_LAYERS, BlockSpec()),
+        full = get_config(arch)
+        cfg = full.replace(
+            layer_groups=uniform_groups(CMP_LAYERS, full.all_blocks[0]),
             compute_dtype=dt)
         model = build_model(cfg)
         t0 = time.perf_counter()
@@ -908,7 +927,7 @@ def serve_card_vs_cpu(torch, VK) -> None:
         g_logits, _, g_counts, g_wall = runs["card"]
         c_logits, _, c_counts, c_wall = runs["cpu"]
         check(g_counts == {**dict.fromkeys(VK.KERNELS, 0),
-                           "flash_attention": CMP_LAYERS},
+                           kernel: CMP_LAYERS},
               f"card vs cpu {dt}: card launches {g_counts}")
         check(sum(c_counts.values()) == 0,
               f"card vs cpu {dt}: the CPU run launched {c_counts}")
@@ -920,9 +939,9 @@ def serve_card_vs_cpu(torch, VK) -> None:
                     for a, b in zip(g_logits, c_logits))
         finite = all(bool(torch.isfinite(a).all()) for a in g_logits)
         worst = max(range(CMP_STEPS), key=lambda i: errs[1 + i])
-        say(f"card vs cpu {dt} ({CMP_LAYERS} layers, {CMP_BATCH}x{CMP_PROMPT}"
-            f" + {CMP_STEPS} steps, 1 compaction): logits max abs err "
-            f"prefill {errs[0]:.4g}, decode {max(errs[1:]):.4g} (step "
+        say(f"card vs cpu {arch} {dt} ({CMP_LAYERS} layers, "
+            f"{CMP_BATCH}x{CMP_PROMPT} + {CMP_STEPS} steps): logits max abs "
+            f"err prefill {errs[0]:.4g}, decode {max(errs[1:]):.4g} (step "
             f"{worst}), mean over steps {sum(errs) / len(errs):.4g}; "
             f"logit scale {scale:.3f}; argmax equal in {agree}/{len(errs)} "
             f"steps; wall card {g_wall:.2f} s, cpu {c_wall:.2f} s, init "
@@ -933,6 +952,126 @@ def serve_card_vs_cpu(torch, VK) -> None:
               f"{CMP_TOL[dt]}")
         del p_gpu, runs
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serve rwkv6
+# ---------------------------------------------------------------------------
+
+WKV_TOL = 2e-5                   # the reference's test_wkv6 tolerance
+# B14 at the serving path's prefill shape and the others:
+# (b, h, T, hd, [b, T, h, hd] strided views)
+WKV_SHAPES = {
+    "a rwkv6 prefill": (4, 32, 2048, 64, False),
+    "b reduced hd16 ragged": (2, 4, 37, 16, False),
+    "c T=1": (4, 32, 1, 64, False),
+    "d strided views": (4, 32, 2048, 64, True),
+}
+RWKV_ARGS = ["--arch", "rwkv6-1.6b", "--batch", "4", "--prompt-len",
+             "2048", "--gen", "96"]
+RWKV_LAYERS = 24                 # rwkv6-1.6b: one B14 launch a layer
+RWKV_PARAMS = 1_599_819_776      # the published config's parameter count
+
+
+def wkv6_parity(torch, WK, R) -> dict:
+    """B14 against its plain version at WKV_SHAPES (out and the final
+    state); kernel, plain and bound ms at each.  Returns the record of
+    shape (a)."""
+    dev = torch.device("cuda")
+    out = None
+    for name, (b, h, T, hd, strided) in WKV_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(T + hd)
+        shape = (b, T, h, hd) if strided else (b, h, T, hd)
+        rnd = lambda: torch.randn(*shape, generator=g, device=dev)
+        args = [rnd() * 0.4, rnd() * 0.4, rnd(),
+                torch.sigmoid(rnd()) * 0.6 + 0.35]      # w in (0.35, 0.95)
+        if strided:
+            args = [t.transpose(1, 2) for t in args]
+        args.append(torch.randn(h, hd, generator=g, device=dev) * 0.2)
+        (o, S), (o_p, S_p) = WK.wkv6(*args), R.wkv6(*args)
+        torch.cuda.synchronize()
+        err = max(float((o - o_p).abs().max()), float((S - S_p).abs().max()))
+        check(torch.allclose(o, o_p, rtol=WKV_TOL, atol=WKV_TOL)
+              and torch.allclose(S, S_p, rtol=WKV_TOL, atol=WKV_TOL),
+              f"B14 {name}: kernel vs plain max abs err {err} (tol "
+              f"{WKV_TOL})")
+        del o, S, o_p, S_p
+        n = b * h * T * hd
+        nbytes = 4 * (5 * n + b * h * hd * hd + h * hd)
+        ops = 2 * 3 * n * hd                # 3 FMAs per (i, j) and step
+        bound, by = bound_ms(nbytes, ops)
+        rec = {"max_abs_err": err, "bound_ms": bound, "bound_by": by,
+               "ms": time_ms(torch, lambda: WK.wkv6(*args), 10),
+               "plain_ms": time_ms(torch, lambda: R.wkv6(*args), 1),
+               "library_ms": None}      # no PyTorch call computes WKV6
+        say(f"B14 {name} [{b},{h},{T},{hd}]{' strided' if strided else ''}"
+            f" f32: max abs err {err:.3g} (tol {WKV_TOL}); kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+            f"none, bound {bound:.4f} ms ({by}: {ops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        if out is None:
+            out = rec
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_rwkv_full_width(torch, VK) -> dict:
+    """Phase 7b: launch/serve.py at rwkv6-1.6b's full width and depth,
+    batch 4 x 2,048 prompt tokens, 96 greedy decode steps against the
+    recurrent state, weights from the port's own init (--seed 0).
+    Returns the run's launches."""
+    from repro_torch.launch import serve
+    from repro_torch.models.rwkv import RWKVState
+    zero = dict.fromkeys(VK.KERNELS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    VK.reset_launch_count()
+    t0 = time.perf_counter()
+    res = serve.run(RWKV_ARGS)
+    wall = time.perf_counter() - t0
+    counts = VK.launch_counts()
+    arg = lambda flag: int(RWKV_ARGS[RWKV_ARGS.index(flag) + 1])
+    b, s, gen = arg("--batch"), arg("--prompt-len"), arg("--gen")
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    check(n_params == RWKV_PARAMS, f"rwkv serve: {n_params} parameters")
+    check(res.logits_finite, "rwkv serve: non-finite logits")
+    check(tuple(res.tokens.shape) == (b, gen + 1)
+          and int(res.tokens.max()) < res.cfg.vocab_size
+          and int(res.tokens.min()) >= 0, "rwkv serve: tokens out of range")
+    check(res.launches_prefill == {**zero, "wkv6": RWKV_LAYERS},
+          f"rwkv serve: prefill launches {res.launches_prefill}")
+    check(res.launches_decode == zero,
+          f"rwkv serve: decode launches {res.launches_decode}")
+    check(res.compactions == 0, f"rwkv serve: {res.compactions} compactions")
+    check(len(res.caches) == RWKV_LAYERS
+          and all(isinstance(c, RWKVState) for c in res.caches),
+          "rwkv serve: decode states are not one RWKVState a layer")
+    check(counts == res.launches_prefill, f"rwkv serve: launches {counts}")
+    step_s = res.decode_s / gen
+    say(f"rwkv serve {res.cfg.describe()}, {n_params:,} parameters")
+    say(f"rwkv serve prefill {b}x{s}: {1e3 * res.prefill_s:.3f} ms, "
+        f"{b * s / res.prefill_s:.1f} tok/s; B14 launches "
+        f"{res.launches_prefill['wkv6']}")
+    say(f"rwkv serve decode {gen} steps: loop {1e3 * res.decode_s:.3f} ms, "
+        f"{1e3 * step_s:.3f} ms/step, {b * gen / res.decode_s:.1f} tok/s; "
+        f"B14 launches {res.launches_decode['wkv6']}")
+    say(f"rwkv serve peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; serve.run wall "
+        f"{wall:.3f} s (weight init included)")
+    profile_prefill(torch, res, b, s)
+    profile_decode(torch, res)
+    del res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaves(node):
+    """The tensors of a parameter tree of dicts and lists."""
+    if isinstance(node, (dict, list)):
+        for v in (node.values() if isinstance(node, dict) else node):
+            yield from _leaves(v)
+    else:
+        yield node
 
 
 def main() -> int:
@@ -949,6 +1088,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import quantize as QK
     from repro_torch.kernels import ref as R
+    from repro_torch.kernels import rwkv6_scan as WK
     from repro_torch.kernels import sparse_pack as SK
     from repro_torch.kernels import vc_asgd_update as VK
     from repro_torch.kernels.launches import REPLACES, SOURCE
@@ -1074,13 +1214,19 @@ def main() -> int:
     numbers["flash_attention"] = attention_parity(torch, np, FK, R)   # 6a
     torch.cuda.empty_cache()
     serve_counts = serve_full_width(torch, VK)                        # 6b
-    serve_card_vs_cpu(torch, VK)                                      # 6c
+    serve_card_vs_cpu(torch, VK, "internlm2-1.8b", "flash_attention")  # 6c
 
-    # ---- 7. result lines --------------------------------------------------
+    # ---- 7. serve rwkv6: B14, rwkv6-1.6b at full width, card vs CPU -----
+    numbers["wkv6"] = wkv6_parity(torch, WK, R)                       # 7a
+    rwkv_counts = serve_rwkv_full_width(torch, VK)                    # 7b
+    serve_card_vs_cpu(torch, VK, "rwkv6-1.6b", "wkv6")                # 7c
+
+    # ---- 8. result lines --------------------------------------------------
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
                    "adam_update_flat": main_counts,      # 4c
-                   "flash_attention": serve_counts}      # 6b
+                   "flash_attention": serve_counts,      # 6b
+                   "wkv6": rwkv_counts}                  # 7b
     kernels = []
     for name in VK.KERNELS:
         r = numbers[name]

@@ -1,8 +1,9 @@
-"""Architecture configs (port of ``repro/configs``): the dense family.
+"""Architecture configs (port of ``repro/configs``): the dense family and
+rwkv6 (the SSM family).
 
 Each module exposes ``config()`` (the published configuration) and
 ``reduced()`` (a tiny same-family config for CPU tests), copied field for
-field from the reference.  The other families of the reference (MoE, SSM,
+field from the reference.  The other families of the reference (MoE,
 hybrid, VLM, audio) are not ported yet: asking for one raises a
 ``KeyError`` that says where they stand.
 """
@@ -17,6 +18,7 @@ _ARCH_MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 # the reference's other architectures, by family
 _NOT_PORTED = {
@@ -25,7 +27,6 @@ _NOT_PORTED = {
     "granite-moe-1b-a400m": "moe",
     "mixtral-8x7b": "moe",
     "jamba-v0.1-52b": "hybrid",
-    "rwkv6-1.6b": "ssm",
 }
 
 ARCHS = tuple(_ARCH_MODULES)
@@ -34,12 +35,11 @@ ARCHS = tuple(_ARCH_MODULES)
 def _module(arch: str):
     if arch in _NOT_PORTED:
         raise KeyError(f"{arch} ({_NOT_PORTED[arch]} family) is not ported "
-                       f"yet: the port runs the dense transformer family "
-                       f"{list(ARCHS)}; see ROADMAP.md queue A item 11 for "
-                       f"the order of the other families")
+                       f"yet: the port runs {list(ARCHS)}; see ROADMAP.md "
+                       f"queue A for the order of the other families")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown architecture {arch!r}; the port has "
-                       f"{list(ARCHS)} (ROADMAP.md queue A item 11)")
+                       f"{list(ARCHS)} (ROADMAP.md queue A)")
     return import_module(_ARCH_MODULES[arch])
 
 

@@ -23,6 +23,7 @@ KERNELS = (
     "dequantize_int8",          # B10, csrc/quantize.cu
     "pack_body",                # B12, csrc/sparse_pack.cu
     "flash_attention",          # B13, csrc/flash_attention.cu
+    "wkv6",                     # B14, csrc/wkv6.cu
 )
 _CSRC = "src/repro_torch/kernels/csrc/"
 # each kernel's source in the repo, and the Pallas kernel it replaces
@@ -35,6 +36,7 @@ SOURCE = {
     "dequantize_int8": _CSRC + "quantize.cu",
     "pack_body": _CSRC + "sparse_pack.cu",
     "flash_attention": _CSRC + "flash_attention.cu",
+    "wkv6": _CSRC + "wkv6.cu",
 }
 REPLACES = {
     "vc_asgd_lerp_flat": "src/repro/kernels/vc_asgd_update.py:49",
@@ -45,6 +47,7 @@ REPLACES = {
     "dequantize_int8": "src/repro/kernels/quantize.py:26",
     "pack_body": "src/repro/kernels/sparse_pack.py:51",
     "flash_attention": "src/repro/kernels/flash_attention.py:23",
+    "wkv6": "src/repro/kernels/rwkv6_scan.py:19",
 }
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

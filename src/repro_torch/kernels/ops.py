@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import sparse_pack as _sp
 from repro_torch.kernels import vc_asgd_update as _vc
 
@@ -89,3 +90,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                    softcap=softcap)
     return R.attention(q, k, v, causal=causal, window=window,
                        softcap=softcap)
+
+
+def wkv6(r, k, v, w, u):
+    """r / k / v / w [b, h, T, hd], u [h, hd] -> (out [b, h, T, hd] in r's
+    dtype, final state [b, h, hd, hd] f32): the WKV6 recurrence from a
+    zero state — ONE launch."""
+    if _on_cuda(r):
+        return _rw.wkv6(r, k, v, w, u)
+    return R.wkv6(r, k, v, w, u)

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (the flat-bus updates, the
-int8 codec, the sparse-body pack and attention): what ``ops`` runs for CPU tensors
+int8 codec, the sparse-body pack, attention and the WKV6 recurrence): what ``ops`` runs for CPU tensors
 and what ``chip_smoke.py`` holds each CUDA kernel against.
 
 Each mirrors the reference's arithmetic operation by operation — separate
@@ -146,3 +146,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = s.masked_fill(~mask, -1e30)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.to(_F32)).to(q.dtype)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor):
+    """The WKV6 recurrence, step by step from S = 0, all in f32 — the
+    reference's ``ref.wkv6`` in the same sum order.  r/k/v/w [b, h, T, hd]
+    (w the decay in (0, 1)), u [h, hd].  Returns (out [b, h, T, hd] in r's
+    dtype, the final state S_T [b, h, hd, hd] in f32)."""
+    b, h, T, hd = r.shape
+    S = torch.zeros(b, h, hd, hd, dtype=_F32, device=r.device)
+    rf, kf, vf, wf = (t.to(_F32) for t in (r, k, v, w))
+    uf = u.to(_F32)
+    outs = []
+    for t in range(T):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        outs.append(((S + uf[None, :, :, None] * kv)
+                     * rf[:, :, t, :, None]).sum(dim=2))
+        S = wf[:, :, t, :, None] * S + kv
+    return torch.stack(outs, dim=2).to(r.dtype), S

@@ -1,17 +1,21 @@
 """Serving driver (port of ``repro/launch/serve.py``): batched prefill,
-then greedy decode against the two-tier KV cache, folding the recent ring
-into the old tier every ``RECENT_RING`` steps.  One card, no mesh.
+then greedy decode against the per-layer decode states — the two-tier KV
+cache of an attention layer, whose recent ring folds into the old tier
+every ``RECENT_RING`` steps, or the O(1) recurrent state of an rwkv
+layer.  One card, no mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --batch 4 --prompt-len 2048 --gen 96                # on the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
-      --reduced --batch 4 --prompt-len 64 --gen 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --reduced --batch 4 --prompt-len 64 --gen 96 --device cpu
 
-Prefill runs every layer's attention through the hand-written flash
-kernel (one launch per layer on the card); decode attention, the norms,
-rope, the MLPs and the cache compaction are PyTorch ops, as they are jnp
-outside any Pallas kernel in the reference.  Times are host clocks
-around work that ends in ``torch.cuda.synchronize()``.
+Prefill runs every attention layer through the hand-written flash
+kernel and every rwkv layer's WKV6 recurrence through the hand-written
+WKV6 kernel (one launch per layer on the card); decode (attention
+against the cache, rwkv's one-step recurrence), the norms, rope, the
+MLPs and the cache compaction are PyTorch ops, as they are jnp outside
+any Pallas kernel in the reference.  Times are host clocks around work
+that ends in ``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from repro_torch.data import make_batch_for
 from repro_torch.device import resolve_device
 from repro_torch.kernels.launches import launch_counts
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import RECENT_RING, compact_cache
+from repro_torch.models.layers import RECENT_RING, DecodeCache, compact_cache
 from repro_torch.models.registry import Model, build_model
 
 
@@ -61,8 +65,10 @@ def _delta(before: Dict[str, int]) -> Dict[str, int]:
 
 
 def compact_all(caches: List, pos: int) -> List:
-    """Fold the recent ring into the old tier for every attention layer."""
-    return [compact_cache(c, pos) for c in caches]
+    """Fold the recent ring into the old tier for every attention layer;
+    other layers' states (rwkv's) pass through as they are."""
+    return [compact_cache(c, pos) if isinstance(c, DecodeCache) else c
+            for c in caches]
 
 
 def greedy(lg: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -103,6 +109,7 @@ def run(argv=None) -> ServeResult:
     finite = torch.isfinite(lg).all()
     out_tokens = [tok]
     compact_s, compactions = 0.0, 0
+    has_cache = any(isinstance(c, DecodeCache) for c in caches)
     pos = args.prompt_len - 1
     before = launch_counts()
     t0 = time.perf_counter()
@@ -112,7 +119,7 @@ def run(argv=None) -> ServeResult:
         finite = finite & torch.isfinite(lg).all()
         tok = greedy(lg, cfg)
         out_tokens.append(tok)
-        if (i + 1) % RECENT_RING == 0:
+        if has_cache and (i + 1) % RECENT_RING == 0:
             _sync(dev)
             tc = time.perf_counter()
             caches = compact_all(caches, pos)

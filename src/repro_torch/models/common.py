@@ -5,7 +5,7 @@ dimensions plus a layer plan (``layer_groups``) of repeated superblocks.
 The reference scans over a group's repeats; the port loops over
 ``all_blocks``.  ``cdtype`` / ``pdtype`` are torch dtypes.  The MoE, SSM,
 encoder and vision configs come over as plain dataclasses so the config
-modules keep their fields; only the dense family runs in the port so far.
+modules keep their fields; the dense family and rwkv run in the port so far.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Model facade (port of ``repro/models/registry.py``): the same entry
 points for every architecture the port runs — so far the dense
-transformer family."""
+transformer family and rwkv6."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -38,5 +38,5 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    T.check_dense(cfg)
+    T.check_ported(cfg)
     return Model(cfg=cfg)

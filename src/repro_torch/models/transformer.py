@@ -6,8 +6,10 @@ Parameters are a plain dict: ``{"embed", "final_norm", "blocks": [one
 dict per layer, in cfg.all_blocks order]}`` — the reference stacks each
 layer group's repeats for ``lax.scan``; the port loops over layers
 (``convert.lm_params_from_reference`` unstacks).  Caches are a list with
-one ``DecodeCache`` per layer.  Only attention mixers with dense (or no)
-FFNs are ported; the MoE, mamba and rwkv blocks raise.
+one decode state per layer: a ``DecodeCache`` for an attention block, an
+``RWKVState`` for an rwkv block.  Attention mixers with dense (or no)
+FFNs and rwkv blocks (time mix + channel mix) are ported; the MoE and
+mamba blocks raise.
 """
 from __future__ import annotations
 
@@ -16,24 +18,34 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
 from repro_torch.models.common import BlockSpec, ModelConfig
 from repro_torch.models.plan import NULL_PLAN
 
 # the weights that enter matmuls (cast to the compute dtype on every use,
-# as the reference does; compute_params casts them once)
+# as the reference does; compute_params casts them once).  rwkv's decay
+# bias w0 stays f32, and u and ln_x are read in f32.
 _MATMUL_WEIGHTS = frozenset(("wq", "wk", "wv", "wo", "bq", "bk", "bv",
-                             "wi", "wg", "table", "unembed"))
+                             "wi", "wg", "table", "unembed",
+                             "wr", "lora_a", "lora_b", "w_a", "w_b"))
 
 
-def check_dense(cfg: ModelConfig) -> None:
+def _ported(spec: BlockSpec) -> bool:
+    if spec.mixer == "attn":
+        return spec.ffn in ("dense", "none")
+    return spec.mixer == "rwkv" and spec.ffn == "dense"   # + channel mix
+
+
+def check_ported(cfg: ModelConfig) -> None:
     """Raise unless every layer is an attention block with a dense (or
-    no) FFN and the inputs are tokens only: what the port runs so far."""
+    no) FFN or an rwkv block (time mix + channel mix), and the inputs are
+    tokens only: what the port runs so far."""
     for spec in cfg.all_blocks:
-        if spec.mixer != "attn" or spec.ffn not in ("dense", "none"):
+        if not _ported(spec):
             raise NotImplementedError(
                 f"{cfg.arch}: block {spec} is not ported (the port runs "
-                f"attention blocks with dense FFNs; ROADMAP.md queue A "
-                f"item 11)")
+                f"attention blocks with dense FFNs and rwkv blocks; "
+                f"ROADMAP.md queue A)")
     if cfg.is_enc_dec or cfg.vision is not None:
         raise NotImplementedError(f"{cfg.arch}: encoder/vision inputs are "
                                   f"not ported")
@@ -48,11 +60,17 @@ def check_dense(cfg: ModelConfig) -> None:
 
 def init_block(gen, cfg: ModelConfig, spec: BlockSpec, device="cpu"
                ) -> Dict[str, Any]:
-    p: Dict[str, Any] = {"norm1": L.init_norm(cfg, device=device),
-                         "attn": L.init_attention(gen, cfg, device)}
+    p: Dict[str, Any] = {"norm1": L.init_norm(cfg, device=device)}
+    if spec.mixer == "rwkv":
+        p["rwkv_tm"] = R.init_time_mix(gen, cfg, device)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, device)
     if spec.ffn != "none":
         p["norm2"] = L.init_norm(cfg, device=device)
-        p["mlp"] = L.init_mlp(gen, cfg, device=device)
+        if spec.mixer == "rwkv":
+            p["rwkv_cm"] = R.init_channel_mix(gen, cfg, device)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg, device=device)
     return p
 
 
@@ -60,7 +78,7 @@ def init_lm(seed: int, cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
     """Random parameters from a CPU ``torch.Generator`` seeded with
     ``seed`` (so every device gets the same draws), each leaf moved to
     ``device`` as it is drawn."""
-    check_dense(cfg)
+    check_ported(cfg)
     gen = torch.Generator().manual_seed(int(seed))
     return {
         "embed": L.init_embedding(gen, cfg, device),
@@ -115,12 +133,26 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
 
 def block_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
                   plan=NULL_PLAN, return_kv: bool = False):
-    """Returns (x_out, kv or None)."""
+    """Returns (x_out, the state for decode or None): (k, v) for an
+    attention block, (S, x_last, cm_last) for an rwkv block."""
     h = L.apply_norm(p["norm1"], x, cfg)
-    o, kv = attn_forward(p["attn"], h, cfg, spec, plan, return_kv)
+    if spec.mixer == "rwkv":
+        o, S, xl = R.time_mix_forward(p["rwkv_tm"], h, cfg)
+        kv = (S, xl) if return_kv else None
+    else:
+        o, kv = attn_forward(p["attn"], h, cfg, spec, plan, return_kv)
     x = x + o
-    if spec.ffn != "none":
-        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg), cfg)
+    if spec.ffn == "none":
+        return x, kv
+    h = L.apply_norm(p["norm2"], x, cfg)
+    if spec.mixer == "rwkv":
+        prev = torch.cat([h.new_zeros(h.shape[0], 1, h.shape[2]),
+                          h[:, :-1]], dim=1)
+        x = x + R.channel_mix(p["rwkv_cm"], h, prev, cfg)
+        if kv is not None:
+            kv = (*kv, h[:, -1])                          # cm_prev for decode
+    else:
+        x = x + L.apply_mlp(p["mlp"], h, cfg)
     return x, kv
 
 
@@ -130,7 +162,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
 
 def lm_forward(params, cfg: ModelConfig, batch, plan=NULL_PLAN):
-    """Returns (logits [b, s, vocab_pad], aux loss 0.0: dense blocks
+    """Returns (logits [b, s, vocab_pad], aux loss 0.0: the ported blocks
     have no auxiliary loss)."""
     x = _embed_inputs(params, cfg, batch)
     for p, spec in zip(params["blocks"], cfg.all_blocks):
@@ -144,9 +176,9 @@ def lm_forward(params, cfg: ModelConfig, batch, plan=NULL_PLAN):
 # ---------------------------------------------------------------------------
 
 def lm_prefill(params, cfg: ModelConfig, batch, plan=NULL_PLAN
-               ) -> Tuple[torch.Tensor, List[L.DecodeCache]]:
+               ) -> Tuple[torch.Tensor, List[Any]]:
     """Returns (logits [b, vocab_pad] of the last position, one decode
-    cache per layer).  The final norm and the unembedding run on the last
+    state per layer).  The final norm and the unembedding run on the last
     position only (the reference computes them for every position and
     keeps the last row: row for row the same product)."""
     x = _embed_inputs(params, cfg, batch)
@@ -159,8 +191,10 @@ def lm_prefill(params, cfg: ModelConfig, batch, plan=NULL_PLAN
     return L.logits(params["embed"], x, cfg), caches
 
 
-def _to_decode_state(kv, spec: BlockSpec, cfg: ModelConfig, s: int, plan
-                     ) -> L.DecodeCache:
+def _to_decode_state(kv, spec: BlockSpec, cfg: ModelConfig, s: int, plan):
+    if spec.mixer == "rwkv":
+        S, xl, cm_last = kv
+        return R.RWKVState(wkv=S, tm_prev=xl, cm_prev=cm_last)
     k, v = kv                                             # [b, s, kv, hd]
     b, dev, dt = k.shape[0], k.device, cfg.cdtype
     C = plan.cache_chunks
@@ -198,7 +232,8 @@ def _cache_len(cfg: ModelConfig, spec: BlockSpec, total: int, plan) -> int:
 def lm_decode_step(params, cfg: ModelConfig, caches, token: torch.Tensor,
                    pos: int, plan=NULL_PLAN):
     """token: [b] int; pos: the position of ``token``.  Returns (logits
-    [b, vocab_pad], the caches: each ring written in place)."""
+    [b, vocab_pad], the decode states: each attention cache's ring
+    written in place, each rwkv state replaced)."""
     pos = int(pos)
     x = L.embed(params["embed"], token, cfg)              # [b, d]
     new_caches = []
@@ -209,9 +244,11 @@ def lm_decode_step(params, cfg: ModelConfig, caches, token: torch.Tensor,
     return L.logits(params["embed"], x, cfg), new_caches
 
 
-def block_decode(p, x: torch.Tensor, cache: L.DecodeCache, cfg: ModelConfig,
+def block_decode(p, x: torch.Tensor, cache, cfg: ModelConfig,
                  spec: BlockSpec, pos: int, plan=NULL_PLAN):
     """x: [b, d]; returns (x, cache)."""
+    if spec.mixer == "rwkv":
+        return _rwkv_block_decode(p, x, cache, cfg)
     h = L.apply_norm(p["norm1"], x, cfg)
     theta = _rope_theta_for(cfg, spec)
     q, k, v = L.qkv_proj(p["attn"], h[:, None], cfg)      # [b,1,h/kv,hd]
@@ -224,3 +261,16 @@ def block_decode(p, x: torch.Tensor, cache: L.DecodeCache, cfg: ModelConfig,
     if spec.ffn != "none":
         x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg), cfg)
     return x, cache
+
+
+def _rwkv_block_decode(p, x: torch.Tensor, state: R.RWKVState,
+                       cfg: ModelConfig):
+    """One token through an rwkv block: the time mix's one-step
+    recurrence from ``state.wkv`` and ``tm_prev``, then the channel mix
+    shifted against ``cm_prev``.  Returns (x, the new state)."""
+    h = L.apply_norm(p["norm1"], x, cfg)
+    o, S, xl = R.time_mix_decode(p["rwkv_tm"], h, state, cfg)
+    x = x + o
+    h = L.apply_norm(p["norm2"], x, cfg)
+    x = x + R.channel_mix(p["rwkv_cm"], h, state.cm_prev, cfg)
+    return x, R.RWKVState(wkv=S, tm_prev=xl, cm_prev=h)

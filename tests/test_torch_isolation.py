@@ -26,6 +26,7 @@ from repro_torch.core.tasks import MLPTask, make_classification_data
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import quantize as QK
+from repro_torch.kernels import rwkv6_scan as WK
 from repro_torch.kernels import sparse_pack as SK
 from repro_torch.kernels import vc_asgd_update as VK
 
@@ -151,6 +152,12 @@ def test_ops_route_cpu_tensors_to_plain_versions(no_build):
                                                                    2.0))
     body = ops.pack_body(q, sc, torch.arange(300, dtype=torch.int32))
     assert body.dtype == torch.uint8 and body.numel() == 5 * 300 + 8
+    # WKV6 with w = 1, u = 0: out_t = r_t . sum_{s<t} k_s v_s^T
+    r = torch.ones(1, 2, 3, 16)
+    out, S = ops.wkv6(r, r, r, r, torch.zeros(2, 16))
+    assert torch.equal(out, 16.0 * torch.arange(3.0)[:, None].expand(
+        1, 2, 3, 16))
+    assert torch.equal(S, torch.full((1, 2, 16, 16), 3.0))
     assert VK.launch_count() == 0
 
 
@@ -171,15 +178,21 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
         QK.dequantize_int8(q8, torch.ones(1), 4)
     with pytest.raises(ValueError, match="CUDA"):
         SK.pack_body(q8, torch.ones(1), torch.zeros(4, dtype=torch.int32))
+    r = torch.zeros(1, 2, 3, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        WK.wkv6(r, r, r, r, torch.zeros(2, 16))
     with pytest.raises(ValueError):
         ops.fused_lerp_flat(torch.zeros(BLOCK, device="meta"),
                             torch.zeros(BLOCK, device="meta"), 0.5)
+    with pytest.raises(ValueError):
+        m = r.to("meta")
+        ops.wkv6(m, m, m, m, torch.zeros(2, 16, device="meta"))
 
 
 def test_build_targets_live_in_ignored_build_dir():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert set(build.SOURCES) == {"vc_asgd_update", "quantize",
-                                  "sparse_pack", "flash_attention"}
+                                  "sparse_pack", "flash_attention", "wkv6"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"

@@ -11,7 +11,9 @@ division, round half to even, byte copies).  Flash attention (B13) sums
 in another order than the plain version's matmuls and scales the dot
 product where the plain version divides it: 2e-5 in f32 (the reference's
 own blocked-vs-plain tolerance) and tests/test_kernels.py::TOL in bf16
-(2e-2, outputs rounded to bf16).
+(2e-2, outputs rounded to bf16).  The WKV6 recurrence (B14) likewise sums
+in another order: 2e-5 in f32 (the reference's test_wkv6 tolerance), 2e-2
+on bf16 outputs.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.core.flat import BLOCK
 from repro_torch.kernels import flash_attention as FK
 from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import rwkv6_scan as WK
 from repro_torch.kernels import sparse_pack as SK
 from repro_torch.kernels import vc_asgd_update as VK
 
@@ -239,3 +242,65 @@ def test_flash_attention_rejects_what_it_does_not_take(dev):
     q, k, v = _attn_case(dev, 1, 4, 2, 16, 16, 64, torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         FK.flash_attention(q, k.cpu(), v)
+
+
+def _wkv_case(dev, b, h, T, hd, dtype=torch.float32, strided=False,
+              seed=0):
+    """The reference test_wkv6's distributions (w in (0.35, 0.95)); with
+    ``strided``, [b, h, T, hd] views of [b, T, h, hd] buffers, as the
+    model passes its projections."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, T, h, hd) if strided else (b, h, T, hd)
+    rnd = lambda: torch.randn(*shape, generator=g, device=dev)
+    r, k, v = rnd() * 0.4, rnd() * 0.4, rnd()
+    w = torch.sigmoid(rnd()) * 0.6 + 0.35
+    ts = [t.to(dtype) for t in (r, k, v, w)]
+    if strided:
+        ts = [t.transpose(1, 2) for t in ts]
+    return (*ts, torch.randn(h, hd, generator=g, device=dev) * 0.2)
+
+
+@pytest.mark.parametrize("strided", [False, True],
+                         ids=["contiguous", "strided"])
+@pytest.mark.parametrize("hd,T", [(16, 37), (64, 300), (64, 1)])
+def test_wkv6_matches_plain(dev, hd, T, strided):
+    """B14 at the reduced (hd 16, ragged T) and published (hd 64) head
+    dims: 2e-5 in f32 (the reference's test_wkv6 tolerance; the kernel
+    sums each out_t[j] in another order than the plain version)."""
+    args = _wkv_case(dev, 2, 4, T, hd, strided=strided, seed=hd + T)
+    VK.reset_launch_count()
+    out, S = WK.wkv6(*args)
+    assert VK.launch_count("wkv6") == 1
+    want, S_want = R.wkv6(*args)
+    assert out.dtype == torch.float32 and out.shape == args[0].shape
+    assert out.transpose(1, 2).is_contiguous()     # [b, T, h, hd] buffer
+    assert S.dtype == torch.float32 and tuple(S.shape) == (2, 4, hd, hd)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(S, S_want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("hd", WK.HEAD_DIMS)
+def test_wkv6_every_head_dim_in_bf16_storage(dev, hd):
+    """bf16 r/k/v/w, f32 math: out rounded to bf16 (2e-2, as B13), the
+    f32 final state within 2e-5."""
+    args = _wkv_case(dev, 1, 3, 50, hd, dtype=torch.bfloat16, seed=hd)
+    out, S = WK.wkv6(*args)
+    want, S_want = R.wkv6(*args)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(S, S_want, rtol=2e-5, atol=2e-5)
+
+
+def test_wkv6_rejects_what_it_does_not_take(dev):
+    r, k, v, w, u = _wkv_case(dev, 1, 2, 8, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        WK.wkv6(r, k, v, w, u)
+    r, k, v, w, u = _wkv_case(dev, 1, 2, 8, 64, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        WK.wkv6(r, k, v, w, u)
+    r, k, v, w, u = _wkv_case(dev, 1, 2, 8, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        WK.wkv6(r, k, v, w, u.cpu())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        WK.wkv6(r, k, v, w, u.to(torch.bfloat16))

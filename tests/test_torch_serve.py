@@ -3,7 +3,8 @@
 * ``make_batch_for`` gives the reference's tokens bit for bit (both draw
   them with numpy);
 * ``launch.serve`` runs end to end at reduced scale when asked for the
-  CPU (every dense architecture; one run crosses a compaction), builds
+  CPU (every ported architecture; one dense run crosses a compaction,
+  one rwkv6 run crosses step 64 and leaves its states alone), builds
   no kernel there, and its greedy tokens are the model's own greedy
   decode;
 * without ``--device`` it runs on the card, so with no card it raises,
@@ -26,6 +27,7 @@ from repro_torch.kernels import build, launches
 from repro_torch.launch import serve
 from repro_torch.models.layers import RECENT_RING
 from repro_torch.models.registry import build_model
+from repro_torch.models.rwkv import RWKVState
 
 torch.set_num_threads(2)
 
@@ -58,7 +60,7 @@ def no_build(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2.5-14b",
-                                  "stablelm-3b", "gemma3-4b"])
+                                  "stablelm-3b", "gemma3-4b", "rwkv6-1.6b"])
 def test_serve_main_runs_reduced_on_the_cpu(arch, no_build, capsys):
     assert serve.main(["--arch", arch, "--reduced", "--batch", "2",
                        "--prompt-len", "24", "--gen", "5",
@@ -105,6 +107,41 @@ def test_serve_run_crosses_a_compaction_and_decodes_greedily(no_build):
     assert torch.equal(res.tokens, torch.stack(want, 1))
 
 
+def test_serve_rwkv_crosses_step_64_without_compacting_its_states(no_build):
+    """rwkv6's decode states are O(1) recurrent states: the serve loop
+    runs past step 64 (where it folds attention caches) and leaves them
+    as they are; its greedy tokens are the model's own greedy decode."""
+    launches.reset_launch_count()
+    gen = RECENT_RING + 3
+    res = serve.run(["--arch", "rwkv6-1.6b", "--reduced", "--batch", "2",
+                     "--prompt-len", "30", "--gen", str(gen), "--seed", "4",
+                     "--device", "cpu"])
+    assert res.compactions == 0 and res.compact_s == 0.0
+    assert res.logits_finite and tuple(res.tokens.shape) == (2, gen + 1)
+    assert launches.launch_count() == 0
+    cfg = get_reduced("rwkv6-1.6b")
+    assert len(res.caches) == cfg.n_layers
+    for st in res.caches:
+        assert isinstance(st, RWKVState)
+        assert tuple(st.wkv.shape) == (2, 4, 16, 16)
+        assert st.wkv.dtype == torch.float32
+        assert tuple(st.tm_prev.shape) == tuple(st.cm_prev.shape) == (2, 64)
+
+    model = build_model(cfg)
+    params = model.compute_params(model.init(4, device="cpu"))
+    tokens = make_batch_for(cfg, 2, 30, 4)["tokens"]
+    lg, states = model.prefill(params, {"tokens": tokens})
+    tok = serve.greedy(lg, cfg)
+    want = [tok]
+    for i in range(gen):
+        lg, states = model.decode_step(params, states, tok, 30 + i)
+        tok = serve.greedy(lg, cfg)
+        want.append(tok)
+    assert torch.equal(res.tokens, torch.stack(want, 1))
+    for got, st in zip(res.caches, states):
+        assert all(torch.equal(a, b) for a, b in zip(got, st))
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -128,3 +165,24 @@ def test_model_entry_points_raise_without_gpu(no_gpu):
         C.lm_params_from_reference(tree, cfg)
     assert C.lm_params_from_reference(tree, cfg, "cpu")["blocks"][1][
         "attn"]["wq"].device.type == "cpu"
+
+    # the rwkv6 model's entry points and converters likewise
+    cfg = get_reduced("rwkv6-1.6b")
+    with pytest.raises(RuntimeError):
+        build_model(cfg).init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(["--arch", "rwkv6-1.6b", "--reduced", "--gen", "1"])
+    rcfg = ref_get_reduced("rwkv6-1.6b").replace(compute_dtype="float32")
+    rmodel = ref_build_model(rcfg)
+    tree = rmodel.init(jax.random.PRNGKey(0))
+    _, states = rmodel.prefill(tree, {"tokens": np.zeros((2, 5), np.int32)})
+    tree, states = (jax.tree.map(np.asarray, t) for t in (tree, states))
+    with pytest.raises(RuntimeError):
+        C.lm_params_from_reference(tree, cfg)
+    with pytest.raises(RuntimeError):
+        C.caches_from_reference(states, cfg)
+    p = C.lm_params_from_reference(tree, cfg, "cpu")["blocks"][1]
+    assert p["rwkv_tm"]["u"].device.type == "cpu"
+    st = C.caches_from_reference(states, cfg, "cpu")
+    assert [type(s) for s in st] == [RWKVState] * cfg.n_layers
+    assert st[0].wkv.dtype == torch.float32

@@ -49,6 +49,7 @@ from repro_torch.core.baselines import VCASGD
 from repro_torch.core.simulator import SimConfig, run_simulation
 from repro_torch.core.tasks import MLPTask, make_classification_data
 from repro_torch.core.vc_asgd import var_alpha
+from repro_torch.kernels.launches import KERNELS
 from test_torch_tasks import InjectedDraws
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -164,3 +165,5 @@ def test_pinned_flat_mlp_case_replays(name):
     for a, r, w in zip(port_acc, ref_acc, pin_acc):
         assert abs(a - r) <= 0.02
         assert abs(a - w) <= 0.07
+    # chip_smoke holds the card's launches to these: one entry a kernel
+    assert set(CS.implied_launches(scheme, res)) == set(KERNELS)
