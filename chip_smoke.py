@@ -65,9 +65,10 @@ a card, or outside a checkout.  Phases:
       profiler's device-busy share of 32 further decode steps;
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
       prompt tokens and 72 decode steps (one compaction) on the card and
-      on the CPU from the same weights, the CPU fed the card's tokens:
-      prefill and every step's logits within CMP_TOL, in f32 and in the
-      shipped bf16 compute; the CPU run launches nothing.
+      on the CPU from one draw of the weights, in f32 and in the shipped
+      bf16 compute; the f32 card run decodes greedily and the other runs
+      are fed its tokens: prefill and every step's logits card vs CPU
+      within CMP_TOL; the CPU run launches nothing.
 7. serve rwkv6 — launch/serve.py for the SSM family:
    a. the WKV6 recurrence (B14) against its plain version at rwkv6's
       prefill shape ([4,32,2048,64] f32), the reduced head dim (hd 16,
@@ -84,7 +85,28 @@ a card, or outside a checkout.  Phases:
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
       prompt tokens and 72 decode steps on the card and on the CPU from
       the same weights, as 6c.
-8. a ``kernels`` JSON line, the nvidia-smi line, and the last line
+8. serve jamba — launch/serve.py for the hybrid mamba / attention / MoE
+   family:
+   a. the selective scan (B15) against its plain version at jamba's
+      prefill shape ([4, 2048, 8192], ds 16, u in bf16, dt/B/C in f32),
+      the reduced shape (di 128, ds 4, a ragged 37 steps, f32), T = 1,
+      and B/C as the column views of an x_proj output the model passes
+      (y within 2e-5 in f32 and 2e-2 in bf16, h_T within 2e-5); kernel,
+      plain and bound ms at each (the bound counts bytes, the exps at
+      the SFU's rate and the FMAs; no PyTorch call computes the scan);
+   b. serve.serve at jamba-v0.1's full width cut to one layer group (the
+      published 8-layer period: 7 mamba layers, attention at index 4, MoE
+      on the odd layers; 13,295,235,072 parameters from the port's init,
+      seed 0, cast to bf16 as each layer is placed): batch 4 x 2,048
+      prompt tokens, 96 greedy decode steps; finite logits, 7 B15 and 1
+      B13 launches in prefill, none in decode, one compaction; init
+      seconds, prefill (cold and warm), decode and compaction times,
+      tokens/s, peak device memory and the profiler's device-busy share
+      of the warm prefill and of 32 further decode steps;
+   c. blocks 3 and 4 of the period (mamba + MoE, then attention + dense)
+      at full width on the card and on the CPU, as 6c, with the MoE
+      routes that differ between card and CPU counted.
+9. a ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -203,6 +225,7 @@ def implied_launches(scheme, res) -> dict:
         "pack_body": sparse_submits,
         "flash_attention": 0,
         "wkv6": 0,
+        "mamba_scan": 0,
     }
 
 
@@ -877,80 +900,179 @@ def report_profile(prof, label: str, wall: float) -> None:
             f"x{e.count:<6d} {e.key[:70]}")
 
 
-def serve_card_vs_cpu(torch, VK, arch: str, kernel: str) -> None:
-    """Phases 6c and 7c: ``arch`` at full width, 2 layers, batch 2 x 256
-    prompt tokens, then 72 decode steps (across step 64, where attention
-    caches are compacted), on the card and on the CPU from the same
-    weights; the CPU run is fed the card's tokens.  Prefill and every
-    step's logits compared, in f32 and in the shipped bf16 compute; the
-    card's prefill launches ``kernel`` once a layer."""
+def depth_cut(arch: str, n_layers: int = CMP_LAYERS):
+    """``arch`` at full width, its first block repeated ``n_layers`` times
+    (a uniform stack: the dense family, rwkv6)."""
     from repro_torch.configs import get_config
+    from repro_torch.models.common import uniform_groups
+    full = get_config(arch)
+    return full.replace(layer_groups=uniform_groups(n_layers,
+                                                    full.all_blocks[0]))
+
+
+def _tree_to(node, dev):
+    """A parameter tree of dicts and lists with every tensor on ``dev``."""
+    if isinstance(node, dict):
+        return {k: _tree_to(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_to(v, dev) for v in node]
+    return node.to(dev)
+
+
+# A (token, layer) MoE route that differs between card and CPU must be a
+# near-tie: the CPU's router log-probabilities of the experts swapped
+# differ by at most 2^-4, four bf16 ulps of a router logit below 4 (bf16
+# rounds the logits before the softmax, and card and CPU round their
+# inputs in different places)
+ROUTE_TIE_GAP = 2.0 ** -4
+
+
+class RouteLog:
+    """Records each MoE router call (``layers.route``) of a run, in call
+    order: the router's probabilities and the experts it picks.  With
+    ``replay`` (another run's log of the same schedule) the run is fed
+    that run's experts instead, as a run is fed another's tokens: it
+    gates them with its own probabilities, renormalised as ``route``
+    does, and its own picks are still recorded."""
+
+    def __init__(self, replay=None):
+        self.probs, self.calls, self.replay = [], [], replay
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._L, self._route = L, L.route
+
+        def spy(p, x, cfg):
+            probs, top_p, top_i = self._route(p, x, cfg)
+            self.probs.append(probs.cpu())
+            self.calls.append(top_i.cpu())
+            if self.replay is not None:
+                top_i = self.replay.calls[len(self.calls) - 1].to(
+                    top_i.device)
+                top_p = probs.gather(-1, top_i)
+                top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+            return probs, top_p, top_i
+        L.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._L.route = self._route
+
+
+def routes_differing(ref: "RouteLog", run: "RouteLog") -> tuple:
+    """(routes whose expert sets differ between the two runs, routes
+    compared, the largest log-probability gap under ``run``'s router
+    between an expert only ``run`` picked and one only ``ref`` picked)."""
+    import torch
+    diff = total = 0
+    gap = 0.0
+    for a, b, probs in zip(ref.calls, run.calls, run.probs):
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        logp = probs.reshape(-1, probs.shape[-1]).clamp(min=1e-30).log()
+        rows = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        diff += int(rows.sum())
+        total += a.shape[0]
+        for r in torch.nonzero(rows).flatten().tolist():
+            only_run = [e for e in b[r].tolist() if e not in a[r].tolist()]
+            only_ref = [e for e in a[r].tolist() if e not in b[r].tolist()]
+            gap = max(gap, float(logp[r, only_run].min()
+                                 - logp[r, only_ref].max()))
+    return diff, total, gap
+
+
+def serve_card_vs_cpu(torch, VK, cut, launches: dict) -> None:
+    """Phases 6c, 7c and 8c: the depth-cut config ``cut`` (full width) at
+    batch 2 x 256 prompt tokens, then 72 decode steps (across step 64,
+    where attention caches are compacted), on the card and on the CPU
+    from one set of weights (drawn once, in f32), in f32 and in the
+    shipped bf16 compute.  The f32 card run decodes greedily; the other
+    three runs are fed its tokens, so every run sees one schedule, and an
+    MoE's CPU run is fed the card's expert routes (RouteLog): a route
+    that differs is a discrete choice at a near-tie, which would move
+    that token's output by a whole expert's.  Prefill and every step's
+    logits compared card vs CPU; every route that differs must be a
+    near-tie (ROUTE_TIE_GAP); the card's prefill launches ``launches``,
+    the CPU run nothing.  Also reported: each bf16 run's distance from
+    the CPU's f32 logits."""
     from repro_torch.data import make_batch_for
     from repro_torch.launch.serve import compact_all, greedy
-    from repro_torch.models.common import uniform_groups
     from repro_torch.models.layers import RECENT_RING
     from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    master = build_model(cut).init(0, device="cpu")     # parameter dtype
+    tokens = make_batch_for(cut, CMP_BATCH, CMP_PROMPT, 0)["tokens"]
+    t_init = time.perf_counter() - t0
+    fed, f32_cpu = [], None
     for dt in ("float32", "bfloat16"):
-        full = get_config(arch)
-        cfg = full.replace(
-            layer_groups=uniform_groups(CMP_LAYERS, full.all_blocks[0]),
-            compute_dtype=dt)
+        cfg = cut.replace(compute_dtype=dt)
         model = build_model(cfg)
-        t0 = time.perf_counter()
-        p_cpu = model.compute_params(model.init(0, device="cpu"))
-        p_gpu = {"embed": {k: t.cuda() for k, t in p_cpu["embed"].items()},
-                 "final_norm": {k: t.cuda()
-                                for k, t in p_cpu["final_norm"].items()},
-                 "blocks": [{n: {k: t.cuda() for k, t in sub.items()}
-                             for n, sub in blk.items()}
-                            for blk in p_cpu["blocks"]]}
-        tokens = make_batch_for(cfg, CMP_BATCH, CMP_PROMPT, 0)["tokens"]
-        t_init = time.perf_counter() - t0
+        p_cpu = model.compute_params(master)
+        p_gpu = _tree_to(p_cpu, torch.device("cuda"))
         runs = {}
         for run, dev, params in (("card", "cuda", p_gpu),
                                  ("cpu", "cpu", p_cpu)):
-            fed = runs["card"][1] if run == "cpu" else []
             VK.reset_launch_count()
             t0 = time.perf_counter()
-            lg, caches = model.prefill(params, {"tokens": tokens.to(dev)})
-            logits = [lg.float().cpu()]
-            for i in range(CMP_STEPS):
-                if run == "card":          # the CPU is fed the card's tokens
-                    fed.append(greedy(lg, cfg))
-                lg, caches = model.decode_step(params, caches,
-                                               fed[i].to(dev), CMP_PROMPT + i)
-                logits.append(lg.float().cpu())
-                if (i + 1) % RECENT_RING == 0:
-                    caches = compact_all(caches, CMP_PROMPT + i)
-            runs[run] = (logits, fed, VK.launch_counts(),
-                         time.perf_counter() - t0)
-        g_logits, _, g_counts, g_wall = runs["card"]
-        c_logits, _, c_counts, c_wall = runs["cpu"]
-        check(g_counts == {**dict.fromkeys(VK.KERNELS, 0),
-                           kernel: CMP_LAYERS},
+            replay = runs["card"][3] if run == "cpu" else None
+            with RouteLog(replay) as routes:
+                lg, caches = model.prefill(params,
+                                           {"tokens": tokens.to(dev)})
+                logits = [lg.float().cpu()]
+                for i in range(CMP_STEPS):
+                    if len(fed) == i:       # the f32 card run's greedy
+                        fed.append(greedy(lg, cfg).cpu())
+                    lg, caches = model.decode_step(
+                        params, caches, fed[i].to(dev), CMP_PROMPT + i)
+                    logits.append(lg.float().cpu())
+                    if (i + 1) % RECENT_RING == 0:
+                        caches = compact_all(caches, CMP_PROMPT + i)
+            runs[run] = (logits, VK.launch_counts(),
+                         time.perf_counter() - t0, routes)
+        g_logits, g_counts, g_wall, g_routes = runs["card"]
+        c_logits, c_counts, c_wall, c_routes = runs["cpu"]
+        check(g_counts == {**dict.fromkeys(VK.KERNELS, 0), **launches},
               f"card vs cpu {dt}: card launches {g_counts}")
         check(sum(c_counts.values()) == 0,
               f"card vs cpu {dt}: the CPU run launched {c_counts}")
         v = cfg.vocab_size
-        errs = [float((a[:, :v] - b[:, :v]).abs().max())
-                for a, b in zip(g_logits, c_logits)]
+        dist = lambda xs, ys: [float((a[:, :v] - b[:, :v]).abs().max())
+                               for a, b in zip(xs, ys)]
+        errs = dist(g_logits, c_logits)
         scale = max(float(a[:, :v].abs().max()) for a in g_logits)
         agree = sum(bool(torch.equal(a[:, :v].argmax(-1), b[:, :v].argmax(-1)))
                     for a, b in zip(g_logits, c_logits))
         finite = all(bool(torch.isfinite(a).all()) for a in g_logits)
         worst = max(range(CMP_STEPS), key=lambda i: errs[1 + i])
-        say(f"card vs cpu {arch} {dt} ({CMP_LAYERS} layers, "
+        say(f"card vs cpu {cut.arch} {dt} ({cut.n_layers} layers "
+            f"{''.join(b.short() for b in cut.all_blocks)}, "
             f"{CMP_BATCH}x{CMP_PROMPT} + {CMP_STEPS} steps): logits max abs "
             f"err prefill {errs[0]:.4g}, decode {max(errs[1:]):.4g} (step "
             f"{worst}), mean over steps {sum(errs) / len(errs):.4g}; "
             f"logit scale {scale:.3f}; argmax equal in {agree}/{len(errs)} "
             f"steps; wall card {g_wall:.2f} s, cpu {c_wall:.2f} s, init "
             f"{t_init:.2f} s; tol {CMP_TOL[dt]}")
+        if g_routes.calls:
+            diff, total, gap = routes_differing(g_routes, c_routes)
+            say(f"card vs cpu {cut.arch} {dt}: {diff} of {total} (token, "
+                f"layer) MoE routes differ (the CPU fed the card's); "
+                f"largest log-probability gap of a differing route {gap:.4g}"
+                f" (near-tie bound {ROUTE_TIE_GAP})")
+            check(gap <= ROUTE_TIE_GAP,
+                  f"card vs cpu {dt}: an MoE route differs by a "
+                  f"log-probability gap of {gap} > {ROUTE_TIE_GAP}")
+        if dt == "float32":
+            f32_cpu = c_logits
+        else:
+            for run, xs in (("card", g_logits), ("cpu", c_logits)):
+                e = dist(xs, f32_cpu)
+                say(f"card vs cpu {cut.arch}: {run} bf16 vs cpu f32 logits "
+                    f"max abs err {max(e):.4g}, mean over steps "
+                    f"{sum(e) / len(e):.4g}")
         check(finite, f"card vs cpu {dt}: non-finite card logits")
         check(max(errs) <= CMP_TOL[dt],
               f"card vs cpu {dt}: logits differ by {max(errs)} > "
               f"{CMP_TOL[dt]}")
-        del p_gpu, runs
+        del p_gpu, p_cpu, runs
         torch.cuda.empty_cache()
 
 
@@ -1065,6 +1187,173 @@ def serve_rwkv_full_width(torch, VK) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serve jamba
+# ---------------------------------------------------------------------------
+
+# kernel vs plain: y 2e-5 in f32 (the reference's test_mamba_scan
+# tolerance), 2e-2 in bf16 storage (one rounding of y to bf16, as B13);
+# the f32 final state h_T 2e-5
+SCAN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# B15 at the serving path's prefill shape and the others:
+# (b, T, di, ds, u / y dtype, B / C as column views of an x_proj output)
+SCAN_SHAPES = {
+    "a jamba prefill": (4, 2048, 8192, 16, "bfloat16", False),
+    "b reduced ragged": (2, 37, 128, 4, "float32", False),
+    "c T=1": (4, 1, 8192, 16, "bfloat16", False),
+    "d strided views": (4, 2048, 8192, 16, "bfloat16", True),
+}
+SFU_PER_CLOCK = 16               # exp results a clock per SM (sm_90)
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 4, 2048, 96
+JAMBA_PARAMS = 13_295_235_072    # one layer group (8 layers), full width
+JAMBA_SCANS, JAMBA_ATTNS = 7, 1  # B15 / B13 launches per one-group prefill
+JAMBA_CMP_BLOCKS = (3, 4)        # mamba + MoE, then attention + dense
+
+
+def jamba_config(blocks=None):
+    """jamba-v0.1-52b at its full published width cut to one layer group:
+    the published 8-layer period (attention at index 4, MoE on the odd
+    layers), or the period's ``blocks``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import LayerGroup
+    full = get_config("jamba-v0.1-52b")
+    period = full.layer_groups[0].blocks
+    picked = period if blocks is None else tuple(period[i] for i in blocks)
+    return full.replace(layer_groups=(LayerGroup(picked, 1),))
+
+
+def sfu_exps_per_s(torch) -> float:
+    """The card's exp rate: SFU_PER_CLOCK a clock per SM at the SM clock's
+    maximum (nvidia-smi)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"SFU exp rate: {SFU_PER_CLOCK} a clock x {sms} SMs x {mhz:.0f} MHz"
+        f" = {SFU_PER_CLOCK * sms * mhz * 1e6:.4g} /s")
+    return SFU_PER_CLOCK * sms * mhz * 1e6
+
+
+def mamba_scan_parity(torch, MK, R) -> dict:
+    """B15 against its plain version at SCAN_SHAPES (y and the final
+    state); kernel, plain and bound ms at each.  Returns the record of
+    shape (a)."""
+    dev = torch.device("cuda")
+    exp_rate = sfu_exps_per_s(torch)
+    out = None
+    for name, (b, T, di, ds, dt, strided) in SCAN_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(T + di + ds)
+        rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+        dtype = getattr(torch, dt)
+        u = (rnd(b, T, di) * 0.4).to(dtype)
+        dts = torch.nn.functional.softplus(rnd(b, T, di))
+        if strided:                     # [dt_r | B | C] as x_proj writes it
+            xdbc = rnd(b, T, 256 + 2 * ds) * 0.4
+            B, C = xdbc[..., 256:256 + ds], xdbc[..., 256 + ds:]
+        else:
+            B, C = rnd(b, T, ds) * 0.4, rnd(b, T, ds) * 0.4
+        A = -torch.exp(rnd(di, ds) * 0.3)
+        D = torch.ones(di, device=dev)
+        args = (u, dts, B, C, A, D)
+        (y, h), (y_p, h_p) = MK.mamba_scan(*args), R.mamba_scan(*args)
+        torch.cuda.synchronize()
+        err = max(float((y.float() - y_p.float()).abs().max()),
+                  float((h - h_p).abs().max()))
+        tol = SCAN_TOL[dt]
+        check(torch.allclose(y.float(), y_p.float(), rtol=tol, atol=tol)
+              and torch.allclose(h, h_p, rtol=2e-5, atol=2e-5),
+              f"B15 {name}: kernel vs plain max abs err {err} (tol {tol}, "
+              f"h_T 2e-5)")
+        del y, h, y_p, h_p
+        n, esize = b * T * di, u.element_size()
+        nbytes = (2 * esize * n + 4 * n + 4 * 2 * b * T * ds
+                  + 4 * (b * di * ds + di * ds + di))
+        t_mem = nbytes / HBM_BYTES_PER_S
+        t_exp = n * ds / exp_rate       # one exp per state per step
+        t_fma = 5 * n * ds / F32_OPS_PER_S
+        bound = 1e3 * max(t_mem, t_exp, t_fma)
+        rec = {"max_abs_err": err, "bound_ms": bound,
+               "bound_by": "bytes" if t_mem >= max(t_exp, t_fma)
+               else "operations",
+               "ms": time_ms(torch, lambda: MK.mamba_scan(*args), 10),
+               "plain_ms": time_ms(torch, lambda: R.mamba_scan(*args), 1),
+               "library_ms": None}      # no PyTorch call computes the scan
+        say(f"B15 {name} [{b},{T},{di}] ds {ds} u {dt}"
+            f"{' strided B/C' if strided else ''}: max abs err {err:.3g} "
+            f"(tol {tol}); kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, library none, bound {bound:.4f} ms "
+            f"({rec['bound_by']}: {nbytes / 1e6:.1f} MB {1e3 * t_mem:.4f} "
+            f"ms, {n * ds / 1e9:.3f} G exps {1e3 * t_exp:.4f} ms, "
+            f"{5 * n * ds / 1e9:.2f} GFLOP {1e3 * t_fma:.4f} ms)")
+        if out is None:
+            out = rec
+        del args, u, dts, B, C
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_jamba_full_width(torch, VK) -> dict:
+    """Phase 8b: launch/serve.py's ``serve`` at jamba-v0.1's full width,
+    one layer group (JAMBA_PARAMS parameters, weights from the port's own
+    init, seed 0), batch 4 x 2,048 prompt tokens, 96 greedy decode steps
+    (one compaction of the attention layer's cache; the mamba states pass
+    through).  Returns the run's launches."""
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import DecodeCache
+    from repro_torch.models.mamba import MambaState
+    cfg = jamba_config()
+    b, s, gen = JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN
+    zero = dict.fromkeys(VK.KERNELS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    VK.reset_launch_count()
+    t0 = time.perf_counter()
+    res = serve.serve(cfg, b, s, gen, seed=0, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = VK.launch_counts()
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    check(n_params == JAMBA_PARAMS, f"jamba serve: {n_params} parameters")
+    check(res.logits_finite, "jamba serve: non-finite logits")
+    check(tuple(res.tokens.shape) == (b, gen + 1)
+          and int(res.tokens.max()) < cfg.vocab_size
+          and int(res.tokens.min()) >= 0, "jamba serve: tokens out of range")
+    check(res.launches_prefill == {**zero, "mamba_scan": JAMBA_SCANS,
+                                   "flash_attention": JAMBA_ATTNS},
+          f"jamba serve: prefill launches {res.launches_prefill}")
+    check(res.launches_decode == zero,
+          f"jamba serve: decode launches {res.launches_decode}")
+    check(res.compactions == 1, f"jamba serve: {res.compactions} compactions")
+    want = [DecodeCache if spec.mixer == "attn" else MambaState
+            for spec in cfg.all_blocks]
+    check([type(c) for c in res.caches] == want,
+          "jamba serve: decode states are not one MambaState a mamba layer "
+          "and one DecodeCache an attention layer")
+    check(counts == res.launches_prefill, f"jamba serve: launches {counts}")
+    step_s = (res.decode_s - res.compact_s) / gen
+    say(f"jamba serve {cfg.describe()}, {n_params:,} parameters")
+    say(f"jamba serve init {res.init_s:.3f} s (drawn on the CPU, cast to "
+        f"bf16 as each layer is placed)")
+    say(f"jamba serve prefill {b}x{s}: {1e3 * res.prefill_s:.3f} ms, "
+        f"{b * s / res.prefill_s:.1f} tok/s; B15 launches "
+        f"{res.launches_prefill['mamba_scan']}, B13 launches "
+        f"{res.launches_prefill['flash_attention']}")
+    say(f"jamba serve decode {gen} steps: loop {1e3 * res.decode_s:.3f} ms, "
+        f"{1e3 * step_s:.3f} ms/step without compaction, "
+        f"{b * gen / res.decode_s:.1f} tok/s; B15 launches "
+        f"{res.launches_decode['mamba_scan']}, B13 launches "
+        f"{res.launches_decode['flash_attention']}")
+    say(f"jamba serve compaction: {res.compactions} in "
+        f"{1e3 * res.compact_s:.3f} ms")
+    say(f"jamba serve peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; serve wall "
+        f"{wall:.3f} s (weight init included)")
+    profile_prefill(torch, res, b, s)
+    profile_decode(torch, res)
+    del res
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -1086,6 +1375,7 @@ def main() -> int:
     from repro_torch.core import vc_asgd as V
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import mamba_scan as MK
     from repro_torch.kernels import quantize as QK
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import rwkv6_scan as WK
@@ -1214,19 +1504,28 @@ def main() -> int:
     numbers["flash_attention"] = attention_parity(torch, np, FK, R)   # 6a
     torch.cuda.empty_cache()
     serve_counts = serve_full_width(torch, VK)                        # 6b
-    serve_card_vs_cpu(torch, VK, "internlm2-1.8b", "flash_attention")  # 6c
+    serve_card_vs_cpu(torch, VK, depth_cut("internlm2-1.8b"),       # 6c
+                      {"flash_attention": CMP_LAYERS})
 
     # ---- 7. serve rwkv6: B14, rwkv6-1.6b at full width, card vs CPU -----
     numbers["wkv6"] = wkv6_parity(torch, WK, R)                       # 7a
     rwkv_counts = serve_rwkv_full_width(torch, VK)                    # 7b
-    serve_card_vs_cpu(torch, VK, "rwkv6-1.6b", "wkv6")                # 7c
+    serve_card_vs_cpu(torch, VK, depth_cut("rwkv6-1.6b"),           # 7c
+                      {"wkv6": CMP_LAYERS})
 
-    # ---- 8. result lines --------------------------------------------------
+    # ---- 8. serve jamba: B15, jamba-v0.1 one group at full width --------
+    numbers["mamba_scan"] = mamba_scan_parity(torch, MK, R)           # 8a
+    jamba_counts = serve_jamba_full_width(torch, VK)                  # 8b
+    serve_card_vs_cpu(torch, VK, jamba_config(JAMBA_CMP_BLOCKS),      # 8c
+                      {"mamba_scan": 1, "flash_attention": 1})
+
+    # ---- 9. result lines --------------------------------------------------
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
                    "adam_update_flat": main_counts,      # 4c
                    "flash_attention": serve_counts,      # 6b
-                   "wkv6": rwkv_counts}                  # 7b
+                   "wkv6": rwkv_counts,                  # 7b
+                   "mamba_scan": jamba_counts}           # 8b
     kernels = []
     for name in VK.KERNELS:
         r = numbers[name]

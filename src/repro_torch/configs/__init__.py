@@ -1,10 +1,10 @@
-"""Architecture configs (port of ``repro/configs``): the dense family and
-rwkv6 (the SSM family).
+"""Architecture configs (port of ``repro/configs``): the dense family,
+rwkv6 (the SSM family) and jamba (the hybrid mamba/attention/MoE family).
 
 Each module exposes ``config()`` (the published configuration) and
 ``reduced()`` (a tiny same-family config for CPU tests), copied field for
 field from the reference.  The other families of the reference (MoE,
-hybrid, VLM, audio) are not ported yet: asking for one raises a
+VLM, audio) are not ported yet: asking for one raises a
 ``KeyError`` that says where they stand.
 """
 from __future__ import annotations
@@ -19,6 +19,7 @@ _ARCH_MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1",
 }
 # the reference's other architectures, by family
 _NOT_PORTED = {
@@ -26,7 +27,6 @@ _NOT_PORTED = {
     "whisper-tiny": "audio",
     "granite-moe-1b-a400m": "moe",
     "mixtral-8x7b": "moe",
-    "jamba-v0.1-52b": "hybrid",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

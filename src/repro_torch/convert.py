@@ -3,7 +3,8 @@
 Every function takes the reference's objects as numpy arrays or anything
 ``np.asarray`` reads (a tree of them, a flat bus buffer with its
 ``TreeSpec.meta()``, a ``CompressedDelta``, a scheme state, an LM's
-parameter tree or decode states), so the two
+parameter tree — attention, mamba, rwkv and MoE leaves alike — or its
+decode states), so the two
 packages can be started from the same state and compared.  Nothing here
 imports the reference: its objects are read by attribute.
 """
@@ -18,6 +19,7 @@ from repro_torch.core import flat as F
 from repro_torch.core.compression import CompressedDelta
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import DecodeCache
+from repro_torch.models.mamba import MambaState
 from repro_torch.models.rwkv import RWKVState
 
 
@@ -115,17 +117,21 @@ def lm_params_from_reference(tree_of_numpy, cfg, device="cuda") -> dict:
             "blocks": blocks}
 
 
+_STATES = {"attn": DecodeCache, "mamba": MambaState, "rwkv": RWKVState}
+
+
 def caches_from_reference(caches, cfg, device="cuda") -> list:
     """The reference's decode states — a tuple over layer groups of tuples
-    over the group's blocks of ``DecodeCache``s (attention) or
-    ``RWKVState``s (rwkv) stacked ``[repeats, ...]`` — -> the port's list
-    of one ``DecodeCache`` or ``RWKVState`` per layer on ``device``."""
+    over the group's blocks of ``DecodeCache``s (attention),
+    ``MambaState``s (mamba) or ``RWKVState``s (rwkv) stacked
+    ``[repeats, ...]`` — -> the port's list of one such state per layer
+    on ``device``."""
     dev = resolve_device(device)
     out = []
     for gi, g in enumerate(cfg.layer_groups):
         for r in range(g.repeats):
             for bi, spec in enumerate(g.blocks):
-                state = RWKVState if spec.mixer == "rwkv" else DecodeCache
+                state = _STATES[spec.mixer]
                 out.append(state(*(_tensor(np.asarray(f)[r], dev)
                                    for f in caches[gi][bi])))
     return out

@@ -24,6 +24,7 @@ KERNELS = (
     "pack_body",                # B12, csrc/sparse_pack.cu
     "flash_attention",          # B13, csrc/flash_attention.cu
     "wkv6",                     # B14, csrc/wkv6.cu
+    "mamba_scan",               # B15, csrc/mamba_scan.cu
 )
 _CSRC = "src/repro_torch/kernels/csrc/"
 # each kernel's source in the repo, and the Pallas kernel it replaces
@@ -37,6 +38,7 @@ SOURCE = {
     "pack_body": _CSRC + "sparse_pack.cu",
     "flash_attention": _CSRC + "flash_attention.cu",
     "wkv6": _CSRC + "wkv6.cu",
+    "mamba_scan": _CSRC + "mamba_scan.cu",
 }
 REPLACES = {
     "vc_asgd_lerp_flat": "src/repro/kernels/vc_asgd_update.py:49",
@@ -48,6 +50,7 @@ REPLACES = {
     "pack_body": "src/repro/kernels/sparse_pack.py:51",
     "flash_attention": "src/repro/kernels/flash_attention.py:23",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:19",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:20",
 }
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

@@ -12,6 +12,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import rwkv6_scan as _rw
@@ -99,3 +100,12 @@ def wkv6(r, k, v, w, u):
     if _on_cuda(r):
         return _rw.wkv6(r, k, v, w, u)
     return R.wkv6(r, k, v, w, u)
+
+
+def mamba_scan(u, dt, B, C, A, D):
+    """u / dt [b, T, di], B / C [b, T, ds], A [di, ds], D [di] -> (y
+    [b, T, di] in u's dtype, final state h_T [b, di, ds] f32): the
+    selective scan from a zero state — ONE launch."""
+    if _on_cuda(u):
+        return _ms.mamba_scan(u, dt, B, C, A, D)
+    return R.mamba_scan(u, dt, B, C, A, D)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the flat-bus updates, the
-int8 codec, the sparse-body pack, attention and the WKV6 recurrence): what ``ops`` runs for CPU tensors
+int8 codec, the sparse-body pack, attention, the WKV6 recurrence and the
+selective scan): what ``ops`` runs for CPU tensors
 and what ``chip_smoke.py`` holds each CUDA kernel against.
 
 Each mirrors the reference's arithmetic operation by operation — separate
@@ -165,3 +166,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                      * rf[:, :, t, :, None]).sum(dim=2))
         S = wf[:, :, t, :, None] * S + kv
     return torch.stack(outs, dim=2).to(r.dtype), S
+
+
+def mamba_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, A: torch.Tensor, D: torch.Tensor):
+    """The selective scan, step by step from h = 0, all in f32 — the
+    reference's ``ref.mamba_scan`` in the same operation order.  u / dt
+    [b, T, di], B / C [b, T, ds] (any strides), A [di, ds], D [di].
+    Returns (y [b, T, di] in u's dtype, the final state h_T [b, di, ds]
+    in f32)."""
+    b, T, di = u.shape
+    A, D = A.to(_F32), D.to(_F32)
+    h = torch.zeros(b, di, A.shape[1], dtype=_F32, device=u.device)
+    uf, dtf, Bf, Cf = (t.to(_F32) for t in (u, dt, B, C))
+    outs = []
+    for t in range(T):
+        a_bar = torch.exp(dtf[:, t, :, None] * A)
+        h = a_bar * h + (dtf[:, t] * uf[:, t])[:, :, None] * Bf[:, t, None, :]
+        outs.append((h * Cf[:, t, None, :]).sum(-1) + D * uf[:, t])
+    return torch.stack(outs, dim=1).to(u.dtype), h

@@ -3,9 +3,10 @@
 Every architecture is a ``ModelConfig``: the embedding / FFN / attention
 dimensions plus a layer plan (``layer_groups``) of repeated superblocks.
 The reference scans over a group's repeats; the port loops over
-``all_blocks``.  ``cdtype`` / ``pdtype`` are torch dtypes.  The MoE, SSM,
-encoder and vision configs come over as plain dataclasses so the config
-modules keep their fields; the dense family and rwkv run in the port so far.
+``all_blocks``.  ``cdtype`` / ``pdtype`` are torch dtypes.  The encoder
+and vision configs come over as plain dataclasses so the config modules
+keep their fields; the dense family, rwkv and the hybrid mamba /
+attention / MoE stack run in the port so far.
 """
 from __future__ import annotations
 
@@ -67,7 +68,20 @@ class MoEConfig:
     d_ff_expert: int
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
+    # expert-parallel "virtual expert" factor: each expert split into
+    # ep_virtual f-parallel slices (exact: the slices' outputs sum)
     ep_virtual: int = 1
+
+    @property
+    def n_virtual(self) -> int:
+        return self.n_experts * self.ep_virtual
+
+    @property
+    def d_ff_virtual(self) -> int:
+        if self.d_ff_expert % self.ep_virtual:
+            raise ValueError(f"d_ff_expert {self.d_ff_expert} does not split "
+                             f"into {self.ep_virtual} virtual experts")
+        return self.d_ff_expert // self.ep_virtual
 
 
 @dataclass(frozen=True)
@@ -75,7 +89,7 @@ class MambaConfig:
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
-    dt_rank: Optional[int] = None
+    dt_rank: Optional[int] = None  # default: ceil(d_model / 16)
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,6 @@
-"""Building blocks of the dense transformer (port of
-``repro/models/layers.py``, the dense path; the MoE functions wait for
-their slice).
+"""Building blocks of the transformer (port of ``repro/models/layers.py``:
+the dense path and the MoE; the expert-parallel ``apply_moe_ep`` waits
+for the mesh plans).
 
 Plain functions over parameter dicts, in the reference's layouts:
 activations [b, s, d], attention heads [b, s, h, hd], decode caches in
@@ -10,9 +10,9 @@ compute dtype (``cfg.cdtype``), decode-attention scores and the softmax
 in f32.  Prefill attention goes through ``ops.flash_attention`` (the
 hand-written kernel on the card, ``ref.attention`` on the CPU).
 
-Initialisers draw from an explicit CPU ``torch.Generator`` with the
-reference's distributions (they cannot give JAX's bits) and move each
-leaf to the target device as it is drawn.
+Initialisers draw on the CPU from an explicit ``torch.Generator`` with
+the reference's distributions (they cannot give JAX's bits);
+``transformer.init_lm`` moves each layer to the target device.
 """
 from __future__ import annotations
 
@@ -35,30 +35,29 @@ _F32 = torch.float32
 # initializers
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape, dtype, std: float, device):
-    return (torch.randn(shape, generator=gen, dtype=_F32) * std).to(
-        device=device, dtype=dtype)
+def _normal(gen: torch.Generator, shape, dtype, std: float):
+    return torch.randn(shape, generator=gen, dtype=_F32).mul_(std).to(dtype)
 
 
-def he_normal(gen, shape, dtype, fan_in=None, device="cpu"):
+def he_normal(gen, shape, dtype, fan_in=None):
     fan_in = fan_in if fan_in is not None else shape[0]
-    return _normal(gen, shape, dtype, math.sqrt(2.0 / fan_in), device)
+    return _normal(gen, shape, dtype, math.sqrt(2.0 / fan_in))
 
 
-def lecun_normal(gen, shape, dtype, fan_in=None, device="cpu"):
+def lecun_normal(gen, shape, dtype, fan_in=None):
     fan_in = fan_in if fan_in is not None else shape[0]
-    return _normal(gen, shape, dtype, math.sqrt(1.0 / fan_in), device)
+    return _normal(gen, shape, dtype, math.sqrt(1.0 / fan_in))
 
 
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
-def init_norm(cfg: ModelConfig, dim: Optional[int] = None, device="cpu"):
+def init_norm(cfg: ModelConfig, dim: Optional[int] = None):
     dim = dim or cfg.d_model
-    p = {"scale": torch.ones(dim, dtype=cfg.pdtype, device=device)}
+    p = {"scale": torch.ones(dim, dtype=cfg.pdtype)}
     if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros(dim, dtype=cfg.pdtype, device=device)
+        p["bias"] = torch.zeros(dim, dtype=cfg.pdtype)
     return p
 
 
@@ -118,22 +117,22 @@ def apply_rope(x: torch.Tensor, positions: Union[torch.Tensor, int],
 # attention parameters
 # ---------------------------------------------------------------------------
 
-def init_attention(gen, cfg: ModelConfig, device="cpu"):
+def init_attention(gen, cfg: ModelConfig):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pd = cfg.pdtype
     p = {
-        "wq": he_normal(gen, (d, h * hd), pd, device=device),
-        "wk": he_normal(gen, (d, kv * hd), pd, device=device),
-        "wv": he_normal(gen, (d, kv * hd), pd, device=device),
-        "wo": he_normal(gen, (h * hd, d), pd, device=device),
+        "wq": he_normal(gen, (d, h * hd), pd),
+        "wk": he_normal(gen, (d, kv * hd), pd),
+        "wv": he_normal(gen, (d, kv * hd), pd),
+        "wo": he_normal(gen, (h * hd, d), pd),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros(h * hd, dtype=pd, device=device)
-        p["bk"] = torch.zeros(kv * hd, dtype=pd, device=device)
-        p["bv"] = torch.zeros(kv * hd, dtype=pd, device=device)
+        p["bq"] = torch.zeros(h * hd, dtype=pd)
+        p["bk"] = torch.zeros(kv * hd, dtype=pd)
+        p["bv"] = torch.zeros(kv * hd, dtype=pd)
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones(hd, dtype=pd, device=device)
-        p["k_norm"] = torch.ones(hd, dtype=pd, device=device)
+        p["q_norm"] = torch.ones(hd, dtype=pd)
+        p["k_norm"] = torch.ones(hd, dtype=pd)
     return p
 
 
@@ -333,13 +332,12 @@ def compact_cache(cache: DecodeCache, pos: int) -> DecodeCache:
 # dense FFN
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen, cfg: ModelConfig, d_ff: Optional[int] = None,
-             device="cpu"):
+def init_mlp(gen, cfg: ModelConfig, d_ff: Optional[int] = None):
     d, f, pd = cfg.d_model, d_ff or cfg.d_ff, cfg.pdtype
-    p = {"wi": he_normal(gen, (d, f), pd, device=device)}
+    p = {"wi": he_normal(gen, (d, f), pd)}
     if cfg.mlp_act in ("swiglu", "geglu"):
-        p["wg"] = he_normal(gen, (d, f), pd, device=device)
-    p["wo"] = he_normal(gen, (f, d), pd, device=device)
+        p["wg"] = he_normal(gen, (d, f), pd)
+    p["wo"] = he_normal(gen, (f, d), pd)
     return p
 
 
@@ -355,6 +353,125 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity-bounded, local dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg: ModelConfig):
+    """SwiGLU expert weights (every MoE config of the repo is swiglu) in
+    the reference's virtual layout [e*v, d, f/v] (v = 1 without expert
+    parallelism: the published [e, d, f])."""
+    m = cfg.moe
+    d, f, ev, pd = cfg.d_model, m.d_ff_virtual, m.n_virtual, cfg.pdtype
+    return {"router": lecun_normal(gen, (d, m.n_experts), pd),
+            "wi": he_normal(gen, (ev, d, f), pd, fan_in=d),
+            "wg": he_normal(gen, (ev, d, f), pd, fan_in=d),
+            "wo": he_normal(gen, (ev, f, d), pd, fan_in=f)}
+
+
+def _virtual_assignments(top_i: torch.Tensor, top_p: torch.Tensor, v: int):
+    """[..., k] expert assignments -> [..., k*v] virtual assignments (each
+    expert's v f-slices all receive the token; the gates repeat)."""
+    if v == 1:
+        return top_i, top_p
+    vt = (top_i[..., None] * v + torch.arange(v, dtype=top_i.dtype,
+                                               device=top_i.device))
+    return vt.flatten(-2), top_p.repeat_interleave(v, dim=-1)
+
+
+def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    m = cfg.moe
+    c = int(math.ceil(n_tokens * m.top_k / m.n_experts * m.capacity_factor))
+    return max(8, min(n_tokens, -(-c // 8) * 8))   # round up to 8, clamp
+
+
+def route(p, x: torch.Tensor, cfg: ModelConfig):
+    """The router: x [..., d] -> (probs [..., e] f32, top_p [..., k] f32
+    renormalised, top_i [..., k] int64).  Logits are rounded to the compute
+    dtype before the f32 softmax, as in the reference; the top k come from
+    a stable descending sort, so tied probabilities go to the lowest
+    expert index, as ``lax.top_k`` gives them."""
+    logits = (x @ p["router"].to(cfg.cdtype)).to(_F32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[..., :cfg.moe.top_k], top_i[..., :cfg.moe.top_k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_i
+
+
+def moe_dispatch(flat_e: torch.Tensor, n_slots: int, cap: int):
+    """Capacity slots of the assignments ``flat_e`` [b, T*kv] (token-major,
+    per batch row): ``pos`` [b, T*kv], the assignment's place in its
+    expert's queue (the count of earlier assignments to that expert in
+    its row), and ``valid = pos < cap``; over-capacity assignments are
+    dropped, as in the reference."""
+    oh = F.one_hot(flat_e, n_slots).to(torch.int32)            # [b, n, E]
+    pos = (torch.cumsum(oh, dim=1) - oh).gather(
+        -1, flat_e[..., None])[..., 0]
+    return pos, pos < cap
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
+    """x: [b, T, d], each batch row dispatched on its own (the reference
+    vmaps ``apply_moe`` over the rows) -> (out [b, T, d], aux [b], the
+    Switch load-balance term of each row).  Capacity-overflow assignments
+    are dropped (their expert output is zero).  The expert products run
+    for all rows at once: one batched matmul per weight over
+    [E, b * cap, d] (row by row the reference's products)."""
+    m = cfg.moe
+    b, T, d = x.shape
+    e, kv, E = m.n_experts, m.top_k * m.ep_virtual, m.n_virtual
+    dt = cfg.cdtype
+    cap = moe_capacity(T, cfg)
+
+    probs, top_p, top_i = route(p, x, cfg)                     # [b, T, k]
+    vt_i, vt_p = _virtual_assignments(top_i, top_p, m.ep_virtual)
+    flat_e = vt_i.reshape(b, T * kv)
+    pos, valid = moe_dispatch(flat_e, E, cap)
+
+    # slot table [b, E*cap (+1 dump slot)] of source-token ids (T: the
+    # zero row appended to x); dropped assignments write the dump slot
+    tok = torch.arange(T, device=x.device).repeat_interleave(kv)
+    slot = torch.where(valid, flat_e * cap + pos, E * cap)
+    slot_tok = torch.full((b, E * cap + 1), T, dtype=torch.long,
+                          device=x.device)
+    slot_tok.scatter_(1, slot, tok.expand(b, -1))
+    x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
+    xe = x_pad.gather(1, slot_tok[:, :E * cap, None].expand(-1, -1, d))
+    xe = xe.reshape(b, E, cap, d).transpose(0, 1).reshape(E, b * cap, d)
+
+    h = F.silu(torch.bmm(xe, p["wg"].to(dt))) * torch.bmm(xe, p["wi"].to(dt))
+    ye = torch.bmm(h, p["wo"].to(dt))                          # [E, b*cap, d]
+    ye = ye.reshape(E, b, cap, d).transpose(0, 1).reshape(b, E * cap, d)
+
+    # combine: gather each (t, k*v) output back, gated; dropped ones are 0
+    src = flat_e * cap + torch.clamp(pos, max=cap - 1)
+    gath = ye.gather(1, src[..., None].expand(-1, -1, d))      # [b, T*kv, d]
+    gath = torch.where(valid[..., None], gath, gath.new_zeros(()))
+    w = vt_p.reshape(b, T * kv, 1).to(gath.dtype)
+    out = (gath * w).reshape(b, T, kv, d).sum(2)
+
+    frac_tok = F.one_hot(top_i[..., 0], e).to(_F32).mean(1)    # [b, e]
+    aux = e * (frac_tok * probs.mean(1)).sum(-1)
+    return out.to(x.dtype), aux
+
+
+def moe_decode_gathered(p, x: torch.Tensor, cfg: ModelConfig
+                        ) -> torch.Tensor:
+    """Decode-time MoE: each token's top-k experts' weights gathered and
+    applied densely — exactly k expert-FFNs of products, no capacity.
+    x: [b, d] -> [b, d]."""
+    m = cfg.moe
+    dt = cfg.cdtype
+    _, top_p, top_i = route(p, x, cfg)                         # [b, k]
+    top_i, top_p = _virtual_assignments(top_i, top_p, m.ep_virtual)
+    xr = x[:, None, None, :]                                   # [b, 1, 1, d]
+    h = (F.silu(xr @ p["wg"].to(dt)[top_i])                    # [b, kv, 1, f]
+         * (xr @ p["wi"].to(dt)[top_i]))
+    y = (h @ p["wo"].to(dt)[top_i])[:, :, 0]                   # [b, kv, d]
+    return (y * top_p[..., None].to(dt)).sum(1)
+
+
+# ---------------------------------------------------------------------------
 # embedding / logits (padded vocab)
 # ---------------------------------------------------------------------------
 
@@ -362,13 +479,12 @@ def padded_vocab(cfg: ModelConfig, multiple: int = 16) -> int:
     return -(-cfg.vocab_size // multiple) * multiple
 
 
-def init_embedding(gen, cfg: ModelConfig, device="cpu"):
+def init_embedding(gen, cfg: ModelConfig):
     vp = padded_vocab(cfg)
     p = {"table": lecun_normal(gen, (vp, cfg.d_model), cfg.pdtype,
-                               fan_in=cfg.d_model, device=device)}
+                               fan_in=cfg.d_model)}
     if not cfg.tie_embeddings:
-        p["unembed"] = lecun_normal(gen, (cfg.d_model, vp), cfg.pdtype,
-                                    device=device)
+        p["unembed"] = lecun_normal(gen, (cfg.d_model, vp), cfg.pdtype)
     return p
 
 

@@ -1,6 +1,7 @@
 """Model facade (port of ``repro/models/registry.py``): the same entry
 points for every architecture the port runs — so far the dense
-transformer family and rwkv6."""
+transformer family, rwkv6 and the hybrid mamba / attention / MoE stack
+of jamba."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -15,12 +16,15 @@ from repro_torch.models.plan import NULL_PLAN
 class Model:
     cfg: ModelConfig
 
-    def init(self, seed: int = 0, device="cuda"):
+    def init(self, seed: int = 0, device="cuda", cast: bool = False):
         """Random parameters (the reference's distributions: he_normal /
         lecun_normal std, ones for norm scales, zeros for biases) drawn
         from a CPU ``torch.Generator`` seeded with ``seed``, placed on
-        ``device`` (the card unless the caller names the CPU)."""
-        return T.init_lm(seed, self.cfg, resolve_device(device))
+        ``device`` (the card unless the caller names the CPU).  ``cast``:
+        the matmul weights arrive in the compute dtype, as
+        ``compute_params`` would give them, never held on ``device`` in
+        the parameter dtype."""
+        return T.init_lm(seed, self.cfg, resolve_device(device), cast)
 
     def compute_params(self, params):
         """Matmul weights cast to the compute dtype once (see

@@ -47,47 +47,45 @@ def _dims(cfg: ModelConfig):
     return cfg.d_model // hd, hd
 
 
-def _randn(gen, shape, scale: float, cfg: ModelConfig, device):
+def _randn(gen, shape, scale: float, cfg: ModelConfig):
     return (torch.randn(shape, generator=gen, dtype=_F32) * scale).to(
-        device=device, dtype=cfg.pdtype)
+        cfg.pdtype)
 
 
-def init_time_mix(gen, cfg: ModelConfig, device="cpu"):
+def init_time_mix(gen, cfg: ModelConfig):
     """The reference's shapes and distributions (drawn from ``gen``)."""
     d = cfg.d_model
     h, hd = _dims(cfg)
     r, pd = cfg.rwkv, cfg.pdtype
     p = {
-        "mu_x": torch.full((d,), 0.5, dtype=pd, device=device),
-        "lora_a": lecun_normal(gen, (d, r.lora_dim_mix * 5), pd,
-                               device=device),
-        "lora_b": _randn(gen, (5, r.lora_dim_mix, d), 0.01, cfg, device),
+        "mu_x": torch.full((d,), 0.5, dtype=pd),
+        "lora_a": lecun_normal(gen, (d, r.lora_dim_mix * 5), pd),
+        "lora_b": _randn(gen, (5, r.lora_dim_mix, d), 0.01, cfg),
         # the decay bias stays f32 (exp-sensitive), as in the reference
-        "w0": torch.full((d,), -5.0, dtype=_F32, device=device),
-        "w_a": lecun_normal(gen, (d, r.lora_dim_w), pd, device=device),
-        "w_b": _randn(gen, (r.lora_dim_w, d), 0.01, cfg, device),
-        "u": _randn(gen, (h, hd), 0.1, cfg, device),
-        "wr": he_normal(gen, (d, d), pd, device=device),
-        "wk": he_normal(gen, (d, d), pd, device=device),
-        "wv": he_normal(gen, (d, d), pd, device=device),
-        "wg": he_normal(gen, (d, d), pd, device=device),
-        "wo": he_normal(gen, (d, d), pd, device=device),
-        "ln_x": torch.ones(d, dtype=pd, device=device),  # per-head norm
+        "w0": torch.full((d,), -5.0, dtype=_F32),
+        "w_a": lecun_normal(gen, (d, r.lora_dim_w), pd),
+        "w_b": _randn(gen, (r.lora_dim_w, d), 0.01, cfg),
+        "u": _randn(gen, (h, hd), 0.1, cfg),
+        "wr": he_normal(gen, (d, d), pd),
+        "wk": he_normal(gen, (d, d), pd),
+        "wv": he_normal(gen, (d, d), pd),
+        "wg": he_normal(gen, (d, d), pd),
+        "wo": he_normal(gen, (d, d), pd),
+        "ln_x": torch.ones(d, dtype=pd),  # per-head norm
     }
     for i, m in enumerate(MIX):
-        p[f"mu_{m}"] = torch.full((d,), 0.3 + 0.1 * i, dtype=pd,
-                                  device=device)
+        p[f"mu_{m}"] = torch.full((d,), 0.3 + 0.1 * i, dtype=pd)
     return p
 
 
-def init_channel_mix(gen, cfg: ModelConfig, device="cpu"):
+def init_channel_mix(gen, cfg: ModelConfig):
     d, f, pd = cfg.d_model, cfg.d_ff, cfg.pdtype
     return {
-        "mu_k": torch.full((d,), 0.5, dtype=pd, device=device),
-        "mu_r": torch.full((d,), 0.5, dtype=pd, device=device),
-        "wk": he_normal(gen, (d, f), pd, device=device),
-        "wv": he_normal(gen, (f, d), pd, device=device),
-        "wr": he_normal(gen, (d, d), pd, device=device),
+        "mu_k": torch.full((d,), 0.5, dtype=pd),
+        "mu_r": torch.full((d,), 0.5, dtype=pd),
+        "wk": he_normal(gen, (d, f), pd),
+        "wv": he_normal(gen, (f, d), pd),
+        "wr": he_normal(gen, (d, d), pd),
     }
 
 

@@ -25,6 +25,7 @@ from repro_torch.core.simulator import SimConfig, run_simulation
 from repro_torch.core.tasks import MLPTask, make_classification_data
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import mamba_scan as MK
 from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import rwkv6_scan as WK
 from repro_torch.kernels import sparse_pack as SK
@@ -158,6 +159,14 @@ def test_ops_route_cpu_tensors_to_plain_versions(no_build):
     assert torch.equal(out, 16.0 * torch.arange(3.0)[:, None].expand(
         1, 2, 3, 16))
     assert torch.equal(S, torch.full((1, 2, 16, 16), 3.0))
+    # selective scan with dt = 1, A = 0 (no decay), B = C = 1, D = 0:
+    # h_t = sum of u up to t in every state, y_t = ds * h_t
+    u = torch.ones(1, 3, 2)
+    y, h = ops.mamba_scan(u, u, torch.ones(1, 3, 4), torch.ones(1, 3, 4),
+                          torch.zeros(2, 4), torch.zeros(2))
+    assert torch.equal(y, 4.0 * torch.arange(1.0, 4.0)[None, :, None]
+                       .expand(1, 3, 2))
+    assert torch.equal(h, torch.full((1, 2, 4), 3.0))
     assert VK.launch_count() == 0
 
 
@@ -181,18 +190,25 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
     r = torch.zeros(1, 2, 3, 16)
     with pytest.raises(ValueError, match="CUDA"):
         WK.wkv6(r, r, r, r, torch.zeros(2, 16))
+    u, bc = torch.zeros(1, 3, 8), torch.zeros(1, 3, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        MK.mamba_scan(u, u, bc, bc, torch.zeros(8, 4), torch.zeros(8))
     with pytest.raises(ValueError):
         ops.fused_lerp_flat(torch.zeros(BLOCK, device="meta"),
                             torch.zeros(BLOCK, device="meta"), 0.5)
     with pytest.raises(ValueError):
         m = r.to("meta")
         ops.wkv6(m, m, m, m, torch.zeros(2, 16, device="meta"))
+    with pytest.raises(ValueError):
+        m = u.to("meta")
+        ops.mamba_scan(m, m, bc, bc, torch.zeros(8, 4), torch.zeros(8))
 
 
 def test_build_targets_live_in_ignored_build_dir():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert set(build.SOURCES) == {"vc_asgd_update", "quantize",
-                                  "sparse_pack", "flash_attention", "wkv6"}
+                                  "sparse_pack", "flash_attention", "wkv6",
+                                  "mamba_scan"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"

@@ -13,7 +13,10 @@ product where the plain version divides it: 2e-5 in f32 (the reference's
 own blocked-vs-plain tolerance) and tests/test_kernels.py::TOL in bf16
 (2e-2, outputs rounded to bf16).  The WKV6 recurrence (B14) likewise sums
 in another order: 2e-5 in f32 (the reference's test_wkv6 tolerance), 2e-2
-on bf16 outputs.
+on bf16 outputs.  The selective scan (B15) fuses its multiply-adds where
+the plain version rounds each product: 2e-5 on y in f32 and on the f32
+final state (the reference's test_mamba_scan tolerance), 2e-2 on y
+rounded to bf16.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.core.flat import BLOCK
 from repro_torch.kernels import flash_attention as FK
+from repro_torch.kernels import mamba_scan as MK
 from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import rwkv6_scan as WK
@@ -304,3 +308,67 @@ def test_wkv6_rejects_what_it_does_not_take(dev):
         WK.wkv6(r, k, v, w, u.cpu())
     with pytest.raises(ValueError, match="contiguous float32"):
         WK.wkv6(r, k, v, w, u.to(torch.bfloat16))
+
+
+def _scan_case(dev, b, T, di, ds, dtype=torch.float32, strided=False,
+               seed=0):
+    """The reference test_mamba_scan's distributions; with ``strided``, B
+    and C are the column views of an x_proj output [dt_r | B | C]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    u = (rnd(b, T, di) * 0.4).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, T, di))
+    if strided:
+        xdbc = rnd(b, T, 32 + 2 * ds) * 0.4
+        B, C = xdbc[..., 32:32 + ds], xdbc[..., 32 + ds:]
+    else:
+        B, C = rnd(b, T, ds) * 0.4, rnd(b, T, ds) * 0.4
+    A = -torch.exp(rnd(di, ds) * 0.3)
+    return u, dt, B, C, A, torch.ones(di, device=dev)
+
+
+@pytest.mark.parametrize("strided", [False, True],
+                         ids=["contiguous", "strided"])
+@pytest.mark.parametrize("di,ds,T", [(128, 4, 37), (256, 16, 300),
+                                     (512, 16, 1), (200, 16, 17)])
+def test_mamba_scan_matches_plain(dev, di, ds, T, strided):
+    """B15 at jamba's reduced (ds 4, ragged T) and published (ds 16)
+    state dims, and a di that is not a multiple of the block's 128
+    channels: 2e-5 on y and h_T in f32."""
+    args = _scan_case(dev, 2, T, di, ds, strided=strided, seed=di + T)
+    VK.reset_launch_count()
+    y, h = MK.mamba_scan(*args)
+    assert VK.launch_count("mamba_scan") == 1
+    want, h_want = R.mamba_scan(*args)
+    assert y.dtype == torch.float32 and y.is_contiguous()
+    assert tuple(y.shape) == (2, T, di)
+    assert h.dtype == torch.float32 and tuple(h.shape) == (2, di, ds)
+    torch.testing.assert_close(y, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(h, h_want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("ds", MK.STATE_DIMS)
+def test_mamba_scan_bf16_u_rounds_y_once(dev, ds):
+    """bf16 u, f32 math: y rounded to bf16 (2e-2, as B13), the f32 final
+    state within 2e-5."""
+    args = _scan_case(dev, 2, 50, 256, ds, dtype=torch.bfloat16,
+                      strided=True, seed=ds)
+    y, h = MK.mamba_scan(*args)
+    want, h_want = R.mamba_scan(*args)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(h, h_want, rtol=2e-5, atol=2e-5)
+
+
+def test_mamba_scan_rejects_what_it_does_not_take(dev):
+    u, dt, B, C, A, D = _scan_case(dev, 1, 8, 128, 16)
+    with pytest.raises(ValueError, match="state dim"):
+        MK.mamba_scan(u, dt, B[..., :8], C[..., :8], A[:, :8].contiguous(),
+                      D)
+    with pytest.raises(ValueError, match="u dtype"):
+        MK.mamba_scan(u.half(), dt, B, C, A, D)
+    with pytest.raises(ValueError, match="CUDA"):
+        MK.mamba_scan(u, dt, B, C, A.cpu(), D)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        MK.mamba_scan(u, dt, B, C, A, D.to(torch.bfloat16))

@@ -64,10 +64,10 @@ def _np32(x):
 
 
 def test_port_has_the_dense_family():
-    assert set(ARCHS) == set(DENSE) | {"rwkv6-1.6b"}
+    assert set(ARCHS) == set(DENSE) | {"rwkv6-1.6b", "jamba-v0.1-52b"}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ("jamba-v0.1-52b",))
 def test_configs_equal_the_reference(arch):
     for port, ref in ((get_config(arch), ref_get_config(arch)),
                       (get_reduced(arch), ref_get_reduced(arch))):
@@ -78,7 +78,7 @@ def test_configs_equal_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b",
-                                  "jamba-v0.1-52b", "whisper-tiny",
+                                  "jamba-v0.1", "whisper-tiny",
                                   "internvl2-2b", "granite-moe-1b-a400m",
                                   "no-such-arch"])
 def test_other_families_raise_naming_the_roadmap(arch):
@@ -309,10 +309,10 @@ def test_mesh_plans_and_other_blocks_raise():
     from repro_torch.models.plan import NullPlan
     with pytest.raises(NotImplementedError, match="queue A item 10"):
         NullPlan(attn_mode="cp", cp=4)
-    moe = get_reduced("internlm2-1.8b").replace(
-        layer_groups=uniform_groups(2, BlockSpec(ffn="moe")))
+    rwkv_moe = get_reduced("rwkv6-1.6b").replace(
+        layer_groups=uniform_groups(2, BlockSpec(mixer="rwkv", ffn="moe")))
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(moe)
+        build_model(rwkv_moe)
     with pytest.raises(NotImplementedError):
         T.init_lm(0, get_reduced("internlm2-1.8b").replace(
-            layer_groups=uniform_groups(1, BlockSpec(mixer="mamba"))))
+            pos_emb="sinusoidal"))

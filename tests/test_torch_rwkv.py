@@ -404,15 +404,21 @@ def test_prefill_then_decode_equals_forward():
 
 
 def test_other_blocks_still_raise():
-    from repro_torch.models.common import BlockSpec, uniform_groups
+    from repro_torch.models.common import (BlockSpec, VisionStubConfig,
+                                           uniform_groups)
     base = get_reduced(ARCH)
-    for spec in (BlockSpec(mixer="mamba"), BlockSpec(mixer="rwkv", ffn="moe"),
-                 BlockSpec(mixer="rwkv", ffn="none"),
-                 BlockSpec(mixer="attn", ffn="moe")):
+    cases = [base.replace(layer_groups=uniform_groups(2, spec))
+             for spec in (BlockSpec(mixer="rwkv", ffn="moe"),
+                          BlockSpec(mixer="rwkv", ffn="none"))]
+    cases += [base.replace(pos_emb="learned"),
+              base.replace(vision=VisionStubConfig(n_patches=4, vit_dim=32))]
+    for cfg in cases:
         with pytest.raises(NotImplementedError, match="not ported"):
-            T.check_ported(base.replace(layer_groups=uniform_groups(2, spec)))
+            T.check_ported(cfg)
+    # rwkv, attention, mamba and MoE blocks mix in one stack
     mixed = base.replace(layer_groups=uniform_groups(
-        2, BlockSpec(mixer="rwkv")) + uniform_groups(1, BlockSpec()))
+        2, BlockSpec(mixer="rwkv")) + uniform_groups(1, BlockSpec())
+        + uniform_groups(1, BlockSpec(mixer="mamba", ffn="moe")))
     T.check_ported(mixed)
 
 

@@ -25,7 +25,8 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.data import SyntheticTokenSource, make_batch_for
 from repro_torch.kernels import build, launches
 from repro_torch.launch import serve
-from repro_torch.models.layers import RECENT_RING
+from repro_torch.models.layers import RECENT_RING, DecodeCache
+from repro_torch.models.mamba import MambaState
 from repro_torch.models.registry import build_model
 from repro_torch.models.rwkv import RWKVState
 
@@ -60,7 +61,8 @@ def no_build(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2.5-14b",
-                                  "stablelm-3b", "gemma3-4b", "rwkv6-1.6b"])
+                                  "stablelm-3b", "gemma3-4b", "rwkv6-1.6b",
+                                  "jamba-v0.1-52b"])
 def test_serve_main_runs_reduced_on_the_cpu(arch, no_build, capsys):
     assert serve.main(["--arch", arch, "--reduced", "--batch", "2",
                        "--prompt-len", "24", "--gen", "5",
@@ -142,6 +144,58 @@ def test_serve_rwkv_crosses_step_64_without_compacting_its_states(no_build):
         assert all(torch.equal(a, b) for a, b in zip(got, st))
 
 
+def test_serve_jamba_compacts_its_attention_cache_and_carries_mamba_states(
+        no_build):
+    """jamba's decode states are one two-tier cache (the attention layer)
+    and seven mamba states: past step 64 the serve loop folds the cache
+    and leaves the mamba states to their recurrence; its greedy tokens
+    are the model's own greedy decode."""
+    launches.reset_launch_count()
+    gen = RECENT_RING + 3
+    res = serve.run(["--arch", "jamba-v0.1-52b", "--reduced", "--batch",
+                     "2", "--prompt-len", "30", "--gen", str(gen), "--seed",
+                     "6", "--device", "cpu"])
+    assert res.compactions == 1 and res.logits_finite
+    assert tuple(res.tokens.shape) == (2, gen + 1)
+    assert launches.launch_count() == 0 and res.init_s > 0
+    cfg = get_reduced("jamba-v0.1-52b")
+    assert [type(c) for c in res.caches] == [
+        DecodeCache if s.mixer == "attn" else MambaState
+        for s in cfg.all_blocks]
+    st = res.caches[0]
+    assert tuple(st.conv.shape) == (2, 128, 3)
+    assert tuple(st.ssm.shape) == (2, 128, 4) and st.ssm.dtype == torch.float32
+    assert int((res.caches[4].rec_pos >= 0).sum()) == 3
+
+    model = build_model(cfg)
+    params = model.compute_params(model.init(6, device="cpu"))
+    tokens = make_batch_for(cfg, 2, 30, 6)["tokens"]
+    lg, states = model.prefill(params, {"tokens": tokens})
+    tok = serve.greedy(lg, cfg)
+    want = [tok]
+    for i in range(gen):
+        lg, states = model.decode_step(params, states, tok, 30 + i)
+        tok = serve.greedy(lg, cfg)
+        want.append(tok)
+        if (i + 1) % RECENT_RING == 0:
+            states = serve.compact_all(states, 30 + i)
+    assert torch.equal(res.tokens, torch.stack(want, 1))
+
+
+def test_serve_takes_a_depth_cut_config(no_build):
+    """``serve.serve`` runs a given ModelConfig: here the reduced jamba
+    cut to its attention + dense and mamba + MoE blocks."""
+    from repro_torch.models.common import LayerGroup
+    base = get_reduced("jamba-v0.1-52b")
+    blocks = base.layer_groups[0].blocks
+    cfg = base.replace(layer_groups=(LayerGroup((blocks[3], blocks[4]), 1),))
+    res = serve.serve(cfg, 2, 20, 4, seed=1, device="cpu")
+    assert res.cfg is cfg and len(res.caches) == 2
+    assert isinstance(res.caches[0], MambaState)
+    assert isinstance(res.caches[1], DecodeCache)
+    assert tuple(res.tokens.shape) == (2, 5) and res.compactions == 0
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -186,3 +240,24 @@ def test_model_entry_points_raise_without_gpu(no_gpu):
     st = C.caches_from_reference(states, cfg, "cpu")
     assert [type(s) for s in st] == [RWKVState] * cfg.n_layers
     assert st[0].wkv.dtype == torch.float32
+
+    # the jamba model's entry points and converters likewise
+    cfg = get_reduced("jamba-v0.1-52b")
+    with pytest.raises(RuntimeError):
+        build_model(cfg).init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(["--arch", "jamba-v0.1-52b", "--reduced", "--gen", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve(cfg, 1, 8, 1)
+    rmodel = ref_build_model(ref_get_reduced("jamba-v0.1-52b"))
+    tree = rmodel.init(jax.random.PRNGKey(0))
+    _, states = rmodel.prefill(tree, {"tokens": np.zeros((2, 5), np.int32)})
+    tree, states = (jax.tree.map(np.asarray, t) for t in (tree, states))
+    with pytest.raises(RuntimeError):
+        C.lm_params_from_reference(tree, cfg)
+    with pytest.raises(RuntimeError):
+        C.caches_from_reference(states, cfg)
+    st = C.caches_from_reference(states, cfg, "cpu")
+    assert [type(s) for s in st] == [
+        DecodeCache if s.mixer == "attn" else MambaState
+        for s in cfg.all_blocks]
