@@ -106,7 +106,35 @@ a card, or outside a checkout.  Phases:
    c. blocks 3 and 4 of the period (mamba + MoE, then attention + dense)
       at full width on the card and on the CPU, as 6c, with the MoE
       routes that differ between card and CPU counted.
-9. a ``kernels`` JSON line, the nvidia-smi line, and the last line
+9. the pod runtime's compressed cross-pod round
+   (runtime/vc_runtime.py::compressed_assimilate) on the bench model of
+   benchmarks/kernel_bench.py:370-383 (24 leaves, 2,101,504 parameters on
+   a 2,105,344-element bus):
+   a. the blocked top-k's passes, B6 (packed candidate words) and B7
+      (exact-k emit), against their plain versions bit for bit at the
+      bench bus, 2^20, a ragged 2^20 + 4,128, a tie-heavy round(4x)/4 bus
+      (ties cut by the budget across tiles) and 2^27, each with the
+      bracket and refinement of its own bus; kernel, plain and bound ms
+      at the bench bus and at 2^27 (no PyTorch call computes packed
+      ballot words or the exact-k emit);
+   b. select_topk and compress_flat, card against CPU, at 2^20,
+      2,105,344, 5,242,880 and 2^24 at densities 0.05 and 0.01: indices,
+      q, scales and the new residual identical; B6 once per selection, B7
+      once per compress_flat where the bracket holds and never where it
+      misses (2^24); the whole selection's time beside torch.topk at the
+      bench bus (a yardstick the port never calls);
+   c. compressed_assimilate (4 islands, alpha 0.9, density 0.05, a
+      loopback transport) for 3 rounds with the residuals carried, island
+      2 dead in round 2, card against CPU: server and residuals bit for
+      bit, every frame byte for byte outside the residual-norm field and
+      the crc (norms within 2 f32 ulps); per round B6 4, B7 4, B9 4, B10
+      8, B12 4 launches; the wall of each round, the host spans of
+      selection, compression, encode and decode, and the profiler's
+      device-busy share of one more round;
+   d. CompressedVCASGD(0.9, density=0.05) through Coordinator.issue /
+      submit / deliver / assimilate on the same bus, 3 clients for 2
+      rounds, card against CPU under the same frame rule.
+10. a ``kernels`` JSON line, the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -226,6 +254,8 @@ def implied_launches(scheme, res) -> dict:
         "flash_attention": 0,
         "wkv6": 0,
         "mamba_scan": 0,
+        "blocked_topk_stats": 0,         # the MLP bus takes the global sort
+        "threshold_sparsify_exact": 0,
     }
 
 
@@ -1354,6 +1384,369 @@ def serve_jamba_full_width(torch, VK) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the pod runtime's compressed cross-pod round
+# ---------------------------------------------------------------------------
+
+# benchmarks/kernel_bench.py:309-310, :370-376: the bench model's bus
+BENCH_N, BENCH_LOGICAL = 2_105_344, 2_101_504
+BENCH_SIZES = [(256, 256), (1024, 64), (64,), (512, 512), (128, 1024),
+               (1024,)]
+POD_ISLANDS, POD_ALPHA, POD_DENSITY, POD_ROUNDS = 4, 0.9, 0.05, 3
+POD_DEAD = {1: 2}                        # round -> dead island
+# launches of one compressed round of 4 islands on a bus that holds the
+# bracket: per island B6 + B7 (selection), B9 + B10 (quantize and the
+# error feedback's dequantize), B12 (the frame), B10 (decompress)
+POD_LAUNCHES = {"blocked_topk_stats": 4, "threshold_sparsify_exact": 4,
+                "quantize_int8": 4, "dequantize_int8": 8, "pack_body": 4}
+# B6 / B7 parity: name -> (n, tie-heavy); timed at the bench bus and 2^27
+TOPK_SHAPES = {"bench": (BENCH_N, False), "2^20": (1 << 20, False),
+               "ragged": ((1 << 20) + 4128, False),
+               "ties": (1 << 20, True), "2^27": (BIG_N, False)}
+SELECT_SIZES = (1 << 20, BENCH_N, 5 << 20, 1 << 24)
+_NORM, _CRC = slice(36, 40), slice(64, 68)     # res_norm and crc (v2 header)
+
+
+def np_bus(np, n: int, seed: int, ties: bool = False):
+    """N(0, 0.02^2) f32 from a numpy seed; ``ties``: N(0, 1) rounded to
+    quarters (thousands of elements share each magnitude)."""
+    x = np.random.default_rng(seed).standard_normal(n)
+    return (np.round(4 * x) / 4 if ties else 0.02 * x).astype(np.float32)
+
+
+def bench_model(np, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    return {f"layer{rep}/p{i}": rng.standard_normal(shp).astype(np.float32)
+            for rep in range(4) for i, shp in enumerate(BENCH_SIZES)}
+
+
+def topk_parity(torch, np, TK, R) -> dict:
+    """Phase 9a: B6 and B7 against their plain versions on the card, bit
+    for bit, at each TOPK_SHAPES bus: B6 with the bus's own bracket at
+    density 0.05, B7 with the refinement of B6's words.  Returns the
+    numbers of both at the bench bus, the path's shape."""
+    out = {}
+    for seed, (name, (n, ties)) in enumerate(TOPK_SHAPES.items()):
+        x = torch.from_numpy(np_bus(np, n, 90 + seed, ties)).cuda()
+        k = int(n * POD_DENSITY)
+        nb = -(-n // TK.BLOCK)
+        lo = TK.bracket(x, k)
+        words, counts = TK.blocked_topk_stats(x, lo)
+        pw, pc = R.blocked_topk_stats(x, lo)
+        torch.cuda.synchronize()
+        check(torch.equal(words, pw) and torch.equal(counts, pc),
+              f"B6 {name} n={n}: kernel != plain version")
+        c_lo = int(counts.sum())
+        idx, tau, tie_start, budget = TK.refine(x, words, c_lo, k)
+        kept, res = TK.threshold_sparsify_exact(x, tau, tie_start, budget)
+        pk, pr = R.threshold_sparsify_exact(x, tau, tie_start, budget)
+        torch.cuda.synchronize()
+        check(bits_equal(torch, kept, pk) and bits_equal(torch, res, pr),
+              f"B7 {name} n={n}: kernel != plain version")
+        check(int((kept != 0).sum()) == k
+              and torch.equal(torch.nonzero(kept).flatten().int(), idx),
+              f"B7 {name}: the kept set is not the refinement's {k}")
+        ties_at = int((x.abs() == tau).sum())
+        say(f"parity B6/B7 {name} n={n}: bit-exact; c_lo {c_lo}, k {k}, "
+            f"ties at tau {ties_at} of which kept {int(budget)}")
+        if name not in ("bench", "2^27"):
+            continue
+        iters = 50 if name == "bench" else 10
+        recs = {
+            "blocked_topk_stats": {
+                "max_abs_err": float((words.long() - pw.long()).abs().max()),
+                "library_ms": None,
+                "ms": time_ms(torch, lambda: TK.blocked_topk_stats(x, lo),
+                              iters),
+                "plain_ms": time_ms(torch, lambda: R.blocked_topk_stats(x, lo),
+                                    iters)},
+            "threshold_sparsify_exact": {
+                "max_abs_err": max(float((kept - pk).abs().max()),
+                                   float((res - pr).abs().max())),
+                "library_ms": None,
+                "ms": time_ms(torch, lambda: TK.threshold_sparsify_exact(
+                    x, tau, tie_start, budget), iters),
+                "plain_ms": time_ms(torch, lambda: R.threshold_sparsify_exact(
+                    x, tau, tie_start, budget), iters)}}
+        # bytes: each input read once, each output written once; ops: a
+        # magnitude compare (B6), |x|, two compares and a subtract (B7)
+        recs["blocked_topk_stats"]["bound_ms"], \
+            recs["blocked_topk_stats"]["bound_by"] = bound_ms(
+                4 * n + n / 8 + 4 * nb, n)
+        recs["threshold_sparsify_exact"]["bound_ms"], \
+            recs["threshold_sparsify_exact"]["bound_by"] = bound_ms(
+                12 * n + 4 * nb, 4 * n)
+        for kname, r in recs.items():
+            say(f"timing {kname} N={n}: kernel {r['ms']:.6f} ms")
+            say(f"timing {kname} N={n}: plain {r['plain_ms']:.6f} ms")
+            say(f"timing {kname} N={n}: library none (no PyTorch call "
+                f"computes it)")
+            say(f"timing {kname} N={n}: bound {r['bound_ms']:.6f} ms "
+                f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% "
+                f"of it")
+        if name == "bench":
+            out = recs
+        del x, words, counts, pw, pc, kept, res, pk, pr, idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_ms(torch, fn, iters: int) -> float:
+    """Mean host-clock time of ``fn()`` ending in a synchronize, after a
+    warm-up: for work that waits on the host itself."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def select_card_vs_cpu(torch, np, TK, C, VK) -> None:
+    """Phase 9b: select_topk and compress_flat on the card against the
+    CPU at each SELECT_SIZES bus and density 0.05 / 0.01."""
+    zero = dict.fromkeys(VK.KERNELS, 0)
+    for seed, n in enumerate(SELECT_SIZES):
+        for density in (0.05, 0.01):
+            xc = torch.from_numpy(np_bus(np, n, 70 + seed))
+            xg = xc.cuda()
+            k = int(n * density)
+            holds = TK.blocked_topk(xc, k, emit=False) is not None
+            VK.reset_launch_count()
+            ig = C.select_topk(xg, k)
+            torch.cuda.synchronize()
+            sel = VK.launch_counts()
+            check(torch.equal(ig.cpu(), C.select_topk(xc, k)),
+                  f"select_topk n={n} d={density}: card != cpu")
+            check(sel == {**zero, "blocked_topk_stats": 1},
+                  f"select_topk n={n} d={density}: launches {sel}")
+            VK.reset_launch_count()
+            pg, rg = C.compress_flat(xg, density=density)
+            torch.cuda.synchronize()
+            cmp = VK.launch_counts()
+            pc, rc = C.compress_flat(xc, density=density)
+            for f in ("indices", "values", "scales"):
+                check(torch.equal(getattr(pg, f).cpu(), getattr(pc, f)),
+                      f"compress_flat n={n} d={density}: {f} card != cpu")
+            check(bits_equal(torch, rg.cpu(), rc),
+                  f"compress_flat n={n} d={density}: residual card != cpu")
+            want = {**zero, "blocked_topk_stats": 1, "quantize_int8": 1,
+                    "dequantize_int8": 1,
+                    "threshold_sparsify_exact": 1 if holds else 0}
+            check(cmp == want, f"compress_flat n={n} d={density}: launches "
+                  f"{cmp} != {want}")
+            say(f"select/compress n={n} d={density} k={k}: bracket "
+                f"{'holds' if holds else 'misses (sort)'}; card == cpu "
+                f"(indices, q, scales, residual); launches select "
+                f"B6={sel['blocked_topk_stats']}, compress B6="
+                f"{cmp['blocked_topk_stats']} B7="
+                f"{cmp['threshold_sparsify_exact']}")
+            if n == BENCH_N and density == POD_DENSITY:
+                a = xg.abs()
+                say(f"timing select_topk N={n} k={k} (host clock, one sync "
+                    f"a call): {host_ms(torch, lambda: C.select_topk(xg, k), 20):.6f} ms")
+                say(f"timing compress_flat N={n} k={k} (host clock): "
+                    f"{host_ms(torch, lambda: C.compress_flat(xg, density=density), 20):.6f} ms")
+                say(f"timing torch.topk(|flat|, k) N={n} k={k} (yardstick, "
+                    f"host clock): {host_ms(torch, lambda: torch.topk(a, k), 20):.6f} ms")
+            del xc, xg, ig, pg, rg, pc, rc
+        torch.cuda.empty_cache()
+
+
+def recording_transport():
+    """A LoopbackTransport that keeps every frame it carries in ``sent``."""
+    from repro_torch.transfer.transport import LoopbackTransport
+
+    class Recording(LoopbackTransport):
+        def send(self, frame):
+            self.sent.append(bytes(frame))
+            return super().send(frame)
+
+    t = Recording()
+    t.sent = []
+    return t
+
+
+def frames_match(np, card: list, cpu: list, label: str) -> None:
+    """Frames byte for byte outside the residual-norm field and the crc;
+    the norms within 2 f32 ulps (XLA-free f64 sums on both sides, in
+    different orders)."""
+    check(len(card) == len(cpu) > 0, f"{label}: {len(card)} vs {len(cpu)} "
+          f"frames")
+    worst = 0
+    for a, b in zip(card, cpu):
+        ma, mb = bytearray(a), bytearray(b)
+        for m in (ma, mb):
+            if m[6] == 1:                     # sparse frame
+                m[_NORM] = bytes(4)
+                m[_CRC] = bytes(4)
+        check(ma == mb, f"{label}: frames differ outside the norm and crc")
+        if a[6] == 1:
+            na, nb_ = (np.frombuffer(f[_NORM], np.int32)[0] for f in (a, b))
+            worst = max(worst, abs(int(na) - int(nb_)))
+    check(worst <= 2, f"{label}: residual norms {worst} ulps apart")
+    say(f"{label}: {len(card)} frames byte-identical outside the norm and "
+        f"crc; norms at most {worst} ulp apart")
+
+
+def pod_round_card_vs_cpu(torch, np, VK) -> dict:
+    """Phase 9c: compressed_assimilate on the bench model, card against
+    CPU, POD_ROUNDS rounds with the residuals carried.  Returns the card
+    rounds' launches."""
+    from repro_torch.core import compression as C
+    from repro_torch.kernels import topk_mask as TK
+    from repro_torch.runtime import vc_runtime as VR
+    from repro_torch.transfer import wire
+    zero = dict.fromkeys(VK.KERNELS, 0)
+    server = bench_model(np, 0)
+    rounds, walls, totals = [], [], dict(zero)
+    t_card = recording_transport()
+
+    def islands(cur: dict, rnd: int) -> dict:
+        """POD_ISLANDS islands = server + 0.01 N(0, 1), island-major."""
+        rng = np.random.default_rng(100 + rnd)
+        return {k: np.stack([v + np.float32(0.01) * rng.standard_normal(
+            v.shape).astype(np.float32) for _ in range(POD_ISLANDS)])
+            for k, v in cur.items()}
+
+    def card_rounds():
+        srv, res = {k: torch.from_numpy(v).cuda() for k, v in server.items()}, None
+        cur = server
+        for rnd in range(POD_ROUNDS):
+            isl = islands(cur, rnd)
+            alive = np.ones(POD_ISLANDS, bool)
+            if rnd in POD_DEAD:
+                alive[POD_DEAD[rnd]] = False
+            isl_g = {k: torch.from_numpy(v).cuda() for k, v in isl.items()}
+            torch.cuda.synchronize()
+            VK.reset_launch_count()
+            t0 = time.perf_counter()
+            srv, res = VR.compressed_assimilate(
+                srv, isl_g, POD_ALPHA, torch.from_numpy(alive),
+                density=POD_DENSITY, residuals=res, transport=t_card)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = VK.launch_counts()
+            check(counts == {**zero, **POD_LAUNCHES},
+                  f"pod round {rnd}: launches {counts}")
+            for kk, v in counts.items():
+                totals[kk] += v
+            cur = {k: v.cpu().numpy() for k, v in srv.items()}
+            rounds.append((isl, alive, cur,
+                           {k: v.cpu().numpy() for k, v in res.items()}))
+        return srv, res
+
+    # a warm-up round (first use of every kernel and library), discarded
+    VR.compressed_assimilate(
+        {k: torch.from_numpy(v).cuda() for k, v in server.items()},
+        {k: torch.from_numpy(v).cuda() for k, v in islands(server, 0).items()},
+        POD_ALPHA, torch.ones(POD_ISLANDS, dtype=torch.bool),
+        density=POD_DENSITY, transport=recording_transport())
+    torch.cuda.synchronize()
+    (srv, res), spans = host_breakdown(card_rounds, [
+        (TK, "blocked_topk"), (C, "compress_flat"), (wire, "encode_sparse"),
+        (wire, "decode"), (C, "decompress_flat")])
+    wall = sum(walls)
+    for rnd, w in enumerate(walls):
+        say(f"pod round {rnd} on cuda: {1e3 * w:.3f} ms (host clock, ending "
+            f"in a synchronize), launches {POD_LAUNCHES}")
+    for key, sec in sorted(spans.items(), key=lambda kv: -kv[1]):
+        say(f"pod host span {key}: {1e3 * sec / POD_ROUNDS:.3f} ms a round "
+            f"({100 * sec / wall:.1f}% of the rounds' wall)")
+
+    # one more round under the profiler (its first-use costs are paid)
+    from torch.profiler import ProfilerActivity, profile
+    last_isl = {k: torch.from_numpy(v).cuda() for k, v in rounds[-1][0].items()}
+    alive = torch.ones(POD_ISLANDS, dtype=torch.bool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        VR.compressed_assimilate(srv, last_isl, POD_ALPHA, alive,
+                                 density=POD_DENSITY, residuals=res,
+                                 transport=recording_transport())
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    report_profile(prof, f"pod round (profiled wall {pwall:.3f} s)", pwall)
+    del srv, res, last_isl
+    torch.cuda.empty_cache()
+
+    # the same rounds on the CPU, from the same islands
+    t_cpu = recording_transport()
+    srv, res = {k: torch.from_numpy(v) for k, v in server.items()}, None
+    VK.reset_launch_count()
+    for rnd, (isl, alive, want_srv, want_res) in enumerate(rounds):
+        srv, res = VR.compressed_assimilate(
+            srv, {k: torch.from_numpy(v) for k, v in isl.items()}, POD_ALPHA,
+            torch.from_numpy(alive), density=POD_DENSITY, residuals=res,
+            transport=t_cpu, device="cpu")
+        for k in server:
+            check(srv[k].numpy().tobytes() == want_srv[k].tobytes(),
+                  f"pod round {rnd}: server leaf {k} card != cpu")
+            check(res[k].numpy().tobytes() == want_res[k].tobytes(),
+                  f"pod round {rnd}: residual leaf {k} card != cpu")
+        say(f"pod round {rnd}: server and residuals card == cpu (bit for "
+            f"bit), island {POD_DEAD.get(rnd, 'none')} dead")
+    check(VK.launch_count() == 0, "the CPU pod rounds launched a kernel")
+    frames_match(np, t_card.sent, t_cpu.sent, "pod rounds")
+    check(all(np.isfinite(v).all() for v in rounds[-1][2].values()),
+          "pod rounds: server not finite")
+    return totals
+
+
+def coordinator_card_vs_cpu(torch, np, VK) -> None:
+    """Phase 9d: CompressedVCASGD(0.9, density=0.05) through the
+    Coordinator's issue / submit / deliver / assimilate on the bench
+    model's bus, 3 clients for 2 rounds, card against CPU."""
+    from repro_torch.core import flat as F
+    from repro_torch.core.baselines import CompressedVCASGD
+    from repro_torch.protocol import Coordinator
+    model = bench_model(np, 1)
+    mask = np.arange(BENCH_N) < BENCH_LOGICAL
+    runs = {}
+    for device in ("cuda", "cpu"):
+        coord = Coordinator(
+            CompressedVCASGD(0.9, density=POD_DENSITY),
+            F.flatten({k: torch.from_numpy(v).to(device)
+                       for k, v in model.items()}),
+            transport=recording_transport())
+        VK.reset_launch_count()
+        uid = 0
+        for rnd in (1, 2):
+            leases = []
+            for cid in range(3):
+                leases.append(coord.issue(cid=cid, uid=uid, round=rnd,
+                                          base=coord.state.params))
+                uid += 1
+            for lease in leases:
+                step = (np.random.default_rng(10 * rnd + lease.cid)
+                        .standard_normal(BENCH_N).astype(np.float32)
+                        * np.float32(0.01) * mask)
+                coord.submit(lease, lease.base.buf
+                             + torch.from_numpy(step).to(device))
+            for lease in leases:
+                coord.assimilate(lease, coord.deliver(lease),
+                                 server_version=rnd - 1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = (coord, VK.launch_counts())
+    (cg, counts), (cc, counts_cpu) = runs["cuda"], runs["cpu"]
+    want = {**dict.fromkeys(VK.KERNELS, 0), "blocked_topk_stats": 6,
+            "threshold_sparsify_exact": 6, "quantize_int8": 6,
+            "dequantize_int8": 12, "pack_body": 6, "vc_asgd_lerp_flat": 6}
+    check(counts == want, f"coordinator: launches {counts} != {want}")
+    check(sum(counts_cpu.values()) == 0, "coordinator: the CPU launched")
+    check(bits_equal(torch, cg.state.params.buf.cpu(), cc.state.params.buf),
+          "coordinator: server bus card != cpu")
+    for cid in range(3):
+        check(bits_equal(torch, cg._residuals[cid].cpu(), cc._residuals[cid]),
+              f"coordinator: client {cid}'s residual card != cpu")
+    frames_match(np, cg.transport.sent, cc.transport.sent, "coordinator")
+    say(f"coordinator: 2 rounds x 3 clients, server bus and residual ledger "
+        f"card == cpu; launches {counts}")
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -1379,7 +1772,9 @@ def main() -> int:
     from repro_torch.kernels import quantize as QK
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import rwkv6_scan as WK
+    from repro_torch.core import compression as C
     from repro_torch.kernels import sparse_pack as SK
+    from repro_torch.kernels import topk_mask as TK
     from repro_torch.kernels import vc_asgd_update as VK
     from repro_torch.kernels.launches import REPLACES, SOURCE
 
@@ -1519,13 +1914,21 @@ def main() -> int:
     serve_card_vs_cpu(torch, VK, jamba_config(JAMBA_CMP_BLOCKS),      # 8c
                       {"mamba_scan": 1, "flash_attention": 1})
 
-    # ---- 9. result lines --------------------------------------------------
+    # ---- 9. the pod runtime's compressed cross-pod round ----------------
+    numbers.update(topk_parity(torch, np, TK, R))                     # 9a
+    select_card_vs_cpu(torch, np, TK, C, VK)                          # 9b
+    pod_counts = pod_round_card_vs_cpu(torch, np, VK)                 # 9c
+    coordinator_card_vs_cpu(torch, np, VK)                            # 9d
+
+    # ---- 10. result lines -------------------------------------------------
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
                    "adam_update_flat": main_counts,      # 4c
                    "flash_attention": serve_counts,      # 6b
                    "wkv6": rwkv_counts,                  # 7b
-                   "mamba_scan": jamba_counts}           # 8b
+                   "mamba_scan": jamba_counts,           # 8b
+                   "blocked_topk_stats": pod_counts,     # 9c
+                   "threshold_sparsify_exact": pod_counts}
     kernels = []
     for name in VK.KERNELS:
         r = numbers[name]

@@ -12,18 +12,33 @@ compressible:
 CUDA kernel launch each on the card (B9, B10), the plain PyTorch version
 on the CPU.  Every result is bit-identical to the reference's jnp path.
 
-Top-k selection ports the reference's small-problem branch (a global
-sort, compression.py:111-115).  The blocked selection it uses for buses
-of 2^20 elements and more rides the Pallas kernels B6/B7, which are not
-ported yet: such a call raises ``NotImplementedError``.
+Top-k selection takes the reference's two branches
+(compression.py:111-162).  Small problems (``k + 2^15 >= n``, ``n <
+2^20`` or ``n % 32``) take a global sort.  Larger ones run the blocked
+exact top-k of ``kernels/topk_mask.py``: the sampled bracket, then B6
+(one pass of packed candidate words) and the refinement; where the
+bracket misses, the sort.  Either way the set is the exact top-k, the
+lowest index winning a tie, so every branch returns the reference's
+indices.
+
+``compress_flat`` on the blocked branch also runs B7, the exact-k emit,
+and takes its residual as the new error-feedback carry, writing
+``sel - deq`` at the kept indices.  That is bit-identical to the
+reference's ``flat.at[idx].add(-deq)``: off the index set B7's residual
+is ``x - 0.0 == x`` (-0.0 stays -0.0), and on it ``sel - deq`` is written
+over B7's zero.  It replaces a copy of the bus, at the price of B7's kept
+output: 4n more bytes written (8.4 MB, ~2.5 us at 3.35 TB/s, on the
+2,105,344-element bus of the pod runtime's compressed round).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as K
+from repro_torch.kernels import topk_mask as TM
 
 
 class CompressedDelta(NamedTuple):
@@ -36,29 +51,36 @@ class CompressedDelta(NamedTuple):
 
 
 # the reference's blocked-selection thresholds (compression.py:72-74)
-_SAMPLE = 1 << 16
-_MARGIN = 1 << 15
-_MIN_FAST_N = 16 * _SAMPLE
+_SAMPLE, _MARGIN, _MIN_FAST_N = TM.SAMPLE, TM.MARGIN, TM.MIN_FAST_N
+
+
+def _small(n: int, k: int) -> bool:
+    """The reference's guard of the global-sort branch (:111)."""
+    return k + _MARGIN >= n or n < _MIN_FAST_N or n % 32 != 0
 
 
 def select_topk(flat: torch.Tensor, k: int) -> torch.Tensor:
     """Indices (int32, ascending) of the exact k largest-|flat| entries.
 
     Deterministic under magnitude ties: the lowest flat indices win, as
-    with ``lax.top_k``.  ``torch.topk`` does not promise that order, so
-    this takes a STABLE descending sort of ``|flat|`` (equal magnitudes
-    keep their index order) and the first k of it."""
-    flat = flat.reshape(-1)
-    n = flat.numel()
+    with ``lax.top_k``.  Small problems and missed brackets take a STABLE
+    descending sort of ``|flat|``; the rest the blocked selection (one
+    B6 launch, no B7)."""
+    flat = flat.reshape(-1).to(torch.float32).contiguous()
     k = int(k)
-    if not (k + _MARGIN >= n or n < _MIN_FAST_N or n % 32):
-        raise NotImplementedError(
-            f"select_topk over n={n} >= 2^20 elements takes the blocked "
-            f"selection (Pallas B6/B7), which is not ported yet: it comes "
-            f"with the slice that ports the pod runtime's compressed rounds "
-            f"or the LLM stack")
-    order = torch.sort(flat.abs(), descending=True, stable=True).indices
-    return torch.sort(order[:k]).values.to(torch.int32)
+    got = None if _small(flat.numel(), k) else TM.blocked_topk(flat, k,
+                                                               emit=False)
+    return TM.sort_topk(flat, k) if got is None else got[0]
+
+
+def residual_norm(r: torch.Tensor) -> float:
+    """l2 norm of an error-feedback residual, accumulated in f64 and
+    rounded once to f32: the value a frame header carries.  Within an
+    f32 ulp or two of the reference's ``jnp.linalg.norm`` at any bus size
+    (an f32 accumulation drifts by ~1e-5 relative at 2^21 elements)."""
+    norm64 = float(torch.linalg.vector_norm(r.reshape(-1),
+                                            dtype=torch.float64))
+    return float(np.float32(norm64))
 
 
 def quantize_int8(x: torch.Tensor, block: int = 256
@@ -103,15 +125,20 @@ def compress_flat(delta_buf: torch.Tensor, *, density: float = 0.05,
         flat = flat + residual.reshape(-1).to(torch.float32)
     n = int(logical_n) if logical_n is not None else flat.numel()
     k = max(1, min(n, int(n * density)))
-    idx = select_topk(flat, k)          # exact top-k set, ascending indices
+    got = (None if _small(flat.numel(), k)
+           else TM.blocked_topk(flat.contiguous(), k, emit=True))
+    if got is None:
+        idx = TM.sort_topk(flat, k)
+        new_residual = flat.clone()
+    else:
+        idx, _, new_residual = got     # B7's residual: flat off the set
     at = idx.long()
     sel = flat[at]
     q, scales = quantize_int8(sel, block)
     deq = dequantize_int8(q, scales, k, block)
-    # error feedback: subtract what was transmitted at the kept indices
+    # error feedback: what was not transmitted, at the kept indices
     # (indices are unique, and IEEE a - b == a + (-b), the reference's
     # ``flat.at[idx].add(-deq)``)
-    new_residual = flat.clone()
     new_residual[at] = sel - deq
     payload = CompressedDelta(values=q, scales=scales, indices=idx,
                               shape=(flat.numel(),), density=density,

@@ -207,6 +207,41 @@ def unflatten(fp: FlatParams):
     return tree_unflatten(spec.treedef, leaves)
 
 
+def flatten_batched(tree, *, dtype=torch.float32, pad_to: int = BLOCK
+                    ) -> Tuple[torch.Tensor, TreeSpec]:
+    """Flatten a tree whose every leaf carries a leading batch dim (e.g.
+    [n_islands, ...]) into a stacked [batch, padded] buffer, tail
+    zero-padded.  The returned spec describes ONE row (leaf shapes
+    without the leading dim)."""
+    _conversions["flatten"] += 1
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        raise ValueError("cannot flatten an empty tree")
+    b = int(leaves[0].shape[0])
+    spec = tree_spec(tree_unflatten(treedef, [l[0] for l in leaves]),
+                     pad_to=pad_to)
+    dev = leaves[0].device
+    parts = [l.reshape(b, -1).to(device=dev, dtype=dtype) for l in leaves]
+    pad = spec.padded - spec.n
+    if pad:
+        parts.append(torch.zeros((b, pad), dtype=dtype, device=dev))
+    return torch.cat(parts, dim=1), spec
+
+
+def unflatten_batched(buf: torch.Tensor, spec: TreeSpec, *, dtype=None):
+    """Inverse of ``flatten_batched``: [batch, padded] -> tree with the
+    leading dim.  ``dtype`` overrides the recorded leaf dtypes (f32 for
+    error-feedback residuals, which must not be truncated to the params'
+    storage dtype between rounds)."""
+    _conversions["unflatten"] += 1
+    b = buf.shape[0]
+    leaves = [buf[:, o:o + s].reshape((b,) + shape)
+              .to(torch_dtype(dt) if dtype is None else dtype)
+              for o, s, shape, dt in zip(spec.offsets, spec.sizes,
+                                         spec.shapes, spec.dtypes)]
+    return tree_unflatten(spec.treedef, leaves)
+
+
 def flatten_like(tree, spec: TreeSpec, *, dtype=torch.float32
                  ) -> torch.Tensor:
     """Flatten ``tree`` onto an EXISTING layout, checking it matches.

@@ -26,8 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/kernels (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("vc_asgd_update", "quantize", "sparse_pack",
-                        "flash_attention", "wkv6", "mamba_scan")}
+           for name in ("vc_asgd_update", "topk_mask", "quantize",
+                        "sparse_pack", "flash_attention", "wkv6",
+                        "mamba_scan")}
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _libs: Dict[str, ctypes.CDLL] = {}

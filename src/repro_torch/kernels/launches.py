@@ -19,6 +19,8 @@ KERNELS = (
     "assimilate_flat",          # B2, csrc/vc_asgd_update.cu
     "adam_update_flat",         # B3, csrc/vc_asgd_update.cu
     "easgd_elastic_flat",       # B5, csrc/vc_asgd_update.cu
+    "blocked_topk_stats",       # B6, csrc/topk_mask.cu
+    "threshold_sparsify_exact",  # B7, csrc/topk_mask.cu
     "quantize_int8",            # B9, csrc/quantize.cu
     "dequantize_int8",          # B10, csrc/quantize.cu
     "pack_body",                # B12, csrc/sparse_pack.cu
@@ -33,6 +35,8 @@ SOURCE = {
     "assimilate_flat": _CSRC + "vc_asgd_update.cu",
     "adam_update_flat": _CSRC + "vc_asgd_update.cu",
     "easgd_elastic_flat": _CSRC + "vc_asgd_update.cu",
+    "blocked_topk_stats": _CSRC + "topk_mask.cu",
+    "threshold_sparsify_exact": _CSRC + "topk_mask.cu",
     "quantize_int8": _CSRC + "quantize.cu",
     "dequantize_int8": _CSRC + "quantize.cu",
     "pack_body": _CSRC + "sparse_pack.cu",
@@ -45,6 +49,8 @@ REPLACES = {
     "assimilate_flat": "src/repro/kernels/vc_asgd_update.py:69",
     "adam_update_flat": "src/repro/kernels/vc_asgd_update.py:80",
     "easgd_elastic_flat": "src/repro/kernels/vc_asgd_update.py:98",
+    "blocked_topk_stats": "src/repro/kernels/topk_mask.py:78",
+    "threshold_sparsify_exact": "src/repro/kernels/topk_mask.py:122",
     "quantize_int8": "src/repro/kernels/quantize.py:17",
     "dequantize_int8": "src/repro/kernels/quantize.py:26",
     "pack_body": "src/repro/kernels/sparse_pack.py:51",

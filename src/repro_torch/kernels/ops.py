@@ -17,6 +17,7 @@ from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import sparse_pack as _sp
+from repro_torch.kernels import topk_mask as _tm
 from repro_torch.kernels import vc_asgd_update as _vc
 
 
@@ -57,6 +58,27 @@ def fused_easgd_flat(center_buf, replicas_buf, beta):
     if _on_cuda(center_buf):
         return _vc.easgd_elastic_flat(center_buf, replicas_buf, beta)
     return R.easgd_elastic(center_buf, replicas_buf, beta)
+
+
+def blocked_topk_stats(x, lo):
+    """ONE memory-bound pass: per-tile packed candidate words + counts."""
+    if _on_cuda(x):
+        return _tm.blocked_topk_stats(x, lo)
+    return R.blocked_topk_stats(x, lo)
+
+
+def threshold_sparsify_exact(x, tau, tie_start, tie_budget):
+    """Exact-k kept/residual emit (deterministic under ties at tau) —
+    ONE launch."""
+    if _on_cuda(x):
+        return _tm.threshold_sparsify_exact(x, tau, tie_start, tie_budget)
+    return R.threshold_sparsify_exact(x, tau, tie_start, tie_budget)
+
+
+def blocked_topk_sparsify(x, k: int):
+    """Exact global top-k (kept, residual): stats launch + the refinement
+    + exact-k emit launch; the stable sort when the bracket misses."""
+    return _tm.blocked_topk_sparsify(x, k)
 
 
 def quantize_int8(x, block: int = 256):

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the flat-bus updates, the
-int8 codec, the sparse-body pack, attention, the WKV6 recurrence and the
-selective scan): what ``ops`` runs for CPU tensors
+two passes of the blocked top-k, the int8 codec, the sparse-body pack,
+attention, the WKV6 recurrence and the selective scan): what ``ops`` runs
+for CPU tensors
 and what ``chip_smoke.py`` holds each CUDA kernel against.
 
 Each mirrors the reference's arithmetic operation by operation — separate
@@ -83,6 +84,61 @@ def easgd_elastic(center: torch.Tensor, replicas: torch.Tensor, beta):
     for j in range(x.shape[0]):
         acc = acc + diff[j]
     return (c + b * acc).to(center.dtype), (x - b * diff).to(replicas.dtype)
+
+
+TOPK_BLOCK = 8 * 1024                  # tile of the blocked top-k passes
+
+
+def _tiles(x: torch.Tensor, block: int) -> torch.Tensor:
+    """``x`` as f32 [nb, block], the tail zero-padded."""
+    n = x.numel()
+    nb = -(-n // block)
+    return torch.nn.functional.pad(x.reshape(-1).to(_F32),
+                                   (0, nb * block - n)).reshape(nb, block)
+
+
+def blocked_topk_stats(x: torch.Tensor, lo, block: int = TOPK_BLOCK):
+    """Per tile of ``block`` elements, the packed candidate words (bit i
+    of word w set where ``bits(|x[32 w + i]|) >= lo``) and the count of
+    candidates.  ``lo`` is a magnitude-bits bracket (an int or a one-element
+    int32 tensor; the bits of a non-negative float are monotone as int32).
+    Returns (words int32 [nb, block // 32] holding the u32 bit patterns,
+    counts int32 [nb])."""
+    xf = _tiles(x, block)
+    nb = xf.shape[0]
+    lo = torch.as_tensor(lo, device=x.device).reshape(-1)[:1].to(torch.int32)
+    keep = (xf.abs().view(torch.int32) >= lo).reshape(nb, block // 32, 32)
+    lanes = torch.arange(32, device=x.device, dtype=torch.int64)
+    words = (keep.to(torch.int64) << lanes).sum(dim=2)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return (words.to(torch.int32),
+            keep.reshape(nb, -1).sum(dim=1).to(torch.int32))
+
+
+def threshold_sparsify_exact(x: torch.Tensor, tau, tie_start, tie_budget,
+                             block: int = TOPK_BLOCK):
+    """Exact-k emit: ``|x| > tau`` is kept always, ``|x| == tau`` while the
+    global tie rank (``tie_start[tile]`` plus the exclusive rank inside
+    the tile) is below ``tie_budget``.  ``tau`` f32 and ``tie_budget``
+    int32, each a number or a one-element tensor.  Returns (kept,
+    residual) f32 shaped like ``x``: kept = x or 0.0, residual = x - kept,
+    so kept + residual == x exactly."""
+    n = x.numel()
+    dev = x.device
+    xf = _tiles(x, block)
+    tau = torch.as_tensor(tau, dtype=_F32, device=dev).reshape(-1)[:1]
+    budget = torch.as_tensor(tie_budget, dtype=torch.int32,
+                             device=dev).reshape(-1)[:1]
+    mag = xf.abs()
+    tie = mag == tau
+    tie_i = tie.to(torch.int32)
+    rank = (torch.as_tensor(tie_start, dtype=torch.int32,
+                            device=dev).reshape(-1, 1)
+            + torch.cumsum(tie_i, dim=1, dtype=torch.int32) - tie_i)
+    keep = (mag > tau) | (tie & (rank < budget))
+    kept = torch.where(keep, xf, torch.zeros((), dtype=_F32, device=dev))
+    unpad = lambda t: t.reshape(-1)[:n].reshape(x.shape)
+    return unpad(kept), unpad(xf - kept)
 
 
 def quantize_int8(x: torch.Tensor, block: int = 256):

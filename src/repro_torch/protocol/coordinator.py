@@ -29,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import compression as C
 from repro_torch.core import flat as F
 from repro_torch.protocol.scheme import ServerScheme
 from repro_torch.protocol.types import (LEASE_ASSIMILATED, LEASE_DROPPED,
@@ -168,11 +169,12 @@ class Coordinator:
             trained_buf, lease.base, self._residuals.get(lease.cid))
         # the header carries the POST-payload residual norm; the ledger is
         # committed only after the send succeeds, so a transport failure
-        # leaves submit() all-or-nothing.  The norm is a reduction whose
-        # order torch need not share with the reference's
-        # jnp.linalg.norm: it may differ in the last bits, which moves
-        # the header's 4-byte field and the crc, never a frame's length.
-        norm = (float(torch.linalg.vector_norm(new_res))
+        # leaves submit() all-or-nothing.  The norm accumulates in f64
+        # and rounds once to f32; the reference's jnp.linalg.norm sums in
+        # f32 in XLA's order, so the two may differ in the last bit or
+        # two, which moves the header's 4-byte field and the crc, never
+        # a frame's length.
+        norm = (C.residual_norm(new_res)
                 if new_res is not None else self.residual_norm(lease.cid))
         frame = wire.encode(payload, round=lease.round, residual_norm=norm)
         lease.msg_id = self.transport.send(frame)

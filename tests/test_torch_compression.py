@@ -148,15 +148,3 @@ def test_compressed_from_reference_round_trips():
     assert (pp.values.dtype, pp.scales.dtype, pp.indices.dtype) == (
         torch.int8, torch.float32, torch.int32)
     assert _bytes(PC.decompress_flat(pp)) == _bytes(RC.decompress_flat(rp))
-
-
-def test_blocked_branch_raises():
-    big = torch.zeros(1 << 20)
-    with pytest.raises(NotImplementedError, match="B6/B7"):
-        PC.select_topk(big, 1000)
-    with pytest.raises(NotImplementedError):
-        PC.compress_flat(big, density=0.001)
-    # the small branch's conditions each keep the global sort
-    assert PC.select_topk(torch.zeros((1 << 20) + 1), 3).tolist() == [0, 1, 2]
-    assert PC.select_topk(torch.zeros(1 << 20), (1 << 20) - 10).numel() \
-        == (1 << 20) - 10

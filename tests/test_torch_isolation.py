@@ -29,7 +29,9 @@ from repro_torch.kernels import mamba_scan as MK
 from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import rwkv6_scan as WK
 from repro_torch.kernels import sparse_pack as SK
+from repro_torch.kernels import topk_mask as TM
 from repro_torch.kernels import vc_asgd_update as VK
+from repro_torch.runtime import vc_runtime as VR
 
 torch.set_num_threads(2)
 
@@ -207,8 +209,46 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
 def test_build_targets_live_in_ignored_build_dir():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert set(build.SOURCES) == {"vc_asgd_update", "quantize",
+    assert set(build.SOURCES) == {"vc_asgd_update", "topk_mask", "quantize",
                                   "sparse_pack", "flash_attention", "wkv6",
                                   "mamba_scan"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"
+
+
+def test_pod_round_runs_on_cpu_only_when_asked(no_gpu, no_build):
+    """The compressed cross-pod round and the blocked top-k: the entry
+    point raises without a GPU unless the caller passes ``device="cpu"``,
+    and the CPU route (B6, B7 on a 2^20-element bus) never builds."""
+    from repro_torch.core.compression import select_topk
+    rng = np.random.default_rng(0)
+    server = {"w": torch.from_numpy(
+        rng.standard_normal((1024, 1024)).astype(np.float32))}
+    islands = {"w": server["w"][None] + torch.from_numpy(
+        rng.standard_normal((2, 1024, 1024)).astype(np.float32)) * 0.01}
+    alive = torch.tensor([True, True])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VR.compressed_assimilate(server, islands, 0.9, alive)
+    VK.reset_launch_count()
+    out, res = VR.compressed_assimilate(server, islands, 0.9, alive,
+                                        device="cpu")
+    assert out["w"].device.type == res["w"].device.type == "cpu"
+    assert res["w"].shape == (2, 1024, 1024)
+    words, counts = ops.blocked_topk_stats(server["w"].reshape(-1), 1)
+    assert words.shape == (128, 256) and int(counts.sum()) == 1 << 20
+    kept, resid = ops.threshold_sparsify_exact(
+        server["w"].reshape(-1), 10.0, torch.zeros(128, dtype=torch.int32), 0)
+    assert int((kept != 0).sum()) == 0
+    assert select_topk(server["w"], 5000).numel() == 5000
+    assert VK.launch_counts() == dict.fromkeys(VK.KERNELS, 0)
+
+
+def test_topk_wrappers_refuse_cpu_tensors(no_build):
+    x = torch.zeros(TM.BLOCK)
+    with pytest.raises(ValueError, match="CUDA"):
+        TM.blocked_topk_stats(x, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        TM.threshold_sparsify_exact(x, 1.0, torch.zeros(1, dtype=torch.int32),
+                                    0)
+    with pytest.raises(ValueError):
+        ops.blocked_topk_stats(x.to("meta"), 1)

@@ -16,7 +16,10 @@ in another order: 2e-5 in f32 (the reference's test_wkv6 tolerance), 2e-2
 on bf16 outputs.  The selective scan (B15) fuses its multiply-adds where
 the plain version rounds each product: 2e-5 on y in f32 and on the f32
 final state (the reference's test_mamba_scan tolerance), 2e-2 on y
-rounded to bf16.
+rounded to bf16.  The blocked top-k passes (B6, B7) are bit-exact: packed
+words, counts, kept and residual equal the plain versions' (integer
+compares and one IEEE subtraction), and the whole selection on the card
+equals the CPU's.
 """
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import ref as R
 from repro_torch.kernels import rwkv6_scan as WK
 from repro_torch.kernels import sparse_pack as SK
+from repro_torch.kernels import topk_mask as TK
 from repro_torch.kernels import vc_asgd_update as VK
 
 pytestmark = pytest.mark.cuda
@@ -176,6 +180,86 @@ def test_scheme_wrappers_reject_bad_inputs(dev):
         QK.dequantize_int8(q, s[:1], 300)
     with pytest.raises(ValueError):
         SK.pack_body(q, s, torch.zeros(300, dtype=torch.int64, device=dev))
+
+
+def _bus(dev, n, ties=False, seed=0):
+    """N(0, 0.02^2), or N(0, 1) rounded to quarters (ties across tiles and
+    across the selection boundary)."""
+    x = _rand(dev, n, seed=seed)
+    return torch.round(4 * x) / 4 if ties else 0.02 * x
+
+
+@pytest.mark.parametrize("n,ties", [(1 << 20, False), (1 << 20, True),
+                                    ((1 << 20) + 4128, False),
+                                    (2_105_344, False), (100, False)])
+def test_topk_stats_bit_exact(dev, n, ties):
+    x = _bus(dev, n, ties)
+    lo = TK.bracket(x, max(1, n // 20)) if n >= TK.SAMPLE else 1 << 29
+    TK.blocked_topk_stats(x, lo)            # warm: the build
+    VK.reset_launch_count()
+    words, counts = TK.blocked_topk_stats(x, lo)
+    assert VK.launch_count("blocked_topk_stats") == 1
+    pw, pc = R.blocked_topk_stats(x, lo)
+    torch.cuda.synchronize()
+    assert torch.equal(words, pw) and torch.equal(counts, pc)
+
+
+@pytest.mark.parametrize("n,ties", [(1 << 20, True), ((1 << 20) + 4128, True),
+                                    (2_105_344, False)])
+def test_topk_exact_emit_bit_exact(dev, n, ties):
+    """tau is a magnitude that many elements share; the budget cuts its
+    ties in the middle of the bus."""
+    x = _bus(dev, n, ties, seed=1)
+    mag = x.abs()
+    tau = mag.sort(descending=True).values[n // 20].reshape(1)
+    tie = torch.nn.functional.pad(mag == tau, (0, (-n) % TK.BLOCK))
+    per = tie.reshape(-1, TK.BLOCK).sum(1, dtype=torch.int32)
+    tie_start = torch.cumsum(per, 0, dtype=torch.int32) - per
+    budget = torch.tensor([int(per.sum()) // 2], dtype=torch.int32,
+                          device=dev)
+    VK.reset_launch_count()
+    kept, res = TK.threshold_sparsify_exact(x, tau, tie_start, budget)
+    assert VK.launch_count("threshold_sparsify_exact") == 1
+    pk, pr = R.threshold_sparsify_exact(x, tau, tie_start, budget)
+    torch.cuda.synchronize()
+    assert _bits_equal(kept, pk) and _bits_equal(res, pr)
+
+
+@pytest.mark.parametrize("n,density", [(1 << 20, 0.05), (2_105_344, 0.01),
+                                       (1 << 24, 0.05)])
+def test_blocked_selection_card_equals_cpu(dev, n, density):
+    x = _bus(dev, n, seed=2)
+    k = int(n * density)
+    VK.reset_launch_count()
+    idx = TK.blocked_topk(x, k, emit=True)
+    counts = VK.launch_counts()
+    want = TK.sort_topk(x.cpu(), k)
+    if n == 1 << 24:                        # the bracket misses
+        assert idx is None and counts["blocked_topk_stats"] == 1
+        assert counts["threshold_sparsify_exact"] == 0
+        return
+    idx, kept, res = idx
+    assert counts["blocked_topk_stats"] == counts[
+        "threshold_sparsify_exact"] == 1
+    assert torch.equal(idx.cpu(), want)
+    pk, pr = TK.blocked_topk_sparsify(x.cpu(), k)
+    assert _bits_equal(kept.cpu(), pk) and _bits_equal(res.cpu(), pr)
+
+
+def test_topk_wrappers_reject_bad_inputs(dev):
+    x = _rand(dev, 3 * TK.BLOCK)
+    ts = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        TK.blocked_topk_stats(x.double(), 1)
+    with pytest.raises(ValueError):
+        TK.blocked_topk_stats(x[::2], 1)
+    with pytest.raises(ValueError):
+        TK.blocked_topk_stats(x, torch.ones(2, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        TK.threshold_sparsify_exact(x, 1.0, ts[:2], 0)
+    with pytest.raises(ValueError):
+        TK.threshold_sparsify_exact(x, torch.ones(1, device=dev).double(),
+                                    ts, 0)
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
