@@ -121,8 +121,9 @@ a card, or outside a checkout.  Phases:
       2,105,344, 5,242,880 and 2^24 at densities 0.05 and 0.01: indices,
       q, scales and the new residual identical; B6 once per selection, B7
       once per compress_flat where the bracket holds and never where it
-      misses (2^24); the whole selection's time beside torch.topk at the
-      bench bus (a yardstick the port never calls);
+      misses (2^24); the whole selection's time at the bench bus beside
+      the port's own stable sort (the branch a missed bracket takes, the
+      same indices) and torch.topk (a yardstick the port never calls);
    c. compressed_assimilate (4 islands, alpha 0.9, density 0.05, a
       loopback transport) for 3 rounds with the residuals carried, island
       2 dead in round 2, card against CPU: server and residuals bit for
@@ -1420,7 +1421,7 @@ def bench_model(np, seed: int = 0) -> dict:
             for rep in range(4) for i, shp in enumerate(BENCH_SIZES)}
 
 
-def topk_parity(torch, np, TK, R) -> dict:
+def topk_parity(torch, np, TK, C, R) -> dict:
     """Phase 9a: B6 and B7 against their plain versions on the card, bit
     for bit, at each TOPK_SHAPES bus: B6 with the bus's own bracket at
     density 0.05, B7 with the refinement of B6's words.  Returns the
@@ -1430,14 +1431,14 @@ def topk_parity(torch, np, TK, R) -> dict:
         x = torch.from_numpy(np_bus(np, n, 90 + seed, ties)).cuda()
         k = int(n * POD_DENSITY)
         nb = -(-n // TK.BLOCK)
-        lo = TK.bracket(x, k)
+        lo = C.bracket(x, k)
         words, counts = TK.blocked_topk_stats(x, lo)
         pw, pc = R.blocked_topk_stats(x, lo)
         torch.cuda.synchronize()
         check(torch.equal(words, pw) and torch.equal(counts, pc),
               f"B6 {name} n={n}: kernel != plain version")
         c_lo = int(counts.sum())
-        idx, tau, tie_start, budget = TK.refine(x, words, c_lo, k)
+        idx, tau, tie_start, budget = C.refine(x, words, c_lo, k)
         kept, res = TK.threshold_sparsify_exact(x, tau, tie_start, budget)
         pk, pr = R.threshold_sparsify_exact(x, tau, tie_start, budget)
         torch.cuda.synchronize()
@@ -1503,7 +1504,7 @@ def host_ms(torch, fn, iters: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def select_card_vs_cpu(torch, np, TK, C, VK) -> None:
+def select_card_vs_cpu(torch, np, C, VK) -> None:
     """Phase 9b: select_topk and compress_flat on the card against the
     CPU at each SELECT_SIZES bus and density 0.05 / 0.01."""
     zero = dict.fromkeys(VK.KERNELS, 0)
@@ -1512,7 +1513,9 @@ def select_card_vs_cpu(torch, np, TK, C, VK) -> None:
             xc = torch.from_numpy(np_bus(np, n, 70 + seed))
             xg = xc.cuda()
             k = int(n * density)
-            holds = TK.blocked_topk(xc, k, emit=False) is not None
+            lo = C.bracket(xc, k)
+            c_lo = int((C.magnitude_bits(xc) >= lo).sum())
+            holds = k <= c_lo <= k + C.MARGIN and int(lo) > 0
             VK.reset_launch_count()
             ig = C.select_topk(xg, k)
             torch.cuda.synchronize()
@@ -1548,6 +1551,11 @@ def select_card_vs_cpu(torch, np, TK, C, VK) -> None:
                     f"a call): {host_ms(torch, lambda: C.select_topk(xg, k), 20):.6f} ms")
                 say(f"timing compress_flat N={n} k={k} (host clock): "
                     f"{host_ms(torch, lambda: C.compress_flat(xg, density=density), 20):.6f} ms")
+                check(torch.equal(C.sort_topk(xg, k), ig),
+                      f"sort_topk n={n}: != the blocked selection")
+                say(f"timing sort_topk N={n} k={k} (the stable sort, same "
+                    f"indices, host clock): "
+                    f"{host_ms(torch, lambda: C.sort_topk(xg, k), 20):.6f} ms")
                 say(f"timing torch.topk(|flat|, k) N={n} k={k} (yardstick, "
                     f"host clock): {host_ms(torch, lambda: torch.topk(a, k), 20):.6f} ms")
             del xc, xg, ig, pg, rg, pc, rc
@@ -1595,7 +1603,6 @@ def pod_round_card_vs_cpu(torch, np, VK) -> dict:
     CPU, POD_ROUNDS rounds with the residuals carried.  Returns the card
     rounds' launches."""
     from repro_torch.core import compression as C
-    from repro_torch.kernels import topk_mask as TK
     from repro_torch.runtime import vc_runtime as VR
     from repro_torch.transfer import wire
     zero = dict.fromkeys(VK.KERNELS, 0)
@@ -1645,7 +1652,7 @@ def pod_round_card_vs_cpu(torch, np, VK) -> dict:
         density=POD_DENSITY, transport=recording_transport())
     torch.cuda.synchronize()
     (srv, res), spans = host_breakdown(card_rounds, [
-        (TK, "blocked_topk"), (C, "compress_flat"), (wire, "encode_sparse"),
+        (C, "exact_topk"), (C, "compress_flat"), (wire, "encode_sparse"),
         (wire, "decode"), (C, "decompress_flat")])
     wall = sum(walls)
     for rnd, w in enumerate(walls):
@@ -1915,8 +1922,8 @@ def main() -> int:
                       {"mamba_scan": 1, "flash_attention": 1})
 
     # ---- 9. the pod runtime's compressed cross-pod round ----------------
-    numbers.update(topk_parity(torch, np, TK, R))                     # 9a
-    select_card_vs_cpu(torch, np, TK, C, VK)                          # 9b
+    numbers.update(topk_parity(torch, np, TK, C, R))                  # 9a
+    select_card_vs_cpu(torch, np, C, VK)                              # 9b
     pod_counts = pod_round_card_vs_cpu(torch, np, VK)                 # 9c
     coordinator_card_vs_cpu(torch, np, VK)                            # 9d
 

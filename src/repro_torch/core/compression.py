@@ -13,13 +13,35 @@ CUDA kernel launch each on the card (B9, B10), the plain PyTorch version
 on the CPU.  Every result is bit-identical to the reference's jnp path.
 
 Top-k selection takes the reference's two branches
-(compression.py:111-162).  Small problems (``k + 2^15 >= n``, ``n <
-2^20`` or ``n % 32``) take a global sort.  Larger ones run the blocked
-exact top-k of ``kernels/topk_mask.py``: the sampled bracket, then B6
-(one pass of packed candidate words) and the refinement; where the
-bracket misses, the sort.  Either way the set is the exact top-k, the
-lowest index winning a tie, so every branch returns the reference's
-indices.
+(compression.py:111-162), decided once, in ``exact_topk``.  Small
+problems (``k + 2^15 >= n``, ``n < 2^20`` or ``n % 32``) take a global
+STABLE sort.  Larger ones run the blocked exact top-k (a port of
+``repro/kernels/topk_mask.py``'s pipeline).  Global magnitude top-k needs
+only the k-th magnitude, and the bits of a non-negative f32 are monotone
+as an int32, so it runs on magnitude bits:
+
+  1. the sampled bracket: a strided sample of 2^16 magnitude bits is
+     sorted and a conservative lower bracket ``lo`` read off it
+     (:121-130);
+  2. B6, ``blocked_topk_stats``: ONE pass of packed candidate words and
+     per-tile counts;
+  3. ``refine`` (``topk_mask.py::_refine``, :173-209): the candidate
+     positions from the words (popcount cumsum, a rank search, a 5-step
+     bisection inside the word), their sort, the exact k-th magnitude
+     ``tau``, the indices of the k largest, the tie budget and each
+     tile's tie prefix;
+  4. B7, ``threshold_sparsify_exact`` (only where kept and residual are
+     wanted): ONE pass emitting them, exact-k under ties.
+
+Where the bracket misses, the sort.  Either way the set is the exact
+top-k, the lowest index winning a tie, so every branch returns the
+reference's indices.  The blocked branch waits on the host once, for the
+bracket check (``k <= c_lo <= k + MARGIN`` and ``lo > 0``), as the
+reference's selection does (``int(jnp.sum(counts))``).  Knowing ``c_lo``
+there, the candidate arrays have exactly ``c_lo`` entries, so they need
+neither the reference's fixed ``k + MARGIN`` shape nor its sentinel for
+unused slots.  ``lo``, ``tau`` and the budget reach the kernels as
+one-element device tensors, so nothing else waits.
 
 ``compress_flat`` on the blocked branch also runs B7, the exact-k emit,
 and takes its residual as the new error-feedback carry, writing
@@ -50,27 +72,142 @@ class CompressedDelta(NamedTuple):
     block: int = 256         # quantization block (the wire format ships it)
 
 
-# the reference's blocked-selection thresholds (compression.py:72-74)
-_SAMPLE, _MARGIN, _MIN_FAST_N = TM.SAMPLE, TM.MARGIN, TM.MIN_FAST_N
+# the reference's selection constants (compression.py:72-74)
+SAMPLE = 1 << 16            # strided threshold sample
+MARGIN = 1 << 15            # candidate headroom above k
+MIN_FAST_N = 16 * SAMPLE    # below this the global sort wins
+
+_I32, _I64 = torch.int32, torch.int64
 
 
-def _small(n: int, k: int) -> bool:
-    """The reference's guard of the global-sort branch (:111)."""
-    return k + _MARGIN >= n or n < _MIN_FAST_N or n % 32 != 0
+def magnitude_bits(x: torch.Tensor) -> torch.Tensor:
+    """``bits(|x|)`` as int32: monotone in the magnitude."""
+    return x.abs().view(_I32)
+
+
+def popcount(w: torch.Tensor) -> torch.Tensor:
+    """Set bits of each u32 held in an int64 tensor (SWAR; torch has no
+    popcount)."""
+    w = w - ((w >> 1) & 0x55555555)
+    w = (w & 0x33333333) + ((w >> 2) & 0x33333333)
+    w = (w + (w >> 4)) & 0x0F0F0F0F
+    return ((w * 0x01010101) >> 24) & 0xFF
+
+
+def sort_topk(flat: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (int32, ascending) of the k largest ``|flat|`` by a STABLE
+    descending sort (equal magnitudes keep their index order: lowest index
+    wins, as ``lax.top_k``)."""
+    order = torch.sort(flat.abs(), descending=True, stable=True).indices
+    return torch.sort(order[:k]).values.to(_I32)
+
+
+def bracket(flat: torch.Tensor, k: int) -> torch.Tensor:
+    """The sampled lower bracket ``lo`` (int32 [1] on flat's device): the
+    strided sample of magnitude bits sorted, read ``6 sigma + 64`` places
+    below the sample's own k-th largest."""
+    n = flat.numel()
+    stride = n // SAMPLE
+    sample = torch.sort(magnitude_bits(flat[::stride][:SAMPLE])).values
+    frac = k / n
+    sigma = int((SAMPLE * frac * (1.0 - frac)) ** 0.5) + 1
+    off = min(SAMPLE - 1, (SAMPLE * k) // n + 6 * sigma + 64)
+    return sample[SAMPLE - 1 - off:SAMPLE - off]
+
+
+def refine(flat: torch.Tensor, words: torch.Tensor, c_lo: int, k: int):
+    """From B6's words holding ``c_lo >= k`` candidates: (idx int32 [k],
+    the indices of the k largest ascending; tau f32 [1], the exact k-th
+    magnitude; tie_start int32 [nb], each tile's count of the surviving
+    candidates' ties before it; budget int32 [1], the ties of tau kept) —
+    B7's inputs.  All on flat's device, no host sync."""
+    dev = flat.device
+    # 1. the c_lo candidate positions, ascending: rank search over the
+    #    words' popcount cumsum, then a 5-step bisection inside the word
+    fw = words.reshape(-1).to(_I64) & 0xFFFFFFFF
+    pc = popcount(fw)
+    cum = torch.cumsum(pc, dim=0)
+    ranks = torch.arange(1, c_lo + 1, dtype=_I64, device=dev)
+    widx = torch.searchsorted(cum, ranks, right=False)     # jnp side="left"
+    r_in = ranks - (cum - pc)[widx]
+    word = fw[widx]
+    pos = torch.zeros_like(r_in)
+    for shift in (16, 8, 4, 2, 1):
+        trial = pos + shift
+        below = popcount(word & ((1 << trial) - 1))
+        pos = torch.where(below < r_in, trial, pos)
+    ext = widx * 32 + pos
+    # 2. the exact k-th magnitude and the ties of it that survive
+    xbits = magnitude_bits(flat[ext])
+    srt = torch.sort(xbits).values
+    tau_bits = srt[c_lo - k:c_lo - k + 1]
+    c_le = torch.searchsorted(srt, tau_bits, right=True)   # jnp side="right"
+    need = k - (c_lo - c_le)
+    # 3. exact-k over the candidates: lowest index wins a tie
+    tie = xbits == tau_bits
+    tie_i = tie.to(_I64)
+    keep = (xbits > tau_bits) | (tie & (torch.cumsum(tie_i, dim=0) - tie_i
+                                        < need))
+    at = torch.searchsorted(torch.cumsum(keep.to(_I64), dim=0),
+                            torch.arange(1, k + 1, dtype=_I64, device=dev),
+                            right=False)
+    # 4. each tile's tie prefix (every tie of tau is a candidate: tau >= lo)
+    nb = -(-flat.numel() // TM.BLOCK)
+    per_tile = torch.zeros(nb, dtype=_I32, device=dev).index_add_(
+        0, ext // TM.BLOCK, tie.to(_I32))
+    tie_start = torch.cumsum(per_tile, dim=0, dtype=_I32) - per_tile
+    return (ext[at].to(_I32), tau_bits.view(torch.float32), tie_start,
+            need.to(_I32))
+
+
+def exact_topk(flat: torch.Tensor, k: int, *, emit: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                          Optional[torch.Tensor]]:
+    """The one selection of a contiguous 1-D f32 bus: (idx int32 [k]
+    ascending, kept, residual).  kept and residual are B7's f32 [n]
+    outputs where the blocked branch ran with ``emit``, else None.
+
+    The small branch (the reference's guard, :111) and a missed bracket
+    take the stable sort; a miss is known from B6's counts, so B6 runs
+    once either way on a large bus."""
+    n = flat.numel()
+    if not (k + MARGIN >= n or n < MIN_FAST_N or n % 32):
+        lo = bracket(flat, k)
+        words, counts = K.blocked_topk_stats(flat, lo)
+        c_lo, lo_bits = torch.stack([counts.sum(dtype=_I64),
+                                     lo[0].to(_I64)]).tolist()
+        if k <= c_lo <= k + MARGIN and lo_bits > 0:
+            idx, tau, tie_start, budget = refine(flat, words, c_lo, k)
+            if not emit:
+                return idx, None, None
+            kept, residual = K.threshold_sparsify_exact(flat, tau, tie_start,
+                                                        budget)
+            return idx, kept, residual
+    return sort_topk(flat, k), None, None
 
 
 def select_topk(flat: torch.Tensor, k: int) -> torch.Tensor:
     """Indices (int32, ascending) of the exact k largest-|flat| entries.
 
     Deterministic under magnitude ties: the lowest flat indices win, as
-    with ``lax.top_k``.  Small problems and missed brackets take a STABLE
-    descending sort of ``|flat|``; the rest the blocked selection (one
-    B6 launch, no B7)."""
+    with ``lax.top_k``.  The blocked branch launches B6 once and no B7."""
     flat = flat.reshape(-1).to(torch.float32).contiguous()
-    k = int(k)
-    got = None if _small(flat.numel(), k) else TM.blocked_topk(flat, k,
-                                                               emit=False)
-    return TM.sort_topk(flat, k) if got is None else got[0]
+    return exact_topk(flat, int(k), emit=False)[0]
+
+
+def blocked_topk_sparsify(x: torch.Tensor, k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact global top-k (kept, residual) of ``x`` (any shape): B6 ->
+    refine -> B7 on the blocked branch, else the sort and a scatter.
+    kept + residual == x exactly."""
+    flat = x.reshape(-1).to(torch.float32).contiguous()
+    idx, kept, residual = exact_topk(flat, int(k), emit=True)
+    if kept is None:
+        at = idx.long()
+        kept = torch.zeros_like(flat)
+        kept[at] = flat[at]
+        residual = flat - kept
+    return kept.reshape(x.shape), residual.reshape(x.shape)
 
 
 def residual_norm(r: torch.Tensor) -> float:
@@ -125,13 +262,10 @@ def compress_flat(delta_buf: torch.Tensor, *, density: float = 0.05,
         flat = flat + residual.reshape(-1).to(torch.float32)
     n = int(logical_n) if logical_n is not None else flat.numel()
     k = max(1, min(n, int(n * density)))
-    got = (None if _small(flat.numel(), k)
-           else TM.blocked_topk(flat.contiguous(), k, emit=True))
-    if got is None:
-        idx = TM.sort_topk(flat, k)
+    # on the blocked branch B7's residual: flat off the index set
+    idx, _, new_residual = exact_topk(flat.contiguous(), k, emit=True)
+    if new_residual is None:
         new_residual = flat.clone()
-    else:
-        idx, _, new_residual = got     # B7's residual: flat off the set
     at = idx.long()
     sel = flat[at]
     q, scales = quantize_int8(sel, block)

@@ -75,12 +75,6 @@ def threshold_sparsify_exact(x, tau, tie_start, tie_budget):
     return R.threshold_sparsify_exact(x, tau, tie_start, tie_budget)
 
 
-def blocked_topk_sparsify(x, k: int):
-    """Exact global top-k (kept, residual): stats launch + the refinement
-    + exact-k emit launch; the stable sort when the bracket misses."""
-    return _tm.blocked_topk_sparsify(x, k)
-
-
 def quantize_int8(x, block: int = 256):
     """Per-block int8 of a 1-D f32 buffer -> (q, scales) — ONE launch."""
     if _on_cuda(x):

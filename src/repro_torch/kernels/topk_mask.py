@@ -1,35 +1,16 @@
-"""The blocked exact top-k: the wrappers of its two CUDA kernels
-(csrc/topk_mask.cu) and the driver around them.
+"""Wrappers of the blocked exact top-k's two CUDA kernels
+(csrc/topk_mask.cu), ports of ``repro/kernels/topk_mask.py``:
 
-Port of ``repro/kernels/topk_mask.py``'s exact-k pipeline.  Global
-magnitude top-k needs only the k-th magnitude, and the bits of a
-non-negative f32 are monotone as an int32, so the selection runs on
-magnitude bits:
+* ``blocked_topk_stats`` (B6, replaces ``_stats_kernel``): ONE pass packs
+  the ``bits(|x|) >= lo`` candidate mask into u32 words, 256 a tile of
+  8,192 elements, and counts each tile's candidates;
+* ``threshold_sparsify_exact`` (B7, replaces ``_exact_kernel``): ONE pass
+  emits kept and residual, exact-k under ties (lowest index wins,
+  ``lax.top_k``'s rule).
 
-  1. the sampled bracket: a strided sample of 2^16 magnitude bits is
-     sorted and a conservative lower bracket ``lo`` read off it
-     (``repro/core/compression.py:121-130``);
-  2. B6, ``blocked_topk_stats`` (replaces ``_stats_kernel``): ONE pass
-     packs the ``bits >= lo`` mask into u32 words, 256 a tile of 8,192
-     elements, and counts each tile's candidates;
-  3. ``refine`` (``_refine``, :173-209): the candidate positions from the
-     words (popcount cumsum, a rank search, a 5-step bisection inside the
-     word), their sort, the exact k-th magnitude ``tau``, the indices of
-     the k largest, the tie budget and each tile's tie prefix;
-  4. B7, ``threshold_sparsify_exact`` (replaces ``_exact_kernel``): ONE
-     pass emits kept and residual, exact-k under ties (lowest index wins,
-     ``lax.top_k``'s rule).
-
-``blocked_topk`` is the one driver: it returns the ascending indices of
-the k largest, and with ``emit`` also B7's kept and residual; ``None``
-when the bracket misses, and the caller then takes the stable sort
-(``sort_topk``).  It waits on the host once, for the bracket check
-(``k <= c_lo <= k + MARGIN`` and ``lo > 0``), as the reference's driver
-does (``int(jnp.sum(counts))``).  Knowing ``c_lo`` there, the candidate
-arrays have exactly ``c_lo`` entries, so they need neither the
-reference's fixed ``k + MARGIN`` shape nor its sentinel for unused
-slots.  ``lo``, ``tau`` and the budget reach the kernels as one-element
-device tensors, so nothing else waits.
+The selection around them (the sampled bracket, the refinement between
+the two passes, the sort on a missed bracket) is in
+``core/compression.py``.
 
 The wrappers take contiguous 1-D f32 CUDA tensors only (``ops`` routes
 CPU tensors to the plain versions in ``ref``), allocate their outputs and
@@ -49,12 +30,7 @@ from repro_torch.kernels.launches import bind_error_string, check_cuda, launch
 BLOCK = 8 * 1024            # elements of a tile
 WORDS = BLOCK // 32         # packed u32 candidate words a tile
 
-# the reference's selection constants (core/compression.py:72-74)
-SAMPLE = 1 << 16            # strided threshold sample
-MARGIN = 1 << 15            # candidate headroom above k
-MIN_FAST_N = 16 * SAMPLE    # below this the global sort wins
-
-_I32, _I64 = torch.int32, torch.int64
+_I32 = torch.int32
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -131,126 +107,3 @@ def threshold_sparsify_exact(x: torch.Tensor, tau, tie_start: torch.Tensor,
            x.device, x.data_ptr(), tau.data_ptr(), budget.data_ptr(),
            tie_start.data_ptr(), kept.data_ptr(), residual.data_ptr(), n)
     return kept, residual
-
-
-# ---------------------------------------------------------------------------
-# the driver: bracket -> B6 -> refine -> (B7)
-# ---------------------------------------------------------------------------
-
-def magnitude_bits(x: torch.Tensor) -> torch.Tensor:
-    """``bits(|x|)`` as int32: monotone in the magnitude."""
-    return x.abs().view(_I32)
-
-
-def popcount(w: torch.Tensor) -> torch.Tensor:
-    """Set bits of each u32 held in an int64 tensor (SWAR; torch has no
-    popcount)."""
-    w = w - ((w >> 1) & 0x55555555)
-    w = (w & 0x33333333) + ((w >> 2) & 0x33333333)
-    w = (w + (w >> 4)) & 0x0F0F0F0F
-    return ((w * 0x01010101) >> 24) & 0xFF
-
-
-def sort_topk(flat: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices (int32, ascending) of the k largest ``|flat|`` by a STABLE
-    descending sort (equal magnitudes keep their index order: lowest index
-    wins, as ``lax.top_k``)."""
-    order = torch.sort(flat.abs(), descending=True, stable=True).indices
-    return torch.sort(order[:k]).values.to(_I32)
-
-
-def bracket(flat: torch.Tensor, k: int) -> torch.Tensor:
-    """The sampled lower bracket ``lo`` (int32 [1] on flat's device): the
-    strided sample of magnitude bits sorted, read ``6 sigma + 64`` places
-    below the sample's own k-th largest."""
-    n = flat.numel()
-    stride = n // SAMPLE
-    sample = torch.sort(magnitude_bits(flat[::stride][:SAMPLE])).values
-    frac = k / n
-    sigma = int((SAMPLE * frac * (1.0 - frac)) ** 0.5) + 1
-    off = min(SAMPLE - 1, (SAMPLE * k) // n + 6 * sigma + 64)
-    return sample[SAMPLE - 1 - off:SAMPLE - off]
-
-
-def refine(flat: torch.Tensor, words: torch.Tensor, c_lo: int, k: int):
-    """From B6's words holding ``c_lo >= k`` candidates: (idx int32 [k],
-    the indices of the k largest ascending; tau f32 [1], the exact k-th
-    magnitude; tie_start int32 [nb], each tile's count of the surviving
-    candidates' ties before it; budget int32 [1], the ties of tau kept) —
-    B7's inputs.  All on flat's device, no host sync."""
-    dev = flat.device
-    # 1. the c_lo candidate positions, ascending: rank search over the
-    #    words' popcount cumsum, then a 5-step bisection inside the word
-    fw = words.reshape(-1).to(_I64) & 0xFFFFFFFF
-    pc = popcount(fw)
-    cum = torch.cumsum(pc, dim=0)
-    ranks = torch.arange(1, c_lo + 1, dtype=_I64, device=dev)
-    widx = torch.searchsorted(cum, ranks, right=False)     # jnp side="left"
-    r_in = ranks - (cum - pc)[widx]
-    word = fw[widx]
-    pos = torch.zeros_like(r_in)
-    for shift in (16, 8, 4, 2, 1):
-        trial = pos + shift
-        below = popcount(word & ((1 << trial) - 1))
-        pos = torch.where(below < r_in, trial, pos)
-    ext = widx * 32 + pos
-    # 2. the exact k-th magnitude and the ties of it that survive
-    xbits = magnitude_bits(flat[ext])
-    srt = torch.sort(xbits).values
-    tau_bits = srt[c_lo - k:c_lo - k + 1]
-    c_le = torch.searchsorted(srt, tau_bits, right=True)   # jnp side="right"
-    need = k - (c_lo - c_le)
-    # 3. exact-k over the candidates: lowest index wins a tie
-    tie = xbits == tau_bits
-    tie_i = tie.to(_I64)
-    keep = (xbits > tau_bits) | (tie & (torch.cumsum(tie_i, dim=0) - tie_i
-                                        < need))
-    at = torch.searchsorted(torch.cumsum(keep.to(_I64), dim=0),
-                            torch.arange(1, k + 1, dtype=_I64, device=dev),
-                            right=False)
-    # 4. each tile's tie prefix (every tie of tau is a candidate: tau >= lo)
-    nb = -(-flat.numel() // BLOCK)
-    per_tile = torch.zeros(nb, dtype=_I32, device=dev).index_add_(
-        0, ext // BLOCK, tie.to(_I32))
-    tie_start = torch.cumsum(per_tile, dim=0, dtype=_I32) - per_tile
-    return (ext[at].to(_I32), tau_bits.view(torch.float32), tie_start,
-            need.to(_I32))
-
-
-def blocked_topk(flat: torch.Tensor, k: int, *, emit: bool):
-    """Exact top-k of a 1-D f32 bus through B6 (and B7 with ``emit``).
-
-    Returns ``None`` when the sampled bracket misses (B6 ran once: its
-    counts decide it), else (idx int32 [k] ascending, kept, residual),
-    with kept and residual B7's f32 [n] outputs, or None without
-    ``emit``."""
-    from repro_torch.kernels import ops as K
-    lo = bracket(flat, k)
-    words, counts = K.blocked_topk_stats(flat, lo)
-    c_lo, lo_bits = torch.stack([counts.sum(dtype=_I64),
-                                 lo[0].to(_I64)]).tolist()
-    if not (k <= c_lo <= k + MARGIN and lo_bits > 0):
-        return None
-    idx, tau, tie_start, budget = refine(flat, words, c_lo, k)
-    if not emit:
-        return idx, None, None
-    kept, residual = K.threshold_sparsify_exact(flat, tau, tie_start, budget)
-    return idx, kept, residual
-
-
-def blocked_topk_sparsify(x: torch.Tensor, k: int):
-    """Exact global top-k (kept, residual) of ``x`` (any shape): B6 ->
-    refine -> B7; the stable sort where the problem is small or the
-    sampled bracket misses.  kept + residual == x exactly."""
-    flat = x.reshape(-1).to(torch.float32).contiguous()
-    n = flat.numel()
-    k = int(k)
-    got = (None if k + MARGIN >= n or n < MIN_FAST_N
-           else blocked_topk(flat, k, emit=True))
-    if got is None:
-        idx = sort_topk(flat, k).long()
-        kept = torch.zeros_like(flat)
-        kept[idx] = flat[idx]
-        return kept.reshape(x.shape), (flat - kept).reshape(x.shape)
-    _, kept, residual = got
-    return kept.reshape(x.shape), residual.reshape(x.shape)

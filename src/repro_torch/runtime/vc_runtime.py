@@ -15,9 +15,9 @@ feedback), B12 (the frame body, with a transport) and B10 again
 (decompress).  On the CPU every kernel is its plain version; the results
 are bit-identical either way, and to the reference's.
 
-Not ported yet: the sharded forms (``mesh=`` / ``shard_axis=``, ROADMAP
-queue A item 9), ``make_vc_round`` (the island training loop, with the
-LLM training slice) and the per-leaf oracle
+Not ported yet: the sharded forms (the reference's ``mesh=`` /
+``shard_axis=``, ROADMAP queue A item 9), ``make_vc_round`` (the island
+training loop, with the LLM training slice) and the per-leaf oracle
 ``compressed_assimilate_per_leaf``.
 """
 from __future__ import annotations
@@ -35,13 +35,6 @@ from repro_torch.transfer import wire
 from repro_torch.transfer.transport import Transport
 
 _F32 = torch.float32
-
-
-def _not_sharded(mesh, shard_axis) -> None:
-    if mesh is not None or shard_axis is not None:
-        raise NotImplementedError(
-            "the sharded flat bus (mesh= / shard_axis=) is not ported yet: "
-            "ROADMAP queue A item 9 (mesh plans over torch.distributed)")
 
 
 def island_weights(n_pods: int, alpha: float, survivors
@@ -70,39 +63,28 @@ def island_weights(n_pods: int, alpha: float, survivors
 
 
 def assimilate_flat(server_buf: torch.Tensor, islands_buf: torch.Tensor,
-                    w: torch.Tensor, w_s, *, mesh=None, shard_axis=None,
-                    use_kernel: bool = False) -> torch.Tensor:
+                    w: torch.Tensor, w_s) -> torch.Tensor:
     """Eq. 2 over the FLAT bus with survivor masking: server [N] + islands
     [n_pods, N] -> [N], stored in the server's dtype.
 
     Select-before-multiply: a dead island may hold inf/nan (it crashed
     mid-step) and ``0 * inf`` would poison the server, so dead streams are
-    zeroed BEFORE the weighted reduction.  The reduction sums the weighted
-    islands from zero in island order (the reference's ``jnp.sum`` over
-    the pod axis), then adds ``w_s * server``.  ``use_kernel=True`` routes
-    the masked streams through B2 (``ops.fused_assimilate_flat``, ONE
-    launch), which folds ``w_s * server`` first and the islands after it:
-    the reference kernel's order, not the jnp path's."""
-    _not_sharded(mesh, shard_axis)
+    zeroed BEFORE the weighted reduction, which is B2
+    (``ops.fused_assimilate_flat``: ONE launch on the card, its plain
+    version on the CPU).  It folds ``w_s * server`` first and the islands
+    after it in island order: the reference's ``use_kernel=True`` order,
+    not its jnp path's (which sums the weighted islands first)."""
     wi = w.reshape(-1, 1).to(_F32)
     zero = torch.zeros((), dtype=_F32, device=islands_buf.device)
     islands = torch.where(wi > 0.0, islands_buf.to(_F32), zero)
-    if use_kernel:
-        weights = [float(w_s)] + [float(v) for v in w.tolist()]
-        return K.fused_assimilate_flat(server_buf, islands, weights)
-    contrib = torch.zeros_like(islands[0])
-    for j in range(islands.shape[0]):
-        contrib = contrib + wi[j] * islands[j]
-    ws = torch.as_tensor(w_s, dtype=_F32, device=server_buf.device)
-    return (ws * server_buf.to(_F32) + contrib).to(server_buf.dtype)
+    weights = [float(w_s)] + [float(v) for v in w.tolist()]
+    return K.fused_assimilate_flat(server_buf, islands, weights)
 
 
-def redistribute_flat(server_buf: torch.Tensor, n_pods: int, *, mesh=None,
-                      shard_axis=None) -> torch.Tensor:
+def redistribute_flat(server_buf: torch.Tensor, n_pods: int) -> torch.Tensor:
     """Step-3 redistribution on the bus: server [N] -> islands [n_pods, N],
     every island restarting from the server snapshot (a copy each, so an
     island trained in place never writes into the server)."""
-    _not_sharded(mesh, shard_axis)
     return server_buf.unsqueeze(0).expand(n_pods, -1).contiguous()
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import compression as C
 from repro_torch.core.flat import BLOCK
 from repro_torch.kernels import flash_attention as FK
 from repro_torch.kernels import mamba_scan as MK
@@ -194,7 +195,7 @@ def _bus(dev, n, ties=False, seed=0):
                                     (2_105_344, False), (100, False)])
 def test_topk_stats_bit_exact(dev, n, ties):
     x = _bus(dev, n, ties)
-    lo = TK.bracket(x, max(1, n // 20)) if n >= TK.SAMPLE else 1 << 29
+    lo = C.bracket(x, max(1, n // 20)) if n >= C.SAMPLE else 1 << 29
     TK.blocked_topk_stats(x, lo)            # warm: the build
     VK.reset_launch_count()
     words, counts = TK.blocked_topk_stats(x, lo)
@@ -231,18 +232,17 @@ def test_blocked_selection_card_equals_cpu(dev, n, density):
     x = _bus(dev, n, seed=2)
     k = int(n * density)
     VK.reset_launch_count()
-    idx = TK.blocked_topk(x, k, emit=True)
+    idx, kept, res = C.exact_topk(x, k, emit=True)
     counts = VK.launch_counts()
-    want = TK.sort_topk(x.cpu(), k)
+    want = C.sort_topk(x.cpu(), k)
+    assert torch.equal(idx.cpu(), want)
     if n == 1 << 24:                        # the bracket misses
-        assert idx is None and counts["blocked_topk_stats"] == 1
+        assert kept is None and counts["blocked_topk_stats"] == 1
         assert counts["threshold_sparsify_exact"] == 0
         return
-    idx, kept, res = idx
     assert counts["blocked_topk_stats"] == counts[
         "threshold_sparsify_exact"] == 1
-    assert torch.equal(idx.cpu(), want)
-    pk, pr = TK.blocked_topk_sparsify(x.cpu(), k)
+    pk, pr = C.blocked_topk_sparsify(x.cpu(), k)
     assert _bits_equal(kept.cpu(), pk) and _bits_equal(res.cpu(), pr)
 
 

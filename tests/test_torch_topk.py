@@ -1,5 +1,5 @@
-"""Port parity: the blocked exact top-k (repro_torch.kernels.topk_mask and
-core/compression's blocked branch) against the reference's, on numpy
+"""Port parity: the blocked exact top-k (repro_torch.kernels.topk_mask's
+two kernels and core/compression's selection around them) against the reference's, on numpy
 inputs made from a seed.
 
 Tolerance: none.  The plain B6 (packed words and counts) and B7 (kept and
@@ -69,7 +69,7 @@ def spy(monkeypatch):
                         counting("stats", PK.blocked_topk_stats))
     monkeypatch.setattr(PK, "threshold_sparsify_exact",
                         counting("exact", PK.threshold_sparsify_exact))
-    monkeypatch.setattr(TM, "sort_topk", counting("sort", TM.sort_topk))
+    monkeypatch.setattr(PC, "sort_topk", counting("sort", PC.sort_topk))
     return calls
 
 
@@ -95,7 +95,7 @@ def test_plain_stats_equal_reference(n, ties):
     x = _bus(n, 1, ties)
     k = int(n * 0.05)
     lo = _ref_lo(x, k)
-    assert lo == int(TM.bracket(torch.from_numpy(x), k)[0])
+    assert lo == int(PC.bracket(torch.from_numpy(x), k)[0])
     pw, pc = PR.blocked_topk_stats(torch.from_numpy(x), lo)
     assert pw.dtype == pc.dtype == torch.int32
     assert tuple(pw.shape) == (-(-n // TM.BLOCK), TM.WORDS)
@@ -134,9 +134,9 @@ def test_plain_exact_emit_equals_reference(n, ties):
 def test_popcount_and_sort_route():
     w = torch.tensor([0, 1, 0xFFFFFFFF, 0x80000001, 0x12345678],
                      dtype=torch.int64)
-    assert TM.popcount(w).tolist() == [0, 1, 32, 2, 13]
+    assert PC.popcount(w).tolist() == [0, 1, 32, 2, 13]
     x = torch.tensor([0.5, -2.0, 2.0, 0.0, -0.5, 2.0])
-    assert TM.sort_topk(x, 4).tolist() == [0, 1, 2, 5]
+    assert PC.sort_topk(x, 4).tolist() == [0, 1, 2, 5]
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +183,7 @@ def test_select_and_sparsify_equal_reference(spy, n, density, holds):
     assert _bytes(pidx) == _bytes(ridx)
     assert spy == {"stats": 1, "exact": 0, "sort": 0 if holds else 1}
 
-    pk, pr = PK.blocked_topk_sparsify(xt, k)
+    pk, pr = PC.blocked_topk_sparsify(xt, k)
     assert _bytes(pk) == _bytes(rk) and _bytes(pr) == _bytes(rr)
     assert spy == {"stats": 2, "exact": 1 if holds else 0,
                    "sort": 0 if holds else 2}

@@ -3,11 +3,12 @@ rides) against repro.runtime.vc_runtime, on numpy inputs made from a
 seed.
 
 Tolerance: none.  ``island_weights`` equals the reference's f32 weights
-bit for bit; the masked Eq. 2 (``assimilate_flat``), the redistribution
-and ``compressed_assimilate`` — the bench model of
+bit for bit.  The masked Eq. 2 (``assimilate_flat``, in B2's order, the
+reference's kernel route) and the redistribution equal the reference's
+bit for bit.  ``compressed_assimilate`` on the bench model of
 ``benchmarks/kernel_bench.py:370-383`` (24 leaves, 2,101,504 parameters
-on a 2,105,344-element bus, 4 islands, density 0.05) over 3 rounds with
-the residuals carried and a dead island — return the reference's server
+on a 2,105,344-element bus, 4 islands, density 0.05), over 3 rounds with
+the residuals carried and a dead island, returns the reference's server
 and residuals bit for bit.  Every frame the transport carried equals the
 reference's byte for byte outside the header's residual-norm field and
 the crc (XLA's f32 reduction order cannot be reproduced bit for bit; the
@@ -107,34 +108,77 @@ def _eq2_inputs(n=4, width=3 * 8192, dead=(2,)):
     return s, isl, alive
 
 
-def test_masked_assimilate_flat_equals_reference():
-    s, isl, alive = _eq2_inputs()
-    rw, rws = RV.island_weights(4, 0.9, jnp.asarray(alive))
-    want = RV.assimilate_flat(jnp.asarray(s), jnp.asarray(isl), rw, rws)
-    pw, pws = PV.island_weights(4, 0.9, torch.from_numpy(alive))
-    got = PV.assimilate_flat(torch.from_numpy(s), torch.from_numpy(isl),
-                             pw, pws)
-    assert bool(torch.isfinite(got).all())
-    assert _bytes(got) == _bytes(want)
-
-
-def test_masked_assimilate_flat_kernel_route_equals_reference_fold():
-    """``use_kernel=True`` folds in B2's order (server first, then the
-    islands in arrival order): the reference kernel's, whose Pallas form
-    fails under the installed jax, so it is held to the reference's jnp
-    form of the same fold (runtime/sharding.py:414-417) on a 1-device
-    mesh, fed the masked islands."""
-    s, isl, alive = _eq2_inputs()
-    rw, rws = RV.island_weights(4, 0.9, jnp.asarray(alive))
-    masked = jnp.where(rw.reshape(-1, 1) > 0.0, jnp.asarray(isl), 0.0)
+def _ref_fold(s, isl, alive, n):
+    """The reference's Eq. 2 in B2's order (server first, then the islands
+    in arrival order), what its ``use_kernel=True`` route computes.  Its
+    Pallas form fails under the installed jax, so this is the reference's
+    jnp form of the same fold (runtime/sharding.py:414-417) on a 1-device
+    mesh, fed the islands masked as its ``assimilate_flat`` masks them."""
+    rw, rws = RV.island_weights(n, 0.9, jnp.asarray(alive))
+    masked = jnp.where(rw.reshape(-1, 1) > 0.0,
+                       jnp.asarray(isl).astype(jnp.float32), 0.0)
     mesh = compat_make_mesh((1,), ("pod",))
-    want = RS.sharded_assimilate_flat(jnp.asarray(s), masked,
-                                      [rws] + [rw[j] for j in range(4)],
+    return RS.sharded_assimilate_flat(jnp.asarray(s), masked,
+                                      [rws] + [rw[j] for j in range(n)],
                                       mesh, "pod")
-    pw, pws = PV.island_weights(4, 0.9, torch.from_numpy(alive))
-    got = PV.assimilate_flat(torch.from_numpy(s), torch.from_numpy(isl),
-                             pw, pws, use_kernel=True)
-    assert _bytes(got) == _bytes(want)
+
+
+def _port_eq2(s, isl, alive, n):
+    pw, pws = PV.island_weights(n, 0.9, torch.from_numpy(alive))
+    return PV.assimilate_flat(torch.from_numpy(s), torch.from_numpy(isl),
+                              pw, pws)
+
+
+def test_masked_assimilate_flat_equals_reference():
+    """A dead island holding inf and nan: the server stays finite and
+    equals the reference's fold bit for bit.  The reference's default jnp
+    path sums the weighted islands before adding the server's term; that
+    association differs from the fold by rounding only, held here within
+    4 f32 ulps of the largest term."""
+    s, isl, alive = _eq2_inputs()
+    got = _port_eq2(s, isl, alive, 4)
+    assert bool(torch.isfinite(got).all())
+    assert _bytes(got) == _bytes(_ref_fold(s, isl, alive, 4))
+    rw, rws = RV.island_weights(4, 0.9, jnp.asarray(alive))
+    jnp_path = np.asarray(RV.assimilate_flat(jnp.asarray(s), jnp.asarray(isl),
+                                             rw, rws))
+    scale = np.abs(np.where(alive[:, None], isl, 0.0)).max() + np.abs(s).max()
+    assert np.abs(got.numpy() - jnp_path).max() <= 4 * np.spacing(
+        np.float32(scale))
+
+
+def test_masked_assimilate_flat_kernel_route_equals_reference_fold(
+        monkeypatch):
+    """The one route is B2 (``ops.fused_assimilate_flat``, its plain
+    version on the CPU), called once: a bf16 server and 8 islands, 3 of
+    them dead, stored in the server's dtype as the reference's fold."""
+    calls = []
+    fused = PV.K.fused_assimilate_flat
+    monkeypatch.setattr(PV.K, "fused_assimilate_flat",
+                        lambda *a: calls.append(1) or fused(*a))
+    s, isl, alive = _eq2_inputs(n=8, dead=(0, 4, 7))
+    s16 = torch.from_numpy(s).to(torch.bfloat16)
+    pw, pws = PV.island_weights(8, 0.9, torch.from_numpy(alive))
+    got = PV.assimilate_flat(s16, torch.from_numpy(isl), pw, pws)
+    assert calls == [1] and got.dtype == torch.bfloat16
+    want = _ref_fold(jnp.asarray(s16.float().numpy()).astype(jnp.bfloat16),
+                     isl, alive, 8)
+    assert _bytes(got.view(torch.int16)) \
+        == np.asarray(want).view(np.int16).tobytes()
+
+
+@pytest.mark.parametrize("dead", [(), (0,), (3,), (1, 2), (0, 1, 2, 3)],
+                         ids=["none", "first", "last", "middle", "all"])
+def test_masked_assimilate_flat_every_dead_set(dead):
+    """Any set of dead islands, crashed with inf and nan, against the
+    reference's fold; with every island dead the server comes back as it
+    was (w_s = 1)."""
+    s, isl, alive = _eq2_inputs(dead=dead)
+    got = _port_eq2(s, isl, alive, 4)
+    assert bool(torch.isfinite(got).all())
+    assert _bytes(got) == _bytes(_ref_fold(s, isl, alive, 4))
+    if len(dead) == 4:
+        assert _bytes(got) == _bytes(s)
 
 
 def test_redistribute_and_batched_bus_equal_reference():
@@ -156,16 +200,6 @@ def test_redistribute_and_batched_bus_equal_reference():
     assert _bytes(got) == _bytes(RV.redistribute_flat(jnp.asarray(s), 3))
     got[0, 0] = -1.0                          # each island owns its copy
     assert got[1, 0] == 0.0 and s[0] == 0.0
-
-
-def test_sharded_forms_raise():
-    s = torch.zeros(8192)
-    w, ws = PV.island_weights(2, 0.9, [True, True])
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        PV.assimilate_flat(s, torch.stack([s, s]), w, ws, mesh=object(),
-                           shard_axis="pod")
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        PV.redistribute_flat(s, 2, shard_axis="pod")
 
 
 def _masked(frame: bytes) -> bytes:
