@@ -34,8 +34,9 @@ a card, or outside a checkout.  Phases:
    b. Eq. 2: four clients train from the server copy and return in one
       batch, folded by assimilate_many_flat (one Eq. 2 launch), held
       against folding Eq. 1 four times;
-   c. the full quickstart configuration on the card: counts, accuracy
-      table, wall time and where the host time goes;
+   c. the full quickstart configuration on the card, its 10 epochs cut
+      to QUICKSTART_EPOCHS = 4: counts, accuracy table, wall time and
+      where the host time goes;
    d. the pinned replay: the 12 flat MLP cases of
       results/PINNED_sim_regression.json (every server scheme, dense and
       compressed uploads; configurations of tools/pin_sim_regression.py)
@@ -62,7 +63,7 @@ a card, or outside a checkout.  Phases:
       tokens, 96 greedy decode steps; finite logits, 24 B13 launches in
       prefill, none in decode, one compaction (after step 64); prefill
       and decode times and tokens/s, the compaction's time, and the
-      profiler's device-busy share of 32 further decode steps;
+      profiler's device-busy share of 8 further decode steps;
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
       prompt tokens and 72 decode steps (one compaction) on the card and
       on the CPU from one draw of the weights, in f32 and in the shipped
@@ -81,7 +82,7 @@ a card, or outside a checkout.  Phases:
       recurrent state; finite logits, 24 B14 launches in prefill, none in
       decode, no compaction; prefill (cold and warm) and decode times,
       tokens/s, peak device memory and the profiler's device-busy share
-      of the warm prefill and of 32 further decode steps;
+      of the warm prefill and of 8 further decode steps;
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
       prompt tokens and 72 decode steps on the card and on the CPU from
       the same weights, as 6c.
@@ -102,7 +103,7 @@ a card, or outside a checkout.  Phases:
       B13 launches in prefill, none in decode, one compaction; init
       seconds, prefill (cold and warm), decode and compaction times,
       tokens/s, peak device memory and the profiler's device-busy share
-      of the warm prefill and of 32 further decode steps;
+      of the warm prefill and of 8 further decode steps;
    c. blocks 3 and 4 of the period (mamba + MoE, then attention + dense)
       at full width on the card and on the CPU, as 6c, with the MoE
       routes that differ between card and CPU counted.
@@ -135,8 +136,27 @@ a card, or outside a checkout.  Phases:
    d. CompressedVCASGD(0.9, density=0.05) through Coordinator.issue /
       submit / deliver / assimilate on the same bus, 3 clients for 2
       rounds, card against CPU under the same frame rule.
-10. a ``kernels`` JSON line, the nvidia-smi line, and the last line
-   ``{"ok": true, "device": {...}}``.
+10. the port's kernel bench (src/repro_torch/benchmarks/), the path of
+   the last three kernels:
+   a. B4 (DC-ASGD's corrected lerp, flat) and B1's and B4's per-tensor
+      entries against their plain versions bit for bit in f32 and bf16 at
+      N = 16,384, 2^24 and 2^27 and at the ragged shapes (17,), (255, 9),
+      (3, 5, 7, 11); B8 (the threshold pass, tau 0.01) bit for bit on the
+      bench bus in f32 and bf16, a ragged 9,000 and 2^27, kept + residual
+      == x; B11 (quantize + pack) byte for byte at k = 656, 1,313, 1,000,
+      105,075 and 6,710,886, its body equal to B12 of B9's payload.  Each
+      timed beside its plain version and its bound at the bench's shape
+      (2^24, the bench bus, k = 105,075) and at 2^27 (no single PyTorch
+      call computes any of the three: no library time);
+   b. repro_torch.benchmarks.run with every suite (kernels, flat,
+      flat_adam, compression, roofline) in this process on the card with
+      --check: the launch gate equals results/BASELINE_launches.json (flat
+      1 / per_leaf 96, flat_adam 1, compression 2 / 1 / 1), every suite's
+      rows and the roofline table print.  B4, B8 and B11 launch there.
+11. a ``kernels`` JSON line (all 15 kernels), the nvidia-smi line, and the
+   last line ``{"ok": true, "device": {...}}``.
+
+Each phase's wall time is printed on its own line as the next begins.
 """
 from __future__ import annotations
 
@@ -149,13 +169,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+# repro_torch.benchmarks.kernel_bench, imported by main() once SRC is on
+# the path: the card's memory rate and the one CUDA-event timer
+KB = None
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
 MAIN_N = 16384                   # the MLP's 13,130 params on the BLOCK bus
 BIG_N = 2 ** 27                  # order of the ~100M-parameter demo LM
 ADAM_REL_TOL = 2e-6              # tests/test_kernels.py TOL[f32]
 ACC_BAND = 0.03                  # card vs CPU epoch accuracy (6 of 200)
 MAIN_K = (656, 1313)             # sparse payload at densities 0.05 / 0.1
+# 4c: examples/quickstart.py's full configuration, its depth (10 epochs)
+# cut to 4 to hold the script's time; every epoch does the same work
+QUICKSTART_EPOCHS = 4
 BIG_K = int(BIG_N * 0.05)        # 6,710,886
 QBLOCK = 256
 
@@ -257,6 +282,9 @@ def implied_launches(scheme, res) -> dict:
         "mamba_scan": 0,
         "blocked_topk_stats": 0,         # the MLP bus takes the global sort
         "threshold_sparsify_exact": 0,
+        "vc_asgd_dc_lerp_flat": 0,       # the bench's kernels (phase 10)
+        "threshold_sparsify": 0,
+        "quantize_pack": 0,
     }
 
 
@@ -275,28 +303,31 @@ def say(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
+class Phases:
+    """Prints each phase's wall time on its own line when the next one
+    starts (and the total at ``end``)."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.name = None
+
+    def start(self, name) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            say(f"phase {self.name} wall: {now - self.t:.3f} s")
+        self.name, self.t = name, now
+
+    def end(self) -> None:
+        self.start(None)
+        say(f"total wall: {time.perf_counter() - self.t0:.3f} s")
+
+
 # ---------------------------------------------------------------------------
 # timing helpers
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls,
-    after a warm-up, by CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
 def bound_ms(nbytes: float, ops: float):
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_mem, t_ops = nbytes / KB.HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -333,9 +364,9 @@ def parity(torch, np, VK, R, n_elems: int, timed: bool) -> dict:
     rec = {"max_abs_err": err}
     if timed:
         a32 = float(np.float32(alpha))
-        rec["ms"] = time_ms(torch, lambda: VK.vc_asgd_lerp_flat(s, c, alpha), iters)
-        rec["plain_ms"] = time_ms(torch, lambda: R.vc_asgd_lerp(s, c, alpha), iters)
-        rec["library_ms"] = time_ms(torch, lambda: torch.lerp(c, s, a32), iters)
+        rec["ms"] = KB.cuda_ms(lambda: VK.vc_asgd_lerp_flat(s, c, alpha), iters)
+        rec["plain_ms"] = KB.cuda_ms(lambda: R.vc_asgd_lerp(s, c, alpha), iters)
+        rec["library_ms"] = KB.cuda_ms(lambda: torch.lerp(c, s, a32), iters)
         rec["bound_ms"], rec["bound_by"] = bound_ms(12 * n_elems, 3 * n_elems)
     out["vc_asgd_lerp_flat"] = rec
 
@@ -358,10 +389,10 @@ def parity(torch, np, VK, R, n_elems: int, timed: bool) -> dict:
         w32 = torch.tensor(np.asarray(w[1:], np.float32), device=dev)
         clt = cl.t()
         w0 = float(np.float32(w[0]))
-        rec["ms"] = time_ms(torch, lambda: VK.assimilate_flat(s, cl, w), iters)
-        rec["plain_ms"] = time_ms(torch, lambda: R.assimilate(s, cl, w), iters)
-        rec["library_ms"] = time_ms(
-            torch, lambda: torch.addmv(s, clt, w32, beta=w0), iters)
+        rec["ms"] = KB.cuda_ms(lambda: VK.assimilate_flat(s, cl, w), iters)
+        rec["plain_ms"] = KB.cuda_ms(lambda: R.assimilate(s, cl, w), iters)
+        rec["library_ms"] = KB.cuda_ms(
+            lambda: torch.addmv(s, clt, w32, beta=w0), iters)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             4 * (n + 2) * n_elems, (2 * n + 1) * n_elems)
     out["assimilate_flat"] = rec
@@ -393,14 +424,14 @@ def parity(torch, np, VK, R, n_elems: int, timed: bool) -> dict:
         + ("bit-exact" if worst_ulp == 0 else f"{worst_ulp} ulp max"))
     rec = {"max_abs_err": err}
     if timed:
-        rec["ms"] = time_ms(torch, lambda: VK.adam_update_flat(
+        rec["ms"] = KB.cuda_ms(lambda: VK.adam_update_flat(
             p, gr, m, v, hyper["lr"], hyper["b1"], hyper["b2"], hyper["eps"],
             0.0, c1, c2), iters)
-        rec["plain_ms"] = time_ms(torch, lambda: R.adam_update(
+        rec["plain_ms"] = KB.cuda_ms(lambda: R.adam_update(
             p, gr, m, v, c1=c1, c2=c2, weight_decay=0.0, **hyper), iters)
         lp, lm, lv = p.clone(), m.clone(), v.clone()
         step = [torch.tensor(float(t), device=dev)]
-        rec["library_ms"] = time_ms(torch, lambda: torch._fused_adam_(
+        rec["library_ms"] = KB.cuda_ms(lambda: torch._fused_adam_(
             [lp], [gr], [lm], [lv], [], step, lr=hyper["lr"],
             beta1=hyper["b1"], beta2=hyper["b2"], weight_decay=0.0,
             eps=hyper["eps"], amsgrad=False, maximize=False), iters)
@@ -450,10 +481,10 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
                               float((kx - px).abs().max())),
            "library_ms": None}
     if timed:
-        rec["ms"] = time_ms(torch, lambda: VK.easgd_elastic_flat(c, x, beta),
-                            iters)
-        rec["plain_ms"] = time_ms(torch, lambda: R.easgd_elastic(c, x, beta),
-                                  iters)
+        rec["ms"] = KB.cuda_ms(lambda: VK.easgd_elastic_flat(c, x, beta),
+                               iters)
+        rec["plain_ms"] = KB.cuda_ms(lambda: R.easgd_elastic(c, x, beta),
+                                     iters)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             2 * 4 * (n + 1) * n_elems, (4 * n + 2) * n_elems)
     out["easgd_elastic_flat"] = rec
@@ -490,22 +521,22 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
             q_pad = torch.zeros(ng * QBLOCK, dtype=torch.int8, device=dev)
             q_pad[:k] = kq
             r = recs["quantize_int8"]
-            r["ms"] = time_ms(torch, lambda: QK.quantize_int8(sel), iters)
-            r["plain_ms"] = time_ms(torch, lambda: R.quantize_int8(sel), iters)
+            r["ms"] = KB.cuda_ms(lambda: QK.quantize_int8(sel), iters)
+            r["plain_ms"] = KB.cuda_ms(lambda: R.quantize_int8(sel), iters)
             r["bound_ms"], r["bound_by"] = bound_ms(4 * k + k + 4 * ng, 5 * k)
             r = recs["dequantize_int8"]
-            r["ms"] = time_ms(torch, lambda: QK.dequantize_int8(kq, ks_, k),
-                              iters)
-            r["plain_ms"] = time_ms(
-                torch, lambda: R.dequantize_int8(kq, ks_, k), iters)
-            r["library_ms"] = time_ms(torch, lambda: torch.mul(
+            r["ms"] = KB.cuda_ms(lambda: QK.dequantize_int8(kq, ks_, k),
+                                 iters)
+            r["plain_ms"] = KB.cuda_ms(
+                lambda: R.dequantize_int8(kq, ks_, k), iters)
+            r["library_ms"] = KB.cuda_ms(lambda: torch.mul(
                 q_pad.view(ng, QBLOCK), ks_[:, None]), iters)
             r["bound_ms"], r["bound_by"] = bound_ms(k + 4 * ng + 4 * k, k)
             r = recs["pack_body"]
-            r["ms"] = time_ms(torch, lambda: SK.pack_body(kq, ks_, idx), iters)
-            r["plain_ms"] = time_ms(
-                torch, lambda: R.pack_body(kq, ks_, idx), iters)
-            r["library_ms"] = time_ms(torch, lambda: torch.cat(
+            r["ms"] = KB.cuda_ms(lambda: SK.pack_body(kq, ks_, idx), iters)
+            r["plain_ms"] = KB.cuda_ms(
+                lambda: R.pack_body(kq, ks_, idx), iters)
+            r["library_ms"] = KB.cuda_ms(lambda: torch.cat(
                 [kq.view(torch.uint8), ks_.view(torch.uint8),
                  idx.view(torch.uint8)]), iters)
             r["bound_ms"], r["bound_by"] = bound_ms(2 * (5 * k + 4 * ng), 0)
@@ -534,25 +565,28 @@ TRACE = ("wall_time_s", "epochs_done", "reassignments", "preemptions",
          "wire_dense_frames", "client_steps")
 
 
-def quickstart(smoke: bool):
-    """(data, SimConfig) of examples/quickstart.py."""
+def quickstart(smoke: bool, epochs=None):
+    """(data, SimConfig) of examples/quickstart.py; ``epochs`` cuts its
+    depth."""
     from repro_torch.core.simulator import SimConfig
     from repro_torch.core.tasks import make_classification_data
     data = make_classification_data(n_train=800 if smoke else 4000,
                                     n_val=200 if smoke else 800)
+    if epochs is None:
+        epochs = 2 if smoke else QUICKSTART_EPOCHS
     cfg = SimConfig(n_param_servers=3, n_clients=5, tasks_per_client=2,
-                    n_shards=8 if smoke else 25,
-                    max_epochs=2 if smoke else 10, preemptible=True,
-                    mean_lifetime_s=2400.0, consistency="eventual", seed=0)
+                    n_shards=8 if smoke else 25, max_epochs=epochs,
+                    preemptible=True, mean_lifetime_s=2400.0,
+                    consistency="eventual", seed=0)
     return data, cfg
 
 
-def run(device, smoke: bool, task=None):
+def run(device, smoke: bool, task=None, epochs=None):
     from repro_torch.core.baselines import VCASGD
     from repro_torch.core.simulator import run_simulation
     from repro_torch.core.tasks import MLPTask
     from repro_torch.core.vc_asgd import var_alpha
-    data, cfg = quickstart(smoke)
+    data, cfg = quickstart(smoke, epochs)
     t0 = time.perf_counter()
     res = run_simulation(task or MLPTask(), data, VCASGD(alpha=var_alpha()),
                          cfg, device=device)
@@ -576,12 +610,14 @@ def check_counts(VK, res, label: str) -> dict:
 
 
 def profile_smoke(torch, VK):
-    """The smoke run on the card under torch.profiler: device busy share
+    """The first epoch of the smoke run on the card under torch.profiler
+    (its second epoch cut to hold the script's time): device busy share
     and the top kernels/ops."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = run("cuda", smoke=True)
-    report_profile(prof, f"smoke (profiled wall {wall:.3f} s)", wall)
+        _, wall = run("cuda", smoke=True, epochs=1)
+    report_profile(prof, f"smoke, 1 epoch (profiled wall {wall:.3f} s)",
+                   wall)
 
 
 def host_breakdown(run_fn, targets=None):
@@ -746,7 +782,9 @@ ATTN_SHAPES = {
 SERVE_ARGS = ["--arch", "internlm2-1.8b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "96"]
 SERVE_LAYERS = 24                # internlm2-1.8b: one B13 launch a layer
-PROFILE_STEPS = 32               # decode steps under the profiler
+# decode steps under the profiler (cut from 32: the profiler's
+# post-processing costs ~12 s per second of profiled decode)
+PROFILE_STEPS = 8
 # card vs CPU: internlm2-1.8b's full width, depth cut to 2 layers
 CMP_LAYERS, CMP_BATCH, CMP_PROMPT, CMP_STEPS = 2, 2, 256, 72
 # logits, card vs CPU: 2e-3 in f32 compute (the reference's own
@@ -791,16 +829,16 @@ def attention_parity(torch, np, FK, R) -> dict:
         ops = 4 * hd * b * h * attn_pairs(np, sq, skv, causal, window)
         nbytes = esize * (2 * b * h * sq * hd + 2 * b * kvh * skv * hd)
         peak = BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S
-        t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+        t_mem, t_ops = nbytes / KB.HBM_BYTES_PER_S, ops / peak
         rec = {"max_abs_err": err, "bound_ms": 1e3 * max(t_mem, t_ops),
                "bound_by": "bytes" if t_mem >= t_ops else "operations",
-               "ms": time_ms(torch, lambda: FK.flash_attention(q, k, v, **kw),
-                             10),
-               "plain_ms": time_ms(torch, lambda: R.attention(q, k, v, **kw),
-                                   3),
+               "ms": KB.cuda_ms(lambda: FK.flash_attention(q, k, v, **kw),
+                                10),
+               "plain_ms": KB.cuda_ms(lambda: R.attention(q, k, v, **kw),
+                                      3),
                "library_ms": None}
         if window is None and softcap is None:      # SDPA has neither
-            rec["library_ms"] = time_ms(torch, lambda: sdpa(
+            rec["library_ms"] = KB.cuda_ms(lambda: sdpa(
                 q, k, v, is_causal=causal, scale=1.0 / math.sqrt(hd),
                 enable_gqa=h != kvh), 10)
         torch.cuda.empty_cache()
@@ -912,7 +950,9 @@ def report_profile(prof, label: str, wall: float) -> None:
     the host-side rows of the ops that launched them carry the same time
     again as their own device time."""
     from torch.autograd import DeviceType
+    t0 = time.perf_counter()
     avgs = prof.key_averages()
+    say(f"profile {label}: key_averages {time.perf_counter() - t0:.3f} s")
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
     device = [e for e in avgs if e.device_type == DeviceType.CUDA]
@@ -1154,8 +1194,8 @@ def wkv6_parity(torch, WK, R) -> dict:
         ops = 2 * 3 * n * hd                # 3 FMAs per (i, j) and step
         bound, by = bound_ms(nbytes, ops)
         rec = {"max_abs_err": err, "bound_ms": bound, "bound_by": by,
-               "ms": time_ms(torch, lambda: WK.wkv6(*args), 10),
-               "plain_ms": time_ms(torch, lambda: R.wkv6(*args), 1),
+               "ms": KB.cuda_ms(lambda: WK.wkv6(*args), 10),
+               "plain_ms": KB.cuda_ms(lambda: R.wkv6(*args), 1),
                "library_ms": None}      # no PyTorch call computes WKV6
         say(f"B14 {name} [{b},{h},{T},{hd}]{' strided' if strided else ''}"
             f" f32: max abs err {err:.3g} (tol {WKV_TOL}); kernel "
@@ -1300,15 +1340,15 @@ def mamba_scan_parity(torch, MK, R) -> dict:
         n, esize = b * T * di, u.element_size()
         nbytes = (2 * esize * n + 4 * n + 4 * 2 * b * T * ds
                   + 4 * (b * di * ds + di * ds + di))
-        t_mem = nbytes / HBM_BYTES_PER_S
+        t_mem = nbytes / KB.HBM_BYTES_PER_S
         t_exp = n * ds / exp_rate       # one exp per state per step
         t_fma = 5 * n * ds / F32_OPS_PER_S
         bound = 1e3 * max(t_mem, t_exp, t_fma)
         rec = {"max_abs_err": err, "bound_ms": bound,
                "bound_by": "bytes" if t_mem >= max(t_exp, t_fma)
                else "operations",
-               "ms": time_ms(torch, lambda: MK.mamba_scan(*args), 10),
-               "plain_ms": time_ms(torch, lambda: R.mamba_scan(*args), 1),
+               "ms": KB.cuda_ms(lambda: MK.mamba_scan(*args), 10),
+               "plain_ms": KB.cuda_ms(lambda: R.mamba_scan(*args), 1),
                "library_ms": None}      # no PyTorch call computes the scan
         say(f"B15 {name} [{b},{T},{di}] ds {ds} u {dt}"
             f"{' strided B/C' if strided else ''}: max abs err {err:.3g} "
@@ -1457,17 +1497,17 @@ def topk_parity(torch, np, TK, C, R) -> dict:
             "blocked_topk_stats": {
                 "max_abs_err": float((words.long() - pw.long()).abs().max()),
                 "library_ms": None,
-                "ms": time_ms(torch, lambda: TK.blocked_topk_stats(x, lo),
-                              iters),
-                "plain_ms": time_ms(torch, lambda: R.blocked_topk_stats(x, lo),
-                                    iters)},
+                "ms": KB.cuda_ms(lambda: TK.blocked_topk_stats(x, lo),
+                                 iters),
+                "plain_ms": KB.cuda_ms(lambda: R.blocked_topk_stats(x, lo),
+                                       iters)},
             "threshold_sparsify_exact": {
                 "max_abs_err": max(float((kept - pk).abs().max()),
                                    float((res - pr).abs().max())),
                 "library_ms": None,
-                "ms": time_ms(torch, lambda: TK.threshold_sparsify_exact(
+                "ms": KB.cuda_ms(lambda: TK.threshold_sparsify_exact(
                     x, tau, tie_start, budget), iters),
-                "plain_ms": time_ms(torch, lambda: R.threshold_sparsify_exact(
+                "plain_ms": KB.cuda_ms(lambda: R.threshold_sparsify_exact(
                     x, tau, tie_start, budget), iters)}}
         # bytes: each input read once, each output written once; ops: a
         # magnitude compare (B6), |x|, two compares and a subtract (B7)
@@ -1754,6 +1794,175 @@ def coordinator_card_vs_cpu(torch, np, VK) -> None:
         f"card == cpu; launches {counts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the port's kernel bench, with B4, B8 and B11
+# ---------------------------------------------------------------------------
+
+# shapes of B1's and B4's per-tensor entries (tests/test_kernels.py:23-50)
+RAGGED_SHAPES = ((17,), (255, 9), (3, 5, 7, 11))
+DC_MAIN_N = 1 << 24              # the bench's dc_lerp_flat_16M row
+B8_TAU = 0.01                    # the bench's threshold_sparsify rows
+B11_KS = (656, 1313, 1000, 105_075, BIG_K)
+B11_MAIN_K = 105_075             # the bench bus's k (density 0.05)
+BENCH_SUITES = ("kernels", "flat", "flat_adam", "compression", "roofline")
+
+
+def _record(torch, kern, plain, iters: int, nbytes: float, ops: float,
+            err: float) -> dict:
+    rec = {"max_abs_err": err, "library_ms": None,
+           "ms": KB.cuda_ms(kern, iters),
+           "plain_ms": KB.cuda_ms(plain, iters)}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+    return rec
+
+
+def _say_timing(name: str, size: str, r: dict) -> None:
+    say(f"timing {name} {size}: kernel {r['ms']:.6f} ms, plain "
+        f"{r['plain_ms']:.6f} ms, library none (no single PyTorch call "
+        f"computes it), bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
+
+
+def new_kernels_parity(torch, np, VK, TK, QK, SK, R) -> dict:
+    """Phase 10a: B4 (with B1's per-tensor entry), B8 and B11 against
+    their plain versions on the card, bit for bit; each timed beside its
+    plain version and its bound at the bench's shape and at 2^27 (k =
+    6,710,886 for B11).  Returns the records at the bench's shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    out = {}
+
+    # B4 flat and B1 / B4 per tensor
+    for n in (MAIN_N, DC_MAIN_N, BIG_N):
+        for dtype in (torch.float32, torch.bfloat16):
+            s, c, gr, b = (rnd(n).to(dtype) for _ in range(4))
+            kern = VK.vc_asgd_dc_lerp_flat(s, c, gr, b, POD_ALPHA, 0.05)
+            plain = R.vc_asgd_dc_lerp(s, c, gr, b, POD_ALPHA, 0.05)
+            torch.cuda.synchronize()
+            check(bits_equal(torch, kern, plain),
+                  f"B4 {dtype} N={n}: kernel != plain version")
+            for name, k_, p_ in (
+                    ("B1 vc_asgd_lerp", VK.vc_asgd_lerp(s, c, 0.95),
+                     R.vc_asgd_lerp(s, c, 0.95)),
+                    ("B4 vc_asgd_dc_lerp", VK.vc_asgd_dc_lerp(
+                        s, c, gr, b, 0.95, 0.04), R.vc_asgd_dc_lerp(
+                        s, c, gr, b, 0.95, 0.04))):
+                check(bits_equal(torch, k_, p_),
+                      f"{name} {dtype} N={n}: kernel != plain version")
+            say(f"parity B4 vc_asgd_dc_lerp_flat and the per-tensor B1 / B4 "
+                f"{str(dtype)[6:]} N={n}: bit-exact")
+            if dtype == torch.float32 and n != MAIN_N:
+                rec = _record(
+                    torch, lambda: VK.vc_asgd_dc_lerp_flat(
+                        s, c, gr, b, POD_ALPHA, 0.05),
+                    lambda: R.vc_asgd_dc_lerp(s, c, gr, b, POD_ALPHA, 0.05),
+                    20 if n == DC_MAIN_N else 10, 20 * n, 8 * n,
+                    float((kern - plain).abs().max()))
+                _say_timing("vc_asgd_dc_lerp_flat", f"N={n}", rec)
+                if n == DC_MAIN_N:
+                    out["vc_asgd_dc_lerp_flat"] = rec
+            del s, c, gr, b, kern, plain
+        torch.cuda.empty_cache()
+    for shape in RAGGED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            s, c, gr, b = (rnd(*shape).to(dtype) for _ in range(4))
+            k1, k4 = (VK.vc_asgd_lerp(s, c, 0.95),
+                      VK.vc_asgd_dc_lerp(s, c, gr, b, 0.95, 0.04))
+            check(k1.shape == k4.shape == s.shape
+                  and bits_equal(torch, k1, R.vc_asgd_lerp(s, c, 0.95))
+                  and bits_equal(torch, k4, R.vc_asgd_dc_lerp(
+                      s, c, gr, b, 0.95, 0.04)),
+                  f"B1 / B4 per tensor {shape} {dtype}: kernel != plain")
+        say(f"parity B1 / B4 per tensor {shape} f32 and bf16: bit-exact")
+
+    # B8
+    for name, n, dtype in (("bench", BENCH_N, torch.float32),
+                           ("ragged", 9000, torch.float32),
+                           ("bench bf16", BENCH_N, torch.bfloat16),
+                           ("2^27", BIG_N, torch.float32)):
+        x = (rnd(n) * 0.02).to(dtype)
+        x[::13] = -0.0
+        (kk, kr), (pk, pr) = (TK.threshold_sparsify(x, B8_TAU),
+                              R.threshold_sparsify(x, B8_TAU))
+        torch.cuda.synchronize()
+        check(bits_equal(torch, kk, pk) and bits_equal(torch, kr, pr),
+              f"B8 {name} n={n}: kernel != plain version")
+        check(torch.equal(kk.float() + kr.float(), x.float()),
+              f"B8 {name}: kept + residual != x")
+        say(f"parity B8 threshold_sparsify {name} n={n} tau {B8_TAU}: "
+            f"bit-exact, {int((kk != 0).sum())} kept")
+        if name in ("bench", "2^27"):
+            rec = _record(torch, lambda: TK.threshold_sparsify(x, B8_TAU),
+                          lambda: R.threshold_sparsify(x, B8_TAU),
+                          50 if name == "bench" else 10, 12 * n, 3 * n,
+                          max(float((kk - pk).abs().max()),
+                              float((kr - pr).abs().max())))
+            _say_timing("threshold_sparsify", f"N={n}", rec)
+            if name == "bench":
+                out["threshold_sparsify"] = rec
+        del x, kk, kr, pk, pr
+    torch.cuda.empty_cache()
+
+    # B11, and B12 of B9's payload
+    for k in B11_KS:
+        ng = -(-k // QBLOCK)
+        sel = rnd(k) * 0.01
+        sel[k // 3] = 0.0
+        idx = torch.sort(torch.randperm(BIG_N, generator=g, device=dev)[:k]
+                         ).values.to(torch.int32)
+        (kb, kq, ks_), (pb, pq, ps) = (SK.quantize_pack(sel, idx),
+                                       R.quantize_pack(sel, idx))
+        q9, s9 = QK.quantize_int8(sel)
+        b12 = SK.pack_body(q9, s9, idx)
+        torch.cuda.synchronize()
+        check(kb.numel() == 5 * k + 4 * ng and torch.equal(kb, pb)
+              and torch.equal(kq, pq) and bits_equal(torch, ks_, ps),
+              f"B11 k={k}: kernel != plain version")
+        check(torch.equal(kb, b12), f"B11 k={k}: body != B12(B9(sel))")
+        say(f"parity B11 quantize_pack k={k}: body, q and scales "
+            f"byte-exact; body == pack_body(quantize_int8(sel))")
+        if k in (B11_MAIN_K, BIG_K):
+            nbytes = 8 * k + (5 * k + 4 * ng) + ng * QBLOCK + 4 * ng
+            rec = _record(torch, lambda: SK.quantize_pack(sel, idx),
+                          lambda: R.quantize_pack(sel, idx),
+                          50 if k == B11_MAIN_K else 10, nbytes, 5 * k,
+                          float((kb.int() - pb.int()).abs().max()))
+            _say_timing("quantize_pack", f"k={k}", rec)
+            if k == B11_MAIN_K:
+                out["quantize_pack"] = rec
+        del sel, idx, kb, kq, ks_, pb, pq, ps, q9, s9, b12
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_on_card(VK) -> dict:
+    """Phase 10b: the port's bench (repro_torch.benchmarks.run, every
+    suite) in this process on the card with --check: the launch gate
+    must equal results/BASELINE_launches.json, every suite's rows and
+    the roofline table must print.  Returns the run's launches."""
+    import contextlib
+    import io
+    from repro_torch.benchmarks import run as bench
+    buf = io.StringIO()
+    VK.reset_launch_count()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--only", ",".join(BENCH_SUITES), "--check"])
+    counts = VK.launch_counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        say(f"bench {line}")
+    check(rc == 0, "bench --check: the launch gate failed (see stderr)")
+    check(lines[0] == "name,us_per_call,derived", "bench: no CSV header")
+    for suite in BENCH_SUITES:
+        rows = [ln for ln in lines[1:] if ln.startswith(suite + ".")]
+        check(len(rows) >= 4 and all(ln.count(",") == 2 for ln in rows),
+              f"bench suite {suite}: rows missing or malformed")
+    say(f"bench: {len(lines) - 1} rows, launch gate == "
+        f"results/BASELINE_launches.json; launches {counts}")
+    return counts
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -1771,7 +1980,9 @@ def main() -> int:
         raise SmokeFailure(f"{SRC / 'repro_torch'} not found: run from the "
                            f"root of a checkout")
     sys.path.insert(0, str(SRC))
+    global KB
     import numpy as np
+    from repro_torch.benchmarks import kernel_bench as KB
     from repro_torch.core import vc_asgd as V
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FK
@@ -1786,6 +1997,8 @@ def main() -> int:
     from repro_torch.kernels.launches import REPLACES, SOURCE
 
     # ---- 1. device --------------------------------------------------------
+    phases = Phases()
+    phases.start("1")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True
@@ -1797,6 +2010,7 @@ def main() -> int:
     say(f"nvidia-smi: {smi}")
 
     # ---- 2. build ---------------------------------------------------------
+    phases.start("2")
     t0 = time.perf_counter()
     libs = build.build_all()
     say(f"build: {len(libs)} source(s) in {time.perf_counter() - t0:.2f} s "
@@ -1807,6 +2021,7 @@ def main() -> int:
                 say(f"ptxas {name}: {line.strip()}")
 
     # ---- 3. kernel parity -------------------------------------------------
+    phases.start("3")
     numbers = parity(torch, np, VK, R, MAIN_N, timed=True)
     numbers.update(parity_scheme_kernels(torch, np, (VK, QK, SK), R, MAIN_N,
                                          MAIN_K, timed=True))
@@ -1817,6 +2032,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4a. quickstart --smoke: card vs CPU ------------------------------
+    phases.start("4a")
     VK.reset_launch_count()
     res_gpu, wall_gpu = run("cuda", smoke=True)
     check_counts(VK, res_gpu, "smoke on cuda")
@@ -1846,6 +2062,7 @@ def main() -> int:
         f"(band {ACC_BAND})")
 
     # ---- 4b. Eq. 2: four results folded in one batch -----------------------
+    phases.start("4b")
     from repro_torch.core import flat as F
     from repro_torch.core.tasks import MLPTask
     data, _ = quickstart(smoke=True)
@@ -1877,12 +2094,14 @@ def main() -> int:
     check(gap <= 1e-5, f"Eq. 2 disagrees with the Eq. 1 fold by {gap}")
 
     # ---- 4c. the full quickstart configuration -----------------------------
+    phases.start("4c")
     profile_smoke(torch, VK)
     VK.reset_launch_count()
     (res, wall), spans = host_breakdown(lambda: run("cuda", smoke=False))
     main_counts = check_counts(VK, res, "quickstart on cuda")
-    check(res.epochs_done == 10 and np.isfinite(res.final_accuracy),
-          "quickstart did not finish its 10 epochs")
+    check(res.epochs_done == QUICKSTART_EPOCHS
+          and np.isfinite(res.final_accuracy),
+          f"quickstart did not finish its {QUICKSTART_EPOCHS} epochs")
     say(f"quickstart: {res.results_assimilated} results, {res.client_steps} "
         f"client steps, wall {wall:.3f} s")
     say(f"{'epoch':>6} {'sim hours':>10} {'val acc':>8} {'spread':>7}")
@@ -1896,13 +2115,16 @@ def main() -> int:
         say(f"host span {key}: {sec:.3f} s ({100 * sec / wall:.1f}% of wall)")
 
     # ---- 4d. the pinned replay: every scheme, card vs CPU vs the pin ------
+    phases.start("4d")
     pinned_counts = pinned_replay(torch, VK)
     say(f"pinned replay: launches summed over the 12 cases {pinned_counts}")
 
     # ---- 4e. the §IV-C comparison at the example's full configuration -----
+    phases.start("4e")
     comparison(torch, VK)
 
     # ---- 6. serve: B13, internlm2-1.8b at full width, card vs CPU -------
+    phases.start("6")
     numbers["flash_attention"] = attention_parity(torch, np, FK, R)   # 6a
     torch.cuda.empty_cache()
     serve_counts = serve_full_width(torch, VK)                        # 6b
@@ -1910,24 +2132,34 @@ def main() -> int:
                       {"flash_attention": CMP_LAYERS})
 
     # ---- 7. serve rwkv6: B14, rwkv6-1.6b at full width, card vs CPU -----
+    phases.start("7")
     numbers["wkv6"] = wkv6_parity(torch, WK, R)                       # 7a
     rwkv_counts = serve_rwkv_full_width(torch, VK)                    # 7b
     serve_card_vs_cpu(torch, VK, depth_cut("rwkv6-1.6b"),           # 7c
                       {"wkv6": CMP_LAYERS})
 
     # ---- 8. serve jamba: B15, jamba-v0.1 one group at full width --------
+    phases.start("8")
     numbers["mamba_scan"] = mamba_scan_parity(torch, MK, R)           # 8a
     jamba_counts = serve_jamba_full_width(torch, VK)                  # 8b
     serve_card_vs_cpu(torch, VK, jamba_config(JAMBA_CMP_BLOCKS),      # 8c
                       {"mamba_scan": 1, "flash_attention": 1})
 
     # ---- 9. the pod runtime's compressed cross-pod round ----------------
+    phases.start("9")
     numbers.update(topk_parity(torch, np, TK, C, R))                  # 9a
     select_card_vs_cpu(torch, np, C, VK)                              # 9b
     pod_counts = pod_round_card_vs_cpu(torch, np, VK)                 # 9c
     coordinator_card_vs_cpu(torch, np, VK)                            # 9d
 
-    # ---- 10. result lines -------------------------------------------------
+    # ---- 10. the port's kernel bench, with B4, B8 and B11 ----------------
+    phases.start("10a")
+    numbers.update(new_kernels_parity(torch, np, VK, TK, QK, SK, R))  # 10a
+    phases.start("10b")
+    bench_counts = bench_on_card(VK)                                  # 10b
+
+    # ---- 11. result lines -------------------------------------------------
+    phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
                    "adam_update_flat": main_counts,      # 4c
@@ -1935,7 +2167,10 @@ def main() -> int:
                    "wkv6": rwkv_counts,                  # 7b
                    "mamba_scan": jamba_counts,           # 8b
                    "blocked_topk_stats": pod_counts,     # 9c
-                   "threshold_sparsify_exact": pod_counts}
+                   "threshold_sparsify_exact": pod_counts,
+                   "vc_asgd_dc_lerp_flat": bench_counts,  # 10b
+                   "threshold_sparsify": bench_counts,    # 10b
+                   "quantize_pack": bench_counts}         # 10b
     kernels = []
     for name in VK.KERNELS:
         r = numbers[name]

@@ -1,4 +1,4 @@
-"""Update compression for the upload leg (port of the flat-bus forms of
+"""Update compression for the upload leg (port of
 ``repro/core/compression.py``).
 
 The client's payload is the parameter DELTA (trained - base), and it is
@@ -59,6 +59,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import flat as F
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import topk_mask as TM
 
@@ -210,6 +211,14 @@ def blocked_topk_sparsify(x: torch.Tensor, k: int
     return kept.reshape(x.shape), residual.reshape(x.shape)
 
 
+def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask of the k largest-|x| entries, shaped like ``x``:
+    exactly k set, a magnitude tie going to the lowest flat index."""
+    mask = torch.zeros(x.numel(), dtype=torch.bool, device=x.device)
+    mask[select_topk(x, k).long()] = True
+    return mask.reshape(x.shape)
+
+
 def residual_norm(r: torch.Tensor) -> float:
     """l2 norm of an error-feedback residual, accumulated in f64 and
     rounded once to f32: the value a frame header carries.  Within an
@@ -283,6 +292,28 @@ def compress_flat(delta_buf: torch.Tensor, *, density: float = 0.05,
 def decompress_flat(p: CompressedDelta) -> torch.Tensor:
     """Rebuild the dense flat [padded] buffer from a global payload."""
     return decompress_delta(p)
+
+
+def compress_delta(delta: torch.Tensor, *, density: float = 0.05,
+                   block: int = 256) -> Tuple[CompressedDelta, torch.Tensor]:
+    """Top-k + int8 on one tensor: ``compress_flat`` of the raveled tensor,
+    the payload's shape and the residual back in the tensor's shape."""
+    payload, residual = compress_flat(delta.reshape(-1), density=density,
+                                      block=block)
+    return (payload._replace(shape=tuple(delta.shape)),
+            residual.reshape(delta.shape))
+
+
+def compress_tree_global(delta_tree, *, density: float = 0.05,
+                         block: int = 256,
+                         residual: Optional[torch.Tensor] = None):
+    """Whole-model compression of a delta TREE through the flat bus: one
+    top-k over every leaf.  Returns (payload, new_residual_buf, spec);
+    decompress with ``unflatten(FlatParams(decompress_flat(p), spec))``."""
+    fp = F.flatten(delta_tree)
+    payload, res = compress_flat(fp.buf, density=density, block=block,
+                                 logical_n=fp.spec.n, residual=residual)
+    return payload, res, fp.spec
 
 
 def payload_bytes(p: CompressedDelta) -> int:

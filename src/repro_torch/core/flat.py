@@ -81,6 +81,14 @@ def tree_unflatten(treedef, leaves: Sequence) -> Any:
     return build(treedef)
 
 
+def tree_map(fn, tree, *rest) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of each
+    tree in ``rest`` (same structure), as ``jax.tree.map``."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     """The reference's dtype name ("float32", "bfloat16", ...)."""
     return str(dtype).removeprefix("torch.")

@@ -3,6 +3,7 @@
 //
 //   tk_stats <- blocked_topk_stats (:91), _stats_kernel (:78)        (B6)
 //   tk_exact <- threshold_sparsify_exact (:138), _exact_kernel (:122) (B7)
+//   tk_threshold_* <- threshold_sparsify (:50), _mask_kernel (:42)      (B8)
 //
 // Both tile the flat f32 bus into blocks of 8,192 elements (the
 // reference's BLOCK; elements past n read as 0.0, its zero padding) and
@@ -29,15 +30,29 @@
 // subtraction), so kept + residual == x exactly and the results equal the
 // plain version's bit for bit.  tau and budget are read from device memory.
 //
-// Bound on the H100 (3.35 TB/s HBM3): both are memory-bound, with a
+// B8, the plain threshold pass (not exact-k: every |x| >= tau is kept,
+// ties and all): kept = |x| >= tau ? x : 0.0 and residual = x - kept, in
+// f32 math, both stored in x's dtype (f32 or bf16; either value is x or
+// zero, so narrowing is exact and kept + residual == x).  tau is an f32
+// read from device memory and compared in f32, as the Pallas kernel does
+// (the reference's jnp oracle compares bf16 x against tau rounded to
+// bf16, a different cut for a tau between two bf16 values).  It needs no
+// tiles: a grid-stride pass over 16-byte packs, then the n % V elements
+// after them, one each for the first threads of block 0.
+//
+// Bound on the H100 (3.35 TB/s HBM3): all three are memory-bound, with a
 // compare, a ballot and a popcount an element.  B6 moves 4n bytes in and
-// n/8 + 4 nb out; B7 4n in, 8n out and 4 nb of tie_start.
+// n/8 + 4 nb out; B7 4n in, 8n out and 4 nb of tie_start; B8 4n in and
+// 8n out in f32 (2n and 4n in bf16).
 //
 // Every entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bus.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -130,6 +145,51 @@ exact_kernel(const float* __restrict__ x, const float* __restrict__ tau_p,
   }
 }
 
+template <typename T>
+__device__ __forceinline__ void threshold1(T x, float tau, T* kept, T* res) {
+  const float xf = widen(x);
+  const float k = fabsf(xf) >= tau ? xf : 0.0f;
+  *kept = narrow<T>(k);
+  *res = narrow<T>(__fsub_rn(xf, k));
+}
+
+template <typename T>
+__global__ void threshold_kernel(const T* __restrict__ x,
+                                 const float* __restrict__ tau_p, float tau_v,
+                                 T* __restrict__ kept, T* __restrict__ res,
+                                 int64_t n) {
+  constexpr int V = 16 / sizeof(T);
+  using P = Pack<T, V>;
+  const float tau = tau_p != nullptr ? *tau_p : tau_v;
+  const int64_t nvec = n / V;
+  const P* xp = reinterpret_cast<const P*>(x);
+  P* kp = reinterpret_cast<P*>(kept);
+  P* rp = reinterpret_cast<P*>(res);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < nvec; i += stride) {
+    const P xv = xp[i];
+    P kv, rv;
+#pragma unroll
+    for (int k = 0; k < V; ++k) threshold1(xv.v[k], tau, &kv.v[k], &rv.v[k]);
+    kp[i] = kv;
+    rp[i] = rv;
+  }
+  const int64_t t = nvec * V + threadIdx.x;
+  if (blockIdx.x == 0 && t < n) threshold1(x[t], tau, &kept[t], &res[t]);
+}
+
+template <typename T>
+int threshold_launch(const void* x, const void* tau, float tau_v, void* kept,
+                     void* res, int64_t n, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  threshold_kernel<T><<<grid_for(n / (16 / sizeof(T))), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(tau), tau_v,
+      static_cast<T*>(kept), static_cast<T*>(res), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool tiles_for(int64_t n, unsigned* tiles) {
   if (n < 1) return false;
   const int64_t nb = (n + kBlock - 1) / kBlock;
@@ -170,6 +230,18 @@ int tk_exact(const void* x, const void* tau, const void* budget,
       static_cast<const int32_t*>(tie_start), static_cast<float*>(kept),
       static_cast<float*>(residual), n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x [n] (f32 or bf16), tau f32 [1] (or NULL: tau_v) -> kept [n],
+// residual [n] in x's dtype
+int tk_threshold_f32(const void* x, const void* tau, float tau_v, void* kept,
+                     void* res, int64_t n, void* stream) {
+  return threshold_launch<float>(x, tau, tau_v, kept, res, n, stream);
+}
+
+int tk_threshold_bf16(const void* x, const void* tau, float tau_v, void* kept,
+                      void* res, int64_t n, void* stream) {
+  return threshold_launch<uint16_t>(x, tau, tau_v, kept, res, n, stream);
 }
 
 }  // extern "C"

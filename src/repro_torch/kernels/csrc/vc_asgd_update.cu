@@ -1,40 +1,48 @@
 // Flat-bus kernels of the VC-ASGD main path, for Hopper (sm_90a).
 //
-// Four elementwise passes over the BLOCK-padded flat parameter bus
-// (core/flat.py): Eq. 1 (lerp), Eq. 2 (the weighted multi-client
-// reduction), fused Adam and the elastic EASGD round.  Each replaces one
-// Pallas kernel of src/repro/kernels/vc_asgd_update.py:
+// Five elementwise passes over the BLOCK-padded flat parameter bus
+// (core/flat.py): Eq. 1 (lerp), DC-ASGD's corrected lerp, Eq. 2 (the
+// weighted multi-client reduction), fused Adam and the elastic EASGD
+// round.  Each replaces one Pallas kernel of
+// src/repro/kernels/vc_asgd_update.py:
 //
-//   vc_lerp_*      <- vc_asgd_lerp_flat (:172), _lerp_kernel (:49)
+//   vc_lerp_*      <- vc_asgd_lerp_flat (:172), vc_asgd_lerp (:146),
+//                     _lerp_kernel (:49)                              (B1)
+//   vc_dc_lerp_*   <- vc_asgd_dc_lerp_flat (:180), vc_asgd_dc_lerp (:153),
+//                     _dc_lerp_kernel (:56)                           (B4)
 //   vc_assimilate_*<- assimilate_flat (:188), _assimilate_kernel (:69)
 //   vc_adam_*      <- adam_update_flat (:222), _adam_kernel (:80)
 //   vc_easgd_*     <- easgd_elastic_flat (:251), _easgd_kernel (:98)
 //
-// Bound on the H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32): all four
+// Bound on the H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32): all five
 // are memory-bound by two orders of magnitude.  Per element of an f32 bus
-// they move 12 B (lerp: s, c in, out), 4*(n+2) B (Eq. 2 over n clients),
-// 28 B (Adam: p, g, m, v in, p, m, v out) and 8*(n+1) B (EASGD: center
-// and n replicas in and out) for 3, 2n+1, 14 and 4n+2 flops.
+// they move 12 B (lerp: s, c in, out), 20 B (DC lerp: s, c, g, b in, out;
+// 10 B in bf16), 4*(n+2) B (Eq. 2 over n clients), 28 B (Adam: p, g, m,
+// v in, p, m, v out) and 8*(n+1) B (EASGD: center and n replicas in and
+// out) for 3, 8, 2n+1, 14 and 4n+2 flops.
 // The design answers that bound with the simplest thing that streams:
-// each thread owns whole 16-byte vectors (N is a multiple of 8192, so no
-// tail), a grid-stride loop over a grid of a few blocks per SM, loads
-// and stores issued straight from registers, nothing staged in shared
-// memory (no reuse to exploit).  Eq. 2 and EASGD read the n client or
-// replica rows in order inside the thread, so every output is one pass.
+// each thread owns whole 16-byte vectors, a grid-stride loop over a grid
+// of a few blocks per SM, loads and stores issued straight from
+// registers, nothing staged in shared memory (no reuse to exploit).  Eq. 2
+// and EASGD read the n client or replica rows in order inside the thread,
+// so every output is one pass.  The flat bus is a multiple of 8192, so it
+// has no tail; the lerps also serve the per-tensor entries (any shape),
+// whose n % V elements after the last pack the first threads of block 0
+// take one each: no padded copies.
 //
 // Numerics: the reference pins these results bit for bit (separate f32
 // multiply and add, no FMA; IEEE division and square root), so every
 // operation is spelled out with the _rn intrinsics — nvcc would contract
-// a*s + b*c into an FMA otherwise.  Storage is f32 or bf16 (bf16 as raw
-// uint16 bits; widening is exact, narrowing rounds to nearest even).
+// a*s + b*c into an FMA otherwise.  DC-ASGD keeps the reference's order,
+// ((lam*g)*g)*(s - b).  Storage is f32 or bf16 (bus.cuh).
 //
 // Every entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bus.cuh"
 #include "grid.cuh"
 
 namespace {
@@ -48,33 +56,33 @@ struct Weights {
   float w[kMaxWeights];
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ uint16_t narrow<uint16_t>(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-// V elements of T in one aligned register pack (16 bytes for V*sizeof(T)=16)
-template <typename T, int V>
-struct alignas(V * sizeof(T)) Pack {
-  T v[V];
-};
-
 // ---- Eq. 1: out = a*s + (1-a)*c ------------------------------------------
+template <typename T>
+__device__ __forceinline__ T lerp1(float a, float oma, T s, T c) {
+  return narrow<T>(__fadd_rn(__fmul_rn(a, widen(s)), __fmul_rn(oma, widen(c))));
+}
+
+// DC-ASGD: c' = c + ((lam*g)*g)*(s - b), then Eq. 1 on c'
+template <typename T>
+__device__ __forceinline__ T dc_lerp1(float a, float oma, float lam, T s, T c,
+                                      T g, T b) {
+  const float sf = widen(s), gf = widen(g);
+  const float corr = __fmul_rn(__fmul_rn(__fmul_rn(lam, gf), gf),
+                               __fsub_rn(sf, widen(b)));
+  const float cc = __fadd_rn(widen(c), corr);
+  return narrow<T>(__fadd_rn(__fmul_rn(a, sf), __fmul_rn(oma, cc)));
+}
+
+// n elements: n / V whole packs by the grid-stride loop, then the n % V
+// elements after them (the per-tensor entries' ragged tail), one each
+// for the first threads of block 0
 template <typename T>
 __global__ void lerp_kernel(const T* __restrict__ s, const T* __restrict__ c,
                             T* __restrict__ out, float a, float oma,
-                            int64_t nvec) {
+                            int64_t n) {
   constexpr int V = 16 / sizeof(T);
   using P = Pack<T, V>;
+  const int64_t nvec = n / V;
   const P* sp = reinterpret_cast<const P*>(s);
   const P* cp = reinterpret_cast<const P*>(c);
   P* op = reinterpret_cast<P*>(out);
@@ -85,12 +93,64 @@ __global__ void lerp_kernel(const T* __restrict__ s, const T* __restrict__ c,
     const P cv = cp[i];
     P ov;
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      ov.v[k] = narrow<T>(__fadd_rn(__fmul_rn(a, widen(sv.v[k])),
-                                    __fmul_rn(oma, widen(cv.v[k]))));
-    }
+    for (int k = 0; k < V; ++k) ov.v[k] = lerp1(a, oma, sv.v[k], cv.v[k]);
     op[i] = ov;
   }
+  const int64_t t = nvec * V + threadIdx.x;
+  if (blockIdx.x == 0 && t < n) out[t] = lerp1(a, oma, s[t], c[t]);
+}
+
+template <typename T>
+__global__ void dc_lerp_kernel(const T* __restrict__ s,
+                               const T* __restrict__ c,
+                               const T* __restrict__ g,
+                               const T* __restrict__ b, T* __restrict__ out,
+                               float a, float oma, float lam, int64_t n) {
+  constexpr int V = 16 / sizeof(T);
+  using P = Pack<T, V>;
+  const int64_t nvec = n / V;
+  const P* sp = reinterpret_cast<const P*>(s);
+  const P* cp = reinterpret_cast<const P*>(c);
+  const P* gp = reinterpret_cast<const P*>(g);
+  const P* bp = reinterpret_cast<const P*>(b);
+  P* op = reinterpret_cast<P*>(out);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < nvec; i += stride) {
+    const P sv = sp[i], cv = cp[i], gv = gp[i], bv = bp[i];
+    P ov;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      ov.v[k] = dc_lerp1(a, oma, lam, sv.v[k], cv.v[k], gv.v[k], bv.v[k]);
+    op[i] = ov;
+  }
+  const int64_t t = nvec * V + threadIdx.x;
+  if (blockIdx.x == 0 && t < n)
+    out[t] = dc_lerp1(a, oma, lam, s[t], c[t], g[t], b[t]);
+}
+
+template <typename T>
+int lerp_launch(const void* s, const void* c, void* out, float a, float oma,
+                int64_t n, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  lerp_kernel<T><<<grid_for(n / (16 / sizeof(T))), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(s), static_cast<const T*>(c), static_cast<T*>(out),
+      a, oma, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dc_lerp_launch(const void* s, const void* c, const void* g, const void* b,
+                   void* out, float a, float oma, float lam, int64_t n,
+                   void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  dc_lerp_kernel<T><<<grid_for(n / (16 / sizeof(T))), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(s), static_cast<const T*>(c),
+      static_cast<const T*>(g), static_cast<const T*>(b),
+      static_cast<T*>(out), a, oma, lam, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- Eq. 2: out = w0*s + sum_j w[j+1]*c_j, j in arrival order -------------
@@ -274,24 +334,28 @@ const char* vc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// s, c [n] -> out [n]; any n >= 1 (packs, then the ragged tail)
 int vc_lerp_f32(const void* s, const void* c, void* out, float a, float oma,
                 int64_t n, void* stream) {
-  const int64_t nvec = n / 4;
-  lerp_kernel<float><<<grid_for(nvec), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(s), static_cast<const float*>(c),
-      static_cast<float*>(out), a, oma, nvec);
-  return static_cast<int>(cudaGetLastError());
+  return lerp_launch<float>(s, c, out, a, oma, n, stream);
 }
 
 int vc_lerp_bf16(const void* s, const void* c, void* out, float a, float oma,
                  int64_t n, void* stream) {
-  const int64_t nvec = n / 8;
-  lerp_kernel<uint16_t><<<grid_for(nvec), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(s), static_cast<const uint16_t*>(c),
-      static_cast<uint16_t*>(out), a, oma, nvec);
-  return static_cast<int>(cudaGetLastError());
+  return lerp_launch<uint16_t>(s, c, out, a, oma, n, stream);
+}
+
+// s, c, g, b [n] -> out [n]; any n >= 1
+int vc_dc_lerp_f32(const void* s, const void* c, const void* g, const void* b,
+                   void* out, float a, float oma, float lam, int64_t n,
+                   void* stream) {
+  return dc_lerp_launch<float>(s, c, g, b, out, a, oma, lam, n, stream);
+}
+
+int vc_dc_lerp_bf16(const void* s, const void* c, const void* g,
+                    const void* b, void* out, float a, float oma, float lam,
+                    int64_t n, void* stream) {
+  return dc_lerp_launch<uint16_t>(s, c, g, b, out, a, oma, lam, n, stream);
 }
 
 int vc_max_weights(void) { return kMaxWeights; }

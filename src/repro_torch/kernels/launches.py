@@ -1,6 +1,7 @@
 """One launch counter per hand-written CUDA kernel, each kernel's source
 and the Pallas kernel it replaces, and the launch helper every wrapper
-goes through.
+goes through.  A per-tensor entry counts under its kernel's counter
+(``vc_asgd_lerp`` under B1's, ``vc_asgd_dc_lerp`` under B4's).
 
 ``launch`` runs a kernel's C entry point on the current stream of the
 tensors' device, raises if the entry returned a CUDA error, and only
@@ -18,11 +19,14 @@ KERNELS = (
     "vc_asgd_lerp_flat",        # B1, csrc/vc_asgd_update.cu
     "assimilate_flat",          # B2, csrc/vc_asgd_update.cu
     "adam_update_flat",         # B3, csrc/vc_asgd_update.cu
+    "vc_asgd_dc_lerp_flat",     # B4, csrc/vc_asgd_update.cu
     "easgd_elastic_flat",       # B5, csrc/vc_asgd_update.cu
     "blocked_topk_stats",       # B6, csrc/topk_mask.cu
     "threshold_sparsify_exact",  # B7, csrc/topk_mask.cu
+    "threshold_sparsify",       # B8, csrc/topk_mask.cu
     "quantize_int8",            # B9, csrc/quantize.cu
     "dequantize_int8",          # B10, csrc/quantize.cu
+    "quantize_pack",            # B11, csrc/sparse_pack.cu
     "pack_body",                # B12, csrc/sparse_pack.cu
     "flash_attention",          # B13, csrc/flash_attention.cu
     "wkv6",                     # B14, csrc/wkv6.cu
@@ -34,11 +38,14 @@ SOURCE = {
     "vc_asgd_lerp_flat": _CSRC + "vc_asgd_update.cu",
     "assimilate_flat": _CSRC + "vc_asgd_update.cu",
     "adam_update_flat": _CSRC + "vc_asgd_update.cu",
+    "vc_asgd_dc_lerp_flat": _CSRC + "vc_asgd_update.cu",
     "easgd_elastic_flat": _CSRC + "vc_asgd_update.cu",
     "blocked_topk_stats": _CSRC + "topk_mask.cu",
     "threshold_sparsify_exact": _CSRC + "topk_mask.cu",
+    "threshold_sparsify": _CSRC + "topk_mask.cu",
     "quantize_int8": _CSRC + "quantize.cu",
     "dequantize_int8": _CSRC + "quantize.cu",
+    "quantize_pack": _CSRC + "sparse_pack.cu",
     "pack_body": _CSRC + "sparse_pack.cu",
     "flash_attention": _CSRC + "flash_attention.cu",
     "wkv6": _CSRC + "wkv6.cu",
@@ -48,11 +55,14 @@ REPLACES = {
     "vc_asgd_lerp_flat": "src/repro/kernels/vc_asgd_update.py:49",
     "assimilate_flat": "src/repro/kernels/vc_asgd_update.py:69",
     "adam_update_flat": "src/repro/kernels/vc_asgd_update.py:80",
+    "vc_asgd_dc_lerp_flat": "src/repro/kernels/vc_asgd_update.py:56",
     "easgd_elastic_flat": "src/repro/kernels/vc_asgd_update.py:98",
     "blocked_topk_stats": "src/repro/kernels/topk_mask.py:78",
     "threshold_sparsify_exact": "src/repro/kernels/topk_mask.py:122",
+    "threshold_sparsify": "src/repro/kernels/topk_mask.py:42",
     "quantize_int8": "src/repro/kernels/quantize.py:17",
     "dequantize_int8": "src/repro/kernels/quantize.py:26",
+    "quantize_pack": "src/repro/kernels/sparse_pack.py:35",
     "pack_body": "src/repro/kernels/sparse_pack.py:51",
     "flash_attention": "src/repro/kernels/flash_attention.py:23",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:19",
@@ -93,6 +103,17 @@ def launch(kernel: str, error_string, fn, device: torch.device,
 def bind_error_string(fn) -> None:
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
+
+
+# bus storage dtypes of the elementwise kernels -> their C entry suffix
+STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def check_pack_aligned(name: str, t: torch.Tensor) -> None:
+    """A kernel that reads ``t`` in 16-byte packs needs it 16-byte aligned
+    where it holds one (a shorter tensor is read element by element)."""
+    if t.numel() * t.element_size() >= 16 and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def check_cuda(name: str, t: torch.Tensor, dtypes) -> None:

@@ -29,6 +29,30 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"kernels run on cuda or cpu, got {t.device}")
 
 
+def fused_lerp(server, client, alpha):
+    """Eq. 1 on one tensor of any shape — ONE launch on the card."""
+    if _on_cuda(server):
+        return _vc.vc_asgd_lerp(server, client, alpha)
+    return R.vc_asgd_lerp(server, client, alpha)
+
+
+def fused_dc_lerp(server, client, grad, backup, alpha, lam=0.04):
+    """DC-ASGD's corrected Eq. 1 on one tensor of any shape — ONE launch."""
+    if _on_cuda(server):
+        return _vc.vc_asgd_dc_lerp(server, client, grad, backup, alpha, lam)
+    return R.vc_asgd_dc_lerp(server, client, grad, backup, alpha, lam)
+
+
+def fused_dc_lerp_flat(server_buf, client_buf, grad_buf, backup_buf, alpha,
+                       lam=0.04):
+    """DC-ASGD's corrected Eq. 1 over the whole flat bus — ONE launch."""
+    if _on_cuda(server_buf):
+        return _vc.vc_asgd_dc_lerp_flat(server_buf, client_buf, grad_buf,
+                                        backup_buf, alpha, lam)
+    return R.vc_asgd_dc_lerp(server_buf, client_buf, grad_buf, backup_buf,
+                             alpha, lam)
+
+
 def fused_lerp_flat(server_buf, client_buf, alpha):
     """Eq. 1 over the whole flat bus — ONE launch on the card."""
     if _on_cuda(server_buf):
@@ -75,6 +99,14 @@ def threshold_sparsify_exact(x, tau, tie_start, tie_budget):
     return R.threshold_sparsify_exact(x, tau, tie_start, tie_budget)
 
 
+def threshold_sparsify(x, tau):
+    """``|x| >= tau`` kept / residual (not exact-k under ties), tau
+    compared in f32 — ONE launch."""
+    if _on_cuda(x):
+        return _tm.threshold_sparsify(x, tau)
+    return R.threshold_sparsify(x, tau)
+
+
 def quantize_int8(x, block: int = 256):
     """Per-block int8 of a 1-D f32 buffer -> (q, scales) — ONE launch."""
     if _on_cuda(x):
@@ -95,6 +127,14 @@ def pack_body(q, scales, idx):
     if _on_cuda(q):
         return _sp.pack_body(q, scales, idx)
     return R.pack_body(q, scales, idx)
+
+
+def fused_quantize_pack(sel, idx, block: int = 256):
+    """Quantize + pack the sparse wire-frame body -> (body, q padded to
+    ng * block, scales) — ONE launch."""
+    if _on_cuda(sel):
+        return _sp.quantize_pack(sel, idx, block)
+    return R.quantize_pack(sel, idx, block)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,

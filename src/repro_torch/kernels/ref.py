@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the port's kernels (the flat-bus updates, the
-two passes of the blocked top-k, the int8 codec, the sparse-body pack,
-attention, the WKV6 recurrence and the selective scan): what ``ops`` runs
-for CPU tensors
-and what ``chip_smoke.py`` holds each CUDA kernel against.
+"""Plain PyTorch versions of the port's kernels (the flat-bus updates and
+DC-ASGD's corrected lerp, the two passes of the blocked top-k and the
+threshold pass, the int8 codec, the sparse-body pack and the fused
+quantize + pack, attention, the WKV6 recurrence and the selective scan):
+what ``ops`` runs for CPU tensors and what ``chip_smoke.py`` holds each
+CUDA kernel against.
 
 Each mirrors the reference's arithmetic operation by operation — separate
 f32 multiplies and adds (eager PyTorch fuses nothing, so there is no FMA),
@@ -39,6 +40,21 @@ def vc_asgd_lerp(server: torch.Tensor, client: torch.Tensor, alpha
     oma = np.float32(1.0) - a
     return (float(a) * server.to(_F32)
             + float(oma) * client.to(_F32)).to(server.dtype)
+
+
+def vc_asgd_dc_lerp(server: torch.Tensor, client: torch.Tensor,
+                    grad: torch.Tensor, backup: torch.Tensor, alpha,
+                    lam=0.04) -> torch.Tensor:
+    """DC-ASGD's corrected Eq. 1 (the Pallas ``_dc_lerp_kernel``):
+    ``c' = c + ((lam*g)*g)*(s - b)``, then ``a*s + (1-a)*c'``, in f32,
+    stored in the server's dtype; ``alpha`` and ``lam`` rounded to f32 and
+    ``1-a`` taken in f32."""
+    a = np.float32(alpha)
+    oma = np.float32(1.0) - a
+    s = server.to(_F32)
+    g = grad.to(_F32)
+    cc = client.to(_F32) + f32(lam) * g * g * (s - backup.to(_F32))
+    return (float(a) * s + float(oma) * cc).to(server.dtype)
 
 
 def assimilate(server: torch.Tensor, clients: torch.Tensor,
@@ -141,6 +157,20 @@ def threshold_sparsify_exact(x: torch.Tensor, tau, tie_start, tie_budget,
     return unpad(kept), unpad(xf - kept)
 
 
+def threshold_sparsify(x: torch.Tensor, tau):
+    """The threshold pass (the Pallas ``_mask_kernel``; not exact-k under
+    ties): ``kept = |x| >= tau ? x : 0`` and ``residual = x - kept`` in
+    f32, both stored in x's dtype, so ``kept + residual == x``.  ``tau``
+    (a number or a one-element tensor) is an f32 compared in f32, as the
+    kernel compares it; the reference's jnp oracle compares bf16 ``x``
+    against ``tau`` rounded to bf16 instead."""
+    xf = x.to(_F32)
+    tau = torch.as_tensor(tau, dtype=_F32, device=x.device).reshape(-1)[:1]
+    kept = torch.where(xf.abs() >= tau, xf,
+                       torch.zeros((), dtype=_F32, device=x.device))
+    return kept.to(x.dtype), (xf - kept).to(x.dtype)
+
+
 def quantize_int8(x: torch.Tensor, block: int = 256):
     """Symmetric per-block int8: ``x`` (any shape, n elements) ->
     (q int8 [n], scales f32 [ceil(n/block)]).  Per block,
@@ -176,6 +206,17 @@ def pack_body(q: torch.Tensor, scales: torch.Tensor, idx: torch.Tensor
     return torch.cat([q.to(torch.int8).reshape(-1).view(torch.uint8),
                       scales.to(_F32).reshape(-1).view(torch.uint8),
                       idx.to(torch.int32).reshape(-1).view(torch.uint8)])
+
+
+def quantize_pack(sel: torch.Tensor, idx: torch.Tensor, block: int = 256):
+    """Quantize + pack (the Pallas ``_pack_kernel``): ``quantize_int8``
+    then ``pack_body``.  Returns (body uint8 [5k + 4ng], q int8
+    [ng * block] zero-padded, scales f32 [ng])."""
+    k = sel.numel()
+    ng = -(-k // block)
+    q, scales = quantize_int8(sel, block)
+    qpad = torch.nn.functional.pad(q, (0, ng * block - k))
+    return pack_body(q, scales, idx), qpad, scales
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,19 +1,24 @@
-"""Wrappers of the blocked exact top-k's two CUDA kernels
-(csrc/topk_mask.cu), ports of ``repro/kernels/topk_mask.py``:
+"""Wrappers of the three CUDA kernels of csrc/topk_mask.cu, ports of
+``repro/kernels/topk_mask.py``: the blocked exact top-k's two passes and
+the plain threshold pass.
 
 * ``blocked_topk_stats`` (B6, replaces ``_stats_kernel``): ONE pass packs
   the ``bits(|x|) >= lo`` candidate mask into u32 words, 256 a tile of
   8,192 elements, and counts each tile's candidates;
 * ``threshold_sparsify_exact`` (B7, replaces ``_exact_kernel``): ONE pass
   emits kept and residual, exact-k under ties (lowest index wins,
-  ``lax.top_k``'s rule).
+  ``lax.top_k``'s rule);
+* ``threshold_sparsify`` (B8, replaces ``_mask_kernel``): ONE pass keeps
+  every ``|x| >= tau`` (not exact-k under ties), f32 or bf16 storage,
+  ``tau`` compared in f32 as the Pallas kernel compares it.
 
 The selection around them (the sampled bracket, the refinement between
 the two passes, the sort on a missed bracket) is in
 ``core/compression.py``.
 
-The wrappers take contiguous 1-D f32 CUDA tensors only (``ops`` routes
-CPU tensors to the plain versions in ``ref``), allocate their outputs and
+The wrappers take contiguous CUDA tensors only (1-D f32 for B6 and B7;
+any shape, f32 or bf16, for B8; ``ops`` routes CPU tensors to the plain
+versions in ``ref``), allocate their outputs and
 launch ONE kernel each on the current stream without synchronising.  A
 non-zero ``cudaGetLastError`` raises.
 """
@@ -22,10 +27,13 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launches import bind_error_string, check_cuda, launch
+from repro_torch.kernels.launches import (STORAGE, bind_error_string,
+                                          check_cuda, check_pack_aligned,
+                                          launch)
 
 BLOCK = 8 * 1024            # elements of a tile
 WORDS = BLOCK // 32         # packed u32 candidate words a tile
@@ -43,6 +51,10 @@ def _library() -> ctypes.CDLL:
         lib.tk_stats.restype = ctypes.c_int
         lib.tk_exact.argtypes = [P, P, P, P, P, P, I64, P]
         lib.tk_exact.restype = ctypes.c_int
+        for sfx in ("f32", "bf16"):
+            fn = getattr(lib, f"tk_threshold_{sfx}")
+            fn.argtypes = [P, P, ctypes.c_float, P, P, I64, P]
+            fn.restype = ctypes.c_int
         bind_error_string(lib.tk_error_string)
         _lib = lib
     return _lib
@@ -106,4 +118,30 @@ def threshold_sparsify_exact(x: torch.Tensor, tau, tie_start: torch.Tensor,
     launch("threshold_sparsify_exact", lib.tk_error_string, lib.tk_exact,
            x.device, x.data_ptr(), tau.data_ptr(), budget.data_ptr(),
            tie_start.data_ptr(), kept.data_ptr(), residual.data_ptr(), n)
+    return kept, residual
+
+
+def threshold_sparsify(x: torch.Tensor, tau) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """x f32 or bf16 (any shape), tau (float or f32 [1] on x's device) ->
+    (kept, residual) shaped like x in x's dtype, in ONE launch:
+    ``kept = |x| >= tau ? x : 0`` and ``residual = x - kept`` in f32,
+    bit-identical to ``ref.threshold_sparsify``."""
+    check_cuda("x", x, tuple(STORAGE))
+    n = x.numel()
+    if n < 1:
+        raise ValueError(f"x must be non-empty, got shape {tuple(x.shape)}")
+    check_pack_aligned("x", x)
+    if isinstance(tau, torch.Tensor):       # read by the kernel itself
+        tau_p, tau_v = _scalar("tau", tau, torch.float32,
+                               x.device).data_ptr(), 0.0
+    else:                                   # passed by value: no copy
+        tau_p, tau_v = None, float(np.float32(tau))
+    kept = torch.empty_like(x)
+    residual = torch.empty_like(x)
+    lib = _library()
+    launch("threshold_sparsify", lib.tk_error_string,
+           getattr(lib, f"tk_threshold_{STORAGE[x.dtype]}"), x.device,
+           x.data_ptr(), tau_p, tau_v, kept.data_ptr(), residual.data_ptr(),
+           n)
     return kept, residual

@@ -3,13 +3,20 @@
 Port of ``repro/kernels/vc_asgd_update.py``'s flat entry points:
 
 * ``vc_asgd_lerp_flat``  — Eq. 1 (replaces the Pallas ``_lerp_kernel``)
+* ``vc_asgd_dc_lerp_flat`` — DC-ASGD's corrected Eq. 1 (replaces
+  ``_dc_lerp_kernel``)
 * ``assimilate_flat``    — Eq. 2 (replaces ``_assimilate_kernel``)
 * ``adam_update_flat``   — fused Adam (replaces ``_adam_kernel``)
 * ``easgd_elastic_flat`` — elastic EASGD round (replaces ``_easgd_kernel``)
 
+and the per-tensor entries ``vc_asgd_lerp`` / ``vc_asgd_dc_lerp`` (the
+reference's :146 / :153): the same two kernels on one tensor of any
+shape, its ragged tail handled inside the kernel (no padded copies).
+
 Each takes CUDA tensors only (``ops`` routes CPU tensors to the plain
-versions in ``ref``), checks device, dtype, shape (1-D, a ``BLOCK``
-multiple), contiguity and 16-byte alignment, allocates its outputs —
+versions in ``ref``), checks device, dtype, shape (the flat entries: 1-D,
+a ``BLOCK`` multiple), contiguity and 16-byte alignment (of the part the
+kernel reads in 16-byte packs), allocates its outputs —
 never writing into an input, since the consistency store hands earlier
 bus snapshots out by reference — and launches ONE kernel on the current
 stream without synchronising.  A non-zero ``cudaGetLastError`` raises.
@@ -27,17 +34,18 @@ import torch
 
 from repro_torch.core.flat import BLOCK
 from repro_torch.kernels import build
-from repro_torch.kernels.launches import (KERNELS, bind_error_string, launch,
+from repro_torch.kernels.launches import (KERNELS, STORAGE,
+                                          bind_error_string,
+                                          check_pack_aligned, launch,
                                           launch_count, launch_counts,
                                           reset_launch_count)
 
 __all__ = ["KERNELS", "launch_count", "launch_counts", "reset_launch_count",
-           "vc_asgd_lerp_flat", "assimilate_flat", "adam_update_flat",
+           "vc_asgd_lerp_flat", "vc_asgd_lerp", "vc_asgd_dc_lerp_flat",
+           "vc_asgd_dc_lerp", "assimilate_flat", "adam_update_flat",
            "easgd_elastic_flat"]
 
 _lib: Optional[ctypes.CDLL] = None
-
-_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _library() -> ctypes.CDLL:
@@ -48,6 +56,9 @@ def _library() -> ctypes.CDLL:
         for sfx in ("f32", "bf16"):
             fn = getattr(lib, f"vc_lerp_{sfx}")
             fn.argtypes = [P, P, P, F, F, I64, P]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"vc_dc_lerp_{sfx}")
+            fn.argtypes = [P, P, P, P, P, F, F, F, I64, P]
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"vc_assimilate_{sfx}")
             fn.argtypes = [P, P, P, P, ctypes.c_int, I64, P]
@@ -65,18 +76,28 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _check_flat(name: str, buf: torch.Tensor, dtypes=tuple(_STORAGE)) -> int:
+def _check_flat(name: str, buf: torch.Tensor, dtypes=tuple(STORAGE)) -> int:
+    n = _check_tensor(name, buf, dtypes)
+    if buf.dim() != 1 or n % BLOCK:
+        raise ValueError(f"{name} must be 1-D and a BLOCK({BLOCK}) multiple, "
+                         f"got shape {tuple(buf.shape)}")
+    return n
+
+
+def _check_tensor(name: str, buf: torch.Tensor, dtypes=tuple(STORAGE)
+                  ) -> int:
+    """A contiguous non-empty CUDA tensor of ``dtypes``, 16-byte aligned
+    where the kernel reads it in 16-byte packs (it holds one)."""
     if not isinstance(buf, torch.Tensor) or buf.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got "
                          f"{getattr(buf, 'device', type(buf))}")
     if buf.dtype not in dtypes:
         raise ValueError(f"{name} dtype {buf.dtype} not in {list(dtypes)}")
-    if buf.dim() != 1 or buf.numel() % BLOCK:
-        raise ValueError(f"{name} must be 1-D and a BLOCK({BLOCK}) multiple, "
-                         f"got shape {tuple(buf.shape)}")
-    if not buf.is_contiguous() or buf.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    return buf.numel()
+    n = buf.numel()
+    if n < 1 or not buf.is_contiguous():
+        raise ValueError(f"{name} must be contiguous and non-empty")
+    check_pack_aligned(name, buf)
+    return n
 
 
 def _same(name: str, buf: torch.Tensor, like: torch.Tensor) -> None:
@@ -88,23 +109,70 @@ def _launch(kernel: str, fn, device: torch.device, *args) -> None:
     launch(kernel, _library().vc_error_string, fn, device, *args)
 
 
+def _lerp(kernel: str, server, client, alpha, check) -> torch.Tensor:
+    n = check("server", server)
+    check("client", client, (server.dtype,))
+    _same("client", client, server)
+    if client.shape != server.shape:
+        raise ValueError(f"client shape {tuple(client.shape)} != server "
+                         f"{tuple(server.shape)}")
+    a = np.float32(alpha)
+    oma = np.float32(1.0) - a
+    out = torch.empty_like(server)
+    fn = getattr(_library(), f"vc_lerp_{STORAGE[server.dtype]}")
+    _launch(kernel, fn, server.device, server.data_ptr(), client.data_ptr(),
+            out.data_ptr(), float(a), float(oma), n)
+    return out
+
+
 def vc_asgd_lerp_flat(server: torch.Tensor, client: torch.Tensor, alpha
                       ) -> torch.Tensor:
     """Eq. 1 over the whole flat bus, one launch: ``a*s + (1-a)*c`` in f32
     math, stored in the bus dtype.  ``1-a`` is taken in f32 on the host,
     as the reference's lerp does."""
-    n = _check_flat("server", server)
-    _check_flat("client", client, (server.dtype,))
-    _same("client", client, server)
-    if client.numel() != n:
-        raise ValueError(f"client length {client.numel()} != server {n}")
+    return _lerp("vc_asgd_lerp_flat", server, client, alpha, _check_flat)
+
+
+def vc_asgd_lerp(server: torch.Tensor, client: torch.Tensor, alpha
+                 ) -> torch.Tensor:
+    """Eq. 1 on one tensor of any shape, one launch of B1 (counted under
+    ``vc_asgd_lerp_flat``); the result has the server's shape and dtype."""
+    return _lerp("vc_asgd_lerp_flat", server, client, alpha, _check_tensor)
+
+
+def _dc_lerp(server, client, grad, backup, alpha, lam, check
+             ) -> torch.Tensor:
+    n = check("server", server)
+    for name, t in (("client", client), ("grad", grad), ("backup", backup)):
+        check(name, t, (server.dtype,))
+        _same(name, t, server)
+        if t.shape != server.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != server "
+                             f"{tuple(server.shape)}")
     a = np.float32(alpha)
     oma = np.float32(1.0) - a
     out = torch.empty_like(server)
-    fn = getattr(_library(), f"vc_lerp_{_STORAGE[server.dtype]}")
-    _launch("vc_asgd_lerp_flat", fn, server.device, server.data_ptr(),
-            client.data_ptr(), out.data_ptr(), float(a), float(oma), n)
+    fn = getattr(_library(), f"vc_dc_lerp_{STORAGE[server.dtype]}")
+    _launch("vc_asgd_dc_lerp_flat", fn, server.device, server.data_ptr(),
+            client.data_ptr(), grad.data_ptr(), backup.data_ptr(),
+            out.data_ptr(), float(a), float(oma), float(np.float32(lam)), n)
     return out
+
+
+def vc_asgd_dc_lerp_flat(server, client, grad, backup, alpha, lam=0.04
+                         ) -> torch.Tensor:
+    """DC-ASGD's corrected Eq. 1 over the whole flat bus, one launch:
+    ``c' = c + ((lam*g)*g)*(s - b)``, then ``a*s + (1-a)*c'``, in f32
+    math, stored in the bus dtype (all four streams in it).  ``1-a`` is
+    taken in f32 on the host; ``alpha`` and ``lam`` are rounded to f32."""
+    return _dc_lerp(server, client, grad, backup, alpha, lam, _check_flat)
+
+
+def vc_asgd_dc_lerp(server, client, grad, backup, alpha, lam=0.04
+                    ) -> torch.Tensor:
+    """``vc_asgd_dc_lerp_flat`` on one tensor of any shape (one launch of
+    B4); the result has the server's shape and dtype."""
+    return _dc_lerp(server, client, grad, backup, alpha, lam, _check_tensor)
 
 
 def assimilate_flat(server: torch.Tensor, clients: torch.Tensor,
@@ -129,7 +197,7 @@ def assimilate_flat(server: torch.Tensor, clients: torch.Tensor,
                          f"{lib.vc_max_weights() - 1} clients, got {n_clients}")
     w = np.asarray([np.float32(x) for x in weights], np.float32)
     out = torch.empty_like(server)
-    fn = getattr(lib, f"vc_assimilate_{_STORAGE[server.dtype]}")
+    fn = getattr(lib, f"vc_assimilate_{STORAGE[server.dtype]}")
     _launch("assimilate_flat", fn, server.device, server.data_ptr(),
             clients.data_ptr(), out.data_ptr(), w.ctypes.data, n_clients, n)
     return out
@@ -154,7 +222,7 @@ def adam_update_flat(p, g, m, v, lr, b1, b2, eps, weight_decay, c1, c2):
     po = torch.empty_like(p)
     mo = torch.empty_like(m)
     vo = torch.empty_like(v)
-    fn = getattr(_library(), f"vc_adam_{_STORAGE[p.dtype]}")
+    fn = getattr(_library(), f"vc_adam_{STORAGE[p.dtype]}")
     _launch("adam_update_flat", fn, p.device, p.data_ptr(), g.data_ptr(),
             m.data_ptr(), v.data_ptr(), po.data_ptr(), mo.data_ptr(),
             vo.data_ptr(), scal.ctypes.data, n)
@@ -177,7 +245,7 @@ def easgd_elastic_flat(center: torch.Tensor, replicas: torch.Tensor, beta
     _same("replicas", replicas, center)
     co = torch.empty_like(center)
     xo = torch.empty_like(replicas)
-    fn = getattr(_library(), f"vc_easgd_{_STORAGE[center.dtype]}")
+    fn = getattr(_library(), f"vc_easgd_{STORAGE[center.dtype]}")
     _launch("easgd_elastic_flat", fn, center.device, center.data_ptr(),
             replicas.data_ptr(), co.data_ptr(), xo.data_ptr(),
             float(np.float32(beta)), int(replicas.shape[0]), n)

@@ -1,15 +1,30 @@
-"""Adam on the flat bus (port of the flat path of
-``repro/optim/optimizers.py``): params, m and v are three lanes of one
-layout, updated by ONE fused kernel launch per step on the card."""
+"""Adam (port of ``repro/optim/optimizers.py``).  On the flat bus params,
+m and v are three lanes of one layout, updated by ONE fused kernel launch
+per step on the card; the tree form updates leaf by leaf with the same
+arithmetic (the plain version of that kernel), so the two are
+bit-identical, and ``flat_opt_from_tree`` lifts a tree state onto the
+bus."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Any, Callable, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.flat import FlatOptState, FlatParams, init_opt_state
+from repro_torch.core.flat import (FlatOptState, FlatParams, TreeSpec,
+                                   flatten_like, init_opt_state, tree_flatten,
+                                   tree_map, tree_unflatten)
 from repro_torch.kernels import ops as K
+from repro_torch.kernels import ref as R
+
+
+class OptState(NamedTuple):
+    """A tree state: the step as a host int, m and v as f32 trees shaped
+    like the params."""
+    step: int
+    m: Any
+    v: Any
 
 
 @dataclass(frozen=True)
@@ -19,6 +34,37 @@ class Adam:
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.0
+
+    def _scalars(self, step: int):
+        """(t, lr, c1, c2) of the step after ``step``: the bias corrections
+        ``1 - b^t`` taken in f32 on the host, as the reference does."""
+        t = step + 1
+        lr = self.lr(t) if callable(self.lr) else self.lr
+        one, tt = np.float32(1.0), np.float32(t)
+        return (t, lr, one - np.float32(self.b1) ** tt,
+                one - np.float32(self.b2) ** tt)
+
+    def init(self, params) -> OptState:
+        """Zero f32 moments shaped like every leaf, on its device."""
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+        return OptState(step=0, m=tree_map(zeros, params),
+                        v=tree_map(zeros, params))
+
+    def update(self, grads, state: OptState, params) -> Tuple[Any, OptState]:
+        """One Adam step leaf by leaf, in the flat kernel's arithmetic."""
+        t, lr, c1, c2 = self._scalars(state.step)
+        leaves, treedef = tree_flatten(params)
+        out = [R.adam_update(p, g, m, v, lr=lr, b1=self.b1, b2=self.b2,
+                             eps=self.eps, c1=c1, c2=c2,
+                             weight_decay=self.weight_decay)
+               for p, g, m, v in zip(leaves, tree_flatten(grads)[0],
+                                     tree_flatten(state.m)[0],
+                                     tree_flatten(state.v)[0])]
+        return (tree_unflatten(treedef, [o[0] for o in out]),
+                OptState(step=t,
+                         m=tree_unflatten(treedef, [o[1] for o in out]),
+                         v=tree_unflatten(treedef, [o[2] for o in out])))
 
     def init_flat(self, fp: FlatParams) -> FlatOptState:
         """Zero moments sharing ``fp``'s TreeSpec, on ``fp``'s device."""
@@ -30,13 +76,17 @@ class Adam:
         step count is a host int, and the bias corrections
         ``c1 = 1 - b1^t``, ``c2 = 1 - b2^t`` are taken in float32 on the
         host, as the reference does — no device scalar is ever read."""
-        t = state.step + 1
-        lr = self.lr(t) if callable(self.lr) else self.lr
-        one, tt = np.float32(1.0), np.float32(t)
-        c1 = one - np.float32(self.b1) ** tt
-        c2 = one - np.float32(self.b2) ** tt
+        t, lr, c1, c2 = self._scalars(state.step)
         new_buf, m, v = K.fused_adam_flat(
             fp.buf, grad_buf, state.m, state.v, lr, self.b1, self.b2,
             self.eps, self.weight_decay, c1, c2)
         return fp.with_buf(new_buf), FlatOptState(m=m, v=v, step=t,
                                                   spec=state.spec)
+
+
+def flat_opt_from_tree(state: OptState, spec: TreeSpec) -> FlatOptState:
+    """Lift a tree OptState onto the bus layout ``spec`` (m and v share
+    the params' tree structure)."""
+    return FlatOptState(m=flatten_like(state.m, spec),
+                        v=flatten_like(state.v, spec),
+                        step=int(state.step), spec=spec)

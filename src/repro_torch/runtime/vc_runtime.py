@@ -15,10 +15,13 @@ feedback), B12 (the frame body, with a transport) and B10 again
 (decompress).  On the CPU every kernel is its plain version; the results
 are bit-identical either way, and to the reference's.
 
+``compressed_assimilate_per_leaf`` is the reference's bench and test
+baseline: a top-k per leaf and island (``compress_delta``), worse
+compression at equal density.
+
 Not ported yet: the sharded forms (the reference's ``mesh=`` /
-``shard_axis=``, ROADMAP queue A item 9), ``make_vc_round`` (the island
-training loop, with the LLM training slice) and the per-leaf oracle
-``compressed_assimilate_per_leaf``.
+``shard_axis=``, ROADMAP queue A item 9) and ``make_vc_round`` (the
+island training loop, with the LLM training slice).
 """
 from __future__ import annotations
 
@@ -144,3 +147,38 @@ def compressed_assimilate(server, islands, alpha: float, survivors, *,
     residuals_out = F.unflatten_batched(torch.stack(new_res), spec,
                                         dtype=_F32)
     return server_out, residuals_out
+
+
+def compressed_assimilate_per_leaf(server, islands, alpha: float, survivors,
+                                   *, density: float = 0.05, residuals=None,
+                                   device="cuda"):
+    """The per-leaf baseline of ``compressed_assimilate`` (a bench and test
+    oracle, on no runtime path): a top-k per leaf and island in a Python
+    loop, ``out = w_s * s`` then per island ``out = out + w_j * (s +
+    deq_j)`` on each leaf, on ``device`` (the card unless the caller
+    passes ``"cpu"``).  Returns (server', residuals') as trees: each leaf
+    in its dtype, the residuals island-major in f32."""
+    dev = resolve_device(device)
+    n = islands_leading_dim(islands)
+    w, w_s = (t.to(dev) for t in island_weights(n, alpha, survivors))
+
+    def one_leaf(s, isl, res):
+        s32 = s.to(device=dev, dtype=_F32)
+        out = w_s * s32
+        new_res = []
+        for j in range(n):
+            delta = isl[j].to(device=dev, dtype=_F32) - s32
+            if res is not None:
+                delta = delta + res[j].to(device=dev, dtype=_F32)
+            payload, r = C.compress_delta(delta, density=density)
+            out = out + w[j] * (s32 + C.decompress_delta(payload))
+            new_res.append(r)
+        return out.to(s.dtype), torch.stack(new_res)
+
+    flat_s, treedef = F.tree_flatten(server)
+    flat_i = F.tree_flatten(islands)[0]
+    flat_r = (F.tree_flatten(residuals)[0] if residuals is not None
+              else [None] * len(flat_s))
+    merged = [one_leaf(s, i, r) for s, i, r in zip(flat_s, flat_i, flat_r)]
+    return (F.tree_unflatten(treedef, [m for m, _ in merged]),
+            F.tree_unflatten(treedef, [r for _, r in merged]))

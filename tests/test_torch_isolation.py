@@ -1,7 +1,8 @@
 """The port stands alone and runs where it is told to.
 
-* every ``repro_torch`` module imports in a fresh interpreter in which
-  ``jax`` and ``repro`` cannot be imported at all;
+* every ``repro_torch`` module, the benchmarks included, imports in a
+  fresh interpreter in which ``jax`` and ``repro`` cannot be imported at
+  all;
 * no file under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (AST scan, so a lazy import inside a function is
   caught too);
@@ -51,6 +52,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "assert {'repro_torch.benchmarks.run',\n"
+        "        'repro_torch.benchmarks.kernel_bench',\n"
+        "        'repro_torch.benchmarks.roofline_report'} <= set(names)\n"
         "assert sys.modules['jax'] is None\n"
         "print(len(names))\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

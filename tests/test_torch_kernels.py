@@ -456,3 +456,101 @@ def test_mamba_scan_rejects_what_it_does_not_take(dev):
         MK.mamba_scan(u, dt, B, C, A.cpu(), D)
     with pytest.raises(ValueError, match="contiguous float32"):
         MK.mamba_scan(u, dt, B, C, A, D.to(torch.bfloat16))
+
+
+# ---- B4 (DC-ASGD lerp), B1's per-tensor entry, B8 (threshold), B11 ----
+# All bit-exact against the plain versions: separate IEEE f32 operations
+# in the same order on both sides (B4, B1), a compare and one subtraction
+# (B8), B9's division and rounding plus byte copies (B11).
+
+RAGGED = [(17,), (255, 9), (3, 5, 7, 11), (1,), (BLOCK + 3,)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [BLOCK, 16 * BLOCK])
+def test_dc_lerp_flat_bit_exact(dev, dtype, n):
+    s, c, g, b = (_rand(dev, n, dtype=dtype, seed=10 + i) for i in range(4))
+    VK.reset_launch_count()
+    out = VK.vc_asgd_dc_lerp_flat(s, c, g, b, 0.9, 0.05)
+    assert VK.launch_count("vc_asgd_dc_lerp_flat") == 1
+    assert VK.launch_count() == 1
+    assert _bits_equal(out, R.vc_asgd_dc_lerp(s, c, g, b, 0.9, 0.05))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RAGGED, ids=str)
+def test_per_tensor_lerps_ragged_bit_exact(dev, dtype, shape):
+    s, c, g, b = (_rand(dev, *shape, dtype=dtype, seed=20 + i)
+                  for i in range(4))
+    VK.reset_launch_count()
+    lerp = VK.vc_asgd_lerp(s, c, 0.95)
+    dc = VK.vc_asgd_dc_lerp(s, c, g, b, 0.95, 0.04)
+    assert VK.launch_counts()["vc_asgd_lerp_flat"] == 1
+    assert VK.launch_counts()["vc_asgd_dc_lerp_flat"] == 1
+    assert lerp.shape == dc.shape == s.shape
+    assert _bits_equal(lerp, R.vc_asgd_lerp(s, c, 0.95))
+    assert _bits_equal(dc, R.vc_asgd_dc_lerp(s, c, g, b, 0.95, 0.04))
+
+
+def test_lerp_wrappers_reject_bad_inputs(dev):
+    s = _rand(dev, 100)
+    with pytest.raises(ValueError, match="shape"):
+        VK.vc_asgd_lerp(s, _rand(dev, 10, 10), 0.5)
+    with pytest.raises(ValueError, match="aligned"):
+        VK.vc_asgd_lerp(_rand(dev, 101)[1:], s, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        VK.vc_asgd_dc_lerp(s, s, _rand(dev, 200)[::2], s, 0.5)
+    with pytest.raises(ValueError, match="dtype"):
+        VK.vc_asgd_dc_lerp(s, s, s, s.double(), 0.5)
+    with pytest.raises(ValueError, match="BLOCK"):
+        VK.vc_asgd_dc_lerp_flat(s, s, s, s, 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2_105_344, 9000, 7, 1 << 20])
+def test_threshold_sparsify_bit_exact(dev, dtype, n):
+    x = (_rand(dev, n, seed=n) * 0.02).to(dtype)
+    x[::11] = -0.0
+    for tau in (0.01, torch.tensor([0.03], device=dev)):
+        VK.reset_launch_count()
+        kept, res = TK.threshold_sparsify(x, tau)
+        assert VK.launch_count("threshold_sparsify") == VK.launch_count() == 1
+        pk, pr = R.threshold_sparsify(x, tau)
+        assert _bits_equal(kept, pk) and _bits_equal(res, pr)
+        assert torch.equal(kept.float() + res.float(), x.float())
+
+
+def test_threshold_sparsify_rejects_bad_inputs(dev):
+    x = _rand(dev, 1000)
+    with pytest.raises(ValueError, match="dtype"):
+        TK.threshold_sparsify(x.double(), 0.1)
+    with pytest.raises(ValueError, match="aligned"):
+        TK.threshold_sparsify(_rand(dev, 1001)[1:], 0.1)
+    with pytest.raises(ValueError):
+        TK.threshold_sparsify(x, torch.ones(2, device=dev))
+
+
+@pytest.mark.parametrize("k", [1, 656, 1000, 1313, 105_075])
+def test_quantize_pack_bytes_equal(dev, k):
+    sel = _rand(dev, k, seed=k) * 0.01
+    sel[k // 3] = 0.0
+    idx = (torch.arange(k, dtype=torch.int32, device=dev) * 19 + 3)
+    VK.reset_launch_count()
+    body, q, s = SK.quantize_pack(sel, idx)
+    assert VK.launch_count("quantize_pack") == VK.launch_count() == 1
+    pb, pq, ps = R.quantize_pack(sel, idx)
+    assert torch.equal(body, pb) and torch.equal(q, pq) and _bits_equal(s, ps)
+    # B12 of B9's payload: the same body
+    q9, s9 = QK.quantize_int8(sel)
+    assert torch.equal(SK.pack_body(q9, s9, idx), body)
+
+
+def test_quantize_pack_rejects_bad_inputs(dev):
+    sel = _rand(dev, 300)
+    idx = torch.arange(300, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        SK.quantize_pack(sel, idx[:299])
+    with pytest.raises(ValueError):
+        SK.quantize_pack(sel, idx.long())
+    with pytest.raises(ValueError):
+        SK.quantize_pack(sel.reshape(3, 100), idx)
