@@ -27,8 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("vc_asgd_update", "topk_mask", "quantize",
-                        "sparse_pack", "flash_attention", "wkv6",
-                        "mamba_scan")}
+                        "sparse_pack", "flash_attention",
+                        "flash_attention_sm90", "wkv6", "mamba_scan")}
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -40,9 +40,12 @@
 // internlm2's prefill ([4,16,2048,128] bf16, causal) 68.7 GFLOP against
 // 101 MB moved, so the product is the bound: 0.069 ms at the dense bf16
 // tensor-core peak.  This design does the arithmetic on the CUDA cores
-// (f32 FMAs; 67 TFLOP/s peak), so it cannot come near that bound; it is
-// the simple correct kernel, and wgmma with TMA-fed tiles is the later
-// redesign.
+// (f32 FMAs; 67 TFLOP/s peak), so it cannot come near that bound.  bf16
+// at hd 128 (the serving prefills' attention) therefore goes to the
+// wgmma kernel on TMA-fed tiles, flash_attention_sm90.cu; this kernel
+// keeps f32 (which the 2e-5 card-vs-CPU checks need) and every other
+// head dim (flash_attention.py::route), and is not built for bf16 at hd
+// 128.
 //
 // The entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
@@ -253,8 +256,9 @@ const char* fa_error_string(int code) {
 }
 
 // strides: 12 int64 in elements, (batch, head, seq) of q, k, v, o.
-// dtype: 0 f32, 1 bf16.  hd in {16, 32, 64, 80, 128, 256}; other values
-// return cudaErrorInvalidValue (the wrapper refuses them first).
+// dtype: 0 f32, 1 bf16.  hd in {16, 32, 64, 80, 128, 256}, bf16 at hd
+// 128 excepted (flash_attention_sm90.cu takes it); anything else returns
+// cudaErrorInvalidValue (the wrapper routes or refuses it first).
 int fa_forward(const void* q, const void* k, const void* v, void* o,
                const int64_t* strides, int bf16, int b, int h, int kvh,
                int sq, int skv, int hd, int causal, int window,
@@ -283,7 +287,9 @@ int fa_forward(const void* q, const void* k, const void* v, void* o,
     case 32: return launch_hd<32>(p, bf16, grid, s);
     case 64: return launch_hd<64>(p, bf16, grid, s);
     case 80: return launch_hd<80>(p, bf16, grid, s);
-    case 128: return launch_hd<128>(p, bf16, grid, s);
+    case 128:                    // bf16 is the wgmma kernel's
+      return bf16 ? cudaErrorInvalidValue
+                  : launch_typed<128, float>(p, grid, s);
     case 256: return launch_hd<256>(p, bf16, grid, s);
     default: return cudaErrorInvalidValue;
   }

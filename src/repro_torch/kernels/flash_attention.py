@@ -1,9 +1,20 @@
-"""Wrapper of the flash-attention CUDA kernel (csrc/flash_attention.cu).
+"""Wrapper of the flash-attention CUDA kernels (B13).
 
 Port of ``repro/kernels/flash_attention.py::flash_attention`` (replaces
 ``_attn_kernel``): blocked online-softmax attention forward with GQA,
 causal masking, an optional sliding window and an optional tanh softcap,
 f32 statistics and accumulator, output in q's dtype.
+
+Two hand-written kernels compute it; ``route`` picks one from the dtype
+and the head dim alone, never by trying:
+
+- ``"wgmma"`` (csrc/flash_attention_sm90.cu): bf16 at hd 128, the serving
+  prefills' attention.  Tensor cores fed by TMA; P is rounded to bf16
+  for the P.V product.  Its inputs must be addressable by TMA: 16-byte
+  aligned bases, and batch / head / seq strides that are positive
+  multiples of 8 elements (16 bytes) where the dim has more than one
+  entry; anything else raises ``ValueError``.
+- ``"simt"`` (csrc/flash_attention.cu): f32, and every other head dim.
 
 It takes CUDA tensors only (``ops`` routes CPU tensors to
 ``ref.attention``): q [b, h, sq, hd] and k / v [b, kvh, skv, hd], f32 or
@@ -27,22 +38,94 @@ from repro_torch.kernels.launches import bind_error_string, launch
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_GRID_Y = 65535              # b * h blocks along the grid's y axis
+_MAX_GRID_Y = 65535              # simt: b * h blocks along the grid's y axis
+WGMMA_HEAD_DIM = 128
+WGMMA_TILE = 128                 # wgmma: query rows a CTA, keys a kv tile
+_TMA_ALIGN = 8                   # bf16 elements in 16 bytes
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: dict = {}
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load("flash_attention")
+def _library(route: str) -> ctypes.CDLL:
+    lib = _libs.get(route)
+    if lib is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fa_forward.argtypes = [P, P, P, P, ctypes.POINTER(ctypes.c_int64),
-                                   I, I, I, I, I, I, I, I, I, F, F, P]
-        lib.fa_forward.restype = ctypes.c_int
-        bind_error_string(lib.fa_error_string)
-        _lib = lib
-    return _lib
+        args = [P, P, P, P, ctypes.POINTER(ctypes.c_int64)]
+        if route == "wgmma":
+            lib = build.load("flash_attention_sm90")
+            fwd, err = lib.fa90_forward, lib.fa90_error_string
+            fwd.argtypes = args + [I] * 7 + [F, F, P]
+        else:
+            lib = build.load("flash_attention")
+            fwd, err = lib.fa_forward, lib.fa_error_string
+            fwd.argtypes = args + [I] * 9 + [F, F, P]
+        fwd.restype = ctypes.c_int
+        bind_error_string(err)
+        _libs[route] = lib
+    return lib
+
+
+def route(q: torch.Tensor) -> str:
+    """The kernel that takes ``q``'s attention: ``"wgmma"`` for bf16 at
+    hd 128, ``"simt"`` for everything else."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] == WGMMA_HEAD_DIM:
+        return "wgmma"
+    return "simt"
+
+
+def validate_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list:
+    """The wgmma route's tensor-map strides: q's, k's and v's (batch,
+    head, seq) strides in elements, a dim of one entry given the tensor's
+    extent instead (TMA never steps it, but its encoder checks every
+    stride).  Raises ``ValueError`` where the maps cannot address an
+    input: a base not 16-byte aligned, or a batch / head / seq stride (of
+    a dim with more than one entry) that is not a positive multiple of 16
+    bytes."""
+    strides = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a 16-byte aligned base for TMA "
+                             f"(bf16 at hd 128)")
+        shape, st = t.shape, t.stride()
+        extent = None
+        for i in range(3):
+            n, s = shape[i], st[i]
+            if n > 1:
+                if s <= 0 or s % _TMA_ALIGN:
+                    raise ValueError(
+                        f"{name} needs batch / head / seq strides that are "
+                        f"positive multiples of 16 bytes for TMA (bf16 at "
+                        f"hd 128), got strides {st}")
+            else:
+                if extent is None:
+                    extent = 1 + sum((m - 1) * d for m, d in zip(shape, st))
+                    extent = -(-extent // _TMA_ALIGN) * _TMA_ALIGN
+                s = extent
+            strides.append(s)
+    n_qtiles = -(-q.shape[2] // WGMMA_TILE)
+    if n_qtiles > _MAX_GRID_Y:
+        raise ValueError(f"sq = {q.shape[2]} needs {n_qtiles} query tiles "
+                         f"> {_MAX_GRID_Y}")
+    return strides
+
+
+def tile_walk(sq: int, skv: int, causal: bool, window: Optional[int]):
+    """The wgmma kernel's walk, in launch order: ``(q_tile, t_lo, t_hi)``
+    per query tile of ``WGMMA_TILE`` rows, heaviest (bottom) first, with
+    the kv tiles ``[t_lo, t_hi)`` of ``WGMMA_TILE`` keys that its rows can
+    see (csrc/flash_attention_sm90.cu computes the same range)."""
+    tile = WGMMA_TILE
+    n_qtiles = -(-sq // tile)
+    walk = []
+    for y in range(n_qtiles):
+        qt = n_qtiles - 1 - y
+        q0 = qt * tile
+        q_last = min(q0 + tile, sq) - 1
+        kv_hi = min(skv, q_last + 1) if causal else skv
+        kv_lo = max(0, q0 - window + 1) if window else 0
+        t_lo = kv_lo // tile
+        walk.append((qt, t_lo, max(-(-kv_hi // tile), t_lo)))
+    return walk
 
 
 def validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,7 +155,7 @@ def validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, h, kvh, sq, skv) < 1 or h % kvh:
         raise ValueError(f"need non-empty shapes and h % kvh == 0, got "
                          f"h={h}, kvh={kvh}, b={b}, sq={sq}, skv={skv}")
-    if b * h > _MAX_GRID_Y:
+    if b * h > _MAX_GRID_Y and route(q) == "simt":
         raise ValueError(f"b * h = {b * h} exceeds {_MAX_GRID_Y}")
     if window is not None:
         if int(window) != window or window < 1:
@@ -99,16 +182,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q, k, v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
     validate(q, k, v, window, softcap)
+    which = route(q)
+    if which == "wgmma":
+        strides = validate_tma(q, k, v)
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     out = torch.empty(b, sq, h, hd, dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
-    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
-                                      for s in t.stride()[:3]))
-    lib = _library()
-    launch("flash_attention", lib.fa_error_string, lib.fa_forward, q.device,
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-           int(q.dtype == torch.bfloat16), b, h, kvh, sq, skv, hd,
-           int(bool(causal)), int(window or 0), float(softcap or 0.0),
-           1.0 / math.sqrt(hd))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    flags = (int(bool(causal)), int(window or 0), float(softcap or 0.0),
+             1.0 / math.sqrt(hd))
+    lib = _library(which)
+    if which == "wgmma":
+        strides = (ctypes.c_int64 * 12)(*strides, *out.stride()[:3])
+        launch("flash_attention", lib.fa90_error_string, lib.fa90_forward,
+               q.device, *ptrs, strides, b, h, kvh, sq, skv, *flags,
+               route=which)
+    else:
+        strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
+                                          for s in t.stride()[:3]))
+        launch("flash_attention", lib.fa_error_string, lib.fa_forward,
+               q.device, *ptrs, strides, int(q.dtype == torch.bfloat16), b,
+               h, kvh, sq, skv, hd, *flags, route=which)
     return out

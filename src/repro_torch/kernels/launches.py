@@ -6,7 +6,10 @@ goes through.  A per-tensor entry counts under its kernel's counter
 ``launch`` runs a kernel's C entry point on the current stream of the
 tensors' device, raises if the entry returned a CUDA error, and only
 then adds one to that kernel's count.  Nothing else touches the counts:
-they are the evidence that a run went through the kernels.
+they are the evidence that a run went through the kernels.  A kernel
+with more than one hand-written route (``ROUTES``: B13's wgmma kernel
+for bf16 at hd 128 and its SIMT kernel for the rest) also counts each
+launch under the route that ran it.
 """
 from __future__ import annotations
 
@@ -68,7 +71,13 @@ REPLACES = {
     "wkv6": "src/repro/kernels/rwkv6_scan.py:19",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:20",
 }
+# kernels with more than one hand-written route: route -> its source
+ROUTES = {
+    "flash_attention": {"wgmma": _CSRC + "flash_attention_sm90.cu",
+                        "simt": _CSRC + "flash_attention.cu"},
+}
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_route_launches = {k: dict.fromkeys(r, 0) for k, r in ROUTES.items()}
 
 
 def launch_count(kernel: Optional[str] = None) -> int:
@@ -82,15 +91,24 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def route_counts(kernel: str) -> Dict[str, int]:
+    """Launches of ``kernel`` by route (a kernel of ``ROUTES``)."""
+    return dict(_route_launches[kernel])
+
+
 def reset_launch_count() -> None:
     for k in _launches:
         _launches[k] = 0
+    for counts in _route_launches.values():
+        for r in counts:
+            counts[r] = 0
 
 
 def launch(kernel: str, error_string, fn, device: torch.device,
-           *args) -> None:
+           *args, route: Optional[str] = None) -> None:
     """Call ``fn(*args, stream)`` on ``device``'s current stream; a non-zero
-    return (``cudaGetLastError``) raises with ``error_string(rc)``."""
+    return (``cudaGetLastError``) raises with ``error_string(rc)``.  A
+    kernel of ``ROUTES`` names the ``route`` it launched."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
@@ -98,6 +116,8 @@ def launch(kernel: str, error_string, fn, device: torch.device,
         msg = error_string(rc).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} (cuda error {rc})")
     _launches[kernel] += 1
+    if kernel in _route_launches:
+        _route_launches[kernel][route] += 1
 
 
 def bind_error_string(fn) -> None:

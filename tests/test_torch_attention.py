@@ -10,6 +10,11 @@ entry, [b, P=1, s, h, hd]) with the reference's.  The reference's Pallas
 kernel does not run under the installed jax (``pl.load`` is gone; ROADMAP
 queue C), so it is not a party here.
 
+B13's wgmma route (bf16 at hd 128, csrc/flash_attention_sm90.cu) runs only
+on the card; here a test-local emulation of its arithmetic (P rounded to
+bf16 for the P.V product, its tile walk) is held against the reference,
+and its route, its TMA checks and its tile walk are checked directly.
+
 Inputs are drawn with numpy from a seed.  Tolerances: 2e-5 in f32 (the
 reference's own for blocked vs plain attention, tests/test_models.py) and
 ``tests/test_kernels.py::TOL`` in bf16 (2e-2: the outputs are rounded to
@@ -208,3 +213,208 @@ def test_flash_attention_is_registered():
     root = build.CSRC.parents[3]
     text = (root / path).read_text().splitlines()[int(line) - 1]
     assert text.startswith("def _attn_kernel(")
+
+
+# ---------------------------------------------------------------------------
+# B13's wgmma route (bf16 at hd 128, csrc/flash_attention_sm90.cu): its
+# arithmetic, emulated here, against the reference; its route; its walk
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_wgmma(q, k, v, *, causal, window=None, softcap=None,
+                   p_bf16=True):
+    """The wgmma kernel's arithmetic on the CPU: bf16 q / k / v (torch
+    tensors [b, h, sq, 128] / [b, kvh, skv, 128]), f32 products, the max
+    over the unscaled scores y (or tanh(s scale / softcap) softcap), p =
+    2^(y c - m c) with c = scale log2(e) (or log2(e)), masked keys at
+    -inf (keys past skv weigh nothing), P rounded to bf16 for the P.V
+    product (kept in f32 with ``p_bf16=False``, as the Pallas and SIMT
+    kernels do) and l summed from the f32 P, over the kernel's 128 x 128
+    tile walk.  Returns (o in f32 before its bf16 rounding, o in bf16)."""
+    b, h, sq, hd = q.shape
+    rep = h // k.shape[1]
+    skv = k.shape[2]
+    qf = q.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    scale = 1.0 / np.sqrt(hd)
+    c = np.float32(LOG2E if softcap else scale * LOG2E)
+    o = torch.zeros(b, h, sq, hd)
+    T = FA.WGMMA_TILE
+    for qt, t_lo, t_hi in FA.tile_walk(sq, skv, causal, window):
+        rows = torch.arange(qt * T, min(sq, qt * T + T))
+        m = torch.full((b, h, len(rows)), -torch.inf)
+        l = torch.zeros(b, h, len(rows))
+        acc = torch.zeros(b, h, len(rows), hd)
+        for t in range(t_lo, t_hi):
+            keys = torch.arange(t * T, min(skv, t * T + T))
+            y = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+            if softcap is not None:
+                y = torch.tanh(y * np.float32(scale / softcap)) * np.float32(
+                    softcap)
+            mask = torch.ones(len(rows), len(keys), dtype=torch.bool)
+            if causal:
+                mask &= keys[None, :] <= rows[:, None]
+            if window is not None:
+                mask &= keys[None, :] > rows[:, None] - window
+            y = y.masked_fill(~mask, -torch.inf)
+            m_new = torch.maximum(m, y.amax(-1))
+            mc = torch.where(m_new == -torch.inf, 0.0, m_new * c)
+            alpha = torch.exp2(m * c - mc)
+            p = torch.exp2(y * c - mc[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = p.bfloat16().float() if p_bf16 else p
+            acc = acc * alpha[..., None] + pv @ vf[:, :, keys]
+            m = m_new
+        o[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return o, o.bfloat16()
+
+
+# (h, kvh, sq, skv, causal, window, softcap): GQA 2 (internlm2) and 4
+# (jamba), causal and not, window, softcap, ragged 300 / 333
+WGMMA_CASES = {
+    "causal-gqa2": (4, 2, 300, 300, True, None, None),
+    "causal-gqa4": (8, 2, 333, 333, True, None, None),
+    "noncausal-cross": (4, 2, 300, 333, False, None, None),
+    "causal-window": (4, 2, 333, 333, True, 100, None),
+    "causal-softcap": (4, 2, 300, 300, True, None, 50.0),
+    "noncausal-window-softcap": (8, 2, 300, 300, False, 40, 20.0),
+}
+
+
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_wgmma_arithmetic_matches_reference(case):
+    h, kvh, sq, skv, causal, window, softcap = WGMMA_CASES[case]
+    q, k, v = _inputs(h, kvh, sq, skv, hd=128, b=1, seed=3)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, got = _emulate_wgmma(_t(q, "bfloat16"), _t(k, "bfloat16"),
+                            _t(v, "bfloat16"), **kw)
+    want = jax.jit(functools.partial(JR.attention, **kw))(
+        _j(q, "bfloat16"), _j(k, "bfloat16"), _j(v, "bfloat16"))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+
+
+# the limit the card tests and chip_smoke.py hold the wgmma kernel to:
+# 5e-3 before the output's bf16 rounding plus one bf16 ulp of the
+# reference's output (at most 2^-7 of it)
+WGMMA_TOL = dict(atol=5e-3, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("h,kvh,s", [(4, 2, 300), (8, 2, 333),
+                                     (4, 2, 1024)])
+@pytest.mark.parametrize("qk", [0.5, 2.0], ids=["flat", "peaked"])
+def test_wgmma_p_in_bf16_moves_output_within_its_stated_bound(qk, h, kvh, s):
+    """What the kernel's header states, causal, with v at N(0,1) and q, k
+    at qk N(0,1): 0.5 (the smoke's first shapes) gives a flat softmax, 2
+    a peaked one whose row max moves between kv tiles.  Rounding P to
+    bf16 for P.V moves the output by at most 4e-3 (flat) or 5e-3 (peaked)
+    before its bf16 rounding and by at most one bf16 ulp after it, so the
+    rounded output is within WGMMA_TOL of the reference's."""
+    rng = np.random.default_rng(0)
+    q = (rng.standard_normal((1, h, s, 128)) * qk).astype(np.float32)
+    k = (rng.standard_normal((1, kvh, s, 128)) * qk).astype(np.float32)
+    v = rng.standard_normal((1, kvh, s, 128)).astype(np.float32)
+    qt, kt, vt = (_t(a, "bfloat16") for a in (q, k, v))
+    o_b, ob_b = _emulate_wgmma(qt, kt, vt, causal=True)
+    o_f, _ = _emulate_wgmma(qt, kt, vt, causal=True, p_bf16=False)
+    assert float((o_b - o_f).abs().max()) <= (4e-3 if qk < 1 else 5e-3)
+    ulp = torch.finfo(torch.bfloat16).eps * o_f.abs().clamp_min(1.0)
+    assert bool(((ob_b.float() - o_f.bfloat16().float()).abs()
+                 <= ulp).all())
+    want = jax.jit(functools.partial(JR.attention, causal=True))(
+        _j(q, "bfloat16"), _j(k, "bfloat16"), _j(v, "bfloat16"))
+    np.testing.assert_allclose(_np(ob_b), _np(want), **WGMMA_TOL)
+
+
+@pytest.mark.parametrize("case", [c for c, (_, _, sq, skv, *_) in
+                                  WGMMA_CASES.items() if sq == skv])
+def test_wgmma_arithmetic_matches_blocked_attention(case):
+    """Against the model's online softmax (blocks of 128, the kernel's
+    tile), in the model's [b, 1, s, h, hd] layout."""
+    h, kvh, s, _, causal, window, softcap = WGMMA_CASES[case]
+    q, k, v = _inputs(h, kvh, s, s, hd=128, b=1, seed=4)
+    _, got = _emulate_wgmma(_t(q, "bfloat16"), _t(k, "bfloat16"),
+                            _t(v, "bfloat16"), causal=causal, window=window,
+                            softcap=softcap)
+    want = _blocked(causal, window, softcap, s=s, block=FA.WGMMA_TILE)(
+        _j(q.transpose(0, 2, 1, 3)[:, None], "bfloat16"),
+        _j(k.transpose(0, 2, 1, 3), "bfloat16"),
+        _j(v.transpose(0, 2, 1, 3), "bfloat16"))
+    np.testing.assert_allclose(_np(got),
+                               _np(want)[:, 0].transpose(0, 2, 1, 3),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_depends_on_dtype_and_head_dim_alone(hd, dtype):
+    q = torch.zeros(1, 2, 5, hd, dtype=getattr(torch, dtype))
+    want = "wgmma" if (dtype, hd) == ("bfloat16", 128) else "simt"
+    assert FA.route(q) == want
+    assert FA.route(q.transpose(1, 2).contiguous().transpose(1, 2)) == want
+
+
+def test_wgmma_route_takes_the_models_strided_views():
+    q = torch.zeros(2, 70, 6, 128, dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros(2, 70, 3, 128, dtype=torch.bfloat16).transpose(1, 2)
+    FA.validate_tma(q, kv, kv)
+    one = torch.zeros(1, 1, 9, 128, dtype=torch.bfloat16)
+    FA.validate_tma(one, one, one)          # size-1 dims: any stride
+
+
+def _misaligned():
+    bf = dict(dtype=torch.bfloat16)
+    ok = torch.zeros(1, 4, 20, 128, **bf)
+    kv = torch.zeros(1, 2, 20, 128, **bf)
+    yield "seq stride", torch.zeros(1, 4, 20, 132, **bf)[..., :128], kv, kv
+    yield "head stride", torch.zeros(1, 20, 4 * 128 + 4, **bf)[
+        ..., :512].reshape(1, 20, 4, 128).transpose(1, 2), kv, kv
+    yield "base", ok, torch.zeros(2 * 20 * 128 + 1, **bf)[1:].reshape(
+        1, 2, 20, 128), kv
+    yield "expanded", ok, torch.zeros(1, 1, 20, 128, **bf).expand(
+        1, 2, 20, 128), kv
+
+
+@pytest.mark.parametrize("what,q,k,v", list(_misaligned()),
+                         ids=[w for w, *_ in _misaligned()])
+def test_wgmma_route_refuses_what_tma_cannot_address(what, q, k, v):
+    FA.validate(q, k, v, None, None)         # the SIMT kernel takes them
+    assert FA.route(q) == "wgmma"
+    with pytest.raises(ValueError, match="TMA"):
+        FA.validate_tma(q, k, v)
+
+
+def _attn_pairs(sq, skv, causal, window):
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv, q + 1) if causal else np.full(sq, skv)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (2048, 2048, True, None), (300, 300, True, None), (333, 333, True, 100),
+    (520, 520, True, 33), (300, 333, False, None), (333, 517, False, 40),
+    (1, 1, True, None), (129, 128, True, None), (2300, 2300, True, 1024)])
+def test_tile_walk_covers_exactly_the_visible_pairs(sq, skv, causal, window):
+    T = FA.WGMMA_TILE
+    walk = FA.tile_walk(sq, skv, causal, window)
+    assert [qt for qt, _, _ in walk] == list(range(-(-sq // T)))[::-1]
+    seen = 0
+    for qt, t_lo, t_hi in walk:
+        rows = np.arange(qt * T, min(sq, qt * T + T))[:, None]
+        for t in range(t_lo, t_hi):
+            keys = np.arange(t * T, min(skv, t * T + T))[None, :]
+            vis = np.ones((rows.size, keys.size), bool)
+            if causal:
+                vis &= keys <= rows
+            if window:
+                vis &= keys > rows - window
+            assert vis.any(), f"tile {t} of query tile {qt} is all masked"
+            seen += int(vis.sum())
+    assert seen == _attn_pairs(sq, skv, causal, window)
+    if causal and window is None:              # heaviest first
+        n = [t_hi - t_lo for _, t_lo, t_hi in walk]
+        assert n == sorted(n, reverse=True)

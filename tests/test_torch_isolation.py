@@ -214,7 +214,8 @@ def test_build_targets_live_in_ignored_build_dir():
     assert build.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert set(build.SOURCES) == {"vc_asgd_update", "topk_mask", "quantize",
-                                  "sparse_pack", "flash_attention", "wkv6",
+                                  "sparse_pack", "flash_attention",
+                                  "flash_attention_sm90", "wkv6",
                                   "mamba_scan"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"

@@ -11,8 +11,10 @@ division, round half to even, byte copies).  Flash attention (B13) sums
 in another order than the plain version's matmuls and scales the dot
 product where the plain version divides it: 2e-5 in f32 (the reference's
 own blocked-vs-plain tolerance) and tests/test_kernels.py::TOL in bf16
-(2e-2, outputs rounded to bf16).  The WKV6 recurrence (B14) likewise sums
-in another order: 2e-5 in f32 (the reference's test_wkv6 tolerance), 2e-2
+(2e-2, outputs rounded to bf16) on the SIMT route; on the wgmma route
+(bf16 at hd 128), which also rounds P to bf16 for the P.V product, the
+bound its source states: 5e-3 plus one bf16 ulp of |plain| (2^-7
+relative).  The WKV6 recurrence (B14) likewise sums in another order: 2e-5 in f32 (the reference's test_wkv6 tolerance), 2e-2
 on bf16 outputs.  The selective scan (B15) fuses its multiply-adds where
 the plain version rounds each product: 2e-5 on y in f32 and on the f32
 final state (the reference's test_mamba_scan tolerance), 2e-2 on y
@@ -28,6 +30,7 @@ import torch
 from repro_torch.core import compression as C
 from repro_torch.core.flat import BLOCK
 from repro_torch.kernels import flash_attention as FK
+from repro_torch.kernels import launches as LA
 from repro_torch.kernels import mamba_scan as MK
 from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import ref as R
@@ -263,11 +266,21 @@ def test_topk_wrappers_reject_bad_inputs(dev):
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+WGMMA_TOL = dict(atol=5e-3, rtol=2 ** -7)
 
 
-def _attn_case(dev, b, h, kvh, sq, skv, hd, dtype, seed=0):
-    q = (_rand(dev, b, h, sq, hd, seed=seed) * 0.5).to(dtype)
-    k = (_rand(dev, b, kvh, skv, hd, seed=seed + 1) * 0.5).to(dtype)
+def _attn_tol(q) -> dict:
+    """assert_close's tolerances for the route that takes ``q``."""
+    if FK.route(q) == "wgmma":
+        return WGMMA_TOL
+    return dict(atol=ATTN_TOL[q.dtype], rtol=ATTN_TOL[q.dtype])
+
+
+def _attn_case(dev, b, h, kvh, sq, skv, hd, dtype, seed=0, qk=0.5):
+    """q, k at qk N(0,1) (0.5: a flat softmax; 2: a peaked one whose row
+    max moves between kv tiles), v at N(0,1)."""
+    q = (_rand(dev, b, h, sq, hd, seed=seed) * qk).to(dtype)
+    k = (_rand(dev, b, kvh, skv, hd, seed=seed + 1) * qk).to(dtype)
     v = _rand(dev, b, kvh, skv, hd, seed=seed + 2).to(dtype)
     return q, k, v
 
@@ -297,10 +310,10 @@ def test_flash_attention_matches_plain(dev, case):
     VK.reset_launch_count()
     got = FK.flash_attention(q, k, v, **kw)
     assert VK.launch_count("flash_attention") == 1
+    assert LA.route_counts("flash_attention")[FK.route(q)] == 1
     want = R.attention(q, k, v, **kw)
     assert got.dtype == q.dtype and got.shape == q.shape
-    tol = ATTN_TOL[c["dtype"]]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(q))
 
 
 @pytest.mark.parametrize("hd", FK.HEAD_DIMS)
@@ -315,9 +328,55 @@ def test_flash_attention_every_head_dim_on_strided_views(dev, hd, dtype):
     qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))
     got = FK.flash_attention(qv, kv, vv, causal=True, window=33)
     want = R.attention(qv, kv, vv, causal=True, window=33)
-    tol = ATTN_TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(qv))
     assert got.transpose(1, 2).is_contiguous()     # [b, s, h, hd] buffer
+
+
+# B13's wgmma route (bf16 at hd 128): (b, h, kvh, sq, skv, causal, window,
+# softcap, qk) at internlm2's cut shape (GQA 2), jamba's GQA 4, non-causal
+# sq != skv, window 33 and softcap 50, and both prefills' full shapes with
+# peaked scores (q, k at 2 N(0,1)), each also on [b, s, h, hd] views
+WGMMA_CASES = {
+    "internlm2-cut": (2, 4, 2, 300, 300, True, None, None, 0.5),
+    "jamba-gqa4": (1, 32, 8, 520, 520, True, None, None, 0.5),
+    "noncausal-cross": (1, 4, 2, 133, 517, False, None, None, 0.5),
+    "window-33": (2, 4, 2, 300, 300, True, 33, None, 0.5),
+    "softcap-50": (2, 4, 2, 300, 300, True, None, 50.0, 0.5),
+    "noncausal-window-softcap": (1, 4, 4, 333, 333, False, 100, 20.0, 0.5),
+    "internlm2-prefill-peaked": (4, 16, 8, 2048, 2048, True, None, None,
+                                 2.0),
+    "jamba-prefill-peaked": (4, 32, 8, 2048, 2048, True, None, None, 2.0),
+}
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["bhsd", "bshd-view"])
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_flash_attention_wgmma_route_matches_plain(dev, case, strided):
+    b, h, kvh, sq, skv, causal, window, softcap, qk = WGMMA_CASES[case]
+    q, k, v = _attn_case(dev, b, h, kvh, sq, skv, 128, torch.bfloat16,
+                         qk=qk)
+    if strided:         # the model's [b, s, h, hd] buffers, read in place
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    VK.reset_launch_count()
+    got = FK.flash_attention(q, k, v, **kw)
+    assert VK.launch_count("flash_attention") == 1
+    assert LA.route_counts("flash_attention") == {"wgmma": 1, "simt": 0}
+    want = R.attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **WGMMA_TOL)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+def test_flash_attention_wgmma_route_refuses_what_tma_cannot_address(dev):
+    q, k, v = _attn_case(dev, 1, 4, 2, 64, 64, 128, torch.bfloat16)
+    bad = torch.zeros(1, 4, 64, 132, dtype=torch.bfloat16,
+                      device=dev)[..., :128]
+    VK.reset_launch_count()
+    with pytest.raises(ValueError, match="TMA"):
+        FK.flash_attention(bad, k, v)
+    assert VK.launch_count("flash_attention") == 0
 
 
 def test_flash_attention_rejects_what_it_does_not_take(dev):
