@@ -28,7 +28,9 @@
 // so every output is one pass.  The flat bus is a multiple of 8192, so it
 // has no tail; the lerps also serve the per-tensor entries (any shape),
 // whose n % V elements after the last pack the first threads of block 0
-// take one each: no padded copies.
+// take one each: no padded copies.  Eq. 1 and Adam, the two passes of the
+// training loop, instead take a grid that covers the bus, a chunk a block
+// (see each kernel's note).
 //
 // Numerics: the reference pins these results bit for bit (separate f32
 // multiply and add, no FMA; IEEE division and square root), so every
@@ -44,6 +46,12 @@
 
 #include "bus.cuh"
 #include "grid.cuh"
+
+// fused Adam's scalars, each an f32, passed by value through the C entry
+// (vc_asgd_update.py's AdamScalars has this layout)
+struct AdamScalars {
+  float lr, b1, omb1, b2, omb2, eps, lr_wd, c1, c2;
+};
 
 namespace {
 
@@ -73,31 +81,72 @@ __device__ __forceinline__ T dc_lerp1(float a, float oma, float lam, T s, T c,
   return narrow<T>(__fadd_rn(__fmul_rn(a, sf), __fmul_rn(oma, cc)));
 }
 
-// n elements: n / V whole packs by the grid-stride loop, then the n % V
-// elements after them (the per-tensor entries' ragged tail), one each
-// for the first threads of block 0
+// Eq. 1 (B1) as an unrolled streaming pass.
+//
+// What bounds it.  On the training loop's bus (the MLP's 16,384 f32
+// elements, 196,608 bytes: 0.0000587 ms at 3.35 TB/s) the device work is
+// the launch itself, a few microseconds; what a call costs there is its
+// host path (the wrapper's checks, allocation, stream lookup and ctypes
+// call: vc_asgd_update.py).  At bus scale (2^27 elements, 1.61 GB,
+// 0.4808 ms) it is HBM bytes: 12 B an f32 element for 3 flops.
+//
+// What the design does.  Each thread issues kLerpUnroll independent
+// 16-byte loads of each input before any arithmetic, with the
+// evict-first hint on every load and store (each byte is touched once;
+// the step's other kernels keep their L2 lines).  Each block takes one
+// chunk of kLerpUnroll * kStreamThreads packs, a thread's packs a block's
+// width apart (every load one coalesced warp access), and the grid covers
+// the bus (grid.cuh stream_grid): no grid-stride loop.  The MLP bus's
+// 4,096 f32 packs take 32 blocks on 32 SMs.  On the H100 at 2^27 the
+// grid-stride loop this kernel had (a few blocks an SM) held HBM at
+// 83-87% of the bound, Adam's at 84-86%; a grid that covers the bus holds
+// 91-92% here and 88-91% in Adam (wrapper_cost.py, the two trees in
+// turns), torch.lerp's and better than torch._fused_adam_'s 78-82%.  An
+// unroll of 1, 2 or 4 made no difference once the grid covered the bus.
+// Each pack is loaded, computed and stored under its own bound check (the
+// last block's chunk runs out early): one code path.  A per-tensor call's
+// n % V elements after the last pack go to the first threads of block 0,
+// one each: no padded copies.
+constexpr int kLerpUnroll = 2;
+
 template <typename T>
-__global__ void lerp_kernel(const T* __restrict__ s, const T* __restrict__ c,
-                            T* __restrict__ out, float a, float oma,
-                            int64_t n) {
-  constexpr int V = 16 / sizeof(T);
+__global__ void __launch_bounds__(kStreamThreads)
+lerp_kernel(const T* __restrict__ s, const T* __restrict__ c,
+            T* __restrict__ out, float a, float oma, int64_t n) {
+  constexpr int V = 16 / sizeof(T), U = kLerpUnroll;
   using P = Pack<T, V>;
   const int64_t nvec = n / V;
   const P* sp = reinterpret_cast<const P*>(s);
   const P* cp = reinterpret_cast<const P*>(c);
   P* op = reinterpret_cast<P*>(out);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < nvec; i += stride) {
-    const P sv = sp[i];
-    const P cv = cp[i];
-    P ov;
+  // this thread's packs: i, i + kStreamThreads, ... (those below nvec)
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * U * kStreamThreads + threadIdx.x;
+  if (i < nvec) {
+    P sv[U], cv[U];
 #pragma unroll
-    for (int k = 0; k < V; ++k) ov.v[k] = lerp1(a, oma, sv.v[k], cv.v[k]);
-    op[i] = ov;
+    for (int j = 0; j < U; ++j)
+      if (i + j * kStreamThreads < nvec)
+        sv[j] = load_stream(sp + i + j * kStreamThreads);
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (i + j * kStreamThreads < nvec)
+        cv[j] = load_stream(cp + i + j * kStreamThreads);
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      if (i + j * kStreamThreads < nvec) {
+        P ov;
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          ov.v[k] = lerp1(a, oma, sv[j].v[k], cv[j].v[k]);
+        store_stream(op + i + j * kStreamThreads, ov);
+      }
+    }
   }
-  const int64_t t = nvec * V + threadIdx.x;
-  if (blockIdx.x == 0 && t < n) out[t] = lerp1(a, oma, s[t], c[t]);
+  if (blockIdx.x == 0) {
+    const int64_t t = nvec * V + threadIdx.x;
+    if (t < n) out[t] = lerp1(a, oma, s[t], c[t]);
+  }
 }
 
 template <typename T>
@@ -133,8 +182,8 @@ template <typename T>
 int lerp_launch(const void* s, const void* c, void* out, float a, float oma,
                 int64_t n, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  lerp_kernel<T><<<grid_for(n / (16 / sizeof(T))), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  lerp_kernel<T><<<stream_grid(n / (16 / sizeof(T)), kLerpUnroll),
+                   kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(s), static_cast<const T*>(c), static_cast<T*>(out),
       a, oma, n);
   return static_cast<int>(cudaGetLastError());
@@ -186,54 +235,62 @@ __global__ void assimilate_kernel(const T* __restrict__ s,
   }
 }
 
-// ---- fused Adam ------------------------------------------------------------
-struct AdamScalars {
-  float lr, b1, omb1, b2, omb2, eps, lr_wd, c1, c2;
-};
-
+// ---- fused Adam (B3) --------------------------------------------------------
+//
+// What bounds it.  It runs once per client step of the training loop, on
+// the MLP's 16,384-element bus: 458,752 bytes, 0.000137 ms at 3.35 TB/s,
+// so a call costs its launch and its host path (vc_asgd_update.py), not
+// device time.  At bus scale (2^27, 3.76 GB, 1.1218 ms) it is HBM bytes:
+// seven streams, 28 B an f32 element for 14 flops.
+//
+// What the design does.  As Eq. 1 (whose note has the measurements): a
+// grid that covers the bus, no grid-stride loop, every load and store
+// evict-first (seven streams of 28 B an element would otherwise flush the
+// L2 lines the step's next kernels read).  Each thread takes one pack of
+// each of p, g, m and v, four independent 16-byte loads before any
+// arithmetic, and no second pack: at 2^27 a second one changed nothing,
+// and on the MLP bus, where each thread's two IEEE divisions and square
+// root a value run in series, it cost 0.5 us of a 2.0 us launch
+// (wrapper_cost.py's graph-timed device us).  The scalars arrive by value
+// in the kernel's parameter space.  The flat bus is a BLOCK multiple: no
+// element tail.
 template <typename T>
-__global__ void adam_kernel(const T* __restrict__ p, const float* __restrict__ g,
-                            const float* __restrict__ m,
-                            const float* __restrict__ v, T* __restrict__ po,
-                            float* __restrict__ mo, float* __restrict__ vo,
-                            const AdamScalars sc, int64_t nvec) {
-  constexpr int V = 4;
-  using PT = Pack<T, V>;
-  using PF = Pack<float, V>;
-  const PT* pp = reinterpret_cast<const PT*>(p);
-  const PF* gp = reinterpret_cast<const PF*>(g);
-  const PF* mp = reinterpret_cast<const PF*>(m);
-  const PF* vp = reinterpret_cast<const PF*>(v);
-  PT* pop = reinterpret_cast<PT*>(po);
-  PF* mop = reinterpret_cast<PF*>(mo);
-  PF* vop = reinterpret_cast<PF*>(vo);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < nvec; i += stride) {
-    const PT pv = pp[i];
-    const PF gv = gp[i], mv = mp[i], vv = vp[i];
-    PT pn;
-    PF mn, vn;
+__global__ void __launch_bounds__(kStreamThreads)
+adam_kernel(const T* __restrict__ p, const float* __restrict__ g,
+            const float* __restrict__ m, const float* __restrict__ v,
+            T* __restrict__ po, float* __restrict__ mo, float* __restrict__ vo,
+            const AdamScalars sc, int64_t nvec) {
+  using PT = Pack<T, 4>;
+  using PF = Pack<float, 4>;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kStreamThreads + threadIdx.x;
+  if (i >= nvec) return;
+  const PT pv = load_stream(reinterpret_cast<const PT*>(p) + i);
+  const PF gv = load_stream(reinterpret_cast<const PF*>(g) + i);
+  const PF mv = load_stream(reinterpret_cast<const PF*>(m) + i);
+  const PF vv = load_stream(reinterpret_cast<const PF*>(v) + i);
+  PT pn;
+  PF mn, vn;
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const float gk = gv.v[k];
-      // m' = b1*m + (1-b1)*g ; v' = b2*v + ((1-b2)*g)*g
-      const float mk = __fadd_rn(__fmul_rn(sc.b1, mv.v[k]), __fmul_rn(sc.omb1, gk));
-      const float vk = __fadd_rn(__fmul_rn(sc.b2, vv.v[k]),
-                                 __fmul_rn(__fmul_rn(sc.omb2, gk), gk));
-      const float pk = widen(pv.v[k]);
-      // step = (lr*(m'/c1)) / (sqrt(v'/c2) + eps) [+ (lr*wd)*p]
-      float step = __fdiv_rn(__fmul_rn(sc.lr, __fdiv_rn(mk, sc.c1)),
-                             __fadd_rn(__fsqrt_rn(__fdiv_rn(vk, sc.c2)), sc.eps));
-      if (sc.lr_wd != 0.0f) step = __fadd_rn(step, __fmul_rn(sc.lr_wd, pk));
-      pn.v[k] = narrow<T>(__fsub_rn(pk, step));
-      mn.v[k] = mk;
-      vn.v[k] = vk;
-    }
-    pop[i] = pn;
-    mop[i] = mn;
-    vop[i] = vn;
+  for (int e = 0; e < 4; ++e) {
+    const float ge = gv.v[e];
+    // m' = b1*m + (1-b1)*g ; v' = b2*v + ((1-b2)*g)*g
+    const float me = __fadd_rn(__fmul_rn(sc.b1, mv.v[e]),
+                               __fmul_rn(sc.omb1, ge));
+    const float ve = __fadd_rn(__fmul_rn(sc.b2, vv.v[e]),
+                               __fmul_rn(__fmul_rn(sc.omb2, ge), ge));
+    const float pe = widen(pv.v[e]);
+    // step = (lr*(m'/c1)) / (sqrt(v'/c2) + eps) [+ (lr*wd)*p]
+    float step = __fdiv_rn(__fmul_rn(sc.lr, __fdiv_rn(me, sc.c1)),
+                           __fadd_rn(__fsqrt_rn(__fdiv_rn(ve, sc.c2)), sc.eps));
+    if (sc.lr_wd != 0.0f) step = __fadd_rn(step, __fmul_rn(sc.lr_wd, pe));
+    pn.v[e] = narrow<T>(__fsub_rn(pe, step));
+    mn.v[e] = me;
+    vn.v[e] = ve;
   }
+  store_stream(reinterpret_cast<PT*>(po) + i, pn);
+  store_stream(reinterpret_cast<PF*>(mo) + i, mn);
+  store_stream(reinterpret_cast<PF*>(vo) + i, vn);
 }
 
 // ---- elastic EASGD round over the whole pod ---------------------------------
@@ -312,17 +369,15 @@ int assimilate_launch(const void* s, const void* clients, void* out,
 
 template <typename T>
 int adam_launch(const void* p, const void* g, const void* m, const void* v,
-                void* po, void* mo, void* vo, const float* scal, int64_t n,
-                void* stream) {
-  const AdamScalars sc{scal[0], scal[1], scal[2], scal[3], scal[4],
-                       scal[5], scal[6], scal[7], scal[8]};
-  const int64_t nvec = n / 4;
-  adam_kernel<T><<<grid_for(nvec), kThreads, 0,
+                void* po, void* mo, void* vo, const AdamScalars& sc,
+                int64_t n, void* stream) {
+  if (n < 1 || n % 4) return static_cast<int>(cudaErrorInvalidValue);
+  adam_kernel<T><<<stream_grid(n / 4, 1), kStreamThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(p), static_cast<const float*>(g),
       static_cast<const float*>(m), static_cast<const float*>(v),
       static_cast<T*>(po), static_cast<float*>(mo), static_cast<float*>(vo),
-      sc, nvec);
+      sc, n / 4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -374,17 +429,17 @@ int vc_assimilate_bf16(const void* s, const void* clients, void* out,
                                      stream);
 }
 
-// scal = [lr, b1, 1-b1, b2, 1-b2, eps, lr*wd, c1, c2], each f32
+// p, g, m, v [n] -> po, mo, vo [n]; n a multiple of 4
 int vc_adam_f32(const void* p, const void* g, const void* m, const void* v,
-                void* po, void* mo, void* vo, const float* scal, int64_t n,
+                void* po, void* mo, void* vo, AdamScalars sc, int64_t n,
                 void* stream) {
-  return adam_launch<float>(p, g, m, v, po, mo, vo, scal, n, stream);
+  return adam_launch<float>(p, g, m, v, po, mo, vo, sc, n, stream);
 }
 
 int vc_adam_bf16(const void* p, const void* g, const void* m, const void* v,
-                 void* po, void* mo, void* vo, const float* scal, int64_t n,
+                 void* po, void* mo, void* vo, AdamScalars sc, int64_t n,
                  void* stream) {
-  return adam_launch<uint16_t>(p, g, m, v, po, mo, vo, scal, n, stream);
+  return adam_launch<uint16_t>(p, g, m, v, po, mo, vo, sc, n, stream);
 }
 
 // center [n], replicas [n_replicas, n] -> center', replicas'

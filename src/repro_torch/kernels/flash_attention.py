@@ -196,12 +196,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if which == "wgmma":
         strides = (ctypes.c_int64 * 12)(*strides, *out.stride()[:3])
         launch("flash_attention", lib.fa90_error_string, lib.fa90_forward,
-               q.device, *ptrs, strides, b, h, kvh, sq, skv, *flags,
+               q.get_device(), *ptrs, strides, b, h, kvh, sq, skv, *flags,
                route=which)
     else:
         strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
                                           for s in t.stride()[:3]))
         launch("flash_attention", lib.fa_error_string, lib.fa_forward,
-               q.device, *ptrs, strides, int(q.dtype == torch.bfloat16), b,
-               h, kvh, sq, skv, hd, *flags, route=which)
+               q.get_device(), *ptrs, strides,
+               int(q.dtype == torch.bfloat16), b, h, kvh, sq, skv, hd, *flags,
+               route=which)
     return out

@@ -78,6 +78,10 @@ ROUTES = {
 }
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _route_launches = {k: dict.fromkeys(r, 0) for k, r in ROUTES.items()}
+# PyTorch's current device and raw current-stream handle (what Triton's
+# launcher reads); absent from a CPU-only build, where nothing launches
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def launch_count(kernel: Optional[str] = None) -> int:
@@ -104,19 +108,28 @@ def reset_launch_count() -> None:
             counts[r] = 0
 
 
-def launch(kernel: str, error_string, fn, device: torch.device,
-           *args, route: Optional[str] = None) -> None:
-    """Call ``fn(*args, stream)`` on ``device``'s current stream; a non-zero
-    return (``cudaGetLastError``) raises with ``error_string(rc)``.  A
-    kernel of ``ROUTES`` names the ``route`` it launched."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
+def launch(kernel: str, error_string, fn, index: int, *args,
+           route: Optional[str] = None) -> None:
+    """Call ``fn(*args, stream)`` on the current stream of CUDA device
+    ``index`` (a tensor's ``get_device()``); a non-zero return
+    (``cudaGetLastError``) raises with ``error_string(rc)``.  A kernel of
+    ``ROUTES`` names the ``route`` it launched.
+
+    The stream is PyTorch's raw current-stream handle, the one
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, read without
+    building a ``Stream`` object; the device is switched only when
+    ``index`` is not the current one (the kernel launches on the current
+    device)."""
+    if index == _current_device():
+        rc = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index))
     if rc != 0:
         msg = error_string(rc).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} (cuda error {rc})")
     _launches[kernel] += 1
-    if kernel in _route_launches:
+    if route is not None:
         _route_launches[kernel][route] += 1
 
 

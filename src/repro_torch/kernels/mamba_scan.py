@@ -114,7 +114,7 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                                      for s in t.stride()[:2]))
     lib = _library()
     launch("mamba_scan", lib.mamba_scan_error_string, lib.mamba_scan_forward,
-           u.device, u.data_ptr(), dt.data_ptr(), B.data_ptr(),
+           u.get_device(), u.data_ptr(), dt.data_ptr(), B.data_ptr(),
            C.data_ptr(), A.data_ptr(), D.data_ptr(), y.data_ptr(),
            h.data_ptr(), strides, int(u.dtype == torch.bfloat16), b, T, di,
            ds)

@@ -58,8 +58,9 @@ def quantize_int8(x: torch.Tensor, block: int = QBLOCK
     q = torch.empty(k, dtype=torch.int8, device=x.device)
     scales = torch.empty(ng, dtype=torch.float32, device=x.device)
     lib = _library()
-    launch("quantize_int8", lib.qz_error_string, lib.qz_quantize, x.device,
-           x.data_ptr(), q.data_ptr(), scales.data_ptr(), k, block)
+    launch("quantize_int8", lib.qz_error_string, lib.qz_quantize,
+           x.get_device(), x.data_ptr(), q.data_ptr(), scales.data_ptr(), k,
+           block)
     return q, scales
 
 
@@ -78,6 +79,6 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, n: int,
     out = torch.empty(n, dtype=torch.float32, device=q.device)
     lib = _library()
     launch("dequantize_int8", lib.qz_error_string, lib.qz_dequantize,
-           q.device, q.data_ptr(), scales.data_ptr(), out.data_ptr(), n,
-           block)
+           q.get_device(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+           n, block)
     return out

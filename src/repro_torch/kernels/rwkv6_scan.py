@@ -104,7 +104,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     strides = (ctypes.c_int64 * 15)(*(s for t in (r, k, v, w, out)
                                       for s in t.stride()[:3]))
     lib = _library()
-    launch("wkv6", lib.wkv6_error_string, lib.wkv6_forward, r.device,
+    launch("wkv6", lib.wkv6_error_string, lib.wkv6_forward, r.get_device(),
            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
            u.data_ptr(), out.data_ptr(), s_out.data_ptr(), strides,
            int(r.dtype == torch.bfloat16), b, h, T, hd)

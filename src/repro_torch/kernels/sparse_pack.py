@@ -59,9 +59,9 @@ def pack_body(q: torch.Tensor, scales: torch.Tensor, idx: torch.Tensor
                          f"{tuple(idx.shape)}")
     body = torch.empty(5 * k + 4 * ng, dtype=torch.uint8, device=q.device)
     lib = _library()
-    launch("pack_body", lib.sp_error_string, lib.sp_pack_body, q.device,
-           q.data_ptr(), scales.data_ptr(), idx.data_ptr(), body.data_ptr(),
-           k, ng)
+    launch("pack_body", lib.sp_error_string, lib.sp_pack_body,
+           q.get_device(), q.data_ptr(), scales.data_ptr(), idx.data_ptr(),
+           body.data_ptr(), k, ng)
     return body
 
 
@@ -86,7 +86,7 @@ def quantize_pack(sel: torch.Tensor, idx: torch.Tensor, block: int = 256
     q = torch.empty(ng * block, dtype=torch.int8, device=dev)
     scales = torch.empty(ng, dtype=torch.float32, device=dev)
     lib = _library()
-    launch("quantize_pack", lib.sp_error_string, lib.sp_quantize_pack, dev,
-           sel.data_ptr(), idx.data_ptr(), body.data_ptr(), q.data_ptr(),
-           scales.data_ptr(), k, block)
+    launch("quantize_pack", lib.sp_error_string, lib.sp_quantize_pack,
+           sel.get_device(), sel.data_ptr(), idx.data_ptr(),
+           body.data_ptr(), q.data_ptr(), scales.data_ptr(), k, block)
     return body, q, scales

@@ -94,8 +94,9 @@ def blocked_topk_stats(x: torch.Tensor, lo) -> Tuple[torch.Tensor,
     words = torch.empty((nb, WORDS), dtype=_I32, device=x.device)
     counts = torch.empty(nb, dtype=_I32, device=x.device)
     lib = _library()
-    launch("blocked_topk_stats", lib.tk_error_string, lib.tk_stats, x.device,
-           x.data_ptr(), lo.data_ptr(), words.data_ptr(), counts.data_ptr(), n)
+    launch("blocked_topk_stats", lib.tk_error_string, lib.tk_stats,
+           x.get_device(), x.data_ptr(), lo.data_ptr(), words.data_ptr(),
+           counts.data_ptr(), n)
     return words, counts
 
 
@@ -116,7 +117,7 @@ def threshold_sparsify_exact(x: torch.Tensor, tau, tie_start: torch.Tensor,
     residual = torch.empty_like(x)
     lib = _library()
     launch("threshold_sparsify_exact", lib.tk_error_string, lib.tk_exact,
-           x.device, x.data_ptr(), tau.data_ptr(), budget.data_ptr(),
+           x.get_device(), x.data_ptr(), tau.data_ptr(), budget.data_ptr(),
            tie_start.data_ptr(), kept.data_ptr(), residual.data_ptr(), n)
     return kept, residual
 
@@ -141,7 +142,7 @@ def threshold_sparsify(x: torch.Tensor, tau) -> Tuple[torch.Tensor,
     residual = torch.empty_like(x)
     lib = _library()
     launch("threshold_sparsify", lib.tk_error_string,
-           getattr(lib, f"tk_threshold_{STORAGE[x.dtype]}"), x.device,
-           x.data_ptr(), tau_p, tau_v, kept.data_ptr(), residual.data_ptr(),
-           n)
+           getattr(lib, f"tk_threshold_{STORAGE[x.dtype]}"),
+           x.get_device(), x.data_ptr(), tau_p, tau_v, kept.data_ptr(),
+           residual.data_ptr(), n)
     return kept, residual

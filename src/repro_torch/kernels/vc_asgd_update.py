@@ -21,13 +21,20 @@ never writing into an input, since the consistency store hands earlier
 bus snapshots out by reference — and launches ONE kernel on the current
 stream without synchronising.  A non-zero ``cudaGetLastError`` raises.
 
+The host path is kept lean, since on the training loop's small bus a
+call costs its host time, not its kernel's: each C entry is resolved once
+per storage dtype when the library loads, each tensor's metadata is read
+once per call, the scalars travel by value (Adam's as one
+``AdamScalars``), and ``launches.launch`` reads the raw current-stream
+handle.
+
 The launch counters of every kernel of the port live in ``launches``
 and are re-exported here.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,93 +42,134 @@ import torch
 from repro_torch.core.flat import BLOCK
 from repro_torch.kernels import build
 from repro_torch.kernels.launches import (KERNELS, STORAGE,
-                                          bind_error_string,
-                                          check_pack_aligned, launch,
+                                          bind_error_string, launch,
                                           launch_count, launch_counts,
                                           reset_launch_count)
 
 __all__ = ["KERNELS", "launch_count", "launch_counts", "reset_launch_count",
            "vc_asgd_lerp_flat", "vc_asgd_lerp", "vc_asgd_dc_lerp_flat",
            "vc_asgd_dc_lerp", "assimilate_flat", "adam_update_flat",
-           "easgd_elastic_flat"]
+           "easgd_elastic_flat", "AdamScalars", "adam_scalars",
+           "lerp_scalars"]
+
+_F32 = (torch.float32,)
+
+
+class AdamScalars(ctypes.Structure):
+    """B3's scalars, passed by value (csrc/vc_asgd_update.cu's
+    ``AdamScalars``): each field an f32, set from a Python float by one
+    round-to-nearest."""
+    _fields_ = [(name, ctypes.c_float) for name in
+                ("lr", "b1", "omb1", "b2", "omb2", "eps", "lr_wd", "c1",
+                 "c2")]
+
+
+def adam_scalars(lr, b1, b2, eps, weight_decay, c1, c2) -> AdamScalars:
+    """The f32 scalars B3 gets, rounded the way the reference's jnp Adam
+    (``repro.kernels.ref.adam_update``) rounds its Python floats:
+    ``1-b1``, ``1-b2`` and ``lr*wd`` are formed in double, then each is
+    rounded once to f32; ``c1``, ``c2`` are f32 already."""
+    return AdamScalars(lr, b1, 1 - b1, b2, 1 - b2, eps,
+                       lr * weight_decay if weight_decay else 0.0, c1, c2)
+
+
+def lerp_scalars(alpha) -> Tuple[float, float]:
+    """``(a, 1-a)`` of Eq. 1 as f32 values: ``alpha`` rounded to f32, and
+    ``1-a`` taken from it as the reference's f32 ``1 - a`` is.  The
+    double subtraction is exact, or off only where both land on the same
+    f32, so its one rounding to f32 gives that f32 difference."""
+    a = ctypes.c_float(alpha).value
+    return a, ctypes.c_float(1.0 - a).value
+
 
 _lib: Optional[ctypes.CDLL] = None
+_error_string = None
+# (entry, storage dtype) -> its C function, resolved when the library loads
+_entries: Dict[Tuple[str, torch.dtype], Any] = {}
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
+    global _lib, _error_string
     if _lib is None:
         lib = build.load("vc_asgd_update")
         P, F, I64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
-        for sfx in ("f32", "bf16"):
-            fn = getattr(lib, f"vc_lerp_{sfx}")
-            fn.argtypes = [P, P, P, F, F, I64, P]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"vc_dc_lerp_{sfx}")
-            fn.argtypes = [P, P, P, P, P, F, F, F, I64, P]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"vc_assimilate_{sfx}")
-            fn.argtypes = [P, P, P, P, ctypes.c_int, I64, P]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"vc_adam_{sfx}")
-            fn.argtypes = [P] * 8 + [I64, P]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"vc_easgd_{sfx}")
-            fn.argtypes = [P, P, P, P, F, ctypes.c_int, I64, P]
-            fn.restype = ctypes.c_int
+        signatures = {
+            "lerp": [P, P, P, F, F, I64, P],
+            "dc_lerp": [P, P, P, P, P, F, F, F, I64, P],
+            "assimilate": [P, P, P, P, ctypes.c_int, I64, P],
+            "adam": [P] * 7 + [AdamScalars, I64, P],
+            "easgd": [P, P, P, P, F, ctypes.c_int, I64, P],
+        }
+        for dtype, sfx in STORAGE.items():
+            for entry, argtypes in signatures.items():
+                fn = getattr(lib, f"vc_{entry}_{sfx}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _entries[entry, dtype] = fn
         bind_error_string(lib.vc_error_string)
         lib.vc_max_weights.argtypes = []
         lib.vc_max_weights.restype = ctypes.c_int
+        _error_string = lib.vc_error_string
         _lib = lib
     return _lib
 
 
-def _check_flat(name: str, buf: torch.Tensor, dtypes=tuple(STORAGE)) -> int:
-    n = _check_tensor(name, buf, dtypes)
-    if buf.dim() != 1 or n % BLOCK:
-        raise ValueError(f"{name} must be 1-D and a BLOCK({BLOCK}) multiple, "
-                         f"got shape {tuple(buf.shape)}")
-    return n
+def _entry(entry: str, dtype: torch.dtype):
+    """The C entry ``vc_<entry>_<dtype>``, loading the library (and
+    ``_error_string``) at first use: call it before reading
+    ``_error_string``."""
+    if _lib is None:
+        _library()
+    return _entries[entry, dtype]
 
 
-def _check_tensor(name: str, buf: torch.Tensor, dtypes=tuple(STORAGE)
-                  ) -> int:
-    """A contiguous non-empty CUDA tensor of ``dtypes``, 16-byte aligned
-    where the kernel reads it in 16-byte packs (it holds one)."""
-    if not isinstance(buf, torch.Tensor) or buf.device.type != "cuda":
+def _operand(name: str, t, dtypes) -> Tuple[int, int]:
+    """``(numel, data_ptr)`` of ``t``: a contiguous non-empty CUDA tensor
+    of ``dtypes``, 16-byte aligned where the kernel reads it in 16-byte
+    packs (it holds one).  Each piece of metadata is read once."""
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got "
-                         f"{getattr(buf, 'device', type(buf))}")
-    if buf.dtype not in dtypes:
-        raise ValueError(f"{name} dtype {buf.dtype} not in {list(dtypes)}")
-    n = buf.numel()
-    if n < 1 or not buf.is_contiguous():
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} dtype {t.dtype} not in {list(dtypes)}")
+    n = t.numel()
+    if n < 1 or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous and non-empty")
-    check_pack_aligned(name, buf)
-    return n
+    ptr = t.data_ptr()
+    if ptr % 16 and n * t.element_size() >= 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return n, ptr
 
 
-def _same(name: str, buf: torch.Tensor, like: torch.Tensor) -> None:
-    if buf.device != like.device:
-        raise ValueError(f"{name} on {buf.device}, expected {like.device}")
+def _flat(name: str, t, n: int) -> None:
+    """A flat-bus operand of ``n`` elements is 1-D and a BLOCK multiple."""
+    if t.dim() != 1 or n % BLOCK:
+        raise ValueError(f"{name} must be 1-D and a BLOCK({BLOCK}) multiple, "
+                         f"got shape {tuple(t.shape)}")
 
 
-def _launch(kernel: str, fn, device: torch.device, *args) -> None:
-    launch(kernel, _library().vc_error_string, fn, device, *args)
+def _like(name: str, t, dtypes, dev: int, shape) -> int:
+    """``t``'s data pointer: an operand as ``_operand`` takes it, on CUDA
+    device ``dev`` and of ``shape`` (the first operand's, read once)."""
+    ptr = _operand(name, t, dtypes)[1]
+    if t.get_device() != dev:
+        raise ValueError(f"{name} on {t.device}, expected cuda:{dev}")
+    if t.shape != shape:
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    return ptr
 
 
-def _lerp(kernel: str, server, client, alpha, check) -> torch.Tensor:
-    n = check("server", server)
-    check("client", client, (server.dtype,))
-    _same("client", client, server)
-    if client.shape != server.shape:
-        raise ValueError(f"client shape {tuple(client.shape)} != server "
-                         f"{tuple(server.shape)}")
-    a = np.float32(alpha)
-    oma = np.float32(1.0) - a
+def _lerp(server, client, alpha, flat: bool) -> torch.Tensor:
+    n, sp = _operand("server", server, STORAGE)
+    if flat:
+        _flat("server", server, n)
+    dtype, dev = server.dtype, server.get_device()
+    cp = _like("client", client, (dtype,), dev, server.shape)
+    a, oma = lerp_scalars(alpha)
     out = torch.empty_like(server)
-    fn = getattr(_library(), f"vc_lerp_{STORAGE[server.dtype]}")
-    _launch(kernel, fn, server.device, server.data_ptr(), client.data_ptr(),
-            out.data_ptr(), float(a), float(oma), n)
+    fn = _entry("lerp", dtype)
+    launch("vc_asgd_lerp_flat", _error_string, fn, dev, sp, cp,
+           out.data_ptr(), a, oma, n)
     return out
 
 
@@ -129,33 +177,30 @@ def vc_asgd_lerp_flat(server: torch.Tensor, client: torch.Tensor, alpha
                       ) -> torch.Tensor:
     """Eq. 1 over the whole flat bus, one launch: ``a*s + (1-a)*c`` in f32
     math, stored in the bus dtype.  ``1-a`` is taken in f32 on the host,
-    as the reference's lerp does."""
-    return _lerp("vc_asgd_lerp_flat", server, client, alpha, _check_flat)
+    as the reference's lerp does (``lerp_scalars``)."""
+    return _lerp(server, client, alpha, True)
 
 
 def vc_asgd_lerp(server: torch.Tensor, client: torch.Tensor, alpha
                  ) -> torch.Tensor:
     """Eq. 1 on one tensor of any shape, one launch of B1 (counted under
     ``vc_asgd_lerp_flat``); the result has the server's shape and dtype."""
-    return _lerp("vc_asgd_lerp_flat", server, client, alpha, _check_tensor)
+    return _lerp(server, client, alpha, False)
 
 
-def _dc_lerp(server, client, grad, backup, alpha, lam, check
+def _dc_lerp(server, client, grad, backup, alpha, lam, flat: bool
              ) -> torch.Tensor:
-    n = check("server", server)
-    for name, t in (("client", client), ("grad", grad), ("backup", backup)):
-        check(name, t, (server.dtype,))
-        _same(name, t, server)
-        if t.shape != server.shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != server "
-                             f"{tuple(server.shape)}")
-    a = np.float32(alpha)
-    oma = np.float32(1.0) - a
+    n, sp = _operand("server", server, STORAGE)
+    if flat:
+        _flat("server", server, n)
+    dtype, dev, shape = server.dtype, server.get_device(), server.shape
+    ptrs = [_like(name, t, (dtype,), dev, shape) for name, t in
+            (("client", client), ("grad", grad), ("backup", backup))]
+    a, oma = lerp_scalars(alpha)
     out = torch.empty_like(server)
-    fn = getattr(_library(), f"vc_dc_lerp_{STORAGE[server.dtype]}")
-    _launch("vc_asgd_dc_lerp_flat", fn, server.device, server.data_ptr(),
-            client.data_ptr(), grad.data_ptr(), backup.data_ptr(),
-            out.data_ptr(), float(a), float(oma), float(np.float32(lam)), n)
+    fn = _entry("dc_lerp", dtype)
+    launch("vc_asgd_dc_lerp_flat", _error_string, fn, dev, sp, *ptrs,
+           out.data_ptr(), a, oma, float(np.float32(lam)), n)
     return out
 
 
@@ -165,14 +210,32 @@ def vc_asgd_dc_lerp_flat(server, client, grad, backup, alpha, lam=0.04
     ``c' = c + ((lam*g)*g)*(s - b)``, then ``a*s + (1-a)*c'``, in f32
     math, stored in the bus dtype (all four streams in it).  ``1-a`` is
     taken in f32 on the host; ``alpha`` and ``lam`` are rounded to f32."""
-    return _dc_lerp(server, client, grad, backup, alpha, lam, _check_flat)
+    return _dc_lerp(server, client, grad, backup, alpha, lam, True)
 
 
 def vc_asgd_dc_lerp(server, client, grad, backup, alpha, lam=0.04
                     ) -> torch.Tensor:
     """``vc_asgd_dc_lerp_flat`` on one tensor of any shape (one launch of
     B4); the result has the server's shape and dtype."""
-    return _dc_lerp(server, client, grad, backup, alpha, lam, _check_tensor)
+    return _dc_lerp(server, client, grad, backup, alpha, lam, False)
+
+
+def _rows(name: str, rows, flat: torch.Tensor, n: int) -> int:
+    """``rows``' data pointer: a contiguous [k, n] matrix (k >= 1) of
+    ``flat``'s dtype on its device, its flat view a bus operand."""
+    if (not isinstance(rows, torch.Tensor) or rows.dim() != 2
+            or rows.shape[0] < 1 or rows.shape[1] != n
+            or rows.dtype != flat.dtype or not rows.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous [n, {n}] "
+                         f"{flat.dtype} matrix, got "
+                         f"{tuple(getattr(rows, 'shape', ()))} "
+                         f"{getattr(rows, 'dtype', type(rows))}")
+    view = rows.view(-1)
+    k, ptr = _operand(name, view, (flat.dtype,))
+    _flat(name, view, k)
+    if rows.get_device() != flat.get_device():
+        raise ValueError(f"{name} on {rows.device}, expected {flat.device}")
+    return ptr
 
 
 def assimilate_flat(server: torch.Tensor, clients: torch.Tensor,
@@ -180,14 +243,9 @@ def assimilate_flat(server: torch.Tensor, clients: torch.Tensor,
     """Eq. 2 as ONE launch: server [N] + clients [n, N] -> [N], each output
     element reducing the n client streams in arrival order.  ``weights``
     = [w_server, w_0..w_{n-1}], rounded to f32 here."""
-    n = _check_flat("server", server)
-    if (clients.dim() != 2 or clients.shape[1] != n
-            or clients.dtype != server.dtype or not clients.is_contiguous()):
-        raise ValueError(f"clients must be a contiguous [n, {n}] "
-                         f"{server.dtype} matrix, got {tuple(clients.shape)} "
-                         f"{clients.dtype}")
-    _check_flat("clients", clients.view(-1), (server.dtype,))
-    _same("clients", clients, server)
+    n, sp = _operand("server", server, STORAGE)
+    _flat("server", server, n)
+    cp = _rows("clients", clients, server, n)
     n_clients = int(clients.shape[0])
     if len(weights) != n_clients + 1:
         raise ValueError(f"need {n_clients + 1} weights, got {len(weights)}")
@@ -197,9 +255,9 @@ def assimilate_flat(server: torch.Tensor, clients: torch.Tensor,
                          f"{lib.vc_max_weights() - 1} clients, got {n_clients}")
     w = np.asarray([np.float32(x) for x in weights], np.float32)
     out = torch.empty_like(server)
-    fn = getattr(lib, f"vc_assimilate_{STORAGE[server.dtype]}")
-    _launch("assimilate_flat", fn, server.device, server.data_ptr(),
-            clients.data_ptr(), out.data_ptr(), w.ctypes.data, n_clients, n)
+    fn = _entry("assimilate", server.dtype)
+    launch("assimilate_flat", _error_string, fn, server.get_device(), sp,
+           cp, out.data_ptr(), w.ctypes.data, n_clients, n)
     return out
 
 
@@ -207,25 +265,20 @@ def adam_update_flat(p, g, m, v, lr, b1, b2, eps, weight_decay, c1, c2):
     """Fused Adam over the whole flat bus, one launch updating params and
     both moment lanes; returns (p', m', v') with p' in p's dtype and the
     moments in f32.  The scalars are rounded to f32 the way the
-    reference's jnp Adam rounds its Python floats: ``1-b1``, ``1-b2`` and
-    ``lr*wd`` are formed in double first."""
-    n = _check_flat("p", p)
-    for name, buf in (("grad", g), ("m", m), ("v", v)):
-        _check_flat(name, buf, (torch.float32,))
-        _same(name, buf, p)
-        if buf.numel() != n:
-            raise ValueError(f"{name} lane must match params lane [{n}], "
-                             f"got {tuple(buf.shape)}")
-    wd = float(weight_decay)
-    scal = np.asarray([lr, b1, 1 - b1, b2, 1 - b2, eps,
-                       lr * wd if wd else 0.0, c1, c2], np.float32)
+    reference's jnp Adam rounds its Python floats (``adam_scalars``)."""
+    n, pp = _operand("p", p, STORAGE)
+    _flat("p", p, n)
+    dev, shape = p.get_device(), p.shape
+    gp = _like("grad", g, _F32, dev, shape)
+    mp = _like("m", m, _F32, dev, shape)
+    vp = _like("v", v, _F32, dev, shape)
+    sc = adam_scalars(lr, b1, b2, eps, weight_decay, c1, c2)
     po = torch.empty_like(p)
     mo = torch.empty_like(m)
     vo = torch.empty_like(v)
-    fn = getattr(_library(), f"vc_adam_{STORAGE[p.dtype]}")
-    _launch("adam_update_flat", fn, p.device, p.data_ptr(), g.data_ptr(),
-            m.data_ptr(), v.data_ptr(), po.data_ptr(), mo.data_ptr(),
-            vo.data_ptr(), scal.ctypes.data, n)
+    fn = _entry("adam", p.dtype)
+    launch("adam_update_flat", _error_string, fn, dev, pp, gp, mp, vp,
+           po.data_ptr(), mo.data_ptr(), vo.data_ptr(), sc, n)
     return po, mo, vo
 
 
@@ -235,18 +288,13 @@ def easgd_elastic_flat(center: torch.Tensor, replicas: torch.Tensor, beta
     [n, N] (stacked in slot order) -> (center', replicas').  The sum over
     replicas runs in replica order from zero; ``beta`` is rounded to f32
     here."""
-    n = _check_flat("center", center)
-    if (replicas.dim() != 2 or replicas.shape[1] != n or replicas.shape[0] < 1
-            or replicas.dtype != center.dtype or not replicas.is_contiguous()):
-        raise ValueError(f"replicas must be a contiguous [n, {n}] "
-                         f"{center.dtype} matrix, got {tuple(replicas.shape)} "
-                         f"{replicas.dtype}")
-    _check_flat("replicas", replicas.view(-1), (center.dtype,))
-    _same("replicas", replicas, center)
+    n, cp = _operand("center", center, STORAGE)
+    _flat("center", center, n)
+    xp = _rows("replicas", replicas, center, n)
     co = torch.empty_like(center)
     xo = torch.empty_like(replicas)
-    fn = getattr(_library(), f"vc_easgd_{STORAGE[center.dtype]}")
-    _launch("easgd_elastic_flat", fn, center.device, center.data_ptr(),
-            replicas.data_ptr(), co.data_ptr(), xo.data_ptr(),
-            float(np.float32(beta)), int(replicas.shape[0]), n)
+    fn = _entry("easgd", center.dtype)
+    launch("easgd_elastic_flat", _error_string, fn, center.get_device(), cp,
+           xp, co.data_ptr(), xo.data_ptr(), float(np.float32(beta)),
+           int(replicas.shape[0]), n)
     return co, xo

@@ -6,6 +6,7 @@ bit-identical, and ``flat_opt_from_tree`` lifts a tree state onto the
 bus."""
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Tuple
 
@@ -27,6 +28,14 @@ class OptState(NamedTuple):
     v: Any
 
 
+@functools.lru_cache(maxsize=4096)
+def _bias_corrections(b1: float, b2: float, t: int):
+    """``(1 - b1^t, 1 - b2^t)`` in f32 numpy scalars, cached: Adam forms
+    them once per step of every client, and the same steps recur."""
+    one, tt = np.float32(1.0), np.float32(t)
+    return one - np.float32(b1) ** tt, one - np.float32(b2) ** tt
+
+
 @dataclass(frozen=True)
 class Adam:
     lr: float | Callable[[int], float] = 1e-3
@@ -40,9 +49,7 @@ class Adam:
         ``1 - b^t`` taken in f32 on the host, as the reference does."""
         t = step + 1
         lr = self.lr(t) if callable(self.lr) else self.lr
-        one, tt = np.float32(1.0), np.float32(t)
-        return (t, lr, one - np.float32(self.b1) ** tt,
-                one - np.float32(self.b2) ** tt)
+        return (t, lr, *_bias_corrections(self.b1, self.b2, t))
 
     def init(self, params) -> OptState:
         """Zero f32 moments shaped like every leaf, on its device."""

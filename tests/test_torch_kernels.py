@@ -551,6 +551,104 @@ def test_per_tensor_lerps_ragged_bit_exact(dev, dtype, shape):
     assert _bits_equal(dc, R.vc_asgd_dc_lerp(s, c, g, b, 0.95, 0.04))
 
 
+# ---- B1 and B3 as unrolled streaming passes ----------------------------
+# Sizes that leave a remainder in the unrolled loop: a few BLOCKs (fewer
+# packs than a wave has threads: each thread takes at most one) and buses
+# above 2^20 that are no multiple of a chunk (a wave's threads times the
+# unroll: whole chunks, then the chunk where a thread's packs run out).
+
+STREAM_SIZES = [BLOCK, 3 * BLOCK, 13 * BLOCK, (1 << 23) + 5 * BLOCK,
+                (1 << 25) + 7 * BLOCK]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", STREAM_SIZES)
+def test_lerp_flat_streaming_sizes_bit_exact(dev, dtype, n):
+    s, c = _rand(dev, n, dtype=dtype, seed=30), _rand(dev, n, dtype=dtype,
+                                                      seed=31)
+    s0, c0 = s.clone(), c.clone()
+    for alpha in (0.0, 2 / 3, 0.95, 1.0):
+        VK.reset_launch_count()
+        out = VK.vc_asgd_lerp_flat(s, c, alpha)
+        assert VK.launch_count() == VK.launch_count("vc_asgd_lerp_flat") == 1
+        assert out.data_ptr() not in (s.data_ptr(), c.data_ptr())
+        assert _bits_equal(out, R.vc_asgd_lerp(s, c, alpha))
+    torch.cuda.synchronize()
+    assert _bits_equal(s, s0) and _bits_equal(c, c0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", STREAM_SIZES)
+def test_adam_streaming_sizes_bit_exact(dev, dtype, n):
+    p = _rand(dev, n, dtype=dtype, seed=32)
+    g, m = _rand(dev, n, seed=33), _rand(dev, n, seed=34)
+    v = _rand(dev, n, seed=35).abs()
+    before = [t.clone() for t in (p, g, m, v)]
+    for t, wd in ((1, 0.0), (3, 0.0), (50, 0.0), (1, 0.01), (3, 0.01),
+                  (50, 0.01)):
+        c1 = np.float32(1) - np.float32(0.9) ** np.float32(t)
+        c2 = np.float32(1) - np.float32(0.999) ** np.float32(t)
+        VK.reset_launch_count()
+        got = VK.adam_update_flat(p, g, m, v, 1e-3, 0.9, 0.999, 1e-8, wd,
+                                  c1, c2)
+        assert VK.launch_count() == VK.launch_count("adam_update_flat") == 1
+        assert not {o.data_ptr() for o in got} & {
+            x.data_ptr() for x in (p, g, m, v)}
+        want = R.adam_update(p, g, m, v, lr=1e-3, b1=0.9, b2=0.999,
+                             eps=1e-8, c1=c1, c2=c2, weight_decay=wd)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and _bits_equal(a, b)
+    torch.cuda.synchronize()
+    assert all(_bits_equal(x, y) for x, y in zip((p, g, m, v), before))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [((1 << 20) + 5,), (4097, 1031), (3, 7)],
+                         ids=str)
+def test_per_tensor_lerp_streaming_ragged_bit_exact(dev, dtype, shape):
+    s, c = (_rand(dev, *shape, dtype=dtype, seed=36 + i) for i in range(2))
+    s0 = s.clone()
+    VK.reset_launch_count()
+    out = VK.vc_asgd_lerp(s, c, 0.9)
+    assert VK.launch_count() == 1
+    assert out.shape == s.shape and _bits_equal(out, R.vc_asgd_lerp(s, c,
+                                                                    0.9))
+    assert _bits_equal(s, s0)
+
+
+def test_raw_stream_handle_is_the_current_stream(dev):
+    idx = torch.cuda.current_device()
+    assert LA._current_device() == idx
+    assert LA._raw_stream(idx) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert LA._raw_stream(idx) == side.cuda_stream
+        assert LA._raw_stream(idx) == torch.cuda.current_stream().cuda_stream
+    assert LA._raw_stream(idx) == torch.cuda.current_stream().cuda_stream
+
+
+def test_kernels_launch_on_a_non_default_stream(dev):
+    """Inputs written on a side stream behind a ~50 ms sleep: a kernel
+    launched anywhere but on that stream would read them unwritten."""
+    n = 4 * BLOCK
+    s, c = _rand(dev, n, seed=40), _rand(dev, n, seed=41)
+    p, g, m = (_rand(dev, n, seed=42 + i) for i in range(3))
+    v = _rand(dev, n, seed=45).abs()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        c_late, g_late = torch.mul(c, 1.0), torch.mul(g, 1.0)
+        out = VK.vc_asgd_lerp_flat(s, c_late, 0.3)
+        got = VK.adam_update_flat(p, g_late, m, v, 1e-3, 0.9, 0.999, 1e-8,
+                                  0.0, 0.5, 0.25)
+    side.synchronize()
+    assert _bits_equal(out, R.vc_asgd_lerp(s, c, 0.3))
+    want = R.adam_update(p, g, m, v, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                         c1=0.5, c2=0.25)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+
 def test_lerp_wrappers_reject_bad_inputs(dev):
     s = _rand(dev, 100)
     with pytest.raises(ValueError, match="shape"):

@@ -1,0 +1,122 @@
+"""The f32 scalars the port's wrappers hand to B3 (fused Adam) and B1
+(Eq. 1), against the ones the JAX reference forms, bit for bit, over a
+sweep of hyperparameters.  No card is needed: the scalars are formed on
+the host before any launch.
+
+* B3: ``1-b1``, ``1-b2`` and ``lr*wd`` (and ``b1``, ``b2``) as the
+  reference's jnp Adam (``repro.kernels.ref.adam_update``, the oracle the
+  port's plain version is bit-exact with) forms them: Python floats
+  combined in double, each rounded once to f32 where it meets an f32
+  array.  They are read from the literals of its jaxpr.  The Pallas
+  ``_adam_kernel`` forms ``1.0 - b1`` and ``1.0 - b2`` inside the kernel
+  from the f32 ``b1``, ``b2`` instead (pinned below): 0.100000024 for
+  b1 = 0.9 where the oracle has 0.1, within the reference's own 2e-6
+  kernel-vs-oracle tolerance.
+* B1: ``a`` and ``1-a`` as the reference's Pallas ``vc_asgd_lerp_flat``
+  (interpret mode) and its jnp oracle form them, read off a probe whose
+  outputs are exactly those scalars: ``a*0 + (1-a)*1`` and
+  ``a*1 + (1-a)*0``.
+* Adam's bias corrections, now cached by step, equal the uncached f32
+  powers.
+"""
+import jax
+import jax.numpy as jnp
+from jax.extend.core import Literal
+import numpy as np
+import pytest
+
+from repro.kernels import ref as RR
+from repro.kernels import vc_asgd_update as RV
+from repro_torch.core.flat import BLOCK
+from repro_torch.kernels import vc_asgd_update as VK
+from repro_torch.optim.optimizers import Adam
+
+
+def _bits(x) -> int:
+    return int(np.asarray(x, np.float32).view(np.int32))
+
+
+ADAM_SWEEP = [  # (lr, b1, b2, eps, weight_decay)
+    (1e-3, 0.9, 0.999, 1e-8, 0.0),
+    (1e-3, 0.9, 0.999, 1e-8, 0.01),
+    (3e-3, 0.95, 0.98, 1e-6, 0.1),
+    (0.1, 0.5, 0.9999, 1e-12, 5e-4),
+    (2.5e-4, 0.8, 0.99, 1e-8, 1e-2),
+    (1.0 / 3.0, 0.0, 0.0, 1e-7, 0.3),
+]
+
+
+def _oracle_literals(lr, b1, b2, eps, wd):
+    """{operand: [literals it is multiplied by, in order]} of the jnp
+    Adam's jaxpr: p -> [lr*wd], g -> [1-b1, 1-b2], m -> [b1], v -> [b2]."""
+    z = jnp.zeros(4, jnp.float32)
+    jp = jax.make_jaxpr(lambda p, g, m, v: RR.adam_update(
+        p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps, c1=jnp.float32(0.5),
+        c2=jnp.float32(0.25), weight_decay=wd))(z, z, z, z).jaxpr
+    names = dict(zip(jp.invars, "pgmv"))
+    out = {k: [] for k in "pgmv"}
+    for eqn in jp.eqns:
+        if eqn.primitive.name != "mul":
+            continue
+        lits = [x for x in eqn.invars if isinstance(x, Literal)]
+        ops = [names[x] for x in eqn.invars
+               if not isinstance(x, Literal) and x in names]
+        if len(lits) == 1 and len(ops) == 1:
+            out[ops[0]].append(float(lits[0].val))
+    return out
+
+
+@pytest.mark.parametrize("lr,b1,b2,eps,wd", ADAM_SWEEP)
+def test_adam_scalars_equal_reference_oracle(lr, b1, b2, eps, wd):
+    sc = VK.adam_scalars(lr, b1, b2, eps, wd, np.float32(0.5),
+                         np.float32(0.25))
+    lit = _oracle_literals(lr, b1, b2, eps, wd)
+    assert [_bits(x) for x in lit["g"]] == [_bits(sc.omb1), _bits(sc.omb2)]
+    assert [_bits(x) for x in lit["m"]] == [_bits(sc.b1)]
+    assert [_bits(x) for x in lit["v"]] == [_bits(sc.b2)]
+    if wd:
+        assert [_bits(x) for x in lit["p"]] == [_bits(sc.lr_wd)]
+    else:
+        assert lit["p"] == [] and sc.lr_wd == 0.0
+    assert _bits(sc.lr) == _bits(np.float32(lr))
+    assert _bits(sc.eps) == _bits(np.float32(eps))
+    assert (_bits(sc.c1), _bits(sc.c2)) == (_bits(0.5), _bits(0.25))
+
+
+@pytest.mark.parametrize("b1,b2", [(0.9, 0.999), (0.95, 0.98)])
+def test_pallas_adam_forms_one_minus_beta_in_f32(b1, b2):
+    """The reference's Pallas kernel, probed at m = v = 0, g = 1: its
+    m' and v' lanes are ``1 - b1`` and ``1 - b2`` as it forms them."""
+    z, one = jnp.zeros(BLOCK, jnp.float32), jnp.ones(BLOCK, jnp.float32)
+    _, m, v = RV.adam_update_flat(z, one, z, z, 1e-3, b1, b2, 1e-8, 0.0,
+                                  1.0, 1.0)
+    assert _bits(m[0]) == _bits(np.float32(1) - np.float32(b1))
+    assert _bits(v[0]) == _bits(np.float32(1) - np.float32(b2))
+    assert _bits(m[0]) != _bits(VK.adam_scalars(1e-3, b1, b2, 1e-8, 0.0,
+                                                1.0, 1.0).omb1)
+
+
+LERP_ALPHAS = [0.0, 1.0, 0.5, 2.0 / 3.0, 0.9, 0.95, 0.999, 1e-30, 1e-8,
+               2.0 ** -25, 2.0 ** -25 + 2.0 ** -60, 3e-8, 1 - 2.0 ** -24,
+               -0.5, 1.5, 1e10, -3e38, 7.0]
+
+
+@pytest.mark.parametrize("alpha", LERP_ALPHAS, ids=repr)
+def test_lerp_scalars_equal_reference(alpha):
+    a, oma = VK.lerp_scalars(alpha)
+    z, one = jnp.zeros(BLOCK, jnp.float32), jnp.ones(BLOCK, jnp.float32)
+    for lerp in (RV.vc_asgd_lerp_flat, RR.vc_asgd_lerp):
+        assert _bits(lerp(z, one, alpha)[0]) == _bits(oma)
+        assert _bits(lerp(one, z, alpha)[0]) == _bits(a)
+    assert _bits(oma) == _bits(np.float32(1) - np.float32(alpha))
+
+
+def test_adam_bias_corrections_cached_equal_f32_powers():
+    for b1, b2 in ((0.9, 0.999), (0.95, 0.98)):
+        opt = Adam(b1=b1, b2=b2)
+        for step in range(0, 3000, 7):
+            t, _, c1, c2 = opt._scalars(step)
+            tt = np.float32(t)
+            assert c1.dtype == c2.dtype == np.float32
+            assert _bits(c1) == _bits(np.float32(1) - np.float32(b1) ** tt)
+            assert _bits(c2) == _bits(np.float32(1) - np.float32(b2) ** tt)
