@@ -16,20 +16,23 @@ a card, or outside a checkout.  Phases:
               at the main path's sizes (the MLP bus, N = 16,384; the
               sparse payload's k = 656 and 1,313) and at N = 2^27
               (k = 0.05 * 2^27 = 6,710,886): Eq. 1 and Eq. 2 bit-exact in
-              f32 and bf16 storage (Eq. 2 with 1 and 4 clients), Adam
+              f32 and bf16 storage (Eq. 2 with 1-9, 33 and 511 clients;
+              1, 4, 8 and 9 at 2^27), Adam
               bit-exact with f32 and bf16 params, with and without weight
               decay, the elastic EASGD round bit-exact in f32 and bf16
               with 1 and 3 replicas, int8 quantize / dequantize and the
-              sparse-body pack bit-exact.
+              sparse-body pack bit-exact (the pack also at a k for each
+              k mod 4, with q at byte offsets 0-3).
               Each kernel's time, its plain version's, one PyTorch
               library call's where one computes the same function
               (torch.lerp / torch.addmv / torch._fused_adam_ / a scale
               multiply / torch.cat of byte views: yardsticks the port
-              never calls) and the bound (B1 and B3 timed in turns with
-              their library calls); the host microseconds of one B1 and
-              one B3 wrapper call at N = 16,384 beside torch.lerp's and
-              torch._fused_adam_'s, timed in turns, and the launch
-              helper's raw stream handle held to the current stream's.
+              never calls) and the bound (B1, B2, B3 and B12 timed in
+              turns with their library calls); the host microseconds of
+              one B1, B3, B2 and B12 wrapper call at the main sizes
+              beside torch.lerp's, torch._fused_adam_'s, torch.addmv's
+              and torch.cat's, timed in turns, and the launch helper's
+              raw stream handle held to the current stream's.
 4. the main path, through the entry points a user calls:
    a. the quickstart --smoke configuration (examples/quickstart.py:30-45,
       VC-ASGD with var_alpha) on the card and on the CPU from one seed:
@@ -202,6 +205,13 @@ MAIN_K = (656, 1313)             # sparse payload at densities 0.05 / 0.1
 QUICKSTART_EPOCHS = 4
 BIG_K = int(BIG_N * 0.05)        # 6,710,886
 QBLOCK = 256
+# B2's client counts in phase 3: its instances for 1-8 clients and its
+# generic one (9 and up); at 2^27 the counts whose [n, 2^27] matrix fits
+EQ2_COUNTS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 33, 511)
+EQ2_COUNTS_BIG = (1, 4, 8, 9)
+# B12's payloads in phase 3 beyond MAIN_K: a k for each k mod 4 (the
+# seams' shifts), 105,075 the bench bus's
+PACK_KS = (655, 656, 657, 658, 105_075)
 
 # results/PINNED_sim_regression.json's 12 flat MLP cases, with the
 # configurations of tools/pin_sim_regression.py:33-62, 90-93:
@@ -390,9 +400,10 @@ def parity(torch, np, VK, R, n_elems: int, timed: bool) -> dict:
         rec["bound_ms"], rec["bound_by"] = bound_ms(12 * n_elems, 3 * n_elems)
     out["vc_asgd_lerp_flat"] = rec
 
-    # B2: Eq. 2
+    # B2: Eq. 2, at every client count of its own instance (1-8) and on
+    # its generic instance (9, 33, 511; at 2^27 the counts that fit)
     for dtype in (torch.float32, torch.bfloat16):
-        for n in (1, 4):
+        for n in (EQ2_COUNTS if n_elems <= MAIN_N else EQ2_COUNTS_BIG):
             s, cl = rnd(n_elems).to(dtype), rnd(n, n_elems).to(dtype)
             w = [alpha ** n] + [(1 - alpha) * alpha ** (n - 1 - j) for j in range(n)]
             k, p = VK.assimilate_flat(s, cl, w), R.assimilate(s, cl, w)
@@ -400,6 +411,7 @@ def parity(torch, np, VK, R, n_elems: int, timed: bool) -> dict:
             check(bits_equal(torch, k, p),
                   f"Eq. 2 {dtype} n={n} N={n_elems}: kernel != plain version")
             say(f"parity B2 assimilate_flat {str(dtype)[6:]} n={n} N={n_elems}: bit-exact")
+            del s, cl, k, p
     n = 4
     s, cl = rnd(n_elems), rnd(n, n_elems)
     w = [alpha ** n] + [(1 - alpha) * alpha ** (n - 1 - j) for j in range(n)]
@@ -409,13 +421,14 @@ def parity(torch, np, VK, R, n_elems: int, timed: bool) -> dict:
         w32 = torch.tensor(np.asarray(w[1:], np.float32), device=dev)
         clt = cl.t()
         w0 = float(np.float32(w[0]))
-        rec["ms"] = KB.cuda_ms(lambda: VK.assimilate_flat(s, cl, w), iters)
-        rec["plain_ms"] = KB.cuda_ms(lambda: R.assimilate(s, cl, w), iters)
-        rec["library_ms"] = KB.cuda_ms(
+        rec["ms"], rec["library_ms"] = in_turns(
+            torch, lambda: VK.assimilate_flat(s, cl, w),
             lambda: torch.addmv(s, clt, w32, beta=w0), iters)
+        rec["plain_ms"] = KB.cuda_ms(lambda: R.assimilate(s, cl, w), iters)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             4 * (n + 2) * n_elems, (2 * n + 1) * n_elems)
     out["assimilate_flat"] = rec
+    del s, cl
 
     # B3: fused Adam (t = 3: every bias correction term is live), params
     # in f32 and bf16 storage, with and without weight decay
@@ -472,6 +485,26 @@ def parity(torch, np, VK, R, n_elems: int, timed: bool) -> dict:
     return out
 
 
+def pack_seams(torch, SK, R, rnd) -> None:
+    """B12 byte-equal at a k for each k mod 4 (both seams of the body
+    unaligned by each shift), with q read at byte offsets 0-3 (q a slice
+    of a larger buffer)."""
+    dev = torch.device("cuda")
+    for k in PACK_KS:
+        ng = -(-k // QBLOCK)
+        q0 = (rnd(k + 3) * 60).round().clamp(-127, 127).to(torch.int8)
+        sc = rnd(ng).abs() * 0.01
+        idx = torch.arange(k, dtype=torch.int32, device=dev) * 7 + 3
+        for off in range(4):
+            q = q0[off:off + k]
+            kb, pb = SK.pack_body(q, sc, idx), R.pack_body(q, sc, idx)
+            torch.cuda.synchronize()
+            check(kb.numel() == 5 * k + 4 * ng and torch.equal(kb, pb),
+                  f"pack_body k={k} q at byte {off}: kernel != plain version")
+        say(f"parity B12 pack_body k={k} (k mod 4 = {k % 4}), q at byte "
+            f"offsets 0-3: bytes equal")
+
+
 def in_turns(torch, kernel, library, iters: int) -> tuple:
     """(kernel ms, library ms) a call by CUDA events, timed in turns (K L
     L K, twice) after a warm-up (wrapper_cost.event_ms)."""
@@ -480,23 +513,27 @@ def in_turns(torch, kernel, library, iters: int) -> tuple:
     return ms["kernel"], ms["library"]
 
 
-def wrapper_host_cost(torch, np, VK, LA) -> dict:
-    """Phase 3: host microseconds of one B1 and one B3 wrapper call and of
-    the one PyTorch call computing the same function (torch.lerp,
-    torch._fused_adam_), at the MLP bus (N = MAIN_N f32, where each
-    kernel is shorter than its call): the host clock around 200
-    back-to-back calls, the four calls in turns over 9 rounds, the median
+def wrapper_host_cost(torch, np, VK, SK, LA) -> dict:
+    """Phase 3: host microseconds of one B1, B3, B2 and B12 wrapper call
+    and of the one PyTorch call computing the same function (torch.lerp,
+    torch._fused_adam_, torch.addmv, torch.cat), at the main sizes (the
+    MLP bus, N = MAIN_N f32, Eq. 2 over 4 clients; k = 656 for the pack;
+    each kernel shorter than its call): the host clock around 200
+    back-to-back calls, the eight calls in turns over 9 rounds, the median
     kept (wrapper_cost.host_us).  The launch helper's raw stream handle
     is held to the current stream's."""
     from repro_torch.benchmarks import wrapper_cost as WC
     idx = torch.cuda.current_device()
     check(LA._raw_stream(idx) == torch.cuda.current_stream().cuda_stream,
           "launches: the raw stream handle is not the current stream's")
-    us = WC.host_us(torch, WC.calls(torch, np, VK, MAIN_N))
+    us = WC.host_us(torch, WC.calls(torch, np, VK, SK, MAIN_N))
     out = {}
     for kern, lib in (("B1 vc_asgd_lerp_flat", "torch.lerp"),
-                      ("B3 adam_update_flat", "torch._fused_adam_")):
-        say(f"host cost {kern} N={MAIN_N}: {us[kern]:.2f} us a call, {lib} "
+                      ("B3 adam_update_flat", "torch._fused_adam_"),
+                      ("B2 assimilate_flat", "torch.addmv"),
+                      ("B12 pack_body", "torch.cat")):
+        size = WC.size_of(kern, MAIN_N)
+        say(f"host cost {kern} {size}: {us[kern]:.2f} us a call, {lib} "
             f"{us[lib]:.2f} us (in turns, median of 9 rounds)")
         out[kern.split()[1]] = {"host_us": us[kern],
                                 "library_host_us": us[lib]}
@@ -589,14 +626,16 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
                 q_pad.view(ng, QBLOCK), ks_[:, None]), iters)
             r["bound_ms"], r["bound_by"] = bound_ms(k + 4 * ng + 4 * k, k)
             r = recs["pack_body"]
-            r["ms"] = KB.cuda_ms(lambda: SK.pack_body(kq, ks_, idx), iters)
+            r["ms"], r["library_ms"] = in_turns(
+                torch, lambda: SK.pack_body(kq, ks_, idx),
+                lambda: torch.cat([kq.view(torch.uint8), ks_.view(torch.uint8),
+                                   idx.view(torch.uint8)]), iters)
             r["plain_ms"] = KB.cuda_ms(
                 lambda: R.pack_body(kq, ks_, idx), iters)
-            r["library_ms"] = KB.cuda_ms(lambda: torch.cat(
-                [kq.view(torch.uint8), ks_.view(torch.uint8),
-                 idx.view(torch.uint8)]), iters)
             r["bound_ms"], r["bound_by"] = bound_ms(2 * (5 * k + 4 * ng), 0)
         out.update(recs)
+    if n_elems <= MAIN_N:
+        pack_seams(torch, SK, R, rnd)
     if timed:
         for name, r in out.items():
             size = f"N={n_elems}" if name == "easgd_elastic_flat" \
@@ -2139,16 +2178,17 @@ def main() -> int:
         f"(nvcc {build.build_seconds:.2f} s)")
     for name, log in build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "entry function" in line):
                 say(f"ptxas {name}: {line.strip()}")
 
     # ---- 3. kernel parity -------------------------------------------------
     phases.start("3")
     numbers = parity(torch, np, VK, R, MAIN_N, timed=True)
-    for name, rec in wrapper_host_cost(torch, np, VK, LA).items():
-        numbers[name].update(rec)
     numbers.update(parity_scheme_kernels(torch, np, (VK, QK, SK), R, MAIN_N,
                                          MAIN_K, timed=True))
+    for name, rec in wrapper_host_cost(torch, np, VK, SK, LA).items():
+        numbers[name].update(rec)
     parity(torch, np, VK, R, BIG_N, timed=True)
     torch.cuda.empty_cache()
     parity_scheme_kernels(torch, np, (VK, QK, SK), R, BIG_N, (BIG_K,),
@@ -2326,7 +2366,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if "host_us" in r:          # B1, B3: host us a wrapper call
+        if "host_us" in r:          # B1-B3, B12: host us a wrapper call
             entry["host_us"] = r["host_us"]
             entry["library_host_us"] = r["library_host_us"]
         if name in ROUTES:          # B13: the main path's route, and both

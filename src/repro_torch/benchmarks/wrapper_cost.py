@@ -1,7 +1,10 @@
-"""Per-call cost of the training loop's two kernel wrappers, B1
-(``vc_asgd_lerp_flat``, Eq. 1) and B3 (``adam_update_flat``, fused Adam),
+"""Per-call cost of four kernel wrappers of the main path — B1
+(``vc_asgd_lerp_flat``, Eq. 1) and B3 (``adam_update_flat``, fused Adam)
+of the training loop, B2 (``assimilate_flat``, Eq. 2 over n = 4 clients)
+of the batched fold and B12 (``pack_body``) of every sparse frame —
 beside the one PyTorch call that computes the same function
-(``torch.lerp``, ``torch._fused_adam_``), and of B13's wrapper.
+(``torch.lerp``, ``torch._fused_adam_``, ``torch.addmv``, ``torch.cat``
+of the three byte views), and of B13's wrapper.
 
     python src/repro_torch/benchmarks/wrapper_cost.py [--src DIR] [--label L]
 
@@ -10,21 +13,23 @@ this checkout's ``src``), so that two checkouts can be timed in turns on
 one card, each in its own process (A, B, B, A).  Prints one JSON line:
 
 * ``host_us``: host microseconds a call, the host clock around
-  ``HOST_CALLS`` back-to-back calls at the MLP bus (N = 16,384 f32),
-  where the kernel is shorter than the call; every call of the tree and
-  every stage below timed in turns, ``ROUNDS`` rounds, the median kept;
-* ``event_ms``: CUDA-event milliseconds a call over 50 calls at N =
-  16,384 and 10 at N = 2^27, the calls of one size in turns (A B B A,
-  twice, after a warm-up), the mean kept;
-* ``graph_us``: device microseconds a call at N = 16,384, the calls
+  ``HOST_CALLS`` back-to-back calls at the main sizes (the MLP bus, N =
+  16,384 f32; its sparse payload, k = 656), where the kernel is shorter
+  than the call; every call of the tree and every stage below timed in
+  turns, ``ROUNDS`` rounds, the median kept;
+* ``event_ms``: CUDA-event milliseconds a call over 50 calls at the main
+  sizes and 10 at N = 2^27 / k = 6,710,886, the calls of one size in
+  turns (A B B A, twice, after a warm-up), the mean kept;
+* ``graph_us``: device microseconds a call at the main sizes, the calls
   captured 100 at a time in one CUDA graph and replayed (no host work
   between launches: what is left is the kernel and the launch gap);
-* ``bound_ms``: bytes moved at 3.35 TB/s (12 B an element for Eq. 1, 28
-  for Adam) at 2^27;
-* ``stages_us``: where a wrapper call's host time goes (checks, scalars,
-  output allocation, stream lookup, the ctypes call with its launch),
-  each stage alone, timed in the same turns as ``host_us`` (only for a
-  tree whose wrappers expose those stages);
+* ``bound_ms``: bytes moved at 3.35 TB/s at 2^27 / k = 6,710,886 (12 B
+  an element for Eq. 1, 28 for Adam, 4 (n + 2) for Eq. 2; twice the
+  body's 5k + 4 ng bytes for the pack);
+* ``stages_us``: where a wrapper call's host time goes (checks, scalars
+  or weights, output allocation, stream lookup, the ctypes call with its
+  launch), each stage alone, timed in the same turns as ``host_us`` (only
+  the stages a tree's wrappers expose);
 * ``b13_host_us``: one B13 wrapper call on each route at [1, 4/2, 128,
   128], as ``chip_smoke.py`` phase 6a times it;
 * ``bench``: the CSV rows of the port's ``flat`` and ``flat_adam``
@@ -47,6 +52,11 @@ import time
 from pathlib import Path
 
 MAIN_N, BIG_N = 16384, 2 ** 27
+# B12's payload at each bus size: the MLP's upload at density 0.05, and
+# 0.05 of 2^27
+PACK_K = {MAIN_N: 656, BIG_N: int(BIG_N * 0.05)}
+N_CLIENTS = 4                    # B2: 4b's batch of four results
+QBLOCK = 256
 HOST_CALLS, ROUNDS = 200, 9
 WARM_S = 2.0                     # device warm-up before a timing at 2^27
 TRAIN_STEPS = 600
@@ -127,17 +137,25 @@ def graph_us(torch, fn, reps: int = 100) -> float:
     return 1e3 * t0.elapsed_time(t1) / reps
 
 
-def calls(torch, np, VK, n: int) -> dict:
-    """name -> a zero-argument call at bus size ``n`` (f32)."""
+def calls(torch, np, VK, SK, n: int) -> dict:
+    """name -> a zero-argument call at bus size ``n`` (f32; B12 at
+    ``PACK_K[n]``)."""
+    from repro_torch.core.vc_asgd import assimilation_weights
     g = torch.Generator(device="cuda").manual_seed(n)
-    rnd = lambda: torch.randn(n, generator=g, device="cuda")
-    s, c = rnd(), rnd()
-    p, gr, m, v = rnd(), rnd(), rnd(), rnd().abs()
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    s, c = rnd(n), rnd(n)
+    p, gr, m, v = rnd(n), rnd(n), rnd(n), rnd(n).abs()
     c1 = np.float32(1) - np.float32(HYPER["b1"]) ** np.float32(T)
     c2 = np.float32(1) - np.float32(HYPER["b2"]) ** np.float32(T)
     a32 = float(np.float32(ALPHA))
     lp, lm, lv = p.clone(), m.clone(), v.clone()
     step = [torch.tensor(float(T), device="cuda")]
+    cl = rnd(N_CLIENTS, n)
+    w = assimilation_weights(N_CLIENTS, ALPHA)
+    w32 = torch.tensor(np.asarray(w[1:], np.float32), device="cuda")
+    w0, clt = float(np.float32(w[0])), cl.t()
+    q, sc, idx = pack_payload(torch, g, PACK_K[n])
+    qb, sb, ib = (t.view(torch.uint8) for t in (q, sc, idx))
     return {
         "B1 vc_asgd_lerp_flat": lambda: VK.vc_asgd_lerp_flat(s, c, ALPHA),
         "torch.lerp": lambda: torch.lerp(c, s, a32),
@@ -148,11 +166,28 @@ def calls(torch, np, VK, n: int) -> dict:
             [lp], [gr], [lm], [lv], [], step, lr=HYPER["lr"],
             beta1=HYPER["b1"], beta2=HYPER["b2"], weight_decay=0.0,
             eps=HYPER["eps"], amsgrad=False, maximize=False),
+        "B2 assimilate_flat": lambda: VK.assimilate_flat(s, cl, w),
+        "torch.addmv": lambda: torch.addmv(s, clt, w32, beta=w0),
+        "B12 pack_body": lambda: SK.pack_body(q, sc, idx),
+        "torch.cat": lambda: torch.cat([qb, sb, ib]),
     }
 
 
-def stages(torch, np, VK, LA) -> dict:
-    """name -> one stage of a B3 or a B1 wrapper call at MAIN_N, alone."""
+def pack_payload(torch, g, k: int) -> tuple:
+    """A sparse payload of k values as compress_flat makes it: q int8 [k],
+    scales f32 [ceil(k / 256)], indices int32 [k]."""
+    q = torch.randint(-127, 128, (k,), generator=g, device="cuda",
+                      dtype=torch.int8)
+    sc = torch.rand(-(-k // QBLOCK), generator=g, device="cuda") * 0.01
+    idx = torch.randint(0, 2 ** 31 - 1, (k,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    return q, sc, idx
+
+
+def stages(torch, np, VK, SK, LA) -> dict:
+    """name -> one stage of a B3, B1, B2 or B12 wrapper call at the main
+    sizes, alone (the stages this tree's wrappers expose)."""
+    from repro_torch.core.vc_asgd import assimilation_weights
     if not hasattr(VK, "_operand"):
         return {}
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -181,7 +216,7 @@ def stages(torch, np, VK, LA) -> dict:
         VK._flat("server", p, n)
         VK._like("client", gr, (p.dtype,), p.get_device(), p.shape)
 
-    return {
+    out = {
         "adam checks (4 operands)": checks,
         "adam scalars (AdamScalars)":
             lambda: VK.adam_scalars(1e-3, 0.9, 0.999, 1e-8, 0.0, c1, c2),
@@ -195,6 +230,33 @@ def stages(torch, np, VK, LA) -> dict:
         "lerp scalars": lambda: VK.lerp_scalars(ALPHA),
         "lerp output (1 empty_like)": lambda: torch.empty_like(p),
     }
+    if hasattr(VK, "_assimilate_checks"):
+        cl = torch.randn(N_CLIENTS, MAIN_N, generator=g, device="cuda")
+        w = assimilation_weights(N_CLIENTS, ALPHA)
+        VK.assimilate_flat(p, cl, w)
+        afn = VK._entries["assimilate_fixed", torch.float32]
+        wv = VK.assimilate_weights(w)
+        cp, op = cl.data_ptr(), outs[0].data_ptr()
+        out.update({
+            "assimilate checks (server + clients)":
+                lambda: VK._assimilate_checks(p, cl),
+            "assimilate weights (FixedWeights)":
+                lambda: VK.assimilate_weights(w),
+            "assimilate ctypes call + launch":
+                lambda: afn(ptrs[0], cp, op, wv, N_CLIENTS, MAIN_N, stream)})
+    if hasattr(SK, "_pack_checks"):
+        pq, psc, pidx = pack_payload(torch, g, PACK_K[MAIN_N])
+        body = SK.pack_body(pq, psc, pidx)
+        k, ng, qp, sp, ip, _ = SK._pack_checks(pq, psc, pidx)
+        bp, pfn = body.data_ptr(), SK._pack_body
+        out.update({
+            "pack checks (3 operands)":
+                lambda: SK._pack_checks(pq, psc, pidx),
+            "pack output (torch.empty)": lambda: torch.empty(
+                5 * k + 4 * ng, dtype=torch.uint8, device=dev),
+            "pack ctypes call + launch":
+                lambda: pfn(qp, sp, ip, bp, k, ng, stream)})
+    return out
 
 
 def b13_host(torch, FK) -> dict:
@@ -254,6 +316,15 @@ def bench_rows() -> list:
             if ln.startswith(("flat.", "flat_adam."))]
 
 
+def size_of(name: str, n: int) -> str:
+    """The size label of a call of ``calls(..., n)``."""
+    if "pack_body" in name or name == "torch.cat":
+        return f"k={PACK_K[n]}"
+    if "assimilate" in name or name == "torch.addmv":
+        return f"N={n} n={N_CLIENTS}"
+    return f"N={n}"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
@@ -267,26 +338,34 @@ def main(argv=None) -> int:
         raise SystemExit("wrapper_cost needs a CUDA card")
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import launches as LA
+    from repro_torch.kernels import sparse_pack as SK
     from repro_torch.kernels import vc_asgd_update as VK
 
-    small = calls(torch, np, VK, MAIN_N)
-    parts = stages(torch, np, VK, LA)
+    small = calls(torch, np, VK, SK, MAIN_N)
+    parts = stages(torch, np, VK, SK, LA)
     host = host_us(torch, {**small, **parts})
     rec = {"label": args.label, "src": args.src,
            "device": torch.cuda.get_device_name(0),
            "host_us": {k: host[k] for k in small},
            "stages_us": {k: host[k] for k in parts},
-           "event_ms": {f"{k} N={MAIN_N}": ms for k, ms in
+           "event_ms": {f"{k} {size_of(k, MAIN_N)}": ms for k, ms in
                         event_ms(torch, small, 50).items()},
            "graph_us": {k: graph_us(torch, fn) for k, fn in small.items()}}
     del small, parts
-    big = calls(torch, np, VK, BIG_N)
-    rec["event_ms"].update({f"{k} N={BIG_N}": ms for k, ms in
+    torch.cuda.empty_cache()
+    big = calls(torch, np, VK, SK, BIG_N)
+    rec["event_ms"].update({f"{k} {size_of(k, BIG_N)}": ms for k, ms in
                             event_ms(torch, big, 10).items()})
     del big
     torch.cuda.empty_cache()
-    rec["bound_ms"] = {f"B1 N={BIG_N}": 1e3 * 12 * BIG_N / HBM_BYTES_PER_S,
-                       f"B3 N={BIG_N}": 1e3 * 28 * BIG_N / HBM_BYTES_PER_S}
+    kb = PACK_K[BIG_N]
+    rec["bound_ms"] = {
+        f"B1 N={BIG_N}": 1e3 * 12 * BIG_N / HBM_BYTES_PER_S,
+        f"B3 N={BIG_N}": 1e3 * 28 * BIG_N / HBM_BYTES_PER_S,
+        f"B2 N={BIG_N} n={N_CLIENTS}":
+            1e3 * 4 * (N_CLIENTS + 2) * BIG_N / HBM_BYTES_PER_S,
+        f"B12 k={kb}": 1e3 * 2 * (5 * kb + 4 * -(-kb // QBLOCK))
+            / HBM_BYTES_PER_S}
     rec["b13_host_us"] = b13_host(torch, FK)
     rec["bench"] = bench_rows()
     rec["client_step_us"] = client_steps(torch)

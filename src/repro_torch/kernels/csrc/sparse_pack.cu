@@ -11,11 +11,31 @@
 // B12 packs an existing payload (q int8 [k], scales f32 [ng], idx int32
 // [k]) with pure byte copies, no arithmetic: the body must carry the
 // payload's own bytes (re-quantizing drifts a ULP, sparse_pack.py:62-66).
-// The scales section starts at byte k and the index section at k + 4 ng,
-// both unaligned for most k (k = 656 or 1,313 on the MLP's upload leg,
-// 105,075 on the bench bus), so both kernels write bytes, never words:
-// B12's thread t of the grid-stride loop owns output byte t and reads it
-// from whichever section it falls in.
+//
+// B12's design: a word-wide pack.  The body is the wrapper's fresh
+// allocation, so it is 16-byte aligned, and thread t of a grid that covers
+// it owns output word t, bytes [16t, 16t + 16), written with one 16-byte
+// evict-first store.  The scales section starts at byte k and the index
+// section at k + 4 ng, both unaligned for most k (k = 656 or 1,313 on the
+// MLP's upload leg, 105,075 on the bench bus), and q may be a slice at
+// any byte offset.  A word that lies inside one section takes its 16
+// bytes from that source at byte p: the aligned 4-byte words at p & ~3
+// onwards, four of them when p is 4-byte aligned, else five joined by
+// __funnelshift_r over (p & 3) bytes (little-endian: the lower address is
+// the low word).  Every word read holds at least one byte of the 16, so
+// no read leaves the source allocation's aligned 4-byte granule.  For
+// scales and idx (4-byte aligned) the shift is (-k) mod 4 for the whole
+// section; for q it is q's own address mod 4.  The at most three words
+// that straddle a seam (at k and at k + 4 ng; one word can hold both when
+// ng < 4) and the last word, when the body is no multiple of 16, are
+// assembled byte by byte: the owner's warp fetches the word's 16 bytes one
+// a lane and ORs them into place (__reduce_or_sync), so the word costs one
+// load's latency (with one thread loading all 16 a launch at k = 656 took
+// 2.5 us, graph-timed by benchmarks/wrapper_cost.py, against 1.5 for the
+// old byte-per-thread kernel; PERF.md); the last word stores only its
+// valid bytes.
+// The old design, one thread a byte in a grid-stride loop, held the H100
+// at 29% of its byte bound at k = 6,710,886 (PERF.md).
 //
 // B11 quantizes the selected values sel f32 [k] and packs them in the
 // same launch: B9's quantizer (quantize.cu) followed by B12's layout.
@@ -32,9 +52,8 @@
 // Bound on the H100 (3.35 TB/s): B12 moves 2*(5k + 4ng) bytes, no flops;
 // B11 reads 8k (sel, idx) and writes the body (5k + 4ng), q (ng * block)
 // and the scales (4ng), for a divide, a round and a compare a value.  At
-// the MLP's k a launch costs more than the bytes; the byte-per-thread
-// design is the simple one, and a word-wide variant that shifts across
-// the unaligned seams is work for a later change.
+// the MLP's k a launch costs more than the bytes: there a call costs its
+// host path (sparse_pack.py keeps it lean).
 //
 // The entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
@@ -46,25 +65,89 @@
 
 namespace {
 
-__global__ void pack_kernel(const uint8_t* __restrict__ q,
-                            const uint8_t* __restrict__ scales,
-                            const uint8_t* __restrict__ idx,
-                            uint8_t* __restrict__ body, int64_t k,
-                            int64_t scale_bytes) {
-  const int64_t total = k + scale_bytes + 4 * k;
-  const int64_t idx_at = k + scale_bytes;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    uint8_t b;
-    if (i < k)
-      b = q[i];
-    else if (i < idx_at)
-      b = scales[i - k];
-    else
-      b = idx[i - idx_at];
-    body[i] = b;
+// the address of byte i of the body in whichever source holds it
+__device__ __forceinline__ const uint8_t* body_src(
+    const uint8_t* q, const uint8_t* sc, const uint8_t* idx, int64_t k,
+    int64_t idx_at, int64_t i) {
+  return i < k ? q + i : (i < idx_at ? sc + (i - k) : idx + (i - idx_at));
+}
+
+// the 16 bytes at p, which lie inside one source: the aligned 4-byte
+// words from p & ~3 (a fifth when p & 3 != 0, so that every word read
+// holds one of the 16 bytes), loaded here and joined across the byte shift
+// by join() once they are needed
+struct Words {
+  uint32_t x[5];
+  unsigned int sh;
+};
+
+__device__ __forceinline__ Words load_words(const uint8_t* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const unsigned int* w =
+      reinterpret_cast<const unsigned int*>(a & ~uintptr_t{3});
+  Words r = {};
+  r.sh = 8u * static_cast<unsigned int>(a & 3);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r.x[j] = __ldcs(w + j);
+  r.x[4] = r.sh ? __ldcs(w + 4) : 0u;
+  return r;
+}
+
+__device__ __forceinline__ uint4 join(const Words& r) {
+  if (r.sh == 0) return make_uint4(r.x[0], r.x[1], r.x[2], r.x[3]);
+  return make_uint4(__funnelshift_r(r.x[0], r.x[1], r.sh),
+                    __funnelshift_r(r.x[1], r.x[2], r.sh),
+                    __funnelshift_r(r.x[2], r.x[3], r.sh),
+                    __funnelshift_r(r.x[3], r.x[4], r.sh));
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ sc,
+            const uint8_t* __restrict__ idx, uint8_t* __restrict__ body,
+            int64_t k, int64_t idx_at, int64_t total) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t lo = 16 * t, hi = lo + 16;    // this thread's word's bytes
+  // a word inside one section: its source words, loaded now and stored
+  // after the seams below, so both loads are in flight together
+  const uint8_t* src = nullptr;
+  if (hi <= k)
+    src = q + lo;                             // inside q
+  else if (lo >= k && hi <= idx_at)
+    src = sc + (lo - k);                      // inside the scales
+  else if (lo >= idx_at && hi <= total)
+    src = idx + (lo - idx_at);                // inside the indices
+  Words r = {};
+  if (src) r = load_words(src);
+  // a word across a seam, or the last word: its warp's lanes 0-15 fetch its
+  // 16 bytes, one a lane, and OR them together into the owner's word (no
+  // thread returns early: every lane of the warp takes part)
+  unsigned todo = __ballot_sync(0xffffffffu, !src && lo < total);
+  const int lane = threadIdx.x & 31, b = lane & 15;
+  while (todo) {
+    const int owner = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int64_t wlo = __shfl_sync(0xffffffffu, lo, owner);
+    // a byte past the body reads the body's last byte again, never stored
+    const int64_t i = wlo + b < total ? wlo + b : total - 1;
+    const uint32_t byte = lane < 16 ? *body_src(q, sc, idx, k, idx_at, i) : 0u;
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = __reduce_or_sync(0xffffffffu,
+                              b / 4 == j ? byte << (8 * (b % 4)) : 0u);
+    if (lane == owner) {
+      if (wlo + 16 <= total) {
+        __stcs(reinterpret_cast<uint4*>(body) + t,
+               make_uint4(v[0], v[1], v[2], v[3]));
+      } else {              // only the body's bytes: it ends inside the word
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (wlo + j < total)
+            body[wlo + j] = static_cast<uint8_t>(v[j / 4] >> (8 * (j % 4)));
+      }
+    }
   }
+  if (src) __stcs(reinterpret_cast<uint4*>(body) + t, join(r));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -134,15 +217,21 @@ const char* sp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q int8 [k], scales f32 [ng], idx int32 [k] -> body uint8 [5k + 4ng]
+// q int8 [k] (any byte offset), scales f32 [ng], idx int32 [k] (4-byte
+// aligned) -> body uint8 [5k + 4ng] (16-byte aligned)
 int sp_pack_body(const void* q, const void* scales, const void* idx,
                  void* body, int64_t k, int64_t ng, void* stream) {
-  if (k < 1 || ng < 1) return static_cast<int>(cudaErrorInvalidValue);
-  pack_kernel<<<grid_for(5 * k + 4 * ng), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
+  if (k < 1 || ng < 1 || reinterpret_cast<uintptr_t>(body) % 16 ||
+      reinterpret_cast<uintptr_t>(scales) % 4 ||
+      reinterpret_cast<uintptr_t>(idx) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = 5 * k + 4 * ng;
+  const int64_t words = (total + 15) / 16;
+  pack_kernel<<<static_cast<unsigned>((words + kThreads - 1) / kThreads),
+                kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(scales),
       static_cast<const uint8_t*>(idx), static_cast<uint8_t*>(body), k,
-      4 * ng);
+      k + 4 * ng, total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,16 +21,16 @@
 // v in, p, m, v out) and 8*(n+1) B (EASGD: center and n replicas in and
 // out) for 3, 8, 2n+1, 14 and 4n+2 flops.
 // The design answers that bound with the simplest thing that streams:
-// each thread owns whole 16-byte vectors, a grid-stride loop over a grid
-// of a few blocks per SM, loads and stores issued straight from
-// registers, nothing staged in shared memory (no reuse to exploit).  Eq. 2
-// and EASGD read the n client or replica rows in order inside the thread,
-// so every output is one pass.  The flat bus is a multiple of 8192, so it
-// has no tail; the lerps also serve the per-tensor entries (any shape),
-// whose n % V elements after the last pack the first threads of block 0
-// take one each: no padded copies.  Eq. 1 and Adam, the two passes of the
-// training loop, instead take a grid that covers the bus, a chunk a block
-// (see each kernel's note).
+// each thread owns whole 16-byte vectors, loads and stores issued straight
+// from registers, nothing staged in shared memory (no reuse to exploit).
+// Eq. 2 and EASGD read the n client or replica rows in order inside the
+// thread, so every output is one pass.  The flat bus is a multiple of
+// 8192, so it has no tail; the lerps also serve the per-tensor entries
+// (any shape), whose n % V elements after the last pack the first threads
+// of block 0 take one each: no padded copies.  Eq. 1, Eq. 2 and Adam take
+// a grid that covers the bus, a chunk a block, with evict-first loads and
+// stores (see each kernel's note); DC-ASGD and EASGD a grid-stride loop
+// over a grid of a few blocks per SM.
 //
 // Numerics: the reference pins these results bit for bit (separate f32
 // multiply and add, no FMA; IEEE division and square root), so every
@@ -51,6 +51,13 @@
 // (vc_asgd_update.py's AdamScalars has this layout)
 struct AdamScalars {
   float lr, b1, omb1, b2, omb2, eps, lr_wd, c1, c2;
+};
+
+// Eq. 2's weights for 1 <= n_clients <= kFixedClients, passed by value
+// (vc_asgd_update.py's FixedWeights has this layout; the unused tail is 0)
+constexpr int kFixedClients = 8;
+struct FixedWeights {
+  float w[kFixedClients + 1];
 };
 
 namespace {
@@ -202,37 +209,84 @@ int dc_lerp_launch(const void* s, const void* c, const void* g, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- Eq. 2: out = w0*s + sum_j w[j+1]*c_j, j in arrival order -------------
-template <typename T>
-__global__ void assimilate_kernel(const T* __restrict__ s,
-                                  const T* __restrict__ clients,
-                                  T* __restrict__ out,
-                                  const __grid_constant__ Weights w,
-                                  int n_clients, int64_t nvec) {
+// ---- Eq. 2 (B2): out = w0*s + sum_j w[j+1]*c_j, j in arrival order --------
+//
+// What bounds it.  On 4b's batch (four results on the MLP's 16,384-element
+// f32 bus, 393,216 bytes: 0.000117 ms at 3.35 TB/s) a call costs its launch
+// and its host path (vc_asgd_update.py), not device time.  At bus scale
+// (2^27 elements, n = 4: 3.22 GB, 0.9616 ms) it is HBM bytes: 4 (n + 2) B
+// an f32 element for 2n + 1 flops.
+//
+// What the design does.  As Eq. 1 (whose note has the measurements): a
+// grid that covers the bus, one pack of each stream a thread, no
+// grid-stride loop, every load and store evict-first (each byte is touched
+// once).  The client count is a template parameter for 1 <= n <=
+// kFixedClients (4b's results, the pod's islands and the tests' counts), so
+// each thread issues its server pack and all n client packs, n + 1
+// independent 16-byte loads, before the first multiply; the n + 1 weights
+// ride by value in the kernel's parameter space (FixedWeights, 36 bytes).
+// A larger count (up to kMaxWeights - 1) takes one generic instance on the
+// same grid: a runtime loop over the clients, the weights in a 2,048-byte
+// __grid_constant__ struct.  Each output is folded exactly as the plain
+// version folds it, acc = w0*s, then acc = acc + w_{j+1}*c_j in arrival
+// order, with separate _rn multiplies and adds.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kStreamThreads)
+assimilate_fixed_kernel(const T* __restrict__ s, const T* __restrict__ clients,
+                        T* __restrict__ out, const FixedWeights w,
+                        int64_t nvec) {
   constexpr int V = 16 / sizeof(T);
   using P = Pack<T, V>;
-  const P* sp = reinterpret_cast<const P*>(s);
-  const P* cp = reinterpret_cast<const P*>(clients);
-  P* op = reinterpret_cast<P*>(out);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < nvec; i += stride) {
-    const P sv = sp[i];
-    float acc[V];
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kStreamThreads + threadIdx.x;
+  if (i >= nvec) return;
+  const P* cp = reinterpret_cast<const P*>(clients) + i;
+  const P sv = load_stream(reinterpret_cast<const P*>(s) + i);
+  P cv[NC];
 #pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = __fmul_rn(w.w[0], widen(sv.v[k]));
-    for (int j = 0; j < n_clients; ++j) {
-      const P cv = cp[static_cast<int64_t>(j) * nvec + i];
-      const float wj = w.w[j + 1];
+  for (int j = 0; j < NC; ++j) cv[j] = load_stream(cp + j * nvec);
+  float acc[V];
 #pragma unroll
-      for (int k = 0; k < V; ++k)
-        acc[k] = __fadd_rn(acc[k], __fmul_rn(wj, widen(cv.v[k])));
-    }
-    P ov;
+  for (int k = 0; k < V; ++k) acc[k] = __fmul_rn(w.w[0], widen(sv.v[k]));
 #pragma unroll
-    for (int k = 0; k < V; ++k) ov.v[k] = narrow<T>(acc[k]);
-    op[i] = ov;
+  for (int j = 0; j < NC; ++j) {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      acc[k] = __fadd_rn(acc[k], __fmul_rn(w.w[j + 1], widen(cv[j].v[k])));
   }
+  P ov;
+#pragma unroll
+  for (int k = 0; k < V; ++k) ov.v[k] = narrow<T>(acc[k]);
+  store_stream(reinterpret_cast<P*>(out) + i, ov);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStreamThreads)
+assimilate_kernel(const T* __restrict__ s, const T* __restrict__ clients,
+                  T* __restrict__ out, const __grid_constant__ Weights w,
+                  int n_clients, int64_t nvec) {
+  constexpr int V = 16 / sizeof(T);
+  using P = Pack<T, V>;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kStreamThreads + threadIdx.x;
+  if (i >= nvec) return;
+  const P* cp = reinterpret_cast<const P*>(clients) + i;
+  const P sv = load_stream(reinterpret_cast<const P*>(s) + i);
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = __fmul_rn(w.w[0], widen(sv.v[k]));
+#pragma unroll 4
+  for (int j = 0; j < n_clients; ++j) {
+    const P cv = load_stream(cp + j * nvec);
+    const float wj = w.w[j + 1];
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      acc[k] = __fadd_rn(acc[k], __fmul_rn(wj, widen(cv.v[k])));
+  }
+  P ov;
+#pragma unroll
+  for (int k = 0; k < V; ++k) ov.v[k] = narrow<T>(acc[k]);
+  store_stream(reinterpret_cast<P*>(out) + i, ov);
 }
 
 // ---- fused Adam (B3) --------------------------------------------------------
@@ -351,16 +405,49 @@ int easgd_launch(const void* c, const void* x, void* co, void* xo,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int NC>
+void assimilate_fixed(const void* s, const void* clients, void* out,
+                      const FixedWeights& w, int64_t nvec,
+                      cudaStream_t stream) {
+  assimilate_fixed_kernel<T, NC><<<stream_grid(nvec, 1), kStreamThreads, 0,
+                                   stream>>>(
+      static_cast<const T*>(s), static_cast<const T*>(clients),
+      static_cast<T*>(out), w, nvec);
+}
+
+// n_clients in 1..kFixedClients, the weights by value
+template <typename T>
+int assimilate_fixed_launch(const void* s, const void* clients, void* out,
+                            const FixedWeights& w, int n_clients, int64_t n,
+                            void* stream) {
+  const int64_t nvec = n / (16 / sizeof(T));
+  if (nvec < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_clients) {
+    case 1: assimilate_fixed<T, 1>(s, clients, out, w, nvec, st); break;
+    case 2: assimilate_fixed<T, 2>(s, clients, out, w, nvec, st); break;
+    case 3: assimilate_fixed<T, 3>(s, clients, out, w, nvec, st); break;
+    case 4: assimilate_fixed<T, 4>(s, clients, out, w, nvec, st); break;
+    case 5: assimilate_fixed<T, 5>(s, clients, out, w, nvec, st); break;
+    case 6: assimilate_fixed<T, 6>(s, clients, out, w, nvec, st); break;
+    case 7: assimilate_fixed<T, 7>(s, clients, out, w, nvec, st); break;
+    case 8: assimilate_fixed<T, 8>(s, clients, out, w, nvec, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// any n_clients in 1..kMaxWeights-1, the weights from a host array
 template <typename T>
 int assimilate_launch(const void* s, const void* clients, void* out,
                       const float* weights, int n_clients, int64_t n,
                       void* stream) {
-  if (n_clients < 1 || n_clients + 1 > kMaxWeights)
+  const int64_t nvec = n / (16 / sizeof(T));
+  if (n_clients < 1 || n_clients + 1 > kMaxWeights || nvec < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Weights w;
   for (int j = 0; j <= n_clients; ++j) w.w[j] = weights[j];
-  const int64_t nvec = n / (16 / sizeof(T));
-  assimilate_kernel<T><<<grid_for(nvec), kThreads, 0,
+  assimilate_kernel<T><<<stream_grid(nvec, 1), kStreamThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(s), static_cast<const T*>(clients),
       static_cast<T*>(out), w, n_clients, nvec);
@@ -415,6 +502,25 @@ int vc_dc_lerp_bf16(const void* s, const void* c, const void* g,
 
 int vc_max_weights(void) { return kMaxWeights; }
 
+int vc_fixed_clients(void) { return kFixedClients; }
+
+// s [n], clients [n_clients, n] -> out [n]; n_clients in 1..8, the n_clients
+// + 1 weights by value
+int vc_assimilate_fixed_f32(const void* s, const void* clients, void* out,
+                            FixedWeights w, int n_clients, int64_t n,
+                            void* stream) {
+  return assimilate_fixed_launch<float>(s, clients, out, w, n_clients, n,
+                                        stream);
+}
+
+int vc_assimilate_fixed_bf16(const void* s, const void* clients, void* out,
+                             FixedWeights w, int n_clients, int64_t n,
+                             void* stream) {
+  return assimilate_fixed_launch<uint16_t>(s, clients, out, w, n_clients, n,
+                                           stream);
+}
+
+// the same for n_clients in 1..511, the weights from a host array
 int vc_assimilate_f32(const void* s, const void* clients, void* out,
                       const float* weights, int n_clients, int64_t n,
                       void* stream) {

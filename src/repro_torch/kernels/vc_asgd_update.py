@@ -50,7 +50,8 @@ __all__ = ["KERNELS", "launch_count", "launch_counts", "reset_launch_count",
            "vc_asgd_lerp_flat", "vc_asgd_lerp", "vc_asgd_dc_lerp_flat",
            "vc_asgd_dc_lerp", "assimilate_flat", "adam_update_flat",
            "easgd_elastic_flat", "AdamScalars", "adam_scalars",
-           "lerp_scalars"]
+           "lerp_scalars", "FixedWeights", "assimilate_weights",
+           "FIXED_CLIENTS", "MAX_CLIENTS"]
 
 _F32 = (torch.float32,)
 
@@ -82,6 +83,21 @@ def lerp_scalars(alpha) -> Tuple[float, float]:
     return a, ctypes.c_float(1.0 - a).value
 
 
+# Eq. 2's client counts: up to FIXED_CLIENTS the weights ride by value
+# in a FixedWeights and the kernel is instantiated for the count; above it,
+# up to MAX_CLIENTS, one generic instance reads them from an f32 array
+FIXED_CLIENTS = 8
+MAX_CLIENTS = 511
+
+
+class FixedWeights(ctypes.Structure):
+    """B2's weights for 1 <= n <= FIXED_CLIENTS clients, passed by value
+    (csrc/vc_asgd_update.cu's ``FixedWeights``, nine consecutive f32):
+    ``w_server, w_0, ...``, each set from a Python float by one
+    round-to-nearest, the unused tail zero."""
+    _fields_ = [(f"w{j}", ctypes.c_float) for j in range(FIXED_CLIENTS + 1)]
+
+
 _lib: Optional[ctypes.CDLL] = None
 _error_string = None
 # (entry, storage dtype) -> its C function, resolved when the library loads
@@ -92,13 +108,15 @@ def _library() -> ctypes.CDLL:
     global _lib, _error_string
     if _lib is None:
         lib = build.load("vc_asgd_update")
-        P, F, I64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
+        P, F, I, I64 = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                        ctypes.c_int64)
         signatures = {
             "lerp": [P, P, P, F, F, I64, P],
             "dc_lerp": [P, P, P, P, P, F, F, F, I64, P],
-            "assimilate": [P, P, P, P, ctypes.c_int, I64, P],
+            "assimilate_fixed": [P, P, P, FixedWeights, I, I64, P],
+            "assimilate": [P, P, P, ctypes.POINTER(F), I, I64, P],
             "adam": [P] * 7 + [AdamScalars, I64, P],
-            "easgd": [P, P, P, P, F, ctypes.c_int, I64, P],
+            "easgd": [P, P, P, P, F, I, I64, P],
         }
         for dtype, sfx in STORAGE.items():
             for entry, argtypes in signatures.items():
@@ -107,8 +125,12 @@ def _library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
                 _entries[entry, dtype] = fn
         bind_error_string(lib.vc_error_string)
-        lib.vc_max_weights.argtypes = []
-        lib.vc_max_weights.restype = ctypes.c_int
+        for name, want in (("vc_fixed_clients", FIXED_CLIENTS),
+                           ("vc_max_weights", MAX_CLIENTS + 1)):
+            getattr(lib, name).restype = ctypes.c_int
+            if getattr(lib, name)() != want:
+                raise RuntimeError(f"{name}() != {want}: the library does "
+                                   f"not match vc_asgd_update.py")
         _error_string = lib.vc_error_string
         _lib = lib
     return _lib
@@ -220,44 +242,67 @@ def vc_asgd_dc_lerp(server, client, grad, backup, alpha, lam=0.04
     return _dc_lerp(server, client, grad, backup, alpha, lam, False)
 
 
-def _rows(name: str, rows, flat: torch.Tensor, n: int) -> int:
-    """``rows``' data pointer: a contiguous [k, n] matrix (k >= 1) of
-    ``flat``'s dtype on its device, its flat view a bus operand."""
-    if (not isinstance(rows, torch.Tensor) or rows.dim() != 2
-            or rows.shape[0] < 1 or rows.shape[1] != n
-            or rows.dtype != flat.dtype or not rows.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous [n, {n}] "
-                         f"{flat.dtype} matrix, got "
-                         f"{tuple(getattr(rows, 'shape', ()))} "
-                         f"{getattr(rows, 'dtype', type(rows))}")
-    view = rows.view(-1)
-    k, ptr = _operand(name, view, (flat.dtype,))
-    _flat(name, view, k)
-    if rows.get_device() != flat.get_device():
-        raise ValueError(f"{name} on {rows.device}, expected {flat.device}")
-    return ptr
+def _rows(name: str, rows, dtype: torch.dtype, dev: int, n: int
+          ) -> Tuple[int, int]:
+    """``(k, data_ptr)`` of ``rows``: a contiguous 16-byte aligned [k, n]
+    CUDA matrix (k >= 1) of ``dtype`` on device ``dev``, checked without
+    building a view, each piece of metadata read once."""
+    at = rows.get_device() if isinstance(rows, torch.Tensor) else -1
+    if at != dev:
+        raise ValueError(f"{name} on {getattr(rows, 'device', type(rows))}, "
+                         f"expected cuda:{dev}")
+    shape = rows.shape
+    if (len(shape) != 2 or shape[0] < 1 or shape[1] != n
+            or rows.dtype != dtype or not rows.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous [k, {n}] {dtype} "
+                         f"matrix, got {tuple(shape)} {rows.dtype}")
+    ptr = rows.data_ptr()
+    if ptr % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return int(shape[0]), ptr
+
+
+def assimilate_weights(weights: Sequence[float]):
+    """The f32 weights B2 gets, ``[w_server, w_0, ..., w_{n-1}]`` each
+    rounded once to nearest from its Python float, as the reference's
+    ``jnp.asarray(w, jnp.float32)`` rounds it: a ``FixedWeights`` (by
+    value) for n <= FIXED_CLIENTS, else an f32 array of n + 1."""
+    if len(weights) <= FIXED_CLIENTS + 1:
+        return FixedWeights(*weights)
+    return (ctypes.c_float * len(weights))(*weights)
+
+
+def _assimilate_checks(server, clients) -> Tuple[int, int, int, int, int]:
+    """``(n, n_clients, server ptr, clients ptr, device)`` of an Eq. 2
+    call: server a flat-bus operand, clients a [n_clients, n] matrix of
+    its dtype on its device, 1 <= n_clients <= MAX_CLIENTS."""
+    n, sp = _operand("server", server, STORAGE)
+    _flat("server", server, n)
+    dev = server.get_device()
+    n_clients, cp = _rows("clients", clients, server.dtype, dev, n)
+    if n_clients > MAX_CLIENTS:
+        raise ValueError(f"assimilate_flat takes at most {MAX_CLIENTS} "
+                         f"clients, got {n_clients}")
+    return n, n_clients, sp, cp, dev
 
 
 def assimilate_flat(server: torch.Tensor, clients: torch.Tensor,
                     weights: Sequence[float]) -> torch.Tensor:
     """Eq. 2 as ONE launch: server [N] + clients [n, N] -> [N], each output
     element reducing the n client streams in arrival order.  ``weights``
-    = [w_server, w_0..w_{n-1}], rounded to f32 here."""
-    n, sp = _operand("server", server, STORAGE)
-    _flat("server", server, n)
-    cp = _rows("clients", clients, server, n)
-    n_clients = int(clients.shape[0])
+    = [w_server, w_0..w_{n-1}], rounded to f32 here
+    (``assimilate_weights``)."""
+    n, n_clients, sp, cp, dev = _assimilate_checks(server, clients)
     if len(weights) != n_clients + 1:
         raise ValueError(f"need {n_clients + 1} weights, got {len(weights)}")
-    lib = _library()
-    if n_clients + 1 > lib.vc_max_weights():
-        raise ValueError(f"assimilate_flat takes at most "
-                         f"{lib.vc_max_weights() - 1} clients, got {n_clients}")
-    w = np.asarray([np.float32(x) for x in weights], np.float32)
+    w = assimilate_weights(weights)
     out = torch.empty_like(server)
-    fn = _entry("assimilate", server.dtype)
-    launch("assimilate_flat", _error_string, fn, server.get_device(), sp,
-           cp, out.data_ptr(), w.ctypes.data, n_clients, n)
+    if _lib is None:
+        _library()
+    fn = _entries["assimilate_fixed" if n_clients <= FIXED_CLIENTS
+                  else "assimilate", server.dtype]
+    launch("assimilate_flat", _error_string, fn, dev, sp, cp, out.data_ptr(),
+           w, n_clients, n)
     return out
 
 
@@ -290,11 +335,12 @@ def easgd_elastic_flat(center: torch.Tensor, replicas: torch.Tensor, beta
     here."""
     n, cp = _operand("center", center, STORAGE)
     _flat("center", center, n)
-    xp = _rows("replicas", replicas, center, n)
+    dev = center.get_device()
+    n_replicas, xp = _rows("replicas", replicas, center.dtype, dev, n)
     co = torch.empty_like(center)
     xo = torch.empty_like(replicas)
     fn = _entry("easgd", center.dtype)
-    launch("easgd_elastic_flat", _error_string, fn, center.get_device(), cp,
-           xp, co.data_ptr(), xo.data_ptr(), float(np.float32(beta)),
-           int(replicas.shape[0]), n)
+    launch("easgd_elastic_flat", _error_string, fn, dev, cp, xp,
+           co.data_ptr(), xo.data_ptr(), float(np.float32(beta)), n_replicas,
+           n)
     return co, xo

@@ -40,6 +40,24 @@ from repro_torch.transfer.transport import Transport
 _F32 = torch.float32
 
 
+def _host_island_weights(n_pods: int, alpha: float, survivors
+                         ) -> Tuple[np.ndarray, np.float32]:
+    """``island_weights``' values on the host: (w f32 [n_pods], w_server
+    f32), the only device work a read of ``survivors`` when it lies on
+    the card."""
+    alive = np.asarray(survivors.cpu() if isinstance(survivors, torch.Tensor)
+                       else survivors).astype(np.float32).reshape(n_pods)
+    f32 = np.float32
+    j = np.arange(n_pods, dtype=f32)
+    expo = f32(n_pods) - f32(1.0) - j
+    pw = np.power(np.float64(f32(alpha)), expo.astype(np.float64)).astype(f32)
+    w = f32(1.0 - alpha) * pw * alive
+    total = f32(0.0)
+    for v in w:
+        total = f32(total + v)
+    return w, f32(f32(1.0) - total)
+
+
 def island_weights(n_pods: int, alpha: float, survivors
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eq. 2 weights [w_0..w_{n-1}] (island order = arrival order) with
@@ -51,37 +69,41 @@ def island_weights(n_pods: int, alpha: float, survivors
     rounded to f32 (XLA's f32 pow on the CPU), ``w_server = 1 - sum(w)``
     summed left to right from 0 (XLA's reduction of a short vector)."""
     dev = survivors.device if isinstance(survivors, torch.Tensor) else "cpu"
-    alive = np.asarray(survivors.cpu() if isinstance(survivors, torch.Tensor)
-                       else survivors).astype(np.float32).reshape(n_pods)
-    f32 = np.float32
-    j = np.arange(n_pods, dtype=f32)
-    expo = f32(n_pods) - f32(1.0) - j
-    pw = np.power(np.float64(f32(alpha)), expo.astype(np.float64)).astype(f32)
-    w = f32(1.0 - alpha) * pw * alive
-    total = f32(0.0)
-    for v in w:
-        total = f32(total + v)
+    w, w_s = _host_island_weights(n_pods, alpha, survivors)
     return (torch.from_numpy(w).to(dev),
-            torch.tensor(f32(1.0) - total, dtype=_F32, device=dev))
+            torch.tensor(w_s, dtype=_F32, device=dev))
 
 
 def assimilate_flat(server_buf: torch.Tensor, islands_buf: torch.Tensor,
-                    w: torch.Tensor, w_s) -> torch.Tensor:
+                    w, w_s) -> torch.Tensor:
     """Eq. 2 over the FLAT bus with survivor masking: server [N] + islands
-    [n_pods, N] -> [N], stored in the server's dtype.
+    [n_pods, N] -> [N], stored in the server's dtype.  ``w`` [n_pods] and
+    ``w_s`` are ``island_weights``' results, best on the host (a CPU
+    tensor, an array or floats): B2 takes its weights by value, and
+    weights on the card cost a read back.
 
     Select-before-multiply: a dead island may hold inf/nan (it crashed
     mid-step) and ``0 * inf`` would poison the server, so dead streams are
     zeroed BEFORE the weighted reduction, which is B2
     (``ops.fused_assimilate_flat``: ONE launch on the card, its plain
-    version on the CPU).  It folds ``w_s * server`` first and the islands
-    after it in island order: the reference's ``use_kernel=True`` order,
-    not its jnp path's (which sums the weighted islands first)."""
-    wi = w.reshape(-1, 1).to(_F32)
-    zero = torch.zeros((), dtype=_F32, device=islands_buf.device)
-    islands = torch.where(wi > 0.0, islands_buf.to(_F32), zero)
-    weights = [float(w_s)] + [float(v) for v in w.tolist()]
-    return K.fused_assimilate_flat(server_buf, islands, weights)
+    version on the CPU), in f32: a bf16 server is widened (exactly) and
+    the f32 result rounded once to its dtype, what the reference's fold
+    of f32 islands onto a bf16 server gives.  It folds ``w_s * server``
+    first and the islands after it in island order: the reference's
+    ``use_kernel=True`` order, not its jnp path's (which sums the weighted
+    islands first)."""
+    wl = [float(v) for v in (w.tolist() if isinstance(w, torch.Tensor)
+                             else w)]
+    islands = islands_buf.to(_F32)
+    dead = [j for j, v in enumerate(wl) if not v > 0.0]
+    if dead:
+        if islands is islands_buf:
+            islands = islands.clone()
+        for j in dead:
+            islands[j].zero_()
+    out = K.fused_assimilate_flat(server_buf.to(_F32), islands,
+                                  [float(w_s)] + wl)
+    return out.to(server_buf.dtype)
 
 
 def redistribute_flat(server_buf: torch.Tensor, n_pods: int) -> torch.Tensor:
@@ -116,7 +138,8 @@ def compressed_assimilate(server, islands, alpha: float, survivors, *,
     must not be truncated to the params' storage dtype)."""
     dev = resolve_device(device)
     n = islands_leading_dim(islands)
-    w, w_s = (t.to(dev) for t in island_weights(n, alpha, survivors))
+    w, w_s = _host_island_weights(n, alpha, survivors)
+    w, w_s = w.tolist(), float(w_s)
     fp = F.flatten(server)
     s32 = fp.buf.to(dev)
     isl_buf, spec = F.flatten_batched(islands)
@@ -160,7 +183,8 @@ def compressed_assimilate_per_leaf(server, islands, alpha: float, survivors,
     in its dtype, the residuals island-major in f32."""
     dev = resolve_device(device)
     n = islands_leading_dim(islands)
-    w, w_s = (t.to(dev) for t in island_weights(n, alpha, survivors))
+    w, w_s = _host_island_weights(n, alpha, survivors)
+    w, w_s = w.tolist(), float(w_s)
 
     def one_leaf(s, isl, res):
         s32 = s.to(device=dev, dtype=_F32)

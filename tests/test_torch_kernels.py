@@ -72,8 +72,13 @@ def test_lerp_bit_exact(dev, dtype, alpha):
     assert _bits_equal(out, R.vc_asgd_lerp(s, c, alpha))
 
 
+# B2's client counts: each count of its own instance (1-8, weights by
+# value) and its generic instance (9 and up, weights from an array)
+EQ2_COUNTS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 33, 511]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 4, 9])
+@pytest.mark.parametrize("n", EQ2_COUNTS)
 def test_assimilate_bit_exact(dev, dtype, n):
     s = _rand(dev, 2 * BLOCK, dtype=dtype)
     c = _rand(dev, n, 2 * BLOCK, dtype=dtype, seed=2)
@@ -82,6 +87,63 @@ def test_assimilate_bit_exact(dev, dtype, n):
     out = VK.assimilate_flat(s, c, w)
     assert VK.launch_count("assimilate_flat") == 1
     assert _bits_equal(out, R.assimilate(s, c, w))
+
+
+# buses for B2's covering grid (64-thread blocks, one pack a thread): one
+# BLOCK (8 or 16 blocks), 2^20 -/+ one BLOCK (either side of a power of
+# two of blocks) and 2^23 + 3 BLOCKs (many waves of the 132 SMs); a large
+# count only where its [n, N] matrix stays under 4 GB
+EQ2_SIZES = [BLOCK, (1 << 20) - BLOCK, (1 << 20) + BLOCK, (1 << 23) + 3 * BLOCK]
+EQ2_SIZE_CASES = [(n, size) for n in EQ2_COUNTS for size in EQ2_SIZES
+                  if (n + 2) * size * 4 <= 4 << 30]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,size", EQ2_SIZE_CASES, ids=str)
+def test_assimilate_bus_sizes_bit_exact(dev, dtype, n, size):
+    s = _rand(dev, size, dtype=dtype, seed=40)
+    c = _rand(dev, n, size, dtype=dtype, seed=41)
+    s0, c0 = s.clone(), c.clone()
+    w = [0.9 ** n] + [0.1 * 0.9 ** (n - 1 - j) for j in range(n)]
+    VK.reset_launch_count()
+    out = VK.assimilate_flat(s, c, w)
+    assert VK.launch_count() == VK.launch_count("assimilate_flat") == 1
+    assert out.data_ptr() not in (s.data_ptr(), c.data_ptr())
+    assert _bits_equal(out, R.assimilate(s, c, w))
+    torch.cuda.synchronize()
+    assert _bits_equal(s, s0) and _bits_equal(c, c0)
+
+
+def test_assimilate_rejects_bad_counts(dev):
+    s = _rand(dev, BLOCK)
+    with pytest.raises(ValueError):
+        VK.assimilate_flat(s, _rand(dev, 4, BLOCK), [0.2] * 4)
+    with pytest.raises(ValueError):
+        VK.assimilate_flat(s, _rand(dev, VK.MAX_CLIENTS + 1, BLOCK),
+                           [0.001] * (VK.MAX_CLIENTS + 2))
+    with pytest.raises(ValueError):
+        VK.assimilate_flat(s, _rand(dev, 2, BLOCK)[:, :BLOCK // 2],
+                           [0.4, 0.3, 0.3])
+
+
+def test_masked_island_fold_bf16_server_on_card(dev):
+    """The pod runtime's masked Eq. 2 with a bf16 server and f32 islands
+    (two dead, holding inf and nan) runs through B2 in f32 on the card
+    and equals the CPU's fold bit for bit."""
+    from repro_torch.runtime import vc_runtime as PV
+    n, size = 4, 3 * BLOCK
+    s = _rand(dev, size, seed=50).to(torch.bfloat16)
+    isl = _rand(dev, n, size, seed=51)
+    isl[1, ::5] = float("inf")
+    isl[3, 1::5] = float("nan")
+    alive = torch.tensor([True, False, True, False])
+    w, w_s = PV.island_weights(n, 0.9, alive)
+    VK.reset_launch_count()
+    got = PV.assimilate_flat(s, isl, w, w_s)
+    assert VK.launch_count("assimilate_flat") == 1
+    want = PV.assimilate_flat(s.cpu(), isl.cpu(), w, w_s)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert _bits_equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("t,wd", [(1, 0.0), (3, 0.0), (50, 0.01)])
@@ -158,7 +220,13 @@ def test_quantize_rounds_half_to_even(dev):
     assert q.tolist() == [127, 0, 2, 2, 0, -2, -2, 126] and s.item() == 1.0
 
 
-@pytest.mark.parametrize("k", [1, 656, 1313, 4097])
+# B12's payloads: every k mod 4 (the scales and index sections' shift),
+# both seams, k = 1,313 and 105,075 of the port's paths
+PACK_KS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 655, 656, 657, 658, 659, 660, 1313,
+           4097, 105_075]
+
+
+@pytest.mark.parametrize("k", PACK_KS)
 def test_pack_body_bytes_equal(dev, k):
     q, s = QK.quantize_int8(_rand(dev, k, seed=k))
     idx = torch.arange(k, dtype=torch.int32, device=dev) * 3 + 1
@@ -167,6 +235,37 @@ def test_pack_body_bytes_equal(dev, k):
     assert VK.launch_counts()["pack_body"] == 1
     assert body.dtype == torch.uint8 and torch.equal(body,
                                                      R.pack_body(q, s, idx))
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("k", PACK_KS)
+def test_pack_body_q_at_byte_offsets_bytes_equal(dev, k, off):
+    """q a slice of a larger int8 buffer, starting 1-3 bytes past a 4-byte
+    boundary: the word-wide pack reads it through aligned words."""
+    q0, s = QK.quantize_int8(_rand(dev, k + off, seed=k + off))
+    q = q0[off:]
+    s = s[:-(-k // 256)]
+    idx = torch.arange(k, dtype=torch.int32, device=dev) * 5 + 2
+    assert q.data_ptr() % 4 == (q0.data_ptr() + off) % 4
+    VK.reset_launch_count()
+    body = SK.pack_body(q, s, idx)
+    assert VK.launch_count() == VK.launch_counts()["pack_body"] == 1
+    assert torch.equal(body, R.pack_body(q, s, idx))
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("ng", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", range(1, 10))
+def test_pack_body_every_seam_layout_bytes_equal(dev, k, ng, off):
+    """Small bodies where the two seams share words or the last word: k
+    1-9, ng 1-4 (every k and ng mod 4), q at byte offsets 0-3."""
+    g = torch.Generator(device=dev).manual_seed(100 * k + 10 * ng + off)
+    q = torch.randint(-127, 128, (k + off,), generator=g, device=dev,
+                      dtype=torch.int8)[off:]
+    s = torch.rand(ng, generator=g, device=dev)
+    idx = torch.randint(0, 1 << 30, (k,), generator=g, device=dev,
+                        dtype=torch.int32)
+    assert torch.equal(SK.pack_body(q, s, idx), R.pack_body(q, s, idx))
 
 
 def test_scheme_wrappers_reject_bad_inputs(dev):
@@ -184,6 +283,13 @@ def test_scheme_wrappers_reject_bad_inputs(dev):
         QK.dequantize_int8(q, s[:1], 300)
     with pytest.raises(ValueError):
         SK.pack_body(q, s, torch.zeros(300, dtype=torch.int64, device=dev))
+    idx = torch.zeros(300, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        SK.pack_body(q.cpu(), s, idx)
+    with pytest.raises(ValueError):
+        SK.pack_body(q, s, idx[:299])
+    with pytest.raises(ValueError):
+        SK.pack_body(q.view(3, 100), s, idx)
 
 
 def _bus(dev, n, ties=False, seed=0):

@@ -18,18 +18,30 @@ the host before any launch.
   ``a*1 + (1-a)*0``.
 * Adam's bias corrections, now cached by step, equal the uncached f32
   powers.
+* B2: the f32 weights the ``assimilate_flat`` wrapper hands its kernel
+  by value (``assimilate_weights``: a ``FixedWeights`` for up to 8
+  clients, an f32 array above), read back from the ctypes objects, equal
+  ``np.float32`` of each weight and the reference's own rounding in its
+  ``assimilate_flat`` (``jnp.asarray(x, jnp.float32)``), for the Eq. 2,
+  staleness-damped and island weights; the masked pod fold and the
+  compressed round hand over the reference's island weights.
 """
 import jax
 import jax.numpy as jnp
 from jax.extend.core import Literal
 import numpy as np
 import pytest
+import torch
 
+from repro.core import vc_asgd as RVA
 from repro.kernels import ref as RR
 from repro.kernels import vc_asgd_update as RV
+from repro.runtime import vc_runtime as RVR
+from repro_torch.core import vc_asgd as PVA
 from repro_torch.core.flat import BLOCK
 from repro_torch.kernels import vc_asgd_update as VK
 from repro_torch.optim.optimizers import Adam
+from repro_torch.runtime import vc_runtime as PVR
 
 
 def _bits(x) -> int:
@@ -120,3 +132,91 @@ def test_adam_bias_corrections_cached_equal_f32_powers():
             assert c1.dtype == c2.dtype == np.float32
             assert _bits(c1) == _bits(np.float32(1) - np.float32(b1) ** tt)
             assert _bits(c2) == _bits(np.float32(1) - np.float32(b2) ** tt)
+
+
+# ---- B2: Eq. 2's weights by value ------------------------------------------
+
+EQ2_CASES = [(n, alpha) for n in (1, 2, 3, 4, 7, 8, 9, 33, 511)
+             for alpha in (0.5, 2.0 / 3.0, 0.9, 0.999, 1 - 2.0 ** -30)]
+
+
+def _handed(weights) -> list:
+    """The f32 bits of the weights B2's wrapper hands its kernel, read from
+    the ctypes object it passes, and its unused tail."""
+    obj = VK.assimilate_weights(weights)
+    if isinstance(obj, VK.FixedWeights):
+        vals = [getattr(obj, f"w{j}") for j in range(VK.FIXED_CLIENTS + 1)]
+        n = len(weights)
+        assert len(weights) <= VK.FIXED_CLIENTS + 1
+        assert all(v == 0.0 for v in vals[n:])
+        return [_bits(v) for v in vals[:n]]
+    assert len(weights) > VK.FIXED_CLIENTS + 1 and len(obj) == len(weights)
+    return [_bits(v) for v in obj]
+
+
+def _reference_rounding(weights) -> list:
+    """The reference's ``assimilate_flat`` (vc_asgd_update.py:202):
+    ``jnp.stack([jnp.asarray(x, jnp.float32).reshape(()) ...])``."""
+    w = jnp.stack([jnp.asarray(x, jnp.float32).reshape(()) for x in weights])
+    return [int(b) for b in np.asarray(w).view(np.int32)]
+
+
+@pytest.mark.parametrize("n,alpha", EQ2_CASES)
+def test_eq2_weights_by_value_equal_reference(n, alpha):
+    w = PVA.assimilation_weights(n, alpha)
+    assert w == RVA.assimilation_weights(n, alpha)
+    got = _handed(w)
+    assert got == [_bits(np.float32(x)) for x in w]
+    assert got == _reference_rounding(RVA.assimilation_weights(n, alpha))
+
+
+@pytest.mark.parametrize("n", [1, 4, 8, 9, 33])
+@pytest.mark.parametrize("alpha,gamma", [(0.9, 0.7), (2.0 / 3.0, 0.5),
+                                         (0.999, 0.95)])
+def test_staleness_weights_by_value_equal_reference(n, alpha, gamma):
+    stale = [(3 * j + 1) % 5 for j in range(n)]
+    w = PVA.staleness_weights(n, alpha, stale, gamma)
+    want = RVA.staleness_weights(n, alpha, stale, gamma)
+    got = _handed(w)
+    assert got == [_bits(np.float32(x)) for x in w]
+    assert got == _reference_rounding(want)
+
+
+def _alive(n_pods, dead):
+    alive = np.ones(n_pods, bool)
+    alive[list(dead)] = False
+    return alive
+
+
+ISLAND_CASES = [(n, alpha, dead) for n in (1, 4, 8, 9)
+                for alpha in (0.8, 0.9, 0.95)
+                for dead in ((), (0,), (n - 1,))]
+
+
+@pytest.mark.parametrize("n_pods,alpha,dead", ISLAND_CASES)
+def test_island_weights_by_value_equal_reference(n_pods, alpha, dead):
+    alive = _alive(n_pods, dead)
+    rw, rws = RVR.island_weights(n_pods, alpha, jnp.asarray(alive))
+    pw, pws = PVR.island_weights(n_pods, alpha, torch.from_numpy(alive))
+    got = _handed([float(pws)] + pw.tolist())
+    assert got == _reference_rounding([rws] + [rw[j] for j in range(n_pods)])
+    hw, hws = PVR._host_island_weights(n_pods, alpha, alive)
+    assert got == [_bits(hws)] + [_bits(x) for x in hw]
+
+
+@pytest.mark.parametrize("n_pods,dead", [(4, (2,)), (8, (0, 4, 7)), (9, ())])
+def test_masked_fold_hands_b2_the_reference_island_weights(n_pods, dead,
+                                                           monkeypatch):
+    """``vc_runtime.assimilate_flat`` hands B2 host floats whose f32
+    rounding is the reference's island weights, read from the call."""
+    seen = []
+    monkeypatch.setattr(PVR.K, "fused_assimilate_flat",
+                        lambda s, c, w: seen.append(list(w)) or s)
+    alive = _alive(n_pods, dead)
+    pw, pws = PVR.island_weights(n_pods, 0.9, torch.from_numpy(alive))
+    PVR.assimilate_flat(torch.zeros(BLOCK), torch.zeros(n_pods, BLOCK), pw,
+                        pws)
+    assert len(seen) == 1 and all(type(x) is float for x in seen[0])
+    rw, rws = RVR.island_weights(n_pods, 0.9, jnp.asarray(alive))
+    assert _handed(seen[0]) == _reference_rounding(
+        [rws] + [rw[j] for j in range(n_pods)])
