@@ -22,17 +22,19 @@ a card, or outside a checkout.  Phases:
               decay, the elastic EASGD round bit-exact in f32 and bf16
               with 1 and 3 replicas, int8 quantize / dequantize and the
               sparse-body pack bit-exact (the pack also at a k for each
-              k mod 4, with q at byte offsets 0-3).
+              k mod 4, with q at byte offsets 0-3; the dequantize with q
+              at byte offsets 0-15).
               Each kernel's time, its plain version's, one PyTorch
               library call's where one computes the same function
               (torch.lerp / torch.addmv / torch._fused_adam_ / a scale
               multiply / torch.cat of byte views: yardsticks the port
-              never calls) and the bound (B1, B2, B3 and B12 timed in
-              turns with their library calls); the host microseconds of
-              one B1, B3, B2 and B12 wrapper call at the main sizes
-              beside torch.lerp's, torch._fused_adam_'s, torch.addmv's
-              and torch.cat's, timed in turns, and the launch helper's
-              raw stream handle held to the current stream's.
+              never calls) and the bound (B1, B2, B3, B10 and B12 timed
+              in turns with their library calls; the share of the bound
+              at each size); the host microseconds of one B1, B3, B2,
+              B12 and B10 wrapper call at the main sizes beside
+              torch.lerp's, torch._fused_adam_'s, torch.addmv's,
+              torch.cat's and torch.mul's, timed in turns, and the launch
+              helper's raw stream handle held to the current stream's.
 4. the main path, through the entry points a user calls:
    a. the quickstart --smoke configuration (examples/quickstart.py:30-45,
       VC-ASGD with var_alpha) on the card and on the CPU from one seed:
@@ -89,11 +91,14 @@ a card, or outside a checkout.  Phases:
       within CMP_TOL; the CPU run launches nothing; B13 runs on the SIMT
       route in f32 and on the wgmma route in bf16.
 7. serve rwkv6 — launch/serve.py for the SSM family:
-   a. the WKV6 recurrence (B14) against its plain version at rwkv6's
-      prefill shape ([4,32,2048,64] f32), the reduced head dim (hd 16,
-      a ragged 37 steps), T = 1 and [b, T, h, hd] strided views as the
-      model passes them (2e-5 on out and the final state); kernel,
-      plain and bound ms at each (no PyTorch call computes WKV6);
+   a. the WKV6 recurrence (B14, the chunked form) against its plain
+      version at rwkv6's prefill shape ([4,32,2048,64] f32), the reduced
+      head dim (hd 16, a ragged 37 steps), T = 1, [b, T, h, hd] strided
+      views as the model passes them, and decays with exact zeros and
+      denormals (2e-5 on out and the final state, both finite); the
+      built chunk length and slab count held to the wrapper's; kernel,
+      plain and bound ms and the share of the bound at each (no PyTorch
+      call computes WKV6);
    b. serve.run at rwkv6-1.6b's full width and depth (24 layers,
       1,599,819,776 parameters from the port's init, --seed 0): batch 4
       x 2,048 prompt tokens, 96 greedy decode steps against the O(1)
@@ -212,6 +217,9 @@ EQ2_COUNTS_BIG = (1, 4, 8, 9)
 # B12's payloads in phase 3 beyond MAIN_K: a k for each k mod 4 (the
 # seams' shifts), 105,075 the bench bus's
 PACK_KS = (655, 656, 657, 658, 105_075)
+# B10's payloads in phase 3 with q at byte offsets 0-15 from a 16-byte
+# boundary: heads and tails of every length, packs across a group seam
+DEQUANT_KS = (1, 15, 17, 255, 271, 656, 1313, 105_075)
 
 # results/PINNED_sim_regression.json's 12 flat MLP cases, with the
 # configurations of tools/pin_sim_regression.py:33-62, 90-93:
@@ -505,6 +513,26 @@ def pack_seams(torch, SK, R, rnd) -> None:
             f"offsets 0-3: bytes equal")
 
 
+def dequant_offsets(torch, QK, R, rnd) -> None:
+    """B10 bit-exact at DEQUANT_KS with q at every byte offset 0-15 from a
+    16-byte boundary (q a view of a larger buffer): the head, the packs
+    that straddle two groups, the tail."""
+    dev = torch.device("cuda")
+    for k in DEQUANT_KS:
+        ng = -(-k // QBLOCK)
+        base = (rnd(k + 32) * 60).round().clamp(-127, 127).to(torch.int8)
+        sc = rnd(ng).abs() * 0.01
+        for off in range(16):
+            lead = (off - base.data_ptr()) % 16
+            q = base[lead:lead + k]
+            kd, pd = QK.dequantize_int8(q, sc, k), R.dequantize_int8(q, sc, k)
+            torch.cuda.synchronize()
+            check(q.data_ptr() % 16 == off and bits_equal(torch, kd, pd),
+                  f"dequantize k={k} q at byte {off}: kernel != plain")
+        say(f"parity B10 dequantize_int8 k={k}, q at byte offsets 0-15: "
+            f"bit-exact")
+
+
 def in_turns(torch, kernel, library, iters: int) -> tuple:
     """(kernel ms, library ms) a call by CUDA events, timed in turns (K L
     L K, twice) after a warm-up (wrapper_cost.event_ms)."""
@@ -513,25 +541,26 @@ def in_turns(torch, kernel, library, iters: int) -> tuple:
     return ms["kernel"], ms["library"]
 
 
-def wrapper_host_cost(torch, np, VK, SK, LA) -> dict:
-    """Phase 3: host microseconds of one B1, B3, B2 and B12 wrapper call
-    and of the one PyTorch call computing the same function (torch.lerp,
-    torch._fused_adam_, torch.addmv, torch.cat), at the main sizes (the
-    MLP bus, N = MAIN_N f32, Eq. 2 over 4 clients; k = 656 for the pack;
-    each kernel shorter than its call): the host clock around 200
-    back-to-back calls, the eight calls in turns over 9 rounds, the median
-    kept (wrapper_cost.host_us).  The launch helper's raw stream handle
-    is held to the current stream's."""
+def wrapper_host_cost(torch, np, VK, SK, QK, LA) -> dict:
+    """Phase 3: host microseconds of one B1, B3, B2, B12 and B10 wrapper
+    call and of the one PyTorch call computing the same function
+    (torch.lerp, torch._fused_adam_, torch.addmv, torch.cat, torch.mul),
+    at the main sizes (the MLP bus, N = MAIN_N f32, Eq. 2 over 4 clients;
+    k = 656 for the pack and the dequantize; each kernel shorter than its
+    call): the host clock around 200 back-to-back calls, the ten calls in
+    turns over 9 rounds, the median kept (wrapper_cost.host_us).  The
+    launch helper's raw stream handle is held to the current stream's."""
     from repro_torch.benchmarks import wrapper_cost as WC
     idx = torch.cuda.current_device()
     check(LA._raw_stream(idx) == torch.cuda.current_stream().cuda_stream,
           "launches: the raw stream handle is not the current stream's")
-    us = WC.host_us(torch, WC.calls(torch, np, VK, SK, MAIN_N))
+    us = WC.host_us(torch, WC.calls(torch, np, VK, SK, QK, MAIN_N))
     out = {}
     for kern, lib in (("B1 vc_asgd_lerp_flat", "torch.lerp"),
                       ("B3 adam_update_flat", "torch._fused_adam_"),
                       ("B2 assimilate_flat", "torch.addmv"),
-                      ("B12 pack_body", "torch.cat")):
+                      ("B12 pack_body", "torch.cat"),
+                      ("B10 dequantize_int8", "torch.mul")):
         size = WC.size_of(kern, MAIN_N)
         say(f"host cost {kern} {size}: {us[kern]:.2f} us a call, {lib} "
             f"{us[lib]:.2f} us (in turns, median of 9 rounds)")
@@ -618,12 +647,12 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
             r["plain_ms"] = KB.cuda_ms(lambda: R.quantize_int8(sel), iters)
             r["bound_ms"], r["bound_by"] = bound_ms(4 * k + k + 4 * ng, 5 * k)
             r = recs["dequantize_int8"]
-            r["ms"] = KB.cuda_ms(lambda: QK.dequantize_int8(kq, ks_, k),
-                                 iters)
+            q_rows, sc_col = q_pad.view(ng, QBLOCK), ks_[:, None]
+            r["ms"], r["library_ms"] = in_turns(
+                torch, lambda: QK.dequantize_int8(kq, ks_, k),
+                lambda: torch.mul(q_rows, sc_col), iters)
             r["plain_ms"] = KB.cuda_ms(
                 lambda: R.dequantize_int8(kq, ks_, k), iters)
-            r["library_ms"] = KB.cuda_ms(lambda: torch.mul(
-                q_pad.view(ng, QBLOCK), ks_[:, None]), iters)
             r["bound_ms"], r["bound_by"] = bound_ms(k + 4 * ng + 4 * k, k)
             r = recs["pack_body"]
             r["ms"], r["library_ms"] = in_turns(
@@ -636,6 +665,7 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
         out.update(recs)
     if n_elems <= MAIN_N:
         pack_seams(torch, SK, R, rnd)
+        dequant_offsets(torch, QK, R, rnd)
     if timed:
         for name, r in out.items():
             size = f"N={n_elems}" if name == "easgd_elastic_flat" \
@@ -646,7 +676,8 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
             say(f"timing {name} {size}: library "
                 + ("none" if lib is None else f"{lib:.6f} ms"))
             say(f"timing {name} {size}: bound {r['bound_ms']:.6f} ms "
-                f"({r['bound_by']})")
+                f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% "
+                f"of it")
     return out
 
 
@@ -1311,12 +1342,17 @@ def serve_card_vs_cpu(torch, VK, cut, launches: dict,
 
 WKV_TOL = 2e-5                   # the reference's test_wkv6 tolerance
 # B14 at the serving path's prefill shape and the others:
-# (b, h, T, hd, [b, T, h, hd] strided views)
+# (b, h, T, hd, [b, T, h, hd] strided views, w as drawn): w as test_wkv6
+# draws it, in (0.35, 0.95); or 30% of it exact zeros (a decay that
+# underflows, as exp(-exp(ww)) does past ww ~4.5) or denormals (1e-40)
 WKV_SHAPES = {
-    "a rwkv6 prefill": (4, 32, 2048, 64, False),
-    "b reduced hd16 ragged": (2, 4, 37, 16, False),
-    "c T=1": (4, 32, 1, 64, False),
-    "d strided views": (4, 32, 2048, 64, True),
+    "a rwkv6 prefill": (4, 32, 2048, 64, False, "test"),
+    "b reduced hd16 ragged": (2, 4, 37, 16, False, "test"),
+    "c T=1": (4, 32, 1, 64, False, "test"),
+    "d strided views": (4, 32, 2048, 64, True, "test"),
+    "e w zeros": (2, 8, 300, 64, False, "zero"),
+    "f w denormal": (2, 8, 300, 64, False, "denormal"),
+    "g w zeros hd16": (2, 4, 37, 16, False, "zero"),
 }
 RWKV_ARGS = ["--arch", "rwkv6-1.6b", "--batch", "4", "--prompt-len",
              "2048", "--gen", "96"]
@@ -1326,22 +1362,34 @@ RWKV_PARAMS = 1_599_819_776      # the published config's parameter count
 
 def wkv6_parity(torch, WK, R) -> dict:
     """B14 against its plain version at WKV_SHAPES (out and the final
-    state); kernel, plain and bound ms at each.  Returns the record of
-    shape (a)."""
+    state, both finite); kernel, plain and bound ms and the share of the
+    bound at each.  The built chunk length, slab count and block size are
+    the wrapper's.  Returns the record of shape (a)."""
     dev = torch.device("cuda")
+    for hd in WK.HEAD_DIMS:
+        check(WK.built_geometry(hd) == WK.GEOMETRY[hd],
+              f"B14 hd {hd}: built geometry {WK.built_geometry(hd)} is not "
+              f"the wrapper's {WK.GEOMETRY[hd]}")
+        say(f"B14 hd {hd}: chunk, slabs, threads {WK.GEOMETRY[hd]}")
     out = None
-    for name, (b, h, T, hd, strided) in WKV_SHAPES.items():
+    for name, (b, h, T, hd, strided, decay) in WKV_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(T + hd)
         shape = (b, T, h, hd) if strided else (b, h, T, hd)
         rnd = lambda: torch.randn(*shape, generator=g, device=dev)
         args = [rnd() * 0.4, rnd() * 0.4, rnd(),
                 torch.sigmoid(rnd()) * 0.6 + 0.35]      # w in (0.35, 0.95)
+        if decay != "test":
+            hit = torch.rand(*shape, generator=g, device=dev) < 0.3
+            args[3] = torch.where(hit, torch.tensor(
+                0.0 if decay == "zero" else 1e-40, device=dev), args[3])
         if strided:
             args = [t.transpose(1, 2) for t in args]
         args.append(torch.randn(h, hd, generator=g, device=dev) * 0.2)
         (o, S), (o_p, S_p) = WK.wkv6(*args), R.wkv6(*args)
         torch.cuda.synchronize()
         err = max(float((o - o_p).abs().max()), float((S - S_p).abs().max()))
+        check(bool(torch.isfinite(o).all()) and bool(torch.isfinite(S).all()),
+              f"B14 {name}: non-finite out or state")
         check(torch.allclose(o, o_p, rtol=WKV_TOL, atol=WKV_TOL)
               and torch.allclose(S, S_p, rtol=WKV_TOL, atol=WKV_TOL),
               f"B14 {name}: kernel vs plain max abs err {err} (tol "
@@ -1359,7 +1407,7 @@ def wkv6_parity(torch, WK, R) -> dict:
             f" f32: max abs err {err:.3g} (tol {WKV_TOL}); kernel "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"none, bound {bound:.4f} ms ({by}: {ops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"{nbytes / 1e6:.1f} MB), {100 * bound / rec['ms']:.1f}% of it")
         if out is None:
             out = rec
         del args
@@ -2187,7 +2235,7 @@ def main() -> int:
     numbers = parity(torch, np, VK, R, MAIN_N, timed=True)
     numbers.update(parity_scheme_kernels(torch, np, (VK, QK, SK), R, MAIN_N,
                                          MAIN_K, timed=True))
-    for name, rec in wrapper_host_cost(torch, np, VK, SK, LA).items():
+    for name, rec in wrapper_host_cost(torch, np, VK, SK, QK, LA).items():
         numbers[name].update(rec)
     parity(torch, np, VK, R, BIG_N, timed=True)
     torch.cuda.empty_cache()
@@ -2366,7 +2414,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if "host_us" in r:          # B1-B3, B12: host us a wrapper call
+        if "host_us" in r:          # B1-B3, B10, B12: host us a wrapper call
             entry["host_us"] = r["host_us"]
             entry["library_host_us"] = r["library_host_us"]
         if name in ROUTES:          # B13: the main path's route, and both

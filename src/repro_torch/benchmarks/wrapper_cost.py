@@ -1,10 +1,13 @@
-"""Per-call cost of four kernel wrappers of the main path — B1
+"""Per-call cost of five kernel wrappers of the main path — B1
 (``vc_asgd_lerp_flat``, Eq. 1) and B3 (``adam_update_flat``, fused Adam)
 of the training loop, B2 (``assimilate_flat``, Eq. 2 over n = 4 clients)
-of the batched fold and B12 (``pack_body``) of every sparse frame —
-beside the one PyTorch call that computes the same function
+of the batched fold, B12 (``pack_body``) of every sparse frame and B10
+(``dequantize_int8``) of every compressed submit and sparse assimilation
+— beside the one PyTorch call that computes the same function
 (``torch.lerp``, ``torch._fused_adam_``, ``torch.addmv``, ``torch.cat``
-of the three byte views), and of B13's wrapper.
+of the three byte views, ``torch.mul`` of the zero-padded q by its
+scales), of B13's wrapper, and B14's time at rwkv6-1.6b's prefill
+shape.
 
     python src/repro_torch/benchmarks/wrapper_cost.py [--src DIR] [--label L]
 
@@ -25,13 +28,17 @@ one card, each in its own process (A, B, B, A).  Prints one JSON line:
   between launches: what is left is the kernel and the launch gap);
 * ``bound_ms``: bytes moved at 3.35 TB/s at 2^27 / k = 6,710,886 (12 B
   an element for Eq. 1, 28 for Adam, 4 (n + 2) for Eq. 2; twice the
-  body's 5k + 4 ng bytes for the pack);
+  body's 5k + 4 ng bytes for the pack; 5k + 4 ng for the dequantize),
+  and B14's at [4, 32, 2,048, 64] f32 (337.6 MB);
 * ``stages_us``: where a wrapper call's host time goes (checks, scalars
   or weights, output allocation, stream lookup, the ctypes call with its
   launch), each stage alone, timed in the same turns as ``host_us`` (only
   the stages a tree's wrappers expose);
 * ``b13_host_us``: one B13 wrapper call on each route at [1, 4/2, 128,
   128], as ``chip_smoke.py`` phase 6a times it;
+* ``b14_ms``: CUDA-event ms of one B14 call at rwkv6-1.6b's prefill
+  shape, [4, 32, 2,048, 64] f32 (chip_smoke.py phase 7a's shape a), 10
+  calls a timing after a warm-up, the mean of four timings;
 * ``bench``: the CSV rows of the port's ``flat`` and ``flat_adam``
   suites (``repro_torch.benchmarks.run``);
 * ``client_step_us``: host microseconds of one client step of the
@@ -137,9 +144,9 @@ def graph_us(torch, fn, reps: int = 100) -> float:
     return 1e3 * t0.elapsed_time(t1) / reps
 
 
-def calls(torch, np, VK, SK, n: int) -> dict:
-    """name -> a zero-argument call at bus size ``n`` (f32; B12 at
-    ``PACK_K[n]``)."""
+def calls(torch, np, VK, SK, QK, n: int) -> dict:
+    """name -> a zero-argument call at bus size ``n`` (f32; B12 and B10
+    at ``PACK_K[n]``)."""
     from repro_torch.core.vc_asgd import assimilation_weights
     g = torch.Generator(device="cuda").manual_seed(n)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
@@ -154,8 +161,13 @@ def calls(torch, np, VK, SK, n: int) -> dict:
     w = assimilation_weights(N_CLIENTS, ALPHA)
     w32 = torch.tensor(np.asarray(w[1:], np.float32), device="cuda")
     w0, clt = float(np.float32(w[0])), cl.t()
-    q, sc, idx = pack_payload(torch, g, PACK_K[n])
+    k = PACK_K[n]
+    q, sc, idx = pack_payload(torch, g, k)
     qb, sb, ib = (t.view(torch.uint8) for t in (q, sc, idx))
+    ng = sc.numel()
+    q_pad = torch.zeros(ng * QBLOCK, dtype=torch.int8, device="cuda")
+    q_pad[:k] = q
+    q_rows, sc_col = q_pad.view(ng, QBLOCK), sc[:, None]
     return {
         "B1 vc_asgd_lerp_flat": lambda: VK.vc_asgd_lerp_flat(s, c, ALPHA),
         "torch.lerp": lambda: torch.lerp(c, s, a32),
@@ -170,6 +182,8 @@ def calls(torch, np, VK, SK, n: int) -> dict:
         "torch.addmv": lambda: torch.addmv(s, clt, w32, beta=w0),
         "B12 pack_body": lambda: SK.pack_body(q, sc, idx),
         "torch.cat": lambda: torch.cat([qb, sb, ib]),
+        "B10 dequantize_int8": lambda: QK.dequantize_int8(q, sc, k),
+        "torch.mul": lambda: torch.mul(q_rows, sc_col),
     }
 
 
@@ -184,9 +198,9 @@ def pack_payload(torch, g, k: int) -> tuple:
     return q, sc, idx
 
 
-def stages(torch, np, VK, SK, LA) -> dict:
-    """name -> one stage of a B3, B1, B2 or B12 wrapper call at the main
-    sizes, alone (the stages this tree's wrappers expose)."""
+def stages(torch, np, VK, SK, QK, LA) -> dict:
+    """name -> one stage of a B3, B1, B2, B12 or B10 wrapper call at the
+    main sizes, alone (the stages this tree's wrappers expose)."""
     from repro_torch.core.vc_asgd import assimilation_weights
     if not hasattr(VK, "_operand"):
         return {}
@@ -256,6 +270,19 @@ def stages(torch, np, VK, SK, LA) -> dict:
                 5 * k + 4 * ng, dtype=torch.uint8, device=dev),
             "pack ctypes call + launch":
                 lambda: pfn(qp, sp, ip, bp, k, ng, stream)})
+    if hasattr(QK, "_dequantize_checks"):
+        dq, dsc, _ = pack_payload(torch, g, PACK_K[MAIN_N])
+        dk = dq.numel()
+        dout = QK.dequantize_int8(dq, dsc, dk)
+        dqp, dsp, _ = QK._dequantize_checks(dq, dsc, dk, QBLOCK)
+        dop, dfn = dout.data_ptr(), QK._dequantize
+        out.update({
+            "dequantize checks (2 operands)":
+                lambda: QK._dequantize_checks(dq, dsc, dk, QBLOCK),
+            "dequantize output (torch.empty)": lambda: torch.empty(
+                dk, dtype=torch.float32, device=dev),
+            "dequantize ctypes call + launch":
+                lambda: dfn(dqp, dsp, dop, dk, QBLOCK, stream)})
     return out
 
 
@@ -316,9 +343,20 @@ def bench_rows() -> list:
             if ln.startswith(("flat.", "flat_adam."))]
 
 
+def b14_ms(torch, WK) -> float:
+    """CUDA-event ms of one B14 call at [4, 32, 2048, 64] f32."""
+    g = torch.Generator(device="cuda").manual_seed(2048 + 64)
+    rnd = lambda: torch.randn(4, 32, 2048, 64, generator=g, device="cuda")
+    args = (rnd() * 0.4, rnd() * 0.4, rnd(),
+            torch.sigmoid(rnd()) * 0.6 + 0.35,
+            torch.randn(32, 64, generator=g, device="cuda") * 0.2)
+    return event_ms(torch, {"wkv6": lambda: WK.wkv6(*args)}, 10)["wkv6"]
+
+
 def size_of(name: str, n: int) -> str:
     """The size label of a call of ``calls(..., n)``."""
-    if "pack_body" in name or name == "torch.cat":
+    if ("pack_body" in name or name == "torch.cat" or "dequantize" in name
+            or name == "torch.mul"):
         return f"k={PACK_K[n]}"
     if "assimilate" in name or name == "torch.addmv":
         return f"N={n} n={N_CLIENTS}"
@@ -338,11 +376,13 @@ def main(argv=None) -> int:
         raise SystemExit("wrapper_cost needs a CUDA card")
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import launches as LA
+    from repro_torch.kernels import quantize as QK
+    from repro_torch.kernels import rwkv6_scan as WK
     from repro_torch.kernels import sparse_pack as SK
     from repro_torch.kernels import vc_asgd_update as VK
 
-    small = calls(torch, np, VK, SK, MAIN_N)
-    parts = stages(torch, np, VK, SK, LA)
+    small = calls(torch, np, VK, SK, QK, MAIN_N)
+    parts = stages(torch, np, VK, SK, QK, LA)
     host = host_us(torch, {**small, **parts})
     rec = {"label": args.label, "src": args.src,
            "device": torch.cuda.get_device_name(0),
@@ -353,7 +393,7 @@ def main(argv=None) -> int:
            "graph_us": {k: graph_us(torch, fn) for k, fn in small.items()}}
     del small, parts
     torch.cuda.empty_cache()
-    big = calls(torch, np, VK, SK, BIG_N)
+    big = calls(torch, np, VK, SK, QK, BIG_N)
     rec["event_ms"].update({f"{k} {size_of(k, BIG_N)}": ms for k, ms in
                             event_ms(torch, big, 10).items()})
     del big
@@ -365,8 +405,15 @@ def main(argv=None) -> int:
         f"B2 N={BIG_N} n={N_CLIENTS}":
             1e3 * 4 * (N_CLIENTS + 2) * BIG_N / HBM_BYTES_PER_S,
         f"B12 k={kb}": 1e3 * 2 * (5 * kb + 4 * -(-kb // QBLOCK))
+            / HBM_BYTES_PER_S,
+        f"B10 k={kb}": 1e3 * (5 * kb + 4 * -(-kb // QBLOCK))
+            / HBM_BYTES_PER_S,
+        "B14 [4,32,2048,64]": 1e3 * 4 * (5 * 4 * 32 * 2048 * 64
+                                         + 4 * 32 * 64 * 64 + 32 * 64)
             / HBM_BYTES_PER_S}
     rec["b13_host_us"] = b13_host(torch, FK)
+    rec["b14_ms"] = b14_ms(torch, WK)
+    torch.cuda.empty_cache()
     rec["bench"] = bench_rows()
     rec["client_step_us"] = client_steps(torch)
     print(json.dumps(rec), flush=True)

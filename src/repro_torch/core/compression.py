@@ -221,9 +221,11 @@ def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def residual_norm(r: torch.Tensor) -> float:
     """l2 norm of an error-feedback residual, accumulated in f64 and
-    rounded once to f32: the value a frame header carries.  Within an
-    f32 ulp or two of the reference's ``jnp.linalg.norm`` at any bus size
-    (an f32 accumulation drifts by ~1e-5 relative at 2^21 elements)."""
+    rounded once to f32: the value a frame header carries.  This is the
+    correctly rounded norm.  The reference's ``jnp.linalg.norm``
+    accumulates in f32 and may differ from it: a lockstep run of the
+    two measured gaps of up to 7 f32 ulps (an f32 accumulation drifts by
+    ~1e-5 relative at 2^21 elements)."""
     norm64 = float(torch.linalg.vector_norm(r.reshape(-1),
                                             dtype=torch.float64))
     return float(np.float32(norm64))

@@ -23,10 +23,29 @@
 // block (quantize: 4 in, 1 + 4/block out; dequantize the reverse) for a
 // handful of flops, so both are memory-bound.  On the upload leg k is
 // 656 or 1,313 (densities 0.05 and 0.1 of the MLP), where a launch costs
-// more than the bytes.  The design is the simplest one that streams:
-// quantize gives each block of values one thread block of 256 threads
-// (the block max is a warp-shuffle reduction, then one pass writes q);
-// dequantize is one thread per value, grid-stride.
+// more than the bytes.  quantize gives each block of values one thread
+// block of 256 threads (the block max is a warp-shuffle reduction, then
+// one pass writes q).
+//
+// dequantize streams.  A thread takes kDeqWords 4-byte words of q (16
+// values), each with the evict-first hint, a block's width apart, and
+// writes one float4 for each: every load of a warp is one coalesced
+// 128-byte access and every store one 512-byte access.  (A 16-byte pack
+// of q a thread, stored as four float4, puts a warp's stores 64 bytes
+// apart: on the H100 at k = 6.7M that took 0.025 ms, 40% of the bound,
+// where the grid-stride loop of one byte a thread took 0.018-0.020.)
+// The grid covers the payload, kDeqWords * kStreamThreads words a block
+// (grid.cuh stream_grid), with no grid-stride loop.  The wire ships
+// block = 256 only (QBLOCK): that size is a template parameter, so a word
+// aligned to its own index lies in one group (one scale load, i >> 8).
+// Every other block size takes one generic instance that walks the group
+// boundaries with a runtime block and no division a value.  q may start
+// at any byte (a view of a larger buffer): the words are taken at q's
+// 4-byte address boundaries, the values before the first (the head) and
+// after the last whole word (the tail) go one a thread to the first
+// threads of block 0, and a word of an unaligned q may straddle two
+// groups, so it loads both scales; its outputs then start off a 16-byte
+// boundary, so it stores value by value.
 //
 // Every entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
@@ -83,14 +102,91 @@ __global__ void quantize_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void dequantize_kernel(const int8_t* __restrict__ q,
-                                  const float* __restrict__ scales,
-                                  float* __restrict__ out, int64_t k,
-                                  int block) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < k; i += stride)
-    out[i] = __fmul_rn(static_cast<float>(q[i]), scales[i / block]);
+__host__ __device__ constexpr int log2_of(int v) {
+  return v <= 1 ? 0 : 1 + log2_of(v / 2);
+}
+
+// one value of q, scaled: one IEEE product
+__device__ __forceinline__ float dequant1(int8_t q, float s) {
+  return __fmul_rn(static_cast<float>(q), s);
+}
+
+// dequantize: one 4-byte word of q (4 values) to one float4, each thread
+// kDeqWords words a block's width apart, so every load and store of a
+// warp is one coalesced access (128 bytes of q, 512 of out)
+constexpr int kDeqWords = 4;
+
+// BLOCK: the group size as a template parameter (256, the wire's), or 0
+// for the generic instance, which reads it from `block`.  head: the
+// values before q's first 4-byte boundary (at most 3); nword: the whole
+// words after them; the rest of k (at most 3) is the tail.
+template <int BLOCK>
+__global__ void __launch_bounds__(kStreamThreads)
+dequantize_kernel(const int8_t* __restrict__ q,
+                  const float* __restrict__ scales, float* __restrict__ out,
+                  int64_t k, int block, int head, int64_t nword) {
+  static_assert(BLOCK == 0 || (BLOCK % 4 == 0 && (BLOCK & (BLOCK - 1)) == 0),
+                "a fixed block is a power of two of whole words");
+  const uint32_t* qw = reinterpret_cast<const uint32_t*>(q + head);
+  const int64_t w0 =
+      static_cast<int64_t>(blockIdx.x) * kDeqWords * kStreamThreads +
+      threadIdx.x;
+  uint32_t word[kDeqWords];
+#pragma unroll
+  for (int u = 0; u < kDeqWords; ++u) {
+    const int64_t w = w0 + u * kStreamThreads;
+    if (w < nword) word[u] = __ldcs(qw + w);
+  }
+#pragma unroll
+  for (int u = 0; u < kDeqWords; ++u) {
+    const int64_t w = w0 + u * kStreamThreads;
+    if (w >= nword) continue;
+    const int64_t i0 = head + 4 * w;
+    float sv[4];
+    if constexpr (BLOCK != 0) {
+      constexpr int kShift = log2_of(BLOCK);
+      const int64_t g0 = i0 >> kShift, g1 = (i0 + 3) >> kShift;
+      const float s0 = __ldg(scales + g0);
+      const float s1 = g1 != g0 ? __ldg(scales + g1) : s0;
+      const int nb = static_cast<int>((g0 + 1) * BLOCK - i0);  // in group g0
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sv[e] = dequant1(static_cast<int8_t>(word[u] >> (8 * e)),
+                         e < nb ? s0 : s1);
+    } else {
+      int64_t g = i0 / block;
+      int rem = static_cast<int>(i0 - g * block);
+      float s = __ldg(scales + g);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (rem == block) {
+          rem = 0;
+          s = __ldg(scales + ++g);
+        }
+        sv[e] = dequant1(static_cast<int8_t>(word[u] >> (8 * e)), s);
+        ++rem;
+      }
+    }
+    float* o = out + i0;
+    if (head == 0) {
+      __stcs(reinterpret_cast<float4*>(o),
+             make_float4(sv[0], sv[1], sv[2], sv[3]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) __stcs(o + e, sv[e]);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    // threads 0-3: the head's values; 4-7: the tail's
+    const int64_t tail0 = head + 4 * nword;
+    const int64_t i = threadIdx.x < 4 ? threadIdx.x
+                                      : tail0 + (threadIdx.x - 4);
+    const bool mine = threadIdx.x < 4 ? i < head : i < k;
+    if (mine) {
+      const int b = BLOCK != 0 ? BLOCK : block;
+      out[i] = dequant1(q[i], scales[i / b]);
+    }
+  }
 }
 
 }  // namespace
@@ -114,14 +210,26 @@ int qz_quantize(const void* x, void* q, void* scales, int64_t k, int block,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q int8 [k], scales f32 [ceil(k / block)] -> out f32 [k]
+// q int8 [k] at any byte address, scales f32 [ceil(k / block)] -> out
+// f32 [k], 16-byte aligned
 int qz_dequantize(const void* q, const void* scales, void* out, int64_t k,
                   int block, void* stream) {
   if (k < 1 || block < 1) return static_cast<int>(cudaErrorInvalidValue);
-  dequantize_kernel<<<grid_for(k), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(out), k, block);
+  const int8_t* qp = static_cast<const int8_t*>(q);
+  const int64_t to_edge =
+      (4 - static_cast<int64_t>(reinterpret_cast<uintptr_t>(qp) & 3)) & 3;
+  const int head = static_cast<int>(to_edge < k ? to_edge : k);
+  const int64_t nword = (k - head) / 4;
+  const unsigned grid = stream_grid(nword, kDeqWords);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sp = static_cast<const float*>(scales);
+  float* op = static_cast<float*>(out);
+  if (block == 256)
+    dequantize_kernel<256><<<grid, kStreamThreads, 0, s>>>(
+        qp, sp, op, k, block, head, nword);
+  else
+    dequantize_kernel<0><<<grid, kStreamThreads, 0, s>>>(
+        qp, sp, op, k, block, head, nword);
   return static_cast<int>(cudaGetLastError());
 }
 

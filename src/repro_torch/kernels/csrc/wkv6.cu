@@ -3,7 +3,7 @@
 //
 //   wkv6_forward <- wkv6 (:46), _wkv6_kernel (:19)
 //
-// r, k, v, w [b, h, T, hd] (w the decay in (0, 1)), u [h, hd] f32.  Per
+// r, k, v, w [b, h, T, hd] (w the decay in [0, 1]), u [h, hd] f32.  Per
 // (b, h), from S = 0 and for t = 0 .. T-1, all in f32:
 //
 //   out_t[j] = sum_i r_t[i] * (S[i,j] + u[i] * k_t[i] * v_t[j])
@@ -16,30 +16,72 @@
 // stride on hd, so the model's [b, T, h, hd] projections are read in
 // place.
 //
-// Design.  Columns j of S are independent, and so are the rows i up to
-// the sum over i in out_t[j].  One block of 4 * hd threads per (b, h):
-// thread (j, g), g = tid % 4, holds S[i, j] for the hd / 4 rows
-// i = (4 q + g) * 4 + c (q < hd / 16, c < 4) in registers for the whole
-// sequence, so the state never leaves the SM.  Per step a thread does
-// the reference's four operations per row over its rows, then the four
-// threads of a column (neighbouring lanes) sum their parts of out_t[j]
-// with two shuffles.  r, k, w and v arrive in chunks of kChunk steps in
-// shared memory, as f32; a thread reads its rows of r, k and w as float4
-// at float4 index 4 q + g, so the four lane groups of a warp hit four
-// consecutive float4 (no bank conflict) and every other lane is a
-// broadcast.  The next chunk is loaded into registers while the current
-// one is computed, and stored into the other half of a double buffer:
-// one __syncthreads per chunk.  Any T is taken (steps past T are loaded
-// as zeros and not run).
-//
 // Bound on the H100 at the serving shape (b 4, h 32, T 2,048, hd 64,
 // f32): 4 inputs and out of 67.1 MB each plus S_T 2.1 MB = 337.6 MB, or
 // 0.101 ms at 3.35 TB/s; about 3 * 4,096 FMAs per step per chain, 6.44
-// GFLOP, 0.096 ms at 67 TFLOP/s on the CUDA cores.  The serial chain of
-// T steps per (b, h), one block each (128 blocks on 132 SMs, 8 warps an
-// SM), keeps this kernel well above either: each step takes its SM at
-// least 4 * hd * hd / 128 cycles of FP32 instructions.  Splitting T (the
-// chunked form) is the later redesign.
+// GFLOP, 0.096 ms at 67 TFLOP/s on the CUDA cores.  The step-by-step
+// form (one 4 * hd-thread block a (b, h), 128 blocks on 132 SMs, a
+// dependent FMA chain and two shuffles a step) left each SM 8 warps and
+// nothing to hide their latencies: 0.63-0.64 ms.
+//
+// Design: the chunked form (the reference prefill's time_mix_chunked,
+// repro/models/rwkv.py:132-177) in f32 on the CUDA cores, one launch.
+// For a chunk of C steps from state S (local steps tau, sigma):
+//
+//   c_tau[i]   = prod_{m <= tau} w_m[i]                 (c_{-1} = 1)
+//   P_i(s, t)  = prod_{s < m < t} w_m[i]
+//   A[t, s]    = sum_i r_t[i] k_s[i] P_i(s, t)  (s < t);
+//   A[t, t]    = sum_i r_t[i] u[i] k_t[i]                (the bonus)
+//   out_t[j]   = sum_i (r_t[i] c_{t-1}[i]) S[i,j] + sum_{s <= t} A[t,s] v_s[j]
+//   S[i,j]    <- c_{C-1}[i] S[i,j] + sum_s (k_s[i] P_i(s, C)) v_s[j]
+//
+// Every decay is a running product in linear space: no log w, no
+// division by a cumulative decay, no exp of a difference.  A decay of 0
+// (w = exp(-exp(ww)) underflows once ww passes ~4.5) gives 0, as the
+// step-by-step form does, and never NaN or inf; a factorisation through a
+// chunk-wide reference point would overflow for strong decays.  The sums
+// associate differently from the step-by-step form: about C ulps.
+//
+// One block of 256 threads (8 warps) takes a (b, h): 128 blocks at the
+// serving shape, one an SM.  A block walks its chunks in order; no state
+// passes between blocks.  Per chunk of C = 16 steps:
+//   1. rd = r * c_{t-1} and c_{C-1}: four lanes a column i, each over 4
+//      steps, their partial products joined by a multiplicative scan
+//      across the lanes.  The intra walk: warp p takes the pair of
+//      sources p and C-1-p (C-1 steps together, so every warp does the
+//      same work), two i's a lane, carries k_s[i] P_i(s, t) forward in
+//      registers (one multiply by w_t a step; the pair shares each load
+//      of r_t and w_t) in straight-line code (the pair is a compile-time
+//      constant of the warp's branch), and leaves each lane's partial
+//      dot product in shared memory; the walk ends with
+//      k_s[i] P_i(s, C) for the state update.
+//   2. A = the sum of the 32 lanes' partials; S <- c_{C-1} S + kd^T v,
+//      S held in registers a 4 x 4 tile a thread.
+//   3. out = rd . S + A . v: each 4 x 4 output tile is summed over four
+//      quarters of i (and of s) by four lanes, joined by two shuffles.
+// Shared memory returns 128 bytes a clock to the registers (a float4
+// load of a warp takes 4), so the products are tiled for bytes an FMA:
+// 2 for the 4 x 4 tiles, where a 1 x 4 output tile a thread takes 5 (and
+// that product alone then takes 0.19 ms of 0.44).  The steps are
+// pipelined two barriers a chunk: [2 and the inter product of chunk c] |
+// [the intra product and store of chunk c, 1 of chunk c+1]; r, k, w, v
+// of the chunk after next are loaded into registers (16-byte loads where
+// the rows allow) while this one computes, and stored to shared memory
+// after the last read of the buffer they replace (rd, v and S are
+// double-buffered).  Steps past T are the identity step, r = k = v = 0,
+// w = 1.  Rows in shared memory are padded by 4 floats, so the loads of
+// a warp that span rows fall in distinct banks.
+//
+// Measured on the H100 (src/repro_torch/benchmarks/wkv6_variants.py, the
+// step-by-step kernel it replaces timed in the same turns): 0.37 ms at
+// the serving shape against 0.63, 27% of the bound.  The chunk length,
+// the column slabs a head (more blocks, each recomputing A and
+// restaging r, k and w: slower here) and the threads a block were chosen
+// there (PERF.md).  They are
+// compile-time (WKV6_CHUNK, WKV6_SLABS, WKV6_THREADS, WKV6_MIN_BLOCKS
+// for hd 64; hd 16, the reduced configs', has its own); the Python
+// wrapper's GEOMETRY mirrors them and wkv6_geometry reports what was
+// built.
 //
 // The entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
@@ -48,11 +90,38 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#ifndef WKV6_CHUNK
+#define WKV6_CHUNK 16
+#endif
+#ifndef WKV6_SLABS
+#define WKV6_SLABS 1
+#endif
+#ifndef WKV6_THREADS
+#define WKV6_THREADS 256
+#endif
+#ifndef WKV6_MIN_BLOCKS
+#define WKV6_MIN_BLOCKS 1
+#endif
+
 namespace {
 
-constexpr int kGroup = 4;      // threads sharing one column j
-constexpr int kChunk = 16;     // time steps staged per shared buffer
-constexpr int kArrays = 4;     // r, k, w, v
+// chunk length, column slabs a head, threads a block, and the blocks an
+// SM must hold at once (the register budget) for head dim HD
+template <int HD>
+struct Geometry;
+template <>
+struct Geometry<64> {
+  static constexpr int kChunk = WKV6_CHUNK, kSlabs = WKV6_SLABS;
+  static constexpr int kThreads = WKV6_THREADS;
+  static constexpr int kMinBlocks = WKV6_MIN_BLOCKS;
+};
+template <>
+struct Geometry<16> {
+  static constexpr int kChunk = 16, kSlabs = 1, kThreads = 64;
+  static constexpr int kMinBlocks = 1;
+};
 
 struct Params {
   const void* r;
@@ -66,132 +135,535 @@ struct Params {
   int h, seq;
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * 2 * kArrays * kChunk * HD;
+// W consecutive floats of shared memory at p (aligned to min(W, 4) floats)
+template <int W>
+__device__ __forceinline__ void lds(const float* p, float (&x)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(p)[q];
+      x[4 * q] = v.x;
+      x[4 * q + 1] = v.y;
+      x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+  } else if constexpr (W == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < W; ++q) x[q] = p[q];
+  }
 }
 
-template <int HD, typename E>
-__global__ void __launch_bounds__(kGroup * HD) wkv6_fwd(const Params P) {
-  constexpr int kThreads = kGroup * HD;
-  constexpr int kRows = HD / kGroup;        // rows of S per thread
-  constexpr int kQuads = kRows / 4;         // float4 reads per array
-  constexpr int kTile = kChunk * HD;        // one array's chunk
-  constexpr int kLoads = kArrays * kTile / kThreads;   // = kChunk
-  extern __shared__ __align__(16) float smem[];        // [2][4][kChunk][HD]
-
-  const int tid = threadIdx.x, g = tid % kGroup, j = tid / kGroup;
-  const int bi = blockIdx.x / P.h, hi = blockIdx.x % P.h;
-  const E* src[kArrays];
-  int64_t ts[kArrays];
-  const void* bases[kArrays] = {P.r, P.k, P.w, P.v};
-  const int order[kArrays] = {0, 1, 3, 2};   // P.st holds r, k, v, w
+// W consecutive elements of global memory at p (aligned to W elements for
+// W = 4) into floats
+template <int W>
+__device__ __forceinline__ void load_n(const float* p, float* x) {
+  if constexpr (W == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
 #pragma unroll
-  for (int a = 0; a < kArrays; ++a) {
+    for (int c = 0; c < W; ++c) x[c] = p[c];
+  }
+}
+template <int W>
+__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* x) {
+  if constexpr (W == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    x[0] = __uint_as_float(v.x << 16);
+    x[1] = __uint_as_float(v.x & 0xffff0000u);
+    x[2] = __uint_as_float(v.y << 16);
+    x[3] = __uint_as_float(v.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) x[c] = __bfloat162float(p[c]);
+  }
+}
+// W floats to shared memory at p (aligned to W floats for W = 4)
+template <int W>
+__device__ __forceinline__ void sts_n(float* p, const float* x) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+#pragma unroll
+    for (int c = 0; c < W; ++c) p[c] = x[c];
+}
+
+// the intra walk's partial sums are kept for t >= s at t (t + 1) / 2 + s
+__host__ __device__ constexpr int tri(int t, int s) {
+  return t * (t + 1) / 2 + s;
+}
+
+// f(integral_constant<P>) for the runtime p in [P, N)
+template <int P, int N, typename F>
+__device__ __forceinline__ void for_pair(int p, F& f) {
+  if constexpr (P < N) {
+    if (p == P)
+      f(std::integral_constant<int, P>{});
+    else
+      for_pair<P + 1, N>(p, f);
+  }
+}
+
+// a warp's lanes over a grid of ROWS x COLS thread tiles: 32 / WC rows by
+// WC columns a warp, the warps row-major over the grid
+template <int ROWS, int COLS, int NT>
+struct WarpGrid {
+  static constexpr int WC = COLS < 4 ? COLS : 4, WR = 32 / WC;
+  static_assert(ROWS % WR == 0 && COLS % WC == 0 &&
+                    (ROWS / WR) * (COLS / WC) * 32 == NT,
+                "warp tiles cover the grid");
+  __device__ static int row(int tid) {
+    return (tid / 32) / (COLS / WC) * WR + (tid % 32) / WC;
+  }
+  __device__ static int col(int tid) {
+    return (tid / 32) % (COLS / WC) * WC + tid % WC;
+  }
+};
+
+template <int HD>
+struct Layout {
+  using G = Geometry<HD>;
+  static constexpr int C = G::kChunk, NT = G::kThreads;
+  static constexpr int J = HD / G::kSlabs;   // columns of S a block
+  static constexpr int LD = HD + 4;          // row of r, k, w, rd, kd
+  static constexpr int LJ = J + 4;           // row of v and S
+  static constexpr int LA = C + 4;           // row of A
+  // staging: loads a thread a chunk of each of r, k, w, and of v
+  static constexpr int kPer = C * HD / NT, kPerV = C * J / NT;
+  // the intra walk: source pairs, threads a pair (a warp at hd 64), i's a
+  // thread
+  static constexpr int kPairs = C / 2, kGroup = NT / kPairs;
+  static constexpr int kIntra = HD / kGroup;
+  static constexpr int kIntraVec = kIntra < 4 ? kIntra : 4;
+  // outputs: a 4 x 4 tile over a quarter of the sum a thread (4 lanes a
+  // tile); state: an IR x JE tile a thread
+  static constexpr int kTilesJ = J / 4;
+  static constexpr int kState = HD * J / NT;
+  static constexpr int JE = 4, IR = kState / JE;
+  using StateGrid = WarpGrid<HD / IR, J / JE, NT>;
+  // shared memory in floats: r, k, w, kd [C][LD]; rd [2][C][LD]; v
+  // [2][C][LJ]; S [2][HD][LJ]; A [C][LA]; c_{C-1} [HD]; the walk's
+  // partial sums [C (C + 1) / 2][kApRow]
+  static constexpr int kR = 0, kK = C * LD, kW = 2 * C * LD;
+  static constexpr int kKd = 3 * C * LD, kRd = 4 * C * LD;
+  static constexpr int kV = 6 * C * LD, kS = kV + 2 * C * LJ;
+  static constexpr int kA = kS + 2 * HD * LJ, kCc = kA + C * LA;
+  static constexpr int kAp = kCc + HD;
+  // a row of partials: whole float4s, rows 4 banks apart
+  static constexpr int kApRow = kGroup % 4 == 0 ? kGroup + 4 : kGroup + 1;
+  static constexpr int kFloats = kAp + tri(C, 0) * kApRow;
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static_assert(HD % G::kSlabs == 0 && J % 4 == 0, "slabs of 4k columns");
+  static_assert(C % 4 == 0 && HD % 4 == 0, "rows of whole float4s");
+  static_assert(kPer * NT == C * HD && kPerV * NT == C * J, "staging");
+  static_assert(kGroup * kPairs == NT && kIntra * kGroup == HD &&
+                    kIntra % kIntraVec == 0 && NT >= HD,
+                "the intra walk: a group of lanes a pair");
+  static_assert(NT * 4 == C * J && (HD / 4) % 4 == 0,
+                "4 lanes a 4 x 4 output tile cover [C][J]");
+  static_assert(IR >= 1 && IR * JE == kState && (IR <= 2 || IR % 4 == 0),
+                "state tiles cover [HD][J]");
+};
+
+template <int HD, typename E>
+__global__ void __launch_bounds__(Geometry<HD>::kThreads,
+                                  Geometry<HD>::kMinBlocks)
+wkv6_chunked(const Params P) {
+  using L = Layout<HD>;
+  constexpr int C = L::C, NT = L::NT, J = L::J, LD = L::LD, LJ = L::LJ;
+  constexpr int LA = L::LA, GP = L::kApRow;
+  extern __shared__ __align__(16) float sm[];
+  float* const r_s = sm + L::kR;
+  float* const k_s = sm + L::kK;
+  float* const w_s = sm + L::kW;
+  float* const kd_s = sm + L::kKd;
+  float* const rd_s = sm + L::kRd;           // [2]: chunks alternate
+  float* const v_s = sm + L::kV;             // [2]
+  float* const s_s = sm + L::kS;             // [2]: S at each chunk's start
+  float* const a_s = sm + L::kA;
+  float* const cc_s = sm + L::kCc;
+  float* const ap_s = sm + L::kAp;
+
+  const int tid = threadIdx.x;
+  const int slab = blockIdx.x % Geometry<HD>::kSlabs;
+  const int bh = blockIdx.x / Geometry<HD>::kSlabs;
+  const int bi = bh / P.h, hi = bh % P.h;
+  const int j0 = slab * J;
+  // r, k, w, v by their (b, h, t) strides (P.st holds r, k, v, w)
+  const E* src[4];
+  int64_t ts[4];
+  const void* bases[4] = {P.r, P.k, P.w, P.v};
+  const int order[4] = {0, 1, 3, 2};
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
     const int64_t* s = P.st + 3 * order[a];
     src[a] = static_cast<const E*>(bases[a]) + bi * s[0] + hi * s[1];
     ts[a] = s[2];
   }
-  E* out = static_cast<E*>(P.out) + bi * P.st[12] + hi * P.st[13];
+  src[3] += j0;
+  E* const out = static_cast<E*>(P.out) + bi * P.st[12] + hi * P.st[13] + j0;
   const int64_t out_ts = P.st[14];
 
-  float S[kRows], u[kRows];
+  // S starts at 0; A's upper triangle stays 0 (only t >= s is written)
+  for (int n = tid; n < HD * LJ; n += NT) s_s[n] = 0.0f;
+  for (int n = tid; n < C * LA; n += NT) a_s[n] = 0.0f;
+
+  // ---- staging: chunk t0's values for this thread's slots; past T the
+  // identity step (r = k = v = 0, w = 1).  Where every row starts on a
+  // 4-element boundary (the rows of a [b, T, h, hd] buffer do), a slot is
+  // 4 consecutive elements in one load (16 bytes in f32, 8 in bf16)
+  bool vec = true;
 #pragma unroll
-  for (int q = 0; q < kQuads; ++q)
+  for (int a = 0; a < 4; ++a)
+    vec = vec && reinterpret_cast<uintptr_t>(src[a]) % (4 * sizeof(E)) == 0
+          && ts[a] % 4 == 0;
+  float pf[3 * L::kPer + L::kPerV];
+  // W elements a slot: r, k, w [C][HD] and v [C][J], slot n of this thread
+  // at element (n NT + tid) W
+  auto fetch_w = [&](auto wc, int t0) {
+    constexpr int W = decltype(wc)::value;
+    constexpr int WV = L::kPerV % W == 0 ? W : 1;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int n = 0; n < L::kPer / W; ++n) {
+        const int e = (n * NT + tid) * W, t = t0 + e / HD, i = e % HD;
+        float* x = pf + a * L::kPer + W * n;
+        if (t < P.seq)
+          load_n<W>(src[a] + t * ts[a] + i, x);
+        else
+#pragma unroll
+          for (int c = 0; c < W; ++c) x[c] = a == 2 ? 1.0f : 0.0f;
+      }
+#pragma unroll
+    for (int n = 0; n < L::kPerV / WV; ++n) {
+      const int e = (n * NT + tid) * WV, t = t0 + e / J, j = e % J;
+      float* x = pf + 3 * L::kPer + WV * n;
+      if (t < P.seq)
+        load_n<WV>(src[3] + t * ts[3] + j, x);
+      else
+#pragma unroll
+        for (int c = 0; c < WV; ++c) x[c] = 0.0f;
+    }
+  };
+  auto stash_w = [&](auto wc, int buf) {
+    constexpr int W = decltype(wc)::value;
+    constexpr int WV = L::kPerV % W == 0 ? W : 1;
+    float* const dst[3] = {r_s, k_s, w_s};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int n = 0; n < L::kPer / W; ++n) {
+        const int e = (n * NT + tid) * W;
+        sts_n<W>(dst[a] + (e / HD) * LD + e % HD, pf + a * L::kPer + W * n);
+      }
+    float* const v = v_s + buf * C * LJ;
+#pragma unroll
+    for (int n = 0; n < L::kPerV / WV; ++n) {
+      const int e = (n * NT + tid) * WV;
+      sts_n<WV>(v + (e / J) * LJ + e % J, pf + 3 * L::kPer + WV * n);
+    }
+  };
+  constexpr int kVec = L::kPer % 4 == 0 ? 4 : 1;
+  auto fetch = [&](int t0) {
+    if (vec)
+      fetch_w(std::integral_constant<int, kVec>{}, t0);
+    else
+      fetch_w(std::integral_constant<int, 1>{}, t0);
+  };
+  auto stash = [&](int buf) {
+    if (vec)
+      stash_w(std::integral_constant<int, kVec>{}, buf);
+    else
+      stash_w(std::integral_constant<int, 1>{}, buf);
+  };
+
+  // ---- the intra walk's thread: pair p (sources p and C-1-p), lane g of
+  // its group, i = V (g + kGroup q) + c for q < kIntra / V, c < V
+  constexpr int V = L::kIntraVec, NQ = L::kIntra / V, NI = L::kIntra;
+  const int p = tid / L::kGroup, g = tid % L::kGroup;
+  float uu[NI];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+      uu[V * q + c] = P.u[hi * HD + V * (g + L::kGroup * q) + c];
+  auto row = [&](const float* base, int t, float (&x)[NI]) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      float y[V];
+      lds<V>(base + t * LD + V * (g + L::kGroup * q), y);
+#pragma unroll
+      for (int c = 0; c < V; ++c) x[V * q + c] = y[c];
+    }
+  };
+  // the pair of sources s1 < s2 = C-1-s1, known at compile time: s1's
+  // bonus, then t = s1+1 .. C-1 carrying k_s P(s, t) forward for s1 and,
+  // from t = s2 (its bonus) on, for s2 too, one load of r_t and w_t a
+  // step (straight-line code)
+  auto pair = [&](auto pc) {
+    constexpr int s1 = decltype(pc)::value, s2 = C - 1 - s1;
+    auto put = [&](int t, int s, float part) {
+      ap_s[tri(t, s) * GP + g] = part;
+    };
+    float kd1[NI], kd2[NI], x[NI];
+    row(k_s, s1, kd1);
+    row(k_s, s2, kd2);
+    row(r_s, s1, x);
+    float b = 0.0f;
+#pragma unroll
+    for (int e = 0; e < NI; ++e) b = fmaf(x[e], uu[e] * kd1[e], b);
+    put(s1, s1, b);
+#pragma unroll
+    for (int t = s1 + 1; t < C; ++t) {
+      float ww[NI];
+      row(r_s, t, x);
+      row(w_s, t, ww);
+      float part = 0.0f;
+#pragma unroll
+      for (int e = 0; e < NI; ++e) {
+        part = fmaf(x[e], kd1[e], part);
+        kd1[e] *= ww[e];
+      }
+      put(t, s1, part);
+      if (t == s2) {
+        part = 0.0f;
+#pragma unroll
+        for (int e = 0; e < NI; ++e) part = fmaf(x[e], uu[e] * kd2[e], part);
+        put(t, s2, part);
+      } else if (t > s2) {
+        part = 0.0f;
+#pragma unroll
+        for (int e = 0; e < NI; ++e) {
+          part = fmaf(x[e], kd2[e], part);
+          kd2[e] *= ww[e];
+        }
+        put(t, s2, part);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        kd_s[s1 * LD + V * (g + L::kGroup * q) + c] = kd1[V * q + c];
+        kd_s[s2 * LD + V * (g + L::kGroup * q) + c] = kd2[V * q + c];
+      }
+  };
+  // 1. rd = r * c_{t-1} and c_{C-1}, the running product down column i:
+  // kSpan threads a column, each over C / kSpan consecutive steps, their
+  // partial products joined by a multiplicative scan across the span's
+  // neighbouring lanes; and the intra walk
+  constexpr int kSpan = NT / HD, kSteps = C / kSpan;
+  static_assert(kSpan * HD == NT && kSteps * kSpan == C && kSpan <= 32 &&
+                    (kSpan & (kSpan - 1)) == 0,
+                "a power-of-two span of lanes a column");
+  const int ci = tid / kSpan, cq = tid % kSpan;
+  auto phase1 = [&](int buf) {
+    {
+      float* const rd = rd_s + buf * C * LD;
+      float lp[kSteps], c = 1.0f;
+#pragma unroll
+      for (int m = 0; m < kSteps; ++m) {
+        lp[m] = c;
+        c *= w_s[(cq * kSteps + m) * LD + ci];
+      }
+      // exclusive product of the earlier spans' totals
+      float incl = c;
+#pragma unroll
+      for (int off = 1; off < kSpan; off <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, incl, off, kSpan);
+        if (cq >= off) incl *= y;
+      }
+      float before = __shfl_up_sync(0xffffffffu, incl, 1, kSpan);
+      if (cq == 0) before = 1.0f;
+#pragma unroll
+      for (int m = 0; m < kSteps; ++m) {
+        const int t = cq * kSteps + m;
+        rd[t * LD + ci] = r_s[t * LD + ci] * (before * lp[m]);
+      }
+      if (cq == kSpan - 1) cc_s[ci] = incl;
+    }
+    for_pair<0, C / 2>(p, pair);
+  };
+
+  // ---- the output tile: rows 4 tt + a, columns 4 jt + c, summed over
+  // the quarter kq of i (i = 4 (kq + 4 n) + e) and of s (s = 4 (kq + 4 n)
+  // + e); a warp's 8 tiles share their rows
+  const int kq = tid % 4, tile = tid / 4;
+  const int tt = tile / L::kTilesJ, jt = tile % L::kTilesJ;
+  // ---- the state tile: rows ig * IR + a, columns je * JE + c, in registers
+  constexpr int JE = L::JE, IR = L::IR;
+  const int ig = L::StateGrid::row(tid), je = L::StateGrid::col(tid);
+  float S[IR][JE];
+#pragma unroll
+  for (int a = 0; a < IR; ++a)
+#pragma unroll
+    for (int c = 0; c < JE; ++c) S[a][c] = 0.0f;
+
+  // 2. A = the walk's partial sums; S <- c_{C-1} S + kd^T v, kept in
+  // registers and written to the other S buffer
+  auto phase2 = [&](int buf) {
+    for (int n = tid; n < C * C; n += NT) {
+      const int t = n / C, s = n % C;
+      if (s <= t) {
+        const float* part = ap_s + tri(t, s) * GP;
+        float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if constexpr (L::kGroup % 4 == 0) {
+#pragma unroll
+          for (int q = 0; q < L::kGroup; q += 4) {
+            float x[4];
+            lds<4>(part + q, x);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[e] += x[e];
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < L::kGroup; ++q) sum[q % 4] += part[q];
+        }
+        a_s[t * LA + s] = (sum[0] + sum[1]) + (sum[2] + sum[3]);
+      }
+    }
+    const float* const v = v_s + buf * C * LJ;
+#pragma unroll
+    for (int a = 0; a < IR; ++a) {
+      const float cc = cc_s[ig * IR + a];
+#pragma unroll
+      for (int c = 0; c < JE; ++c) S[a][c] *= cc;
+    }
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      float kv[IR], vv[JE];
+      lds<IR>(kd_s + s * LD + ig * IR, kv);
+      lds<JE>(v + s * LJ + je * JE, vv);
+#pragma unroll
+      for (int a = 0; a < IR; ++a)
+#pragma unroll
+        for (int c = 0; c < JE; ++c) S[a][c] = fmaf(kv[a], vv[c], S[a][c]);
+    }
+    float* const sn = s_s + (buf ^ 1) * HD * LJ;
+#pragma unroll
+    for (int a = 0; a < IR; ++a)
+#pragma unroll
+      for (int c = 0; c < JE; ++c)
+        sn[(ig * IR + a) * LJ + je * JE + c] = S[a][c];
+  };
+  // 3. out_t[j] = sum_i rd[t][i] S[i][j] + sum_s A[t][s] v[s][j]: the
+  // inter product (3a) beside phase 2, the intra product, the sum of the
+  // four quarters and the store (3b) beside the next chunk's phase 1.
+  // Each 4 x 4 tile loads 8 floats for 16 FMAs (shared memory returns
+  // 128 bytes a clock: the wider the tile, the fewer bytes an FMA)
+  float acc[4][4];
+  auto tile_sum = [&](const float* x, int lx, const float* y, int ly,
+                      auto steps) {
+    constexpr int kBlocks = decltype(steps)::value / 4;
+#pragma unroll
+    for (int n = 0; n < (kBlocks + 3) / 4; ++n) {
+      const int b = kq + 4 * n;
+      if (kBlocks % 4 != 0 && b >= kBlocks) break;
+      float xs[4][4], ys[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) lds<4>(x + (4 * tt + a) * lx + 4 * b, xs[a]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) lds<4>(y + (4 * b + e) * ly + 4 * jt, ys[e]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[a][c] = fmaf(xs[a][e], ys[e][c], acc[a][c]);
+    }
+  };
+  auto phase3a = [&](int buf) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
+    tile_sum(rd_s + buf * C * LD, LD, s_s + buf * HD * LJ, LJ,
+             std::integral_constant<int, HD>{});
+  };
+  auto phase3b = [&](int buf, int t0) {
+    tile_sum(a_s, LA, v_s + buf * C * LJ, LJ,
+             std::integral_constant<int, C>{});
+    // the four quarters' sums: lane kq ends with row kq of the tile
+    const bool hi2 = kq & 2, hi1 = kq & 1;
+    float half[2][4], row[4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float send = hi2 ? acc[r][c] : acc[2 + r][c];
+        half[r][c] = (hi2 ? acc[2 + r][c] : acc[r][c])
+                     + __shfl_xor_sync(0xffffffffu, send, 2);
+      }
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      S[4 * q + c] = 0.0f;
-      u[4 * q + c] = P.u[hi * HD + (4 * q + g) * 4 + c];
+      const float send = hi1 ? half[0][c] : half[1][c];
+      row[c] = (hi1 ? half[1][c] : half[0][c])
+               + __shfl_xor_sync(0xffffffffu, send, 1);
     }
-
-  // chunk t0's values for this thread's load slots, zero past the end:
-  // slot n is element n * kThreads + tid of the chunk's [4][kChunk][HD],
-  // so its array is n / kPerArray (a constant once unrolled)
-  constexpr int kPerArray = kTile / kThreads;
-  float pf[kLoads];
-  auto fetch = [&](int t0) {
+    const int t = t0 + 4 * tt + kq;
+    if (t < P.seq)
 #pragma unroll
-    for (int n = 0; n < kLoads; ++n) {
-      const int a = n / kPerArray;
-      const int rem = (n % kPerArray) * kThreads + tid;
-      const int t = t0 + rem / HD, d = rem % HD;
-      pf[n] = t < P.seq ? load_f32(src[a] + t * ts[a] + d) : 0.0f;
-    }
-  };
-  auto stash = [&](float* buf) {
-#pragma unroll
-    for (int n = 0; n < kLoads; ++n) buf[tid + n * kThreads] = pf[n];
+      for (int c = 0; c < 4; ++c)
+        store_f32(out + t * out_ts + 4 * jt + c, row[c]);
   };
 
+  // the pipeline, two barriers a chunk: [2 and 3a of chunk c] | [3b of
+  // chunk c, 1 of chunk c+1]; inputs two chunks ahead in registers
+  const int chunks = (P.seq + C - 1) / C;
   fetch(0);
-  stash(smem);
+  stash(0);
   __syncthreads();
-  const int chunks = (P.seq + kChunk - 1) / kChunk;
-  for (int c = 0; c < chunks; ++c) {
-    const int t0 = c * kChunk;
-    const bool more = c + 1 < chunks;
-    if (more) fetch(t0 + kChunk);             // in flight during compute
-    const float* buf = smem + (c & 1) * kArrays * kTile;
-    const int steps = min(kChunk, P.seq - t0);
-    for (int tt = 0; tt < steps; ++tt) {
-      const float* row = buf + tt * HD;
-      const float4* r4 = reinterpret_cast<const float4*>(row);
-      const float4* k4 = reinterpret_cast<const float4*>(row + kTile);
-      const float4* w4 = reinterpret_cast<const float4*>(row + 2 * kTile);
-      const float vj = row[3 * kTile + j];
-      float acc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kQuads; ++q) {
-        const float4 rq = r4[kGroup * q + g];
-        const float4 kq = k4[kGroup * q + g];
-        const float4 wq = w4[kGroup * q + g];
-        const float rv[4] = {rq.x, rq.y, rq.z, rq.w};
-        const float kv4[4] = {kq.x, kq.y, kq.z, kq.w};
-        const float wv[4] = {wq.x, wq.y, wq.z, wq.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float& s = S[4 * q + e];
-          const float kv = kv4[e] * vj;
-          acc = fmaf(rv[e], fmaf(u[4 * q + e], kv, s), acc);
-          s = fmaf(wv[e], s, kv);
-        }
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (g == 0) store_f32(out + (t0 + tt) * out_ts + j, acc);
-    }
-    if (more) stash(smem + ((c + 1) & 1) * kArrays * kTile);
+  if (chunks > 1) fetch(C);
+  phase1(0);
+  __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch & 1;
+    phase2(buf);
+    phase3a(buf);
+    if (ch + 1 < chunks) stash(buf ^ 1);
+    __syncthreads();
+    if (ch + 2 < chunks) fetch((ch + 2) * C);
+    phase3b(buf, ch * C);
+    if (ch + 1 < chunks) phase1(buf ^ 1);
     __syncthreads();
   }
 
-  float* s_out = P.s_out + static_cast<int64_t>(blockIdx.x) * HD * HD;
+  float* s_out = P.s_out + static_cast<int64_t>(bh) * HD * HD + j0;
 #pragma unroll
-  for (int q = 0; q < kQuads; ++q)
+  for (int a = 0; a < IR; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      s_out[((4 * q + g) * 4 + c) * HD + j] = S[4 * q + c];
+    for (int c = 0; c < JE; ++c)
+      s_out[(ig * IR + a) * HD + je * JE + c] = S[a][c];
 }
 
 template <int HD, typename E>
 cudaError_t launch_typed(const Params& p, int blocks, cudaStream_t stream) {
+  constexpr size_t bytes = Layout<HD>::kBytes;
   static bool configured = false;         // one attribute call per kernel
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        wkv6_fwd<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<HD>()));
+        wkv6_chunked<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  wkv6_fwd<HD, E><<<blocks, kGroup * HD, smem_bytes<HD>(), stream>>>(p);
+  wkv6_chunked<HD, E>
+      <<<blocks * Geometry<HD>::kSlabs, Geometry<HD>::kThreads, bytes,
+         stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -202,6 +674,13 @@ cudaError_t launch_hd(const Params& p, int bf16, int blocks,
               : launch_typed<HD, float>(p, blocks, stream);
 }
 
+template <int HD>
+void geometry(int* out) {
+  out[0] = Geometry<HD>::kChunk;
+  out[1] = Geometry<HD>::kSlabs;
+  out[2] = Geometry<HD>::kThreads;
+}
+
 }  // namespace
 
 extern "C" {
@@ -210,10 +689,20 @@ const char* wkv6_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// the built geometry for head dim hd: out = {chunk, slabs, threads}
+int wkv6_geometry(int hd, int* out) {
+  switch (hd) {
+    case 16: geometry<16>(out); return 0;
+    case 64: geometry<64>(out); return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // strides: 15 int64 in elements, (batch, head, time) of r, k, v, w, out.
 // dtype of r, k, v, w and out: 0 f32, 1 bf16; u and s_out are f32.
 // hd in {16, 64} (rwkv6's reduced and published head dims); other values
-// return cudaErrorInvalidValue (the wrapper refuses them first).
+// return cudaErrorInvalidValue (the wrapper refuses them first).  The
+// grid is b * h * (the head dim's slab count) blocks.
 int wkv6_forward(const void* r, const void* k, const void* v, const void* w,
                  const float* u, void* out, float* s_out,
                  const int64_t* strides, int bf16, int b, int h, int T,

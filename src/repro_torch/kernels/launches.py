@@ -14,7 +14,7 @@ launch under the route that ran it.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -158,3 +158,20 @@ def check_cuda(name: str, t: torch.Tensor, dtypes) -> None:
         raise ValueError(f"{name} dtype {t.dtype} not in {list(dtypes)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def operand(name: str, t, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(numel, data_ptr, device index)`` of ``t``: a contiguous
+    non-empty 1-D CUDA tensor of ``dtype``, each piece of metadata read
+    once (``get_device()`` is -1 off the card)."""
+    dev = t.get_device() if isinstance(t, torch.Tensor) else -1
+    if dev < 0:
+        raise ValueError(f"{name} must be a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} dtype {t.dtype}, expected {dtype}")
+    shape = t.shape
+    if len(shape) != 1 or shape[0] < 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous non-empty 1-D tensor, "
+                         f"got shape {tuple(shape)}")
+    return shape[0], t.data_ptr(), dev

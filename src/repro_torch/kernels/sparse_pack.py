@@ -27,7 +27,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launches import bind_error_string, check_cuda, launch
+from repro_torch.kernels.launches import (bind_error_string, check_cuda,
+                                          launch, operand)
 
 _lib: Optional[ctypes.CDLL] = None
 _error_string = None
@@ -50,31 +51,14 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _operand(name: str, t, dtype: torch.dtype) -> Tuple[int, int, int]:
-    """``(numel, data_ptr, device index)`` of ``t``: a contiguous
-    non-empty 1-D CUDA tensor of ``dtype``, each piece of metadata read
-    once (``get_device()`` is -1 off the card)."""
-    dev = t.get_device() if isinstance(t, torch.Tensor) else -1
-    if dev < 0:
-        raise ValueError(f"{name} must be a CUDA tensor, got "
-                         f"{getattr(t, 'device', type(t))}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} dtype {t.dtype}, expected {dtype}")
-    shape = t.shape
-    if len(shape) != 1 or shape[0] < 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous non-empty 1-D tensor, "
-                         f"got shape {tuple(shape)}")
-    return shape[0], t.data_ptr(), dev
-
-
 def _pack_checks(q, scales, idx) -> Tuple[int, int, int, int, int, int]:
     """``(k, ng, q ptr, scales ptr, idx ptr, device)`` of a pack_body call:
     q int8 [k], scales f32 [ng], idx int32 [k] on one device.  q may start
     at any byte; scales and idx are element-aligned as PyTorch keeps
     them."""
-    k, qp, dev = _operand("q", q, torch.int8)
-    ng, sp, sdev = _operand("scales", scales, torch.float32)
-    ki, ip, idev = _operand("idx", idx, torch.int32)
+    k, qp, dev = operand("q", q, torch.int8)
+    ng, sp, sdev = operand("scales", scales, torch.float32)
+    ki, ip, idev = operand("idx", idx, torch.int32)
     if sdev != dev or idev != dev:
         raise ValueError(f"q, scales and idx on cuda:{dev}, cuda:{sdev}, "
                          f"cuda:{idev}: need one device")

@@ -213,6 +213,45 @@ def test_quantize_dequantize_bit_exact(dev, k):
     assert VK.launch_counts()["dequantize_int8"] == 1
 
 
+# B10's payloads: a k for each length of the head and the tail, the
+# wire's k = 656 and 1,313, and a multi-group bus
+DEQUANT_KS = [1, 7, 15, 16, 17, 31, 255, 256, 257, 271, 656, 1313, 70_001]
+
+
+@pytest.mark.parametrize("off", range(16))
+@pytest.mark.parametrize("k", DEQUANT_KS)
+def test_dequantize_q_at_every_byte_offset_bit_exact(dev, k, off):
+    """q a view starting ``off`` bytes past a 16-byte boundary: the head
+    up to the boundary, packs that straddle two groups and the tail, each
+    bit-equal to the plain version, in ONE launch."""
+    g = torch.Generator(device=dev).manual_seed(100 * k + off)
+    base = torch.randint(-127, 128, (k + 32,), generator=g, device=dev,
+                         dtype=torch.int8)
+    lead = (off - base.data_ptr()) % 16
+    q = base[lead:lead + k]
+    assert q.data_ptr() % 16 == off
+    s = torch.rand(-(-k // 256), generator=g, device=dev) * 0.01
+    VK.reset_launch_count()
+    d = QK.dequantize_int8(q, s, k)
+    assert VK.launch_count() == VK.launch_counts()["dequantize_int8"] == 1
+    assert d.dtype == torch.float32 and d.shape == (k,)
+    assert _bits_equal(d, R.dequantize_int8(q, s, k))
+
+
+@pytest.mark.parametrize("off", [0, 3, 8])
+@pytest.mark.parametrize("block", [1, 3, 16, 100, 255, 512])
+def test_dequantize_other_block_sizes_bit_exact(dev, block, off):
+    """The generic instance (any block but the wire's 256), q aligned and
+    not: groups shorter than a pack, and groups that do not divide it."""
+    k = 1000
+    g = torch.Generator(device=dev).manual_seed(block + off)
+    q = torch.randint(-127, 128, (k + off,), generator=g, device=dev,
+                      dtype=torch.int8)[off:]
+    s = torch.rand(-(-k // block), generator=g, device=dev)
+    d = QK.dequantize_int8(q, s, k, block)
+    assert _bits_equal(d, R.dequantize_int8(q, s, k, block))
+
+
 def test_quantize_rounds_half_to_even(dev):
     x = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5],
                      device=dev)
@@ -515,7 +554,8 @@ def _wkv_case(dev, b, h, T, hd, dtype=torch.float32, strided=False,
 
 @pytest.mark.parametrize("strided", [False, True],
                          ids=["contiguous", "strided"])
-@pytest.mark.parametrize("hd,T", [(16, 37), (64, 300), (64, 1)])
+@pytest.mark.parametrize("hd,T", [(16, 37), (64, 300), (64, 1), (16, 1),
+                                  (64, 15), (64, 16), (64, 17), (16, 300)])
 def test_wkv6_matches_plain(dev, hd, T, strided):
     """B14 at the reduced (hd 16, ragged T) and published (hd 64) head
     dims: 2e-5 in f32 (the reference's test_wkv6 tolerance; the kernel
@@ -543,6 +583,62 @@ def test_wkv6_every_head_dim_in_bf16_storage(dev, hd):
     torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
     torch.testing.assert_close(S, S_want, rtol=2e-5, atol=2e-5)
+
+
+def _wkv6_f64(r, k, v, w, u):
+    """The recurrence step by step in f64: the truth the f32 forms are
+    measured against where their own rounding exceeds 2e-5."""
+    b, h, T, hd = r.shape
+    S = torch.zeros(b, h, hd, hd, dtype=torch.float64, device=r.device)
+    rf, kf, vf, wf = (t.double() for t in (r, k, v, w))
+    outs = []
+    for t in range(T):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        outs.append(((S + u.double()[None, :, :, None] * kv)
+                     * rf[:, :, t, :, None]).sum(dim=2))
+        S = wf[:, :, t, :, None] * S + kv
+    return torch.stack(outs, dim=2), S
+
+
+@pytest.mark.parametrize("decay", ["zero", "denormal", "near_one"])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 37, 300])
+@pytest.mark.parametrize("hd", WK.HEAD_DIMS)
+def test_wkv6_decays_at_zero_denormal_and_near_one(dev, hd, T, decay):
+    """w with exact zeros and denormals (1e-40) on 30% of its entries, or
+    1 - 2^-20 everywhere, over T at and around the chunk: finite, and
+    within 2e-5 of the plain version.  With w near 1 at T = 300 the state
+    sums 300 steps undecayed and the plain version itself is up to 5e-5
+    from the f64 truth: there the kernel is held to the truth, no farther
+    from it than the plain version is."""
+    r, k, v, w, u = _wkv_case(dev, 2, 3, T, hd, seed=T + hd)
+    if decay == "near_one":
+        w = torch.full_like(w, 1.0 - 2.0 ** -20)
+    else:
+        hit = torch.rand(w.shape, generator=torch.Generator(
+            device=dev).manual_seed(T), device=dev) < 0.3
+        w = torch.where(hit, torch.tensor(
+            0.0 if decay == "zero" else 1e-40, device=dev), w)
+    VK.reset_launch_count()
+    out, S = WK.wkv6(r, k, v, w, u)
+    assert VK.launch_count("wkv6") == 1
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(S).all())
+    want, S_want = R.wkv6(r, k, v, w, u)
+    if decay == "near_one" and T == 300:
+        o64, s64 = _wkv6_f64(r, k, v, w, u)
+        for got, plain, truth in ((out, want, o64), (S, S_want, s64)):
+            assert float((got.double() - truth).abs().max()) <= \
+                max(float((plain.double() - truth).abs().max()), 2e-5)
+        return
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(S, S_want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("hd", WK.HEAD_DIMS)
+def test_wkv6_built_geometry_is_the_wrappers(dev, hd):
+    """The chunk length, slab count and block size csrc/wkv6.cu was built
+    with are the ones the wrapper (and the CPU emulation of the chunk
+    walk, tests/test_torch_wkv6_chunks.py) assume."""
+    assert WK.built_geometry(hd) == WK.GEOMETRY[hd]
 
 
 def test_wkv6_rejects_what_it_does_not_take(dev):
