@@ -95,8 +95,7 @@ a card, or outside a checkout.  Phases:
       version at rwkv6's prefill shape ([4,32,2048,64] f32), the reduced
       head dim (hd 16, a ragged 37 steps), T = 1, [b, T, h, hd] strided
       views as the model passes them, and decays with exact zeros and
-      denormals (2e-5 on out and the final state, both finite); the
-      built chunk length and slab count held to the wrapper's; kernel,
+      denormals (2e-5 on out and the final state, both finite); kernel,
       plain and bound ms and the share of the bound at each (no PyTorch
       call computes WKV6);
    b. serve.run at rwkv6-1.6b's full width and depth (24 layers,
@@ -1363,14 +1362,8 @@ RWKV_PARAMS = 1_599_819_776      # the published config's parameter count
 def wkv6_parity(torch, WK, R) -> dict:
     """B14 against its plain version at WKV_SHAPES (out and the final
     state, both finite); kernel, plain and bound ms and the share of the
-    bound at each.  The built chunk length, slab count and block size are
-    the wrapper's.  Returns the record of shape (a)."""
+    bound at each.  Returns the record of shape (a)."""
     dev = torch.device("cuda")
-    for hd in WK.HEAD_DIMS:
-        check(WK.built_geometry(hd) == WK.GEOMETRY[hd],
-              f"B14 hd {hd}: built geometry {WK.built_geometry(hd)} is not "
-              f"the wrapper's {WK.GEOMETRY[hd]}")
-        say(f"B14 hd {hd}: chunk, slabs, threads {WK.GEOMETRY[hd]}")
     out = None
     for name, (b, h, T, hd, strided, decay) in WKV_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(T + hd)

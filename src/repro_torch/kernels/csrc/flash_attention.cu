@@ -55,6 +55,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;          // query rows per block
@@ -228,14 +230,13 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(const Params P) {
 
 template <int HD, typename T>
 cudaError_t launch_typed(const Params& p, dim3 grid, cudaStream_t stream) {
-  static bool configured = false;         // one attribute call per kernel
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<HD>()));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = once_a_device(configured, [] {
+    return cudaFuncSetAttribute(attn_fwd<HD, T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem_bytes<HD>()));
+  });
+  if (err != cudaSuccess) return err;
   attn_fwd<HD, T><<<grid, kThreads, smem_bytes<HD>(), stream>>>(p);
   return cudaGetLastError();
 }

@@ -98,6 +98,8 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int kHD = 128;                 // the one head dim of this kernel
@@ -570,16 +572,17 @@ int fa90_forward(const void* q, const void* k, const void* v, void* o,
                  const int64_t* strides, int b, int h, int kvh, int sq,
                  int skv, int causal, int window, float softcap, float scale,
                  void* stream) {
-  static bool configured = false;
-  if (!configured) {
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t err = once_a_device(configured, [] {
     for (auto kernel : {attn_fwd_sm90<false>, attn_fwd_sm90<true>}) {
-      cudaError_t err = cudaFuncSetAttribute(
+      const cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(kSmemBytes));
-      if (err != cudaSuccess) return err;
+      if (e != cudaSuccess) return e;
     }
-    configured = true;
-  }
+    return cudaSuccess;
+  });
+  if (err != cudaSuccess) return err;
   CUtensorMap maps[3];
   const int rc = encode_maps(maps, q, k, v, strides, b, h, kvh, sq, skv);
   if (rc != 0) return rc;

@@ -74,14 +74,10 @@
 //
 // Measured on the H100 (src/repro_torch/benchmarks/wkv6_variants.py, the
 // step-by-step kernel it replaces timed in the same turns): 0.37 ms at
-// the serving shape against 0.63, 27% of the bound.  The chunk length,
-// the column slabs a head (more blocks, each recomputing A and
-// restaging r, k and w: slower here) and the threads a block were chosen
-// there (PERF.md).  They are
-// compile-time (WKV6_CHUNK, WKV6_SLABS, WKV6_THREADS, WKV6_MIN_BLOCKS
-// for hd 64; hd 16, the reduced configs', has its own); the Python
-// wrapper's GEOMETRY mirrors them and wkv6_geometry reports what was
-// built.
+// the serving shape against 0.63, 27% of the bound.  The chunk length
+// and the threads a block (Geometry below) were chosen there (PERF.md);
+// splitting a head's columns over several blocks, each recomputing A and
+// restaging r, k and w, was slower and is not built.
 //
 // The entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
@@ -92,35 +88,20 @@
 
 #include <type_traits>
 
-#ifndef WKV6_CHUNK
-#define WKV6_CHUNK 16
-#endif
-#ifndef WKV6_SLABS
-#define WKV6_SLABS 1
-#endif
-#ifndef WKV6_THREADS
-#define WKV6_THREADS 256
-#endif
-#ifndef WKV6_MIN_BLOCKS
-#define WKV6_MIN_BLOCKS 1
-#endif
+#include "smem.cuh"
 
 namespace {
 
-// chunk length, column slabs a head, threads a block, and the blocks an
-// SM must hold at once (the register budget) for head dim HD
+// chunk length and threads a block for head dim HD
 template <int HD>
 struct Geometry;
 template <>
 struct Geometry<64> {
-  static constexpr int kChunk = WKV6_CHUNK, kSlabs = WKV6_SLABS;
-  static constexpr int kThreads = WKV6_THREADS;
-  static constexpr int kMinBlocks = WKV6_MIN_BLOCKS;
+  static constexpr int kChunk = 16, kThreads = 256;
 };
 template <>
 struct Geometry<16> {
-  static constexpr int kChunk = 16, kSlabs = 1, kThreads = 64;
-  static constexpr int kMinBlocks = 1;
+  static constexpr int kChunk = 16, kThreads = 64;
 };
 
 struct Params {
@@ -236,12 +217,10 @@ template <int HD>
 struct Layout {
   using G = Geometry<HD>;
   static constexpr int C = G::kChunk, NT = G::kThreads;
-  static constexpr int J = HD / G::kSlabs;   // columns of S a block
-  static constexpr int LD = HD + 4;          // row of r, k, w, rd, kd
-  static constexpr int LJ = J + 4;           // row of v and S
+  static constexpr int LD = HD + 4;          // row of r, k, w, v, rd, kd, S
   static constexpr int LA = C + 4;           // row of A
-  // staging: loads a thread a chunk of each of r, k, w, and of v
-  static constexpr int kPer = C * HD / NT, kPerV = C * J / NT;
+  // staging: loads a thread a chunk of each of r, k, w, v
+  static constexpr int kPer = C * HD / NT;
   // the intra walk: source pairs, threads a pair (a warp at hd 64), i's a
   // thread
   static constexpr int kPairs = C / 2, kGroup = NT / kPairs;
@@ -249,40 +228,40 @@ struct Layout {
   static constexpr int kIntraVec = kIntra < 4 ? kIntra : 4;
   // outputs: a 4 x 4 tile over a quarter of the sum a thread (4 lanes a
   // tile); state: an IR x JE tile a thread
-  static constexpr int kTilesJ = J / 4;
-  static constexpr int kState = HD * J / NT;
+  static constexpr int kTilesJ = HD / 4;
+  static constexpr int kState = HD * HD / NT;
   static constexpr int JE = 4, IR = kState / JE;
-  using StateGrid = WarpGrid<HD / IR, J / JE, NT>;
+  using StateGrid = WarpGrid<HD / IR, HD / JE, NT>;
   // shared memory in floats: r, k, w, kd [C][LD]; rd [2][C][LD]; v
-  // [2][C][LJ]; S [2][HD][LJ]; A [C][LA]; c_{C-1} [HD]; the walk's
+  // [2][C][LD]; S [2][HD][LD]; A [C][LA]; c_{C-1} [HD]; the walk's
   // partial sums [C (C + 1) / 2][kApRow]
   static constexpr int kR = 0, kK = C * LD, kW = 2 * C * LD;
   static constexpr int kKd = 3 * C * LD, kRd = 4 * C * LD;
-  static constexpr int kV = 6 * C * LD, kS = kV + 2 * C * LJ;
-  static constexpr int kA = kS + 2 * HD * LJ, kCc = kA + C * LA;
+  static constexpr int kV = 6 * C * LD, kS = kV + 2 * C * LD;
+  static constexpr int kA = kS + 2 * HD * LD, kCc = kA + C * LA;
   static constexpr int kAp = kCc + HD;
   // a row of partials: whole float4s, rows 4 banks apart
   static constexpr int kApRow = kGroup % 4 == 0 ? kGroup + 4 : kGroup + 1;
   static constexpr int kFloats = kAp + tri(C, 0) * kApRow;
   static constexpr size_t kBytes = sizeof(float) * kFloats;
-  static_assert(HD % G::kSlabs == 0 && J % 4 == 0, "slabs of 4k columns");
   static_assert(C % 4 == 0 && HD % 4 == 0, "rows of whole float4s");
-  static_assert(kPer * NT == C * HD && kPerV * NT == C * J, "staging");
+  static_assert(kPer * NT == C * HD, "staging");
   static_assert(kGroup * kPairs == NT && kIntra * kGroup == HD &&
                     kIntra % kIntraVec == 0 && NT >= HD,
                 "the intra walk: a group of lanes a pair");
-  static_assert(NT * 4 == C * J && (HD / 4) % 4 == 0,
-                "4 lanes a 4 x 4 output tile cover [C][J]");
+  static_assert(NT * 4 == C * HD && (HD / 4) % 4 == 0,
+                "4 lanes a 4 x 4 output tile cover [C][HD]");
   static_assert(IR >= 1 && IR * JE == kState && (IR <= 2 || IR % 4 == 0),
-                "state tiles cover [HD][J]");
+                "state tiles cover [HD][HD]");
 };
 
+// one block an SM is all the grid needs: without the 1, ptxas holds the
+// kernel near 100 registers (a spill at hd 16 in bf16) and it runs slower
 template <int HD, typename E>
-__global__ void __launch_bounds__(Geometry<HD>::kThreads,
-                                  Geometry<HD>::kMinBlocks)
+__global__ void __launch_bounds__(Geometry<HD>::kThreads, 1)
 wkv6_chunked(const Params P) {
   using L = Layout<HD>;
-  constexpr int C = L::C, NT = L::NT, J = L::J, LD = L::LD, LJ = L::LJ;
+  constexpr int C = L::C, NT = L::NT, LD = L::LD;
   constexpr int LA = L::LA, GP = L::kApRow;
   extern __shared__ __align__(16) float sm[];
   float* const r_s = sm + L::kR;
@@ -297,10 +276,8 @@ wkv6_chunked(const Params P) {
   float* const ap_s = sm + L::kAp;
 
   const int tid = threadIdx.x;
-  const int slab = blockIdx.x % Geometry<HD>::kSlabs;
-  const int bh = blockIdx.x / Geometry<HD>::kSlabs;
+  const int bh = blockIdx.x;
   const int bi = bh / P.h, hi = bh % P.h;
-  const int j0 = slab * J;
   // r, k, w, v by their (b, h, t) strides (P.st holds r, k, v, w)
   const E* src[4];
   int64_t ts[4];
@@ -312,12 +289,11 @@ wkv6_chunked(const Params P) {
     src[a] = static_cast<const E*>(bases[a]) + bi * s[0] + hi * s[1];
     ts[a] = s[2];
   }
-  src[3] += j0;
-  E* const out = static_cast<E*>(P.out) + bi * P.st[12] + hi * P.st[13] + j0;
+  E* const out = static_cast<E*>(P.out) + bi * P.st[12] + hi * P.st[13];
   const int64_t out_ts = P.st[14];
 
   // S starts at 0; A's upper triangle stays 0 (only t >= s is written)
-  for (int n = tid; n < HD * LJ; n += NT) s_s[n] = 0.0f;
+  for (int n = tid; n < HD * LD; n += NT) s_s[n] = 0.0f;
   for (int n = tid; n < C * LA; n += NT) a_s[n] = 0.0f;
 
   // ---- staging: chunk t0's values for this thread's slots; past T the
@@ -329,14 +305,13 @@ wkv6_chunked(const Params P) {
   for (int a = 0; a < 4; ++a)
     vec = vec && reinterpret_cast<uintptr_t>(src[a]) % (4 * sizeof(E)) == 0
           && ts[a] % 4 == 0;
-  float pf[3 * L::kPer + L::kPerV];
-  // W elements a slot: r, k, w [C][HD] and v [C][J], slot n of this thread
-  // at element (n NT + tid) W
+  float pf[4 * L::kPer];
+  // W elements a slot: r, k, w, v [C][HD], slot n of this thread at
+  // element (n NT + tid) W
   auto fetch_w = [&](auto wc, int t0) {
     constexpr int W = decltype(wc)::value;
-    constexpr int WV = L::kPerV % W == 0 ? W : 1;
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int n = 0; n < L::kPer / W; ++n) {
         const int e = (n * NT + tid) * W, t = t0 + e / HD, i = e % HD;
@@ -347,34 +322,17 @@ wkv6_chunked(const Params P) {
 #pragma unroll
           for (int c = 0; c < W; ++c) x[c] = a == 2 ? 1.0f : 0.0f;
       }
-#pragma unroll
-    for (int n = 0; n < L::kPerV / WV; ++n) {
-      const int e = (n * NT + tid) * WV, t = t0 + e / J, j = e % J;
-      float* x = pf + 3 * L::kPer + WV * n;
-      if (t < P.seq)
-        load_n<WV>(src[3] + t * ts[3] + j, x);
-      else
-#pragma unroll
-        for (int c = 0; c < WV; ++c) x[c] = 0.0f;
-    }
   };
   auto stash_w = [&](auto wc, int buf) {
     constexpr int W = decltype(wc)::value;
-    constexpr int WV = L::kPerV % W == 0 ? W : 1;
-    float* const dst[3] = {r_s, k_s, w_s};
+    float* const dst[4] = {r_s, k_s, w_s, v_s + buf * C * LD};
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int n = 0; n < L::kPer / W; ++n) {
         const int e = (n * NT + tid) * W;
         sts_n<W>(dst[a] + (e / HD) * LD + e % HD, pf + a * L::kPer + W * n);
       }
-    float* const v = v_s + buf * C * LJ;
-#pragma unroll
-    for (int n = 0; n < L::kPerV / WV; ++n) {
-      const int e = (n * NT + tid) * WV;
-      sts_n<WV>(v + (e / J) * LJ + e % J, pf + 3 * L::kPer + WV * n);
-    }
   };
   constexpr int kVec = L::kPer % 4 == 0 ? 4 : 1;
   auto fetch = [&](int t0) {
@@ -535,7 +493,7 @@ wkv6_chunked(const Params P) {
         a_s[t * LA + s] = (sum[0] + sum[1]) + (sum[2] + sum[3]);
       }
     }
-    const float* const v = v_s + buf * C * LJ;
+    const float* const v = v_s + buf * C * LD;
 #pragma unroll
     for (int a = 0; a < IR; ++a) {
       const float cc = cc_s[ig * IR + a];
@@ -546,18 +504,18 @@ wkv6_chunked(const Params P) {
     for (int s = 0; s < C; ++s) {
       float kv[IR], vv[JE];
       lds<IR>(kd_s + s * LD + ig * IR, kv);
-      lds<JE>(v + s * LJ + je * JE, vv);
+      lds<JE>(v + s * LD + je * JE, vv);
 #pragma unroll
       for (int a = 0; a < IR; ++a)
 #pragma unroll
         for (int c = 0; c < JE; ++c) S[a][c] = fmaf(kv[a], vv[c], S[a][c]);
     }
-    float* const sn = s_s + (buf ^ 1) * HD * LJ;
+    float* const sn = s_s + (buf ^ 1) * HD * LD;
 #pragma unroll
     for (int a = 0; a < IR; ++a)
 #pragma unroll
       for (int c = 0; c < JE; ++c)
-        sn[(ig * IR + a) * LJ + je * JE + c] = S[a][c];
+        sn[(ig * IR + a) * LD + je * JE + c] = S[a][c];
   };
   // 3. out_t[j] = sum_i rd[t][i] S[i][j] + sum_s A[t][s] v[s][j]: the
   // inter product (3a) beside phase 2, the intra product, the sum of the
@@ -591,11 +549,11 @@ wkv6_chunked(const Params P) {
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
-    tile_sum(rd_s + buf * C * LD, LD, s_s + buf * HD * LJ, LJ,
+    tile_sum(rd_s + buf * C * LD, LD, s_s + buf * HD * LD, LD,
              std::integral_constant<int, HD>{});
   };
   auto phase3b = [&](int buf, int t0) {
-    tile_sum(a_s, LA, v_s + buf * C * LJ, LJ,
+    tile_sum(a_s, LA, v_s + buf * C * LD, LD,
              std::integral_constant<int, C>{});
     // the four quarters' sums: lane kq ends with row kq of the tile
     const bool hi2 = kq & 2, hi1 = kq & 1;
@@ -642,7 +600,7 @@ wkv6_chunked(const Params P) {
     __syncthreads();
   }
 
-  float* s_out = P.s_out + static_cast<int64_t>(bh) * HD * HD + j0;
+  float* s_out = P.s_out + static_cast<int64_t>(bh) * HD * HD;
 #pragma unroll
   for (int a = 0; a < IR; ++a)
 #pragma unroll
@@ -653,17 +611,14 @@ wkv6_chunked(const Params P) {
 template <int HD, typename E>
 cudaError_t launch_typed(const Params& p, int blocks, cudaStream_t stream) {
   constexpr size_t bytes = Layout<HD>::kBytes;
-  static bool configured = false;         // one attribute call per kernel
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        wkv6_chunked<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  wkv6_chunked<HD, E>
-      <<<blocks * Geometry<HD>::kSlabs, Geometry<HD>::kThreads, bytes,
-         stream>>>(p);
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = once_a_device(configured, [] {
+    return cudaFuncSetAttribute(wkv6_chunked<HD, E>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(Layout<HD>::kBytes));
+  });
+  if (err != cudaSuccess) return err;
+  wkv6_chunked<HD, E><<<blocks, Geometry<HD>::kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -674,13 +629,6 @@ cudaError_t launch_hd(const Params& p, int bf16, int blocks,
               : launch_typed<HD, float>(p, blocks, stream);
 }
 
-template <int HD>
-void geometry(int* out) {
-  out[0] = Geometry<HD>::kChunk;
-  out[1] = Geometry<HD>::kSlabs;
-  out[2] = Geometry<HD>::kThreads;
-}
-
 }  // namespace
 
 extern "C" {
@@ -689,20 +637,11 @@ const char* wkv6_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// the built geometry for head dim hd: out = {chunk, slabs, threads}
-int wkv6_geometry(int hd, int* out) {
-  switch (hd) {
-    case 16: geometry<16>(out); return 0;
-    case 64: geometry<64>(out); return 0;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // strides: 15 int64 in elements, (batch, head, time) of r, k, v, w, out.
 // dtype of r, k, v, w and out: 0 f32, 1 bf16; u and s_out are f32.
 // hd in {16, 64} (rwkv6's reduced and published head dims); other values
 // return cudaErrorInvalidValue (the wrapper refuses them first).  The
-// grid is b * h * (the head dim's slab count) blocks.
+// grid is b * h blocks.
 int wkv6_forward(const void* r, const void* k, const void* v, const void* w,
                  const float* u, void* out, float* s_out,
                  const int64_t* strides, int bf16, int b, int h, int T,

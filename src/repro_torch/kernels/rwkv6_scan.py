@@ -11,10 +11,8 @@ state ``S_T`` [b, h, hd, hd] in f32, which the model's prefill hands to
 decode (the Pallas kernel drops it).  It computes the recurrence in
 chunks of C steps (the chunked form: running products of the decays,
 an inter product with the chunk's starting state, the intra matrix with
-the bonus on its diagonal, one state update a chunk), one block a (b, h)
-or a column slab of it; ``GEOMETRY`` gives C, the slab count and the
-block's threads for each head dim, as csrc/wkv6.cu builds them
-(``built_geometry`` reads them back from the library).
+the bonus on its diagonal, one state update a chunk), one block a
+(b, h).
 
 It takes CUDA tensors only (``ops`` routes CPU tensors to ``ref.wkv6``):
 r / k / v / w [b, h, T, hd] of one dtype, f32 or bf16, any strides with a
@@ -36,10 +34,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launches import bind_error_string, launch
 
 HEAD_DIMS = (16, 64)             # rwkv6's reduced and published configs
-# head dim -> (chunk length C, column slabs a head, threads a block)
-GEOMETRY = {16: (16, 1, 64), 64: (16, 1, 256)}
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_BLOCKS = 2 ** 31 - 1        # b * h * slabs blocks along the grid's x
+_MAX_BLOCKS = 2 ** 31 - 1        # b * h blocks along the grid's x axis
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -53,20 +49,9 @@ def _library() -> ctypes.CDLL:
                                      ctypes.POINTER(ctypes.c_int64),
                                      I, I, I, I, I, P]
         lib.wkv6_forward.restype = ctypes.c_int
-        lib.wkv6_geometry.argtypes = [I, ctypes.POINTER(ctypes.c_int)]
-        lib.wkv6_geometry.restype = ctypes.c_int
         bind_error_string(lib.wkv6_error_string)
         _lib = lib
     return _lib
-
-
-def built_geometry(hd: int) -> Tuple[int, int, int]:
-    """(chunk, slabs, threads) of the built kernel for head dim ``hd``."""
-    got = (ctypes.c_int * 3)()
-    rc = _library().wkv6_geometry(hd, got)
-    if rc != 0:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    return tuple(got)
 
 
 def validate(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,9 +79,8 @@ def validate(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if min(b, h, T) < 1:
         raise ValueError(f"need non-empty shapes, got b={b}, h={h}, T={T}")
-    if b * h * GEOMETRY[hd][1] > _MAX_BLOCKS:
-        raise ValueError(f"b * h * slabs = {b * h * GEOMETRY[hd][1]} "
-                         f"exceeds {_MAX_BLOCKS}")
+    if b * h > _MAX_BLOCKS:
+        raise ValueError(f"b * h = {b * h} exceeds {_MAX_BLOCKS}")
     if not isinstance(u, torch.Tensor) or tuple(u.shape) != (h, hd):
         raise ValueError(f"u must be [h, hd] = {(h, hd)}, got "
                          f"{getattr(u, 'shape', type(u))}")

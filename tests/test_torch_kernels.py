@@ -633,14 +633,6 @@ def test_wkv6_decays_at_zero_denormal_and_near_one(dev, hd, T, decay):
     torch.testing.assert_close(S, S_want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("hd", WK.HEAD_DIMS)
-def test_wkv6_built_geometry_is_the_wrappers(dev, hd):
-    """The chunk length, slab count and block size csrc/wkv6.cu was built
-    with are the ones the wrapper (and the CPU emulation of the chunk
-    walk, tests/test_torch_wkv6_chunks.py) assume."""
-    assert WK.built_geometry(hd) == WK.GEOMETRY[hd]
-
-
 def test_wkv6_rejects_what_it_does_not_take(dev):
     r, k, v, w, u = _wkv_case(dev, 1, 2, 8, 48)
     with pytest.raises(ValueError, match="head dim"):

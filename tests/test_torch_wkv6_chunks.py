@@ -9,11 +9,11 @@ by the lanes' multiplicative scan, product for product), the intra walk
 over source pairs (p, C-1-p) carrying
 k_s * P(s, t) forward one multiply by w_t a step, the bonus on the
 intra matrix's diagonal, the inter product with the chunk's starting
-state and the state update — is reproduced chunk by chunk and slab by
-slab, at the chunk length and slab count the wrapper ships
-(``rwkv6_scan.GEOMETRY``; the card tests hold the built kernel to the
-same numbers).  The card tests (``tests/test_torch_kernels.py``) hold
-the kernel itself to the plain version.
+state and the state update — is reproduced chunk by chunk, at the
+chunk length and block size the kernel is built with (read from
+``Geometry`` in ``csrc/wkv6.cu``).  The card tests
+(``tests/test_torch_kernels.py``) hold the kernel itself to the plain
+version.
 
 Tolerance: 2e-5 (rtol and atol), the reference's ``test_wkv6``; the sums
 associate differently from the step-by-step form (about C ulps), and
@@ -23,6 +23,9 @@ held otherwise: with w = 1 - 2^-20 everywhere at T = 300 the state sums
 themselves up to 5e-5 from the f64 truth, so the chunk walk is held to
 the truth, no farther from it than they are (it is nearer).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +40,18 @@ from repro_torch.kernels import rwkv6_scan as WK
 
 F32 = np.float32
 TOL = 2e-5
+
+
+def source_geometry() -> dict:
+    """head dim -> (chunk length, threads a block) as ``Geometry`` in
+    csrc/wkv6.cu builds them."""
+    src = (Path(WK.__file__).parent / "csrc" / "wkv6.cu").read_text()
+    found = re.findall(r"struct Geometry<(\d+)> \{\s*static constexpr int "
+                       r"kChunk = (\d+), kThreads = (\d+);", src)
+    return {int(hd): (int(c), int(t)) for hd, c, t in found}
+
+
+GEOMETRY = source_geometry()
 
 
 def running_products(rc, wc, span: int):
@@ -69,12 +84,11 @@ def running_products(rc, wc, span: int):
     return rd, incl[-1]
 
 
-def chunk_walk(r, k, v, w, u, chunk: int, slabs: int, span: int = 1):
+def chunk_walk(r, k, v, w, u, chunk: int, span: int = 1):
     """out [b, h, T, hd] and S_T [b, h, hd, hd] as csrc/wkv6.cu computes
-    them: every chunk of every column slab, in f32, the running products
-    over ``span`` lanes a column."""
+    them: chunk by chunk, in f32, the running products over ``span``
+    lanes a column."""
     b, h, T, hd = r.shape
-    J = hd // slabs
     nch = -(-T // chunk)
     pad = nch * chunk - T
 
@@ -83,42 +97,37 @@ def chunk_walk(r, k, v, w, u, chunk: int, slabs: int, span: int = 1):
                               axis=2)
     r, k, v, w = padded(r, 0), padded(k, 0), padded(v, 0), padded(w, 1)
     out = np.zeros((b, h, T, hd), F32)
-    s_t = np.zeros((b, h, hd, hd), F32)
-    for sl in range(slabs):
-        js = slice(sl * J, (sl + 1) * J)
-        S = np.zeros((b, h, hd, J), F32)
-        for ch in range(nch):
-            t0 = ch * chunk
-            rc, kc, wc = (x[:, :, t0:t0 + chunk] for x in (r, k, w))
-            vc = v[:, :, t0:t0 + chunk, js]
-            # 1a. running products down each column
-            rd, c = running_products(rc, wc, span)
-            # 1b. the intra walk, a pair of sources a thread group
-            A = np.zeros((b, h, chunk, chunk), F32)
-            kd = np.empty_like(kc)
-            for p in range(chunk // 2):
-                for s in (p, chunk - 1 - p):
-                    x = kc[:, :, s].copy()
-                    A[:, :, s, s] = (rc[:, :, s] * (u * x)).sum(-1, dtype=F32)
-                    for t in range(s + 1, chunk):
-                        A[:, :, t, s] = (rc[:, :, t] * x).sum(-1, dtype=F32)
-                        x = x * wc[:, :, t]
-                    kd[:, :, s] = x
-            # 2a. inter + intra (bonus on the diagonal); 2b. the state
-            o = (np.einsum("bhti,bhij->bhtj", rd, S)
-                 + np.einsum("bhts,bhsj->bhtj", A, vc)).astype(F32)
-            n = min(chunk, T - t0)
-            out[:, :, t0:t0 + n, js] = o[:, :, :n]
-            S = (c[..., None] * S
-                 + np.einsum("bhsi,bhsj->bhij", kd, vc)).astype(F32)
-        s_t[..., js] = S
-    return out, s_t
+    S = np.zeros((b, h, hd, hd), F32)
+    for ch in range(nch):
+        t0 = ch * chunk
+        rc, kc, wc, vc = (x[:, :, t0:t0 + chunk] for x in (r, k, w, v))
+        # 1a. running products down each column
+        rd, c = running_products(rc, wc, span)
+        # 1b. the intra walk, a pair of sources a thread group
+        A = np.zeros((b, h, chunk, chunk), F32)
+        kd = np.empty_like(kc)
+        for p in range(chunk // 2):
+            for s in (p, chunk - 1 - p):
+                x = kc[:, :, s].copy()
+                A[:, :, s, s] = (rc[:, :, s] * (u * x)).sum(-1, dtype=F32)
+                for t in range(s + 1, chunk):
+                    A[:, :, t, s] = (rc[:, :, t] * x).sum(-1, dtype=F32)
+                    x = x * wc[:, :, t]
+                kd[:, :, s] = x
+        # 2a. inter + intra (bonus on the diagonal); 2b. the state
+        o = (np.einsum("bhti,bhij->bhtj", rd, S)
+             + np.einsum("bhts,bhsj->bhtj", A, vc)).astype(F32)
+        n = min(chunk, T - t0)
+        out[:, :, t0:t0 + n] = o[:, :, :n]
+        S = (c[..., None] * S
+             + np.einsum("bhsi,bhsj->bhij", kd, vc)).astype(F32)
+    return out, S
 
 
 def shipped(r, k, v, w, u):
     hd = r.shape[-1]
-    chunk, slabs, threads = WK.GEOMETRY[hd]
-    return chunk_walk(r, k, v, w, u, chunk, slabs, threads // hd)
+    chunk, threads = GEOMETRY[hd]
+    return chunk_walk(r, k, v, w, u, chunk, threads // hd)
 
 
 def wkv6_f64(r, k, v, w, u):
@@ -159,7 +168,7 @@ def _close(got, want):
 
 
 def _steps(hd):
-    chunk = WK.GEOMETRY[hd][0]
+    chunk = GEOMETRY[hd][0]
     return [1, chunk - 1, chunk, chunk + 1, 37, 300]
 
 
@@ -167,7 +176,7 @@ def _steps(hd):
 @pytest.mark.parametrize("hd,T", [(hd, T) for hd in WK.HEAD_DIMS
                                   for T in _steps(hd)])
 def test_chunk_walk_matches_plain_and_reference(hd, T, decay):
-    """The shipped chunk length and slab count, over T below, at, just
+    """The shipped chunk length and block size, over T below, at, just
     past and many times the chunk, with w as test_wkv6 draws it, with
     exact zeros, with denormals and near 1: finite, and out and S_T
     within 2e-5 of the plain version and of the JAX reference."""
@@ -189,13 +198,12 @@ def test_chunk_walk_matches_plain_and_reference(hd, T, decay):
     _close(S, S_plain)
 
 
-@pytest.mark.parametrize("chunk,slabs,span", [(8, 4, 1), (16, 1, 4),
-                                              (16, 2, 2), (32, 2, 8)])
-def test_chunk_walk_any_geometry_matches_plain(chunk, slabs, span):
-    """Other chunk lengths, slab counts and lanes a column (the variants
-    measured on the card) compute the same recurrence."""
-    a = inputs(1, 2, 45, 64, seed=chunk + slabs)
-    out, S = chunk_walk(*a, chunk, slabs, span)
+@pytest.mark.parametrize("chunk,span", [(8, 1), (16, 4), (16, 2), (32, 8)])
+def test_chunk_walk_any_geometry_matches_plain(chunk, span):
+    """Other chunk lengths and lanes a column (the variants measured on
+    the card) compute the same recurrence."""
+    a = inputs(1, 2, 45, 64, seed=chunk + span)
+    out, S = chunk_walk(*a, chunk, span)
     plain, S_plain = R.wkv6(*map(torch.from_numpy, a))
     _close(out, plain.numpy())
     _close(S, S_plain.numpy())
@@ -215,24 +223,24 @@ def test_zero_decay_cuts_the_past():
 
 
 def test_geometry_covers_the_head():
-    """Each head dim's block geometry divides as the kernel's static
-    checks require: an even chunk (source pairs) of whole float4 rows,
-    whole column slabs, four lanes a 4 x 4 output tile over [C][J], a
-    power-of-two span of lanes a column for the running products, a
-    group of lanes a source pair that divides hd (a whole warp at hd 64,
-    so a warp's pair is a compile-time constant of its branch)."""
-    for hd, (chunk, slabs, threads) in WK.GEOMETRY.items():
-        assert hd in WK.HEAD_DIMS
-        J = hd // slabs
-        assert chunk % 4 == 0 and J % 4 == 0 and (hd // 4) % 4 == 0
-        assert 4 * threads == chunk * J
+    """The kernel source builds every head dim the wrapper takes, and each
+    one's block geometry divides as the kernel's static checks require:
+    an even chunk (source pairs) of whole float4 rows, four lanes a 4 x 4
+    output tile over [C][hd], a power-of-two span of lanes a column for
+    the running products, a group of lanes a source pair that divides hd
+    (a whole warp at hd 64, so a warp's pair is a compile-time constant
+    of its branch)."""
+    assert sorted(GEOMETRY) == sorted(WK.HEAD_DIMS)
+    for hd, (chunk, threads) in GEOMETRY.items():
+        assert chunk % 4 == 0 and (hd // 4) % 4 == 0
+        assert 4 * threads == chunk * hd
         span = threads // hd
         assert span * hd == threads and span & (span - 1) == 0
         assert chunk % span == 0
         group = threads // (chunk // 2)
         assert group * (chunk // 2) == threads and hd % group == 0
-        assert (chunk * hd) % threads == 0 and (chunk * J) % threads == 0
-    assert WK.GEOMETRY[64][2] // (WK.GEOMETRY[64][0] // 2) == 32
+        assert (chunk * hd) % threads == 0
+    assert GEOMETRY[64][1] // (GEOMETRY[64][0] // 2) == 32
 
 
 @pytest.mark.parametrize("s,chunk", [(37, 8), (64, 16), (5, 16), (300, 128)])
