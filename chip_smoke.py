@@ -117,6 +117,7 @@ a card, or outside a checkout.  Phases:
       (y within 2e-5 in f32 and 2e-2 in bf16, h_T within 2e-5); kernel,
       plain and bound ms at each (the bound counts bytes, the exps at
       the SFU's rate and the FMAs; no PyTorch call computes the scan);
+      the kernel's ptxas lines (registers, spills, shared memory);
    b. serve.serve at jamba-v0.1's full width cut to one layer group (the
       published 8-layer period: 7 mamba layers, attention at index 4, MoE
       on the odd layers; 13,295,235,072 parameters from the port's init,
@@ -167,11 +168,14 @@ a card, or outside a checkout.  Phases:
       N = 16,384, 2^24 and 2^27 and at the ragged shapes (17,), (255, 9),
       (3, 5, 7, 11); B8 (the threshold pass, tau 0.01) bit for bit on the
       bench bus in f32 and bf16, a ragged 9,000 and 2^27, kept + residual
-      == x; B11 (quantize + pack) byte for byte at k = 656, 1,313, 1,000,
-      105,075 and 6,710,886, its body equal to B12 of B9's payload.  Each
-      timed beside its plain version and its bound at the bench's shape
-      (2^24, the bench bus, k = 105,075) and at 2^27 (no single PyTorch
-      call computes any of the three: no library time);
+      == x; B11 (quantize + pack) byte for byte at every k mod 16 (k =
+      4,096-4,111; sel and idx also at element offsets from their
+      allocations, off 16-byte boundaries; block 256 and 100) and at k =
+      656, 1,313, 1,000, 105,075 and 6,710,886, its body equal to B12 of
+      B9's payload.  Each timed beside its plain version and its bound,
+      with its share of the bound, at the bench's shape (2^24, the bench
+      bus, k = 105,075) and at 2^27 (no single PyTorch call computes any
+      of the three: no library time);
    b. repro_torch.benchmarks.run with every suite (kernels, flat,
       flat_adam, compression, roofline) in this process on the card with
       --check: the launch gate equals results/BASELINE_launches.json (flat
@@ -365,6 +369,18 @@ class Phases:
 def bound_ms(nbytes: float, ops: float):
     t_mem, t_ops = nbytes / KB.HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
+
+
+def say_ptxas(build, source: str, label: str) -> None:
+    """The ptxas lines (registers, spills, shared memory) of one source's
+    kernels, from this run's build."""
+    log = build.build_log.get(source)
+    if log is None:
+        say(f"{label} ptxas: not built in this run (its library was "
+            f"already in build/kernels)")
+    for line in (log or "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            say(f"{label} ptxas: {line.strip()}")
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -2005,6 +2021,10 @@ DC_MAIN_N = 1 << 24              # the bench's dc_lerp_flat_16M row
 B8_TAU = 0.01                    # the bench's threshold_sparsify rows
 B11_KS = (656, 1313, 1000, 105_075, BIG_K)
 B11_MAIN_K = 105_075             # the bench bus's k (density 0.05)
+# every k mod 16 (the value section's last lane, the scale and index
+# sections' shifts and seams), and sel / idx off 16-byte boundaries
+B11_MOD16_KS = tuple(4096 + r for r in range(16))
+B11_OFFSETS = ((0, 0), (1, 0), (0, 3), (2, 1))
 BENCH_SUITES = ("kernels", "flat", "flat_adam", "compression", "roofline")
 
 
@@ -2104,6 +2124,27 @@ def new_kernels_parity(torch, np, VK, TK, QK, SK, R) -> dict:
                 out["threshold_sparsify"] = rec
         del x, kk, kr, pk, pr
     torch.cuda.empty_cache()
+
+    # B11 at every k mod 16, sel / idx at element offsets from their
+    # allocation, the wire's block and a generic one
+    for k in B11_MOD16_KS:
+        for so, io in B11_OFFSETS:
+            sel = (rnd(k + so) * 0.01)[so:]
+            idx = torch.randint(0, 2 ** 31 - 1, (k + io,), generator=g,
+                                device=dev, dtype=torch.int32)[io:]
+            for block in ((QBLOCK, 100) if (so, io) == (0, 0) else
+                          (QBLOCK,)):
+                (kb, kq, ks_), (pb, pq, ps) = (
+                    SK.quantize_pack(sel, idx, block),
+                    R.quantize_pack(sel, idx, block))
+                torch.cuda.synchronize()
+                check(torch.equal(kb, pb) and torch.equal(kq, pq)
+                      and bits_equal(torch, ks_, ps),
+                      f"B11 k={k} sel/idx at +{so}/+{io} block {block}: "
+                      f"kernel != plain version")
+    say(f"parity B11 quantize_pack at k = {B11_MOD16_KS[0]}.."
+        f"{B11_MOD16_KS[-1]} (every k mod 16), sel / idx at element "
+        f"offsets {B11_OFFSETS}, block {QBLOCK} and 100: byte-exact")
 
     # B11, and B12 of B9's payload
     for k in B11_KS:
@@ -2343,13 +2384,7 @@ def main() -> int:
     # ---- 6. serve: B13, internlm2-1.8b at full width, card vs CPU -------
     phases.start("6")
     numbers["flash_attention"] = attention_parity(torch, np, FK, R)   # 6a
-    log = build.build_log.get("flash_attention_sm90")
-    if log is None:
-        say("B13 wgmma kernel ptxas: not built in this run (its library "
-            "was already in build/kernels)")
-    for line in (log or "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say(f"B13 wgmma kernel ptxas: {line.strip()}")
+    say_ptxas(build, "flash_attention_sm90", "B13 wgmma kernel")
     attention_host_cost(torch, FK)
     torch.cuda.empty_cache()
     serve_counts = serve_full_width(torch, VK)                        # 6b
@@ -2366,6 +2401,7 @@ def main() -> int:
     # ---- 8. serve jamba: B15, jamba-v0.1 one group at full width --------
     phases.start("8")
     numbers["mamba_scan"] = mamba_scan_parity(torch, MK, R)           # 8a
+    say_ptxas(build, "mamba_scan", "B15")
     jamba_counts = serve_jamba_full_width(torch, VK)                  # 8b
     serve_card_vs_cpu(torch, VK, jamba_config(JAMBA_CMP_BLOCKS),      # 8c
                       {"mamba_scan": 1, "flash_attention": 1}, ATTN_ROUTES)

@@ -2,12 +2,16 @@
 the card, so that two checkouts can be read in turns.
 
     python src/repro_torch/benchmarks/serve_prefill.py [--src DIR] \\
-        [--label L] [--arch rwkv6-1.6b] [--batch 4] [--prompt-len 2048] \\
-        [--reps 5]
+        [--label L] [--arch rwkv6-1.6b] [--groups N] [--batch 4] \\
+        [--prompt-len 2048] [--reps 5]
 
 Needs one CUDA card.  ``--src`` imports ``repro_torch`` from DIR (default:
 this checkout's ``src``); run two trees each in its own process (A, B,
-B, A).  The weights are the port's init from seed 0, cast as
+B, A).  ``--groups N`` cuts the config's depth to N repeats of its first
+layer group at full width (``--arch jamba-v0.1-52b --groups 1``: the
+published 8-layer period once, as ``chip_smoke.py``'s ``jamba_config``
+builds it; the whole model does not fit one card).  The weights are the
+port's init from seed 0, cast as
 ``launch/serve.py`` places them; the prompt is ``make_batch_for``'s from
 seed 0.  One prefill (cold: the first use of every kernel), then
 ``--reps`` prefills (warm), each timed by the host clock around work that
@@ -31,6 +35,8 @@ def main(argv=None) -> int:
                     help="the src directory to import repro_torch from")
     ap.add_argument("--label", default="", help="a name for this tree")
     ap.add_argument("--arch", default="rwkv6-1.6b")
+    ap.add_argument("--groups", type=int, default=0,
+                    help="repeats of the first layer group (0: the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=5)
@@ -40,11 +46,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("serve_prefill needs a CUDA card")
     from repro_torch.configs import get_config
+    from repro_torch.models.common import LayerGroup
     from repro_torch.data import make_batch_for
     from repro_torch.kernels.launches import launch_counts
     from repro_torch.models.registry import build_model
 
     cfg = get_config(args.arch)
+    if args.groups:
+        cfg = cfg.replace(layer_groups=(
+            LayerGroup(cfg.layer_groups[0].blocks, args.groups),))
     model = build_model(cfg)
     params = model.init(0, device="cuda", cast=True)
     tokens = make_batch_for(cfg, args.batch, args.prompt_len, 0)["tokens"]
@@ -64,6 +74,7 @@ def main(argv=None) -> int:
     warm = [prefill() for _ in range(args.reps)]
     print(json.dumps({
         "label": args.label, "src": args.src, "arch": args.arch,
+        "groups": args.groups or None,
         "device": torch.cuda.get_device_name(0),
         "batch": args.batch, "prompt_len": args.prompt_len,
         "cold_ms": cold, "warm_ms": warm,

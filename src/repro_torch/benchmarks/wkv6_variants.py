@@ -21,7 +21,8 @@ Prints each variant's ptxas lines, then one JSON line:
 
 * ``ms``: CUDA-event milliseconds a call at each of chip_smoke.py phase
   7a's shapes (f32), ``iters`` calls a timing, the variants timed in
-  turns (forward, then backward order, ``ROUNDS`` times), the mean kept;
+  turns (forward, then backward order, ``variants.ROUNDS`` times), the
+  mean kept;
 * ``share``: the shape's bound (bytes at 3.35 TB/s or f32 FMAs at 67
   TFLOP/s, the larger) over the time;
 * ``max_abs_err``: out and the final state against ``ref.wkv6`` at each
@@ -36,7 +37,6 @@ import json
 import re
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 # chip_smoke.py phase 7a's shapes: (b, h, T, hd, [b, T, h, hd] views)
@@ -50,7 +50,6 @@ SHAPES = {
 DECAYS = {"w zeros": (2, 8, 300, 64, "zero"),
           "w denormal": (2, 8, 300, 64, "denormal")}
 TOL = 2e-5
-ROUNDS = 3
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -76,6 +75,7 @@ def variant_source(src: str, chunk: str, threads: str, mods: list) -> str:
 def build(variants, parent, out_dir: Path, nvcc, arch, csrc: Path):
     """({name: (library path, nvcc output)}, {name: nvcc output of a
     variant that did not build}), every nvcc started together."""
+    from repro_torch.benchmarks import variants as V
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in variants:
@@ -84,26 +84,13 @@ def build(variants, parent, out_dir: Path, nvcc, arch, csrc: Path):
         src.write_text(variant_source((csrc / "wkv6.cu").read_text(),
                                       *geometry.split("x"), mods))
         jobs[name] = src
+    built, refused = V.build(jobs, out_dir, nvcc, arch, csrc)
     if parent:
-        jobs["parent"] = Path(parent) / "wkv6.cu"
-    procs = {}
-    for name, src in jobs.items():
-        lib = out_dir / f"libwkv6-{name}.so"
-        cmd = [nvcc, *arch, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-               "-fPIC", "-Xptxas", "-v", "-I", str(csrc), "-o", str(lib),
-               str(src)]
-        procs[name] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built, refused = {}, {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            refused[name] = log
-            print(f"nvcc refused {name}:\n{log}", flush=True)
-        else:
-            built[name] = (lib, log)
+        more, bad = V.build({"parent": Path(parent) / "wkv6.cu"},
+                            out_dir / "parent", nvcc, arch, csrc)
+        built.update(more)
+        refused.update(bad)
     return built, refused
-
 
 def bind(path: Path):
     lib = ctypes.CDLL(str(path))
@@ -162,29 +149,6 @@ def bound_ms(b, h, T, hd):
     return 1e3 * max(t_mem, t_ops)
 
 
-def event_ms(torch, calls: dict, iters: int) -> dict:
-    """Mean CUDA-event ms a call of each of ``calls``, in turns."""
-    keys = list(calls)
-    runs = {k: [] for k in keys}
-    t_end = time.perf_counter() + 1.0
-    while time.perf_counter() < t_end:
-        calls[keys[0]]()
-        torch.cuda.synchronize()
-    for r in range(ROUNDS):
-        for k in (keys if r % 2 == 0 else keys[::-1]):
-            calls[k]()
-            torch.cuda.synchronize()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(iters):
-                calls[k]()
-            t1.record()
-            t1.synchronize()
-            runs[k].append(t0.elapsed_time(t1) / iters)
-    return {k: sum(v) / len(v) for k, v in runs.items()}
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants",
@@ -198,18 +162,13 @@ def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("wkv6_variants needs a CUDA card")
+    from repro_torch.benchmarks import variants as V
     from repro_torch.kernels import build as B
     from repro_torch.kernels import ref as R
     variants = [v for v in args.variants.split(",") if v]
     built, refused = build(variants, args.parent, root / "build" / "variants",
                            B.nvcc(), B.ARCH_FLAGS, B.CSRC)
-    ptxas = {}
-    for name, (_, log) in built.items():
-        ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln
-                       or "Compiling entry" in ln]
-        for ln in ptxas[name]:
-            print(f"ptxas {name}: {ln}", flush=True)
+    ptxas = V.ptxas_lines(built)
     fns = {name: bind(lib) for name, (lib, _) in built.items()}
 
     rec = {"device": torch.cuda.get_device_name(0), "ms": {}, "share": {},
@@ -237,7 +196,7 @@ def main(argv=None) -> int:
                 bad.add(name)
         if decay != "test":
             continue
-        ms = event_ms(torch, {n: c for n, c in calls.items()
+        ms = V.event_ms(torch, {n: c for n, c in calls.items()
                               if n not in bad}, args.iters)
         bound = bound_ms(b, h, T, hd)
         for name, t in ms.items():

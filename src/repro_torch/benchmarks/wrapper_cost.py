@@ -6,8 +6,9 @@ of the batched fold, B12 (``pack_body``) of every sparse frame and B10
 — beside the one PyTorch call that computes the same function
 (``torch.lerp``, ``torch._fused_adam_``, ``torch.addmv``, ``torch.cat``
 of the three byte views, ``torch.mul`` of the zero-padded q by its
-scales), of B13's wrapper, and B14's time at rwkv6-1.6b's prefill
-shape.
+scales), of B11 (``quantize_pack``, no such call) on the bench bus, of
+B13's wrapper, and B14's and B15's times at rwkv6-1.6b's and jamba's
+prefill shapes.
 
     python src/repro_torch/benchmarks/wrapper_cost.py [--src DIR] [--label L]
 
@@ -17,19 +18,23 @@ one card, each in its own process (A, B, B, A).  Prints one JSON line:
 
 * ``host_us``: host microseconds a call, the host clock around
   ``HOST_CALLS`` back-to-back calls at the main sizes (the MLP bus, N =
-  16,384 f32; its sparse payload, k = 656), where the kernel is shorter
-  than the call; every call of the tree and every stage below timed in
-  turns, ``ROUNDS`` rounds, the median kept;
+  16,384 f32; its sparse payload, k = 656; B11 at the bench bus's k =
+  105,075), where the kernel is shorter than the call; every call of the
+  tree and every stage below timed in turns, ``ROUNDS`` rounds, the
+  median kept;
 * ``event_ms``: CUDA-event milliseconds a call over 50 calls at the main
-  sizes and 10 at N = 2^27 / k = 6,710,886, the calls of one size in
-  turns (A B B A, twice, after a warm-up), the mean kept;
+  sizes and 10 at N = 2^27 / k = 6,710,886 (B11 there too), the calls of
+  one size in turns (A B B A, twice, after a warm-up), the mean kept;
 * ``graph_us``: device microseconds a call at the main sizes, the calls
   captured 100 at a time in one CUDA graph and replayed (no host work
   between launches: what is left is the kernel and the launch gap);
 * ``bound_ms``: bytes moved at 3.35 TB/s at 2^27 / k = 6,710,886 (12 B
   an element for Eq. 1, 28 for Adam, 4 (n + 2) for Eq. 2; twice the
-  body's 5k + 4 ng bytes for the pack; 5k + 4 ng for the dequantize),
-  and B14's at [4, 32, 2,048, 64] f32 (337.6 MB);
+  body's 5k + 4 ng bytes for the pack; 5k + 4 ng for the dequantize;
+  sel and idx read, body, q and scales written for B11), B14's at [4,
+  32, 2,048, 64] f32 (337.6 MB), and B15's at jamba's prefill shape (the
+  SFU's exps at 16 a clock an SM at 1.98 GHz, 0.2568 ms; its 540 MB take
+  0.161);
 * ``stages_us``: where a wrapper call's host time goes (checks, scalars
   or weights, output allocation, stream lookup, the ctypes call with its
   launch), each stage alone, timed in the same turns as ``host_us`` (only
@@ -39,6 +44,9 @@ one card, each in its own process (A, B, B, A).  Prints one JSON line:
 * ``b14_ms``: CUDA-event ms of one B14 call at rwkv6-1.6b's prefill
   shape, [4, 32, 2,048, 64] f32 (chip_smoke.py phase 7a's shape a), 10
   calls a timing after a warm-up, the mean of four timings;
+* ``b15_ms``: the same for B15 at jamba-v0.1's prefill shape, u [4,
+  2,048, 8,192] bf16, ds 16, B and C column views of an x_proj output
+  (chip_smoke.py phase 8a's shape d);
 * ``bench``: the CSV rows of the port's ``flat`` and ``flat_adam``
   suites (``repro_torch.benchmarks.run``);
 * ``client_step_us``: host microseconds of one client step of the
@@ -62,6 +70,9 @@ MAIN_N, BIG_N = 16384, 2 ** 27
 # B12's payload at each bus size: the MLP's upload at density 0.05, and
 # 0.05 of 2^27
 PACK_K = {MAIN_N: 656, BIG_N: int(BIG_N * 0.05)}
+# B11's payload beside each: the bench bus's (0.05 of 2,101,504), and
+# 0.05 of 2^27
+QPACK_K = {MAIN_N: 105_075, BIG_N: int(BIG_N * 0.05)}
 N_CLIENTS = 4                    # B2: 4b's batch of four results
 QBLOCK = 256
 HOST_CALLS, ROUNDS = 200, 9
@@ -168,6 +179,9 @@ def calls(torch, np, VK, SK, QK, n: int) -> dict:
     q_pad = torch.zeros(ng * QBLOCK, dtype=torch.int8, device="cuda")
     q_pad[:k] = q
     q_rows, sc_col = q_pad.view(ng, QBLOCK), sc[:, None]
+    sel = rnd(QPACK_K[n]) * 0.01
+    sidx = torch.randint(0, 2 ** 31 - 1, (QPACK_K[n],), generator=g,
+                         device="cuda", dtype=torch.int32)
     return {
         "B1 vc_asgd_lerp_flat": lambda: VK.vc_asgd_lerp_flat(s, c, ALPHA),
         "torch.lerp": lambda: torch.lerp(c, s, a32),
@@ -184,6 +198,7 @@ def calls(torch, np, VK, SK, QK, n: int) -> dict:
         "torch.cat": lambda: torch.cat([qb, sb, ib]),
         "B10 dequantize_int8": lambda: QK.dequantize_int8(q, sc, k),
         "torch.mul": lambda: torch.mul(q_rows, sc_col),
+        "B11 quantize_pack": lambda: SK.quantize_pack(sel, sidx),
     }
 
 
@@ -270,6 +285,27 @@ def stages(torch, np, VK, SK, QK, LA) -> dict:
                 5 * k + 4 * ng, dtype=torch.uint8, device=dev),
             "pack ctypes call + launch":
                 lambda: pfn(qp, sp, ip, bp, k, ng, stream)})
+    if hasattr(SK, "_quantize_pack_checks"):
+        kq = QPACK_K[MAIN_N]
+        sel = torch.randn(kq, generator=g, device="cuda")
+        sidx = torch.arange(kq, dtype=torch.int32, device="cuda")
+        ngq = -(-kq // QBLOCK)
+        qb_, qq_, qs_ = SK.quantize_pack(sel, sidx)
+        _, sp_, ip_, _ = SK._quantize_pack_checks(sel, sidx, QBLOCK)
+        qptrs = (qb_.data_ptr(), qq_.data_ptr(), qs_.data_ptr())
+        qfn = SK._quantize_pack
+        out.update({
+            "quantize_pack checks (2 operands)":
+                lambda: SK._quantize_pack_checks(sel, sidx, QBLOCK),
+            "quantize_pack outputs (3 torch.empty)": lambda: (
+                torch.empty(5 * kq + 4 * ngq, dtype=torch.uint8, device=dev),
+                torch.empty(ngq * QBLOCK, dtype=torch.int8, device=dev),
+                torch.empty(ngq, dtype=torch.float32, device=dev)),
+            "quantize_pack outputs (1 torch.empty carved in 3)":
+                lambda: carve(torch, 5 * kq + 4 * ngq, ngq * QBLOCK, ngq,
+                              dev),
+            "quantize_pack ctypes call + launch":
+                lambda: qfn(sp_, ip_, *qptrs, kq, QBLOCK, stream)})
     if hasattr(QK, "_dequantize_checks"):
         dq, dsc, _ = pack_payload(torch, g, PACK_K[MAIN_N])
         dk = dq.numel()
@@ -284,6 +320,17 @@ def stages(torch, np, VK, SK, QK, LA) -> dict:
             "dequantize ctypes call + launch":
                 lambda: dfn(dqp, dsp, dop, dk, QBLOCK, stream)})
     return out
+
+
+def carve(torch, body: int, q: int, ng: int, dev) -> tuple:
+    """B11's three outputs as views of one allocation, each on a 16-byte
+    boundary (the alternative to three ``torch.empty``, timed as a
+    stage)."""
+    qo = -(-body // 16) * 16
+    so = qo + -(-q // 16) * 16
+    buf = torch.empty(so + 4 * ng, dtype=torch.uint8, device=dev)
+    return (buf[:body], buf[qo:qo + q].view(torch.int8),
+            buf[so:so + 4 * ng].view(torch.float32))
 
 
 def b13_host(torch, FK) -> dict:
@@ -353,8 +400,24 @@ def b14_ms(torch, WK) -> float:
     return event_ms(torch, {"wkv6": lambda: WK.wkv6(*args)}, 10)["wkv6"]
 
 
+def b15_ms(torch, MK) -> float:
+    """CUDA-event ms of one B15 call at jamba's prefill shape."""
+    g = torch.Generator(device="cuda").manual_seed(2048 + 8192)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    b, T, di, ds = 4, 2048, 8192, 16
+    xdbc = rnd(b, T, 256 + 2 * ds) * 0.4
+    args = ((rnd(b, T, di) * 0.4).to(torch.bfloat16),
+            torch.nn.functional.softplus(rnd(b, T, di)),
+            xdbc[..., 256:256 + ds], xdbc[..., 256 + ds:],
+            -torch.exp(rnd(di, ds) * 0.3), torch.ones(di, device="cuda"))
+    return event_ms(torch, {"scan": lambda: MK.mamba_scan(*args)},
+                    10)["scan"]
+
+
 def size_of(name: str, n: int) -> str:
     """The size label of a call of ``calls(..., n)``."""
+    if "quantize_pack" in name:
+        return f"k={QPACK_K[n]}"
     if ("pack_body" in name or name == "torch.cat" or "dequantize" in name
             or name == "torch.mul"):
         return f"k={PACK_K[n]}"
@@ -376,6 +439,7 @@ def main(argv=None) -> int:
         raise SystemExit("wrapper_cost needs a CUDA card")
     from repro_torch.kernels import flash_attention as FK
     from repro_torch.kernels import launches as LA
+    from repro_torch.kernels import mamba_scan as MK
     from repro_torch.kernels import quantize as QK
     from repro_torch.kernels import rwkv6_scan as WK
     from repro_torch.kernels import sparse_pack as SK
@@ -399,6 +463,8 @@ def main(argv=None) -> int:
     del big
     torch.cuda.empty_cache()
     kb = PACK_K[BIG_N]
+    kq = QPACK_K[BIG_N]
+    ngq = -(-kq // QBLOCK)
     rec["bound_ms"] = {
         f"B1 N={BIG_N}": 1e3 * 12 * BIG_N / HBM_BYTES_PER_S,
         f"B3 N={BIG_N}": 1e3 * 28 * BIG_N / HBM_BYTES_PER_S,
@@ -410,9 +476,15 @@ def main(argv=None) -> int:
             / HBM_BYTES_PER_S,
         "B14 [4,32,2048,64]": 1e3 * 4 * (5 * 4 * 32 * 2048 * 64
                                          + 4 * 32 * 64 * 64 + 32 * 64)
-            / HBM_BYTES_PER_S}
+            / HBM_BYTES_PER_S,
+        f"B11 k={kq}": 1e3 * (8 * kq + 5 * kq + 4 * ngq + QBLOCK * ngq
+                              + 4 * ngq) / HBM_BYTES_PER_S,
+        "B15 [4,2048,8192] ds 16": 1e3 * 4 * 2048 * 8192 * 16
+            / (16 * 132 * 1.98e9)}
     rec["b13_host_us"] = b13_host(torch, FK)
     rec["b14_ms"] = b14_ms(torch, WK)
+    torch.cuda.empty_cache()
+    rec["b15_ms"] = b15_ms(torch, MK)
     torch.cuda.empty_cache()
     rec["bench"] = bench_rows()
     rec["client_step_us"] = client_steps(torch)

@@ -38,28 +38,49 @@
 // at 29% of its byte bound at k = 6,710,886 (PERF.md).
 //
 // B11 quantizes the selected values sel f32 [k] and packs them in the
-// same launch: B9's quantizer (quantize.cu) followed by B12's layout.
-// One 256-thread block per group of `block` values; the group's max|x|
-// by warp shuffles and shared memory (lanes past k read as 0, the
-// reference's zero padding; max is exact in any order), then
+// same launch: B9's quantizer (quantize.cu) followed by B12's layout,
 //   s = max(max|x| / 127, 1e-12)  (IEEE division: __fdiv_rn)
 //   q = clip(rint(x / s), -127, 127)
 // written to q int8 [ng * block] (zero-padded past k), to scales f32
-// [ng], and as bytes to the body: q's byte, the scale's four bytes (the
-// block's thread 0) and each index's four bytes.  This file must never be
-// built with --use_fast_math.
+// [ng], and to the body.  This file must never be built with
+// --use_fast_math.
+//
+// B11's design: a warp a group, 8 warps (groups) a block.  At the wire's
+// block of 256 (a template instance; one generic instance takes every
+// other size) a lane loads 8 values as two 16-byte loads (value by value
+// when sel is not 16-byte aligned, or across k, where the reference's
+// zero padding starts), the group's max|x| is 5 xor shuffles (max is
+// exact in any order; no barrier), and the lane's 8 q bytes go out as
+// one 8-byte store to q and one to the body's value section, at 256 g +
+// 8 lane.  The group's lane 0 writes its scale and the scale's 4 bytes
+// at k + 4 g (one word when k is a multiple of 4, else byte by byte).
+// The index section, idx's bytes at k + 4 ng on, needs nothing the
+// quantize computes: warp w also writes its 64 16-byte words, B12's
+// aligned loads and funnel shifts (load_words, join) over the section's
+// constant shift k mod 4, their loads issued before the quantize.  No
+// byte of the body is written twice: the words at the seams hold bytes
+// that other warps compute (q of the last group, the first and last
+// scales), so each owner writes its own bytes there one at a time (B12's
+// warp byte-OR path gathers a seam word's bytes from memory, where
+// B11's q and scales are not yet); the index section's first word and
+// the body's last store only their index bytes.  The old design, a
+// 256-thread block a group with two barriers and a byte store for every
+// q byte and index byte, held an H100 80GB HBM3 (700 W) at 46% of its
+// bound at k = 6,710,886 (PERF.md).
 //
 // Bound on the H100 (3.35 TB/s): B12 moves 2*(5k + 4ng) bytes, no flops;
 // B11 reads 8k (sel, idx) and writes the body (5k + 4ng), q (ng * block)
 // and the scales (4ng), for a divide, a round and a compare a value.  At
-// the MLP's k a launch costs more than the bytes: there a call costs its
-// host path (sparse_pack.py keeps it lean).
+// the MLP's k and the bench bus's a launch costs more than the bytes:
+// there a call costs its host path (sparse_pack.py keeps both lean).
 //
 // The entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "grid.cuh"
 
@@ -163,50 +184,144 @@ __device__ __forceinline__ void put_u32(uint8_t* __restrict__ at,
   for (int b = 0; b < 4; ++b) at[b] = static_cast<uint8_t>(v >> (8 * b));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B11: groups (one warp each) a block, and body words of the index
+// section a lane (the warp's 64 words, 1,024 bytes: one group's indices)
+constexpr int kGroupWarps = 8;
+constexpr int kGroupThreads = 32 * kGroupWarps;
+constexpr int kIdxWords = 2;
+
+// the index section, body bytes [at, total) = idx's bytes: 16-byte body
+// words from the one holding byte `at` on, kIdxWords * 32 a warp, word j
+// of lane l at 32 j + l (each store of a warp one 512-byte run).  A word
+// inside the section takes its bytes by B12's aligned loads and funnel
+// shifts (load_words, join); the first word, which starts in the scales
+// section, and the last, which may end past the body, store only their
+// index bytes, one at a time.
+struct IdxWords {
+  Words r[kIdxWords];
+  int64_t t[kIdxWords];
+};
+
+__device__ __forceinline__ IdxWords load_idx_words(const uint8_t* idx,
+                                                   int64_t at, int64_t total,
+                                                   int64_t warp, int lane) {
+  IdxWords w;
+#pragma unroll
+  for (int j = 0; j < kIdxWords; ++j) {
+    w.t[j] = at / 16 + warp * 32 * kIdxWords + 32 * j + lane;
+    const int64_t lo = 16 * w.t[j];
+    w.r[j] = Words{};
+    if (lo >= at && lo + 16 <= total) w.r[j] = load_words(idx + (lo - at));
+  }
+  return w;
+}
+
+__device__ __forceinline__ void store_idx_words(const IdxWords& w,
+                                                const uint8_t* idx,
+                                                uint8_t* body, int64_t at,
+                                                int64_t total) {
+#pragma unroll
+  for (int j = 0; j < kIdxWords; ++j) {
+    const int64_t lo = 16 * w.t[j];
+    if (lo >= at && lo + 16 <= total) {
+      __stcs(reinterpret_cast<uint4*>(body) + w.t[j], join(w.r[j]));
+    } else if (lo < total) {
+      for (int b = 0; b < 16; ++b)
+        if (lo + b >= at && lo + b < total) body[lo + b] = idx[lo + b - at];
+    }
+  }
+}
+
+// q = clip(rint(x / s), -127, 127) as a byte
+__device__ __forceinline__ uint32_t quant_byte(float x, float s) {
+  const float r = rintf(__fdiv_rn(x, s));
+  return static_cast<uint8_t>(
+      static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f)));
+}
+
+// the group's scale to scales[g] and its four bytes to the body at k + 4g
+__device__ __forceinline__ void put_scale(uint8_t* body, float* scales,
+                                          int64_t k, int64_t g, float s) {
+  scales[g] = s;
+  const uint32_t v = __float_as_uint(s);
+  if ((k & 3) == 0)
+    *reinterpret_cast<uint32_t*>(body + k + 4 * g) = v;
+  else
+    put_u32(body + k + 4 * g, v);
+}
+
+// B11.  BLOCK: the group size as a template parameter (256, the wire's),
+// or 0 for the generic instance, which reads it from `block`.  Warp w
+// quantizes group w (w < ng) and writes the index section's words of
+// warp w (load_idx_words); sel16: sel is 16-byte aligned.
+template <int BLOCK>
+__global__ void __launch_bounds__(kGroupThreads)
 quantize_pack_kernel(const float* __restrict__ sel,
-                     const int32_t* __restrict__ idx,
+                     const uint8_t* __restrict__ idx,
                      uint8_t* __restrict__ body, int8_t* __restrict__ q,
                      float* __restrict__ scales, int64_t k, int block,
-                     int64_t ng) {
-  __shared__ float warp_part[kThreads / 32];
-  __shared__ float scale_s;
-  const int64_t g = blockIdx.x;
-  const int64_t lo = g * block;
-  // 1. the group's max|x| (lanes past k are the zero padding)
-  float m = 0.0f;
-  for (int j = threadIdx.x; j < block; j += blockDim.x) {
-    const int64_t i = lo + j;
-    if (i < k) m = fmaxf(m, fabsf(sel[i]));
-  }
-  m = warp_max(m);
-  if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float w = threadIdx.x < (blockDim.x >> 5) ? warp_part[threadIdx.x] : 0.0f;
-    w = warp_max(w);
-    if (threadIdx.x == 0) {
-      const float s = fmaxf(__fdiv_rn(w, 127.0f), 1e-12f);
-      scale_s = s;
-      scales[g] = s;
-      put_u32(body + k + 4 * g, __float_as_uint(s));
+                     int64_t ng, int64_t warps, int sel16) {
+  static_assert(BLOCK == 0 || BLOCK == 256, "the wire's block, or generic");
+  const int lane = threadIdx.x & 31;
+  const int64_t w =
+      static_cast<int64_t>(blockIdx.x) * kGroupWarps + (threadIdx.x >> 5);
+  if (w >= warps) return;                     // the whole warp
+  const int64_t at = k + 4 * ng, total = 5 * k + 4 * ng;
+  // the index words' loads in flight during the quantize
+  const IdxWords iw = load_idx_words(idx, at, total, w, lane);
+  if (w < ng) {
+    const int64_t g = w;
+    if constexpr (BLOCK == 256) {
+      // 8 values a lane: the group's max|x| by 5 shuffles, then the lane's
+      // 8 q bytes as one 8-byte store to q and one to the body
+      const int64_t i0 = g * BLOCK + 8 * lane;
+      float x[8];
+      if (sel16 && i0 + 8 <= k) {
+        const float4 a = __ldcs(reinterpret_cast<const float4*>(sel + i0));
+        const float4 b =
+            __ldcs(reinterpret_cast<const float4*>(sel + i0 + 4));
+        x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+        x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          x[j] = i0 + j < k ? __ldcs(sel + i0 + j) : 0.0f;
+      }
+      float m = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(x[j]));
+      const float s = fmaxf(__fdiv_rn(warp_max(m), 127.0f), 1e-12f);
+      uint2 v = make_uint2(0u, 0u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v.x |= quant_byte(x[j], s) << (8 * j);
+        v.y |= quant_byte(x[j + 4], s) << (8 * j);
+      }
+      __stcs(reinterpret_cast<uint2*>(q + i0), v);  // zero-padded past k
+      if (i0 + 8 <= k) {
+        __stcs(reinterpret_cast<uint2*>(body + i0), v);
+      } else {                                // the lane across k
+        for (int j = 0; i0 + j < k; ++j)
+          body[i0 + j] =
+              static_cast<uint8_t>((j < 4 ? v.x : v.y) >> (8 * (j & 3)));
+      }
+      if (lane == 0) put_scale(body, scales, k, g, s);
+    } else {
+      const int64_t lo = g * block;
+      float m = 0.0f;
+      for (int j = lane; j < block; j += 32)
+        if (lo + j < k) m = fmaxf(m, fabsf(sel[lo + j]));
+      const float s = fmaxf(__fdiv_rn(warp_max(m), 127.0f), 1e-12f);
+      for (int j = lane; j < block; j += 32) {
+        const int64_t i = lo + j;
+        const uint32_t b = quant_byte(i < k ? sel[i] : 0.0f, s);
+        q[i] = static_cast<int8_t>(b);
+        if (i < k) body[i] = static_cast<uint8_t>(b);
+      }
+      if (lane == 0) put_scale(body, scales, k, g, s);
     }
   }
-  __syncthreads();
-  // 2. q, and the body's value and index bytes
-  const float s = scale_s;
-  uint8_t* idx_bytes = body + k + 4 * ng;
-  for (int j = threadIdx.x; j < block; j += blockDim.x) {
-    const int64_t i = lo + j;
-    const float x = i < k ? sel[i] : 0.0f;
-    const float r = rintf(__fdiv_rn(x, s));
-    const int8_t qv = static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f));
-    q[i] = qv;
-    if (i < k) {
-      body[i] = static_cast<uint8_t>(qv);
-      put_u32(idx_bytes + 4 * i, static_cast<uint32_t>(idx[i]));
-    }
-  }
+  store_idx_words(iw, idx, body, at, total);
 }
 
 }  // namespace
@@ -235,18 +350,38 @@ int sp_pack_body(const void* q, const void* scales, const void* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// sel f32 [k], idx int32 [k] -> body uint8 [5k + 4ng], q int8 [ng * block],
-// scales f32 [ng], ng = ceil(k / block)
+// sel f32 [k], idx int32 [k] -> body uint8 [5k + 4ng] (16-byte aligned),
+// q int8 [ng * block] (8-byte aligned), scales f32 [ng], ng = ceil(k /
+// block)
 int sp_quantize_pack(const void* sel, const void* idx, void* body, void* q,
                      void* scales, int64_t k, int block, void* stream) {
-  if (k < 1 || block < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || block < 1 || reinterpret_cast<uintptr_t>(body) % 16 ||
+      reinterpret_cast<uintptr_t>(q) % 8 ||
+      reinterpret_cast<uintptr_t>(idx) % 4 ||
+      reinterpret_cast<uintptr_t>(sel) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ng = (k + block - 1) / block;
-  if (ng > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  quantize_pack_kernel<<<static_cast<unsigned>(ng), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sel), static_cast<const int32_t*>(idx),
-      static_cast<uint8_t*>(body), static_cast<int8_t*>(q),
-      static_cast<float*>(scales), k, block, ng);
+  const int64_t at = k + 4 * ng, total = 5 * k + 4 * ng;
+  const int64_t idx_words = (total + 15) / 16 - at / 16;
+  const int64_t per_warp = 32 * kIdxWords;
+  const int64_t warps = std::max(ng, (idx_words + per_warp - 1) / per_warp);
+  const int64_t blocks = (warps + kGroupWarps - 1) / kGroupWarps;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int sel16 = reinterpret_cast<uintptr_t>(sel) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sp = static_cast<const float*>(sel);
+  const uint8_t* ip = static_cast<const uint8_t*>(idx);
+  uint8_t* bp = static_cast<uint8_t*>(body);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* scp = static_cast<float*>(scales);
+  if (block == 256)
+    quantize_pack_kernel<256><<<static_cast<unsigned>(blocks), kGroupThreads,
+                                0, s>>>(sp, ip, bp, qp, scp, k, block, ng,
+                                     warps, sel16);
+  else
+    quantize_pack_kernel<0><<<static_cast<unsigned>(blocks), kGroupThreads,
+                              0, s>>>(sp, ip, bp, qp, scp, k, block, ng, warps,
+                                   sel16);
   return static_cast<int>(cudaGetLastError());
 }
 

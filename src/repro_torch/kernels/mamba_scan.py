@@ -30,7 +30,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launches import bind_error_string, launch
 
 STATE_DIMS = (4, 16)             # jamba's reduced and published d_state
-_CHANNELS = 128                  # channels per block (csrc: kThreads)
+# channels a block at each state dim (csrc: kThreads / (ds / kStates))
+_CHANNELS = {4: 128, 16: 64}
 _MAX_BLOCKS = 2 ** 31 - 1
 _F32 = torch.float32
 
@@ -79,7 +80,7 @@ def validate(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"state dim {ds} not in {STATE_DIMS}")
     if min(b, T, di) < 1:
         raise ValueError(f"need non-empty shapes, got b={b}, T={T}, di={di}")
-    if b * -(-di // _CHANNELS) > _MAX_BLOCKS:
+    if b * -(-di // _CHANNELS[ds]) > _MAX_BLOCKS:
         raise ValueError(f"b * di = {b * di} needs more than {_MAX_BLOCKS} "
                          f"blocks")
     for name, t, shape in (("A", A, (di, ds)), ("D", D, (di,))):

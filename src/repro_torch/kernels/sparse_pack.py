@@ -15,9 +15,10 @@ Contiguous 1-D CUDA tensors only (``ops`` routes CPU tensors to the plain
 versions in ``ref``); ONE launch on the current stream, no synchronise.
 
 ``pack_body`` runs on every sparse frame (``transfer/wire.py``), where at
-the MLP's k = 656 a call costs its host path, so that path is lean: each
-operand's metadata is read once, devices are compared as indices, and
-the C entry is resolved once, when the library loads.
+the MLP's k = 656 a call costs its host path, and ``quantize_pack`` on
+the bench bus (k = 105,075), where it does too, so both paths are lean:
+each operand's metadata is read once, devices are compared as indices,
+and the C entries are resolved once, when the library loads.
 """
 from __future__ import annotations
 
@@ -27,16 +28,16 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launches import (bind_error_string, check_cuda,
-                                          launch, operand)
+from repro_torch.kernels.launches import bind_error_string, launch, operand
 
 _lib: Optional[ctypes.CDLL] = None
 _error_string = None
 _pack_body = None            # sp_pack_body, resolved when the library loads
+_quantize_pack = None        # sp_quantize_pack, likewise
 
 
 def _library() -> ctypes.CDLL:
-    global _lib, _error_string, _pack_body
+    global _lib, _error_string, _pack_body, _quantize_pack
     if _lib is None:
         lib = build.load("sparse_pack")
         P, I64 = ctypes.c_void_p, ctypes.c_int64
@@ -47,6 +48,7 @@ def _library() -> ctypes.CDLL:
         bind_error_string(lib.sp_error_string)
         _error_string = lib.sp_error_string
         _pack_body = lib.sp_pack_body
+        _quantize_pack = lib.sp_quantize_pack
         _lib = lib
     return _lib
 
@@ -82,28 +84,34 @@ def pack_body(q: torch.Tensor, scales: torch.Tensor, idx: torch.Tensor
     return body
 
 
+def _quantize_pack_checks(sel, idx, block: int) -> Tuple[int, int, int, int]:
+    """``(k, sel ptr, idx ptr, device)`` of a quantize_pack call: sel f32
+    [k] and idx int32 [k] on one device, block >= 1."""
+    k, sp, dev = operand("sel", sel, torch.float32)
+    ki, ip, idev = operand("idx", idx, torch.int32)
+    if idev != dev:
+        raise ValueError(f"sel and idx on cuda:{dev}, cuda:{idev}: need one "
+                         f"device")
+    if ki != k or block < 1:
+        raise ValueError(f"need sel [k], idx [k] and block >= 1, got "
+                         f"{tuple(sel.shape)}, {tuple(idx.shape)}, block "
+                         f"{block}")
+    return k, sp, ip, dev
+
+
 def quantize_pack(sel: torch.Tensor, idx: torch.Tensor, block: int = 256
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(sel f32 [k], idx int32 [k]) -> (body uint8 [5k + 4ng], q int8
-    [ng * block] zero-padded, scales f32 [ng]) in ONE launch,
-    byte-identical to ``ref.quantize_pack``."""
-    check_cuda("sel", sel, (torch.float32,))
-    check_cuda("idx", idx, (torch.int32,))
-    if idx.device != sel.device:
-        raise ValueError(f"idx on {idx.device}, expected {sel.device}")
-    k = sel.numel()
-    if sel.dim() != 1 or idx.dim() != 1 or idx.numel() != k or k < 1 \
-            or block < 1:
-        raise ValueError(f"need sel [k], idx [k] with k >= 1 and block >= 1, "
-                         f"got {tuple(sel.shape)}, {tuple(idx.shape)}, "
-                         f"block {block}")
+    [ng * block] zero-padded, scales f32 [ng]) in ONE launch (a warp a
+    group, csrc/sparse_pack.cu), byte-identical to ``ref.quantize_pack``.
+    sel and idx may start at any element."""
+    k, sp, ip, dev = _quantize_pack_checks(sel, idx, block)
     ng = -(-k // block)
-    dev = sel.device
     body = torch.empty(5 * k + 4 * ng, dtype=torch.uint8, device=dev)
     q = torch.empty(ng * block, dtype=torch.int8, device=dev)
     scales = torch.empty(ng, dtype=torch.float32, device=dev)
-    lib = _library()
-    launch("quantize_pack", lib.sp_error_string, lib.sp_quantize_pack,
-           sel.get_device(), sel.data_ptr(), idx.data_ptr(),
+    if _lib is None:
+        _library()
+    launch("quantize_pack", _error_string, _quantize_pack, dev, sp, ip,
            body.data_ptr(), q.data_ptr(), scales.data_ptr(), k, block)
     return body, q, scales

@@ -667,11 +667,16 @@ def _scan_case(dev, b, T, di, ds, dtype=torch.float32, strided=False,
 @pytest.mark.parametrize("strided", [False, True],
                          ids=["contiguous", "strided"])
 @pytest.mark.parametrize("di,ds,T", [(128, 4, 37), (256, 16, 300),
-                                     (512, 16, 1), (200, 16, 17)])
+                                     (512, 16, 1), (200, 16, 17),
+                                     (100, 16, 33), (37, 4, 15),
+                                     (130, 4, 300), (72, 16, 16),
+                                     (36, 16, 47)])
 def test_mamba_scan_matches_plain(dev, di, ds, T, strided):
-    """B15 at jamba's reduced (ds 4, ragged T) and published (ds 16)
-    state dims, and a di that is not a multiple of the block's 128
-    channels: 2e-5 on y and h_T in f32."""
+    """B15 at jamba's reduced (ds 4) and published (ds 16) state dims,
+    T below, at and past the 16-step chunk and ragged, and a di that is no
+    multiple of a block's channels (64 at ds 16, 128 at ds 4), odd (rows
+    staged value by value) or of whole 16-byte pieces: 2e-5 on y and h_T
+    in f32."""
     args = _scan_case(dev, 2, T, di, ds, strided=strided, seed=di + T)
     VK.reset_launch_count()
     y, h = MK.mamba_scan(*args)
@@ -696,6 +701,24 @@ def test_mamba_scan_bf16_u_rounds_y_once(dev, ds):
     torch.testing.assert_close(y.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
     torch.testing.assert_close(h, h_want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("di,T", [(200, 37), (36, 20), (8192, 5)])
+def test_mamba_scan_bf16_ragged_di_and_offset_u(dev, di, T):
+    """bf16 u at a di of whole 16-byte pieces (200), one that is not (36,
+    value by value) and jamba's, and the same u as a view one element into
+    its buffer (no row on a 16-byte boundary): y within 2e-2 of the plain
+    version and equal to the aligned call's, h_T within 2e-5."""
+    u, dt, B, C, A, D = _scan_case(dev, 2, T, di, 16, dtype=torch.bfloat16,
+                                   strided=True, seed=di + T)
+    y, h = MK.mamba_scan(u, dt, B, C, A, D)
+    want, h_want = R.mamba_scan(u, dt, B, C, A, D)
+    torch.testing.assert_close(y.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(h, h_want, rtol=2e-5, atol=2e-5)
+    buf = torch.cat([u.new_zeros(1), u.reshape(-1)])
+    y1, h1 = MK.mamba_scan(buf[1:].view(u.shape), dt, B, C, A, D)
+    assert torch.equal(y1, y) and torch.equal(h1, h)
 
 
 def test_mamba_scan_rejects_what_it_does_not_take(dev):
@@ -894,6 +917,43 @@ def test_quantize_pack_bytes_equal(dev, k):
     # B12 of B9's payload: the same body
     q9, s9 = QK.quantize_int8(sel)
     assert torch.equal(SK.pack_body(q9, s9, idx), body)
+
+
+@pytest.mark.parametrize("k", [4096 + r for r in range(16)])
+def test_quantize_pack_every_k_mod_16_bytes_equal(dev, k):
+    """Every k mod 16: the value section's last lane, the scale and index
+    sections' shifts and the seam words."""
+    sel = _rand(dev, k, seed=k) * 0.01
+    sel[256:512] = 0.0                          # an all-zero group
+    idx = torch.randint(0, 2 ** 31 - 1, (k,), device=dev, dtype=torch.int32)
+    body, q, s = SK.quantize_pack(sel, idx)
+    pb, pq, ps = R.quantize_pack(sel, idx)
+    assert torch.equal(body, pb) and torch.equal(q, pq) and _bits_equal(s, ps)
+
+
+@pytest.mark.parametrize("so,io", [(1, 0), (0, 1), (2, 3), (3, 2)])
+@pytest.mark.parametrize("k", [7, 1000, 1313, 105_075])
+def test_quantize_pack_operands_off_16_byte_boundaries(dev, k, so, io):
+    """sel and idx as views so and io elements into their buffers (not
+    16-byte aligned): the value-by-value loads, the same bytes."""
+    sel = (_rand(dev, k + so, seed=k + so) * 0.01)[so:]
+    idx = torch.randint(0, 2 ** 31 - 1, (k + io,), device=dev,
+                        dtype=torch.int32)[io:]
+    body, q, s = SK.quantize_pack(sel, idx)
+    pb, pq, ps = R.quantize_pack(sel, idx)
+    assert torch.equal(body, pb) and torch.equal(q, pq) and _bits_equal(s, ps)
+
+
+@pytest.mark.parametrize("block,k", [(100, 1000), (64, 333), (512, 1100),
+                                     (100, 7)])
+def test_quantize_pack_generic_block_bytes_equal(dev, block, k):
+    """Any block but the wire's 256 takes the generic instance."""
+    sel = _rand(dev, k, seed=block) * 0.01
+    idx = torch.arange(k, dtype=torch.int32, device=dev) * 5
+    body, q, s = SK.quantize_pack(sel, idx, block)
+    pb, pq, ps = R.quantize_pack(sel, idx, block)
+    assert q.numel() == -(-k // block) * block
+    assert torch.equal(body, pb) and torch.equal(q, pq) and _bits_equal(s, ps)
 
 
 def test_quantize_pack_rejects_bad_inputs(dev):
