@@ -23,7 +23,9 @@ a card, or outside a checkout.  Phases:
               with 1 and 3 replicas, int8 quantize / dequantize and the
               sparse-body pack bit-exact (the pack also at a k for each
               k mod 4, with q at byte offsets 0-3; the dequantize with q
-              at byte offsets 0-15).
+              at byte offsets 0-15; the quantize at every k mod 16, k =
+              4,096-4,111, with x at element offsets 0-3 from a 16-byte
+              boundary, block 256 and 100).
               Each kernel's time, its plain version's, one PyTorch
               library call's where one computes the same function
               (torch.lerp / torch.addmv / torch._fused_adam_ / a scale
@@ -33,8 +35,10 @@ a card, or outside a checkout.  Phases:
               at each size); the host microseconds of one B1, B3, B2,
               B12 and B10 wrapper call at the main sizes beside
               torch.lerp's, torch._fused_adam_'s, torch.addmv's,
-              torch.cat's and torch.mul's, timed in turns, and the launch
-              helper's raw stream handle held to the current stream's.
+              torch.cat's and torch.mul's, and of one B9 call at k = 656
+              (no library call), timed in turns; B9's ptxas lines; the
+              launch helper's raw stream handle held to the current
+              stream's.
 4. the main path, through the entry points a user calls:
    a. the quickstart --smoke configuration (examples/quickstart.py:30-45,
       VC-ASGD with var_alpha) on the card and on the CPU from one seed:
@@ -140,9 +144,12 @@ a card, or outside a checkout.  Phases:
       (exact-k emit), against their plain versions bit for bit at the
       bench bus, 2^20, a ragged 2^20 + 4,128, a tie-heavy round(4x)/4 bus
       (ties cut by the budget across tiles) and 2^27, each with the
-      bracket and refinement of its own bus; kernel, plain and bound ms
-      at the bench bus and at 2^27 (no PyTorch call computes packed
-      ballot words or the exact-k emit);
+      bracket and refinement of its own bus, B6 with ``lo`` as the
+      bracket's device int32 [1] and as a number; kernel (B6 in both
+      forms), plain and bound ms at the bench bus and at 2^27 (no
+      PyTorch call computes packed ballot words or the exact-k emit), B6's
+      host microseconds a call at the bench bus in both forms, and its
+      ptxas lines;
    b. select_topk and compress_flat, card against CPU, at 2^20,
       2,105,344, 5,242,880 and 2^24 at densities 0.05 and 0.01: indices,
       q, scales and the new residual identical; B6 once per selection, B7
@@ -191,6 +198,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -223,6 +231,11 @@ PACK_KS = (655, 656, 657, 658, 105_075)
 # B10's payloads in phase 3 with q at byte offsets 0-15 from a 16-byte
 # boundary: heads and tails of every length, packs across a group seam
 DEQUANT_KS = (1, 15, 17, 255, 271, 656, 1313, 105_075)
+# B9's payloads in phase 3 with x at element offsets 0-3 from a 16-byte
+# boundary (tests/test_torch_quantize_walk.py's shapes): every k mod 16,
+# the wire's block and a generic one
+QUANT_KS = tuple(4096 + r for r in range(16))
+QUANT_BLOCKS = (QBLOCK, 100)
 
 # results/PINNED_sim_regression.json's 12 flat MLP cases, with the
 # configurations of tools/pin_sim_regression.py:33-62, 90-93:
@@ -371,16 +384,23 @@ def bound_ms(nbytes: float, ops: float):
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
-def say_ptxas(build, source: str, label: str) -> None:
+def say_ptxas(build, source: str, label: str, kernel: str = "") -> None:
     """The ptxas lines (registers, spills, shared memory) of one source's
-    kernels, from this run's build."""
+    kernels, or of those whose mangled names hold ``kernel`` as a whole
+    name (``quantize_kernel``, not ``dequantize_kernel``), each after its
+    kernel's name, from this run's build."""
     log = build.build_log.get(source)
     if log is None:
         say(f"{label} ptxas: not built in this run (its library was "
             f"already in build/kernels)")
+    entry = ""
     for line in (log or "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say(f"{label} ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif (re.search(rf"(?<![A-Za-z_]){kernel}", entry)
+              and ("registers" in line or "spill" in line
+                   or "smem" in line)):
+            say(f"{label} ptxas {entry}: {line.strip()}")
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -548,6 +568,28 @@ def dequant_offsets(torch, QK, R, rnd) -> None:
             f"bit-exact")
 
 
+def quantize_offsets(torch, QK, R, rnd) -> None:
+    """B9 bit-exact at QUANT_KS with x at element offsets 0-3 from a
+    16-byte boundary (x a view of a larger buffer: 1-3 take the value
+    loads), at the wire's block and a generic one."""
+    for k in QUANT_KS:
+        base = rnd(k + 8) * 0.01
+        for off in range(4):
+            lead = (off - base.data_ptr() // 4) % 4
+            x = base[lead:lead + k]
+            for block in QUANT_BLOCKS:
+                (kq, ks_), (pq, ps) = (QK.quantize_int8(x, block),
+                                       R.quantize_int8(x, block))
+                torch.cuda.synchronize()
+                check(x.data_ptr() % 16 == 4 * off and torch.equal(kq, pq)
+                      and bits_equal(torch, ks_, ps),
+                      f"quantize k={k} x at element {off} block {block}: "
+                      f"kernel != plain")
+    say(f"parity B9 quantize_int8 k = {QUANT_KS[0]}..{QUANT_KS[-1]} (every "
+        f"k mod 16), x at element offsets 0-3, block {QUANT_BLOCKS}: "
+        f"bit-exact")
+
+
 def in_turns(torch, kernel, library, iters: int) -> tuple:
     """(kernel ms, library ms) a call by CUDA events, timed in turns (K L
     L K, twice) after a warm-up (wrapper_cost.event_ms)."""
@@ -556,31 +598,35 @@ def in_turns(torch, kernel, library, iters: int) -> tuple:
     return ms["kernel"], ms["library"]
 
 
-def wrapper_host_cost(torch, np, VK, SK, QK, LA) -> dict:
+def wrapper_host_cost(torch, np, VK, SK, QK, TK, LA) -> dict:
     """Phase 3: host microseconds of one B1, B3, B2, B12 and B10 wrapper
     call and of the one PyTorch call computing the same function
     (torch.lerp, torch._fused_adam_, torch.addmv, torch.cat, torch.mul),
-    at the main sizes (the MLP bus, N = MAIN_N f32, Eq. 2 over 4 clients;
-    k = 656 for the pack and the dequantize; each kernel shorter than its
-    call): the host clock around 200 back-to-back calls, the ten calls in
-    turns over 9 rounds, the median kept (wrapper_cost.host_us).  The
-    launch helper's raw stream handle is held to the current stream's."""
+    and of one B9 call (no such PyTorch call), at the main sizes (the MLP
+    bus, N = MAIN_N f32, Eq. 2 over 4 clients; k = 656 for the pack and
+    the codec; each kernel shorter than its call): the host clock around
+    200 back-to-back calls, every call of wrapper_cost.calls in turns
+    over 9 rounds, the median kept (wrapper_cost.host_us).  The launch
+    helper's raw stream handle is held to the current stream's."""
     from repro_torch.benchmarks import wrapper_cost as WC
     idx = torch.cuda.current_device()
     check(LA._raw_stream(idx) == torch.cuda.current_stream().cuda_stream,
           "launches: the raw stream handle is not the current stream's")
-    us = WC.host_us(torch, WC.calls(torch, np, VK, SK, QK, MAIN_N))
+    us = WC.host_us(torch, WC.calls(torch, np, VK, SK, QK, TK, MAIN_N))
     out = {}
     for kern, lib in (("B1 vc_asgd_lerp_flat", "torch.lerp"),
                       ("B3 adam_update_flat", "torch._fused_adam_"),
                       ("B2 assimilate_flat", "torch.addmv"),
                       ("B12 pack_body", "torch.cat"),
-                      ("B10 dequantize_int8", "torch.mul")):
+                      ("B10 dequantize_int8", "torch.mul"),
+                      ("B9 quantize_int8", None)):
         size = WC.size_of(kern, MAIN_N)
-        say(f"host cost {kern} {size}: {us[kern]:.2f} us a call, {lib} "
-            f"{us[lib]:.2f} us (in turns, median of 9 rounds)")
+        lib_us = None if lib is None else us[lib]
+        say(f"host cost {kern} {size}: {us[kern]:.2f} us a call, "
+            + ("no library call" if lib is None else
+               f"{lib} {lib_us:.2f} us") + " (in turns, median of 9 rounds)")
         out[kern.split()[1]] = {"host_us": us[kern],
-                                "library_host_us": us[lib]}
+                                "library_host_us": lib_us}
     return out
 
 
@@ -591,6 +637,7 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
     f32 and bf16, int8 quantize / dequantize (B9, B10) and the sparse-body
     pack (B12) at each payload size in ``ks``.  Timed (B5 f32 with 3
     replicas, the codec and pack at ``ks[0]``) when ``timed``."""
+    from repro_torch.benchmarks import wrapper_cost as WC
     VK, QK, SK = KK
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(n_elems + 7)
@@ -659,6 +706,7 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
             q_pad[:k] = kq
             r = recs["quantize_int8"]
             r["ms"] = KB.cuda_ms(lambda: QK.quantize_int8(sel), iters)
+            r["device_us"] = WC.graph_us(torch, lambda: QK.quantize_int8(sel))
             r["plain_ms"] = KB.cuda_ms(lambda: R.quantize_int8(sel), iters)
             r["bound_ms"], r["bound_by"] = bound_ms(4 * k + k + 4 * ng, 5 * k)
             r = recs["dequantize_int8"]
@@ -681,6 +729,7 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
     if n_elems <= MAIN_N:
         pack_seams(torch, SK, R, rnd)
         dequant_offsets(torch, QK, R, rnd)
+        quantize_offsets(torch, QK, R, rnd)
     if timed:
         for name, r in out.items():
             size = f"N={n_elems}" if name == "easgd_elastic_flat" \
@@ -693,6 +742,11 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
             say(f"timing {name} {size}: bound {r['bound_ms']:.6f} ms "
                 f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% "
                 f"of it")
+            if "device_us" in r:
+                say(f"timing {name} {size}: device {r['device_us']:.3f} us "
+                    f"a call (100 calls in a CUDA graph), "
+                    f"{100e3 * r['bound_ms'] / r['device_us']:.1f}% of the "
+                    f"bound")
     return out
 
 
@@ -1681,19 +1735,25 @@ def bench_model(np, seed: int = 0) -> dict:
 def topk_parity(torch, np, TK, C, R) -> dict:
     """Phase 9a: B6 and B7 against their plain versions on the card, bit
     for bit, at each TOPK_SHAPES bus: B6 with the bus's own bracket at
-    density 0.05, B7 with the refinement of B6's words.  Returns the
-    numbers of both at the bench bus, the path's shape."""
+    density 0.05, as the path's device int32 [1] and as a number, B7
+    with the refinement of B6's words.  Returns the numbers of both at
+    the bench bus, the path's shape, with B6's host us a call there."""
+    from repro_torch.benchmarks import wrapper_cost as WC
     out = {}
     for seed, (name, (n, ties)) in enumerate(TOPK_SHAPES.items()):
         x = torch.from_numpy(np_bus(np, n, 90 + seed, ties)).cuda()
         k = int(n * POD_DENSITY)
         nb = -(-n // TK.BLOCK)
         lo = C.bracket(x, k)
+        lo_int = int(lo)
         words, counts = TK.blocked_topk_stats(x, lo)
+        iw, ic = TK.blocked_topk_stats(x, lo_int)
         pw, pc = R.blocked_topk_stats(x, lo)
         torch.cuda.synchronize()
         check(torch.equal(words, pw) and torch.equal(counts, pc),
               f"B6 {name} n={n}: kernel != plain version")
+        check(torch.equal(iw, pw) and torch.equal(ic, pc),
+              f"B6 {name} n={n}, lo a number: kernel != plain version")
         c_lo = int(counts.sum())
         idx, tau, tie_start, budget = C.refine(x, words, c_lo, k)
         kept, res = TK.threshold_sparsify_exact(x, tau, tie_start, budget)
@@ -1705,8 +1765,9 @@ def topk_parity(torch, np, TK, C, R) -> dict:
               and torch.equal(torch.nonzero(kept).flatten().int(), idx),
               f"B7 {name}: the kept set is not the refinement's {k}")
         ties_at = int((x.abs() == tau).sum())
-        say(f"parity B6/B7 {name} n={n}: bit-exact; c_lo {c_lo}, k {k}, "
-            f"ties at tau {ties_at} of which kept {int(budget)}")
+        say(f"parity B6/B7 {name} n={n}: bit-exact (B6's lo a tensor and a "
+            f"number); c_lo {c_lo}, k {k}, ties at tau {ties_at} of which "
+            f"kept {int(budget)}")
         if name not in ("bench", "2^27"):
             continue
         iters = 50 if name == "bench" else 10
@@ -1716,6 +1777,8 @@ def topk_parity(torch, np, TK, C, R) -> dict:
                 "library_ms": None,
                 "ms": KB.cuda_ms(lambda: TK.blocked_topk_stats(x, lo),
                                  iters),
+                "int_lo_ms": KB.cuda_ms(
+                    lambda: TK.blocked_topk_stats(x, lo_int), iters),
                 "plain_ms": KB.cuda_ms(lambda: R.blocked_topk_stats(x, lo),
                                        iters)},
             "threshold_sparsify_exact": {
@@ -1734,6 +1797,21 @@ def topk_parity(torch, np, TK, C, R) -> dict:
         recs["threshold_sparsify_exact"]["bound_ms"], \
             recs["threshold_sparsify_exact"]["bound_by"] = bound_ms(
                 12 * n + 4 * nb, 4 * n)
+        b6 = recs["blocked_topk_stats"]
+        b6["device_us"] = WC.graph_us(
+            torch, lambda: TK.blocked_topk_stats(x, lo))
+        say(f"timing blocked_topk_stats N={n}: kernel, lo a number "
+            f"{b6['int_lo_ms']:.6f} ms; device {b6['device_us']:.3f} us a "
+            f"call (100 calls in a CUDA graph, lo the tensor), "
+            f"{100e3 * b6['bound_ms'] / b6['device_us']:.1f}% of the bound")
+        if name == "bench":
+            us = WC.host_us(torch, {
+                "tensor": lambda: TK.blocked_topk_stats(x, lo),
+                "int": lambda: TK.blocked_topk_stats(x, lo_int)})
+            b6["host_us"], b6["library_host_us"] = us["tensor"], None
+            say(f"host cost B6 blocked_topk_stats N={n}: {us['tensor']:.2f} "
+                f"us a call with lo the bracket's tensor, {us['int']:.2f} "
+                f"with lo a number (in turns, median of 9 rounds)")
         for kname, r in recs.items():
             say(f"timing {kname} N={n}: kernel {r['ms']:.6f} ms")
             say(f"timing {kname} N={n}: plain {r['plain_ms']:.6f} ms")
@@ -1744,7 +1822,7 @@ def topk_parity(torch, np, TK, C, R) -> dict:
                 f"of it")
         if name == "bench":
             out = recs
-        del x, words, counts, pw, pc, kept, res, pk, pr, idx
+        del x, words, counts, iw, ic, pw, pc, kept, res, pk, pr, idx
         torch.cuda.empty_cache()
     return out
 
@@ -2269,8 +2347,10 @@ def main() -> int:
     numbers = parity(torch, np, VK, R, MAIN_N, timed=True)
     numbers.update(parity_scheme_kernels(torch, np, (VK, QK, SK), R, MAIN_N,
                                          MAIN_K, timed=True))
-    for name, rec in wrapper_host_cost(torch, np, VK, SK, QK, LA).items():
+    for name, rec in wrapper_host_cost(torch, np, VK, SK, QK, TK,
+                                       LA).items():
         numbers[name].update(rec)
+    say_ptxas(build, "quantize", "B9", "quantize_kernel")
     parity(torch, np, VK, R, BIG_N, timed=True)
     torch.cuda.empty_cache()
     parity_scheme_kernels(torch, np, (VK, QK, SK), R, BIG_N, (BIG_K,),
@@ -2409,6 +2489,7 @@ def main() -> int:
     # ---- 9. the pod runtime's compressed cross-pod round ----------------
     phases.start("9")
     numbers.update(topk_parity(torch, np, TK, C, R))                  # 9a
+    say_ptxas(build, "topk_mask", "B6", "stats_kernel")
     select_card_vs_cpu(torch, np, C, VK)                              # 9b
     pod_counts = pod_round_card_vs_cpu(torch, np, VK)                 # 9c
     coordinator_card_vs_cpu(torch, np, VK)                            # 9d

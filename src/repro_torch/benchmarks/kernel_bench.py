@@ -19,7 +19,7 @@ clients, one per-tensor Eq. 1 launch each.  On the CPU every count is 0.
 
 Rows the reference has and the port has not yet: ``flat_adam``'s
 ``train_ckpt_one_pass`` waits for the checkpoint port (ROADMAP queue A
-item 3); the suite says so in ``_not_ported``.  Rows the port adds:
+item 2); the suite says so in ``_not_ported``.  Rows the port adds:
 ``bench_kernels``' ``dc_lerp_flat_16M`` (B4), ``threshold_sparsify_2M``
 (B8) and ``quantize_pack_105k`` (B11), each with its bound at the card's
 3.35 TB/s and its error against the plain version.
@@ -308,7 +308,7 @@ def bench_flat_adam(device) -> Dict[str, Row]:
         "_launches": {"flat": flat},
         "_not_ported": {"train_ckpt_one_pass":
                         "waits for the checkpoint port (ROADMAP queue A "
-                        "item 3)"},
+                        "item 2)"},
     }
 
 

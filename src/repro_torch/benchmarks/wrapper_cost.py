@@ -6,9 +6,11 @@ of the batched fold, B12 (``pack_body``) of every sparse frame and B10
 — beside the one PyTorch call that computes the same function
 (``torch.lerp``, ``torch._fused_adam_``, ``torch.addmv``, ``torch.cat``
 of the three byte views, ``torch.mul`` of the zero-padded q by its
-scales), of B11 (``quantize_pack``, no such call) on the bench bus, of
-B13's wrapper, and B14's and B15's times at rwkv6-1.6b's and jamba's
-prefill shapes.
+scales), of B9 (``quantize_int8``, every compressed submit), B11
+(``quantize_pack``) and B6 (``blocked_topk_stats``, the selection of
+every compressed round, ``lo`` as the bracket's device int32 [1] and as a
+number), none of which one PyTorch call computes, of B13's wrapper, and
+B14's and B15's times at rwkv6-1.6b's and jamba's prefill shapes.
 
     python src/repro_torch/benchmarks/wrapper_cost.py [--src DIR] [--label L]
 
@@ -18,20 +20,23 @@ one card, each in its own process (A, B, B, A).  Prints one JSON line:
 
 * ``host_us``: host microseconds a call, the host clock around
   ``HOST_CALLS`` back-to-back calls at the main sizes (the MLP bus, N =
-  16,384 f32; its sparse payload, k = 656; B11 at the bench bus's k =
-  105,075), where the kernel is shorter than the call; every call of the
-  tree and every stage below timed in turns, ``ROUNDS`` rounds, the
-  median kept;
+  16,384 f32; its sparse payload, k = 656, for B12, B10 and B9; B11 at
+  the bench bus's k = 105,075; B6 on the bench bus, 2,105,344
+  elements), where the kernel is about as long as the call or shorter;
+  every call of the tree and every stage below timed in turns,
+  ``ROUNDS`` rounds, the median kept;
 * ``event_ms``: CUDA-event milliseconds a call over 50 calls at the main
-  sizes and 10 at N = 2^27 / k = 6,710,886 (B11 there too), the calls of
-  one size in turns (A B B A, twice, after a warm-up), the mean kept;
+  sizes and 10 at N = 2^27 / k = 6,710,886 (B11 and B9 there too; B6 on
+  2^27 elements), the calls of one size in turns (A B B A, twice, after a
+  warm-up), the mean kept;
 * ``graph_us``: device microseconds a call at the main sizes, the calls
   captured 100 at a time in one CUDA graph and replayed (no host work
   between launches: what is left is the kernel and the launch gap);
 * ``bound_ms``: bytes moved at 3.35 TB/s at 2^27 / k = 6,710,886 (12 B
   an element for Eq. 1, 28 for Adam, 4 (n + 2) for Eq. 2; twice the
-  body's 5k + 4 ng bytes for the pack; 5k + 4 ng for the dequantize;
-  sel and idx read, body, q and scales written for B11), B14's at [4,
+  body's 5k + 4 ng bytes for the pack; 5k + 4 ng for the dequantize and
+  the quantize; sel and idx read, body, q and scales written for B11; x
+  read, the words and counts written, 4n + n / 8 + 4 nb, for B6), B14's at [4,
   32, 2,048, 64] f32 (337.6 MB), and B15's at jamba's prefill shape (the
   SFU's exps at 16 a clock an SM at 1.98 GHz, 0.2568 ms; its 540 MB take
   0.161);
@@ -62,6 +67,7 @@ import contextlib
 import io
 import json
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -73,6 +79,9 @@ PACK_K = {MAIN_N: 656, BIG_N: int(BIG_N * 0.05)}
 # B11's payload beside each: the bench bus's (0.05 of 2,101,504), and
 # 0.05 of 2^27
 QPACK_K = {MAIN_N: 105_075, BIG_N: int(BIG_N * 0.05)}
+# B6's bus beside each: the bench bus (its path's, 257 tiles), and 2^27
+TOPK_N = {MAIN_N: 2_105_344, BIG_N: BIG_N}
+TOPK_DENSITY = 0.05
 N_CLIENTS = 4                    # B2: 4b's batch of four results
 QBLOCK = 256
 HOST_CALLS, ROUNDS = 200, 9
@@ -155,9 +164,9 @@ def graph_us(torch, fn, reps: int = 100) -> float:
     return 1e3 * t0.elapsed_time(t1) / reps
 
 
-def calls(torch, np, VK, SK, QK, n: int) -> dict:
-    """name -> a zero-argument call at bus size ``n`` (f32; B12 and B10
-    at ``PACK_K[n]``)."""
+def calls(torch, np, VK, SK, QK, TK, n: int) -> dict:
+    """name -> a zero-argument call at bus size ``n`` (f32; B12, B10 and
+    B9 at ``PACK_K[n]``, B11 at ``QPACK_K[n]``, B6 on ``TOPK_N[n]``)."""
     from repro_torch.core.vc_asgd import assimilation_weights
     g = torch.Generator(device="cuda").manual_seed(n)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
@@ -182,6 +191,9 @@ def calls(torch, np, VK, SK, QK, n: int) -> dict:
     sel = rnd(QPACK_K[n]) * 0.01
     sidx = torch.randint(0, 2 ** 31 - 1, (QPACK_K[n],), generator=g,
                          device="cuda", dtype=torch.int32)
+    x9 = rnd(k) * 0.01
+    bus, lo = topk_bus(torch, g, TOPK_N[n])
+    lo_int = int(lo)
     return {
         "B1 vc_asgd_lerp_flat": lambda: VK.vc_asgd_lerp_flat(s, c, ALPHA),
         "torch.lerp": lambda: torch.lerp(c, s, a32),
@@ -199,7 +211,20 @@ def calls(torch, np, VK, SK, QK, n: int) -> dict:
         "B10 dequantize_int8": lambda: QK.dequantize_int8(q, sc, k),
         "torch.mul": lambda: torch.mul(q_rows, sc_col),
         "B11 quantize_pack": lambda: SK.quantize_pack(sel, sidx),
+        "B9 quantize_int8": lambda: QK.quantize_int8(x9),
+        "B6 blocked_topk_stats": lambda: TK.blocked_topk_stats(bus, lo),
+        "B6 blocked_topk_stats int lo":
+            lambda: TK.blocked_topk_stats(bus, lo_int),
     }
+
+
+def topk_bus(torch, g, n: int) -> tuple:
+    """A bus of n elements N(0, 0.02^2) and its sampled bracket at density
+    TOPK_DENSITY: the device int32 [1] view ``compression.bracket``
+    returns, B6's ``lo`` on the selection path."""
+    from repro_torch.core import compression as C
+    bus = torch.randn(n, generator=g, device="cuda") * 0.02
+    return bus, C.bracket(bus, int(n * TOPK_DENSITY))
 
 
 def pack_payload(torch, g, k: int) -> tuple:
@@ -213,9 +238,11 @@ def pack_payload(torch, g, k: int) -> tuple:
     return q, sc, idx
 
 
-def stages(torch, np, VK, SK, QK, LA) -> dict:
-    """name -> one stage of a B3, B1, B2, B12 or B10 wrapper call at the
-    main sizes, alone (the stages this tree's wrappers expose)."""
+def stages(torch, np, VK, SK, QK, TK, LA) -> dict:
+    """name -> one stage of a B3, B1, B2, B12, B10, B9 or B6 wrapper call
+    at the main sizes, alone (the stages this tree's wrappers expose;
+    B9's and B6's under the same names for a tree with the lean launch
+    path and one without)."""
     from repro_torch.core.vc_asgd import assimilation_weights
     if not hasattr(VK, "_operand"):
         return {}
@@ -319,7 +346,55 @@ def stages(torch, np, VK, SK, QK, LA) -> dict:
                 dk, dtype=torch.float32, device=dev),
             "dequantize ctypes call + launch":
                 lambda: dfn(dqp, dsp, dop, dk, QBLOCK, stream)})
+    out.update(codec_stages(torch, g, QK, TK, LA, dev, stream))
     return out
+
+
+def codec_stages(torch, g, QK, TK, LA, dev, stream) -> dict:
+    """B9's stages at k = 656 and B6's on the bench bus (``lo`` the
+    bracket's device tensor): the checks, the two ``torch.empty`` and
+    the ctypes call with its launch, the checks and the C entry taken as
+    the tree's wrapper takes them (a tree without the lean launch path:
+    ``check_cuda`` and ``_groups`` / ``_check_bus`` and ``_scalar``, and
+    the entry looked up on the library at each call)."""
+    k = PACK_K[MAIN_N]
+    x = torch.randn(k, generator=g, device="cuda") * 0.01
+    q, sc = QK.quantize_int8(x)
+    xp, qp, sp, ng = x.data_ptr(), q.data_ptr(), sc.data_ptr(), sc.numel()
+    if hasattr(QK, "_quantize_checks"):
+        qchecks = lambda: QK._quantize_checks(x, QBLOCK)
+        qcall = lambda: QK._quantize(xp, qp, sp, k, QBLOCK, stream)
+    else:
+        def qchecks():
+            LA.check_cuda("x", x, (torch.float32,))
+            return x.dim(), QK._groups(x.numel(), QBLOCK)
+        lib = QK._library()
+        qcall = lambda: lib.qz_quantize(xp, qp, sp, k, QBLOCK, stream)
+    n = TOPK_N[MAIN_N]
+    bus, lo = topk_bus(torch, g, n)
+    words, counts = TK.blocked_topk_stats(bus, lo)
+    bp, lp, wp, cp = (t.data_ptr() for t in (bus, lo, words, counts))
+    nb = counts.numel()
+    if hasattr(TK, "_stats_checks"):
+        tchecks = lambda: TK._stats_checks(bus, lo)
+        tcall = lambda: TK._stats(bp, lp, 0, wp, cp, n, stream)
+    else:
+        def tchecks():
+            return TK._check_bus(bus), TK._scalar("lo", lo, torch.int32,
+                                                  bus.device)
+        tlib = TK._library()
+        tcall = lambda: tlib.tk_stats(bp, lp, wp, cp, n, stream)
+    return {
+        "quantize checks": qchecks,
+        "quantize outputs (2 torch.empty)": lambda: (
+            torch.empty(k, dtype=torch.int8, device=dev),
+            torch.empty(ng, dtype=torch.float32, device=dev)),
+        "quantize ctypes call + launch": qcall,
+        "stats checks (x, lo)": tchecks,
+        "stats outputs (2 torch.empty)": lambda: (
+            torch.empty((nb, 256), dtype=torch.int32, device=dev),
+            torch.empty(nb, dtype=torch.int32, device=dev)),
+        "stats ctypes call + launch": tcall}
 
 
 def carve(torch, body: int, q: int, ng: int, dev) -> tuple:
@@ -414,11 +489,20 @@ def b15_ms(torch, MK) -> float:
                     10)["scan"]
 
 
+def capturable(name: str, TK) -> bool:
+    """Whether a call of ``calls`` can be captured in a CUDA graph: not
+    B6 with an int ``lo`` in a tree whose wrapper copies it to the card
+    (a host-to-device copy of pageable memory)."""
+    return not name.endswith("int lo") or hasattr(TK, "_stats_checks")
+
+
 def size_of(name: str, n: int) -> str:
     """The size label of a call of ``calls(..., n)``."""
     if "quantize_pack" in name:
         return f"k={QPACK_K[n]}"
-    if ("pack_body" in name or name == "torch.cat" or "dequantize" in name
+    if "topk" in name:
+        return f"N={TOPK_N[n]}"
+    if ("pack_body" in name or name == "torch.cat" or "quantize" in name
             or name == "torch.mul"):
         return f"k={PACK_K[n]}"
     if "assimilate" in name or name == "torch.addmv":
@@ -443,21 +527,27 @@ def main(argv=None) -> int:
     from repro_torch.kernels import quantize as QK
     from repro_torch.kernels import rwkv6_scan as WK
     from repro_torch.kernels import sparse_pack as SK
+    from repro_torch.kernels import topk_mask as TK
     from repro_torch.kernels import vc_asgd_update as VK
 
-    small = calls(torch, np, VK, SK, QK, MAIN_N)
-    parts = stages(torch, np, VK, SK, QK, LA)
+    small = calls(torch, np, VK, SK, QK, TK, MAIN_N)
+    parts = stages(torch, np, VK, SK, QK, TK, LA)
     host = host_us(torch, {**small, **parts})
     rec = {"label": args.label, "src": args.src,
            "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"], capture_output=True, text=True,
+               timeout=60).stdout.strip(),
            "host_us": {k: host[k] for k in small},
            "stages_us": {k: host[k] for k in parts},
            "event_ms": {f"{k} {size_of(k, MAIN_N)}": ms for k, ms in
                         event_ms(torch, small, 50).items()},
-           "graph_us": {k: graph_us(torch, fn) for k, fn in small.items()}}
+           "graph_us": {k: graph_us(torch, fn) for k, fn in small.items()
+                        if capturable(k, TK)}}
     del small, parts
     torch.cuda.empty_cache()
-    big = calls(torch, np, VK, SK, QK, BIG_N)
+    big = calls(torch, np, VK, SK, QK, TK, BIG_N)
     rec["event_ms"].update({f"{k} {size_of(k, BIG_N)}": ms for k, ms in
                             event_ms(torch, big, 10).items()})
     del big
@@ -479,6 +569,10 @@ def main(argv=None) -> int:
             / HBM_BYTES_PER_S,
         f"B11 k={kq}": 1e3 * (8 * kq + 5 * kq + 4 * ngq + QBLOCK * ngq
                               + 4 * ngq) / HBM_BYTES_PER_S,
+        f"B9 k={kb}": 1e3 * (5 * kb + 4 * -(-kb // QBLOCK))
+            / HBM_BYTES_PER_S,
+        **{f"B6 N={nt}": 1e3 * (4 * nt + nt / 8 + 4 * -(-nt // 8192))
+           / HBM_BYTES_PER_S for nt in TOPK_N.values()},
         "B15 [4,2048,8192] ds 16": 1e3 * 4 * 2048 * 8192 * 16
             / (16 * 132 * 1.98e9)}
     rec["b13_host_us"] = b13_host(torch, FK)

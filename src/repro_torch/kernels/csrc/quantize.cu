@@ -23,9 +23,24 @@
 // block (quantize: 4 in, 1 + 4/block out; dequantize the reverse) for a
 // handful of flops, so both are memory-bound.  On the upload leg k is
 // 656 or 1,313 (densities 0.05 and 0.1 of the MLP), where a launch costs
-// more than the bytes.  quantize gives each block of values one thread
-// block of 256 threads (the block max is a warp-shuffle reduction, then
-// one pass writes q).
+// more than the bytes.
+//
+// quantize: a warp a group, kQuantWarps warps (groups) a 256-thread
+// block, a grid that covers the groups with no grid-stride loop.  At the
+// wire's block of 256 (a template instance; one generic instance takes
+// every other size) a lane holds 8 values, two 16-byte loads (value by
+// value where x is not 16-byte aligned, a view, or across k, where the
+// zero padding starts), the group's max|x| is 5 xor shuffles, and the
+// lane's 8 q bytes go out as one 8-byte store at 256 g + 8 lane; lane 0
+// writes the scale.  q is exactly [k] (the wrapper's fresh allocation,
+// so every 8-byte store is aligned): the lane across k stores only its
+// bytes below k.  The per-group walk is quant_group.cuh's, shared with
+// B11 (sparse_pack.cu).  Loads and stores take default caching: the
+// upload leg dequantizes q at once (B10) and reads x again for the error
+// feedback, and at k = 6.7M both fit the 50 MB L2.  (The old design, a
+// 256-thread block a group that read x twice across two barriers and
+// stored q a byte a thread, held an H100 at 26% of its bound at k =
+// 6,710,886; PERF.md.)
 //
 // dequantize streams.  A thread takes kDeqWords 4-byte words of q (16
 // values), each with the evict-first hint, a block's width apart, and
@@ -54,51 +69,46 @@
 #include <stdint.h>
 
 #include "grid.cuh"
+#include "quant_group.cuh"
 
 namespace {
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
+// quantize: groups (one warp each) a block
+constexpr int kQuantWarps = 8;
+constexpr int kQuantThreads = 32 * kQuantWarps;
 
-__global__ void quantize_kernel(const float* __restrict__ x,
-                                int8_t* __restrict__ q,
-                                float* __restrict__ scales, int64_t k,
-                                int block) {
-  __shared__ float warp_part[kThreads / 32];
-  __shared__ float scale_s;
-  const int64_t g = blockIdx.x;
-  const int64_t lo = g * block;
-  // 1. max |x| over the block (the zero padding past k adds nothing)
-  float m = 0.0f;
-  for (int j = threadIdx.x; j < block; j += blockDim.x) {
-    const int64_t i = lo + j;
-    if (i < k) m = fmaxf(m, fabsf(x[i]));
-  }
-  m = warp_max(m);
-  if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float w = threadIdx.x < (blockDim.x >> 5) ? warp_part[threadIdx.x] : 0.0f;
-    w = warp_max(w);
-    if (threadIdx.x == 0) {
-      const float s = fmaxf(__fdiv_rn(w, 127.0f), 1e-12f);
-      scale_s = s;
-      scales[g] = s;
+// BLOCK: the group size as a template parameter (256, the wire's), or 0
+// for the generic instance, which reads it from `block`.  Warp w of the
+// grid quantizes group w; x16: x is 16-byte aligned.
+template <int BLOCK>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                float* __restrict__ scales, int64_t k, int block, int64_t ng,
+                int x16) {
+  static_assert(BLOCK == 0 || BLOCK == 256, "the wire's block, or generic");
+  const int lane = threadIdx.x & 31;
+  const int64_t g =
+      static_cast<int64_t>(blockIdx.x) * kQuantWarps + (threadIdx.x >> 5);
+  if (g >= ng) return;                        // the whole warp
+  if constexpr (BLOCK == 256) {
+    const int64_t i0 = g * BLOCK + 8 * lane;
+    float v[8];
+    load_lane8<false>(x, i0, k, x16, v);
+    const float s = lane8_scale(v);
+    const uint2 w = lane8_bytes(v, s);
+    if (i0 + 8 <= k) {
+      *reinterpret_cast<uint2*>(q + i0) = w;
+    } else {                                  // the lane across k
+      for (int j = 0; i0 + j < k; ++j)
+        q[i0 + j] = static_cast<int8_t>(lane8_byte(w, j));
     }
-  }
-  __syncthreads();
-  // 2. q = clip(rint(x / scale), -127, 127)
-  const float s = scale_s;
-  for (int j = threadIdx.x; j < block; j += blockDim.x) {
-    const int64_t i = lo + j;
-    if (i < k) {
-      const float r = rintf(__fdiv_rn(x[i], s));
-      q[i] = static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f));
-    }
+    if (lane == 0) scales[g] = s;
+  } else {
+    const int64_t lo = g * block;
+    const float s = generic_scale(x, lo, block, k, lane);
+    for (int j = lane; j < block && lo + j < k; j += 32)
+      q[lo + j] = static_cast<int8_t>(quant_byte(x[lo + j], s));
+    if (lane == 0) scales[g] = s;
   }
 }
 
@@ -197,16 +207,27 @@ const char* qz_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x f32 [k] -> q int8 [k], scales f32 [ceil(k / block)]
+// x f32 [k] (4-byte aligned) -> q int8 [k] (8-byte aligned), scales f32
+// [ceil(k / block)]
 int qz_quantize(const void* x, void* q, void* scales, int64_t k, int block,
                 void* stream) {
-  if (k < 1 || block < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || block < 1 || reinterpret_cast<uintptr_t>(q) % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ng = (k + block - 1) / block;
-  if (ng > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  quantize_kernel<<<static_cast<unsigned>(ng), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(q),
-      static_cast<float*>(scales), k, block);
+  const int64_t blocks = (ng + kQuantWarps - 1) / kQuantWarps;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const int x16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* sp = static_cast<float*>(scales);
+  if (block == 256)
+    quantize_kernel<256><<<static_cast<unsigned>(blocks), kQuantThreads, 0,
+                           s>>>(xp, qp, sp, k, block, ng, x16);
+  else
+    quantize_kernel<0><<<static_cast<unsigned>(blocks), kQuantThreads, 0,
+                         s>>>(xp, qp, sp, k, block, ng, x16);
   return static_cast<int>(cudaGetLastError());
 }
 

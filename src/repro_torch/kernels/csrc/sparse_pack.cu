@@ -52,8 +52,10 @@
 // zero padding starts), the group's max|x| is 5 xor shuffles (max is
 // exact in any order; no barrier), and the lane's 8 q bytes go out as
 // one 8-byte store to q and one to the body's value section, at 256 g +
-// 8 lane.  The group's lane 0 writes its scale and the scale's 4 bytes
-// at k + 4 g (one word when k is a multiple of 4, else byte by byte).
+// 8 lane (the per-group walk is quant_group.cuh's, shared with B9; B11
+// loads sel and stores q with the evict-first hint).  The group's lane 0
+// writes its scale and the scale's 4 bytes at k + 4 g (one word when k
+// is a multiple of 4, else byte by byte).
 // The index section, idx's bytes at k + 4 ng on, needs nothing the
 // quantize computes: warp w also writes its 64 16-byte words, B12's
 // aligned loads and funnel shifts (load_words, join) over the section's
@@ -83,6 +85,7 @@
 #include <algorithm>
 
 #include "grid.cuh"
+#include "quant_group.cuh"
 
 namespace {
 
@@ -171,13 +174,6 @@ pack_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ sc,
   if (src) __stcs(reinterpret_cast<uint4*>(body) + t, join(r));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 __device__ __forceinline__ void put_u32(uint8_t* __restrict__ at,
                                         uint32_t v) {
 #pragma unroll
@@ -232,13 +228,6 @@ __device__ __forceinline__ void store_idx_words(const IdxWords& w,
   }
 }
 
-// q = clip(rint(x / s), -127, 127) as a byte
-__device__ __forceinline__ uint32_t quant_byte(float x, float s) {
-  const float r = rintf(__fdiv_rn(x, s));
-  return static_cast<uint8_t>(
-      static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f)));
-}
-
 // the group's scale to scales[g] and its four bytes to the body at k + 4g
 __device__ __forceinline__ void put_scale(uint8_t* body, float* scales,
                                           int64_t k, int64_t g, float s) {
@@ -276,42 +265,19 @@ quantize_pack_kernel(const float* __restrict__ sel,
       // 8 q bytes as one 8-byte store to q and one to the body
       const int64_t i0 = g * BLOCK + 8 * lane;
       float x[8];
-      if (sel16 && i0 + 8 <= k) {
-        const float4 a = __ldcs(reinterpret_cast<const float4*>(sel + i0));
-        const float4 b =
-            __ldcs(reinterpret_cast<const float4*>(sel + i0 + 4));
-        x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-        x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          x[j] = i0 + j < k ? __ldcs(sel + i0 + j) : 0.0f;
-      }
-      float m = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(x[j]));
-      const float s = fmaxf(__fdiv_rn(warp_max(m), 127.0f), 1e-12f);
-      uint2 v = make_uint2(0u, 0u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v.x |= quant_byte(x[j], s) << (8 * j);
-        v.y |= quant_byte(x[j + 4], s) << (8 * j);
-      }
+      load_lane8<true>(sel, i0, k, sel16, x);
+      const float s = lane8_scale(x);
+      const uint2 v = lane8_bytes(x, s);
       __stcs(reinterpret_cast<uint2*>(q + i0), v);  // zero-padded past k
       if (i0 + 8 <= k) {
         __stcs(reinterpret_cast<uint2*>(body + i0), v);
       } else {                                // the lane across k
-        for (int j = 0; i0 + j < k; ++j)
-          body[i0 + j] =
-              static_cast<uint8_t>((j < 4 ? v.x : v.y) >> (8 * (j & 3)));
+        for (int j = 0; i0 + j < k; ++j) body[i0 + j] = lane8_byte(v, j);
       }
       if (lane == 0) put_scale(body, scales, k, g, s);
     } else {
       const int64_t lo = g * block;
-      float m = 0.0f;
-      for (int j = lane; j < block; j += 32)
-        if (lo + j < k) m = fmaxf(m, fabsf(sel[lo + j]));
-      const float s = fmaxf(__fdiv_rn(warp_max(m), 127.0f), 1e-12f);
+      const float s = generic_scale(sel, lo, block, k, lane);
       for (int j = lane; j < block; j += 32) {
         const int64_t i = lo + j;
         const uint32_t b = quant_byte(i < k ? sel[i] : 0.0f, s);

@@ -17,7 +17,9 @@
 // s keeps word s and the warp stores its 32 words in one coalesced store;
 // the tile's count is a shared-memory sum of the 8 warps' popcounts.
 // `lo` (u32 magnitude bits, > 0 on the selection path) is read from
-// device memory, so the launch never waits on the host.
+// device memory where the caller has it there (the path's bracket), so
+// the launch never waits on the host, or taken by value (a number: no
+// copy to the card).
 //
 // B7: keep |x| > tau always and |x| == tau while the global tie rank is
 // below `budget`; the rank is tie_start[tile] + the ties of the earlier
@@ -63,10 +65,10 @@ constexpr int kSteps = kBlock / kWarps / 32; // 32 words a chunk
 
 __global__ void __launch_bounds__(kTileThreads)
 stats_kernel(const float* __restrict__ x, const uint32_t* __restrict__ lo_p,
-             uint32_t* __restrict__ words, int32_t* __restrict__ counts,
-             int64_t n) {
+             uint32_t lo_v, uint32_t* __restrict__ words,
+             int32_t* __restrict__ counts, int64_t n) {
   __shared__ int warp_count[kWarps];
-  const uint32_t lo = *lo_p;
+  const uint32_t lo = lo_p != nullptr ? *lo_p : lo_v;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t chunk = static_cast<int64_t>(blockIdx.x) * kBlock +
@@ -206,13 +208,14 @@ const char* tk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x f32 [n], lo u32 [1] -> words u32 [nb, 256], counts i32 [nb]
-int tk_stats(const void* x, const void* lo, void* words, void* counts,
-             int64_t n, void* stream) {
+// x f32 [n], lo u32 [1] (or NULL: lo_v) -> words u32 [nb, 256], counts
+// i32 [nb]
+int tk_stats(const void* x, const void* lo, uint32_t lo_v, void* words,
+             void* counts, int64_t n, void* stream) {
   unsigned tiles = 0;
   if (!tiles_for(n, &tiles)) return static_cast<int>(cudaErrorInvalidValue);
   stats_kernel<<<tiles, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const uint32_t*>(lo),
+      static_cast<const float*>(x), static_cast<const uint32_t*>(lo), lo_v,
       static_cast<uint32_t*>(words), static_cast<int32_t*>(counts), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,13 +10,15 @@ to the plain versions in ``ref``), allocates its outputs and launches ONE
 kernel on the current stream without synchronising.  A non-zero
 ``cudaGetLastError`` raises.
 
-``dequantize_int8`` runs on every compressed submit (the error
-feedback) and every sparse assimilation, where at the MLP's k = 656 a
-call costs its host path, so that path is lean: each operand's metadata
-is read once, devices are compared as indices, and the C entry is
-resolved once, when the library loads.  q may start at any byte (a view
-of a larger buffer); the kernel takes the values before its first
-4-byte boundary apart.
+Both run on every compressed submit (the quantize, then the error
+feedback's dequantize) and ``dequantize_int8`` on every sparse
+assimilation, where at the MLP's k = 656 a call costs its host path, so
+both paths are lean: each operand's metadata is read once, devices are
+compared as indices, and the C entries are resolved once, when the
+library loads.  x may start at any element and q at any byte (views of
+larger buffers): the quantize loads x value by value where it is not
+16-byte aligned, the dequantize takes q's values before its first 4-byte
+boundary apart.
 """
 from __future__ import annotations
 
@@ -26,18 +28,18 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.launches import (bind_error_string, check_cuda,
-                                          launch, operand)
+from repro_torch.kernels.launches import bind_error_string, launch, operand
 
 QBLOCK = 256                     # values per scale (the wire ships it)
 
 _lib: Optional[ctypes.CDLL] = None
 _error_string = None
-_dequantize = None           # qz_dequantize, resolved when the library loads
+_quantize = None             # qz_quantize, resolved when the library loads
+_dequantize = None           # qz_dequantize, likewise
 
 
 def _library() -> ctypes.CDLL:
-    global _lib, _error_string, _dequantize
+    global _lib, _error_string, _quantize, _dequantize
     if _lib is None:
         lib = build.load("quantize")
         P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -47,33 +49,33 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         bind_error_string(lib.qz_error_string)
         _error_string = lib.qz_error_string
+        _quantize = lib.qz_quantize
         _dequantize = lib.qz_dequantize
         _lib = lib
     return _lib
 
 
-def _groups(k: int, block: int) -> int:
-    if k < 1 or block < 1:
-        raise ValueError(f"need k >= 1 values and block >= 1, got k={k}, "
-                         f"block={block}")
-    return -(-k // block)
+def _quantize_checks(x, block: int) -> Tuple[int, int, int]:
+    """``(k, x ptr, device)`` of a quantize call: x f32 [k], k >= 1,
+    block >= 1."""
+    k, xp, dev = operand("x", x, torch.float32)
+    if block < 1:
+        raise ValueError(f"need block >= 1, got {block}")
+    return k, xp, dev
 
 
 def quantize_int8(x: torch.Tensor, block: int = QBLOCK
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x f32 [k] -> (q int8 [k], scales f32 [ceil(k/block)]) in ONE
-    launch, bit-identical to ``ref.quantize_int8``."""
-    check_cuda("x", x, (torch.float32,))
-    if x.dim() != 1:
-        raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
-    k = x.numel()
-    ng = _groups(k, block)
-    q = torch.empty(k, dtype=torch.int8, device=x.device)
-    scales = torch.empty(ng, dtype=torch.float32, device=x.device)
-    lib = _library()
-    launch("quantize_int8", lib.qz_error_string, lib.qz_quantize,
-           x.get_device(), x.data_ptr(), q.data_ptr(), scales.data_ptr(), k,
-           block)
+    launch (a warp a group, csrc/quantize.cu), bit-identical to
+    ``ref.quantize_int8``."""
+    k, xp, dev = _quantize_checks(x, block)
+    q = torch.empty(k, dtype=torch.int8, device=dev)
+    scales = torch.empty(-(-k // block), dtype=torch.float32, device=dev)
+    if _lib is None:
+        _library()
+    launch("quantize_int8", _error_string, _quantize, dev, xp, q.data_ptr(),
+           scales.data_ptr(), k, block)
     return q, scales
 
 

@@ -21,10 +21,17 @@ any shape, f32 or bf16, for B8; ``ops`` routes CPU tensors to the plain
 versions in ``ref``), allocate their outputs and
 launch ONE kernel each on the current stream without synchronising.  A
 non-zero ``cudaGetLastError`` raises.
+
+B6 runs once an island a round on the selection path, where at the
+bench bus a call costs about its host path, so that path is lean: x's
+metadata is read once, devices are compared as indices, the C entry is
+resolved once, when the library loads, and ``lo`` goes to the kernel as
+the selection's device tensor (read there) or, a number, by value.
 """
 from __future__ import annotations
 
 import ctypes
+import operator
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,21 +40,23 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.launches import (STORAGE, bind_error_string,
                                           check_cuda, check_pack_aligned,
-                                          launch)
+                                          launch, operand)
 
 BLOCK = 8 * 1024            # elements of a tile
 WORDS = BLOCK // 32         # packed u32 candidate words a tile
 
 _I32 = torch.int32
 _lib: Optional[ctypes.CDLL] = None
+_error_string = None
+_stats = None                # tk_stats, resolved when the library loads
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
+    global _lib, _error_string, _stats
     if _lib is None:
         lib = build.load("topk_mask")
         P, I64 = ctypes.c_void_p, ctypes.c_int64
-        lib.tk_stats.argtypes = [P, P, P, P, I64, P]
+        lib.tk_stats.argtypes = [P, P, ctypes.c_uint32, P, P, I64, P]
         lib.tk_stats.restype = ctypes.c_int
         lib.tk_exact.argtypes = [P, P, P, P, P, P, I64, P]
         lib.tk_exact.restype = ctypes.c_int
@@ -56,6 +65,8 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [P, P, ctypes.c_float, P, P, I64, P]
             fn.restype = ctypes.c_int
         bind_error_string(lib.tk_error_string)
+        _error_string = lib.tk_error_string
+        _stats = lib.tk_stats
         _lib = lib
     return _lib
 
@@ -83,20 +94,39 @@ def _scalar(name: str, t, dtype, device) -> torch.Tensor:
     return t
 
 
+def _stats_checks(x, lo) -> Tuple[int, int, int, Optional[int], int]:
+    """``(n, x ptr, device, lo ptr, lo value)`` of a stats call: x f32 [n]
+    with 1 <= n < 2^31; ``lo`` one int32 on x's device (its pointer; the
+    kernel reads it) or an int32 number (its u32 bits by value, no
+    pointer)."""
+    n, xp, dev = operand("x", x, torch.float32)
+    if n >= 1 << 31 or xp % 4:
+        raise ValueError(f"x must be 4-byte aligned with fewer than 2^31 "
+                         f"elements, got {n}")
+    if isinstance(lo, torch.Tensor):
+        if lo.get_device() != dev or lo.dtype != _I32 or lo.numel() != 1:
+            raise ValueError(f"lo must be one int32 on cuda:{dev}, got "
+                             f"{lo.numel()} {lo.dtype} on {lo.device}")
+        return n, xp, dev, lo.data_ptr(), 0
+    lo = operator.index(lo)
+    if not -(1 << 31) <= lo < 1 << 31:
+        raise ValueError(f"lo must be an int32, got {lo}")
+    return n, xp, dev, None, lo & 0xFFFFFFFF
+
+
 def blocked_topk_stats(x: torch.Tensor, lo) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
     """x f32 [n], ``lo`` magnitude bits (int or int32 [1] on x's device)
     -> (words int32 [nb, 256] holding u32 bit patterns, counts int32
     [nb]) in ONE launch, bit-identical to ``ref.blocked_topk_stats``."""
-    n = _check_bus(x)
-    lo = _scalar("lo", lo, _I32, x.device)
+    n, xp, dev, lo_p, lo_v = _stats_checks(x, lo)
     nb = -(-n // BLOCK)
-    words = torch.empty((nb, WORDS), dtype=_I32, device=x.device)
-    counts = torch.empty(nb, dtype=_I32, device=x.device)
-    lib = _library()
-    launch("blocked_topk_stats", lib.tk_error_string, lib.tk_stats,
-           x.get_device(), x.data_ptr(), lo.data_ptr(), words.data_ptr(),
-           counts.data_ptr(), n)
+    words = torch.empty((nb, WORDS), dtype=_I32, device=dev)
+    counts = torch.empty(nb, dtype=_I32, device=dev)
+    if _lib is None:
+        _library()
+    launch("blocked_topk_stats", _error_string, _stats, dev, xp, lo_p, lo_v,
+           words.data_ptr(), counts.data_ptr(), n)
     return words, counts
 
 

@@ -18,7 +18,7 @@ class NullPlan:
             raise NotImplementedError(
                 f"only the single-card plan (attn_mode='local', cp=1) is "
                 f"ported, got {self}; the mesh plans are ROADMAP queue A "
-                f"item 10")
+                f"item 8")
         if self.cache_chunks < 1:
             raise ValueError(f"cache_chunks must be >= 1, got "
                              f"{self.cache_chunks}")

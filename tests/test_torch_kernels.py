@@ -199,7 +199,8 @@ def test_easgd_elastic_bit_exact(dev, dtype, n):
     assert _bits_equal(kc, pc) and _bits_equal(kx, px)
 
 
-@pytest.mark.parametrize("k", [1, 255, 256, 656, 1313, 70000])
+@pytest.mark.parametrize("k", [1, 255, 256, 656, 1313, 70000, 105_075,
+                               6_710_886])
 def test_quantize_dequantize_bit_exact(dev, k):
     x = _rand(dev, k, seed=k) * 0.01
     x[k // 2] = 0.0
@@ -211,6 +212,34 @@ def test_quantize_dequantize_bit_exact(dev, k):
     assert _bits_equal(d, R.dequantize_int8(q, s, k))
     assert VK.launch_counts()["quantize_int8"] == 1
     assert VK.launch_counts()["dequantize_int8"] == 1
+
+
+@pytest.mark.parametrize("block", [256, 100, 64])
+@pytest.mark.parametrize("off", range(4))
+@pytest.mark.parametrize("k", [4096 + r for r in range(16)])
+def test_quantize_x_at_element_offsets_bit_exact(dev, k, off, block):
+    """B9 at tests/test_torch_quantize_walk.py's shapes: every k mod 16, x
+    a view 0-3 elements past a 16-byte boundary (1-3: the value loads),
+    the wire's block and two generic ones, in ONE launch."""
+    base = _rand(dev, k + 8, seed=k + off) * 0.01
+    lead = (off - base.data_ptr() // 4) % 4
+    x = base[lead:lead + k]
+    assert x.data_ptr() % 16 == 4 * off
+    VK.reset_launch_count()
+    q, s = QK.quantize_int8(x, block)
+    assert VK.launch_count() == VK.launch_counts()["quantize_int8"] == 1
+    pq, ps = R.quantize_int8(x, block)
+    assert torch.equal(q, pq) and _bits_equal(s, ps)
+
+
+def test_quantize_rejects_bad_inputs(dev):
+    x = _rand(dev, 300)
+    for bad in (x.double(), x.cpu(), x.view(3, 100), x[::2],
+                torch.zeros(0, device=dev)):
+        with pytest.raises(ValueError):
+            QK.quantize_int8(bad)
+    with pytest.raises(ValueError):
+        QK.quantize_int8(x, 0)
 
 
 # B10's payloads: a k for each length of the head and the tail, the
@@ -351,6 +380,39 @@ def test_topk_stats_bit_exact(dev, n, ties):
     pw, pc = R.blocked_topk_stats(x, lo)
     torch.cuda.synchronize()
     assert torch.equal(words, pw) and torch.equal(counts, pc)
+
+
+@pytest.mark.parametrize("as_tensor", [True, False])
+@pytest.mark.parametrize("n", [2_105_344, (1 << 20) + 4128, 1 << 27])
+def test_topk_stats_lo_as_tensor_and_int_bit_exact(dev, n, as_tensor):
+    """B6 at the bench bus, a ragged bus and 2^27, with ``lo`` as the
+    path's device int32 [1] (read by the kernel) and as a number (by
+    value), in ONE launch each."""
+    x = _bus(dev, n, seed=3)
+    lo = C.bracket(x, n // 20)
+    arg = lo if as_tensor else int(lo)
+    VK.reset_launch_count()
+    words, counts = TK.blocked_topk_stats(x, arg)
+    assert VK.launch_count() == VK.launch_counts()["blocked_topk_stats"] == 1
+    pw, pc = R.blocked_topk_stats(x, lo)
+    torch.cuda.synchronize()
+    assert torch.equal(words, pw) and torch.equal(counts, pc)
+
+
+def test_topk_stats_rejects_bad_inputs(dev):
+    x = _rand(dev, 3 * TK.BLOCK)
+    lo = torch.ones(1, dtype=torch.int32, device=dev)
+    for bad in (x.double(), x.cpu(), x.view(3, -1), x[::2],
+                torch.zeros(0, device=dev)):
+        with pytest.raises(ValueError):
+            TK.blocked_topk_stats(bad, lo)
+    for bad_lo in (lo.cpu(), lo.long(), lo.float(),
+                   torch.ones(2, dtype=torch.int32, device=dev), 1 << 31,
+                   -(1 << 31) - 1):
+        with pytest.raises(ValueError):
+            TK.blocked_topk_stats(x, bad_lo)
+    with pytest.raises(TypeError):
+        TK.blocked_topk_stats(x, 1.5)
 
 
 @pytest.mark.parametrize("n,ties", [(1 << 20, True), ((1 << 20) + 4128, True),
