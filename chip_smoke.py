@@ -20,7 +20,9 @@ a card, or outside a checkout.  Phases:
               1, 4, 8 and 9 at 2^27), Adam
               bit-exact with f32 and bf16 params, with and without weight
               decay, the elastic EASGD round bit-exact in f32 and bf16
-              with 1 and 3 replicas, int8 quantize / dequantize and the
+              with 1-9 replicas (its own instances for 1-8, the generic
+              one for 9; 1, 3, 8 and 9 at 2^27), int8 quantize /
+              dequantize and the
               sparse-body pack bit-exact (the pack also at a k for each
               k mod 4, with q at byte offsets 0-3; the dequantize with q
               at byte offsets 0-15; the quantize at every k mod 16, k =
@@ -36,9 +38,10 @@ a card, or outside a checkout.  Phases:
               B12 and B10 wrapper call at the main sizes beside
               torch.lerp's, torch._fused_adam_'s, torch.addmv's,
               torch.cat's and torch.mul's, and of one B9 call at k = 656
-              (no library call), timed in turns; B9's ptxas lines; the
-              launch helper's raw stream handle held to the current
-              stream's.
+              and one B5 call at 16,384 with 3 replicas (no library
+              call), timed in turns; B9's and B5's graph-timed device
+              us there; B9's and B5's ptxas lines; the launch helper's
+              raw stream handle held to the current stream's.
 4. the main path, through the entry points a user calls:
    a. the quickstart --smoke configuration (examples/quickstart.py:30-45,
       VC-ASGD with var_alpha) on the card and on the CPU from one seed:
@@ -145,11 +148,13 @@ a card, or outside a checkout.  Phases:
       bench bus, 2^20, a ragged 2^20 + 4,128, a tie-heavy round(4x)/4 bus
       (ties cut by the budget across tiles) and 2^27, each with the
       bracket and refinement of its own bus, B6 with ``lo`` as the
-      bracket's device int32 [1] and as a number; kernel (B6 in both
-      forms), plain and bound ms at the bench bus and at 2^27 (no
-      PyTorch call computes packed ballot words or the exact-k emit), B6's
-      host microseconds a call at the bench bus in both forms, and its
-      ptxas lines;
+      bracket's device int32 [1] and as a number, B7 with tau and the
+      budget as the refinement's device tensors and as numbers; kernel
+      (B6 in both forms), plain and bound ms at the bench bus and at 2^27
+      (no PyTorch call computes packed ballot words or the exact-k emit),
+      B6's and B7's host microseconds a call at the bench bus in both
+      forms and their graph-timed device microseconds there, and both
+      kernels' ptxas lines;
    b. select_topk and compress_flat, card against CPU, at 2^20,
       2,105,344, 5,242,880 and 2^24 at densities 0.05 and 0.01: indices,
       q, scales and the new residual identical; B6 once per selection, B7
@@ -231,6 +236,10 @@ PACK_KS = (655, 656, 657, 658, 105_075)
 # B10's payloads in phase 3 with q at byte offsets 0-15 from a 16-byte
 # boundary: heads and tails of every length, packs across a group seam
 DEQUANT_KS = (1, 15, 17, 255, 271, 656, 1313, 105_075)
+# B5's replica counts in phase 3: its instances for 1-8 and its generic
+# one; at 2^27 the smallest, the path's, the largest instance and generic
+EASGD_COUNTS = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+EASGD_COUNTS_BIG = (1, 3, 8, 9)
 # B9's payloads in phase 3 with x at element offsets 0-3 from a 16-byte
 # boundary (tests/test_torch_quantize_walk.py's shapes): every k mod 16,
 # the wire's block and a generic one
@@ -602,9 +611,10 @@ def wrapper_host_cost(torch, np, VK, SK, QK, TK, LA) -> dict:
     """Phase 3: host microseconds of one B1, B3, B2, B12 and B10 wrapper
     call and of the one PyTorch call computing the same function
     (torch.lerp, torch._fused_adam_, torch.addmv, torch.cat, torch.mul),
-    and of one B9 call (no such PyTorch call), at the main sizes (the MLP
-    bus, N = MAIN_N f32, Eq. 2 over 4 clients; k = 656 for the pack and
-    the codec; each kernel shorter than its call): the host clock around
+    and of one B9 and one B5 call (no such PyTorch call), at the main
+    sizes (the MLP bus, N = MAIN_N f32, Eq. 2 over 4 clients, EASGD over 3
+    replicas; k = 656 for the pack and the codec; each kernel shorter than
+    its call): the host clock around
     200 back-to-back calls, every call of wrapper_cost.calls in turns
     over 9 rounds, the median kept (wrapper_cost.host_us).  The launch
     helper's raw stream handle is held to the current stream's."""
@@ -619,7 +629,8 @@ def wrapper_host_cost(torch, np, VK, SK, QK, TK, LA) -> dict:
                       ("B2 assimilate_flat", "torch.addmv"),
                       ("B12 pack_body", "torch.cat"),
                       ("B10 dequantize_int8", "torch.mul"),
-                      ("B9 quantize_int8", None)):
+                      ("B9 quantize_int8", None),
+                      ("B5 easgd_elastic_flat", None)):
         size = WC.size_of(kern, MAIN_N)
         lib_us = None if lib is None else us[lib]
         say(f"host cost {kern} {size}: {us[kern]:.2f} us a call, "
@@ -648,7 +659,7 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
     # B5: elastic EASGD round, replicas in slot order
     beta = 0.05
     for dtype in (torch.float32, torch.bfloat16):
-        for n in (1, 3):
+        for n in (EASGD_COUNTS if n_elems <= MAIN_N else EASGD_COUNTS_BIG):
             c, x = rnd(n_elems).to(dtype), rnd(n, n_elems).to(dtype)
             (kc, kx), (pc, px) = (VK.easgd_elastic_flat(c, x, beta),
                                   R.easgd_elastic(c, x, beta))
@@ -657,6 +668,7 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
                   f"EASGD {dtype} n={n} N={n_elems}: kernel != plain version")
             say(f"parity B5 easgd_elastic_flat {str(dtype)[6:]} n={n} "
                 f"N={n_elems}: bit-exact")
+            del c, x, kc, kx, pc, px
     n = 3
     c, x = rnd(n_elems), rnd(n, n_elems)
     (kc, kx), (pc, px) = (VK.easgd_elastic_flat(c, x, beta),
@@ -671,6 +683,9 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
                                      iters)
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             2 * 4 * (n + 1) * n_elems, (4 * n + 2) * n_elems)
+        if n_elems <= MAIN_N:
+            rec["device_us"] = WC.graph_us(
+                torch, lambda: VK.easgd_elastic_flat(c, x, beta))
     out["easgd_elastic_flat"] = rec
     del c, x, kc, kx, pc, px
 
@@ -732,7 +747,7 @@ def parity_scheme_kernels(torch, np, KK, R, n_elems: int, ks, timed: bool
         quantize_offsets(torch, QK, R, rnd)
     if timed:
         for name, r in out.items():
-            size = f"N={n_elems}" if name == "easgd_elastic_flat" \
+            size = f"N={n_elems} n=3" if name == "easgd_elastic_flat" \
                 else f"k={ks[0]}"
             say(f"timing {name} {size}: kernel {r['ms']:.6f} ms")
             say(f"timing {name} {size}: plain {r['plain_ms']:.6f} ms")
@@ -1756,18 +1771,23 @@ def topk_parity(torch, np, TK, C, R) -> dict:
               f"B6 {name} n={n}, lo a number: kernel != plain version")
         c_lo = int(counts.sum())
         idx, tau, tie_start, budget = C.refine(x, words, c_lo, k)
+        tau_f, budget_i = float(tau), int(budget)
         kept, res = TK.threshold_sparsify_exact(x, tau, tie_start, budget)
+        nk, nr = TK.threshold_sparsify_exact(x, tau_f, tie_start, budget_i)
         pk, pr = R.threshold_sparsify_exact(x, tau, tie_start, budget)
         torch.cuda.synchronize()
         check(bits_equal(torch, kept, pk) and bits_equal(torch, res, pr),
               f"B7 {name} n={n}: kernel != plain version")
+        check(bits_equal(torch, nk, pk) and bits_equal(torch, nr, pr),
+              f"B7 {name} n={n}, tau and budget numbers: kernel != plain "
+              f"version")
         check(int((kept != 0).sum()) == k
               and torch.equal(torch.nonzero(kept).flatten().int(), idx),
               f"B7 {name}: the kept set is not the refinement's {k}")
         ties_at = int((x.abs() == tau).sum())
-        say(f"parity B6/B7 {name} n={n}: bit-exact (B6's lo a tensor and a "
-            f"number); c_lo {c_lo}, k {k}, ties at tau {ties_at} of which "
-            f"kept {int(budget)}")
+        say(f"parity B6/B7 {name} n={n}: bit-exact (B6's lo, B7's tau and "
+            f"budget tensors and numbers); c_lo {c_lo}, k {k}, ties at tau "
+            f"{ties_at} of which kept {budget_i}")
         if name not in ("bench", "2^27"):
             continue
         iters = 50 if name == "bench" else 10
@@ -1797,21 +1817,37 @@ def topk_parity(torch, np, TK, C, R) -> dict:
         recs["threshold_sparsify_exact"]["bound_ms"], \
             recs["threshold_sparsify_exact"]["bound_by"] = bound_ms(
                 12 * n + 4 * nb, 4 * n)
-        b6 = recs["blocked_topk_stats"]
+        b6, b7 = recs["blocked_topk_stats"], recs["threshold_sparsify_exact"]
         b6["device_us"] = WC.graph_us(
             torch, lambda: TK.blocked_topk_stats(x, lo))
+        b7["device_us"] = WC.graph_us(
+            torch, lambda: TK.threshold_sparsify_exact(x, tau, tie_start,
+                                                       budget))
         say(f"timing blocked_topk_stats N={n}: kernel, lo a number "
-            f"{b6['int_lo_ms']:.6f} ms; device {b6['device_us']:.3f} us a "
-            f"call (100 calls in a CUDA graph, lo the tensor), "
-            f"{100e3 * b6['bound_ms'] / b6['device_us']:.1f}% of the bound")
+            f"{b6['int_lo_ms']:.6f} ms")
+        for kname, r in recs.items():
+            say(f"timing {kname} N={n}: device {r['device_us']:.3f} us a "
+                f"call (100 calls in a CUDA graph, the path's device "
+                f"tensors), {100e3 * r['bound_ms'] / r['device_us']:.1f}% "
+                f"of the bound")
         if name == "bench":
             us = WC.host_us(torch, {
-                "tensor": lambda: TK.blocked_topk_stats(x, lo),
-                "int": lambda: TK.blocked_topk_stats(x, lo_int)})
-            b6["host_us"], b6["library_host_us"] = us["tensor"], None
-            say(f"host cost B6 blocked_topk_stats N={n}: {us['tensor']:.2f} "
-                f"us a call with lo the bracket's tensor, {us['int']:.2f} "
-                f"with lo a number (in turns, median of 9 rounds)")
+                "B6 tensor": lambda: TK.blocked_topk_stats(x, lo),
+                "B6 number": lambda: TK.blocked_topk_stats(x, lo_int),
+                "B7 tensors": lambda: TK.threshold_sparsify_exact(
+                    x, tau, tie_start, budget),
+                "B7 numbers": lambda: TK.threshold_sparsify_exact(
+                    x, tau_f, tie_start, budget_i)})
+            b6["host_us"], b7["host_us"] = us["B6 tensor"], us["B7 tensors"]
+            b6["library_host_us"] = b7["library_host_us"] = None
+            say(f"host cost B6 blocked_topk_stats N={n}: "
+                f"{us['B6 tensor']:.2f} us a call with lo the bracket's "
+                f"tensor, {us['B6 number']:.2f} with lo a number (in turns, "
+                f"median of 9 rounds)")
+            say(f"host cost B7 threshold_sparsify_exact N={n}: "
+                f"{us['B7 tensors']:.2f} us a call with tau and the budget "
+                f"the refinement's tensors, {us['B7 numbers']:.2f} with "
+                f"numbers (in turns, median of 9 rounds)")
         for kname, r in recs.items():
             say(f"timing {kname} N={n}: kernel {r['ms']:.6f} ms")
             say(f"timing {kname} N={n}: plain {r['plain_ms']:.6f} ms")
@@ -1822,7 +1858,7 @@ def topk_parity(torch, np, TK, C, R) -> dict:
                 f"of it")
         if name == "bench":
             out = recs
-        del x, words, counts, iw, ic, pw, pc, kept, res, pk, pr, idx
+        del x, words, counts, iw, ic, pw, pc, kept, res, nk, nr, pk, pr, idx
         torch.cuda.empty_cache()
     return out
 
@@ -2351,6 +2387,7 @@ def main() -> int:
                                        LA).items():
         numbers[name].update(rec)
     say_ptxas(build, "quantize", "B9", "quantize_kernel")
+    say_ptxas(build, "vc_asgd_update", "B5", "easgd_kernel")
     parity(torch, np, VK, R, BIG_N, timed=True)
     torch.cuda.empty_cache()
     parity_scheme_kernels(torch, np, (VK, QK, SK), R, BIG_N, (BIG_K,),
@@ -2490,6 +2527,7 @@ def main() -> int:
     phases.start("9")
     numbers.update(topk_parity(torch, np, TK, C, R))                  # 9a
     say_ptxas(build, "topk_mask", "B6", "stats_kernel")
+    say_ptxas(build, "topk_mask", "B7", "exact_kernel")
     select_card_vs_cpu(torch, np, C, VK)                              # 9b
     pod_counts = pod_round_card_vs_cpu(torch, np, VK)                 # 9c
     coordinator_card_vs_cpu(torch, np, VK)                            # 9d
@@ -2524,7 +2562,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if "host_us" in r:          # B1-B3, B10, B12: host us a wrapper call
+        if "host_us" in r:          # host us a wrapper call, where taken
             entry["host_us"] = r["host_us"]
             entry["library_host_us"] = r["library_host_us"]
         if name in ROUTES:          # B13: the main path's route, and both

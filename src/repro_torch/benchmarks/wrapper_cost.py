@@ -7,10 +7,14 @@ of the batched fold, B12 (``pack_body``) of every sparse frame and B10
 (``torch.lerp``, ``torch._fused_adam_``, ``torch.addmv``, ``torch.cat``
 of the three byte views, ``torch.mul`` of the zero-padded q by its
 scales), of B9 (``quantize_int8``, every compressed submit), B11
-(``quantize_pack``) and B6 (``blocked_topk_stats``, the selection of
-every compressed round, ``lo`` as the bracket's device int32 [1] and as a
-number), none of which one PyTorch call computes, of B13's wrapper, and
-B14's and B15's times at rwkv6-1.6b's and jamba's prefill shapes.
+(``quantize_pack``), B6 (``blocked_topk_stats``, the selection of every
+compressed round, ``lo`` as the bracket's device int32 [1] and as a
+number), B7 (``threshold_sparsify_exact``, the emit after it, ``tau``,
+``tie_start`` and the budget as the refinement hands them, and ``tau``
+and the budget as numbers) and B5 (``easgd_elastic_flat``, the pod
+baseline's elastic round over 3 replicas), none of which one PyTorch call
+computes, of B13's wrapper, and B14's and B15's times at rwkv6-1.6b's and
+jamba's prefill shapes.
 
     python src/repro_torch/benchmarks/wrapper_cost.py [--src DIR] [--label L]
 
@@ -21,14 +25,15 @@ one card, each in its own process (A, B, B, A).  Prints one JSON line:
 * ``host_us``: host microseconds a call, the host clock around
   ``HOST_CALLS`` back-to-back calls at the main sizes (the MLP bus, N =
   16,384 f32; its sparse payload, k = 656, for B12, B10 and B9; B11 at
-  the bench bus's k = 105,075; B6 on the bench bus, 2,105,344
-  elements), where the kernel is about as long as the call or shorter;
+  the bench bus's k = 105,075; B6 and B7 on the bench bus, 2,105,344
+  elements; B5 at 16,384 with 3 replicas), where the kernel is about as
+  long as the call or shorter;
   every call of the tree and every stage below timed in turns,
   ``ROUNDS`` rounds, the median kept;
 * ``event_ms``: CUDA-event milliseconds a call over 50 calls at the main
-  sizes and 10 at N = 2^27 / k = 6,710,886 (B11 and B9 there too; B6 on
-  2^27 elements), the calls of one size in turns (A B B A, twice, after a
-  warm-up), the mean kept;
+  sizes and 10 at N = 2^27 / k = 6,710,886 (B11 and B9 there too; B6
+  and B7 on 2^27 elements, B5 with 3 replicas), the calls of one size in
+  turns (A B B A, twice, after a warm-up), the mean kept;
 * ``graph_us``: device microseconds a call at the main sizes, the calls
   captured 100 at a time in one CUDA graph and replayed (no host work
   between launches: what is left is the kernel and the launch gap);
@@ -36,7 +41,10 @@ one card, each in its own process (A, B, B, A).  Prints one JSON line:
   an element for Eq. 1, 28 for Adam, 4 (n + 2) for Eq. 2; twice the
   body's 5k + 4 ng bytes for the pack; 5k + 4 ng for the dequantize and
   the quantize; sel and idx read, body, q and scales written for B11; x
-  read, the words and counts written, 4n + n / 8 + 4 nb, for B6), B14's at [4,
+  read, the words and counts written, 4n + n / 8 + 4 nb, for B6; x
+  read, kept and residual written, tie_start read, 12n + 4 nb, for B7;
+  8 (n + 1) N for B5 over n replicas), the same at the main sizes beside
+  ``graph_us`` for B6, B7 and B5, B14's at [4,
   32, 2,048, 64] f32 (337.6 MB), and B15's at jamba's prefill shape (the
   SFU's exps at 16 a clock an SM at 1.98 GHz, 0.2568 ms; its 540 MB take
   0.161);
@@ -83,6 +91,7 @@ QPACK_K = {MAIN_N: 105_075, BIG_N: int(BIG_N * 0.05)}
 TOPK_N = {MAIN_N: 2_105_344, BIG_N: BIG_N}
 TOPK_DENSITY = 0.05
 N_CLIENTS = 4                    # B2: 4b's batch of four results
+N_REPLICAS, BETA = 3, 0.05       # B5: the pod baseline (easgd-flat-pod)
 QBLOCK = 256
 HOST_CALLS, ROUNDS = 200, 9
 WARM_S = 2.0                     # device warm-up before a timing at 2^27
@@ -166,7 +175,8 @@ def graph_us(torch, fn, reps: int = 100) -> float:
 
 def calls(torch, np, VK, SK, QK, TK, n: int) -> dict:
     """name -> a zero-argument call at bus size ``n`` (f32; B12, B10 and
-    B9 at ``PACK_K[n]``, B11 at ``QPACK_K[n]``, B6 on ``TOPK_N[n]``)."""
+    B9 at ``PACK_K[n]``, B11 at ``QPACK_K[n]``, B6 and B7 on
+    ``TOPK_N[n]``, B5 over N_REPLICAS replicas)."""
     from repro_torch.core.vc_asgd import assimilation_weights
     g = torch.Generator(device="cuda").manual_seed(n)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
@@ -194,6 +204,9 @@ def calls(torch, np, VK, SK, QK, TK, n: int) -> dict:
     x9 = rnd(k) * 0.01
     bus, lo = topk_bus(torch, g, TOPK_N[n])
     lo_int = int(lo)
+    tau, tie_start, budget = exact_inputs(torch, TK, bus, lo)
+    tau_f, budget_i = float(tau), int(budget)
+    ec, ex = rnd(n), rnd(N_REPLICAS, n)
     return {
         "B1 vc_asgd_lerp_flat": lambda: VK.vc_asgd_lerp_flat(s, c, ALPHA),
         "torch.lerp": lambda: torch.lerp(c, s, a32),
@@ -215,7 +228,24 @@ def calls(torch, np, VK, SK, QK, TK, n: int) -> dict:
         "B6 blocked_topk_stats": lambda: TK.blocked_topk_stats(bus, lo),
         "B6 blocked_topk_stats int lo":
             lambda: TK.blocked_topk_stats(bus, lo_int),
+        "B7 threshold_sparsify_exact": lambda: TK.threshold_sparsify_exact(
+            bus, tau, tie_start, budget),
+        "B7 threshold_sparsify_exact numbers":
+            lambda: TK.threshold_sparsify_exact(bus, tau_f, tie_start,
+                                                budget_i),
+        "B5 easgd_elastic_flat": lambda: VK.easgd_elastic_flat(ec, ex, BETA),
     }
+
+
+def exact_inputs(torch, TK, bus, lo) -> tuple:
+    """B7's ``(tau, tie_start, budget)`` on ``bus`` at TOPK_DENSITY, as
+    the selection hands them: the refinement of B6's words
+    (``compression.refine``), device tensors."""
+    from repro_torch.core import compression as C
+    words, counts = TK.blocked_topk_stats(bus, lo)
+    _, tau, tie_start, budget = C.refine(
+        bus, words, int(counts.sum()), int(bus.numel() * TOPK_DENSITY))
+    return tau, tie_start, budget
 
 
 def topk_bus(torch, g, n: int) -> tuple:
@@ -239,10 +269,10 @@ def pack_payload(torch, g, k: int) -> tuple:
 
 
 def stages(torch, np, VK, SK, QK, TK, LA) -> dict:
-    """name -> one stage of a B3, B1, B2, B12, B10, B9 or B6 wrapper call
-    at the main sizes, alone (the stages this tree's wrappers expose;
-    B9's and B6's under the same names for a tree with the lean launch
-    path and one without)."""
+    """name -> one stage of a B3, B1, B2, B12, B10, B9, B6, B7 or B5
+    wrapper call at the main sizes, alone (the stages this tree's
+    wrappers expose; B7's under the same names for a tree with the lean
+    launch path and one without)."""
     from repro_torch.core.vc_asgd import assimilation_weights
     if not hasattr(VK, "_operand"):
         return {}
@@ -346,55 +376,78 @@ def stages(torch, np, VK, SK, QK, TK, LA) -> dict:
                 dk, dtype=torch.float32, device=dev),
             "dequantize ctypes call + launch":
                 lambda: dfn(dqp, dsp, dop, dk, QBLOCK, stream)})
+    ec, ex = p, torch.randn(N_REPLICAS, MAIN_N, generator=g, device="cuda")
+    eco, exo = VK.easgd_elastic_flat(ec, ex, BETA)
+    efn = VK._entries["easgd", torch.float32]
+    eptrs = (ec.data_ptr(), ex.data_ptr(), eco.data_ptr(), exo.data_ptr())
+
+    def easgd_checks():
+        n, _ = VK._operand("center", ec, VK.STORAGE)
+        VK._flat("center", ec, n)
+        VK._rows("replicas", ex, ec.dtype, ec.get_device(), n)
+
+    out.update({
+        "easgd checks (center + replicas)": easgd_checks,
+        "easgd outputs (2 empty_like)":
+            lambda: (torch.empty_like(ec), torch.empty_like(ex)),
+        "easgd ctypes call + launch":
+            lambda: efn(*eptrs, BETA, N_REPLICAS, MAIN_N, stream)})
     out.update(codec_stages(torch, g, QK, TK, LA, dev, stream))
     return out
 
 
 def codec_stages(torch, g, QK, TK, LA, dev, stream) -> dict:
-    """B9's stages at k = 656 and B6's on the bench bus (``lo`` the
-    bracket's device tensor): the checks, the two ``torch.empty`` and
-    the ctypes call with its launch, the checks and the C entry taken as
-    the tree's wrapper takes them (a tree without the lean launch path:
-    ``check_cuda`` and ``_groups`` / ``_check_bus`` and ``_scalar``, and
-    the entry looked up on the library at each call)."""
+    """B9's stages at k = 656, B6's and B7's on the bench bus (``lo``,
+    ``tau``, ``tie_start`` and the budget the selection's device
+    tensors): the checks, the output allocations and the ctypes call with
+    its launch, the checks and the C entry taken as the tree's wrapper
+    takes them (B7 in a tree without the lean launch path: ``_check_bus``,
+    ``_scalar`` and ``check_cuda``, and the entry looked up on the library
+    at each call)."""
     k = PACK_K[MAIN_N]
     x = torch.randn(k, generator=g, device="cuda") * 0.01
     q, sc = QK.quantize_int8(x)
     xp, qp, sp, ng = x.data_ptr(), q.data_ptr(), sc.data_ptr(), sc.numel()
-    if hasattr(QK, "_quantize_checks"):
-        qchecks = lambda: QK._quantize_checks(x, QBLOCK)
-        qcall = lambda: QK._quantize(xp, qp, sp, k, QBLOCK, stream)
-    else:
-        def qchecks():
-            LA.check_cuda("x", x, (torch.float32,))
-            return x.dim(), QK._groups(x.numel(), QBLOCK)
-        lib = QK._library()
-        qcall = lambda: lib.qz_quantize(xp, qp, sp, k, QBLOCK, stream)
     n = TOPK_N[MAIN_N]
     bus, lo = topk_bus(torch, g, n)
     words, counts = TK.blocked_topk_stats(bus, lo)
     bp, lp, wp, cp = (t.data_ptr() for t in (bus, lo, words, counts))
     nb = counts.numel()
-    if hasattr(TK, "_stats_checks"):
-        tchecks = lambda: TK._stats_checks(bus, lo)
-        tcall = lambda: TK._stats(bp, lp, 0, wp, cp, n, stream)
+    tau, tie_start, budget = exact_inputs(torch, TK, bus, lo)
+    kept, res = TK.threshold_sparsify_exact(bus, tau, tie_start, budget)
+    tp, btp, tsp, kp, rp = (t.data_ptr() for t in (tau, budget, tie_start,
+                                                   kept, res))
+    if hasattr(TK, "_exact_checks"):
+        echecks = lambda: TK._exact_checks(bus, tau, tie_start, budget)
+        ecall = lambda: TK._exact(bp, tp, 0.0, btp, 0, tsp, kp, rp, n,
+                                  stream)
     else:
-        def tchecks():
-            return TK._check_bus(bus), TK._scalar("lo", lo, torch.int32,
-                                                  bus.device)
-        tlib = TK._library()
-        tcall = lambda: tlib.tk_stats(bp, lp, wp, cp, n, stream)
+        def echecks():
+            TK._check_bus(bus)
+            TK._scalar("tau", tau, torch.float32, bus.device)
+            TK._scalar("tie_budget", budget, torch.int32, bus.device)
+            LA.check_cuda("tie_start", tie_start, (torch.int32,))
+            return tie_start.device != bus.device or tie_start.numel() != nb
+        elib = TK._library()
+        ecall = lambda: elib.tk_exact(bp, tp, btp, tsp, kp, rp, n, stream)
     return {
-        "quantize checks": qchecks,
+        "quantize checks": lambda: QK._quantize_checks(x, QBLOCK),
         "quantize outputs (2 torch.empty)": lambda: (
             torch.empty(k, dtype=torch.int8, device=dev),
             torch.empty(ng, dtype=torch.float32, device=dev)),
-        "quantize ctypes call + launch": qcall,
-        "stats checks (x, lo)": tchecks,
+        "quantize ctypes call + launch":
+            lambda: QK._quantize(xp, qp, sp, k, QBLOCK, stream),
+        "stats checks (x, lo)": lambda: TK._stats_checks(bus, lo),
         "stats outputs (2 torch.empty)": lambda: (
             torch.empty((nb, 256), dtype=torch.int32, device=dev),
             torch.empty(nb, dtype=torch.int32, device=dev)),
-        "stats ctypes call + launch": tcall}
+        "stats ctypes call + launch":
+            lambda: TK._stats(bp, lp, 0, wp, cp, n, stream),
+        "exact checks (x, tau, tie_start, budget)": echecks,
+        "exact outputs (2 torch.empty)": lambda: (
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev)),
+        "exact ctypes call + launch": ecall}
 
 
 def carve(torch, body: int, q: int, ng: int, dev) -> tuple:
@@ -491,17 +544,20 @@ def b15_ms(torch, MK) -> float:
 
 def capturable(name: str, TK) -> bool:
     """Whether a call of ``calls`` can be captured in a CUDA graph: not
-    B6 with an int ``lo`` in a tree whose wrapper copies it to the card
-    (a host-to-device copy of pageable memory)."""
-    return not name.endswith("int lo") or hasattr(TK, "_stats_checks")
+    B7 with ``tau`` and the budget as numbers in a tree whose wrapper
+    copies them to the card (a host-to-device copy of pageable
+    memory)."""
+    return not name.endswith("numbers") or hasattr(TK, "_exact_checks")
 
 
 def size_of(name: str, n: int) -> str:
     """The size label of a call of ``calls(..., n)``."""
     if "quantize_pack" in name:
         return f"k={QPACK_K[n]}"
-    if "topk" in name:
+    if "topk" in name or "exact" in name:
         return f"N={TOPK_N[n]}"
+    if "easgd" in name:
+        return f"N={n} n={N_REPLICAS}"
     if ("pack_body" in name or name == "torch.cat" or "quantize" in name
             or name == "torch.mul"):
         return f"k={PACK_K[n]}"
@@ -573,6 +629,10 @@ def main(argv=None) -> int:
             / HBM_BYTES_PER_S,
         **{f"B6 N={nt}": 1e3 * (4 * nt + nt / 8 + 4 * -(-nt // 8192))
            / HBM_BYTES_PER_S for nt in TOPK_N.values()},
+        **{f"B7 N={nt}": 1e3 * (12 * nt + 4 * -(-nt // 8192))
+           / HBM_BYTES_PER_S for nt in TOPK_N.values()},
+        **{f"B5 N={nt} n={N_REPLICAS}": 1e3 * 8 * (N_REPLICAS + 1) * nt
+           / HBM_BYTES_PER_S for nt in (MAIN_N, BIG_N)},
         "B15 [4,2048,8192] ds 16": 1e3 * 4 * 2048 * 8192 * 16
             / (16 * 132 * 1.98e9)}
     rec["b13_host_us"] = b13_host(torch, FK)

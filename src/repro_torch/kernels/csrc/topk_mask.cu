@@ -30,8 +30,23 @@
 // registers between the counting pass and the emit pass, so x is read
 // once.  kept = keep ? x : 0.0 and residual = x - kept in f32 (one IEEE
 // subtraction), so kept + residual == x exactly and the results equal the
-// plain version's bit for bit.  tau and budget are read from device memory.
+// plain version's bit for bit.  tau and budget are read from device
+// memory (the refinement's tensors) or taken by value (numbers: no copy
+// to the card).
 //
+// What bounds it.  It moves 12 B an element: 0.0075 ms on the compressed
+// round's bench bus (2,105,344 elements, 257 tiles, one partial wave) at
+// 3.35 TB/s.  There the bus is fresh in the 50 MB L2, and on the H100
+// this walk takes 6.9 us a call graph-timed, above that byte bound; at
+// 2^27 it holds 86-87%.  In turns with it (codec_variants.py), none of
+// these beat it at the bench bus: warps holding no tie of tau (almost
+// all, on the path) storing before the tile's barrier, +0.3-0.4 us (and
+// 7% slower at 2^27); a lane holding 4 consecutive floats a step (16-byte
+// loads and stores, ties ranked by a __shfl_up_sync scan), +0.5-0.7 us,
+// +1.1-1.3 with the early stores; evict-first kept stores, +0.1 (2%
+// slower at 2^27).  512-thread tiles came within 0.15 us of it (PERF.md,
+// PR 24).
+
 // B8, the plain threshold pass (not exact-k: every |x| >= tau is kept,
 // ties and all): kept = |x| >= tau ? x : 0.0 and residual = x - kept, in
 // f32 math, both stored in x's dtype (f32 or bf16; either value is x or
@@ -102,13 +117,13 @@ stats_kernel(const float* __restrict__ x, const uint32_t* __restrict__ lo_p,
 
 __global__ void __launch_bounds__(kTileThreads)
 exact_kernel(const float* __restrict__ x, const float* __restrict__ tau_p,
-             const int32_t* __restrict__ budget_p,
-             const int32_t* __restrict__ tie_start,
+             float tau_v, const int32_t* __restrict__ budget_p,
+             int32_t budget_v, const int32_t* __restrict__ tie_start,
              float* __restrict__ kept, float* __restrict__ residual,
              int64_t n) {
   __shared__ int warp_ties[kWarps];
-  const float tau = *tau_p;
-  const int budget = *budget_p;
+  const float tau = tau_p != nullptr ? *tau_p : tau_v;
+  const int budget = budget_p != nullptr ? *budget_p : budget_v;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t chunk = static_cast<int64_t>(blockIdx.x) * kBlock +
@@ -220,16 +235,16 @@ int tk_stats(const void* x, const void* lo, uint32_t lo_v, void* words,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x f32 [n], tau f32 [1], budget i32 [1], tie_start i32 [nb]
-//   -> kept f32 [n], residual f32 [n]
-int tk_exact(const void* x, const void* tau, const void* budget,
-             const void* tie_start, void* kept, void* residual, int64_t n,
-             void* stream) {
+// x f32 [n], tau f32 [1] (or NULL: tau_v), budget i32 [1] (or NULL:
+// budget_v), tie_start i32 [nb] -> kept f32 [n], residual f32 [n]
+int tk_exact(const void* x, const void* tau, float tau_v, const void* budget,
+             int32_t budget_v, const void* tie_start, void* kept,
+             void* residual, int64_t n, void* stream) {
   unsigned tiles = 0;
   if (!tiles_for(n, &tiles)) return static_cast<int>(cudaErrorInvalidValue);
   exact_kernel<<<tiles, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(tau),
-      static_cast<const int32_t*>(budget),
+      static_cast<const float*>(x), static_cast<const float*>(tau), tau_v,
+      static_cast<const int32_t*>(budget), budget_v,
       static_cast<const int32_t*>(tie_start), static_cast<float*>(kept),
       static_cast<float*>(residual), n);
   return static_cast<int>(cudaGetLastError());

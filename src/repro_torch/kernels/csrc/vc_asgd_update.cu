@@ -29,8 +29,8 @@
 // (any shape), whose n % V elements after the last pack the first threads
 // of block 0 take one each: no padded copies.  Eq. 1, Eq. 2 and Adam take
 // a grid that covers the bus, a chunk a block, with evict-first loads and
-// stores (see each kernel's note); DC-ASGD and EASGD a grid-stride loop
-// over a grid of a few blocks per SM.
+// stores, EASGD the same grid with default caching (see each kernel's
+// note); DC-ASGD a grid-stride loop over a grid of a few blocks per SM.
 //
 // Numerics: the reference pins these results bit for bit (separate f32
 // multiply and add, no FMA; IEEE division and square root), so every
@@ -347,61 +347,116 @@ adam_kernel(const T* __restrict__ p, const float* __restrict__ g,
   store_stream(reinterpret_cast<PF*>(vo) + i, vn);
 }
 
-// ---- elastic EASGD round over the whole pod ---------------------------------
+// ---- elastic EASGD round over the whole pod (B5) ----------------------------
 // diff_j = x_j - c;  acc = ((0 + diff_0) + diff_1) + ...  (replica order,
 // from zero, as the Pallas _easgd_kernel carries it);  c' = c + beta*acc;
 // x_j' = x_j - beta*diff_j.  Separate f32 multiply and add, beta an f32.
-template <typename T>
-__global__ void easgd_kernel(const T* __restrict__ c,
-                             const T* __restrict__ x, T* __restrict__ co,
-                             T* __restrict__ xo, float beta, int n_replicas,
-                             int64_t nvec) {
-  constexpr int V = 16 / sizeof(T);
-  using P = Pack<T, V>;
-  const P* cp = reinterpret_cast<const P*>(c);
-  const P* xp = reinterpret_cast<const P*>(x);
-  P* cop = reinterpret_cast<P*>(co);
-  P* xop = reinterpret_cast<P*>(xo);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < nvec; i += stride) {
-    const P cv = cp[i];
-    float cf[V], acc[V];
+//
+// What bounds it.  On the pod baseline's bus (the MLP's 16,384 f32
+// elements, 3 replicas: 524,288 bytes, 0.000157 ms at 3.35 TB/s) a call
+// costs its launch and its host path (vc_asgd_update.py).  At bus scale
+// (2^27, 3 replicas: 4.29 GB, 1.2821 ms) it is HBM bytes: 8 (n + 1) B an
+// f32 element for 4n + 2 flops.
+//
+// What the design does.  As Eq. 2 (B2): a grid that covers the bus, one
+// pack of the center and of each replica a thread (64 blocks on 64 SMs at
+// the MLP bus), no grid-stride loop.  The replica count is a template
+// parameter for 1 <= n <= kFixedReplicas, so each thread issues the
+// center's pack and all n replica packs, n + 1 independent 16-byte loads,
+// before the first subtraction; NR = 0 is the one generic instance for
+// more replicas, on the same grid: a runtime loop that loads, updates and
+// stores one replica at a time.  On the H100 this took the graph-timed
+// call at the MLP bus from 1.9-2.1 us (grid_for's 16 blocks, a replica
+// loop whose loads waited on each other) to 1.3-1.5, and 2^27 from 85-86%
+// of the bound to 89-90%.  Loads and stores keep the default caching:
+// evict-first ones (B2's) measured no different at the MLP bus and 2%
+// slower at 2^27 (codec_variants.py, PERF.md, PR 24).
+constexpr int kFixedReplicas = 8;
+
+// replica pack xv moved toward the center cf; its diff added to acc
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> easgd_replica(const Pack<T, V>& xv,
+                                                    const float (&cf)[V],
+                                                    float beta,
+                                                    float (&acc)[V]) {
+  Pack<T, V> ov;
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      cf[k] = widen(cv.v[k]);
-      acc[k] = 0.0f;
-    }
-    for (int j = 0; j < n_replicas; ++j) {
-      const int64_t row = static_cast<int64_t>(j) * nvec + i;
-      const P xv = xp[row];
-      P ov;
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const float xk = widen(xv.v[k]);
-        const float d = __fsub_rn(xk, cf[k]);
-        acc[k] = __fadd_rn(acc[k], d);
-        ov.v[k] = narrow<T>(__fsub_rn(xk, __fmul_rn(beta, d)));
-      }
-      xop[row] = ov;
-    }
-    P ov;
-#pragma unroll
-    for (int k = 0; k < V; ++k)
-      ov.v[k] = narrow<T>(__fadd_rn(cf[k], __fmul_rn(beta, acc[k])));
-    cop[i] = ov;
+  for (int k = 0; k < V; ++k) {
+    const float xk = widen(xv.v[k]);
+    const float d = __fsub_rn(xk, cf[k]);
+    acc[k] = __fadd_rn(acc[k], d);
+    ov.v[k] = narrow<T>(__fsub_rn(xk, __fmul_rn(beta, d)));
   }
+  return ov;
 }
 
+template <typename T, int NR>
+__global__ void __launch_bounds__(kStreamThreads)
+easgd_kernel(const T* __restrict__ c, const T* __restrict__ x,
+             T* __restrict__ co, T* __restrict__ xo, float beta,
+             int n_replicas, int64_t nvec) {
+  constexpr int V = 16 / sizeof(T);
+  using P = Pack<T, V>;
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kStreamThreads + threadIdx.x;
+  if (i >= nvec) return;
+  const P* xp = reinterpret_cast<const P*>(x) + i;
+  P* xop = reinterpret_cast<P*>(xo) + i;
+  const P cv = reinterpret_cast<const P*>(c)[i];
+  float cf[V], acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    cf[k] = widen(cv.v[k]);
+    acc[k] = 0.0f;
+  }
+  if constexpr (NR > 0) {
+    P xv[NR];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) xv[j] = xp[j * nvec];
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+      xop[j * nvec] = easgd_replica(xv[j], cf, beta, acc);
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < n_replicas; ++j)
+      xop[j * nvec] = easgd_replica(xp[j * nvec], cf, beta, acc);
+  }
+  P ov;
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    ov.v[k] = narrow<T>(__fadd_rn(cf[k], __fmul_rn(beta, acc[k])));
+  reinterpret_cast<P*>(co)[i] = ov;
+}
+
+template <typename T, int NR>
+void easgd(const void* c, const void* x, void* co, void* xo, float beta,
+           int n_replicas, int64_t nvec, cudaStream_t stream) {
+  easgd_kernel<T, NR><<<stream_grid(nvec, 1), kStreamThreads, 0, stream>>>(
+      static_cast<const T*>(c), static_cast<const T*>(x), static_cast<T*>(co),
+      static_cast<T*>(xo), beta, n_replicas, nvec);
+}
+
+// n_replicas in 1..kFixedReplicas takes its own instance, any more the
+// generic one
 template <typename T>
 int easgd_launch(const void* c, const void* x, void* co, void* xo,
                  float beta, int n_replicas, int64_t n, void* stream) {
-  if (n_replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t nvec = n / (16 / sizeof(T));
-  easgd_kernel<T><<<grid_for(nvec), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(c), static_cast<const T*>(x), static_cast<T*>(co),
-      static_cast<T*>(xo), beta, n_replicas, nvec);
+  if (n_replicas < 1 || nvec < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int r = n_replicas;
+  switch (n_replicas) {
+    case 1: easgd<T, 1>(c, x, co, xo, beta, r, nvec, st); break;
+    case 2: easgd<T, 2>(c, x, co, xo, beta, r, nvec, st); break;
+    case 3: easgd<T, 3>(c, x, co, xo, beta, r, nvec, st); break;
+    case 4: easgd<T, 4>(c, x, co, xo, beta, r, nvec, st); break;
+    case 5: easgd<T, 5>(c, x, co, xo, beta, r, nvec, st); break;
+    case 6: easgd<T, 6>(c, x, co, xo, beta, r, nvec, st); break;
+    case 7: easgd<T, 7>(c, x, co, xo, beta, r, nvec, st); break;
+    case 8: easgd<T, 8>(c, x, co, xo, beta, r, nvec, st); break;
+    default: easgd<T, 0>(c, x, co, xo, beta, r, nvec, st); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -548,7 +603,9 @@ int vc_adam_bf16(const void* p, const void* g, const void* m, const void* v,
   return adam_launch<uint16_t>(p, g, m, v, po, mo, vo, sc, n, stream);
 }
 
-// center [n], replicas [n_replicas, n] -> center', replicas'
+// center [n], replicas [n_replicas, n] -> center', replicas' over the
+// whole 16-byte packs (the flat bus has no tail); any n_replicas >= 1,
+// 1..8 each on its own instance
 int vc_easgd_f32(const void* c, const void* x, void* co, void* xo, float beta,
                  int n_replicas, int64_t n, void* stream) {
   return easgd_launch<float>(c, x, co, xo, beta, n_replicas, n, stream);

@@ -104,22 +104,26 @@ _error_string = None
 _entries: Dict[Tuple[str, torch.dtype], Any] = {}
 
 
+_P, _F, _I, _I64 = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                    ctypes.c_int64)
+# each C entry's argtypes: a Python float passed as _F is rounded once to
+# nearest f32 by ctypes (B5's beta)
+SIGNATURES = {
+    "lerp": [_P, _P, _P, _F, _F, _I64, _P],
+    "dc_lerp": [_P, _P, _P, _P, _P, _F, _F, _F, _I64, _P],
+    "assimilate_fixed": [_P, _P, _P, FixedWeights, _I, _I64, _P],
+    "assimilate": [_P, _P, _P, ctypes.POINTER(_F), _I, _I64, _P],
+    "adam": [_P] * 7 + [AdamScalars, _I64, _P],
+    "easgd": [_P, _P, _P, _P, _F, _I, _I64, _P],
+}
+
+
 def _library() -> ctypes.CDLL:
     global _lib, _error_string
     if _lib is None:
         lib = build.load("vc_asgd_update")
-        P, F, I, I64 = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                        ctypes.c_int64)
-        signatures = {
-            "lerp": [P, P, P, F, F, I64, P],
-            "dc_lerp": [P, P, P, P, P, F, F, F, I64, P],
-            "assimilate_fixed": [P, P, P, FixedWeights, I, I64, P],
-            "assimilate": [P, P, P, ctypes.POINTER(F), I, I64, P],
-            "adam": [P] * 7 + [AdamScalars, I64, P],
-            "easgd": [P, P, P, P, F, I, I64, P],
-        }
         for dtype, sfx in STORAGE.items():
-            for entry, argtypes in signatures.items():
+            for entry, argtypes in SIGNATURES.items():
                 fn = getattr(lib, f"vc_{entry}_{sfx}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -331,8 +335,9 @@ def easgd_elastic_flat(center: torch.Tensor, replicas: torch.Tensor, beta
                        ) -> tuple:
     """The elastic EASGD round as ONE launch: center [N] and replicas
     [n, N] (stacked in slot order) -> (center', replicas').  The sum over
-    replicas runs in replica order from zero; ``beta`` is rounded to f32
-    here."""
+    replicas runs in replica order from zero; ``beta`` goes to the C entry
+    as a Python number, rounded once to nearest f32 there by ctypes (as
+    the reference's ``jnp.asarray([beta], jnp.float32)`` rounds it)."""
     n, cp = _operand("center", center, STORAGE)
     _flat("center", center, n)
     dev = center.get_device()
@@ -341,6 +346,5 @@ def easgd_elastic_flat(center: torch.Tensor, replicas: torch.Tensor, beta
     xo = torch.empty_like(replicas)
     fn = _entry("easgd", center.dtype)
     launch("easgd_elastic_flat", _error_string, fn, dev, cp, xp,
-           co.data_ptr(), xo.data_ptr(), float(np.float32(beta)), n_replicas,
-           n)
+           co.data_ptr(), xo.data_ptr(), beta, n_replicas, n)
     return co, xo

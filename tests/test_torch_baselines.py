@@ -245,7 +245,7 @@ def test_sync_bsp_mean_bit_exact():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 9, 17])
 def test_plain_easgd_elastic_equals_reference_oracle(dtype, n):
     rng = np.random.default_rng(n)
     c = rng.standard_normal(2 * 8192).astype(np.float32)

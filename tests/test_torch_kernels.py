@@ -336,6 +336,38 @@ def test_pack_body_every_seam_layout_bytes_equal(dev, k, ng, off):
     assert torch.equal(SK.pack_body(q, s, idx), R.pack_body(q, s, idx))
 
 
+EASGD_COUNTS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 17)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", EASGD_COUNTS)
+def test_easgd_every_replica_count_bit_exact(dev, dtype, n):
+    """B5 at each replica count of its own instances (1-8) and on its
+    generic one (9, 17): through the wrapper on a 3-BLOCK bus, and through
+    its C entry on a bus of whole 16-byte packs that is no multiple of the
+    covering grid's 64-pack chunk, the outputs inside larger buffers: the
+    last block's threads past the bus store nothing."""
+    c = _rand(dev, 3 * BLOCK, dtype=dtype, seed=n)
+    x = _rand(dev, n, 3 * BLOCK, dtype=dtype, seed=n + 1)
+    VK.reset_launch_count()
+    kc, kx = VK.easgd_elastic_flat(c, x, 0.05)
+    assert VK.launch_count("easgd_elastic_flat") == VK.launch_count() == 1
+    pc, px = R.easgd_elastic(c, x, 0.05)
+    assert _bits_equal(kc, pc) and _bits_equal(kx, px)
+    V = 16 // c.element_size()
+    N = V * (64 * 5 + 37)
+    c, x = c[:N].clone(), x[:, :N].contiguous()
+    pc, px = R.easgd_elastic(c, x, 0.05)
+    co = torch.full((N + 64 * V,), 7.0, dtype=dtype, device=dev)
+    xo = torch.full((n * N + 64 * V,), 7.0, dtype=dtype, device=dev)
+    LA.launch("easgd_elastic_flat", VK._error_string,
+              VK._entry("easgd", dtype), c.get_device(), c.data_ptr(),
+              x.data_ptr(), co.data_ptr(), xo.data_ptr(), 0.05, n, N)
+    torch.cuda.synchronize()
+    assert _bits_equal(co[:N], pc) and _bits_equal(xo[:n * N].view(n, N), px)
+    assert (co[N:] == 7.0).all() and (xo[n * N:] == 7.0).all()
+
+
 def test_scheme_wrappers_reject_bad_inputs(dev):
     c = _rand(dev, BLOCK)
     with pytest.raises(ValueError):
@@ -470,6 +502,60 @@ def test_topk_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         TK.threshold_sparsify_exact(x, torch.ones(1, device=dev).double(),
                                     ts, 0)
+
+
+@pytest.mark.parametrize("form", ["tensors", "numbers"])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [2_105_344, (1 << 20) + 4131, 1001, 19])
+def test_topk_exact_emit_scalars_and_offsets_bit_exact(dev, n, off, form):
+    """B7 with tau and the budget as device tensors (read by the kernel)
+    and as numbers (by value), x at element offsets 0-3 from a 16-byte
+    boundary (1-3 take the value-by-value path) on a tie-heavy bus whose
+    budget cuts the ties of tau, n mod 4 = 0-3, in ONE launch each."""
+    base = _bus(dev, n + 8, ties=True, seed=n)
+    lead = (off - base.data_ptr() // 4) % 4
+    x = base[lead:lead + n]
+    assert x.data_ptr() % 16 == 4 * off
+    mag = x.abs()
+    tau = mag.sort(descending=True).values[n // 20].reshape(1)
+    tie = torch.nn.functional.pad(mag == tau, (0, (-n) % TK.BLOCK))
+    per = tie.reshape(-1, TK.BLOCK).sum(1, dtype=torch.int32)
+    tie_start = torch.cumsum(per, 0, dtype=torch.int32) - per
+    budget = torch.tensor([int(per.sum()) // 2], dtype=torch.int32,
+                          device=dev)
+    t, b = (tau, budget) if form == "tensors" else (float(tau), int(budget))
+    VK.reset_launch_count()
+    kept, res = TK.threshold_sparsify_exact(x, t, tie_start, b)
+    assert VK.launch_count("threshold_sparsify_exact") == VK.launch_count() \
+        == 1
+    pk, pr = R.threshold_sparsify_exact(x, tau, tie_start, budget)
+    torch.cuda.synchronize()
+    assert _bits_equal(kept, pk) and _bits_equal(res, pr)
+
+
+def test_topk_exact_rejects_bad_inputs(dev):
+    x = _rand(dev, 3 * TK.BLOCK)
+    ts = torch.zeros(3, dtype=torch.int32, device=dev)
+    tau = torch.ones(1, device=dev)
+    bud = torch.ones(1, dtype=torch.int32, device=dev)
+    for bad in (x.double(), x.cpu(), x.view(3, -1), x[::2],
+                torch.zeros(0, device=dev)):
+        with pytest.raises(ValueError):
+            TK.threshold_sparsify_exact(bad, tau, ts, bud)
+    for bad_tau in (tau.cpu(), tau.double(), torch.ones(2, device=dev)):
+        with pytest.raises(ValueError):
+            TK.threshold_sparsify_exact(x, bad_tau, ts, bud)
+    for bad_bud in (bud.cpu(), bud.long(), bud.float(),
+                    torch.ones(2, dtype=torch.int32, device=dev), 1 << 31,
+                    -(1 << 31) - 1):
+        with pytest.raises(ValueError):
+            TK.threshold_sparsify_exact(x, tau, ts, bad_bud)
+    with pytest.raises(TypeError):
+        TK.threshold_sparsify_exact(x, tau, ts, 1.5)
+    for bad_ts in (ts.cpu(), ts.long(), ts[:2], ts.view(1, 3),
+                   torch.zeros(6, dtype=torch.int32, device=dev)[::2]):
+        with pytest.raises(ValueError):
+            TK.threshold_sparsify_exact(x, tau, bad_ts, bud)
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}

@@ -25,7 +25,16 @@ the host before any launch.
   ``assimilate_flat`` (``jnp.asarray(x, jnp.float32)``), for the Eq. 2,
   staleness-damped and island weights; the masked pod fold and the
   compressed round hand over the reference's island weights.
+* B5: ``beta`` as its C entry receives it (the wrapper passes the Python
+  number; the entry's f32 argument rounds it once, read back through a
+  ctypes callback of the same argtypes) equals the reference's
+  ``jnp.asarray([beta], jnp.float32)``.  B7's (and B8's) ``tau`` given
+  as a number reaches its entry the same way, as the f32 the plain
+  version compares (``torch.as_tensor(tau, dtype=torch.float32)``), and
+  the plain version cuts there.
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 from jax.extend.core import Literal
@@ -39,6 +48,8 @@ from repro.kernels import vc_asgd_update as RV
 from repro.runtime import vc_runtime as RVR
 from repro_torch.core import vc_asgd as PVA
 from repro_torch.core.flat import BLOCK
+from repro_torch.kernels import ref as PR
+from repro_torch.kernels import topk_mask as TK
 from repro_torch.kernels import vc_asgd_update as VK
 from repro_torch.optim.optimizers import Adam
 from repro_torch.runtime import vc_runtime as PVR
@@ -220,3 +231,59 @@ def test_masked_fold_hands_b2_the_reference_island_weights(n_pods, dead,
     rw, rws = RVR.island_weights(n_pods, 0.9, jnp.asarray(alive))
     assert _handed(seen[0]) == _reference_rounding(
         [rws] + [rw[j] for j in range(n_pods)])
+
+
+# ---- B5's beta and B7's tau by value ----------------------------------------
+
+SCALAR_SWEEP = [0.05, 0.1, 1.0 / 3.0, 0.9, 0.999, 1e-8, 1e-30,
+                2.0 ** -25 + 2.0 ** -60, 1 - 2.0 ** -25, 1.5, 7.0, 1e10,
+                np.float32(0.05), np.float64(0.3)]
+
+
+def _received(argtypes, args, at: int) -> float:
+    """The value a C entry of ``argtypes`` receives as argument ``at`` when
+    called with ``args``: a ctypes callback of the same signature stands
+    in for the entry."""
+    seen = []
+    probe = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)(
+        lambda *a: seen.append(a[at]) or 0)
+    probe(*args)
+    return seen[0]
+
+
+@pytest.mark.parametrize("beta", SCALAR_SWEEP, ids=repr)
+def test_easgd_beta_by_value_equals_reference(beta):
+    got = _received(VK.SIGNATURES["easgd"], (0, 0, 0, 0, beta, 3, BLOCK, 0),
+                    4)
+    want = np.asarray(jnp.asarray([beta], jnp.float32))[0]
+    assert _bits(got) == _bits(want) == _bits(np.float32(beta))
+
+
+@pytest.mark.parametrize("entry,at", [("tk_exact", 2),
+                                      ("tk_threshold_f32", 2)])
+@pytest.mark.parametrize("tau", SCALAR_SWEEP, ids=repr)
+def test_topk_tau_by_value_is_the_plain_versions_f32(tau, entry, at):
+    tau_p, tau_v = TK._ptr_or_value("tau", tau, torch.float32, 0)
+    assert tau_p is None
+    args = [0] * len(TK.SIGNATURES[entry])
+    args[at] = tau_v
+    got = _received(TK.SIGNATURES[entry], args, at)
+    t32 = torch.as_tensor(tau, dtype=torch.float32)
+    assert _bits(got) == _bits(t32.numpy())
+    # the plain version keeps what lies above that f32 and ties at it
+    up, down = np.nextafter(np.float32(got), np.float32(np.inf)), \
+        np.nextafter(np.float32(got), np.float32(0))
+    x = torch.tensor([down, got, up, -got], dtype=torch.float32)
+    kept, _ = PR.threshold_sparsify_exact(
+        x, tau, torch.zeros(1, dtype=torch.int32), 1)
+    assert kept.tolist() == [0.0, float(np.float32(got)), float(up), 0.0]
+
+
+def test_topk_budget_by_value_is_range_checked():
+    assert TK._ptr_or_value("tie_budget", np.int32(7), torch.int32, 0) == (
+        None, 7)
+    for bad in (1 << 31, -(1 << 31) - 1):
+        with pytest.raises(ValueError):
+            TK._ptr_or_value("tie_budget", bad, torch.int32, 0)
+    with pytest.raises(TypeError):
+        TK._ptr_or_value("tie_budget", 1.5, torch.int32, 0)
