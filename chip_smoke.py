@@ -188,12 +188,33 @@ a card, or outside a checkout.  Phases:
       with its share of the bound, at the bench's shape (2^24, the bench
       bus, k = 105,075) and at 2^27 (no single PyTorch call computes any
       of the three: no library time);
-   b. repro_torch.benchmarks.run with every suite (kernels, flat,
-      flat_adam, compression, roofline) in this process on the card with
-      --check: the launch gate equals results/BASELINE_launches.json (flat
-      1 / per_leaf 96, flat_adam 1, compression 2 / 1 / 1), every suite's
-      rows and the roofline table print.  B4, B8 and B11 launch there.
-11. a ``kernels`` JSON line (all 15 kernels; B13's names its main-path
+   b. repro_torch.benchmarks.run with every kernel-bench suite (kernels,
+      flat, flat_adam, compression, roofline) in this process on the card
+      with --check: the launch gate equals results/BASELINE_launches.json
+      (flat 1 / per_leaf 96, flat_adam 1, compression 2 / 1 / 1), every
+      suite's rows and the roofline table print, and flat_adam's
+      train_ckpt_one_pass row (the one-pass train record of the bench
+      bus, host clock) is timed and launches nothing.  B4, B8 and B11
+      launch there.
+11. the paper's preemptible-instance story:
+   a. run_preemptible_training (core/simulator.py) on the card at the
+      MLP's full published width (13,130 parameters, 16,384-element bus):
+      40 steps, batch 64, a one-pass train record every 10 steps; killed
+      before steps 13 and 27, every step's loss and the final bus equal
+      the uninterrupted run's bit for bit, with 2 restores, 10 recomputed
+      steps and B3 launched once a step (50); the same killed run on the
+      CPU within PRE_LOSS_TOL a step; the card's last record restores on
+      the CPU and the CPU's on the card bit for bit (params, m, v, step)
+      and re-saves byte for byte;
+   b. Coordinator.save_checkpoint / restore_checkpoint with VCASGD (B1)
+      and EASGDFlatPod (B5): restored into coordinators built from other
+      params on the card and on the CPU, the next handout is the saved
+      center (the pod's replicas tiled from it) and three more results
+      folded on each agree bit for bit;
+   c. the paper suites cost and fig6 (benchmarks/paper_figs.py, quick) on
+      the card and on the CPU: every claim holds, fig6's hours equal and
+      its accuracy curves agree within ACC_BAND; walls and claims print.
+12. a ``kernels`` JSON line (all 15 kernels; B13's names its main-path
    route's source and, under ``sources``, both routes'), the nvidia-smi
    line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -2314,9 +2335,240 @@ def bench_on_card(VK) -> dict:
         rows = [ln for ln in lines[1:] if ln.startswith(suite + ".")]
         check(len(rows) >= 4 and all(ln.count(",") == 2 for ln in rows),
               f"bench suite {suite}: rows missing or malformed")
+    ckpt = [ln.split(",") for ln in lines
+            if ln.startswith("flat_adam.train_ckpt_one_pass,")]
+    check(len(ckpt) == 1 and float(ckpt[0][1]) > 0
+          and "launches=" not in ckpt[0][2],
+          "bench: flat_adam.train_ckpt_one_pass not timed (or it launched)")
     say(f"bench: {len(lines) - 1} rows, launch gate == "
         f"results/BASELINE_launches.json; launches {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the paper's preemptible-instance story
+# ---------------------------------------------------------------------------
+
+# 11a: run_preemptible_training at the MLP's full published width, killed
+# before steps 13 and 27 (records every 10 steps: 3 + 7 steps recomputed)
+PRE_STEPS, PRE_BATCH, PRE_EVERY, PRE_KILLS = 40, 64, 10, (13, 27)
+# the card's losses against the CPU's, step by step (the same f32 math in
+# another order: cuBLAS against the CPU's GEMMs): 4.77e-7 measured on an
+# H100, two f32 ulps of a loss near 2; the limit leaves 20x
+PRE_LOSS_TOL = 1e-5
+# 11b: results folded after a restore, card against CPU
+AFTER_RESTORE = 3
+
+
+def ckpt_dir():
+    """A fresh directory under the checkout's ignored build/ for phase
+    11's records."""
+    import tempfile
+    base = ROOT / "build" / "ckpt"
+    base.mkdir(parents=True, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=base)
+
+
+def preemptible_on_card(torch, VK) -> None:
+    """Phase 11a: kill-and-restore training on the card (B3 every step):
+    killed at PRE_KILLS, the loss at every step and the final bus equal
+    the uninterrupted run's bit for bit; 2 restores, 10 recomputed steps,
+    B3 launches = steps + recomputed steps; the same run on the CPU within
+    PRE_LOSS_TOL a step; a record written on the card restores on the CPU
+    bit for bit and the other way round (params, m, v, step, and the
+    re-saved file byte for byte)."""
+    from repro_torch.checkpoint import (load_train_checkpoint,
+                                        save_train_checkpoint)
+    from repro_torch.core.preemption import KillSchedule
+    from repro_torch.core.simulator import run_preemptible_training
+    from repro_torch.core.tasks import MLPTask, make_classification_data
+    data = make_classification_data()
+    with ckpt_dir() as d:
+        d = Path(d)
+
+        def train(name, device, kills=()):
+            VK.reset_launch_count()
+            t0 = time.perf_counter()
+            res = run_preemptible_training(
+                MLPTask(), data, steps=PRE_STEPS, batch=PRE_BATCH,
+                ckpt_every=PRE_EVERY, ckpt_dir=d / name, seed=0,
+                device=device,
+                kill_schedule=KillSchedule.at(*kills) if kills else None)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = VK.launch_counts()
+            say(f"preemptible {name} on {device}: {res.steps_done} steps, "
+                f"{res.restores} restores, {res.recomputed_steps} "
+                f"recomputed, wall {wall:.3f} s, B3 launches "
+                f"{counts['adam_update_flat']}, final loss "
+                f"{res.losses[PRE_STEPS - 1]:.6f}")
+            return res, counts
+
+        clean, counts = train("clean", "cuda")
+        check(counts["adam_update_flat"] == PRE_STEPS,
+              f"clean run: {counts['adam_update_flat']} B3 launches")
+        killed, counts = train("killed", "cuda", PRE_KILLS)
+        check(killed.restores == 2 and killed.recomputed_steps == 10,
+              f"killed run: {killed.restores} restores, "
+              f"{killed.recomputed_steps} recomputed steps")
+        check(counts["adam_update_flat"] == PRE_STEPS + 10,
+              f"killed run: {counts['adam_update_flat']} B3 launches != "
+              f"{PRE_STEPS} steps + 10 recomputed")
+        check(sum(counts.values()) == counts["adam_update_flat"],
+              f"killed run launched other kernels: {counts}")
+        check(killed.trajectory() == clean.trajectory(),
+              "killed and clean loss trajectories differ on the card")
+        check(bits_equal(torch, killed.final_params.buf,
+                         clean.final_params.buf),
+              "killed and clean final params differ on the card")
+        say(f"preemptible: killed at {PRE_KILLS} == clean, every one of "
+            f"{PRE_STEPS} losses and the final bus bit for bit")
+        host, counts = train("host", "cpu", PRE_KILLS)
+        check(sum(counts.values()) == 0, "the CPU run launched a kernel")
+        gap = max(abs(host.losses[s] - clean.losses[s])
+                  for s in range(PRE_STEPS))
+        say(f"preemptible: card vs CPU max loss gap {gap:.3g} (tolerance "
+            f"{PRE_LOSS_TOL})")
+        check(gap <= PRE_LOSS_TOL, f"card vs CPU loss gap {gap}")
+        for src, res, other in (("killed", killed, "cpu"),
+                                ("host", host, "cuda")):
+            path = d / src / f"ckpt_{PRE_STEPS:08d}.msgpack"
+            fp, opt, extra = load_train_checkpoint(path, res.final_params)
+            fo, oo, _ = load_train_checkpoint(path, res.final_params,
+                                              device=other)
+            check(fo.buf.device.type == other and oo.step == opt.step
+                  == PRE_STEPS, f"{src} record on {other}")
+            for a, b in ((res.final_params.buf, fo.buf), (fp.buf, fo.buf),
+                         (opt.m, oo.m), (opt.v, oo.v)):
+                check(bits_equal(torch, a.cpu(), b.cpu()),
+                      f"{src} record restored on {other} differs")
+            again = d / f"{src}-on-{other}.msgpack"
+            save_train_checkpoint(again, fo, oo, extra)
+            check(again.read_bytes() == path.read_bytes(),
+                  f"{src} record re-saved from {other} differs")
+            say(f"preemptible: the {src} run's record "
+                f"({path.stat().st_size} bytes) restores on {other} bit "
+                f"for bit and re-saves byte for byte")
+
+
+def coordinator_checkpoints(torch, np, VK) -> None:
+    """Phase 11b: Coordinator.save_checkpoint / restore_checkpoint on the
+    card with VCASGD (B1) and EASGDFlatPod (B5): after a restore into a
+    coordinator built from other params the next handout is the saved
+    center (the pod's replicas tiled from it), and AFTER_RESTORE more
+    results folded on the card equal the same folded on the CPU from the
+    same record, bit for bit (B1 and B5 against their plain versions)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import flat as F
+    from repro_torch.core.baselines import VCASGD, EASGDFlatPod
+    from repro_torch.core.tasks import MLPTask
+    from repro_torch.protocol import Coordinator
+    task = MLPTask()
+    rng = np.random.default_rng(11)
+
+    def results(n):
+        return [rng.standard_normal(MAIN_N).astype(np.float32) * 0.01
+                for _ in range(n)]
+
+    def fold(coord, bufs, cids, uid0):
+        for j, (buf, cid) in enumerate(zip(bufs, cids)):
+            lease = coord.issue(cid=cid, uid=uid0 + j, round=1,
+                                base=coord.state.params)
+            coord.submit(lease, lease.base.buf + torch.from_numpy(buf).to(
+                lease.base.buf.device))
+            coord.assimilate(lease, coord.deliver(lease),
+                             server_version=coord.state.version)
+
+    for name, make, cids in (
+            ("VCASGD", lambda: VCASGD(0.9), (0, 1, 2)),
+            ("EASGDFlatPod", lambda: EASGDFlatPod(n_replicas=2, beta=0.1),
+             (0, 1, 0))):
+        with ckpt_dir() as d:
+            VK.reset_launch_count()
+            coord = Coordinator(make(), F.flatten(task.init_params(
+                1, device="cuda")))
+            fold(coord, results(2), (0, 1), 0)
+            saved = coord.state.params.buf.clone()
+            mgr = CheckpointManager(d, async_save=False)
+            coord.save_checkpoint(mgr, step=5, extra={"next_uid": 2})
+            after = results(AFTER_RESTORE)
+            resumed = {}
+            for device in ("cuda", "cpu"):
+                c = Coordinator(make(), F.flatten(task.init_params(
+                    2, device=device)))
+                check(c.restore_checkpoint(mgr) == 5
+                      and c.restored_extra["next_uid"] == 2
+                      and c.state.version == coord.state.version,
+                      f"{name} restore on {device}")
+                lease = c.issue(cid=0, uid=100, round=1,
+                                base=c.state.params)
+                check(bits_equal(torch, lease.base.buf.cpu(), saved.cpu()),
+                      f"{name} on {device}: the next handout is not the "
+                      f"saved center")
+                c.drop(lease)
+                if name == "EASGDFlatPod":
+                    check(all(bits_equal(torch, r.cpu(), saved.cpu())
+                              for r in c.state.replicas),
+                          f"{name} on {device}: replicas not tiled from "
+                          f"the saved center")
+                fold(c, after, cids, 200)
+                resumed[device] = c.state
+            counts = {k: v for k, v in VK.launch_counts().items() if v}
+            card, host = resumed["cuda"], resumed["cpu"]
+            check(bits_equal(torch, card.params.buf.cpu(), host.params.buf),
+                  f"{name}: card and CPU folds after the restore differ")
+            if name == "EASGDFlatPod":
+                check(bits_equal(torch, card.replicas.cpu(), host.replicas)
+                      and set(card.pending) == set(host.pending) == {0}
+                      and bits_equal(torch, card.pending[0].cpu(),
+                                     host.pending[0]),
+                      f"{name}: replicas or pending rows differ")
+                check(counts == {"easgd_elastic_flat": 2},
+                      f"{name}: launches {counts}, expected 2 B5 (one round "
+                      f"before the save, one after)")
+            else:
+                check(counts == {"vc_asgd_lerp_flat": 2 + AFTER_RESTORE},
+                      f"{name}: launches {counts}, expected "
+                      f"{2 + AFTER_RESTORE} B1")
+            say(f"coordinator checkpoint {name}: restored on card and CPU, "
+                f"next handout == saved center, {AFTER_RESTORE} folds after "
+                f"it card == CPU bit for bit; launches {counts}")
+
+
+def paper_suites_on_card(torch, VK) -> None:
+    """Phase 11c: the cost and fig6 suites (repro_torch.benchmarks.
+    paper_figs, quick) on the card: their claims and walls; fig6's hours
+    equal the same suite's on the CPU and its accuracy curves agree
+    within ACC_BAND."""
+    from repro_torch.benchmarks import paper_figs as PFIGS
+    out = {}
+    for suite in ("cost", "fig6"):
+        for device in ("cuda", "cpu"):
+            VK.reset_launch_count()
+            t0 = time.perf_counter()
+            res = PFIGS.SUITES[suite](True, device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in VK.launch_counts().items() if v}
+            say(f"paper suite {suite} on {device}: wall {wall:.3f} s, claims "
+                f"{res['_claims']}, launches {counts}")
+            check(all(res["_claims"].values()),
+                  f"paper suite {suite} on {device}: a claim failed")
+            out[suite, device] = res
+    cost = out["cost", "cuda"]
+    say(f"paper suite cost: {json.dumps(cost)}")
+    card, host = out["fig6", "cuda"], out["fig6", "cpu"]
+    for curve in ("distributed", "serial"):
+        check([p["hours"] for p in card[curve]]
+              == [p["hours"] for p in host[curve]],
+              f"fig6 {curve}: hours differ card vs CPU")
+        worst = max(abs(a["acc"] - b["acc"])
+                    for a, b in zip(card[curve], host[curve]))
+        check(worst <= ACC_BAND, f"fig6 {curve}: accuracy gap {worst}")
+        say(f"paper suite fig6 {curve}: hours card == CPU, max accuracy "
+            f"gap {worst:.4f}; final acc {card[curve][-1]['acc']}")
 
 
 def _leaves(node):
@@ -2538,7 +2790,15 @@ def main() -> int:
     phases.start("10b")
     bench_counts = bench_on_card(VK)                                  # 10b
 
-    # ---- 11. result lines -------------------------------------------------
+    # ---- 11. the preemptible-instance story -----------------------------
+    phases.start("11a")
+    preemptible_on_card(torch, VK)                                    # 11a
+    phases.start("11b")
+    coordinator_checkpoints(torch, np, VK)                            # 11b
+    phases.start("11c")
+    paper_suites_on_card(torch, VK)                                   # 11c
+
+    # ---- 12. result lines -------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c

@@ -17,21 +17,25 @@ to ``results/BASELINE_launches.json`` on the card.  The port counts real
 launches, not traced ``pallas_call``s: ``per_leaf`` 96 is 24 leaves x 4
 clients, one per-tensor Eq. 1 launch each.  On the CPU every count is 0.
 
-Rows the reference has and the port has not yet: ``flat_adam``'s
-``train_ckpt_one_pass`` waits for the checkpoint port (ROADMAP queue A
-item 2); the suite says so in ``_not_ported``.  Rows the port adds:
+``flat_adam``'s ``train_ckpt_one_pass`` writes the one-pass train record
+(``[params | m | v]`` of the bench bus, ``checkpoint/store.py``) to a
+temporary directory: host-clock us a record (the copy off the card and
+the file write; no kernel) and the file's bytes.  Rows the port adds:
 ``bench_kernels``' ``dc_lerp_flat_16M`` (B4), ``threshold_sparsify_2M``
 (B8) and ``quantize_pack_105k`` (B11), each with its bound at the card's
 3.35 TB/s and its error against the plain version.
 """
 from __future__ import annotations
 
+import tempfile
 import time
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_train_checkpoint
 from repro_torch.core import compression as C
 from repro_torch.core import flat as F
 from repro_torch.core import vc_asgd as V
@@ -52,6 +56,7 @@ DENSITY = 0.05
 K_BENCH = max(1, int(N_LOGICAL * DENSITY))        # 105,075
 N_CLIENTS, ALPHA = 4, 0.9
 CPU_ITERS = 2                        # host-clock iterations on the CPU
+CKPT_ITERS = 3                       # train records timed (after one)
 
 Row = Dict[str, object]
 
@@ -280,9 +285,28 @@ def bench_flat_assimilate(device) -> Dict[str, Row]:
 # bench_flat_adam
 # ---------------------------------------------------------------------------
 
+def ckpt_us(fp, fos) -> tuple:
+    """(host-clock us a one-pass train record of ``fp`` / ``fos``, the
+    file's bytes): ``CKPT_ITERS`` saves after one, each from a settled
+    device, to a temporary directory."""
+    cuda = fp.buf.device.type == "cuda"
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "train.msgpack"
+        save_train_checkpoint(path, fp, fos)
+        total = 0.0
+        for _ in range(CKPT_ITERS):
+            if cuda:
+                torch.cuda.synchronize(fp.buf.device)
+            t0 = time.perf_counter()
+            save_train_checkpoint(path, fp, fos)
+            total += time.perf_counter() - t0
+        return 1e6 * total / CKPT_ITERS, path.stat().st_size
+
+
 def bench_flat_adam(device) -> Dict[str, Row]:
     """One Adam step on the bench model: the tree walk (leaf by leaf)
-    against ONE fused pass over the (params | m | v) lanes of the bus."""
+    against ONE fused pass over the (params | m | v) lanes of the bus;
+    and the one-pass train record of those three lanes."""
     tm = Timer(device)
     tree = bench_model(device)
     rng = np.random.default_rng(999)
@@ -297,6 +321,7 @@ def bench_flat_adam(device) -> Dict[str, Row]:
     us_tree, ln_tree = tm.run(lambda: opt.update(grads, state_t, tree), 20)
     us_flat, ln_flat = tm.run(lambda: opt.update_flat(gbuf, fos, fp), 20)
     flat = sum(ln_flat.values())
+    us_ckpt, ckpt_bytes = ckpt_us(*opt.update_flat(gbuf, fos, fp))
     return {
         "model": row(0.0, f"{n_leaves} leaves / {fp.spec.n} params / "
                           f"padded={fp.spec.padded}"),
@@ -305,10 +330,10 @@ def bench_flat_adam(device) -> Dict[str, Row]:
         "adam_flat": row(
             us_flat, f"speedup={us_tree / max(us_flat, 1e-9):.2f}x", ln_flat),
         "pallas_launches": row(0.0, f"flat={flat} (vs {n_leaves} per-leaf)"),
+        "train_ckpt_one_pass": row(us_ckpt, f"{ckpt_bytes} bytes single "
+                                            f"record (params|m|v) host "
+                                            f"clock"),
         "_launches": {"flat": flat},
-        "_not_ported": {"train_ckpt_one_pass":
-                        "waits for the checkpoint port (ROADMAP queue A "
-                        "item 2)"},
     }
 
 

@@ -11,8 +11,9 @@ scales), of B9 (``quantize_int8``, every compressed submit), B11
 compressed round, ``lo`` as the bracket's device int32 [1] and as a
 number), B7 (``threshold_sparsify_exact``, the emit after it, ``tau``,
 ``tie_start`` and the budget as the refinement hands them, and ``tau``
-and the budget as numbers) and B5 (``easgd_elastic_flat``, the pod
-baseline's elastic round over 3 replicas), none of which one PyTorch call
+and the budget as numbers), B5 (``easgd_elastic_flat``, the pod
+baseline's elastic round over 3 replicas) and B8 (``threshold_sparsify``
+at tau 0.01, the kernel bench's row), none of which one PyTorch call
 computes, of B13's wrapper, and B14's and B15's times at rwkv6-1.6b's and
 jamba's prefill shapes.
 
@@ -25,7 +26,7 @@ one card, each in its own process (A, B, B, A).  Prints one JSON line:
 * ``host_us``: host microseconds a call, the host clock around
   ``HOST_CALLS`` back-to-back calls at the main sizes (the MLP bus, N =
   16,384 f32; its sparse payload, k = 656, for B12, B10 and B9; B11 at
-  the bench bus's k = 105,075; B6 and B7 on the bench bus, 2,105,344
+  the bench bus's k = 105,075; B6, B7 and B8 on the bench bus, 2,105,344
   elements; B5 at 16,384 with 3 replicas), where the kernel is about as
   long as the call or shorter;
   every call of the tree and every stage below timed in turns,
@@ -43,8 +44,9 @@ one card, each in its own process (A, B, B, A).  Prints one JSON line:
   the quantize; sel and idx read, body, q and scales written for B11; x
   read, the words and counts written, 4n + n / 8 + 4 nb, for B6; x
   read, kept and residual written, tie_start read, 12n + 4 nb, for B7;
-  8 (n + 1) N for B5 over n replicas), the same at the main sizes beside
-  ``graph_us`` for B6, B7 and B5, B14's at [4,
+  x read, kept and residual written, 12n, for B8; 8 (n + 1) N for B5
+  over n replicas), the same at the main sizes beside ``graph_us`` for
+  B6, B7, B8 and B5, B14's at [4,
   32, 2,048, 64] f32 (337.6 MB), and B15's at jamba's prefill shape (the
   SFU's exps at 16 a clock an SM at 1.98 GHz, 0.2568 ms; its 540 MB take
   0.161);
@@ -92,6 +94,7 @@ TOPK_N = {MAIN_N: 2_105_344, BIG_N: BIG_N}
 TOPK_DENSITY = 0.05
 N_CLIENTS = 4                    # B2: 4b's batch of four results
 N_REPLICAS, BETA = 3, 0.05       # B5: the pod baseline (easgd-flat-pod)
+B8_TAU = 0.01                    # B8: the kernel bench's threshold
 QBLOCK = 256
 HOST_CALLS, ROUNDS = 200, 9
 WARM_S = 2.0                     # device warm-up before a timing at 2^27
@@ -234,6 +237,7 @@ def calls(torch, np, VK, SK, QK, TK, n: int) -> dict:
             lambda: TK.threshold_sparsify_exact(bus, tau_f, tie_start,
                                                 budget_i),
         "B5 easgd_elastic_flat": lambda: VK.easgd_elastic_flat(ec, ex, BETA),
+        "B8 threshold_sparsify": lambda: TK.threshold_sparsify(bus, B8_TAU),
     }
 
 
@@ -397,7 +401,7 @@ def stages(torch, np, VK, SK, QK, TK, LA) -> dict:
 
 
 def codec_stages(torch, g, QK, TK, LA, dev, stream) -> dict:
-    """B9's stages at k = 656, B6's and B7's on the bench bus (``lo``,
+    """B9's stages at k = 656, B6's, B7's and B8's on the bench bus (``lo``,
     ``tau``, ``tie_start`` and the budget the selection's device
     tensors): the checks, the output allocations and the ctypes call with
     its launch, the checks and the C entry taken as the tree's wrapper
@@ -447,7 +451,30 @@ def codec_stages(torch, g, QK, TK, LA, dev, stream) -> dict:
         "exact outputs (2 torch.empty)": lambda: (
             torch.empty(n, dtype=torch.float32, device=dev),
             torch.empty(n, dtype=torch.float32, device=dev)),
-        "exact ctypes call + launch": ecall}
+        "exact ctypes call + launch": ecall,
+        **threshold_stages(torch, TK, bus, stream)}
+
+
+def threshold_stages(torch, TK, bus, stream) -> dict:
+    """B8's stages at tau B8_TAU (a number, as the bench passes it): the
+    checks, the two output allocations, and the C entry with its launch
+    (``launches.launch`` adds only the stream lookup and the count)."""
+    kept, res = TK.threshold_sparsify(bus, B8_TAU)
+    dev, n = bus.get_device(), bus.numel()
+    entry = TK._library().tk_threshold_f32
+    bp, kp, rp = bus.data_ptr(), kept.data_ptr(), res.data_ptr()
+
+    def checks():
+        TK.check_cuda("x", bus, tuple(TK.STORAGE))
+        TK.check_pack_aligned("x", bus)
+        return TK._ptr_or_value("tau", B8_TAU, TK._F32, dev)
+
+    return {
+        "threshold checks (x, tau)": checks,
+        "threshold outputs (2 torch.empty_like)": lambda: (
+            torch.empty_like(bus), torch.empty_like(bus)),
+        "threshold ctypes call + launch":
+            lambda: entry(bp, None, B8_TAU, kp, rp, n, stream)}
 
 
 def carve(torch, body: int, q: int, ng: int, dev) -> tuple:
@@ -554,7 +581,7 @@ def size_of(name: str, n: int) -> str:
     """The size label of a call of ``calls(..., n)``."""
     if "quantize_pack" in name:
         return f"k={QPACK_K[n]}"
-    if "topk" in name or "exact" in name:
+    if "topk" in name or "threshold" in name:
         return f"N={TOPK_N[n]}"
     if "easgd" in name:
         return f"N={n} n={N_REPLICAS}"
@@ -631,6 +658,8 @@ def main(argv=None) -> int:
            / HBM_BYTES_PER_S for nt in TOPK_N.values()},
         **{f"B7 N={nt}": 1e3 * (12 * nt + 4 * -(-nt // 8192))
            / HBM_BYTES_PER_S for nt in TOPK_N.values()},
+        **{f"B8 N={nt}": 1e3 * 12 * nt / HBM_BYTES_PER_S
+           for nt in TOPK_N.values()},
         **{f"B5 N={nt} n={N_REPLICAS}": 1e3 * 8 * (N_REPLICAS + 1) * nt
            / HBM_BYTES_PER_S for nt in (MAIN_N, BIG_N)},
         "B15 [4,2048,8192] ds 16": 1e3 * 4 * 2048 * 8192 * 16

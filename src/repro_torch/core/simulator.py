@@ -16,6 +16,10 @@ lerp launch per result; compressed uploads ride sparse frames); only
 wall-clock time is simulated.  The data goes to ``device`` once, at the
 start.
 
+Beside the event loop: ``run_preemptible_training`` (the kill-and-restore
+harness of the one-pass train checkpoints) and ``run_single_instance``
+(the paper's Fig. 6 serial baseline).
+
 Not ported yet (raise ``NotImplementedError``): the aggregation tier
 (``aggregators > 0``), read-only subscribers (``subscribers > 0``), a
 sharded server bus (``bus_shards > 1``) and bf16 handout frames.
@@ -31,12 +35,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.consistency import EventualStore, StoreStats, StrongStore
 from repro_torch.core.preemption import PreemptionModel, make_fleet
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.work_generator import WorkGenerator, split_dataset
 from repro_torch.device import resolve_device
+from repro_torch.optim.optimizers import Adam
 from repro_torch.protocol import Coordinator, ServerScheme, as_flat, as_tree
+from repro_torch.runtime.train import make_flat_train_step
 from repro_torch.transfer import wire
 from repro_torch.transfer.transport import Transport, TransportStats
 
@@ -368,3 +375,121 @@ def run_simulation(task, data, scheme: ServerScheme, cfg: SimConfig, *,
         leases_expired=coord.expired, leases_dropped=coord.dropped,
         events_processed=events_processed,
         scheme_state=coord.state, client_steps=client_steps)
+
+
+@dataclass
+class PreemptibleTrainResult:
+    """Trajectory of ``run_preemptible_training``: ``losses[step]`` is the
+    loss of global step ``step`` (a recomputed step overwrites it with the
+    same value), so two runs compare at matching steps however often
+    either was killed."""
+    losses: Dict[int, float]
+    restores: int
+    recomputed_steps: int
+    steps_done: int
+    final_params: Any                      # FlatParams
+
+    def trajectory(self) -> List[Tuple[int, float]]:
+        return sorted(self.losses.items())
+
+
+def step_batch_indices(seed: int, step: int, batch: int, n: int
+                       ) -> torch.Tensor:
+    """Row indices of global step ``step``'s minibatch in
+    ``run_preemptible_training``: drawn on a CPU generator keyed by
+    ``(seed + 987654, step)`` alone, so a restored run draws the lost
+    steps' batches again."""
+    key = np.random.SeedSequence((seed + 987654, step)).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator().manual_seed(int(key))
+    return torch.randint(0, n, (batch,), generator=gen)
+
+
+def run_preemptible_training(task, data, *, steps: int = 40, batch: int = 64,
+                             ckpt_every: int = 10, ckpt_dir,
+                             kill_schedule=None, seed: int = 0, on_step=None,
+                             device="cuda") -> PreemptibleTrainResult:
+    """Kill-and-restore harness on the flat bus: the correctness argument
+    for the one-pass train checkpoints (checkpoint/store.py).
+
+    Params and Adam state are three lanes of one layout, one fused Adam
+    launch a step on the card, written as ONE record every
+    ``ckpt_every`` steps (synchronously: the resume guarantee is only as
+    strong as the last committed record).  Before each step listed in
+    ``kill_schedule`` (core/preemption.py::KillSchedule) every in-memory
+    tensor is dropped and training resumes from the last record.
+    Batches are keyed by the global step (``step_batch_indices``), so
+    the loss at every step equals the uninterrupted run's.  A record
+    already in ``ckpt_dir`` is resumed from."""
+    dev = resolve_device(device)
+    fp0 = as_flat(task.init_params(seed, device=dev))
+    opt = Adam(lr=task.lr)
+    fos0 = opt.init_flat(fp0)
+    step_fn = make_flat_train_step(lambda p, b: task.loss(p, b[0], b[1]),
+                                   opt)
+    x_train = torch.from_numpy(data.x_train).to(dev)
+    y_train = torch.from_numpy(data.y_train).to(dev, torch.int64)
+
+    def batch_for(step: int):
+        idx = step_batch_indices(seed, step, batch, len(data.x_train)).to(dev)
+        return x_train[idx], y_train[idx]
+
+    mgr = CheckpointManager(ckpt_dir, async_save=False)
+    (fp, fos), _, step = mgr.restore_train_or_init(fp0, lambda: (fp0, fos0))
+    kills = list(kill_schedule.kill_steps) if kill_schedule is not None else []
+    losses: Dict[int, float] = {}
+    restores = recomputed = 0
+    max_reached = step
+    while step < steps:
+        if kills and step == kills[0]:
+            kills.pop(0)
+            # preemption: the last one-pass record is the only survivor
+            del fp, fos
+            (fp, fos), _, step = mgr.restore_train_or_init(
+                fp0, lambda: (fp0, fos0))
+            restores += 1
+            continue
+        fp, fos, loss = step_fn(fp, fos, batch_for(step))
+        if step < max_reached:
+            recomputed += 1
+        losses[step] = float(loss)
+        step += 1
+        max_reached = max(max_reached, step)
+        if step % ckpt_every == 0:
+            mgr.save_train(step, fp, fos, {"step": step})
+        if on_step is not None:
+            on_step(step)              # host hook (pacing, a kill harness)
+    return PreemptibleTrainResult(losses=losses, restores=restores,
+                                  recomputed_steps=recomputed,
+                                  steps_done=max_reached, final_params=fp)
+
+
+def run_single_instance(task, data, *, max_epochs: int = 40,
+                        steps_per_epoch: int = 100, seed: int = 0,
+                        epoch_time_s: float = 1200.0,
+                        device="cuda") -> SimResult:
+    """The paper's Fig. 6 baseline: serial training on one standard
+    instance, ``steps_per_epoch`` Adam steps an epoch (fresh moments each,
+    as a client's subtask) on the whole training set, one fused Adam
+    launch a step on the card."""
+    dev = resolve_device(device)
+    fp = as_flat(task.init_params(seed, device=dev))
+    x_train = torch.from_numpy(data.x_train).to(dev)
+    y_train = torch.from_numpy(data.y_train).to(dev, torch.int64)
+    x_val = torch.from_numpy(data.x_val).to(dev)
+    y_val = torch.from_numpy(data.y_val).to(dev, torch.int64)
+    points = []
+    for e in range(1, max_epochs + 1):
+        fp = fp.with_buf(task.client_train(fp, x_train, y_train,
+                                           steps=steps_per_epoch,
+                                           seed=seed + e))
+        acc = task.evaluate(as_tree(fp), x_val, y_val)
+        points.append(EpochPoint(epoch=e, t_complete=e * epoch_time_s,
+                                 acc_mean=acc, acc_min=acc, acc_max=acc,
+                                 acc_std=0.0))
+    return SimResult(points=points, wall_time_s=max_epochs * epoch_time_s,
+                     epochs_done=max_epochs,
+                     final_accuracy=points[-1].acc_mean,
+                     store_stats=StoreStats(), reassignments=0, preemptions=0,
+                     results_assimilated=max_epochs,
+                     client_steps=max_epochs * steps_per_epoch)

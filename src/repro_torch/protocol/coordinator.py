@@ -1,7 +1,7 @@
 """The Coordinator: one object that owns the VC protocol's state (port of
 the plain-bus path of ``repro/protocol/coordinator.py``).
 
-* **Lease lifecycle** — ``issue`` / ``expire`` / ``drop`` /
+* **Lease lifecycle** — ``issue`` / ``renew`` / ``expire`` / ``drop`` /
   ``assimilate``; every terminal transition consumes a lease exactly once
   and clears its reconstruction-base ref (``LeaseError`` on a double).
 * **Error-feedback residual ledger** — per-client residual buffers on
@@ -15,6 +15,10 @@ the plain-bus path of ``repro/protocol/coordinator.py``).
   to the bus's device.  Every result is encoded (dense, or sparse for a
   compressed payload), sent, and decoded (magic/version/length/crc
   validated) before assimilation.
+* **Checkpoint hooks** — the server copy is the only state that must
+  survive (clients are disposable by design): ``save_checkpoint`` /
+  ``restore_checkpoint`` snapshot (params, version) through the
+  checkpoint manager's one-pass flat record.
 
 The port covers the float32 plain bus: bf16 handout frames and a sharded
 bus (per-shard delta frames) raise ``NotImplementedError`` naming the
@@ -82,6 +86,8 @@ class Coordinator:
         self.assimilated = 0
         self.dropped = 0
         self.expired = 0
+        # extra dict of the checkpoint restore_checkpoint() last loaded
+        self.restored_extra: Dict = {}
 
     # -- lease lifecycle -----------------------------------------------------
 
@@ -156,6 +162,18 @@ class Coordinator:
             round=round, chunk=0, version=self._bus_version,
             data=self._bus_cache,
             encode=lambda: wire.encode_dense(self._bus_cache, round=round))
+
+    def renew(self, lease: Lease, deadline: float) -> Lease:
+        """Extend a live lease's deadline (client asked for more time).
+        The old heap entry dies lazily: its seq no longer matches the
+        lease's ``_dl_seq``.  An infinite deadline needs no entry."""
+        self._live(lease)
+        lease.deadline = deadline
+        self._seq += 1
+        lease._dl_seq = self._seq
+        if deadline != math.inf:
+            heapq.heappush(self._lease_heap, (deadline, self._seq, lease.key))
+        return lease
 
     def submit(self, lease: Lease, trained_buf: torch.Tensor) -> Lease:
         """Client finished local training: encode the payload (applying
@@ -295,6 +313,44 @@ class Coordinator:
         """Running total of per-client residual norms — how much update
         mass is still in flight client-side across the fleet."""
         return self._res_norm_total
+
+    # -- checkpoint hooks ----------------------------------------------------
+
+    def save_checkpoint(self, manager, step: int,
+                        extra: Optional[Dict] = None) -> None:
+        """Snapshot (server params, version) through the manager's
+        one-pass flat record.  Leases and residuals are not persisted:
+        in-flight work is disposable, and a restarted coordinator
+        reissues it."""
+        manager.save_server(step, self.state.params, self.state.version,
+                            extra=extra)
+
+    def restore_checkpoint(self, manager) -> Optional[int]:
+        """Resume (params, version) from the newest server checkpoint, on
+        the bus's device.  Returns its step, or None (state untouched)
+        when there is none.  Every live lease is dropped and the residual
+        ledger cleared (mass gathered after the checkpoint must not enter
+        the restored params); the scheme state is rebuilt by
+        ``init_state`` from the restored params, never patched, so a
+        replica scheme tiles its replicas from the restored center.  The
+        checkpoint's ``extra`` lands in ``restored_extra``."""
+        step = manager.latest_step()
+        if step is None:
+            return None
+        for lease in list(self.leases.values()):
+            self.drop(lease)
+        self._lease_heap.clear()
+        self._residuals.clear()
+        self._res_norms.clear()
+        self._res_norm_total = 0.0
+        params, version, extra, _ = manager.restore_server_or_init(
+            self.state.params, lambda: None)
+        self.state = self.scheme.init_state(params)
+        self.state.version = version
+        self.restored_extra = dict(extra)
+        # frames embed their round; a resumed server may reissue rounds
+        self.handout_cache.reset()
+        return step
 
     @property
     def wire_stats(self):

@@ -39,6 +39,14 @@ class ServerScheme:
     def on_issue(self, state: SchemeState, lease: Lease) -> None:
         """Hook: a lease was issued."""
 
+    def params_for_client(self, state: SchemeState,
+                          cid: Optional[int] = None) -> F.FlatParams:
+        """What ``cid`` would be handed without a Coordinator: the server
+        params, or ``handout``'s substitute for a replica scheme."""
+        if cid is None:
+            return state.params
+        return self.handout(state, cid, state.params)
+
     def assimilate(self, state: SchemeState, payload,
                    meta: ResultMeta) -> SchemeState:
         raise NotImplementedError

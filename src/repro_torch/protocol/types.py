@@ -33,6 +33,8 @@ LEASE_ASSIMILATED = "assimilated"  # consumed by the scheme (terminal)
 LEASE_DROPPED = "dropped"          # result discarded (terminal)
 LEASE_EXPIRED = "expired"          # deadline passed (terminal)
 
+_TERMINAL = frozenset({LEASE_ASSIMILATED, LEASE_DROPPED, LEASE_EXPIRED})
+
 
 @dataclass
 class Lease:
@@ -60,6 +62,14 @@ class Lease:
     @property
     def key(self) -> tuple:
         return (self.cid, self.uid)
+
+    @property
+    def terminal(self) -> bool:
+        return self.status in _TERMINAL
+
+    @property
+    def released(self) -> bool:
+        return self.base is None
 
     def _release(self, status: str) -> None:
         self.status = status

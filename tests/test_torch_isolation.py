@@ -1,11 +1,11 @@
 """The port stands alone and runs where it is told to.
 
-* every ``repro_torch`` module, the benchmarks included, imports in a
-  fresh interpreter in which ``jax`` and ``repro`` cannot be imported at
-  all;
+* every ``repro_torch`` module, the benchmarks and the checkpoint store
+  included, imports in a fresh interpreter in which ``jax``, ``repro``
+  and ``msgpack`` cannot be imported at all;
 * no file under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or ``repro`` (AST scan, so a lazy import inside a function is
-  caught too);
+  ``jax``, ``repro`` or ``msgpack`` (AST scan, so a lazy import inside a
+  function is caught too);
 * entry points raise without a GPU unless the caller passes
   ``device="cpu"``, and the CPU route never touches the kernel build.
 """
@@ -39,7 +39,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack"}
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -47,6 +47,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
@@ -54,8 +55,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "    importlib.import_module(n)\n"
         "assert {'repro_torch.benchmarks.run',\n"
         "        'repro_torch.benchmarks.kernel_bench',\n"
-        "        'repro_torch.benchmarks.roofline_report'} <= set(names)\n"
+        "        'repro_torch.benchmarks.roofline_report',\n"
+        "        'repro_torch.benchmarks.paper_figs',\n"
+        "        'repro_torch.checkpoint.store',\n"
+        "        'repro_torch.checkpoint._msgpack',\n"
+        "        'repro_torch.core.cost_model'} <= set(names)\n"
         "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['msgpack'] is None\n"
         "print(len(names))\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

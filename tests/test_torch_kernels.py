@@ -21,7 +21,9 @@ final state (the reference's test_mamba_scan tolerance), 2e-2 on y
 rounded to bf16.  The blocked top-k passes (B6, B7) are bit-exact: packed
 words, counts, kept and residual equal the plain versions' (integer
 compares and one IEEE subtraction), and the whole selection on the card
-equals the CPU's.
+equals the CPU's.  Kill-and-restore training on the card (B3 every
+step) is bit-equal to the uninterrupted run, and its one-pass train
+records restore across devices bit for bit and re-save byte for byte.
 """
 import numpy as np
 import pytest
@@ -1113,3 +1115,48 @@ def test_quantize_pack_rejects_bad_inputs(dev):
         SK.quantize_pack(sel, idx.long())
     with pytest.raises(ValueError):
         SK.quantize_pack(sel.reshape(3, 100), idx)
+
+
+# ---------------------------------------------------------------------------
+# kill-and-restore training on the card (chip_smoke.py phase 11a): B3
+# every step; the one-pass train record across devices
+# ---------------------------------------------------------------------------
+
+def _preemptible(tmp_path, name, device, kills=()):
+    from repro_torch.core.preemption import KillSchedule
+    from repro_torch.core.simulator import run_preemptible_training
+    from repro_torch.core.tasks import MLPTask, make_classification_data
+    return run_preemptible_training(
+        MLPTask(), make_classification_data(), steps=40, batch=64,
+        ckpt_every=10, ckpt_dir=tmp_path / name, seed=0, device=device,
+        kill_schedule=KillSchedule.at(*kills) if kills else None)
+
+
+def test_kill_and_restore_bit_equal_on_card(dev, tmp_path):
+    clean = _preemptible(tmp_path, "clean", "cuda")
+    VK.reset_launch_count()
+    killed = _preemptible(tmp_path, "killed", "cuda", kills=(13, 27))
+    assert VK.launch_count("adam_update_flat") == 40 + 10
+    assert (killed.restores, killed.recomputed_steps) == (2, 10)
+    assert killed.trajectory() == clean.trajectory()
+    assert _bits_equal(killed.final_params.buf, clean.final_params.buf)
+
+
+def test_train_record_crosses_devices_bit_exact(dev, tmp_path):
+    from repro_torch.checkpoint import (load_train_checkpoint,
+                                        save_train_checkpoint)
+    card = _preemptible(tmp_path, "card", "cuda", kills=(13,))
+    host = _preemptible(tmp_path, "host", "cpu")
+    for src, other in (("card", "cpu"), ("host", "cuda")):
+        path = tmp_path / src / "ckpt_00000040.msgpack"
+        like = (card if src == "card" else host).final_params
+        fp, opt, _ = load_train_checkpoint(path, like)       # like's device
+        fo, oo, extra = load_train_checkpoint(path, like, device=other)
+        assert fo.buf.device.type == other and opt.step == oo.step == 40
+        for a, b in ((fp.buf, fo.buf), (opt.m, oo.m), (opt.v, oo.v)):
+            assert _bits_equal(a.cpu(), b.cpu())
+        assert _bits_equal(fp.buf.cpu(), like.buf.cpu())
+        save_train_checkpoint(tmp_path / f"{src}-again.msgpack", fo, oo,
+                              extra)
+        assert (tmp_path / f"{src}-again.msgpack").read_bytes() == \
+            path.read_bytes()
