@@ -214,7 +214,31 @@ a card, or outside a checkout.  Phases:
    c. the paper suites cost and fig6 (benchmarks/paper_figs.py, quick) on
       the card and on the CPU: every claim holds, fig6's hours equal and
       its accuracy curves agree within ACC_BAND; walls and claims print.
-12. a ``kernels`` JSON line (all 15 kernels; B13's names its main-path
+12. the rest of the simulator — fleets, the sharded bus with delta
+   handouts, the aggregation tier, read-only subscribers:
+   a. the fixture's other 5 cases (PINNED_FLEET_CASES;
+      tools/pin_sim_regression.py:68-80, :95-98) on the card and on the
+      CPU: every trace, wire and tier field equals the pinned JSON on
+      both; the four ProbeTask cases (fleet-churn, fleet-sharded-bus,
+      fleet-eval-stride, tier-fleet) card == CPU bit for bit in every
+      accuracy and in the final bus, and within PROBE_ACC_TOL of the
+      fixture's accuracy (the gap printed); tier-2level equals its
+      device's tier-flat-twin run bit for bit; B1 launches = results
+      assimilated (the Eq. 1 folds, at the hub or at an edge), B3 =
+      client steps, nothing else;
+   b. the registry's scenarios at their own sizes: fleet_1k on the card
+      and on the CPU, every summary field and the final bus bit for bit;
+      az_reclaim (a sharded bus), spot_price, diurnal and tiered once on
+      the card; each run's wall and events/s (the CPU's beside fleet_1k's);
+   c. ``repro_torch.benchmarks.run --only fleet,handout --check`` in this
+      process on the card: fleet_1k, fleet_10k and fleet_10k_tier,
+      handout_flash_10k in f32 and bf16 and handout_lagged_10k, each
+      row's fingerprint equal to results/BENCH_fleet.json /
+      BENCH_handout.json, every claim (the tier's upstream reduction, the
+      dedup and bf16 claims), and the floors of
+      results/BASELINE_torch_fleet.json (fleet_smoke's events/s at 25%,
+      handout_smoke's dedup ratio at 50%).
+13. a ``kernels`` JSON line (all 15 kernels; B13's names its main-path
    route's source and, under ``sources``, both routes'), the nvidia-smi
    line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -298,6 +322,33 @@ PINNED_CASES = {
                                server_proc_s=45.0)),
     "tier-flat-twin": ("VCASGD", dict(alpha=0.9), _TWIN),
 }
+# the fixture's other 5 cases (tools/pin_sim_regression.py:68-80, :95-98,
+# phase 12a): name -> (scheme class, kwargs, SimConfig overrides of
+# PIN_BASE, task: "probe" = scenarios/probe.py's ProbeTask on its probe
+# data, "mlp" = the MLP on PIN_DATA)
+_FLEET = dict(n_param_servers=2, n_clients=120, tasks_per_client=1,
+              n_shards=240, max_epochs=2, local_steps=1, timeout_s=1800.0,
+              preemptible=True, mean_lifetime_s=5400.0,
+              restart_delay_s=120.0, subtask_compute_s=120.0,
+              server_proc_s=0.05, seed=7)
+PINNED_FLEET_CASES = {
+    "fleet-churn": ("VCASGD", dict(alpha=0.95), _FLEET, "probe"),
+    "fleet-sharded-bus": ("VCASGD", dict(alpha=0.95),
+                          dict(_FLEET, bus_shards=4, seed=11), "probe"),
+    "fleet-eval-stride": ("VCASGD", dict(alpha=0.95),
+                          dict(_FLEET, eval_stride=8), "probe"),
+    "tier-2level": ("VCASGD", dict(alpha=0.9), dict(_TWIN, aggregators=1),
+                    "mlp"),
+    "tier-fleet": ("VCASGD", dict(alpha=0.95),
+                   dict(_FLEET, aggregators=4), "probe"),
+}
+# the tier cases' extra pinned fields
+PIN_TIER = ("aggregators", "agg_flushes", "wire_agg_frames",
+            "edge_wire_frames_sent", "edge_wire_bytes_sent")
+# the ProbeTask cases' accuracy against the fixture on the card: the
+# probe's progress proxy is np.linalg.norm in f32, whose dot another
+# numpy build may sum in another order
+PROBE_ACC_TOL = 1e-6
 # the pinned fields that do not depend on the parameter values
 PIN_TRACE = ("wall_time_s", "epochs_done", "results_assimilated",
              "reassignments", "preemptions", "lost_updates", "store_updates",
@@ -309,18 +360,36 @@ PIN_TRACE = ("wall_time_s", "epochs_done", "results_assimilated",
 
 
 def pinned_case(name: str):
-    """(scheme, SimConfig) of one pinned case, fresh."""
+    """(scheme, SimConfig) of one pinned case of either table, fresh."""
     from repro_torch.core import baselines
     from repro_torch.core.simulator import SimConfig
-    cls, kwargs, overrides = PINNED_CASES[name]
+    cls, kwargs, overrides = (PINNED_CASES[name] if name in PINNED_CASES
+                              else PINNED_FLEET_CASES[name][:3])
     return (getattr(baselines, cls)(**kwargs),
             SimConfig(**{**PIN_BASE, **overrides}))
 
 
+def pinned_task(name: str, cfg):
+    """(task, data) of one pinned case: the ProbeTask on its probe data,
+    or the MLP on the fixture's data."""
+    if PINNED_FLEET_CASES.get(name, (None,) * 4)[3] == "probe":
+        from repro_torch.scenarios.probe import ProbeTask, make_probe_data
+        return ProbeTask(), make_probe_data(cfg.n_shards, seed=cfg.seed)
+    from repro_torch.core.tasks import MLPTask, make_classification_data
+    return MLPTask(), make_classification_data(**PIN_DATA)
+
+
 def pinned_fields(res) -> dict:
     """The pinned fixture's fields of one SimResult (the pin tool's
-    run_case, without the accuracy)."""
-    return {
+    run_case, without the accuracy; a tier run's edge fields too)."""
+    tier = {}
+    if res.aggregators:
+        tier = {"aggregators": int(res.aggregators),
+                "agg_flushes": int(res.agg_flushes),
+                "wire_agg_frames": int(res.wire_agg_frames),
+                "edge_wire_frames_sent": int(res.edge_wire.frames_sent),
+                "edge_wire_bytes_sent": int(res.edge_wire.bytes_sent)}
+    return {**tier, 
         "wall_time_s": float(res.wall_time_s),
         "epochs_done": int(res.epochs_done),
         "results_assimilated": int(res.results_assimilated),
@@ -2571,6 +2640,187 @@ def paper_suites_on_card(torch, VK) -> None:
             f"gap {worst:.4f}; final acc {card[curve][-1]['acc']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the simulator — fleets, the sharded bus, the tier,
+# subscribers
+# ---------------------------------------------------------------------------
+
+# 12b: the registry's behaviour scenarios, once each on the card
+BEHAVIOUR = ("az_reclaim", "spot_price", "diurnal", "tiered")
+# 12c: the scenario suites of the port's bench
+SCENARIO_SUITES = ("fleet", "handout")
+
+
+def _bus_bits(torch, res):
+    return res.scheme_state.params.buf.detach().cpu().view(torch.int32)
+
+
+def fleet_pinned(torch, VK) -> dict:
+    """Phase 12a: the fixture's 5 cases the earlier phases cannot replay,
+    on the card and on the CPU: every trace, wire and tier field equals
+    the fixture on both; the ProbeTask cases card == CPU bit for bit in
+    every accuracy and in the final bus, and within PROBE_ACC_TOL of the
+    fixture's accuracy; tier-2level equals its device's tier-flat-twin
+    run bit for bit (bus and final accuracy).  Each card run launches B1
+    once a fold (results assimilated, at the hub or at an edge) and B3
+    once an MLP client step (none for the probe), nothing else.  Returns the launches summed."""
+    from repro_torch.core.simulator import run_simulation
+    pin = json.loads((ROOT / "results" / "PINNED_sim_regression.json")
+                     .read_text())
+    totals = dict.fromkeys(VK.KERNELS, 0)
+
+    def run_case(name, device, **overrides):
+        scheme, cfg = pinned_case(name)
+        cfg = dataclasses.replace(cfg, **overrides)
+        task, data = pinned_task(name, cfg)
+        VK.reset_launch_count()
+        t0 = time.perf_counter()
+        res = run_simulation(task, data, scheme, cfg, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return res, VK.launch_counts(), time.perf_counter() - t0
+
+    for name, (_, _, _, kind) in PINNED_FLEET_CASES.items():
+        want = pin["cases"][name]
+        (res_g, counts, wall_g), (res_c, counts_c, wall_c) = (
+            run_case(name, "cuda"), run_case(name, "cpu"))
+        check(sum(counts_c.values()) == 0,
+              f"pinned {name}: the CPU run launched a CUDA kernel")
+        implied = dict.fromkeys(VK.KERNELS, 0)
+        implied["vc_asgd_lerp_flat"] = res_g.results_assimilated
+        # the probe's nudge is not an Adam step: B3 runs only for the MLP
+        implied["adam_update_flat"] = (0 if kind == "probe"
+                                       else res_g.client_steps)
+        check(counts == implied, f"pinned {name}: launches {counts} != "
+              f"implied {implied}")
+        got_g, got_c = pinned_fields(res_g), pinned_fields(res_c)
+        for f in PIN_TRACE + (PIN_TIER if "aggregators" in want else ()):
+            check(got_g[f] == want[f], f"pinned {name}: {f} on cuda "
+                  f"{got_g[f]} != pinned {want[f]}")
+            check(got_c[f] == want[f], f"pinned {name}: {f} on cpu "
+                  f"{got_c[f]} != pinned {want[f]}")
+        accs_g = [p.acc_mean for p in res_g.points] + [res_g.final_accuracy]
+        accs_c = [p.acc_mean for p in res_c.points] + [res_c.final_accuracy]
+        bus_g = res_g.scheme_state.params.buf
+        check(bool(torch.isfinite(bus_g).all()),
+              f"pinned {name}: the card's bus is not finite")
+        if kind == "probe":
+            check(accs_g == accs_c, f"pinned {name}: accuracy card "
+                  f"{accs_g} != cpu {accs_c}")
+            check(torch.equal(_bus_bits(torch, res_g),
+                              _bus_bits(torch, res_c)),
+                  f"pinned {name}: final bus card != cpu")
+            gap = max(abs(a - w) for a, w in zip(
+                accs_g, want["acc_mean"] + [want["final_accuracy"]]))
+            check(gap <= PROBE_ACC_TOL, f"pinned {name}: accuracy vs the "
+                  f"fixture {gap} > {PROBE_ACC_TOL}")
+            note = (f"accuracy card == cpu bit for bit, bus too, gap to "
+                    f"the fixture {gap:.3g}")
+        else:
+            # the twin property on each device: one aggregator in front
+            # of one strong PS folds exactly what the flat hub folds
+            for device, res in (("cuda", res_g), ("cpu", res_c)):
+                twin, _, _ = run_case(name, device, aggregators=0)
+                check(twin.final_accuracy == res.final_accuracy
+                      and torch.equal(
+                          _bus_bits(torch, twin),
+                          _bus_bits(torch, res)),
+                      f"pinned {name} on {device}: != its tier-flat-twin")
+            gap = max(abs(a - b) for a, b in zip(accs_g, accs_c))
+            check(gap <= ACC_BAND, f"pinned {name}: accuracy cuda vs cpu "
+                  f"{gap}")
+            note = (f"== tier-flat-twin bit for bit on each device, "
+                    f"accuracy card vs cpu gap {gap:.4f}, final acc cuda "
+                    f"{res_g.final_accuracy:.4f} (fixture "
+                    f"{want['final_accuracy']:.4f})")
+        say(f"pinned {name}: trace == pin (cuda and cpu); {note}; wall "
+            f"cuda {wall_g:.3f} s, cpu {wall_c:.3f} s; events "
+            f"{res_g.events_processed}; launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        for k, v in counts.items():
+            totals[k] += v
+    return totals
+
+
+def registry_on_card(torch, VK) -> None:
+    """Phase 12b: fleet_1k on the card and on the CPU (every summary
+    field but the walls, and the final bus, bit for bit); the behaviour
+    scenarios once each on the card (every unit assimilated, finite
+    progress).  Each card run launches B1 once a result and nothing
+    else.  fleet_10k, fleet_10k_tier and handout_flash_10k (f32, bf16)
+    run in 12c's suites, which hold them to BENCH_fleet.json and
+    BENCH_handout.json."""
+    from repro_torch.benchmarks.fleet_bench import timed_run
+    from repro_torch.scenarios import registry as REG
+
+    def one(name, device):
+        VK.reset_launch_count()
+        res, wall = timed_run(name, device)
+        counts = {k: v for k, v in VK.launch_counts().items() if v}
+        summary = REG.summarize(REG.get(name), res, wall)
+        if device == "cuda":
+            check(counts == {"vc_asgd_lerp_flat": res.results_assimilated},
+                  f"{name}: launches {counts}")
+        else:
+            check(not counts, f"{name}: the CPU run launched a kernel")
+        return res, summary
+
+    res_g, card = one("fleet_1k", "cuda")
+    res_c, host = one("fleet_1k", "cpu")
+    timing = ("bench_wall_s", "events_per_sec")
+    for k in card:
+        if k not in timing:
+            check(card[k] == host[k], f"fleet_1k: {k} card {card[k]} != "
+                  f"cpu {host[k]}")
+    check(torch.equal(_bus_bits(torch, res_g),
+                      _bus_bits(torch, res_c)),
+          "fleet_1k: final bus card != cpu")
+    say(f"scenario fleet_1k: card == cpu (every field, the bus bit for "
+        f"bit); wall card {card['bench_wall_s']} s ({card['events_per_sec']}"
+        f" events/s), cpu {host['bench_wall_s']} s "
+        f"({host['events_per_sec']} events/s); {json.dumps(card)}")
+    for name in BEHAVIOUR:
+        res, summary = one(name, "cuda")
+        cfg = REG.get(name).config()
+        check(res.results_assimilated == cfg.n_shards * cfg.max_epochs
+              and res.epochs_done == cfg.max_epochs
+              and 0.0 < res.final_accuracy < 1.0,
+              f"{name}: {res.results_assimilated} results, "
+              f"{res.epochs_done} epochs, accuracy {res.final_accuracy}")
+        say(f"scenario {name} on cuda: wall {summary['bench_wall_s']} s, "
+            f"{summary['events_per_sec']} events/s; {json.dumps(summary)}")
+
+
+def scenario_suites_on_card(torch, VK) -> None:
+    """Phase 12c: ``run --only fleet,handout --check`` in this process on
+    the card: the floors of results/BASELINE_torch_fleet.json hold, every
+    claim holds, and every row's fingerprint equals the reference's
+    BENCH_fleet.json / BENCH_handout.json."""
+    import contextlib
+    import io
+    from repro_torch.benchmarks import run as bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, results = bench.run_cli(
+            ["--only", ",".join(SCENARIO_SUITES), "--check"])
+    for line in buf.getvalue().splitlines():
+        say(f"bench {line}")
+    check(rc == 0, "bench --only fleet,handout --check failed (see stderr)")
+    for suite in SCENARIO_SUITES:
+        res = results[suite]
+        check(all(res["_claims"].values()),
+              f"{suite}: a claim failed: {res['_claims']}")
+        for row, entry in res.items():
+            if row.startswith("_"):
+                continue
+            check(entry.get("fingerprint_matches_reference") is True,
+                  f"{suite}.{row}: fingerprint != the reference's")
+            say(f"scenario {suite}.{row} on cuda: wall "
+                f"{entry['bench_wall_s']} s, {entry['events_per_sec']} "
+                f"events/s; fingerprint == reference; {json.dumps(entry)}")
+        say(f"suite {suite}: claims {res['_claims']}")
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -2798,7 +3048,16 @@ def main() -> int:
     phases.start("11c")
     paper_suites_on_card(torch, VK)                                   # 11c
 
-    # ---- 12. result lines -------------------------------------------------
+    # ---- 12. fleets, the sharded bus, the tier, subscribers -------------
+    phases.start("12a")
+    fleet_counts = fleet_pinned(torch, VK)                            # 12a
+    say(f"fleet pinned cases: launches summed {fleet_counts}")
+    phases.start("12b")
+    registry_on_card(torch, VK)                                       # 12b
+    phases.start("12c")
+    scenario_suites_on_card(torch, VK)                                # 12c
+
+    # ---- 13. result lines -------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c

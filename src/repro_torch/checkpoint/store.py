@@ -162,14 +162,19 @@ def _spec_of(like) -> F.TreeSpec:
 
 
 def _check_layout(meta: Dict, spec: F.TreeSpec, path) -> None:
-    """The record's layout must be ``spec``'s.  A record of a sharded bus
-    (a ``shard`` entry) restores only onto the same partitioning, and the
-    port has no sharded bus yet: it raises, checked first so the error
-    names the shard layout."""
+    """The record's layout must be ``spec``'s.  A sharded layout
+    (``ShardedTreeSpec``) pins the segment geometry: a record written
+    n_shards-way restores only onto the same partitioning.  Checked first,
+    so the error names the shard layout (the padded length usually
+    differs too)."""
+    want = None
+    if isinstance(spec, F.ShardedTreeSpec):
+        want = {"n_shards": spec.n_shards, "shard_len": spec.shard_len,
+                "axis": spec.axis}
     have = meta.get("shard")
-    if have is not None:
+    if want != have:
         raise ValueError(f"flat checkpoint shard-layout mismatch: record "
-                         f"{have} vs requested None: {path}")
+                         f"{have} vs requested {want}: {path}")
     if (tuple(tuple(s) for s in meta["shapes"]) != spec.shapes
             or tuple(meta["offsets"]) != spec.offsets
             or meta["n"] != spec.n or meta["padded"] != spec.padded):

@@ -78,6 +78,15 @@ class VCASGD(ServerScheme):
         state.version += 1
         return state
 
+    def assimilation_retention(self, meta: ResultMeta) -> float:
+        """Eq. 1 retains exactly alpha of the pre-update server mass per
+        arrival (staleness damping included) — what the aggregation tier
+        multiplies across a flush window to form the merged weight."""
+        a = self.alpha(meta.epoch)
+        if self.staleness_gamma is not None:
+            a = V.staleness_alpha(a, meta.staleness, self.staleness_gamma)
+        return a
+
 
 class CompressedVCASGD(VCASGD):
     """VC-ASGD whose client -> server payload is the ``compress_flat``

@@ -11,6 +11,9 @@ contract, so a bus built here is byte-identical to the reference's:
 * The tail is zero-padded up to a multiple of ``BLOCK`` (8192), the tile
   every flat kernel assumes.  Zero padding is a fixed point of every flat
   op, so the tail stays zero.
+* ``ShardedTreeSpec`` cuts the bus into ``n_shards`` contiguous,
+  BLOCK-padded segments (``flatten_sharded``): the units of the download
+  leg's per-shard delta handouts.
 * ``unflatten`` returns VIEWS of the buffer (a no-op cast keeps the view),
   so a loss taken through them differentiates w.r.t. the buffer and the
   gradient arrives flat, with an exactly-zero tail.
@@ -135,6 +138,84 @@ class TreeSpec:
         if spec.n != sum(sizes) or spec.padded % BLOCK:
             raise ValueError(f"inconsistent flat layout meta {meta}")
         return spec
+
+
+@dataclass(frozen=True)
+class ShardedTreeSpec(TreeSpec):
+    """The flat bus cut into ``n_shards`` contiguous, BLOCK-padded
+    segments.  ``shard_len`` is a BLOCK multiple and ``padded == n_shards
+    * shard_len``; offsets and sizes are the single-host layout's, so only
+    the tail padding differs.  The port runs on one card: ``axis`` is the
+    reference's mesh-axis label, kept for the layout's meta, and the
+    segments are the units of the download leg's delta handouts.  Leaves
+    may straddle shard boundaries; ``shard_table()`` says which leaf
+    slices each segment holds."""
+
+    n_shards: int = 1
+    shard_len: int = 0                    # elements per shard (BLOCK multiple)
+    axis: str = "pod"                     # mesh-axis label (layout meta only)
+
+    def shard_bounds(self, i: int) -> Tuple[int, int]:
+        """[start, stop) element range of shard ``i``'s segment."""
+        if not 0 <= i < self.n_shards:
+            raise IndexError(f"shard {i} out of range 0..{self.n_shards - 1}")
+        return i * self.shard_len, (i + 1) * self.shard_len
+
+    def shard_table(self):
+        """Per-shard list of (leaf_idx, leaf_offset, length): the leaf
+        slices whose elements live in that shard's segment; every leaf
+        element appears exactly once across all shards."""
+        table = []
+        for i in range(self.n_shards):
+            lo, hi = self.shard_bounds(i)
+            segs = []
+            for li, (off, size) in enumerate(zip(self.offsets, self.sizes)):
+                a, b = max(off, lo), min(off + size, hi)
+                if a < b:
+                    segs.append((li, a - off, b - a))
+            table.append(segs)
+        return table
+
+    def meta(self) -> dict:
+        out = super().meta()
+        out["shard"] = {"n_shards": self.n_shards,
+                        "shard_len": self.shard_len, "axis": self.axis}
+        return out
+
+
+def _shard_len(n: int, n_shards: int, pad_to: int) -> int:
+    """Per-shard segment length: smallest BLOCK multiple covering n."""
+    return max(pad_to, -(-n // (n_shards * pad_to)) * pad_to)
+
+
+def shard_spec(spec: TreeSpec, n_shards: int, *, axis: str = "pod",
+               pad_to: int = BLOCK) -> ShardedTreeSpec:
+    """Re-lay an existing TreeSpec onto ``n_shards`` contiguous segments;
+    only the tail padding changes."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    sl = _shard_len(spec.n, n_shards, pad_to)
+    return ShardedTreeSpec(
+        treedef=spec.treedef, shapes=spec.shapes, dtypes=spec.dtypes,
+        offsets=spec.offsets, sizes=spec.sizes, n=spec.n,
+        padded=sl * n_shards, n_shards=n_shards, shard_len=sl, axis=axis)
+
+
+def sharded_tree_spec(tree, n_shards: int, *, axis: str = "pod",
+                      pad_to: int = BLOCK) -> ShardedTreeSpec:
+    """Sharded layout of ``tree`` (no data movement)."""
+    return shard_spec(tree_spec(tree, pad_to=pad_to), n_shards, axis=axis,
+                      pad_to=pad_to)
+
+
+def flatten_sharded(tree, n_shards: int, *, dtype=torch.float32,
+                    axis: str = "pod", pad_to: int = BLOCK) -> "FlatParams":
+    """Flatten onto the sharded layout: ``flatten``'s leaf packing, the
+    tail zero-padded so every shard's segment is a BLOCK multiple."""
+    _conversions["flatten"] += 1
+    spec = sharded_tree_spec(tree, n_shards, axis=axis, pad_to=pad_to)
+    leaves, _ = tree_flatten(tree)
+    return FlatParams(_pack(leaves, spec, dtype), spec)
 
 
 @dataclass(frozen=True)

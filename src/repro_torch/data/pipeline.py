@@ -43,6 +43,6 @@ def make_batch_for(cfg: ModelConfig, batch: int, seq_len: int,
     if cfg.encoder is not None or cfg.vision is not None:
         raise NotImplementedError(
             f"{cfg.arch}: encoder and vision inputs are not ported "
-            f"(ROADMAP.md queue A item 9)")
+            f"(ROADMAP.md queue A: whisper and the VLM stub)")
     src = SyntheticTokenSource(cfg.vocab_size, seed)
     return {"tokens": torch.from_numpy(src.sample(batch, seq_len))}

@@ -188,7 +188,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.shape[1] != 1:
         raise NotImplementedError(
             f"context-parallel chunks (P = {q.shape[1]}) are not ported: "
-            f"the port's plan is single-card (ROADMAP.md queue A item 8)")
+            f"the port's plan is single-card (ROADMAP.md queue A: the mesh plans)")
     o = ops.flash_attention(q[:, 0].transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             softcap=softcap)

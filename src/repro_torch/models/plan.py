@@ -17,8 +17,8 @@ class NullPlan:
         if self.attn_mode != "local" or self.cp != 1:
             raise NotImplementedError(
                 f"only the single-card plan (attn_mode='local', cp=1) is "
-                f"ported, got {self}; the mesh plans are ROADMAP queue A "
-                f"item 8")
+                f"ported, got {self}; the mesh plans wait in ROADMAP "
+                f"queue A ('Mesh plans and the sharded forms')")
         if self.cache_chunks < 1:
             raise ValueError(f"cache_chunks must be >= 1, got "
                              f"{self.cache_chunks}")

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import flat as F
@@ -53,6 +54,39 @@ class ServerScheme:
 
     def on_epoch(self, state: SchemeState, epoch: int) -> None:
         pass
+
+    # -- aggregation tier (protocol/aggregator.py) --------------------------
+    def assimilation_retention(self, meta: ResultMeta) -> float:
+        """Fraction of the pre-update server mass ``assimilate`` RETAINS
+        when folding ONE result (VC-ASGD: its effective alpha).  The tier
+        multiplies it across a flush window: the merged frame's summed
+        client weight is ``1 - prod(retention_i)``.  Default 1.0: a
+        pure-delta scheme adds to the server copy without discounting it."""
+        return 1.0
+
+    def assimilate_aggregate(self, state: SchemeState, payload,
+                             meta: ResultMeta) -> SchemeState:
+        """Fold ONE merged aggregate frame from an edge aggregator:
+        ``payload`` is a ``wire.AggregatePayload`` whose buf M is the
+        edge's fold state (seeded from the upstream lease base B,
+        ``meta.base``) and whose weight w is ``1 - prod(retention)``::
+
+            W' = M + (1 - w) * (W - B)
+
+        When the hub has not moved since the window opened (W == B
+        bitwise) the correction is exactly zero and the hub adopts M bit
+        for bit.  ``keep`` is formed once in f32, and the multiply and the
+        add are separate ops (no FMA), as the reference's numpy and jnp
+        forms compute it."""
+        fp = state.params
+        base = meta.base.buf if meta.base is not None else fp.buf
+        m = self._payload_buf(fp, payload.buf)
+        keep = float(np.float32(1.0) - np.float32(payload.weight))
+        f32 = torch.float32
+        out = m.to(f32) + keep * (fp.buf.to(f32) - base.to(f32))
+        state.params = fp.with_buf(out.to(fp.buf.dtype))
+        state.version += 1
+        return state
 
     def drop_client(self, state: SchemeState, cid: int) -> None:
         """Preemption hook: schemes with client-local state lose it here."""

@@ -5,7 +5,7 @@ flat bus + version counter), plus the tree<->bus boundary coercions."""
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional
 
 from repro_torch.core import flat as F
@@ -101,3 +101,29 @@ class SchemeState:
 
     params: F.FlatParams
     version: int = 0
+
+
+def scheme_state(cls):
+    """Register a SchemeState dataclass as a torch pytree node (as the
+    reference registers its states with jax).  Fields named in
+    ``cls._tree_fields`` (default: ``params``) are children; every other
+    field is carried as context by reference (version counters, slot
+    maps)."""
+    import torch.utils._pytree as pytree
+    tree_names = tuple(getattr(cls, "_tree_fields", ("params",)))
+    aux_names = tuple(f.name for f in fields(cls) if f.name not in tree_names)
+
+    def _flatten(s):
+        return ([getattr(s, n) for n in tree_names],
+                tuple(getattr(s, n) for n in aux_names))
+
+    def _unflatten(children, aux):
+        obj = object.__new__(cls)
+        for n, v in zip(tree_names, children):
+            object.__setattr__(obj, n, v)
+        for n, v in zip(aux_names, aux):
+            object.__setattr__(obj, n, v)
+        return obj
+
+    pytree.register_pytree_node(cls, _flatten, _unflatten)
+    return cls

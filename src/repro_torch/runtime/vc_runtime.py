@@ -20,7 +20,7 @@ baseline: a top-k per leaf and island (``compress_delta``), worse
 compression at equal density.
 
 Not ported yet: the sharded forms (the reference's ``mesh=`` /
-``shard_axis=``, ROADMAP queue A item 8) and ``make_vc_round`` (the
+``shard_axis=``, ROADMAP queue A's mesh plans and sharded forms) and ``make_vc_round`` (the
 island training loop, with the LLM training slice).
 """
 from __future__ import annotations

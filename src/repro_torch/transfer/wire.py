@@ -1,5 +1,5 @@
-"""Wire format — what a flat payload looks like as BYTES (port of the dense
-part of ``repro/transfer/wire.py``; frames are byte-identical).
+"""Wire format — what a flat payload looks like as BYTES (port of
+``repro/transfer/wire.py``; frames are byte-identical).
 
 Frame layout (little-endian, fixed 68-byte v2 header + body; version 3
 frames append one ``weight f32`` before the crc — 72 bytes)::
@@ -13,15 +13,23 @@ A decoder checks magic and version FIRST and rejects versions newer than
 it speaks; truncated, oversized or bit-flipped frames raise ``WireError``
 and are never assimilated.
 
-The port speaks the DENSE kind (0) — a raw flat buffer, f32 / bf16 /
-f16 — and the SPARSE kind (1) — a ``compress_flat`` payload: values int8
-[k] || scales f32 [ceil(k/block)] || indices int32 [k] — both emitted at
-version 2.  The sparse body is packed on the payload's device by ONE
-kernel launch (``kernels/ops.pack_body``, byte copies only) and crosses
-to the host in one copy; the crc is taken there.  Kinds 2 (shard) and 3
-(aggregate) are validated like any frame and then refused with
-``NotImplementedError``: they come with the sharded-bus and
-aggregation-tier slices of the port.  Payloads decode to CPU tensors.
+Kinds, each emitted at the OLDEST version that can express it:
+
+* 0 DENSE (v2) — a raw flat buffer, f32 / bf16 / f16;
+* 1 SPARSE (v2) — a ``compress_flat`` payload: values int8 [k] || scales
+  f32 [ceil(k/block)] || indices int32 [k].  The body is packed on the
+  payload's device by ONE kernel launch (``kernels/ops.pack_body``, byte
+  copies only) and crosses to the host in one copy; the crc is taken
+  there;
+* 2 SHARD (v2) — one contiguous segment of a sharded server bus, the
+  download leg's delta handouts: a dense body, with ``k`` the shard index
+  and ``block`` the shard count;
+* 3 AGG (v3 only) — an edge aggregator's merged, already assimilated
+  fold state: a dense body plus the summed client mass in the v3
+  header's ``weight`` field, range-checked to [0, 1] on encode and on
+  decode.
+
+Payloads decode to CPU tensors.
 """
 from __future__ import annotations
 
@@ -40,11 +48,8 @@ WIRE_VERSION = 3
 
 KIND_DENSE = 0
 KIND_SPARSE = 1
-KIND_SHARD = 2
-KIND_AGG = 3
-
-_LATER_SLICE = {KIND_SHARD: "the sharded-bus slice",
-                KIND_AGG: "the aggregation-tier slice"}
+KIND_SHARD = 2                 # one contiguous segment of the server bus
+KIND_AGG = 3                   # merged pre-assimilated frame (v3 only)
 
 _EMIT_VERSION = 2
 _HDR = struct.Struct("<4sHBBQQIfIfQQQ")      # v1/v2 header minus the crc
@@ -52,6 +57,7 @@ _HDR3 = struct.Struct("<4sHBBQQIfIfQQQf")    # v3: + weight f32
 _CRC = struct.Struct("<I")
 _PEEK = struct.Struct("<4sH")                # magic/version, checked FIRST
 HEADER_BYTES = _HDR.size + _CRC.size
+HEADER_BYTES_V3 = _HDR3.size + _CRC.size
 
 _DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
 _CODE_TORCH = {0: torch.float32, 1: torch.bfloat16, 2: torch.float16}
@@ -68,6 +74,19 @@ class WireMessage(NamedTuple):
     payload: Union[torch.Tensor, CompressedDelta]   # CPU tensors
     round: int                    # error-feedback round counter
     residual_norm: float          # client-side residual mass after sending
+    shard: int = 0                # KIND_SHARD: segment index on the bus
+    n_shards: int = 1             # KIND_SHARD: total segments of the bus
+    weight: float = 1.0           # KIND_AGG: summed client mass (v3 header)
+
+
+class AggregatePayload(NamedTuple):
+    """What an edge aggregator submits upstream: its merged (already
+    assimilated) fold state plus the summed client mass it represents.
+    Travels as a ``KIND_AGG`` v3 frame; the hub folds it with
+    ``ServerScheme.assimilate_aggregate``."""
+
+    buf: torch.Tensor             # merged flat buffer (padded bus layout)
+    weight: float                 # 1 - prod(retention) over folded results
 
 
 def _frame(header_wo_crc: bytes, body: bytes) -> bytes:
@@ -80,6 +99,17 @@ def dense_frame_bytes(n: int, dtype: str = "float32") -> int:
     """Exact frame length of a dense buffer payload."""
     itemsize = 2 if dtype in ("bfloat16", "float16") else 4
     return HEADER_BYTES + n * itemsize
+
+
+def agg_frame_bytes(n: int, dtype: str = "float32") -> int:
+    """Exact frame length of one merged aggregate frame (v3 header)."""
+    itemsize = 2 if dtype in ("bfloat16", "float16") else 4
+    return HEADER_BYTES_V3 + n * itemsize
+
+
+def shard_frame_bytes(shard_len: int, dtype: str = "float32") -> int:
+    """Exact frame length of one handout segment (same body as dense)."""
+    return dense_frame_bytes(shard_len, dtype)
 
 
 def sparse_frame_bytes(k: int, block: int = 256) -> int:
@@ -115,6 +145,33 @@ def encode_dense(buf, *, round: int = 0, residual_norm: float = 0.0) -> bytes:
     return _frame(header, raw)
 
 
+def encode_aggregate(buf, *, weight: float, round: int = 0,
+                     residual_norm: float = 0.0) -> bytes:
+    """Encode an edge aggregator's merged upstream frame (KIND_AGG, v3):
+    the dense fold-state body plus the summed client mass in the header's
+    ``weight`` field."""
+    w = float(weight)
+    if not 0.0 <= w <= 1.0:
+        raise WireError(f"aggregate weight {w} outside [0, 1]")
+    code, n, raw = _dense_bytes(buf)
+    header = _HDR3.pack(MAGIC, 3, KIND_AGG, code, n, n, 0, 1.0,
+                        int(round), float(residual_norm), len(raw), 0, 0, w)
+    return _frame(header, raw)
+
+
+def encode_shard(seg, *, shard: int, n_shards: int, round: int = 0) -> bytes:
+    """Encode one contiguous handout segment of the server bus (the
+    download leg): shard ``shard`` of ``n_shards``; ``k`` carries the
+    shard index and ``block`` the shard count."""
+    if not 0 <= shard < n_shards:
+        raise WireError(f"shard {shard} out of range 0..{n_shards - 1}")
+    code, n, raw = _dense_bytes(seg)
+    header = _HDR.pack(MAGIC, _EMIT_VERSION, KIND_SHARD, code, n,
+                       int(shard), int(n_shards), 1.0, int(round), 0.0,
+                       len(raw), 0, 0)
+    return _frame(header, raw)
+
+
 def encode_sparse(p: CompressedDelta, *, round: int = 0,
                   residual_norm: float = 0.0) -> bytes:
     """Encode a compress_flat payload (global top-k + int8).  The body is
@@ -136,15 +193,13 @@ def encode_sparse(p: CompressedDelta, *, round: int = 0,
 
 
 def encode(payload, *, round: int = 0, residual_norm: float = 0.0) -> bytes:
-    """Dispatch on payload type: buffers go dense, CompressedDelta sparse.
-    Aggregate payloads are not ported yet."""
+    """Dispatch on payload type: buffers go dense, CompressedDelta sparse,
+    AggregatePayload rides the v3 aggregate frame."""
     if isinstance(payload, CompressedDelta):
         return encode_sparse(payload, round=round, residual_norm=residual_norm)
-    if not isinstance(payload, (torch.Tensor, np.ndarray)):
-        raise NotImplementedError(
-            f"wire payload {type(payload).__name__}: only dense buffers and "
-            f"CompressedDelta are ported; aggregate frames come with the "
-            f"aggregation-tier slice")
+    if isinstance(payload, AggregatePayload):
+        return encode_aggregate(payload.buf, weight=payload.weight,
+                                round=round, residual_norm=residual_norm)
     return encode_dense(payload, round=round, residual_norm=residual_norm)
 
 
@@ -164,8 +219,10 @@ def decode(frame: bytes) -> WireMessage:
     hdr_bytes = hdr.size + _CRC.size
     if len(frame) < hdr_bytes:
         raise WireError(f"frame too short: {len(frame)} < {hdr_bytes}")
+    fields = hdr.unpack_from(frame)
     (_, _, kind, dcode, n, k, block, density, rnd, res_norm,
-     len_v, len_s, len_i) = hdr.unpack_from(frame)[:13]
+     len_v, len_s, len_i) = fields[:13]
+    weight = fields[13] if version >= 3 else 1.0
     (crc,) = _CRC.unpack_from(frame, hdr.size)
     body = frame[hdr_bytes:]
     if len(body) != len_v + len_s + len_i:
@@ -176,16 +233,12 @@ def decode(frame: bytes) -> WireMessage:
     if kind == KIND_AGG and version < 3:
         raise WireError(f"kind {KIND_AGG} (aggregate) requires wire v3, "
                         f"got v{version}")
-    if kind in _LATER_SLICE:
-        raise NotImplementedError(
-            f"wire frame kind {kind} is not ported yet: it comes with "
-            f"{_LATER_SLICE[kind]}")
     if kind == KIND_SPARSE:
         return WireMessage(KIND_SPARSE,
                            _sparse_payload(body, n, k, block, density,
                                            len_v, len_s),
                            rnd, res_norm)
-    if kind != KIND_DENSE:
+    if kind not in (KIND_DENSE, KIND_SHARD, KIND_AGG):
         raise WireError(f"unknown frame kind {kind}")
     if dcode not in _CODE_TORCH:
         raise WireError(f"unknown dense dtype code {dcode}")
@@ -193,6 +246,18 @@ def decode(frame: bytes) -> WireMessage:
     if arr.size != n:
         raise WireError(f"dense payload {arr.size} elements != declared n={n}")
     payload = torch.from_numpy(arr.copy()).view(_CODE_TORCH[dcode])
+    if kind == KIND_SHARD:
+        # k = shard index, block = n_shards
+        if not (block > 0 and 0 <= k < block):
+            raise WireError(f"shard index {k} out of range for {block} "
+                            f"shards")
+        return WireMessage(KIND_SHARD, payload, rnd, res_norm,
+                           shard=int(k), n_shards=int(block))
+    if kind == KIND_AGG:
+        if not 0.0 <= weight <= 1.0:
+            raise WireError(f"aggregate weight {weight} outside [0, 1]")
+        return WireMessage(KIND_AGG, payload, rnd, res_norm,
+                           weight=float(weight))
     return WireMessage(KIND_DENSE, payload, rnd, res_norm)
 
 

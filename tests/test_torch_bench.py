@@ -5,6 +5,14 @@ keeps the reference's row names and ``_launches`` keys
 apart from the rows the port adds (B4, B8 and B11 in ``kernels``); its
 CSV has no comma in ``derived``; the CPU route never builds a kernel; ``--check`` on the
 CPU is an error, and the launch gate itself compares exactly.
+
+The scenario suites (``--only fleet,handout``) keep the reference's rows
+and claim keys (``results/BENCH_fleet.json``, ``BENCH_handout.json``),
+apart from ``10k_speedup_ge_10x``, a comparison of the reference's own
+walls that the port does not claim; every row's fingerprint (simulated
+wall, results, preemptions, wire, handout and serving bytes, dedup ratio,
+latencies) equals the reference's exactly.  The floors of ``--check``
+compare against ``results/BASELINE_torch_fleet.json`` at 25% / 50%.
 """
 import json
 import os
@@ -97,7 +105,7 @@ def test_check_on_cpu_is_an_error(capsys):
 
 def test_unknown_suite_and_missing_gpu_raise(monkeypatch):
     with pytest.raises(SystemExit):
-        RUN.main(["--only", "fleet", "--device", "cpu"])
+        RUN.main(["--only", "frontier", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RUN.main(["--only", "flat_adam"])
@@ -118,3 +126,59 @@ def test_launch_gate_compares_exactly(capsys):
     bad = json.loads(json.dumps(good))
     bad["compression"]["_launches"]["extra"] = 0
     assert RUN.check_launches(bad) == 1
+
+
+SCENARIO_REFERENCE = {"fleet": "BENCH_fleet", "handout": "BENCH_handout"}
+NOT_CLAIMED = {"fleet": {"10k_speedup_ge_10x"}}
+
+
+def test_scenario_suites_on_cpu_keep_the_reference_rows_and_fingerprints(
+        no_build, capsys, monkeypatch, tmp_path):
+    monkeypatch.setattr(RUN, "RESULTS", tmp_path)
+    VK.reset_launch_count()
+    assert RUN.main(["--only", "fleet,handout", "--device", "cpu",
+                     "--write"]) == 0
+    assert VK.launch_count() == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "name,us_per_call,derived"
+    for suite, ref_name in SCENARIO_REFERENCE.items():
+        res = json.loads((tmp_path / f"BENCH_torch_{suite}.json").read_text())
+        ref = json.loads((ROOT / "results" / f"{ref_name}.json").read_text())
+        rows = {k for k in res if not k.startswith("_")}
+        assert rows == {k for k in ref if not k.startswith("_")}
+        assert set(res["_claims"]) == set(ref["_claims"]) - NOT_CLAIMED.get(
+            suite, set())
+        assert all(res["_claims"].values()), res["_claims"]
+        for r in rows:
+            assert res[r]["fingerprint_matches_reference"] is True, r
+            assert res[r]["events_per_sec"] > 0
+            assert f"{suite}.{r},{round(1e6 * res[r]['bench_wall_s'])}," \
+                f"events_per_sec={res[r]['events_per_sec']}" in lines
+        (claims_row,) = [ln for ln in lines if ln.startswith(f"{suite},")]
+        n = len(res["_claims"])
+        assert claims_row.endswith(f",claims:{n}/{n}")
+
+
+def test_scenario_floors_compare_against_the_card_baseline(monkeypatch,
+                                                           capsys):
+    from repro_torch.benchmarks import fleet_bench, handout_bench
+    base = json.loads(RUN.FLEET_BASELINE.read_text())
+    eps, dedup = (base["fleet"]["smoke_events_per_sec"],
+                  base["handout"]["smoke_unique_to_served"])
+    assert eps > 0 and dedup > 10
+    dev = torch.device("cpu")
+    for got_eps, got_dedup, rc in ((eps * 0.25, dedup * 0.5, 0),
+                                   (eps * 0.249, dedup, 1),
+                                   (eps, dedup * 0.49, 1)):
+        monkeypatch.setattr(fleet_bench, "smoke_events_per_sec",
+                            lambda d, v=got_eps: v)
+        monkeypatch.setattr(handout_bench, "smoke_unique_to_served",
+                            lambda d, v=got_dedup: v)
+        assert RUN.check_floors(["fleet", "handout"], dev) == rc
+    assert "FLOOR fleet.smoke_events_per_sec" in capsys.readouterr().err
+    # kernel suites carry no floor
+    assert RUN.check_floors(["flat", "kernels"], dev) == 0
+    # the real smoke scenarios on the CPU: the deterministic dedup ratio is
+    # the card's, the reference's 53.4
+    monkeypatch.undo()
+    assert handout_bench.smoke_unique_to_served("cpu") == dedup == 53.4

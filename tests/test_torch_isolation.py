@@ -59,7 +59,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "        'repro_torch.benchmarks.paper_figs',\n"
         "        'repro_torch.checkpoint.store',\n"
         "        'repro_torch.checkpoint._msgpack',\n"
-        "        'repro_torch.core.cost_model'} <= set(names)\n"
+        "        'repro_torch.core.cost_model',\n"
+        "        'repro_torch.scenarios.probe',\n"
+        "        'repro_torch.scenarios.registry',\n"
+        "        'repro_torch.protocol.aggregator',\n"
+        "        'repro_torch.protocol.handout',\n"
+        "        'repro_torch.benchmarks.fleet_bench',\n"
+        "        'repro_torch.benchmarks.handout_bench'} <= set(names)\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['msgpack'] is None\n"
         "print(len(names))\n")
@@ -112,6 +118,24 @@ def test_entry_points_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError):
         run_simulation(MLPTask(), make_classification_data(80, 20),
                        VCASGD(alpha=0.9), cfg)
+
+
+def test_scenarios_run_on_the_card_unless_told(no_gpu, no_build):
+    """A registry scenario's probe bus lives on the simulator's device:
+    without a GPU the default raises, ``device="cpu"`` runs and launches
+    nothing (a tier and subscribers included)."""
+    from repro_torch.scenarios import ProbeTask, get
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get("fleet_smoke").run()
+    with pytest.raises(RuntimeError):
+        ProbeTask().init_params(0)
+    VK.reset_launch_count()
+    res = get("fleet_smoke").run(device="cpu", n_clients=40, n_shards=80,
+                                 aggregators=2, subscribers=20,
+                                 bus_shards=2)
+    assert res.results_assimilated == 80 and res.sub_pulls > 0
+    assert res.scheme_state.params.buf.device.type == "cpu"
+    assert VK.launch_counts() == dict.fromkeys(VK.KERNELS, 0)
 
 
 def test_cpu_run_asked_for_never_builds(no_gpu, no_build):

@@ -24,6 +24,9 @@ compares and one IEEE subtraction), and the whole selection on the card
 equals the CPU's.  Kill-and-restore training on the card (B3 every
 step) is bit-equal to the uninterrupted run, and its one-pass train
 records restore across devices bit for bit and re-save byte for byte.
+The probe fleets (sharded bus, tier, subscribers, bf16 handouts) on the
+card equal the CPU run bit for bit, bus included, with B1 once a fold;
+an edge aggregator on the card leaves the hub where a flat hub lands.
 """
 import numpy as np
 import pytest
@@ -1160,3 +1163,69 @@ def test_train_record_crosses_devices_bit_exact(dev, tmp_path):
                               extra)
         assert (tmp_path / f"{src}-again.msgpack").read_bytes() == \
             path.read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the rest of the simulator on the card: fleets, the sharded bus, the tier,
+# subscribers (B1 every fold)
+# ---------------------------------------------------------------------------
+
+_FLEET = dict(n_param_servers=2, n_clients=120, tasks_per_client=1,
+              n_shards=240, max_epochs=2, local_steps=1, timeout_s=1800.0,
+              preemptible=True, mean_lifetime_s=5400.0,
+              restart_delay_s=120.0, subtask_compute_s=120.0,
+              server_proc_s=0.05, seed=7)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(), dict(bus_shards=4, seed=11), dict(aggregators=4),
+    dict(bus_shards=2, subscribers=30, handout_dtype="bfloat16")])
+def test_probe_fleet_on_card_equals_cpu(dev, overrides):
+    from repro_torch.core.baselines import VCASGD
+    from repro_torch.core.simulator import SimConfig, run_simulation
+    from repro_torch.scenarios.probe import ProbeTask, make_probe_data
+    cfg = SimConfig(**{**_FLEET, **overrides})
+    runs = {}
+    for device in ("cuda", "cpu"):
+        VK.reset_launch_count()
+        res = run_simulation(ProbeTask(), make_probe_data(cfg.n_shards,
+                                                          seed=cfg.seed),
+                             VCASGD(0.95), cfg, device=device)
+        runs[device] = (res, VK.launch_counts())
+    (g, counts), (c, counts_cpu) = runs["cuda"], runs["cpu"]
+    assert g.scheme_state.params.buf.device.type == "cuda"
+    assert counts["vc_asgd_lerp_flat"] == g.results_assimilated > 0
+    assert sum(counts.values()) == counts["vc_asgd_lerp_flat"]
+    assert sum(counts_cpu.values()) == 0
+    for f in ("wall_time_s", "results_assimilated", "preemptions",
+              "handout_frames", "handout_bytes", "events_processed",
+              "agg_flushes", "sub_pulls", "sub_bytes_served",
+              "handout_unique_bytes_encoded", "final_accuracy"):
+        assert getattr(g, f) == getattr(c, f), f
+    assert [p.acc_mean for p in g.points] == [p.acc_mean for p in c.points]
+    assert _bits_equal(g.scheme_state.params.buf.cpu(),
+                       c.scheme_state.params.buf)
+
+
+def test_tier_on_card_bit_identical_to_flat_hub(dev):
+    from repro_torch.core import flat as F
+    from repro_torch.core.baselines import VCASGD
+    from repro_torch.protocol import Aggregator, Coordinator
+    from repro_torch.transfer import wire
+    fp = F.flatten({"w": _rand(dev, 64, 32)})
+    flat_hub = Coordinator(VCASGD(0.9), fp)
+    hub = Coordinator(VCASGD(0.9), fp)
+    agg = Aggregator(VCASGD(0.9), hub, agg_id=0)
+    up = agg.open_window(round=0)
+    VK.reset_launch_count()
+    for i in range(5):
+        for c in (flat_hub, agg):
+            lease = c.issue(cid=i, uid=i, round=0, base=c.state.params)
+            c.submit(lease, lease.base.buf + (i + 1) * 0.25)
+            c.assimilate(lease, c.deliver(lease), server_version=i)
+    assert VK.launch_count("vc_asgd_lerp_flat") == 10
+    agg.flush()
+    hub.assimilate(up, hub.deliver(up), server_version=0)
+    assert hub.state.params.buf.device.type == "cuda"
+    assert hub.frames[wire.KIND_AGG] == 1
+    assert _bits_equal(hub.state.params.buf, flat_hub.state.params.buf)

@@ -12,7 +12,6 @@ Tolerances:
   under jit), and Adam turns an ulp on a near-zero gradient into a full
   lr-sized step, so the buses drift apart by up to ~1e-2 while accuracy
   moves by at most a sample (measured: <= 0.005 on these cases).
-Also: the not-yet-ported options raise.
 
 The pinned replay: the 12 flat MLP cases of
 ``results/PINNED_sim_regression.json`` (every server scheme, dense and
@@ -27,6 +26,8 @@ here to ``tools/pin_sim_regression.py``'s).  Tolerances:
   reference itself misses them today by up to 0.0613 (its own
   tests/test_protocol.py::test_pinned_regression_bit_identical fails on
   exactly those fields) while every trace field still reproduces.
+The fixture's other 5 cases (fleets and the tier) are replayed in
+tests/test_torch_fleet_sim.py.
 """
 import dataclasses
 import json
@@ -104,18 +105,6 @@ def test_smoke_run_matches_reference(overrides):
     assert port.client_steps > 0
 
 
-@pytest.mark.parametrize("field,value", [("aggregators", 2),
-                                         ("subscribers", 4),
-                                         ("bus_shards", 2),
-                                         ("handout_dtype", "bfloat16")])
-def test_unported_options_raise(field, value):
-    cfg = SimConfig(**{**SMOKE, "max_epochs": 1, field: value})
-    with pytest.raises(NotImplementedError):
-        run_simulation(MLPTask(), make_classification_data(n_train=80,
-                                                           n_val=20),
-                       VCASGD(alpha=0.9), cfg, device="cpu")
-
-
 def _scheme_fingerprint(scheme) -> dict:
     """The constructor parameters a scheme of either package carries."""
     fp = {"cls": type(scheme).__name__, "name": scheme.name}
@@ -129,19 +118,33 @@ def _scheme_fingerprint(scheme) -> dict:
 
 
 def test_pinned_case_table_matches_the_pin_tool():
+    """chip_smoke's two tables (the 12 flat MLP cases of phase 4d, the 5
+    fleet and tier cases of phase 12a) cover the pin tool's 17 cases once
+    each, with its configurations, schemes and tasks."""
     flat_mlp = {n for n, c in PIN.CASES.items()
                 if len(c) == 2 and "aggregators" not in c[1]}
     assert set(CS.PINNED_CASES) == flat_mlp and len(flat_mlp) == 12
+    assert not set(CS.PINNED_CASES) & set(CS.PINNED_FLEET_CASES)
+    assert set(CS.PINNED_CASES) | set(CS.PINNED_FLEET_CASES) == set(
+        PIN.CASES) == set(PINNED["cases"])
+    assert len(PIN.CASES) == 17
     assert CS.PIN_BASE == PIN.BASE == PINNED["base_cfg"]
     assert CS.PIN_DATA == PINNED["data"]
-    for name in flat_mlp:
-        factory, overrides = PIN.CASES[name]
+    for name, case in PIN.CASES.items():
+        factory, overrides = case[0], case[1]
         scheme, cfg = CS.pinned_case(name)
         assert cfg == SimConfig(**{**PIN.BASE, **overrides}), name
         assert _scheme_fingerprint(scheme) == _scheme_fingerprint(
             factory()), name
+        probe = len(case) > 2 and case[2] == "probe"
+        assert probe == (name in CS.PINNED_FLEET_CASES
+                         and CS.PINNED_FLEET_CASES[name][3] == "probe"), name
+        task, _ = CS.pinned_task(name, cfg)
+        assert type(task).__name__ == ("ProbeTask" if probe else "MLPTask")
     assert set(CS.PIN_TRACE) == set(PINNED["cases"]["vc-asgd"]) - {
         "final_accuracy", "acc_mean"}
+    assert set(CS.PIN_TIER) == set(PINNED["cases"]["tier-fleet"]) - set(
+        PINNED["cases"]["vc-asgd"])
 
 
 @pytest.mark.parametrize("name", sorted(CS.PINNED_CASES))

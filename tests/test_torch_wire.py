@@ -1,5 +1,5 @@
-"""Port parity: dense and sparse wire frames and the loopback transport
-against repro.transfer.
+"""Port parity: dense, sparse, shard (kind 2) and aggregate (kind 3) wire
+frames and the loopback transport against repro.transfer.
 
 Tolerance: none — frames are compared byte for byte in both directions
 (port encode == reference encode; each side decodes the other's frame to
@@ -86,14 +86,83 @@ def test_newer_version_and_oversized_frames_raise():
         PW.decode(PW.encode_dense(torch.from_numpy(_buf(7, 64))) + b"\0")
 
 
-def test_later_slice_kinds_refused_after_validation():
-    ref_agg = RW.encode_aggregate(jnp.asarray(_buf(8, 64)), weight=0.5)
-    ref_shard = RW.encode_shard(jnp.asarray(_buf(9, 64)), shard=1, n_shards=2)
-    for frame in (ref_agg, ref_shard):
-        with pytest.raises(NotImplementedError):
-            PW.decode(frame)
-    with pytest.raises(NotImplementedError):
-        PW.encode(object())
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shard,n_shards,rnd", [(0, 1, 0), (1, 2, 5),
+                                                (6, 7, 2 ** 31)])
+def test_shard_frames_byte_identical_both_directions(dtype, shard, n_shards,
+                                                     rnd):
+    x = _buf(shard * 13 + n_shards, 8192)
+    jx = jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    ref = RW.encode_shard(jx, shard=shard, n_shards=n_shards, round=rnd)
+    port = PW.encode_shard(tx, shard=shard, n_shards=n_shards, round=rnd)
+    assert port == ref
+    assert len(port) == PW.shard_frame_bytes(8192, dtype) == \
+        RW.shard_frame_bytes(8192, dtype)
+    got = PW.decode(ref)
+    assert (got.kind, got.shard, got.n_shards, got.round) == (
+        PW.KIND_SHARD, shard, n_shards, rnd)
+    assert got.payload.dtype == tx.dtype and torch.equal(got.payload, tx)
+    back = RW.decode(port)
+    assert (back.kind, back.shard, back.n_shards) == (RW.KIND_SHARD, shard,
+                                                      n_shards)
+    assert np.asarray(back.payload).tobytes() == np.asarray(jx).tobytes()
+
+
+@pytest.mark.parametrize("weight", [0.0, 0.40951, 1.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_aggregate_frames_byte_identical_both_directions(weight, dtype):
+    x = _buf(int(weight * 100) + 1, 8192)
+    jx = jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    ref = RW.encode(RW.AggregatePayload(jx, weight), round=3,
+                    residual_norm=0.5)
+    port = PW.encode(PW.AggregatePayload(tx, weight), round=3,
+                     residual_norm=0.5)
+    assert port == ref
+    assert port[4:6] == (3).to_bytes(2, "little")          # emitted at v3
+    assert len(port) == PW.agg_frame_bytes(8192, dtype) == \
+        RW.agg_frame_bytes(8192, dtype)
+    assert PW.HEADER_BYTES_V3 == PW.HEADER_BYTES + 4 == 72
+    got = PW.decode(ref)
+    assert (got.kind, got.round, got.weight) == (PW.KIND_AGG, 3,
+                                                 float(np.float32(weight)))
+    assert torch.equal(got.payload, tx)
+    back = RW.decode(port)
+    assert back.kind == RW.KIND_AGG and back.weight == got.weight
+    assert np.asarray(back.payload).tobytes() == np.asarray(jx).tobytes()
+
+
+def test_aggregate_and_shard_frames_checked_on_encode_and_decode():
+    x = torch.from_numpy(_buf(8, 64))
+    for w in (-1e-7, 1.0000001, float("nan")):
+        with pytest.raises(PW.WireError, match="outside"):
+            PW.encode_aggregate(x, weight=w)
+    with pytest.raises(PW.WireError, match="out of range"):
+        PW.encode_shard(x, shard=2, n_shards=2)
+    # a weight outside [0, 1] written by hand (crc recomputed) is refused
+    good = PW.encode_aggregate(x, weight=0.5)
+    hdr = bytearray(good[:PW._HDR3.size])
+    struct.pack_into("<f", hdr, PW._HDR3.size - 4, 1.5)
+    with pytest.raises(PW.WireError, match="outside"):
+        PW.decode(PW._frame(bytes(hdr), good[PW.HEADER_BYTES_V3:]))
+    # a shard index past the shard count, likewise
+    frame = PW.encode_shard(x, shard=1, n_shards=2)
+    hdr = bytearray(frame[:PW._HDR.size])
+    struct.pack_into("<Q", hdr, 16, 2)                  # k = shard index
+    with pytest.raises(PW.WireError, match="out of range"):
+        PW.decode(PW._frame(bytes(hdr), frame[PW.HEADER_BYTES:]))
+    # kind 3 needs the v3 header
+    hdr = bytearray(PW.encode_dense(x)[:PW._HDR.size])
+    hdr[6] = PW.KIND_AGG
+    with pytest.raises(PW.WireError, match="requires wire v3"):
+        PW.decode(PW._frame(bytes(hdr), PW.encode_dense(x)[PW.HEADER_BYTES:]))
+    # every header and body bit of a v3 frame is covered by the crc
+    for pos in (8, PW._HDR3.size - 2, PW.HEADER_BYTES_V3 + 3):
+        bad = bytearray(good)
+        bad[pos] ^= 0x10
+        with pytest.raises(PW.WireError):
+            PW.decode(bytes(bad))
 
 
 def test_loopback_transport_exactly_once_and_drop_accounting():
