@@ -238,7 +238,37 @@ a card, or outside a checkout.  Phases:
       dedup and bf16 claims), and the floors of
       results/BASELINE_torch_fleet.json (fleet_smoke's events/s at 25%,
       handout_smoke's dedup ratio at 50%).
-13. a ``kernels`` JSON line (all 15 kernels; B13's names its main-path
+13. the wall-clock runtime (launch/vc_serve.py over ProcessTransport
+   brokers), the frontier suite and the examples:
+   a. vc_serve at its default size (4 rounds x 3 clients, the MLP's
+      13,130 parameters on the 16,384-element bus) on the card and on the
+      CPU from one seed: every wire, handout, frame-kind and lease counter
+      equal, each round's accuracy within ACC_BAND, the final bus within
+      SERVE_BUS_TOL (printed beside it); B1 launched once per fold and B3
+      once per client step (3 x 4 x 4 = 48), nothing else; round 0's and
+      the warm rounds' walls on both devices with a warm round's shares
+      (client_train, submit, fold, checkpoint write, evaluation, serving,
+      time inside broker RPCs); the host us of one broker RPC of the
+      bus's 65.6 KB dense frame;
+   b. vc_serve --density 0.05 --shards 4 --handout-dtype bf16 --tier 2
+      --subscribers 16 on the card: every end-of-run check passes; B9 and
+      B12 once per compressed upload (12), B10 once per upload and once
+      per sparse decode at an edge (22), B1 once per edge fold (10), B3
+      48; the hub folds 8 merged frames; the subscribers' bytes served
+      and encoded;
+   c. a child ``python -m repro_torch.launch.vc_serve --rounds 50`` on
+      the card, SIGKILLed after its ``round 2:`` line: its broker exits,
+      a restart resumes at the last checkpoint's round with the uid
+      continued, steps monotone with no gap and none rewritten;
+   d. ``repro_torch.benchmarks.run --only frontier`` in this process on
+      the card: every point equals results/BENCH_frontier.json but its
+      wall, the Pareto front and the three claims too; B1 once per
+      assimilated result;
+   e. examples/torch_quickstart.py and examples/torch_asgd_comparison.py
+      with --smoke on the card, their trace lines equal to the CPU runs';
+      CNNTask.client_train (20 steps) card vs CPU within CNN_TOL, B3 once
+      a step.
+14. a ``kernels`` JSON line (all 15 kernels; B13's names its main-path
    route's source and, under ``sources``, both routes'), the nvidia-smi
    line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -2821,6 +2851,336 @@ def scenario_suites_on_card(torch, VK) -> None:
         say(f"suite {suite}: claims {res['_claims']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the wall-clock runtime, the frontier, the examples
+# ---------------------------------------------------------------------------
+
+# 13a/13b: vc_serve's argv sets (the default size: 4 rounds x 3 clients,
+# 3,000 / 600 rows, the MLP's 13,130 parameters on a 16,384-element bus)
+SERVE_STEPS = 4                  # Adam steps a client runs on one lease
+SERVE_TIER_ARGS = ["--density", "0.05", "--shards", "4", "--handout-dtype",
+                   "bf16", "--tier", "2", "--subscribers", "16"]
+# card vs CPU final bus of vc_serve: cuBLAS and the CPU's BLAS sum in
+# other orders, and Adam can turn an ulp on a near-zero gradient into an
+# lr-sized step (1e-3); the simulator's tests document drift up to 1e-2
+SERVE_BUS_TOL = 1e-2
+RPC_ITERS = 200
+# 13e: CNNTask.client_train card vs CPU (cuDNN's and the CPU's
+# convolutions sum in other orders; TF32 off), 20 steps
+CNN_STEPS = 20
+CNN_TOL = 1e-3
+
+
+def _serve_counters(c) -> dict:
+    return {"wire": dataclasses.asdict(c.wire_stats),
+            "handout": (c.handout_frames, c.handout_bytes),
+            "frames": dict(c.frames),
+            "leases": (c.assimilated, c.dropped, c.expired),
+            "version": c.state.version}
+
+
+def _round_shares(rounds) -> str:
+    """Median warm round (rounds after the first) and the shares of its
+    phases, host clock."""
+    warm = sorted(rounds[1:], key=lambda r: r["wall"])
+    mid = warm[len(warm) // 2]
+    shares = ", ".join(f"{k} {1e3 * mid[k]:.2f} ms "
+                       f"({100 * mid[k] / mid['wall']:.1f}%)"
+                       for k in ("train", "submit", "fold", "ckpt", "eval",
+                                 "serve", "rpc"))
+    return (f"round 0 {1e3 * rounds[0]['wall']:.2f} ms; warm rounds "
+            + ", ".join(f"{1e3 * r['wall']:.2f}" for r in rounds[1:])
+            + f" ms; median warm round {1e3 * mid['wall']:.2f} ms: {shares}")
+
+
+def broker_rpc_us(np, torch) -> None:
+    """Host us of one broker RPC carrying the MLP bus's dense frame
+    (65,536 bytes of body), send and recv timed apart, medians of
+    RPC_ITERS."""
+    from repro_torch.transfer import ProcessTransport, wire
+    frame = wire.encode_dense(torch.zeros(MAIN_N))
+    with ProcessTransport() as t:
+        sends, recvs = [], []
+        for _ in range(RPC_ITERS):
+            t0 = time.perf_counter()
+            mid = t.send(frame)
+            t1 = time.perf_counter()
+            got = t.recv(mid)
+            recvs.append(time.perf_counter() - t1)
+            sends.append(t1 - t0)
+        check(got == frame and t.in_flight == 0, "broker RPC round trip")
+    say(f"broker RPC, {len(frame)}-byte dense frame: send "
+        f"{1e6 * float(np.median(sends)):.1f} us, recv "
+        f"{1e6 * float(np.median(recvs)):.1f} us (medians of {RPC_ITERS}, "
+        f"host clock)")
+
+
+def serve_card_vs_cpu_13a(torch, np, VK, tmp: Path) -> dict:
+    """Phase 13a: vc_serve at its default size on the card and on the CPU
+    from one seed: counters equal, accuracy within ACC_BAND, the bus
+    within SERVE_BUS_TOL; B1 launched once a fold, B3 once a client step,
+    nothing else; the round walls and where a warm round's time goes."""
+    from repro_torch.launch import vc_serve as VS
+    VK.reset_launch_count()
+    card = VS.run(["--ckpt-dir", str(tmp / "a-cuda")])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in VK.launch_counts().items() if v}
+    VK.reset_launch_count()
+    host = VS.run(["--ckpt-dir", str(tmp / "a-cpu"), "--device", "cpu"])
+    check(VK.launch_count() == 0, "13a: the CPU run launched a kernel")
+    steps = 3 * SERVE_STEPS * 4                     # clients x steps x rounds
+    want = {"vc_asgd_lerp_flat": card.coord.assimilated,
+            "adam_update_flat": steps}
+    check(counts == want, f"13a: launches {counts} != {want}")
+    check(_serve_counters(card.coord) == _serve_counters(host.coord),
+          f"13a: counters card {_serve_counters(card.coord)} != cpu "
+          f"{_serve_counters(host.coord)}")
+    check(card.next_uid == host.next_uid == 12, "13a: next uid")
+    gap = max(abs(a - b) for a, b in zip(card.accuracy, host.accuracy))
+    check(gap <= ACC_BAND, f"13a: accuracy card vs cpu {gap} > {ACC_BAND}")
+    bus_g = card.coord.state.params.buf
+    check(bool(torch.isfinite(bus_g).all()) and bus_g.shape == (MAIN_N,),
+          "13a: the card's bus is not finite or has the wrong shape")
+    diff = float((bus_g.cpu() - host.coord.state.params.buf).abs().max())
+    check(diff <= SERVE_BUS_TOL, f"13a: bus card vs cpu {diff} > "
+          f"{SERVE_BUS_TOL}")
+    say(f"vc_serve default: counters card == cpu "
+        f"{json.dumps(_serve_counters(card.coord))}; accuracy cuda "
+        f"{[round(a, 4) for a in card.accuracy]} cpu "
+        f"{[round(a, 4) for a in host.accuracy]} (max gap {gap:.4f}, band "
+        f"{ACC_BAND}); final bus max abs diff {diff:.3g} (limit "
+        f"{SERVE_BUS_TOL}); launches {counts}")
+    say(f"vc_serve default on cuda: {_round_shares(card.rounds)}")
+    say(f"vc_serve default on cpu: {_round_shares(host.rounds)}")
+    broker_rpc_us(np, torch)
+    return counts
+
+
+def serve_tier_on_card(torch, VK, tmp: Path) -> None:
+    """Phase 13b: compressed uploads, a 4-shard bus with bf16 handouts,
+    two edge aggregators and 16 subscribers on the card: every _check of
+    the run passes (a failed one raises), B9 and B12 launched once per
+    compressed upload, B10 once per upload and once per sparse decode at
+    an edge, B1 once per edge fold, B3 once per client step."""
+    from repro_torch.launch import vc_serve as VS
+    from repro_torch.transfer import wire
+    VK.reset_launch_count()
+    res = VS.run(SERVE_TIER_ARGS + ["--ckpt-dir", str(tmp / "b")])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in VK.launch_counts().items() if v}
+    uploads = sum(a.wire_stats.frames_sent - a.handout_frames
+                  for a in res.aggs)
+    decodes = sum(a.frames[wire.KIND_SPARSE] for a in res.aggs)
+    folds = sum(a.assimilated for a in res.aggs)
+    want = {"vc_asgd_lerp_flat": folds,
+            "adam_update_flat": 3 * SERVE_STEPS * 4,
+            "quantize_int8": uploads, "pack_body": uploads,
+            "dequantize_int8": uploads + decodes}
+    check(uploads == 12 and decodes == folds == 10,
+          f"13b: {uploads} uploads, {decodes} sparse decodes, {folds} folds")
+    check(counts == want, f"13b: launches {counts} != {want}")
+    check(res.coord.frames[wire.KIND_AGG] == 8
+          and res.coord.assimilated == 8, "13b: hub folds 2 merges a round")
+    svc, cache = res.service, res.coord.handout_cache
+    check(svc.pulls == 64 and svc.bytes_served > cache.encoded_bytes > 0,
+          f"13b: {svc.pulls} pulls, {svc.bytes_served} B served, "
+          f"{cache.encoded_bytes} B encoded")
+    acc = res.accuracy
+    check(all(0.0 < a < 1.0 for a in acc)
+          and bool(torch.isfinite(res.coord.state.params.buf).all()),
+          f"13b: accuracy {acc} or the bus not finite")
+    say(f"vc_serve {' '.join(SERVE_TIER_ARGS)} on cuda: every check passed; "
+        f"launches {counts}; hub {json.dumps(_serve_counters(res.coord))}; "
+        f"served {svc.bytes_served} B for {cache.encoded_bytes} B encoded "
+        f"(dedup {cache.dedup_ratio:.2f}x); accuracy "
+        f"{[round(a, 4) for a in acc]}")
+    say(f"vc_serve tier on cuda: {_round_shares(res.rounds)}")
+
+
+def _pid_gone(pid: int) -> bool:
+    try:
+        status = Path(f"/proc/{pid}/status").read_text()
+    except FileNotFoundError:
+        return True
+    return re.search(r"^State:\s+Z", status, re.M) is not None
+
+
+def serve_kill_and_resume(tmp: Path) -> None:
+    """Phase 13c: a child vc_serve on the card, SIGKILLed after its
+    ``round 2:`` line; its broker exits on EOF; the restarted server
+    resumes past the last checkpoint with monotone steps and uids and
+    rewrites no step."""
+    import os
+    import signal
+    d = tmp / "c"
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    cmd = [sys.executable, "-m", "repro_torch.launch.vc_serve",
+           "--ckpt-dir", str(d)]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd + ["--rounds", "50"], cwd=ROOT, env=env,
+                             stdout=subprocess.PIPE, text=True)
+    broker, lines = None, []
+    try:
+        for line in child.stdout:
+            lines.append(line.rstrip())
+            m = re.search(r"broker pid=(\d+)", line)
+            if m:
+                broker = int(m.group(1))
+            if "round 2:" in line:
+                break
+        child.send_signal(signal.SIGKILL)
+    finally:
+        child.kill()
+        child.wait(timeout=60)
+    killed_s = time.perf_counter() - t0
+    check(child.returncode == -signal.SIGKILL and broker is not None,
+          f"13c: child ended {child.returncode}, broker {broker}")
+    deadline = time.monotonic() + 30
+    while not _pid_gone(broker) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    check(_pid_gone(broker), f"13c: broker {broker} outlived its server")
+    steps = sorted(int(p.stem.split("_")[1]) for p in d.glob("ckpt_*.msgpack"))
+    k = steps[-1]
+    check(k >= 3, f"13c: last checkpoint step {k} < 3")
+    kept = {s: (d / f"ckpt_{s:08d}.msgpack").read_bytes() for s in steps}
+    walls = re.findall(r"round \d+: .*\[(\S+)\]$", "\n".join(lines), re.M)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd + ["--rounds", "2"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    resumed_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"13c: restart failed: {out.stderr[-2000:]}")
+    check(f"from checkpoint step {k} (continuing at round {k}, uid {3 * k})"
+          in out.stdout, f"13c: restart did not resume at step {k}")
+    rounds = [int(r) for r in re.findall(r"round (\d+):", out.stdout)]
+    check(rounds == [k, k + 1], f"13c: rounds after the restart {rounds}")
+    check(f"next uid {3 * (k + 2)}" in out.stdout, "13c: next uid")
+    after = sorted(int(p.stem.split("_")[1]) for p in d.glob("ckpt_*.msgpack"))
+    check(after[-1] == k + 2 and after == list(range(after[0], k + 3)),
+          f"13c: steps on disk after the restart {after}")
+    for s in set(steps) & set(after):
+        check((d / f"ckpt_{s:08d}.msgpack").read_bytes() == kept[s],
+              f"13c: step {s} was rewritten")
+    again = re.findall(r"round \d+: .*\[(\S+)\]$", out.stdout, re.M)
+    say(f"kill-and-resume on cuda: killed after round 2 ({killed_s:.3f} s "
+        f"from spawn; fresh-process round walls {walls}), broker {broker} "
+        f"gone, last step {k}; restart resumed at round {k} "
+        f"(uid {3 * k}), rounds {rounds}, steps {after}, none rewritten; "
+        f"restart {resumed_s:.3f} s, round walls {again}")
+
+
+def frontier_on_card(torch, VK) -> int:
+    """Phase 13d: ``run --only frontier`` in this process on the card:
+    every point equals results/BENCH_frontier.json but its wall, and so
+    do the Pareto front and the three claims; B1 launched once per
+    assimilated result, nothing else."""
+    import contextlib
+    import io
+    from repro_torch.benchmarks import run as bench
+    pin = json.loads((ROOT / "results" / "BENCH_frontier.json").read_text())
+    VK.reset_launch_count()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, results = bench.run_cli(["--only", "frontier"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in VK.launch_counts().items() if v}
+    for line in buf.getvalue().splitlines():
+        say(f"bench {line}")
+    res = results["frontier"]
+    check(rc == 0 and all(res["_claims"].values()),
+          f"frontier: rc {rc}, claims {res['_claims']}")
+    for got, want in zip(res["points"], pin["points"]):
+        strip = lambda p: {k: v for k, v in p.items() if k != "bench_wall_s"}
+        check(strip(got) == strip(want),
+              f"frontier {got['scenario']}: {got} != pin {want}")
+        say(f"frontier {got['scenario']} on cuda: == pin but the wall; "
+            f"wall {got['bench_wall_s']} s (pin's CPU wall "
+            f"{want['bench_wall_s']} s)")
+    check(len(res["points"]) == len(pin["points"])
+          and res["pareto_front"] == pin["pareto_front"]
+          and res["_claims"] == pin["_claims"], "frontier: front or claims")
+    results_n = sum(p["results_assimilated"] for p in res["points"])
+    check(counts == {"vc_asgd_lerp_flat": results_n},
+          f"frontier: launches {counts}, {results_n} results")
+    say(f"frontier on cuda: wall {res['_wall_s']:.3f} s, Pareto front "
+        f"{res['pareto_front']}, claims 3/3, launches {counts}")
+    return results_n
+
+
+def _example(name: str, argv) -> str:
+    import contextlib
+    import importlib.util
+    import io
+    path = ROOT / "examples" / name
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(mod.main(argv) == 0, f"{name} {argv} failed")
+    return buf.getvalue()
+
+
+def _trace_lines(out: str) -> list:
+    """An example's printed lines with the accuracy columns taken out
+    (the event trace stays)."""
+    lines = []
+    for ln in out.splitlines():
+        ln = re.sub(r"^(\s*\d+\s+[\d.]+)\s+[\d.]+ ±\S+", r"\1", ln)
+        ln = re.sub(r"final accuracy \S+ \|", "", ln)
+        ln = re.sub(r"^(\s*\S+\s+[\d.]+)\s+[\d.]+(\s+\d+\s+\d+\s+[\d.]+)$",
+                    r"\1\2", ln)
+        lines.append(ln)
+    return lines
+
+
+def examples_and_cnn_on_card(torch, VK) -> None:
+    """Phase 13e: both examples with --smoke on the card, their trace
+    lines equal to the CPU runs'; CNNTask.client_train card vs CPU from
+    one init and one set of draws within CNN_TOL, B3 once a step."""
+    from repro_torch.core import flat as F
+    from repro_torch.core.tasks import CNNTask, make_image_data
+    for name in ("torch_quickstart.py", "torch_asgd_comparison.py"):
+        VK.reset_launch_count()
+        t0 = time.perf_counter()
+        card = _example(name, ["--smoke"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in VK.launch_counts().items() if v}
+        host = _example(name, ["--smoke", "--device", "cpu"])
+        check(_trace_lines(card) == _trace_lines(host),
+              f"{name}: trace card != cpu:\n{card}\n{host}")
+        check(counts.get("vc_asgd_lerp_flat", 0) > 0
+              and counts.get("adam_update_flat", 0) > 0,
+              f"{name}: launches {counts}")
+        say(f"{name} --smoke on cuda: trace == cpu, wall {wall:.3f} s, "
+            f"launches {counts}")
+        for ln in card.splitlines():
+            if ln.strip():
+                say(f"  {ln}")
+    data = make_image_data(n_train=600, n_val=200)
+    task = CNNTask()
+    outs = {}
+    for device in ("cuda", "cpu"):
+        base = F.flatten(task.init_params(0, device=device))
+        x = torch.from_numpy(data.x_train).to(device)
+        y = torch.from_numpy(data.y_train).to(device, torch.int64)
+        VK.reset_launch_count()
+        t0 = time.perf_counter()
+        outs[device] = task.client_train(base, x, y, steps=CNN_STEPS,
+                                         seed=7).cpu()
+        wall = time.perf_counter() - t0
+        n = VK.launch_count("adam_update_flat")
+        check(n == (CNN_STEPS if device == "cuda" else 0),
+              f"CNNTask on {device}: {n} Adam launches")
+        say(f"CNNTask.client_train on {device}: {CNN_STEPS} steps, "
+            f"{wall:.3f} s, {n} B3 launches")
+    diff = float((outs["cuda"] - outs["cpu"]).abs().max())
+    check(bool(torch.isfinite(outs["cuda"]).all()) and diff <= CNN_TOL,
+          f"CNNTask card vs cpu {diff} > {CNN_TOL}")
+    say(f"CNNTask.client_train card vs cpu: max abs diff {diff:.3g} "
+        f"(limit {CNN_TOL})")
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -3057,7 +3417,22 @@ def main() -> int:
     phases.start("12c")
     scenario_suites_on_card(torch, VK)                                # 12c
 
-    # ---- 13. result lines -------------------------------------------------
+    # ---- 13. the wall-clock runtime, the frontier, the examples ---------
+    import shutil
+    tmp = ROOT / "build" / "chip_smoke_serve"    # git-ignored
+    shutil.rmtree(tmp, ignore_errors=True)
+    phases.start("13a")
+    serve_card_vs_cpu_13a(torch, np, VK, tmp)                         # 13a
+    phases.start("13b")
+    serve_tier_on_card(torch, VK, tmp)                                # 13b
+    phases.start("13c")
+    serve_kill_and_resume(tmp)                                        # 13c
+    phases.start("13d")
+    frontier_on_card(torch, VK)                                       # 13d
+    phases.start("13e")
+    examples_and_cnn_on_card(torch, VK)                               # 13e
+
+    # ---- 14. result lines -------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c

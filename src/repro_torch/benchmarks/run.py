@@ -1,9 +1,9 @@
 """The port's bench: the reference's ``benchmarks/run.py`` suites
 kernels, flat, flat_adam and compression, plus the per-kernel roofline
 table (run by default), the paper's figure suites fig2, fig3, fig4,
-fig6, consistency and cost (``paper_figs.py``) and the fleet and handout
-scenario suites (``fleet_bench.py``, ``handout_bench.py``), run when
-named.  Prints the reference's CSV rows: ``name,us_per_call,derived`` a
+fig6, consistency and cost (``paper_figs.py``), the fleet and handout
+scenario suites (``fleet_bench.py``, ``handout_bench.py``) and the
+cost/throughput frontier (``frontier_bench.py``), run when named.  Prints the reference's CSV rows: ``name,us_per_call,derived`` a
 kernel-bench row, ``suite,wall_us,claims:n/m`` a claim suite (its failed
 claims named after ``FAILED:``, joined by ``+``), preceded for a
 scenario suite by one ``suite.row,wall_us,events_per_sec=...`` row a
@@ -11,14 +11,15 @@ scenario run.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run \\
       [--only kernels,flat,flat_adam,compression,roofline,
-              fig2,fig3,fig4,fig6,consistency,cost,fleet,handout] [--full] \\
+              fig2,fig3,fig4,fig6,consistency,cost,fleet,handout,
+              frontier] [--full] \\
       [--device cuda|cpu] [--check] [--write]
 
 It runs on the card unless ``--device cpu`` is given (the plain PyTorch
 versions, host-clock times), and raises without a GPU.  ``--full`` runs
 the paper suites at the paper's horizon (40 epochs, 50 shards) instead
-of the quick one, and the scenario suites with fleet_100k and the
-100k / 1M subscriber crowds.  ``--check`` is
+of the quick one, the scenario suites with fleet_100k and the
+100k / 1M subscriber crowds, and the frontier with fleet_1k.  ``--check`` is
 the launch gate: every suite run that carries a ``_launches`` dict must
 equal its entry of ``results/BASELINE_launches.json`` exactly (flat 1 /
 per_leaf 96, flat_adam 1, compression blocked_topk 2 / quantize_pack 1 /
@@ -43,6 +44,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.benchmarks import fleet_bench
+from repro_torch.benchmarks import frontier_bench
 from repro_torch.benchmarks import handout_bench
 from repro_torch.benchmarks import kernel_bench as KB
 from repro_torch.benchmarks import paper_figs
@@ -61,7 +63,8 @@ SUITES = {
 }
 # suites that print one claims row (paper figures, scenario suites)
 PAPER_SUITES = {**paper_figs.SUITES, "fleet": fleet_bench.bench_fleet,
-                "handout": handout_bench.bench_handout}
+                "handout": handout_bench.bench_handout,
+                "frontier": frontier_bench.bench_frontier}
 
 
 def device_name(dev: torch.device) -> str:

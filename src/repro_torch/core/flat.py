@@ -116,6 +116,10 @@ class TreeSpec:
     n: int                                # logical elements (sum of sizes)
     padded: int                           # physical length (BLOCK multiple)
 
+    @property
+    def num_leaves(self) -> int:
+        return len(self.shapes)
+
     def meta(self) -> dict:
         """JSON-serializable layout (no treedef) — equal to the
         reference's ``TreeSpec.meta()`` for the same tree."""
@@ -228,6 +232,9 @@ class FlatParams:
     def with_buf(self, buf) -> "FlatParams":
         return FlatParams(buf, self.spec)
 
+    def tree(self):
+        return unflatten(self)
+
 
 @dataclass(frozen=True)
 class FlatOptState:
@@ -238,6 +245,21 @@ class FlatOptState:
     v: torch.Tensor                       # [spec.padded], float32
     step: int
     spec: TreeSpec
+
+    def leaf_m(self):
+        """m as a tree of views (inspection boundary, not the hot path).
+        Moments stay f32 whatever the params' storage dtypes."""
+        return _unflatten_f32(self.m, self.spec)
+
+    def leaf_v(self):
+        return _unflatten_f32(self.v, self.spec)
+
+
+def _unflatten_f32(buf: torch.Tensor, spec: TreeSpec):
+    _conversions["unflatten"] += 1
+    leaves = [buf[o:o + s].view(shape)
+              for o, s, shape in zip(spec.offsets, spec.sizes, spec.shapes)]
+    return tree_unflatten(spec.treedef, leaves)
 
 
 def init_opt_state(spec: TreeSpec, device) -> FlatOptState:
@@ -342,6 +364,11 @@ def flatten_like(tree, spec: TreeSpec, *, dtype=torch.float32
         raise ValueError(
             f"tree layout mismatch: {shapes} vs spec {spec.shapes}")
     return _pack(leaves, spec, dtype)
+
+
+def zeros_like_flat(spec: TreeSpec, *, dtype=torch.float32,
+                    device="cpu") -> torch.Tensor:
+    return torch.zeros((spec.padded,), dtype=dtype, device=device)
 
 
 def stack_flats(flats: Sequence[FlatParams]) -> torch.Tensor:

@@ -1,9 +1,9 @@
-"""Adam (port of ``repro/optim/optimizers.py``).  On the flat bus params,
-m and v are three lanes of one layout, updated by ONE fused kernel launch
-per step on the card; the tree form updates leaf by leaf with the same
-arithmetic (the plain version of that kernel), so the two are
-bit-identical, and ``flat_opt_from_tree`` lifts a tree state onto the
-bus."""
+"""Adam and SGD (port of ``repro/optim/optimizers.py``).  On the flat bus
+params, m and v are three lanes of one layout, updated by ONE fused kernel
+launch per step on the card; the tree form updates leaf by leaf with the
+same arithmetic (the plain version of that kernel), so the two are
+bit-identical.  ``flat_opt_from_tree`` lifts a tree state onto the bus
+and ``flat_opt_to_tree`` views the lanes as trees again."""
 from __future__ import annotations
 
 import functools
@@ -97,3 +97,39 @@ def flat_opt_from_tree(state: OptState, spec: TreeSpec) -> FlatOptState:
     return FlatOptState(m=flatten_like(state.m, spec),
                         v=flatten_like(state.v, spec),
                         step=int(state.step), spec=spec)
+
+
+def flat_opt_to_tree(fos: FlatOptState) -> OptState:
+    """Inverse boundary: the tree OptState whose leaves are views of the
+    flat lanes."""
+    return OptState(step=fos.step, m=fos.leaf_m(), v=fos.leaf_v())
+
+
+@dataclass(frozen=True)
+class Sgd:
+    """Plain SGD, or heavy-ball momentum (``m = momentum * m + g``) when
+    ``momentum`` is non-zero; arithmetic in f32, results stored in each
+    leaf's dtype, scalars rounded to f32 as JAX rounds a Python float
+    against an f32 array."""
+    lr: float | Callable[[int], float] = 1e-2
+    momentum: float = 0.0
+
+    def init(self, params) -> OptState:
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+        m = tree_map(zeros, params) if self.momentum else None
+        return OptState(step=0, m=m, v=None)
+
+    def update(self, grads, state: OptState, params) -> Tuple[Any, OptState]:
+        t = state.step + 1
+        lr = R.f32(self.lr(t) if callable(self.lr) else self.lr)
+        f = torch.float32
+        if self.momentum:
+            mu = R.f32(self.momentum)
+            m = tree_map(lambda mm, g: mu * mm + g.to(f), state.m, grads)
+            new = tree_map(lambda p, mm: (p.to(f) - lr * mm).to(p.dtype),
+                           params, m)
+            return new, OptState(step=t, m=m, v=None)
+        new = tree_map(lambda p, g: (p.to(f) - lr * g.to(f)).to(p.dtype),
+                       params, grads)
+        return new, OptState(step=t, m=None, v=None)

@@ -105,7 +105,7 @@ def test_check_on_cpu_is_an_error(capsys):
 
 def test_unknown_suite_and_missing_gpu_raise(monkeypatch):
     with pytest.raises(SystemExit):
-        RUN.main(["--only", "frontier", "--device", "cpu"])
+        RUN.main(["--only", "no_such_suite", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RUN.main(["--only", "flat_adam"])

@@ -93,3 +93,47 @@ def test_spec_from_meta_roundtrip():
     fp = PF.flatten(_to(_leaves(4), torch.from_numpy))
     spec = PF.TreeSpec.from_meta(fp.spec.meta(), treedef=fp.spec.treedef)
     assert spec == fp.spec
+
+
+def test_tree_views_and_helpers_match_reference():
+    """``TreeSpec.num_leaves``, ``FlatParams.tree``, ``FlatOptState.
+    leaf_m`` / ``leaf_v`` and ``zeros_like_flat`` against the
+    reference's on the same leaves: equal structure, equal bytes; the
+    port's trees are views of the lanes."""
+    leaves = _leaves(3)
+    ref = RF.flatten(_to(leaves, jnp.asarray))
+    port = PF.flatten(_to(leaves, torch.from_numpy))
+    assert port.spec.num_leaves == ref.spec.num_leaves == 6
+    sharded = PF.flatten_sharded(_to(leaves, torch.from_numpy), 3)
+    assert sharded.spec.num_leaves == 6
+
+    def same(got, want):
+        if isinstance(want, dict):
+            assert sorted(got) == sorted(want)
+            for k in want:
+                same(got[k], want[k])
+        elif isinstance(want, (tuple, list)):
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                same(g, w)
+        else:
+            assert got.dtype == torch.float32
+            assert got.numpy().tobytes() == np.asarray(want).tobytes()
+
+    same(port.tree(), ref.tree())
+    rng = np.random.default_rng(4)
+    m, v = (rng.standard_normal(ref.spec.padded).astype(np.float32)
+            for _ in range(2))
+    rstate = RF.FlatOptState(m=jnp.asarray(m), v=jnp.asarray(v),
+                             step=jnp.zeros((), jnp.int32), spec=ref.spec)
+    pstate = PF.FlatOptState(m=torch.from_numpy(m), v=torch.from_numpy(v),
+                             step=0, spec=port.spec)
+    same(pstate.leaf_m(), rstate.leaf_m())
+    same(pstate.leaf_v(), rstate.leaf_v())
+    pstate.leaf_m()["b1"][0] = 7.0                   # a view of the lane
+    assert pstate.m[port.spec.offsets[2]] == 7.0     # a.k, a.z, then b1
+    z = PF.zeros_like_flat(port.spec)
+    want = np.asarray(RF.zeros_like_flat(ref.spec))
+    assert z.dtype == torch.float32 and z.numpy().tobytes() == want.tobytes()
+    assert PF.zeros_like_flat(port.spec, dtype=torch.bfloat16).dtype == \
+        torch.bfloat16

@@ -3,9 +3,9 @@
 * every ``repro_torch`` module, the benchmarks and the checkpoint store
   included, imports in a fresh interpreter in which ``jax``, ``repro``
   and ``msgpack`` cannot be imported at all;
-* no file under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax``, ``repro`` or ``msgpack`` (AST scan, so a lazy import inside a
-  function is caught too);
+* no file under ``src/repro_torch/``, no ``examples/torch_*.py`` and not
+  ``chip_smoke.py`` imports ``jax``, ``repro`` or ``msgpack`` (AST scan,
+  so a lazy import inside a function is caught too);
 * entry points raise without a GPU unless the caller passes
   ``device="cpu"``, and the CPU route never touches the kernel build.
 """
@@ -37,8 +37,8 @@ from repro_torch.runtime import vc_runtime as VR
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack"}
 
 
@@ -65,7 +65,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "        'repro_torch.protocol.aggregator',\n"
         "        'repro_torch.protocol.handout',\n"
         "        'repro_torch.benchmarks.fleet_bench',\n"
-        "        'repro_torch.benchmarks.handout_bench'} <= set(names)\n"
+        "        'repro_torch.benchmarks.handout_bench',\n"
+        "        'repro_torch.benchmarks.frontier_bench',\n"
+        "        'repro_torch.launch.vc_serve'} <= set(names)\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['msgpack'] is None\n"
         "print(len(names))\n")

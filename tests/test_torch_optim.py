@@ -104,3 +104,81 @@ def test_flat_train_step_on_mlp_loss_matches_reference():
     np.testing.assert_allclose(pfp.buf.numpy(), np.asarray(rfp.buf),
                                rtol=0, atol=TOL)
     assert torch.count_nonzero(pfp.buf[pfp.spec.n:]) == 0   # tail stays 0
+
+
+# ---------------------------------------------------------------------------
+# Sgd and flat_opt_to_tree
+# ---------------------------------------------------------------------------
+
+from repro.optim import optimizers as RO                           # noqa: E402
+from repro_torch.optim.optimizers import (Sgd, flat_opt_from_tree,  # noqa: E402
+                                          flat_opt_to_tree)
+
+
+def _tree(seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"w": f(5, 3), "b": f(3), "n": {"k": f(2, 2, 2)}}
+
+
+def _np_tree(t):
+    return {k: _np_tree(v) if isinstance(v, dict) else np.asarray(v)
+            for k, v in t.items()}
+
+
+def _map(fn, t):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in t.items()}
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("lr", [0.05, lambda t: 0.1 / t],
+                         ids=["const", "schedule"])
+def test_sgd_matches_reference_over_steps(momentum, lr):
+    """Five SGD steps from the same params and gradients: bit-equal (the
+    same f32 multiply and subtract, scalars rounded the same way)."""
+    p_np = _tree(0)
+    ref_lr = lr if not callable(lr) else (lambda t: 0.1 / t)
+    ref, port = RO.Sgd(lr=ref_lr, momentum=momentum), Sgd(lr=lr,
+                                                          momentum=momentum)
+    rp, pp = _map(jnp.asarray, p_np), _map(torch.from_numpy, p_np)
+    rs, ps = ref.init(rp), port.init(pp)
+    assert (ps.m is None) == (rs.m is None) and ps.v is None
+    for i in range(5):
+        g = _tree(10 + i)
+        rp, rs = ref.update(_map(jnp.asarray, g), rs, rp)
+        pp, ps = port.update(_map(torch.from_numpy, g), ps, pp)
+    assert ps.step == int(rs.step) == 5
+    got, want = _map(lambda t: t.numpy(), pp), _np_tree(rp)
+    for k in ("w", "b"):
+        np.testing.assert_array_equal(got[k], want[k])
+    np.testing.assert_array_equal(got["n"]["k"], want["n"]["k"])
+    if momentum:
+        np.testing.assert_array_equal(ps.m["w"].numpy(), np.asarray(rs.m["w"]))
+
+
+def test_flat_opt_to_tree_matches_reference():
+    """Three flat Adam steps, then the lanes viewed as trees: equal to
+    the reference's ``flat_opt_to_tree`` leaf for leaf, and lifted back
+    by ``flat_opt_from_tree`` to the same lanes."""
+    p_np = _tree(1)
+    rfp = RF.flatten(_map(jnp.asarray, p_np))
+    pfp = PF.flatten(_map(torch.from_numpy, p_np))
+    ra, pa = RefAdam(), Adam()
+    rs, ps = ra.init_flat(rfp), pa.init_flat(pfp)
+    for i in range(3):
+        g = RF.flatten(_map(jnp.asarray, _tree(20 + i))).buf
+        rfp, rs = ra.update_flat(g, rs, rfp)
+        pfp, ps = pa.update_flat(torch.from_numpy(np.array(g)), ps, pfp)
+    rt, pt = RO.flat_opt_to_tree(rs), flat_opt_to_tree(ps)
+    assert pt.step == int(rt.step) == 3
+    for lane in ("m", "v"):
+        want, got = _np_tree(getattr(rt, lane)), getattr(pt, lane)
+        np.testing.assert_allclose(got["w"].numpy(), want["w"], rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(got["n"]["k"].numpy(), want["n"]["k"],
+                                   rtol=TOL, atol=TOL)
+        assert got["w"].dtype == torch.float32 and got["w"].shape == (5, 3)
+    back = flat_opt_from_tree(pt, ps.spec)
+    assert torch.equal(back.m, ps.m) and torch.equal(back.v, ps.v)
+    assert back.step == ps.step
