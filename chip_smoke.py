@@ -268,7 +268,34 @@ a card, or outside a checkout.  Phases:
       with --smoke on the card, their trace lines equal to the CPU runs';
       CNNTask.client_train (20 steps) card vs CPU within CNN_TOL, B3 once
       a step.
-14. a ``kernels`` JSON line (all 15 kernels; B13's names its main-path
+14. LLM VC training (launch/train.py, runtime/vc_runtime.py::
+    make_vc_round) and the MoE configs:
+   a. B13's backward kernel (csrc/flash_attention_bwd.cu) against the
+      autograd of the plain forward: f32 and bf16, causal and causal +
+      window, GQA groups 1, 2, 4, sq = skv in {1, 63, 128, 2048}, hd 16,
+      64, 128, and at internlm2's training shape [8, 16/8, 128, 128]
+      and its prefill shape [4, 16/8, 2,048, 128] in both dtypes, each
+      case twice and bit-equal; timed at those two shapes (the outputs
+      checked against the plain formula too) beside the plain formula,
+      SDPA's backward and the bound;
+   b. internlm2-1.8b at full width cut to 12 of its 24 layers
+      (1,134,086,144 parameters on an f32 bus): 4 rounds of 2 islands x 2
+      local steps of 8 x 128 tokens, island 0 preempted in round 2, a
+      checkpoint after round 3; every step B13 forward + recompute and
+      backward in each layer and B3, B2 once a round, counted; round
+      walls, the step split (forward + backward, clip, B3; B2 a round),
+      tokens/s, peak memory; a resume from the round-3 record gives
+      round 4's loss and server bus bit-equal; one more step profiled
+      (device-busy share, top device items);
+   c. the same model cut to 2 layers: one round of 2 islands x 1 step of
+      2 x 64 tokens, card vs CPU: in f32 every gradient leaf within
+      TRAIN_CMP_LEAF, and planted faults in dq / dk / dv refused; in bf16
+      the loss, the grad norms and every leaf within their bounds;
+   d. granite-moe-1b-a400m served at full width and depth (4 x 2,048,
+      96 steps, SIMT route), mixtral-8x7b at full width cut to 2 layers
+      (2 x 6,144 past its 4,096 window, 32 steps, wgmma route), and both
+      at 2 layers card vs CPU as 6c (mixtral: 128 prompt tokens, 8 steps).
+15. a ``kernels`` JSON line (all 16 kernels; B13's names its main-path
    route's source and, under ``sources``, both routes'), the nvidia-smi
    line, and the last line ``{"ok": true, "device": {...}}``.
 
@@ -460,6 +487,7 @@ def implied_launches(scheme, res) -> dict:
         "dequantize_int8": sparse_submits + res.wire_sparse_frames,
         "pack_body": sparse_submits,
         "flash_attention": 0,
+        "flash_attention_bwd": 0,
         "wkv6": 0,
         "mamba_scan": 0,
         "blocked_topk_stats": 0,         # the MLP bus takes the global sort
@@ -1440,10 +1468,12 @@ def routes_differing(ref: "RouteLog", run: "RouteLog") -> tuple:
 
 
 def serve_card_vs_cpu(torch, VK, cut, launches: dict,
-                      attn_routes=None) -> None:
-    """Phases 6c, 7c and 8c: the depth-cut config ``cut`` (full width) at
-    batch 2 x 256 prompt tokens, then 72 decode steps (across step 64,
-    where attention caches are compacted), on the card and on the CPU
+                      attn_routes=None, prompt: int = CMP_PROMPT,
+                      steps: int = CMP_STEPS) -> None:
+    """Phases 6c, 7c, 8c and 14d: the depth-cut config ``cut`` (full
+    width) at batch 2 x ``prompt`` tokens (256), then ``steps`` decode
+    steps (72: across step 64, where attention caches are compacted), on
+    the card and on the CPU
     from one set of weights (drawn once, in f32), in f32 and in the
     shipped bf16 compute.  The f32 card run decodes greedily; the other
     three runs are fed its tokens, so every run sees one schedule, and an
@@ -1461,7 +1491,7 @@ def serve_card_vs_cpu(torch, VK, cut, launches: dict,
     from repro_torch.models.registry import build_model
     t0 = time.perf_counter()
     master = build_model(cut).init(0, device="cpu")     # parameter dtype
-    tokens = make_batch_for(cut, CMP_BATCH, CMP_PROMPT, 0)["tokens"]
+    tokens = make_batch_for(cut, CMP_BATCH, prompt, 0)["tokens"]
     t_init = time.perf_counter() - t0
     fed, f32_cpu = [], None
     for dt in ("float32", "bfloat16"):
@@ -1479,14 +1509,14 @@ def serve_card_vs_cpu(torch, VK, cut, launches: dict,
                 lg, caches = model.prefill(params,
                                            {"tokens": tokens.to(dev)})
                 logits = [lg.float().cpu()]
-                for i in range(CMP_STEPS):
+                for i in range(steps):
                     if len(fed) == i:       # the f32 card run's greedy
                         fed.append(greedy(lg, cfg).cpu())
                     lg, caches = model.decode_step(
-                        params, caches, fed[i].to(dev), CMP_PROMPT + i)
+                        params, caches, fed[i].to(dev), prompt + i)
                     logits.append(lg.float().cpu())
                     if (i + 1) % RECENT_RING == 0:
-                        caches = compact_all(caches, CMP_PROMPT + i)
+                        caches = compact_all(caches, prompt + i)
             runs[run] = (logits, VK.launch_counts(),
                          time.perf_counter() - t0, routes)
             if run == "card" and attn_routes:
@@ -1506,10 +1536,10 @@ def serve_card_vs_cpu(torch, VK, cut, launches: dict,
         agree = sum(bool(torch.equal(a[:, :v].argmax(-1), b[:, :v].argmax(-1)))
                     for a, b in zip(g_logits, c_logits))
         finite = all(bool(torch.isfinite(a).all()) for a in g_logits)
-        worst = max(range(CMP_STEPS), key=lambda i: errs[1 + i])
+        worst = max(range(steps), key=lambda i: errs[1 + i])
         say(f"card vs cpu {cut.arch} {dt} ({cut.n_layers} layers "
             f"{''.join(b.short() for b in cut.all_blocks)}, "
-            f"{CMP_BATCH}x{CMP_PROMPT} + {CMP_STEPS} steps): logits max abs "
+            f"{CMP_BATCH}x{prompt} + {steps} steps): logits max abs "
             f"err prefill {errs[0]:.4g}, decode {max(errs[1:]):.4g} (step "
             f"{worst}), mean over steps {sum(errs) / len(errs):.4g}; "
             f"logit scale {scale:.3f}; argmax equal in {agree}/{len(errs)} "
@@ -3181,6 +3211,549 @@ def examples_and_cnn_on_card(torch, VK) -> None:
         f"(limit {CNN_TOL})")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: LLM VC training on the card
+# ---------------------------------------------------------------------------
+
+# B13's backward against the autograd of its plain forward, per element:
+# |kernel - plain| <= atol + rtol |plain|.  f32: every sum in f32 in
+# another order (measured 1e-5 relative at [1, 8/2, 2048, 128]); bf16:
+# the gradients are stored in bf16, o enters delta in bf16 and the wgmma
+# forward rounds P to bf16 (measured 1.3e-2 relative at hd 128)
+BWD_TOL = {"float32": (5e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
+BWD_GROUPS, BWD_SQS, BWD_HDS, BWD_WINDOW = (1, 2, 4), (1, 63, 128, 2048), \
+    (16, 64, 128), 48
+# timed: internlm2's training step ([batch 8, 16/8 heads, seq 128, 128])
+# and its prefill shape, bf16, causal; "train" is the main path's
+BWD_TIMED = {"train": (8, 16, 8, 128, 128), "prefill": (4, 16, 8, 2048, 128)}
+# 14b: internlm2-1.8b at full width cut to 12 of its 24 layers (the full
+# depth's flat round — islands, their Adam lanes, server, gradient and
+# B3's outputs — needs ~68 GB before activations)
+TRAIN_LAYERS = 12
+TRAIN_PARAMS = 1_134_086_144     # 379,062,272 + 12 x 62,918,656
+TRAIN_KW = dict(islands=2, local_steps=2, batch=8, seq=128, alpha="var",
+                lr=1e-3, seed=0)
+TRAIN_ROUNDS, TRAIN_PREEMPT, TRAIN_KILL = 4, 1, 3   # round 2 is index 1
+# 14c: one round card vs CPU at full width, 2 layers, batch 2 x 64.
+# f32 compute: each step's gradient leaf by leaf, ||card - cpu|| / ||cpu||
+# <= TRAIN_CMP_LEAF (f32 sums in other orders: cuBLAS without TF32, the
+# card's SIMT attention forward and the backward kernel against the CPU's
+# BLAS and plain attention; measured 5.1e-6), the global grad norm and
+# the loss within TRAIN_CMP_F32; then the card's round again with a
+# planted fault in the backward kernel's output (TRAIN_FAULTS), which the
+# per-leaf check must refuse at the faulted projection of every layer.
+# bf16 (the shipped compute): bf16 matmuls accumulate in other orders on
+# the two devices and the card's attention rounds P to bf16 (the CPU's
+# plain attention keeps f32); the loss averages 2 x 2 x 63 tokens, so
+# within 0.02 of ~11.8; the global grad norm and each leaf's grad norm
+# within TRAIN_CMP_GNORM relative (measured 7.4e-4 per leaf), each leaf
+# within TRAIN_CMP_LEAF_BF16 as the f32 check measures it (measured 0.019)
+TRAIN_CMP_LEAF, TRAIN_CMP_F32 = 1e-3, 1e-4
+TRAIN_CMP_LOSS, TRAIN_CMP_GNORM, TRAIN_CMP_LEAF_BF16 = 0.02, 0.005, 0.1
+TRAIN_FAULTS = {"dq = 0": (0, 0.0, "wq"), "dk = 0": (1, 0.0, "wk"),
+                "dv = 0": (2, 0.0, "wv"), "dq x 1.01": (0, 1.01, "wq")}
+# 14d: granite at full width and depth; mixtral at full width cut to 2
+# layers, a prompt past its 4,096-token window
+GRANITE_SERVE = (4, 2048, 96)
+MIXTRAL_SERVE = (2, 6144, 32)
+MOE_CMP_STEPS, MIXTRAL_CMP_PROMPT = 8, 128
+
+
+def _grad_inputs(torch, dev, b, h, kvh, s, hd, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, n, hd, generator=g, device=dev).to(dtype)
+               .transpose(1, 2) for n in (h, kvh, kvh))
+    do = torch.randn(b, h, s, hd, generator=g, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _bwd_share(torch, got, want, dt: str, label: str) -> tuple:
+    """Checks each of ``got`` (dq, dk, dv) against ``want`` per element at
+    BWD_TOL[dt]; returns (worst share of the limit, max abs err)."""
+    atol, rtol = BWD_TOL[dt]
+    worst, err = 0.0, 0.0
+    for g_, w_ in zip(got, want):
+        d = (g_.float() - w_.float()).abs()
+        share = float((d / (atol + rtol * w_.float().abs())).max())
+        check(share <= 1.0, f"{label}: max abs err {float(d.max())}, "
+              f"{share:.3f} of its limit")
+        worst, err = max(worst, share), max(err, float(d.max()))
+    return worst, err
+
+
+def attention_bwd_parity(torch, np, FK, R) -> dict:
+    """Phase 14a: B13's backward (csrc/flash_attention_bwd.cu) against
+    the autograd of its plain forward at every case of f32 / bf16 x
+    causal / causal + window x GQA groups 1, 2, 4 x sq = skv in BWD_SQS x
+    hd in BWD_HDS, and at the BWD_TIMED shapes (the training path's own
+    grid, causal) in both dtypes, q / k / v as transposed views of
+    [b, s, h, hd] (the model's layout); each case run twice, bit-equal.
+    Then timed at BWD_TIMED beside the plain formula
+    (``ref.attention_bwd``, against which the timed outputs are checked
+    too), SDPA's backward (the library yardstick, never called by the
+    port) and the bound.  Returns the record of the training shape."""
+    import math
+    dev = torch.device("cuda")
+    grid = [(dt, window, 2, 2 * grp, 2, sq, hd)
+            for dt in ("float32", "bfloat16") for window in (None, BWD_WINDOW)
+            for grp in BWD_GROUPS for sq in BWD_SQS for hd in BWD_HDS]
+    grid = [(dt, w, 1 if sq > 1024 else b, h, kvh, sq, hd)
+            for dt, w, b, h, kvh, sq, hd in grid]
+    grid += [(dt, None) + shape for shape in BWD_TIMED.values()
+             for dt in ("float32", "bfloat16")]
+    worst = {}
+    for cases, (dt, window, b, h, kvh, sq, hd) in enumerate(grid):
+        q, k, v, do = _grad_inputs(torch, dev, b, h, kvh, sq, hd,
+                                   getattr(torch, dt), cases)
+        kw = dict(causal=True, window=window)
+        o = FK.flash_attention(q, k, v, **kw)
+        got = FK.flash_attention_bwd(q, k, v, o, do, **kw)
+        again = FK.flash_attention_bwd(q, k, v, o, do, **kw)
+        req = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(R.attention(*req, **kw), req, do.float())
+        torch.cuda.synchronize()
+        label = (f"B13 bwd {dt} window={window} [{b},{h}/{kvh},{sq},{hd}]")
+        for g_, a_ in zip(got, again):
+            check(bits_equal(torch, g_, a_), f"{label}: two runs differ")
+        share, err = _bwd_share(torch, got, want, dt, label)
+        if share > worst.get(dt, (0.0,))[0]:
+            worst[dt] = (share, err, label)
+        del q, k, v, do, o, got, again, req, want
+    torch.cuda.empty_cache()
+    for dt, (share, err, label) in worst.items():
+        atol, rtol = BWD_TOL[dt]
+        say(f"B13 bwd parity {dt}: worst {share:.3f} of the limit (atol "
+            f"{atol:g} + rtol {rtol:g} |plain|), max abs err {err:.4g} at "
+            f"{label}")
+    say(f"B13 bwd parity: {len(grid)} cases held to the plain forward's "
+        f"autograd, each bit-equal run to run")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = None
+    for name, (b, h, kvh, s, hd) in BWD_TIMED.items():
+        q, k, v, do = _grad_inputs(torch, dev, b, h, kvh, s, hd,
+                                   torch.bfloat16, 99)
+        o = FK.flash_attention(q, k, v, causal=True)
+        got = FK.flash_attention_bwd(q, k, v, o, do)
+        plain = R.attention_bwd(q, k, v, o, do)
+        _, err = _bwd_share(torch, got, plain, "bfloat16",
+                            f"B13 bwd {name} vs ref.attention_bwd")
+        del got, plain
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        so = sdpa(qs, ks, vs, is_causal=True, scale=1.0 / math.sqrt(hd),
+                  enable_gqa=True)
+        ops = 10 * hd * b * h * attn_pairs(np, s, s, True, None)
+        nbytes = 2 * (4 * b * h * s * hd + 4 * b * kvh * s * hd)
+        t_mem, t_ops = nbytes / KB.HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+        rec = {"max_abs_err": err, "bound_ms": 1e3 * max(t_mem, t_ops),
+               "bound_by": "bytes" if t_mem >= t_ops else "operations",
+               "ms": KB.cuda_ms(lambda: FK.flash_attention_bwd(
+                   q, k, v, o, do), 10),
+               "plain_ms": KB.cuda_ms(lambda: R.attention_bwd(
+                   q, k, v, o, do), 3),
+               "library_ms": KB.cuda_ms(lambda: torch.autograd.grad(
+                   so, (qs, ks, vs), do, retain_graph=True), 10)}
+        fwd_ms = KB.cuda_ms(lambda: FK.flash_attention(q, k, v,
+                                                       causal=True), 10)
+        say(f"B13 bwd {name} [{b},{h}/{kvh},{s},{hd}] bf16 causal: kernel "
+            f"{rec['ms']:.4f} ms (forward {fwd_ms:.4f} ms, route "
+            f"{FK.route(q)}), plain {rec['plain_ms']:.4f} ms, SDPA backward "
+            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}: {ops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB), {100 * rec['bound_ms'] / rec['ms']:.1f}"
+            f"% of the bound; max abs err vs plain {err:.4g}")
+        del q, k, v, do, o, qs, ks, vs, so
+        torch.cuda.empty_cache()
+        if out is None:
+            out = rec
+    return out
+
+
+def _span(torch, spans: dict, owner, name: str, key: str):
+    """Wrap ``owner.name`` so each call is timed on the host clock between
+    two device synchronisations, summed into ``spans[key]``; returns the
+    original."""
+    fn = getattr(owner, name)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a, **k)
+        torch.cuda.synchronize()
+        spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+        return res
+    setattr(owner, name, timed)
+    return fn
+
+
+def train_full_width(torch, VK, tmp: Path) -> dict:
+    """Phase 14b: launch/train.py's ``train`` at internlm2-1.8b's full
+    width cut to TRAIN_LAYERS layers (TRAIN_PARAMS parameters, the port's
+    init, seed 0), the launcher's defaults (2 islands, 2 local steps,
+    batch 8 x 128 tokens, var alpha), TRAIN_ROUNDS rounds, island 0
+    preempted in round 2, a checkpoint after round 3.  Every step runs
+    B13 forward (and its remat recompute) and the backward kernel in
+    each layer and B3 once; B2 once a round.  Then a new ``train`` call
+    resumes from the round-3 record (what a process killed after round 3
+    would find) and its round 4 must equal the run's bit for bit: loss
+    and server bus.  Prints round walls, each step's time split (host
+    clock between synchronisations: forward + backward, clip, B3; B2 a
+    round), tokens/s, launches and peak memory.  Returns the run's
+    launches."""
+    import math
+    import shutil
+    from repro_torch.launch import train as LT
+    from repro_torch.optim.optimizers import Adam
+    from repro_torch.runtime import vc_runtime as VR
+    cfg = depth_cut("internlm2-1.8b", TRAIN_LAYERS)
+    ckdir = tmp / "train14b"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    spans = {}
+    wrapped = [(VR, "_lane_loss_and_grad", "forward+backward"),
+               (VR, "clip_by_global_norm", "clip"),
+               (Adam, "update_flat", "B3 (Adam.update_flat)"),
+               (VR, "assimilate_flat", "B2 (assimilate_flat)")]
+    originals = [(o, n, _span(torch, spans, o, n, k)) for o, n, k in wrapped]
+    torch.cuda.reset_peak_memory_stats()
+    VK.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        run = LT.train(cfg, rounds=TRAIN_ROUNDS, ckpt_dir=str(ckdir),
+                       ckpt_every=TRAIN_KILL, keep=1,
+                       preempt_round=TRAIN_PREEMPT, device="cuda",
+                       log=lambda m: say(f"14b {m}"), **TRAIN_KW)
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+    wall = time.perf_counter() - t0
+    counts = VK.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = run.server.spec.n
+    steps = TRAIN_KW["islands"] * TRAIN_KW["local_steps"] * TRAIN_ROUNDS
+    check(n_params == TRAIN_PARAMS, f"train: {n_params} parameters")
+    want = {**dict.fromkeys(VK.KERNELS, 0),
+            "flash_attention": 2 * TRAIN_LAYERS * steps,   # + the recompute
+            "flash_attention_bwd": TRAIN_LAYERS * steps,
+            "adam_update_flat": steps, "assimilate_flat": TRAIN_ROUNDS}
+    check(counts == want, f"train: launches {counts}, want {want}")
+    check_attn_route(2 * TRAIN_LAYERS * steps, "wgmma", "train")
+    check(all(math.isfinite(r["loss"]) for r in run.rounds)
+          and bool(torch.isfinite(run.server.buf).all()),
+          "train: a non-finite loss or server")
+    tokens = TRAIN_KW["islands"] * TRAIN_KW["local_steps"] * \
+        TRAIN_KW["batch"] * TRAIN_KW["seq"]
+    say(f"train {cfg.describe()}, {n_params:,} parameters (f32 bus), "
+        f"{TRAIN_KW['islands']} islands x {TRAIN_KW['local_steps']} steps "
+        f"of {TRAIN_KW['batch']}x{TRAIN_KW['seq']} tokens a round")
+    for r in run.rounds:
+        say(f"train round {r['round'] + 1}: wall {r['wall_s']:.3f} s, "
+            f"{tokens / r['wall_s']:.1f} tokens/s, loss {r['loss']:.6f}")
+    for key, sec in spans.items():
+        per = TRAIN_ROUNDS if key.startswith("B2") else steps
+        unit = "round" if key.startswith("B2") else "step"
+        say(f"train {key}: {1e3 * sec / per:.3f} ms a {unit} (host clock "
+            f"between synchronisations)")
+    say(f"train launches per step: B13 forward "
+        f"{counts['flash_attention'] / steps:g} (remat included), B13 "
+        f"backward {counts['flash_attention_bwd'] / steps:g}, B3 "
+        f"{counts['adam_update_flat'] / steps:g}; B2 per round "
+        f"{counts['assimilate_flat'] / TRAIN_ROUNDS:g}")
+    say(f"train peak device memory (max_memory_allocated) "
+        f"{peak / 1e9:.3f} GB; train() wall {wall:.3f} s (init and the "
+        f"round-{TRAIN_KILL} checkpoint's write included)")
+    # the kill: a process that stopped after round 3 leaves this record
+    recs = sorted(p.name for p in ckdir.iterdir())
+    check(recs == [f"ckpt_{TRAIN_KILL:08d}.msgpack"], f"train: records {recs}")
+    size = (ckdir / recs[0]).stat().st_size
+    clean_loss, clean_bus = run.rounds[-1]["loss"], run.server.buf
+    del run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed = LT.train(cfg, rounds=TRAIN_ROUNDS, ckpt_dir=str(ckdir),
+                       ckpt_every=TRAIN_KILL, keep=1,
+                       preempt_round=TRAIN_PREEMPT, device="cuda",
+                       log=lambda m: say(f"14b resume {m}"), **TRAIN_KW)
+    rwall = time.perf_counter() - t0
+    check(resumed.start_round == TRAIN_KILL and len(resumed.rounds) == 1,
+          f"train resume: started at {resumed.start_round}")
+    check(resumed.rounds[0]["loss"] == clean_loss,
+          f"train resume: round 4 loss {resumed.rounds[0]['loss']} != "
+          f"{clean_loss}")
+    check(bits_equal(torch, resumed.server.buf, clean_bus),
+          "train resume: server bus differs from the run's")
+    say(f"train kill after round {TRAIN_KILL} and resume: round "
+        f"{TRAIN_ROUNDS} loss {clean_loss!r} and the server bus "
+        f"({clean_bus.numel():,} f32) bit-equal; record {size / 1e9:.3f} GB "
+        f"(server + 2 islands' m and v); resume wall {rwall:.3f} s (load "
+        f"included)")
+    profile_train_step(torch, cfg, resumed.server)
+    del resumed, clean_bus
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_train_step(torch, cfg, server) -> None:
+    """One island's local step and its round's B2 from ``server`` (a round
+    of ``make_vc_round`` with 1 island x 1 step, the 14b batch), warm
+    once, then under torch.profiler: the device-busy share and the top
+    device and host items of a training step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import _round_batches
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizers import Adam
+    from repro_torch.runtime import vc_runtime as VR
+    batches = _round_batches(cfg, 1, 1, TRAIN_KW["batch"], TRAIN_KW["seq"],
+                             seed=1)
+    vc_round = VR.make_vc_round(build_model(cfg), 1, 1, Adam(lr=1e-3))
+    isl, opts = VR.init_islands(server, 1, Adam(lr=1e-3))
+    go = lambda: vc_round(server, isl, opts, batches, 0.5, [True])
+    go()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        go()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, f"train step + B2 (1 island x 1 step of "
+                   f"{TRAIN_KW['batch']}x{TRAIN_KW['seq']}, profiled wall "
+                   f"{wall:.3f} s)", wall)
+    del isl, opts
+    torch.cuda.empty_cache()
+
+
+def _leaf_names(tree, path: str = "") -> list:
+    """The leaf paths of a parameter tree in ``tree_flatten``'s order
+    (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree)
+                for n in _leaf_names(x, f"{path}[{i}]")]
+    return [path]
+
+
+def _cmp_round(torch, VK, model, master, batches, dev: str) -> dict:
+    """One round of ``make_vc_round`` (2 islands x 1 step) from ``master``
+    on ``dev``: the mean loss, each step's global grad norm and flat
+    gradient before the clip (a copy on ``dev``), the server bus (on the
+    host), the launches and the wall."""
+    from repro_torch.optim.optimizers import Adam
+    from repro_torch.runtime import vc_runtime as VR
+    n = master.spec.n
+    grads, norms = [], []
+    real = VR.clip_by_global_norm
+
+    def spy(g, max_norm):
+        grads.append(g[:n].clone())
+        res = real(g, max_norm)
+        norms.append(float(res[1]))
+        return res
+    VR.clip_by_global_norm = spy
+    VK.reset_launch_count()
+    t0 = time.perf_counter()
+    try:
+        server = master.with_buf(master.buf.to(dev))
+        isl, opts = VR.init_islands(server, 2, Adam(lr=1e-3))
+        s, isl, opts, m = VR.make_vc_round(model, 2, 1, Adam(lr=1e-3))(
+            server, isl, opts, batches, 0.5, [True, True])
+        loss = float(m["loss"])
+    finally:
+        VR.clip_by_global_norm = real
+    out = {"loss": loss, "norms": norms, "grads": grads, "bus": s.buf.cpu(),
+           "launches": VK.launch_counts(), "wall": time.perf_counter() - t0}
+    del server, isl, opts, s
+    return out
+
+
+def _leaf_diffs(torch, spec, got: list, want: list) -> tuple:
+    """Per leaf, over the round's steps: the worst ||got - want|| /
+    ||want|| and the worst | ||got|| - ||want|| | / ||want||."""
+    lv = torch.linalg.vector_norm
+    rel, rel_norm = [0.0] * spec.num_leaves, [0.0] * spec.num_leaves
+    for g, w in zip(got, want):
+        for i, (o, n) in enumerate(zip(spec.offsets, spec.sizes)):
+            a, b = g[o:o + n], w[o:o + n]
+            wn = float(lv(b))
+            rel[i] = max(rel[i], float(lv(a - b)) / wn)
+            rel_norm[i] = max(rel_norm[i], abs(float(lv(a)) - wn) / wn)
+    return rel, rel_norm
+
+
+def train_card_vs_cpu(torch, VK) -> None:
+    """Phase 14c: one round of ``make_vc_round`` (2 islands x 1 step,
+    batch 2 x 64 tokens) at internlm2-1.8b's full width cut to 2 layers,
+    on the card and on the CPU from one set of weights (the port's init,
+    drawn once); the CPU launches nothing.  In f32 compute each step's
+    gradient is held to the CPU's leaf by leaf (TRAIN_CMP_LEAF), and each
+    planted fault of TRAIN_FAULTS in the backward kernel's dq / dk / dv
+    must fail that check at its projection in every layer.  In the
+    shipped bf16 compute: the mean loss (TRAIN_CMP_LOSS), the global and
+    each leaf's grad norm (TRAIN_CMP_GNORM) and each leaf's gradient
+    (TRAIN_CMP_LEAF_BF16)."""
+    from repro_torch.core import flat as F
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.launch.train import _round_batches
+    from repro_torch.models.registry import build_model
+    cut = depth_cut("internlm2-1.8b", CMP_LAYERS)
+    init = build_model(cut).init(0, device="cpu")
+    names = _leaf_names(init)
+    master = F.flatten(init)
+    del init
+    spec = master.spec
+    batches = _round_batches(cut, 2, 1, 2, 64, seed=0)
+    want = {**dict.fromkeys(VK.KERNELS, 0),
+            "flash_attention": 2 * CMP_LAYERS * 2,
+            "flash_attention_bwd": CMP_LAYERS * 2,
+            "adam_update_flat": 2, "assimilate_flat": 1}
+    for dt in ("float32", "bfloat16"):
+        model = build_model(cut.replace(compute_dtype=dt))
+        card = _cmp_round(torch, VK, model, master, batches, "cuda")
+        cpu = _cmp_round(torch, VK, model, master, batches, "cpu")
+        cpu["grads"] = [g.cuda() for g in cpu["grads"]]
+        check(card["launches"] == want,
+              f"train card vs cpu {dt}: card launches {card['launches']}")
+        check(sum(cpu["launches"].values()) == 0,
+              f"train card vs cpu {dt}: cpu launched {cpu['launches']}")
+        check(all(bool(torch.isfinite(g).all()) for g in card["grads"])
+              and bool(torch.isfinite(card["bus"]).all()),
+              f"train card vs cpu {dt}: non-finite gradient or server")
+        rel, rel_norm = _leaf_diffs(torch, spec, card["grads"], cpu["grads"])
+        gl, cl, gn, cn = card["loss"], cpu["loss"], card["norms"], \
+            cpu["norms"]
+        grel = max(abs(a - b) / b for a, b in zip(gn, cn))
+        i, j = max(range(len(rel)), key=rel.__getitem__), \
+            max(range(len(rel)), key=rel_norm.__getitem__)
+        say(f"train card vs cpu {cut.describe()} {dt}, 2 islands x 1 step "
+            f"of 2x64: loss card {gl:.6f} cpu {cl:.6f} (|diff| "
+            f"{abs(gl - cl):.4g}); grad norms card {gn} cpu {cn} (max "
+            f"relative diff {grel:.4g}); per leaf worst ||card - cpu|| / "
+            f"||cpu|| {rel[i]:.4g} ({names[i]}), worst relative grad-norm "
+            f"diff {rel_norm[j]:.4g} ({names[j]}); server bus max abs diff "
+            f"{float((card['bus'] - cpu['bus']).abs().max()):.4g}; wall "
+            f"card {card['wall']:.2f} s, cpu {cpu['wall']:.2f} s")
+        if dt == "float32":
+            bad = [names[k] for k, r in enumerate(rel) if r > TRAIN_CMP_LEAF]
+            check(not bad, f"train card vs cpu f32: gradient leaves past "
+                  f"{TRAIN_CMP_LEAF}: {bad}")
+            check(abs(gl - cl) <= TRAIN_CMP_F32 and grel <= TRAIN_CMP_F32,
+                  f"train card vs cpu f32: loss {gl} vs {cl}, grad norms "
+                  f"{gn} vs {cn}")
+            _planted_faults(torch, VK, FK, model, master, batches, names,
+                            cpu["grads"])
+        else:
+            check(abs(gl - cl) <= TRAIN_CMP_LOSS,
+                  f"train card vs cpu: loss {gl} vs {cl}")
+            bad = [names[k] for k in range(len(rel))
+                   if rel_norm[k] > TRAIN_CMP_GNORM
+                   or rel[k] > TRAIN_CMP_LEAF_BF16]
+            check(grel <= TRAIN_CMP_GNORM and not bad,
+                  f"train card vs cpu bf16: grad norms {gn} vs {cn}; leaves "
+                  f"past their bounds: {bad}")
+        del card, cpu
+    say(f"train card vs cpu: bounds f32 per-leaf {TRAIN_CMP_LEAF}, loss "
+        f"and grad norm {TRAIN_CMP_F32}; bf16 loss {TRAIN_CMP_LOSS}, grad "
+        f"norms (global and per leaf) {TRAIN_CMP_GNORM}, per-leaf "
+        f"{TRAIN_CMP_LEAF_BF16}")
+    torch.cuda.empty_cache()
+
+
+def _planted_faults(torch, VK, FK, model, master, batches, names: list,
+                    cpu_grads: list) -> None:
+    """The f32 card round again with each TRAIN_FAULTS fault planted in
+    the backward kernel's output (the launch runs, its dq, dk or dv is
+    then scaled): the per-leaf check must refuse the faulted projection
+    of every layer."""
+    real = FK.flash_attention_bwd
+    for label, (which, scale, proj) in TRAIN_FAULTS.items():
+        def faulty(*a, which=which, scale=scale, **k):
+            out = list(real(*a, **k))
+            out[which] = out[which] * scale
+            return tuple(out)
+        FK.flash_attention_bwd = faulty
+        try:
+            run = _cmp_round(torch, VK, model, master, batches, "cuda")
+        finally:
+            FK.flash_attention_bwd = real
+        rel, _ = _leaf_diffs(torch, master.spec, run["grads"], cpu_grads)
+        hit = [k for k, n in enumerate(names) if n.endswith(f"/attn/{proj}")]
+        caught = [n for k, n in enumerate(names) if rel[k] > TRAIN_CMP_LEAF]
+        check(len(hit) == CMP_LAYERS
+              and all(rel[k] > TRAIN_CMP_LEAF for k in hit),
+              f"train planted fault {label}: {proj} not refused "
+              f"({[rel[k] for k in hit]})")
+        say(f"train planted fault {label}: refused; {proj} per-leaf "
+            f"{[round(rel[k], 6) for k in hit]} (bound {TRAIN_CMP_LEAF}); "
+            f"{len(caught)} of {len(names)} leaves past the bound")
+        del run
+
+
+def _serve_moe(torch, VK, cfg, shape, route: str, label: str) -> dict:
+    from repro_torch.launch import serve
+    b, s, gen = shape
+    zero = dict.fromkeys(VK.KERNELS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    VK.reset_launch_count()
+    t0 = time.perf_counter()
+    res = serve.serve(cfg, b, s, gen, seed=0, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = VK.launch_counts()
+    n_attn = cfg.n_layers
+    check_attn_route(n_attn, route, label)
+    check(res.logits_finite, f"{label}: non-finite logits")
+    check(tuple(res.tokens.shape) == (b, gen + 1)
+          and int(res.tokens.max()) < cfg.vocab_size
+          and int(res.tokens.min()) >= 0, f"{label}: tokens out of range")
+    check(res.launches_prefill == {**zero, "flash_attention": n_attn},
+          f"{label}: prefill launches {res.launches_prefill}")
+    check(res.launches_decode == zero,
+          f"{label}: decode launches {res.launches_decode}")
+    check(res.compactions == gen // 64, f"{label}: {res.compactions} "
+          f"compactions")
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    step_s = (res.decode_s - res.compact_s) / gen
+    cache = res.caches[0]
+    spec = cfg.all_blocks[0]
+    slots = cache.k_old.shape[2] * cache.k_old.shape[3]
+    check(slots == (min(s, spec.window) if spec.attn_kind == "swa" else s),
+          f"{label}: the old tier holds {slots} slots")
+    say(f"{label} {cfg.describe()}, {n_params:,} parameters; init "
+        f"{res.init_s:.3f} s")
+    say(f"{label} prefill {b}x{s}: {1e3 * res.prefill_s:.3f} ms, "
+        f"{b * s / res.prefill_s:.1f} tok/s; B13 launches {n_attn} (route "
+        f"{route}); old-tier cache {slots} slots")
+    say(f"{label} decode {gen} steps: {1e3 * step_s:.3f} ms/step without "
+        f"compaction, {b * gen / res.decode_s:.1f} tok/s; compactions "
+        f"{res.compactions}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; wall {wall:.3f} s")
+    del res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_moe_on_card(torch, VK) -> None:
+    """Phase 14d: the MoE family served.  granite-moe-1b-a400m at full
+    width and depth (batch 4 x 2,048 prompt, 96 decode steps: its hd 64
+    takes B13's SIMT route); mixtral-8x7b at full width cut to 2 layers
+    (batch 2 x a 6,144-token prompt, past its 4,096-token window: the
+    old tier holds the window; 32 decode steps slide it).  Then each at
+    full width and 2 layers card vs CPU as 6c does (the CPU fed the card's
+    MoE routes), mixtral at a 128-token prompt and 8 decode steps (its
+    decode gathers whole 14,336-wide experts, slow on the CPU)."""
+    from repro_torch.configs import get_config
+    granite = get_config("granite-moe-1b-a400m")
+    _serve_moe(torch, VK, granite, GRANITE_SERVE, "simt", "granite serve")
+    mixtral = depth_cut("mixtral-8x7b", CMP_LAYERS)
+    _serve_moe(torch, VK, mixtral, MIXTRAL_SERVE, "wgmma", "mixtral serve")
+    serve_card_vs_cpu(torch, VK, depth_cut("granite-moe-1b-a400m"),
+                      {"flash_attention": CMP_LAYERS},
+                      {"float32": "simt", "bfloat16": "simt"})
+    serve_card_vs_cpu(torch, VK, mixtral, {"flash_attention": CMP_LAYERS},
+                      ATTN_ROUTES, prompt=MIXTRAL_CMP_PROMPT,
+                      steps=MOE_CMP_STEPS)
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -3432,12 +4005,24 @@ def main() -> int:
     phases.start("13e")
     examples_and_cnn_on_card(torch, VK)                               # 13e
 
-    # ---- 14. result lines -------------------------------------------------
+    # ---- 14. LLM VC training: B13's backward, internlm2, the MoE configs
+    phases.start("14a")
+    numbers["flash_attention_bwd"] = attention_bwd_parity(torch, np, FK,
+                                                          R)          # 14a
+    phases.start("14b")
+    train_counts = train_full_width(torch, VK, tmp)                   # 14b
+    phases.start("14c")
+    train_card_vs_cpu(torch, VK)                                      # 14c
+    phases.start("14d")
+    serve_moe_on_card(torch, VK)                                      # 14d
+
+    # ---- 15. result lines -------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
                    "adam_update_flat": main_counts,      # 4c
                    "flash_attention": serve_counts,      # 6b
+                   "flash_attention_bwd": train_counts,  # 14b
                    "wkv6": rwkv_counts,                  # 7b
                    "mamba_scan": jamba_counts,           # 8b
                    "blocked_topk_stats": pod_counts,     # 9c

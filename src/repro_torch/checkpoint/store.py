@@ -144,6 +144,11 @@ def load_checkpoint(path, tree_like, device=None) -> Tuple[Any, Dict]:
 # flat-bus checkpoints: the layout in the header, the bus as ONE bin
 # ---------------------------------------------------------------------------
 
+def checkpoint_extra(path) -> Dict:
+    """The ``extra`` dict of a record, read from its header alone."""
+    return _read(path, 0)[0].get("extra", {})
+
+
 def save_flat_checkpoint(path, fp: F.FlatParams,
                          extra: Optional[Dict] = None) -> None:
     """Atomic save of a FlatParams: header (layout + extra) + one bin."""

@@ -1,10 +1,11 @@
 """Architecture configs (port of ``repro/configs``): the dense family,
-rwkv6 (the SSM family) and jamba (the hybrid mamba/attention/MoE family).
+rwkv6 (the SSM family), jamba (the hybrid mamba/attention/MoE family) and
+the MoE family (granite-moe, mixtral).
 
 Each module exposes ``config()`` (the published configuration) and
 ``reduced()`` (a tiny same-family config for CPU tests), copied field for
-field from the reference.  The other families of the reference (MoE,
-VLM, audio) are not ported yet: asking for one raises a
+field from the reference.  The other families of the reference (VLM,
+audio) are not ported yet: asking for one raises a
 ``KeyError`` that says where they stand.
 """
 from __future__ import annotations
@@ -20,13 +21,13 @@ _ARCH_MODULES = {
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
 }
 # the reference's other architectures, by family
 _NOT_PORTED = {
     "internvl2-2b": "vlm",
     "whisper-tiny": "audio",
-    "granite-moe-1b-a400m": "moe",
-    "mixtral-8x7b": "moe",
 }
 
 ARCHS = tuple(_ARCH_MODULES)

@@ -1,12 +1,13 @@
 """Carry weights, payloads and scheme state across from the JAX package.
 
-Every function takes the reference's objects as numpy arrays or anything
-``np.asarray`` reads (a tree of them, a flat bus buffer with its
-``TreeSpec.meta()``, a ``CompressedDelta``, a scheme state, an LM's
-parameter tree — attention, mamba, rwkv and MoE leaves alike — or its
-decode states), so the two
-packages can be started from the same state and compared.  Nothing here
-imports the reference: its objects are read by attribute.
+Every function but ``lm_params_to_reference`` (the way back, for a
+checkpoint either package reads) takes the reference's objects as numpy
+arrays or anything ``np.asarray`` reads (a tree of them, a flat bus
+buffer with its ``TreeSpec.meta()``, a ``CompressedDelta``, a scheme
+state, an LM's parameter tree — attention, mamba, rwkv and MoE leaves
+alike — or its decode states), so the two packages can be started from
+the same state and compared.  Nothing here imports the reference: its
+objects are read by attribute.
 """
 from __future__ import annotations
 
@@ -94,7 +95,8 @@ def state_from_reference(ref_state, port_state, device="cuda"):
 
 
 def lm_params_from_reference(tree_of_numpy, cfg, device="cuda") -> dict:
-    """A reference ``init_lm`` tree (leaves readable by ``np.asarray``) ->
+    """A reference ``init_lm`` tree (leaves readable by ``np.asarray``, or
+    torch tensors, as a checkpoint in that layout loads) ->
     the port's LM parameters on ``device``: ``embed`` and ``final_norm``
     as they are, and each ``group{gi}`` — a list over the group's blocks
     of dicts stacked ``[repeats, ...]`` for ``lax.scan`` — unstacked into
@@ -104,6 +106,8 @@ def lm_params_from_reference(tree_of_numpy, cfg, device="cuda") -> dict:
     def conv(node, pick=None):
         if isinstance(node, dict):
             return {k: conv(v, pick) for k, v in node.items()}
+        if isinstance(node, torch.Tensor):          # a port checkpoint's
+            return (node if pick is None else node[pick]).to(dev)
         a = np.asarray(node)
         return _tensor(a if pick is None else a[pick], dev)
 
@@ -115,6 +119,37 @@ def lm_params_from_reference(tree_of_numpy, cfg, device="cuda") -> dict:
     return {"embed": conv(tree_of_numpy["embed"]),
             "final_norm": conv(tree_of_numpy["final_norm"]),
             "blocks": blocks}
+
+
+def lm_params_to_reference(params: dict, cfg, device=None) -> dict:
+    """The inverse of ``lm_params_from_reference``: the port's LM
+    parameters -> the reference's ``init_lm`` tree layout, as torch
+    tensors on ``device`` (None: where they are): ``embed`` and
+    ``final_norm`` as they are, and per layer group ``group{gi}``, a list
+    over the group's blocks of dicts whose leaves stack the group's
+    repeats ``[repeats, ...]``.  Flattened in sorted-key order it gives
+    the reference's ``jax.tree.leaves`` order, so a checkpoint of it is
+    read by either package."""
+    def move(t):
+        return t if device is None else t.to(device)
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack([move(n) for n in nodes])
+
+    out = {"embed": F.tree_map(move, params["embed"]),
+           "final_norm": F.tree_map(move, params["final_norm"])}
+    blocks, i = params["blocks"], 0
+    for gi, g in enumerate(cfg.layer_groups):
+        nb = len(g.blocks)
+        reps = [blocks[i + r * nb: i + (r + 1) * nb] for r in range(g.repeats)]
+        out[f"group{gi}"] = [stack([rep[bi] for rep in reps])
+                             for bi in range(nb)]
+        i += g.repeats * nb
+    if i != len(blocks):
+        raise ValueError(f"{len(blocks)} blocks, the config has {i}")
+    return out
 
 
 _STATES = {"attn": DecodeCache, "mamba": MambaState, "rwkv": RWKVState}

@@ -1,9 +1,18 @@
-"""Synthetic token streams (port of ``repro/data/pipeline.py``, the tokens
-branch).  The source is numpy in both packages, so the tokens are
-bit-identical to the reference's for the same vocabulary and seed."""
+"""Synthetic token streams and the work generator's dataset split (port
+of ``repro/data/pipeline.py``, the tokens branch), with host prefetch.
+The source is numpy in both packages, so the tokens are bit-identical to
+the reference's for the same vocabulary, seed, shard and step.
+
+The paper's work generator splits the training set into n_t subsets
+(§III-A); ``ShardedTokenDataset`` is that split for LM training — each
+subtask (island round) draws only from its own shard.
+"""
 from __future__ import annotations
 
-from typing import Dict
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
@@ -35,6 +44,21 @@ class SyntheticTokenSource:
         return base.astype(np.int32)
 
 
+@dataclass
+class ShardedTokenDataset:
+    """The work-generator split: n_shards disjoint sequence ranges."""
+    source: SyntheticTokenSource
+    n_shards: int
+    seqs_per_shard: int
+    seq_len: int
+
+    def shard_batch(self, shard: int, batch: int, step: int) -> np.ndarray:
+        """Deterministic int32 [batch, seq_len] batch from one shard (a
+        client subtask's step), the reference's draw."""
+        return self.source.sample(batch, self.seq_len,
+                                  offset=shard * 10_000_019 + step)
+
+
 def make_batch_for(cfg: ModelConfig, batch: int, seq_len: int,
                    seed: int = 0) -> Dict[str, torch.Tensor]:
     """One model-ready batch: ``{"tokens": int32 [batch, seq_len]}`` on the
@@ -46,3 +70,46 @@ def make_batch_for(cfg: ModelConfig, batch: int, seq_len: int,
             f"(ROADMAP.md queue A: whisper and the VLM stub)")
     src = SyntheticTokenSource(cfg.vocab_size, seed)
     return {"tokens": torch.from_numpy(src.sample(batch, seq_len))}
+
+
+def subtask_batches(cfg: ModelConfig, ds: ShardedTokenDataset, shard: int,
+                    batch: int, n_steps: int
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Batches for one training subtask (the client's local steps):
+    ``{"tokens": int32 [batch, seq_len]}`` on the CPU."""
+    for step in range(n_steps):
+        yield {"tokens": torch.from_numpy(ds.shard_batch(shard, batch, step))}
+
+
+class Prefetcher:
+    """Host-side double buffering: one producer thread fills a bounded
+    queue from ``it`` while the caller computes.  Iterate it to the end
+    (the thread ends with the source); an exception in the source is
+    raised to the caller at the item where it happened."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._done = object()
+
+        def run():
+            try:
+                for item in it:
+                    self._q.put((True, item))
+            except Exception as e:          # handed to the consumer
+                self._q.put((False, e))
+            self._q.put((True, self._done))
+
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        ok, item = self._q.get()
+        if not ok:
+            raise item
+        if item is self._done:
+            self._t.join()
+            raise StopIteration
+        return item

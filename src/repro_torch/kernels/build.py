@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("vc_asgd_update", "topk_mask", "quantize",
                         "sparse_pack", "flash_attention",
-                        "flash_attention_sm90", "wkv6", "mamba_scan")}
+                        "flash_attention_sm90", "flash_attention_bwd",
+                        "wkv6", "mamba_scan")}
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -37,6 +37,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launches import bind_error_string, launch
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535              # simt: b * h blocks along the grid's y axis
 WGMMA_HEAD_DIM = 128
@@ -46,22 +47,28 @@ _TMA_ALIGN = 8                   # bf16 elements in 16 bytes
 _libs: dict = {}
 
 
-def _library(route: str) -> ctypes.CDLL:
-    lib = _libs.get(route)
+def _library(kernel: str) -> ctypes.CDLL:
+    """The loaded library of ``kernel``: a forward route ("wgmma",
+    "simt") or the backward ("bwd"), its entry's argtypes bound."""
+    lib = _libs.get(kernel)
     if lib is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        args = [P, P, P, P, ctypes.POINTER(ctypes.c_int64)]
-        if route == "wgmma":
+        strides = ctypes.POINTER(ctypes.c_int64)
+        if kernel == "bwd":
+            lib = build.load("flash_attention_bwd")
+            fn, err = lib.fa_backward, lib.fa_bwd_error_string
+            fn.argtypes = [P] * 9 + [strides] + [I] * 9 + [F, P]
+        elif kernel == "wgmma":
             lib = build.load("flash_attention_sm90")
-            fwd, err = lib.fa90_forward, lib.fa90_error_string
-            fwd.argtypes = args + [I] * 7 + [F, F, P]
+            fn, err = lib.fa90_forward, lib.fa90_error_string
+            fn.argtypes = [P] * 4 + [strides] + [I] * 7 + [F, F, P]
         else:
             lib = build.load("flash_attention")
-            fwd, err = lib.fa_forward, lib.fa_error_string
-            fwd.argtypes = args + [I] * 9 + [F, F, P]
-        fwd.restype = ctypes.c_int
+            fn, err = lib.fa_forward, lib.fa_error_string
+            fn.argtypes = [P] * 4 + [strides] + [I] * 9 + [F, F, P]
+        fn.restype = ctypes.c_int
         bind_error_string(err)
-        _libs[route] = lib
+        _libs[kernel] = lib
     return lib
 
 
@@ -206,3 +213,74 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                int(q.dtype == torch.bfloat16), b, h, kvh, sq, skv, hd, *flags,
                route=which)
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None):
+    """The gradients of ``flash_attention(q, k, v)`` (its output ``o``)
+    against the output gradient ``do`` [b, h, sq, hd]: (dq [b, h, sq, hd],
+    dk, dv [b, kvh, skv, hd]) in q's dtype, in ONE call of the backward
+    kernel (its dq pass and its dk / dv pass on the current stream).  dq
+    is a view of a fresh [b, sq, h, hd] buffer and dk / dv of fresh
+    [b, skv, kvh, hd] buffers: the layouts of the model's projections."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got "
+                             f"{getattr(t, 'device', type(t))}")
+        if t.device != q.device:
+            raise ValueError(f"q and {name} on different devices: "
+                             f"{q.device}, {t.device}")
+    validate(q, k, v, window, None)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {tuple(q.shape)} {q.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit stride on its last (head) "
+                             f"dim, got strides {t.stride()}")
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel takes head dims "
+                         f"{BWD_HEAD_DIMS}, got {hd}")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"b * h = {b * h} exceeds {_MAX_GRID_Y}")
+    dev, dt = q.device, q.dtype
+    dq = torch.empty(b, sq, h, hd, dtype=dt, device=dev).permute(0, 2, 1, 3)
+    dk = torch.empty(b, skv, kvh, hd, dtype=dt, device=dev).permute(0, 2, 1, 3)
+    dv = torch.empty(b, skv, kvh, hd, dtype=dt, device=dev).permute(0, 2, 1, 3)
+    stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=dev)
+    strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
+                                      for s in t.stride()[:3]))
+    lib = _library("bwd")
+    launch("flash_attention_bwd", lib.fa_bwd_error_string, lib.fa_backward,
+           q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           o.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), stats.data_ptr(), strides,
+           int(dt == torch.bfloat16), b, h, kvh, sq, skv, hd,
+           int(bool(causal)), int(window or 0), 1.0 / math.sqrt(hd))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """B13 under autograd on the card: the forward is one launch of
+    ``flash_attention`` (wgmma or SIMT route), the backward one call of
+    ``flash_attention_bwd`` on the saved q, k, v and o.  No softcap (no
+    config the port trains sets one)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

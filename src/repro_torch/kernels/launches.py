@@ -32,11 +32,13 @@ KERNELS = (
     "quantize_pack",            # B11, csrc/sparse_pack.cu
     "pack_body",                # B12, csrc/sparse_pack.cu
     "flash_attention",          # B13, csrc/flash_attention.cu
+    "flash_attention_bwd",      # B13's backward, csrc/flash_attention_bwd.cu
     "wkv6",                     # B14, csrc/wkv6.cu
     "mamba_scan",               # B15, csrc/mamba_scan.cu
 )
 _CSRC = "src/repro_torch/kernels/csrc/"
-# each kernel's source in the repo, and the Pallas kernel it replaces
+# each kernel's source in the repo, and the Pallas kernel it replaces (the
+# backward of B13: the reference code whose autodiff it replaces)
 SOURCE = {
     "vc_asgd_lerp_flat": _CSRC + "vc_asgd_update.cu",
     "assimilate_flat": _CSRC + "vc_asgd_update.cu",
@@ -51,6 +53,7 @@ SOURCE = {
     "quantize_pack": _CSRC + "sparse_pack.cu",
     "pack_body": _CSRC + "sparse_pack.cu",
     "flash_attention": _CSRC + "flash_attention.cu",
+    "flash_attention_bwd": _CSRC + "flash_attention_bwd.cu",
     "wkv6": _CSRC + "wkv6.cu",
     "mamba_scan": _CSRC + "mamba_scan.cu",
 }
@@ -68,6 +71,9 @@ REPLACES = {
     "quantize_pack": "src/repro/kernels/sparse_pack.py:35",
     "pack_body": "src/repro/kernels/sparse_pack.py:51",
     "flash_attention": "src/repro/kernels/flash_attention.py:23",
+    # no Pallas counterpart: the reference's training differentiates the
+    # jnp blocked attention with XLA; the backward replaces that autodiff
+    "flash_attention_bwd": "src/repro/models/layers.py:186",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:19",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:20",
 }

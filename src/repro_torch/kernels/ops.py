@@ -4,6 +4,13 @@ A CUDA tensor goes to the hand-written kernel (which raises on anything
 it does not take); a CPU tensor goes to the plain PyTorch version in
 ``ref``.  Nothing else: no fallback from one to the other.  The CPU route
 never touches the kernel build.
+
+Under autograd (grad mode on and an input that requires grad) on the
+card, attention goes through ``FlashAttention`` (B13's forward, then its
+hand-written backward kernel), and WKV6 and the selective scan raise:
+their wrappers return outputs without a ``grad_fn``, and training rwkv6
+and jamba is queued (ROADMAP.md).  On the CPU the plain versions are
+differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -137,12 +144,32 @@ def fused_quantize_pack(sel, idx, block: int = 256):
     return R.quantize_pack(sel, idx, block)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(kernel: str, family: str, *tensors) -> None:
+    if _needs_grad(*tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward on the card: its wrapper's outputs "
+            f"carry no grad_fn, so training {family} is refused (queued in "
+            f"ROADMAP.md: {family} training); call it under torch.no_grad() "
+            f"to serve")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     softcap=None):
     """q [b, h, sq, hd], k / v [b, kvh, skv, hd] -> [b, h, sq, hd]:
     online-softmax attention with GQA, causal mask, window, softcap —
-    ONE launch."""
+    ONE launch.  Under autograd on the card: ``FlashAttention`` (the same
+    launch, and the backward kernel in backward; no softcap)."""
     if _on_cuda(q):
+        if _needs_grad(q, k, v):
+            if softcap is not None:
+                raise ValueError("the attention backward kernel takes no "
+                                 "softcap (no config the port trains sets "
+                                 "one)")
+            return _fa.FlashAttention.apply(q, k, v, causal, window)
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     return R.attention(q, k, v, causal=causal, window=window,
@@ -152,8 +179,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 def wkv6(r, k, v, w, u):
     """r / k / v / w [b, h, T, hd], u [h, hd] -> (out [b, h, T, hd] in r's
     dtype, final state [b, h, hd, hd] f32): the WKV6 recurrence from a
-    zero state — ONE launch."""
+    zero state — ONE launch.  Raises under autograd on the card."""
     if _on_cuda(r):
+        _refuse_grad("wkv6", "rwkv6", r, k, v, w, u)
         return _rw.wkv6(r, k, v, w, u)
     return R.wkv6(r, k, v, w, u)
 
@@ -161,7 +189,9 @@ def wkv6(r, k, v, w, u):
 def mamba_scan(u, dt, B, C, A, D):
     """u / dt [b, T, di], B / C [b, T, ds], A [di, ds], D [di] -> (y
     [b, T, di] in u's dtype, final state h_T [b, di, ds] f32): the
-    selective scan from a zero state — ONE launch."""
+    selective scan from a zero state — ONE launch.  Raises under autograd
+    on the card."""
     if _on_cuda(u):
+        _refuse_grad("mamba_scan", "jamba", u, dt, B, C, A, D)
         return _ms.mamba_scan(u, dt, B, C, A, D)
     return R.mamba_scan(u, dt, B, C, A, D)

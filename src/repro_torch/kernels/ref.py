@@ -246,6 +246,40 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", w, v.to(_F32)).to(q.dtype)
 
 
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                  window: Optional[int] = None):
+    """The gradients of ``attention`` (no softcap) by the explicit formula
+    the backward kernel computes, all in f32: p the masked softmax of the
+    scaled scores, delta = rowsum(do * o), ds = p (do v^T - delta),
+    dq = ds k / sqrt(hd), dk = ds^T q / sqrt(hd), dv = p^T do, dk and dv
+    summed over each kv head's h / kvh query heads.  Returns (dq, dk, dv)
+    in q's dtype."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    rep = h // kvh
+    qf, of, dof = q.to(_F32), o.to(_F32), do.to(_F32)
+    kf = k.to(_F32).repeat_interleave(rep, dim=1)
+    vf = v.to(_F32).repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / math.sqrt(hd)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) / math.sqrt(hd)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) / math.sqrt(hd)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, kvh, rep, skv, hd).sum(2)
+    dv = dv.reshape(b, kvh, rep, skv, hd).sum(2)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor):
     """The WKV6 recurrence, step by step from S = 0, all in f32 — the

@@ -1,7 +1,7 @@
 """Model facade (port of ``repro/models/registry.py``): the same entry
 points for every architecture the port runs — so far the dense
-transformer family, rwkv6 and the hybrid mamba / attention / MoE stack
-of jamba."""
+transformer family, the MoE family, rwkv6 and the hybrid mamba /
+attention / MoE stack of jamba."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -30,6 +30,10 @@ class Model:
         """Matmul weights cast to the compute dtype once (see
         ``transformer.compute_params``)."""
         return T.compute_params(params, self.cfg)
+
+    def loss(self, params, batch, plan=NULL_PLAN, remat: bool = True):
+        """(loss, {"ce", "aux"}): ``transformer.lm_loss``."""
+        return T.lm_loss(params, self.cfg, batch, plan, remat=remat)
 
     def forward(self, params, batch, plan=NULL_PLAN):
         return T.lm_forward(params, self.cfg, batch, plan)[0]

@@ -1,7 +1,9 @@
 """Decoder-only LM (port of ``repro/models/transformer.py``): init,
-forward, prefill into the per-layer decode states, and one decode step,
-for heterogeneous stacks of attention, mamba and rwkv mixers with dense
-or MoE FFNs.
+forward, the training loss (``lm_hidden``, ``chunked_ce``, ``lm_loss``:
+each layer and each cross-entropy chunk under ``torch.utils.checkpoint``,
+so the [b, s, vocab] logits never exist whole), prefill into the
+per-layer decode states, and one decode step, for heterogeneous stacks of
+attention, mamba and rwkv mixers with dense or MoE FFNs.
 
 Parameters are a plain dict: ``{"embed", "final_norm", "blocks": [one
 dict per layer, in cfg.all_blocks order]}`` — the reference stacks each
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -205,6 +208,79 @@ def lm_forward(params, cfg: ModelConfig, batch, plan=NULL_PLAN):
         aux_total = aux_total + aux
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.logits(params["embed"], x, cfg), aux_total
+
+
+# ---------------------------------------------------------------------------
+# training loss: remat per layer, cross-entropy in checkpointed chunks
+# ---------------------------------------------------------------------------
+
+def _block_train(p, x, cfg: ModelConfig, spec: BlockSpec, plan):
+    x, aux, _ = block_forward(p, x, cfg, spec, plan)
+    return x, aux
+
+
+def lm_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+              plan=NULL_PLAN, remat: bool = True):
+    """Embeddings -> final-norm hidden states [b, s, d], and the MoE aux
+    loss summed over layers (an f32 0-dim tensor).  ``remat``: each layer
+    runs under ``torch.utils.checkpoint`` (``use_reentrant=False``), its
+    activations recomputed in backward, as the reference's
+    ``jax.checkpoint`` around each scanned superblock does."""
+    x = _embed_inputs(params, cfg, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in zip(params["blocks"], cfg.all_blocks):
+        if remat:
+            x, aux = checkpoint(_block_train, p, x, cfg, spec, plan,
+                                use_reentrant=False)
+        else:
+            x, aux = _block_train(p, x, cfg, spec, plan)
+        aux_total = aux_total + aux
+    return L.apply_norm(params["final_norm"], x, cfg), aux_total
+
+
+def _chunk_nll(embed_params, h, t, cfg: ModelConfig):
+    lg = L.logits(embed_params, h, cfg).to(torch.float32)    # [b, cs, Vp]
+    logz = torch.logsumexp(lg, dim=-1)
+    tgt = lg.gather(-1, t[..., None])[..., 0]
+    return (logz - tgt).sum()
+
+
+def chunked_ce(embed_params, cfg: ModelConfig, hidden: torch.Tensor,
+               targets: torch.Tensor, plan=NULL_PLAN, n_chunks: int = 8
+               ) -> torch.Tensor:
+    """Sum of next-token NLL over [b, s] in ``n_chunks`` sequence chunks
+    (the largest count <= n_chunks that divides s, as the reference picks
+    it), each under ``torch.utils.checkpoint``: one chunk's f32 logits at
+    a time, recomputed in backward.  The padded vocab columns are -1e30
+    (``L.logits``), so they weigh nothing in the logsumexp and get no
+    gradient, as in the reference."""
+    s = hidden.shape[1]
+    n_chunks = max(1, min(n_chunks, s))
+    while s % n_chunks:
+        n_chunks -= 1
+    cs = s // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * cs, (c + 1) * cs)
+        total = total + checkpoint(_chunk_nll, embed_params, hidden[:, sl],
+                                   targets[:, sl], cfg, use_reentrant=False)
+    return total
+
+
+def lm_loss(params, cfg: ModelConfig, batch, plan=NULL_PLAN,
+            aux_weight: float = 0.01, remat: bool = True,
+            ce_chunks: int = 8):
+    """Next-token cross-entropy (labels = tokens shifted by one) plus
+    ``aux_weight`` times the MoE aux loss.  Returns (loss, {"ce", "aux"}),
+    f32 0-dim tensors."""
+    x, aux = lm_hidden(params, cfg, batch, plan, remat=remat)
+    tokens = batch["tokens"].to(device=x.device, dtype=torch.long)
+    prefix = x.shape[1] - tokens.shape[1]        # no stub modality: 0
+    h = x[:, prefix: prefix + tokens.shape[1] - 1]           # predicts t+1
+    tgt = tokens[:, 1:]
+    nll_sum = chunked_ce(params["embed"], cfg, h, tgt, plan, ce_chunks)
+    loss = nll_sum / float(tgt.numel())
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,70 @@
-"""Flat-bus train step (port of ``repro/runtime/train.py::
-make_flat_train_step``)."""
+"""Train steps (port of ``repro/runtime/train.py``): ``make_train_step``
+over a parameter tree, with gradient accumulation, and
+``make_flat_train_step`` over the flat bus."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import flat as F
+from repro_torch.models.plan import NULL_PLAN
+from repro_torch.optim.optimizers import Adam, clip_by_global_norm
+
+
+def _require_null_plan(plan) -> None:
+    if plan is not NULL_PLAN:
+        raise NotImplementedError(
+            "the port's train steps take NULL_PLAN only: a mesh plan is not "
+            "ported (ROADMAP.md: the mesh plans)")
+
+
+def make_train_step(model, plan=NULL_PLAN, optimizer=None,
+                    clip_norm: float = 1.0, remat: bool = True,
+                    accum: int = 1):
+    """(params, opt_state, batch) -> (params', opt_state', metrics) for a
+    parameter tree and a tree ``OptState``.
+
+    ``accum > 1``: every batch tensor carries a leading microbatch dim
+    [accum, b / accum, ...]; the microbatches run one after another, their
+    gradients summed in f32 and divided by ``accum`` (bounds the
+    activation working set).  Then the gradients are clipped to global
+    norm ``clip_norm`` and the optimizer steps.  ``metrics``: "loss"
+    (the mean over microbatches), "grad_norm" (before clipping), "ce" and
+    "aux", each an f32 0-dim tensor on the params' device."""
+    _require_null_plan(plan)
+    optimizer = optimizer or Adam(lr=3e-4)
+
+    def grads_of(params, mbatch):
+        leaves, treedef = F.tree_flatten(params)
+        req = [p.detach().requires_grad_(True) for p in leaves]
+        loss, metrics = model.loss(F.tree_unflatten(treedef, req), mbatch,
+                                   plan=plan, remat=remat)
+        grads = torch.autograd.grad(loss, req)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                list(grads), treedef)
+
+    def train_step(params, opt_state, batch):
+        if accum == 1:
+            loss, metrics, grads, treedef = grads_of(params, batch)
+        else:
+            acc, losses, ms = None, [], []
+            for i in range(accum):
+                loss_i, m_i, g, treedef = grads_of(
+                    params, {k: v[i] for k, v in batch.items()})
+                g32 = [x.to(torch.float32) for x in g]
+                acc = g32 if acc is None else [a + x for a, x in zip(acc, g32)]
+                losses.append(loss_i)
+                ms.append(m_i)
+            grads = [a / accum for a in acc]
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        grads, gnorm = clip_by_global_norm(F.tree_unflatten(treedef, grads),
+                                           clip_norm)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   **metrics}
+
+    return train_step
 
 
 def make_flat_train_step(loss_fn, optimizer):

@@ -19,9 +19,17 @@ are bit-identical either way, and to the reference's.
 baseline: a top-k per leaf and island (``compress_delta``), worse
 compression at equal density.
 
+``make_vc_round`` is the pod-scale island round (the paper's VC-ASGD at
+LLM scale), laid out on the flat bus: the islands are the rows of one
+[n_pods, padded] f32 matrix, each with its Adam moments on
+``FlatOptState`` lanes.  A local step differentiates the loss w.r.t. the
+island's row (the gradient lands in one flat buffer), clips it, and runs
+B3 (``Adam.update_flat``: ONE launch); the assimilation is B2 over the
+island matrix in place (ONE launch a round) and the redistribution a copy
+of the server back into every row.
+
 Not ported yet: the sharded forms (the reference's ``mesh=`` /
-``shard_axis=``, ROADMAP queue A's mesh plans and sharded forms) and ``make_vc_round`` (the
-island training loop, with the LLM training slice).
+``shard_axis=``, ROADMAP: the mesh plans).
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ from repro_torch.core import compression as C
 from repro_torch.core import flat as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
+from repro_torch.models.plan import NULL_PLAN
+from repro_torch.optim.optimizers import Adam, clip_by_global_norm
 from repro_torch.transfer import wire
 from repro_torch.transfer.transport import Transport
 
@@ -75,7 +85,7 @@ def island_weights(n_pods: int, alpha: float, survivors
 
 
 def assimilate_flat(server_buf: torch.Tensor, islands_buf: torch.Tensor,
-                    w, w_s) -> torch.Tensor:
+                    w, w_s, *, in_place: bool = False) -> torch.Tensor:
     """Eq. 2 over the FLAT bus with survivor masking: server [N] + islands
     [n_pods, N] -> [N], stored in the server's dtype.  ``w`` [n_pods] and
     ``w_s`` are ``island_weights``' results, best on the host (a CPU
@@ -91,13 +101,15 @@ def assimilate_flat(server_buf: torch.Tensor, islands_buf: torch.Tensor,
     of f32 islands onto a bf16 server gives.  It folds ``w_s * server``
     first and the islands after it in island order: the reference's
     ``use_kernel=True`` order, not its jnp path's (which sums the weighted
-    islands first)."""
+    islands first).  ``in_place``: an f32 ``islands_buf`` has its dead
+    rows zeroed where it lies (the caller overwrites them next) instead
+    of in a copy of the whole matrix."""
     wl = [float(v) for v in (w.tolist() if isinstance(w, torch.Tensor)
                              else w)]
     islands = islands_buf.to(_F32)
     dead = [j for j, v in enumerate(wl) if not v > 0.0]
     if dead:
-        if islands is islands_buf:
+        if islands is islands_buf and not in_place:
             islands = islands.clone()
         for j in dead:
             islands[j].zero_()
@@ -206,3 +218,94 @@ def compressed_assimilate_per_leaf(server, islands, alpha: float, survivors,
     merged = [one_leaf(s, i, r) for s, i, r in zip(flat_s, flat_i, flat_r)]
     return (F.tree_unflatten(treedef, [m for m, _ in merged]),
             F.tree_unflatten(treedef, [r for _, r in merged]))
+
+
+def init_islands(server: F.FlatParams, n_pods: int, optimizer
+                 ) -> Tuple[torch.Tensor, list]:
+    """Round state for ``make_vc_round`` from the server bus: the island
+    matrix [n_pods, padded] (every row the server snapshot) and one fresh
+    ``FlatOptState`` an island, on the server's device."""
+    return (redistribute_flat(server.buf, n_pods),
+            [optimizer.init_flat(server) for _ in range(n_pods)])
+
+
+def _lane_loss_and_grad(model, spec: F.TreeSpec, lane: torch.Tensor, batch,
+                        plan):
+    """(loss, d loss / d lane): the tree the model sees is views of the
+    f32 row ``lane`` (cast to each leaf's recorded dtype), and each leaf's
+    ``.grad`` is preset to its slice of one zeroed flat buffer, so
+    autograd accumulates the gradient into the bus layout in place (the
+    tail stays zero) without a full-length gradient per leaf."""
+    gbuf = torch.zeros_like(lane)
+    leaves = []
+    for o, n, shape, dt in zip(spec.offsets, spec.sizes, spec.shapes,
+                               spec.dtypes):
+        leaf = lane[o:o + n].view(shape).detach().requires_grad_(True)
+        leaf.grad = gbuf[o:o + n].view(shape)
+        leaves.append(leaf.to(F.torch_dtype(dt)))
+    loss, _ = model.loss(F.tree_unflatten(spec.treedef, leaves), batch,
+                         plan=plan)
+    loss.backward()
+    return loss.detach(), gbuf
+
+
+def make_vc_round(model, n_pods: int, local_steps: int = 4, optimizer=None,
+                  clip_norm: float = 1.0, plan=NULL_PLAN):
+    """Returns ``vc_round(server, islands, opts, batches, alpha, survivors)
+    -> (server', islands, opts', metrics)``.
+
+    ``server`` is the ``FlatParams`` bus (f32), ``islands`` the
+    [n_pods, padded] f32 matrix of the island replicas on its layout and
+    ``opts`` a list of one ``FlatOptState`` an island, both updated in
+    place (a state is replaced as soon as its step has made the next, so
+    no island's old moments outlive it) and returned; ``batches`` is
+    ``{"tokens": [n_pods, local_steps, b, s]}``, ``alpha`` a float and
+    ``survivors`` [n_pods] bools (host or device).
+
+    1. ``local_steps`` steps on each island in turn (no cross-island sync):
+       loss and flat gradient, ``clip_by_global_norm`` on the flat
+       gradient, B3; a preempted island trains too (only its assimilation
+       is masked), and every island's optimizer state carries to the next
+       round.
+    2. Eq. 2: ``island_weights`` and B2 over the island matrix in place
+       (dead rows zeroed first).
+    3. redistribution: the server copied back into every row.
+
+    ``metrics["loss"]``: the mean over islands of each island's mean loss
+    over its steps (f32 0-dim).  The arithmetic is the reference's (its
+    tree Adam is bit-equal to the flat one) but for the clip norm's
+    summation order and B2's order of the Eq. 2 sum."""
+    if plan is not NULL_PLAN:
+        raise NotImplementedError(
+            "make_vc_round takes NULL_PLAN only: a mesh plan is not ported "
+            "(ROADMAP.md: the mesh plans)")
+    optimizer = optimizer or Adam(lr=3e-4)
+
+    def vc_round(server: F.FlatParams, islands: torch.Tensor, opts: list,
+                 batches, alpha: float, survivors):
+        spec = server.spec
+        if tuple(islands.shape) != (n_pods, spec.padded):
+            raise ValueError(f"islands must be [{n_pods}, {spec.padded}], "
+                             f"got {tuple(islands.shape)}")
+        dev = islands.device
+        island_losses = []
+        for j in range(n_pods):
+            lane, losses = islands[j], []
+            for t in range(local_steps):
+                batch = {k: v[j, t].to(dev) for k, v in batches.items()}
+                loss, gbuf = _lane_loss_and_grad(model, spec, lane, batch,
+                                                 plan)
+                gbuf, _ = clip_by_global_norm(gbuf, clip_norm)
+                fp, opts[j] = optimizer.update_flat(gbuf, opts[j],
+                                                    F.FlatParams(lane, spec))
+                lane.copy_(fp.buf)
+                del fp, gbuf
+                losses.append(loss)
+            island_losses.append(torch.stack(losses).mean())
+        w, w_s = _host_island_weights(n_pods, alpha, survivors)
+        out = assimilate_flat(server.buf, islands, w, w_s, in_place=True)
+        islands.copy_(out.unsqueeze(0).expand_as(islands))
+        return (F.FlatParams(out, spec), islands, opts,
+                {"loss": torch.stack(island_losses).mean()})
+
+    return vc_round

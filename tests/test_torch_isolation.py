@@ -26,6 +26,7 @@ from repro_torch.core.simulator import SimConfig, run_simulation
 from repro_torch.core.tasks import MLPTask, make_classification_data
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as FK
 from repro_torch.kernels import mamba_scan as MK
 from repro_torch.kernels import quantize as QK
 from repro_torch.kernels import rwkv6_scan as WK
@@ -67,7 +68,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "        'repro_torch.benchmarks.fleet_bench',\n"
         "        'repro_torch.benchmarks.handout_bench',\n"
         "        'repro_torch.benchmarks.frontier_bench',\n"
-        "        'repro_torch.launch.vc_serve'} <= set(names)\n"
+        "        'repro_torch.launch.vc_serve',\n"
+        "        'repro_torch.launch.train',\n"
+        "        'repro_torch.configs.granite_moe_1b',\n"
+        "        'repro_torch.configs.mixtral_8x7b'} <= set(names)\n"
         "assert sys.modules['jax'] is None\n"
         "assert sys.modules['msgpack'] is None\n"
         "print(len(names))\n")
@@ -120,6 +124,23 @@ def test_entry_points_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError):
         run_simulation(MLPTask(), make_classification_data(80, 20),
                        VCASGD(alpha=0.9), cfg)
+
+
+def test_llm_training_runs_on_the_card_unless_told(no_gpu, no_build,
+                                                   tmp_path):
+    """The trainer and the island round: without a GPU the default
+    raises; ``device="cpu"`` trains (the plain attention under autograd,
+    B3 and B2 as their plain versions) and launches nothing."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import train
+    cfg = get_reduced("internlm2-1.8b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, rounds=1, log=lambda m: None)
+    VK.reset_launch_count()
+    res = train(cfg, rounds=2, local_steps=1, batch=2, seq=16,
+                ckpt_dir=str(tmp_path), device="cpu", log=lambda m: None)
+    assert len(res.rounds) == 2 and res.server.buf.device.type == "cpu"
+    assert VK.launch_counts() == dict.fromkeys(VK.KERNELS, 0)
 
 
 def test_scenarios_run_on_the_card_unless_told(no_gpu, no_build):
@@ -231,6 +252,9 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
     u, bc = torch.zeros(1, 3, 8), torch.zeros(1, 3, 4)
     with pytest.raises(ValueError, match="CUDA"):
         MK.mamba_scan(u, u, bc, bc, torch.zeros(8, 4), torch.zeros(8))
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        FK.flash_attention_bwd(q, q, q, q, q)
     with pytest.raises(ValueError):
         ops.fused_lerp_flat(torch.zeros(BLOCK, device="meta"),
                             torch.zeros(BLOCK, device="meta"), 0.5)
@@ -247,7 +271,8 @@ def test_build_targets_live_in_ignored_build_dir():
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert set(build.SOURCES) == {"vc_asgd_update", "topk_mask", "quantize",
                                   "sparse_pack", "flash_attention",
-                                  "flash_attention_sm90", "wkv6",
+                                  "flash_attention_sm90",
+                                  "flash_attention_bwd", "wkv6",
                                   "mamba_scan"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"

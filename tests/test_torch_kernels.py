@@ -1229,3 +1229,74 @@ def test_tier_on_card_bit_identical_to_flat_hub(dev):
     assert hub.state.params.buf.device.type == "cuda"
     assert hub.frames[wire.KIND_AGG] == 1
     assert _bits_equal(hub.state.params.buf, flat_hub.state.params.buf)
+
+
+# B13's backward: the hand-written kernel against the autograd of the
+# plain forward (f32 arithmetic on the same inputs).  f32: within 5e-5
+# (1 + |plain|) — every sum in f32 in another order (measured 1e-5 at
+# [1, 8/2, 2048, 128]); bf16: within 2e-2 (1 + |plain|) — the gradients
+# are stored in bf16, o enters delta in bf16 and the wgmma forward rounds
+# P to bf16 (measured 1.3e-2 at hd 128).
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+
+
+def _bwd_inputs(dev, b, h, kvh, s, hd, dtype, seed):
+    q, k, v = (_rand(dev, b, s, n, hd, dtype=dtype, seed=seed + i)
+               .transpose(1, 2) for i, n in enumerate((h, kvh, kvh)))
+    return q, k, v, _rand(dev, b, h, s, hd, dtype=dtype, seed=seed + 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 2, 63, 16, True, None),
+                                   (1, 8, 2, 128, 64, True, 48),
+                                   (2, 4, 4, 1, 128, True, None),
+                                   (1, 16, 8, 300, 128, False, None),
+                                   (1, 8, 2, 200, 80, True, 64)])
+def test_flash_attention_bwd_matches_plain_autograd(dev, dtype, shape):
+    b, h, kvh, s, hd, causal, window = shape
+    q, k, v, do = _bwd_inputs(dev, b, h, kvh, s, hd, dtype, sum(shape[:5]))
+    o = FK.flash_attention(q, k, v, causal=causal, window=window)
+    got = FK.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    again = FK.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                   window=window)
+    req = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(R.attention(*req, causal=causal,
+                                           window=window), req, do.float())
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)                 # the same bits every run
+        err = ((g.float() - w).abs() / (1 + w.abs())).max()
+        assert float(err) <= BWD_TOL[dtype], float(err)
+
+
+def test_flash_attention_autograd_runs_both_kernels(dev):
+    q, k, v, do = _bwd_inputs(dev, 2, 4, 2, 96, 128, torch.bfloat16, 7)
+    req = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    LA.reset_launch_count()
+    from repro_torch.kernels import ops
+    out = ops.flash_attention(*req, causal=True)
+    grads = torch.autograd.grad(out, req, do)
+    torch.cuda.synchronize()
+    assert LA.launch_count("flash_attention") == 1
+    assert LA.launch_count("flash_attention_bwd") == 1
+    o = FK.flash_attention(q, k, v, causal=True)
+    for g, w in zip(grads, FK.flash_attention_bwd(q, k, v, o, do)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="softcap"):
+        ops.flash_attention(*req, causal=True, softcap=30.0)
+
+
+def test_scans_refuse_autograd_on_the_card(dev):
+    from repro_torch.kernels import ops
+    r = _rand(dev, 1, 2, 8, 16).requires_grad_(True)
+    w = torch.rand(1, 2, 8, 16, device=dev)
+    with pytest.raises(RuntimeError, match="rwkv6 training"):
+        ops.wkv6(r, r, r, w, torch.zeros(2, 16, device=dev))
+    u = _rand(dev, 1, 8, 16).requires_grad_(True)
+    bc = _rand(dev, 1, 8, 4)
+    with pytest.raises(RuntimeError, match="jamba training"):
+        ops.mamba_scan(u, u.abs(), bc, bc, -torch.ones(16, 4, device=dev),
+                       torch.zeros(16, device=dev))
+    with torch.no_grad():                          # serving is unchanged
+        ops.wkv6(r, r, r, w, torch.zeros(2, 16, device=dev))

@@ -1,0 +1,229 @@
+"""The port's LM training loss and its pieces against the JAX package, on
+the CPU.
+
+* ``Model.loss`` (``lm_hidden`` with a checkpoint per layer, ``chunked_ce``
+  with a checkpoint per chunk, ``lm_loss``: next-token CE + 0.01 x the
+  MoE aux loss) and its gradient for every parameter leaf against
+  ``jax.value_and_grad(model.loss)`` on the same weights and tokens, for
+  the reduced internlm2 (dense), granite (32 -> 8 experts, tied
+  embeddings, padded vocab) and mixtral (SWA): seq 64 crosses mixtral's
+  reduced window of 32.  f32 compute; the loss within 1e-5 relative and
+  every gradient within 1e-5 absolute (measured at most 7.2e-7): the
+  packages sum in other orders, nothing else differs.
+* Remat changes nothing: the loss and gradients with and without the
+  checkpoints are bit-equal, and the chunk count follows the reference's
+  rule (the largest count <= 8 that divides the 63 predicted positions).
+* ``clip_by_global_norm`` against the reference's on the same gradient
+  tree (the norm within 1e-6 relative: each leaf's norm is one reduction,
+  the reference squares and sums; a clipped leaf within 1e-6 relative),
+  and ``linear_warmup`` / ``cosine_schedule`` bit-equal to the
+  reference's f32 values at every step of a run.
+* The plain attention backward (``ref.attention_bwd``, the formula the
+  backward kernel computes) against ``jax.grad`` of the reference's
+  ``blocked_attention`` — the function the reference trains through —
+  with GQA, causal, a window and ragged blocks, within 1e-5; and against
+  autograd of ``ref.attention``, which the CPU route trains with, within
+  1e-5 (the formula and autograd's chain differ only in rounding:
+  measured 1.1e-6).
+Inputs are drawn with numpy from a seed and handed to both packages.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as ref_get_reduced
+from repro.models import layers as JL
+from repro.models.registry import build_model as ref_build_model
+from repro.optim import optimizers as RO
+from repro_torch import convert as C
+from repro_torch.configs import get_reduced
+from repro_torch.core import flat as F
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as R
+from repro_torch.models import transformer as T
+from repro_torch.models.registry import build_model
+from repro_torch.optim import optimizers as PO
+
+torch.set_num_threads(2)
+
+ARCHS = ("internlm2-1.8b", "granite-moe-1b-a400m", "mixtral-8x7b")
+SEQ, BATCH = 64, 2
+
+
+def _setup(arch):
+    rcfg = ref_get_reduced(arch).replace(compute_dtype="float32")
+    pcfg = get_reduced(arch).replace(compute_dtype="float32")
+    rmodel = ref_build_model(rcfg)
+    rparams = rmodel.init(jax.random.PRNGKey(0))
+    pparams = C.lm_params_from_reference(jax.tree.map(np.asarray, rparams),
+                                         pcfg, "cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, rcfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+    return rmodel, rparams, build_model(pcfg), pparams, tokens
+
+
+def _port_value_and_grad(pmodel, pparams, tokens, remat=True):
+    leaves, treedef = F.tree_flatten(pparams)
+    req = [t.detach().clone().requires_grad_(True) for t in leaves]
+    loss, metrics = pmodel.loss(F.tree_unflatten(treedef, req),
+                                {"tokens": torch.from_numpy(tokens)},
+                                remat=remat)
+    grads = torch.autograd.grad(loss, req)
+    return loss, metrics, F.tree_unflatten(treedef, list(grads))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_every_gradient_match_the_reference(arch):
+    rmodel, rparams, pmodel, pparams, tokens = _setup(arch)
+    (rl, rmet), rg = jax.value_and_grad(
+        lambda p: rmodel.loss(p, {"tokens": jnp.asarray(tokens)}),
+        has_aux=True)(rparams)
+    pl, pmet, pg = _port_value_and_grad(pmodel, pparams, tokens)
+    np.testing.assert_allclose(float(pl.detach()), float(rl), rtol=1e-5)
+    for k in ("ce", "aux"):
+        np.testing.assert_allclose(float(pmet[k]), float(rmet[k]),
+                                   rtol=1e-5, atol=1e-7)
+    if pmodel.cfg.moe is not None:
+        assert float(pmet["aux"]) > 0
+    want = C.lm_params_from_reference(jax.tree.map(np.asarray, rg),
+                                      pmodel.cfg, "cpu")
+    got_l, td = F.tree_flatten(pg)
+    want_l, td2 = F.tree_flatten(want)
+    assert td == td2
+    for g, w in zip(got_l, want_l):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+    # the padded vocab rows get exactly no gradient, as in the reference
+    table = pg["embed"]["table"]
+    v = pmodel.cfg.vocab_size
+    if table.shape[0] > v:
+        assert torch.count_nonzero(table[v:]) == 0
+
+
+def test_remat_changes_no_bit():
+    _, _, pmodel, pparams, tokens = _setup("mixtral-8x7b")
+    a = _port_value_and_grad(pmodel, pparams, tokens, remat=True)
+    b = _port_value_and_grad(pmodel, pparams, tokens, remat=False)
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(F.tree_flatten(a[2])[0], F.tree_flatten(b[2])[0]):
+        assert torch.equal(x, y)
+
+
+def test_chunked_ce_follows_the_reference_chunking():
+    cfg = get_reduced("internlm2-1.8b").replace(compute_dtype="float32")
+    params = build_model(cfg).init(0, device="cpu")
+    rng = np.random.default_rng(2)
+    for s in (63, 127, 16, 1):
+        h = torch.from_numpy(rng.standard_normal((2, s, cfg.d_model))
+                             .astype(np.float32))
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)))
+        lg = torch.log_softmax(
+            h @ params["embed"]["unembed"].float(), -1)[..., :cfg.vocab_size]
+        want = -lg.gather(-1, t[..., None]).sum()
+        got = T.chunked_ce(params["embed"], cfg, h, t)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_clip_by_global_norm_matches_the_reference():
+    rng = np.random.default_rng(3)
+    tree = {"a": rng.standard_normal((7, 5)).astype(np.float32) * 3,
+            "b": [rng.standard_normal((11,)).astype(np.float32),
+                  rng.standard_normal((2, 3, 4)).astype(np.float32)]}
+    for max_norm in (0.5, 1e6):
+        rc, rn = RO.clip_by_global_norm(jax.tree.map(jnp.asarray, tree),
+                                        max_norm)
+        pc, pn = PO.clip_by_global_norm(F.tree_map(torch.from_numpy, tree),
+                                        max_norm)
+        np.testing.assert_allclose(float(pn), float(rn), rtol=1e-6)
+        for g, w in zip(F.tree_flatten(pc)[0], jax.tree.leaves(rc)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                       atol=0)
+        if max_norm > 1e3:                  # scale 1: the bits unchanged
+            for g, x in zip(F.tree_flatten(pc)[0],
+                            F.tree_flatten(tree)[0]):
+                assert np.array_equal(g.numpy(), x)
+    buf = torch.from_numpy(np.concatenate(
+        [x.ravel() for x in F.tree_flatten(tree)[0]]
+        + [np.zeros(5, np.float32)]))
+    flat, fn = PO.clip_by_global_norm(buf, 0.5)
+    np.testing.assert_allclose(float(fn), float(pn), rtol=1e-6)
+    assert flat.shape == buf.shape and torch.count_nonzero(flat[-5:]) == 0
+
+
+def test_clip_norm_of_a_large_leaf_matches_the_reference():
+    """A leaf of 2^24 + 7 elements (the embedding of a full-width model is
+    2^27 and more): the norm within 1e-6 relative of the reference's and
+    of the f64 value.  One f32 ``vector_norm`` over the leaf, as the
+    clip took it before, fails this on the CPU."""
+    rng = np.random.default_rng(5)
+    g = (rng.standard_normal((1 << 24) + 7) * 1e-3).astype(np.float32)
+    _, rn = RO.clip_by_global_norm({"w": jnp.asarray(g)}, 1.0)
+    _, pn = PO.clip_by_global_norm({"w": torch.from_numpy(g)}, 1.0)
+    exact = math.sqrt(float(np.square(g, dtype=np.float64).sum()))
+    np.testing.assert_allclose(float(pn), float(rn), rtol=1e-6)
+    np.testing.assert_allclose(float(pn), exact, rtol=1e-6)
+
+
+@pytest.mark.parametrize("args", [(3e-4, 20, 120), (1e-3, 7, 50, 0.2),
+                                  (2e-4, 1, 1)])
+def test_schedules_equal_the_reference_f32(args):
+    r, p = RO.cosine_schedule(*args), PO.cosine_schedule(*args)
+    for t in range(0, 140):
+        want = np.float32(r(jnp.asarray(t, jnp.int32)))
+        assert np.float32(p(t)) == want, t
+    r, p = RO.linear_warmup(args[0], args[1]), PO.linear_warmup(*args[:2])
+    for t in range(0, 60):
+        assert np.float32(p(t)) == np.float32(r(jnp.asarray(t, jnp.int32)))
+
+
+def test_adam_takes_a_schedule():
+    """A schedule hands Adam's kernel the reference's f32 lr at each step."""
+    sched = PO.cosine_schedule(3e-4, 3, 10)
+    opt = PO.Adam(lr=sched)
+    for step in range(6):
+        t, lr, _, _ = opt._scalars(step)
+        assert t == step + 1 and lr == sched(step + 1)
+
+
+ATTN_CASES = [  # b, h, kvh, s, hd, causal, window, q_block
+    (2, 4, 2, 37, 16, True, None, 16),
+    (1, 4, 1, 64, 16, True, 8, 32),
+    (2, 2, 2, 33, 32, False, None, 16),
+    (1, 8, 2, 50, 16, True, 12, 16),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_plain_backward_matches_jax_grad_of_blocked_attention(case):
+    b, h, kvh, s, hd, causal, window, blk = case
+    rng = np.random.default_rng(sum(case[:5]))
+    q = rng.standard_normal((b, s, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, hd)).astype(np.float32)
+    do = rng.standard_normal((b, s, h, hd)).astype(np.float32)
+
+    def f(q_, k_, v_):
+        o = JL.blocked_attention(q_[:, None], k_, v_, causal=causal,
+                                 window=window, q_block=blk, kv_block=blk)
+        return jnp.sum(o[:, 0] * do)
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(x).transpose(1, 2) for x in (q, k, v))
+    dot = torch.from_numpy(do).transpose(1, 2)
+    o = R.attention(qt, kt, vt, causal=causal, window=window)
+    got = R.attention_bwd(qt, kt, vt, o, dot, causal=causal, window=window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
+    # and autograd of the plain forward, which the CPU route trains with
+    req = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out = ops.flash_attention(*req, causal=causal, window=window)
+    assert out.grad_fn is not None
+    auto = torch.autograd.grad(out, req, dot)
+    for g, a in zip(got, auto):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert math.isfinite(float(sum(x.abs().sum() for x in got)))

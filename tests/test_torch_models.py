@@ -64,10 +64,13 @@ def _np32(x):
 
 
 def test_port_has_the_dense_family():
-    assert set(ARCHS) == set(DENSE) | {"rwkv6-1.6b", "jamba-v0.1-52b"}
+    assert set(ARCHS) == set(DENSE) | {"rwkv6-1.6b", "jamba-v0.1-52b",
+                                       "granite-moe-1b-a400m", "mixtral-8x7b"}
 
 
-@pytest.mark.parametrize("arch", DENSE + ("jamba-v0.1-52b",))
+@pytest.mark.parametrize("arch", DENSE + ("jamba-v0.1-52b",
+                                          "granite-moe-1b-a400m",
+                                          "mixtral-8x7b"))
 def test_configs_equal_the_reference(arch):
     for port, ref in ((get_config(arch), ref_get_config(arch)),
                       (get_reduced(arch), ref_get_reduced(arch))):
@@ -77,10 +80,8 @@ def test_configs_equal_the_reference(arch):
         assert port.cdtype == torch_dtype(ref.compute_dtype)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b",
-                                  "jamba-v0.1", "whisper-tiny",
-                                  "internvl2-2b", "granite-moe-1b-a400m",
-                                  "no-such-arch"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1", "whisper-tiny",
+                                  "internvl2-2b", "no-such-arch"])
 def test_other_families_raise_naming_the_roadmap(arch):
     for get in (get_config, get_reduced):
         with pytest.raises(KeyError, match="ROADMAP"):
