@@ -52,7 +52,7 @@ a card, or outside a checkout.  Phases:
       batch, folded by assimilate_many_flat (one Eq. 2 launch), held
       against folding Eq. 1 four times;
    c. the full quickstart configuration on the card, its 10 epochs cut
-      to QUICKSTART_EPOCHS = 4: counts, accuracy table, wall time and
+      to QUICKSTART_EPOCHS = 2: counts, accuracy table, wall time and
       where the host time goes (B3's share: the span of Adam.update_flat,
       inside client_train);
    d. the pinned replay: the 12 flat MLP cases of
@@ -76,13 +76,17 @@ a card, or outside a checkout.  Phases:
       which the port never calls), gemma3's local layers (hd 256, window
       1,024, a ragged 2,300 tokens), non-causal cross attention with a
       softcap in f32, h == kvh at hd 16 and jamba's prefill
-      ([4,32/8,2048,128] bf16, causal), and both prefill shapes again
-      with peaked scores (q, k at 2 N(0,1)); each shape names the route
-      that took it (bf16 at hd 128: the wgmma kernel,
-      csrc/flash_attention_sm90.cu, held within 5e-3 + 2^-7 |plain|; the
-      rest: the SIMT kernel, csrc/flash_attention.cu, 2e-5 in f32 and
-      2e-2 in bf16); the wgmma kernel's ptxas lines (registers, spills,
-      static shared memory) and the host cost of a call on each route;
+      ([4,32/8,2048,128] bf16, causal), granite's prefill
+      ([4,16/8,2048,64] bf16, causal), both prefill shapes and granite's
+      again with peaked scores (q, k at 2 N(0,1)), ragged cross and
+      windowed hd-64 cases, and the SIMT route's prefills at stablelm-3b
+      (hd 80) and gemma3-4b (hd 256), 4 x 2,048; each shape names the
+      route that took it (bf16 at hd 64 and 128: the wgmma kernel,
+      csrc/flash_attention_sm90.cu, held within 5e-3 + 2^-7 |plain|, the
+      SIMT kernel timed beside it at hd 64; the rest: the SIMT kernel,
+      csrc/flash_attention.cu, 2e-5 in f32 and 2e-2 in bf16); the wgmma
+      kernel's ptxas lines (registers, spills, static shared memory) and
+      the host cost of a call on each route;
    b. serve.run at internlm2-1.8b's full width (24 layers, 1.89B
       parameters from the port's init, --seed 0): batch 4 x 2,048 prompt
       tokens, 96 greedy decode steps; finite logits, 24 B13 launches in
@@ -125,11 +129,11 @@ a card, or outside a checkout.  Phases:
       plain and bound ms at each (the bound counts bytes, the exps at
       the SFU's rate and the FMAs; no PyTorch call computes the scan);
       the kernel's ptxas lines (registers, spills, shared memory);
-   b. serve.serve at jamba-v0.1's full width cut to one layer group (the
-      published 8-layer period: 7 mamba layers, attention at index 4, MoE
-      on the odd layers; 13,295,235,072 parameters from the port's init,
+   b. serve.serve at jamba-v0.1's full width cut to blocks 2-5 of its
+      published 8-layer period (mamba + dense, mamba + MoE, attention +
+      dense, mamba + MoE; 6,884,372,480 parameters from the port's init,
       seed 0, cast to bf16 as each layer is placed): batch 4 x 2,048
-      prompt tokens, 96 greedy decode steps; finite logits, 7 B15 and 1
+      prompt tokens, 96 greedy decode steps; finite logits, 3 B15 and 1
       B13 launches in prefill (the wgmma route), none in decode, one
       compaction; init
       seconds, prefill (cold and warm), decode and compaction times,
@@ -270,19 +274,24 @@ a card, or outside a checkout.  Phases:
       a step.
 14. LLM VC training (launch/train.py, runtime/vc_runtime.py::
     make_vc_round) and the MoE configs:
-   a. B13's backward kernel (csrc/flash_attention_bwd.cu) against the
-      autograd of the plain forward: f32 and bf16, causal and causal +
-      window, GQA groups 1, 2, 4, sq = skv in {1, 63, 128, 2048}, hd 16,
-      64, 128, and at internlm2's training shape [8, 16/8, 128, 128]
-      and its prefill shape [4, 16/8, 2,048, 128] in both dtypes, each
-      case twice and bit-equal; timed at those two shapes (the outputs
-      checked against the plain formula too) beside the plain formula,
-      SDPA's backward and the bound;
+   a. B13's backward against the autograd of the plain forward, on the
+      route each case takes (bf16 at hd 64 and 128: the wgmma kernel,
+      csrc/flash_attention_bwd_sm90.cu; the rest: the SIMT kernel,
+      csrc/flash_attention_bwd.cu; counted by route): f32 and bf16,
+      causal and causal + window, GQA groups 1, 2, 4, sq = skv in {1, 63,
+      128, 2048}, hd 16, 64, 128, and at internlm2's training shape
+      [8, 16/8, 128, 128], its prefill shape [4, 16/8, 2,048, 128] and
+      granite's training shape [8, 16/8, 128, 64] in both dtypes, each
+      case twice and bit-equal; timed at those three shapes (the outputs
+      of both routes checked against the plain formula too) beside the
+      SIMT kernel, the plain formula, SDPA's backward and the bound, with
+      the wgmma kernel's device time in a CUDA graph;
    b. internlm2-1.8b at full width cut to 12 of its 24 layers
       (1,134,086,144 parameters on an f32 bus): 4 rounds of 2 islands x 2
       local steps of 8 x 128 tokens, island 0 preempted in round 2, a
       checkpoint after round 3; every step B13 forward + recompute and
-      backward in each layer and B3, B2 once a round, counted; round
+      backward in each layer (all on the wgmma routes) and B3, B2 once a
+      round, counted; round
       walls, the step split (forward + backward, clip, B3; B2 a round),
       tokens/s, peak memory; a resume from the round-3 record gives
       round 4's loss and server bus bit-equal; one more step profiled
@@ -292,11 +301,13 @@ a card, or outside a checkout.  Phases:
       TRAIN_CMP_LEAF, and planted faults in dq / dk / dv refused; in bf16
       the loss, the grad norms and every leaf within their bounds;
    d. granite-moe-1b-a400m served at full width and depth (4 x 2,048,
-      96 steps, SIMT route), mixtral-8x7b at full width cut to 2 layers
-      (2 x 6,144 past its 4,096 window, 32 steps, wgmma route), and both
-      at 2 layers card vs CPU as 6c (mixtral: 128 prompt tokens, 8 steps).
-15. a ``kernels`` JSON line (all 16 kernels; B13's names its main-path
-   route's source and, under ``sources``, both routes'), the nvidia-smi
+      96 steps, wgmma route), mixtral-8x7b at full width cut to 1 layer
+      (2 x 6,144 past its 4,096 window, 32 steps, wgmma route), and card
+      vs CPU as 6c, granite at 2 layers, mixtral at 1 (128 prompt tokens,
+      8 steps).
+15. a ``kernels`` JSON line (all 16 kernels; B13's forward and backward
+   each name their main path's route's source and, under ``sources``,
+   both routes'), the nvidia-smi
    line, and the last line ``{"ok": true, "device": {...}}``.
 
 Each phase's wall time is printed on its own line as the next begins.
@@ -324,8 +335,8 @@ BIG_N = 2 ** 27                  # order of the ~100M-parameter demo LM
 ACC_BAND = 0.03                  # card vs CPU epoch accuracy (6 of 200)
 MAIN_K = (656, 1313)             # sparse payload at densities 0.05 / 0.1
 # 4c: examples/quickstart.py's full configuration, its depth (10 epochs)
-# cut to 4 to hold the script's time; every epoch does the same work
-QUICKSTART_EPOCHS = 4
+# cut to 2 to hold the script's time; every epoch does the same work
+QUICKSTART_EPOCHS = 2
 BIG_K = int(BIG_N * 0.05)        # 6,710,886
 QBLOCK = 256
 # B2's client counts in phase 3: its instances for 1-8 clients and its
@@ -1126,9 +1137,9 @@ def comparison(torch, VK) -> None:
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16, tensor cores
 # kernel vs plain, as (atol, rtol) by route.  SIMT: 2e-5 in f32 (the
 # reference's blocked-vs-plain tolerance), tests/test_kernels.py TOL in
-# bf16 (outputs rounded to bf16).  wgmma (bf16 at hd 128, P rounded to
-# bf16 for P.V): the bound its source states, 5e-3 before the output's
-# rounding plus one bf16 ulp of |plain| (at most 2^-7 |plain|)
+# bf16 (outputs rounded to bf16).  wgmma (bf16 at hd 64 and 128, P
+# rounded to bf16 for P.V): the bound its source states, 5e-3 before the
+# output's rounding plus one bf16 ulp of |plain| (at most 2^-7 |plain|)
 ATTN_TOL = {("simt", "float32"): (2e-5, 2e-5),
             ("simt", "bfloat16"): (2e-2, 2e-2),
             ("wgmma", "bfloat16"): (5e-3, 2 ** -7)}
@@ -1151,6 +1162,20 @@ ATTN_SHAPES = {
                         None, 0.5),
     "e2 jamba prefill, peaked": (4, 32, 8, 2048, 2048, 128, "bfloat16",
                                  True, None, None, 2.0),
+    "f granite prefill": (4, 16, 8, 2048, 2048, 64, "bfloat16", True, None,
+                          None, 0.5),
+    "f2 granite prefill, peaked": (4, 16, 8, 2048, 2048, 64, "bfloat16",
+                                   True, None, None, 2.0),
+    "g hd64 ragged cross": (1, 4, 2, 333, 517, 64, "bfloat16", False, None,
+                            None, 0.5),
+    "h hd64 window": (2, 16, 8, 2300, 2300, 64, "bfloat16", True, 1024,
+                      None, 2.0),
+    # the SIMT route at the prefills it still serves: stablelm-3b (hd 80)
+    # and gemma3-4b's global layers (hd 256), 4 x 2,048 bf16
+    "i stablelm-3b prefill": (4, 32, 32, 2048, 2048, 80, "bfloat16", True,
+                              None, None, 0.5),
+    "j gemma3-4b prefill": (4, 8, 4, 2048, 2048, 256, "bfloat16", True,
+                            None, None, 0.5),
 }
 # host cost of one wrapper call, at a shape whose kernel is shorter than
 # the call: (b, h, kvh, s)
@@ -1166,7 +1191,7 @@ CMP_LAYERS, CMP_BATCH, CMP_PROMPT, CMP_STEPS = 2, 2, 256, 72
 # logits, card vs CPU: 2e-3 in f32 compute (the reference's own
 # prefill/decode tolerance); bf16 as tests/test_torch_models.py states it
 CMP_TOL = {"float32": 2e-3, "bfloat16": 0.15}
-# B13's route in 6c / 8c (both models' head dim is 128)
+# B13's route in 6c / 8c / 14d (head dim 128, granite's 64)
 ATTN_ROUTES = {"float32": "simt", "bfloat16": "wgmma"}
 
 
@@ -1244,6 +1269,23 @@ def attention_parity(torch, np, FK, R) -> dict:
             rec["library_ms"] = KB.cuda_ms(lambda: sdpa(
                 q, k, v, is_causal=causal, scale=1.0 / math.sqrt(hd),
                 enable_gqa=h != kvh), 10)
+        simt = ""
+        # the SIMT forward beside the wgmma one where both are built: bf16
+        # at hd 64, granite's route before the wgmma kernel took hd 64
+        if FK.route(q) == "wgmma" and hd == 64:
+            got = FK.flash_attention(q, k, v, kernel="simt", **kw)
+            plain = R.attention(q, k, v, **kw)
+            atol, rtol = ATTN_TOL["simt", dt]
+            d = (got.float() - plain.float()).abs()
+            s_share = float((d / (atol + rtol * plain.float().abs())).max())
+            check(s_share <= 1.0, f"B13 {name}: the SIMT kernel vs plain "
+                  f"{s_share:.3f} of its limit")
+            del got, plain, d
+            s_ms = KB.cuda_ms(lambda: FK.flash_attention(
+                q, k, v, kernel="simt", **kw), 3)
+            simt = (f"; the SIMT kernel on the same inputs {s_ms:.4f} ms "
+                    f"({s_share:.3f} of its limit), "
+                    f"{100 * rec['bound_ms'] / s_ms:.1f}% of the bound")
         torch.cuda.empty_cache()
         lib = rec["library_ms"]
         say(f"B13 {name} [{b},{h}/{kvh},{sq}x{skv},{hd}] {dt} causal={causal} "
@@ -1255,7 +1297,7 @@ def attention_parity(torch, np, FK, R) -> dict:
             + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
             f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
             f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound, "
-            f"{ops / rec['ms'] / 1e9:.1f} TFLOP/s")
+            f"{ops / rec['ms'] / 1e9:.1f} TFLOP/s{simt}")
         if out is None:
             out = rec
     return out
@@ -1282,12 +1324,13 @@ def profile_decode(torch, res) -> None:
                          f"ms/step)", wall)
 
 
-def check_attn_route(n: int, route: str, label: str) -> None:
-    """Every one of the ``n`` B13 launches since the last reset ran on
-    ``route``."""
-    routes = LA.route_counts("flash_attention")
+def check_attn_route(n: int, route: str, label: str,
+                     kernel: str = "flash_attention") -> None:
+    """Every one of the ``n`` launches of ``kernel`` (B13's forward or
+    backward) since the last reset ran on ``route``."""
+    routes = LA.route_counts(kernel)
     want = {r: (n if r == route else 0) for r in routes}
-    check(routes == want, f"{label}: B13 routes {routes}, want {want}")
+    check(routes == want, f"{label}: {kernel} routes {routes}, want {want}")
 
 
 def serve_full_width(torch, VK) -> dict:
@@ -1710,8 +1753,13 @@ SCAN_SHAPES = {
 }
 SFU_PER_CLOCK = 16               # exp results a clock per SM (sm_90)
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 4, 2048, 96
-JAMBA_PARAMS = 13_295_235_072    # one layer group (8 layers), full width
-JAMBA_SCANS, JAMBA_ATTNS = 7, 1  # B15 / B13 launches per one-group prefill
+# one layer group (8 layers) at full width: what tests/test_torch_jamba.py
+# holds jamba_config() to; 8b serves blocks 2-5 of it (cut from the whole
+# group to hold the script's time: the CPU draws every weight)
+JAMBA_PARAMS = 13_295_235_072
+JAMBA_SERVE_BLOCKS = (2, 3, 4, 5)   # Md Me Ad Me
+JAMBA_SERVE_PARAMS = 6_884_372_480
+JAMBA_SCANS, JAMBA_ATTNS = 3, 1  # B15 / B13 launches per 8b prefill
 JAMBA_CMP_BLOCKS = (3, 4)        # mamba + MoE, then attention + dense
 
 
@@ -1800,14 +1848,15 @@ def mamba_scan_parity(torch, MK, R) -> dict:
 
 def serve_jamba_full_width(torch, VK) -> dict:
     """Phase 8b: launch/serve.py's ``serve`` at jamba-v0.1's full width,
-    one layer group (JAMBA_PARAMS parameters, weights from the port's own
-    init, seed 0), batch 4 x 2,048 prompt tokens, 96 greedy decode steps
+    blocks JAMBA_SERVE_BLOCKS of its layer group (JAMBA_SERVE_PARAMS
+    parameters, weights from the port's own init, seed 0), batch 4 x
+    2,048 prompt tokens, 96 greedy decode steps
     (one compaction of the attention layer's cache; the mamba states pass
     through).  Returns the run's launches."""
     from repro_torch.launch import serve
     from repro_torch.models.layers import DecodeCache
     from repro_torch.models.mamba import MambaState
-    cfg = jamba_config()
+    cfg = jamba_config(JAMBA_SERVE_BLOCKS)
     b, s, gen = JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN
     zero = dict.fromkeys(VK.KERNELS, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -1818,7 +1867,8 @@ def serve_jamba_full_width(torch, VK) -> dict:
     counts = VK.launch_counts()
     check_attn_route(JAMBA_ATTNS, "wgmma", "jamba serve")
     n_params = sum(t.numel() for t in _leaves(res.params))
-    check(n_params == JAMBA_PARAMS, f"jamba serve: {n_params} parameters")
+    check(n_params == JAMBA_SERVE_PARAMS,
+          f"jamba serve: {n_params} parameters")
     check(res.logits_finite, "jamba serve: non-finite logits")
     check(tuple(res.tokens.shape) == (b, gen + 1)
           and int(res.tokens.max()) < cfg.vocab_size
@@ -3216,16 +3266,21 @@ def examples_and_cnn_on_card(torch, VK) -> None:
 # ---------------------------------------------------------------------------
 
 # B13's backward against the autograd of its plain forward, per element:
-# |kernel - plain| <= atol + rtol |plain|.  f32: every sum in f32 in
-# another order (measured 1e-5 relative at [1, 8/2, 2048, 128]); bf16:
-# the gradients are stored in bf16, o enters delta in bf16 and the wgmma
-# forward rounds P to bf16 (measured 1.3e-2 relative at hd 128)
+# |kernel - plain| <= atol + rtol |plain|.  f32 (the SIMT route): every
+# sum in f32 in another order (measured 1e-5 relative at [1, 8/2, 2048,
+# 128]); bf16: the gradients are stored in bf16, o enters delta in bf16
+# and the wgmma forward rounds P to bf16 (measured 1.3e-2 relative at hd
+# 128); on the wgmma backward route (bf16 at hd 64 and 128) P and dS are
+# also rounded to bf16 for their products: the limit its source derives
+# from a CPU emulation, the same for q, k drawn at N(0,1) as here
 BWD_TOL = {"float32": (5e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
 BWD_GROUPS, BWD_SQS, BWD_HDS, BWD_WINDOW = (1, 2, 4), (1, 63, 128, 2048), \
     (16, 64, 128), 48
 # timed: internlm2's training step ([batch 8, 16/8 heads, seq 128, 128])
-# and its prefill shape, bf16, causal; "train" is the main path's
-BWD_TIMED = {"train": (8, 16, 8, 128, 128), "prefill": (4, 16, 8, 2048, 128)}
+# and its prefill shape, and granite's training step (hd 64), bf16,
+# causal; "train" is the main path's
+BWD_TIMED = {"train": (8, 16, 8, 128, 128), "prefill": (4, 16, 8, 2048, 128),
+             "granite train": (8, 16, 8, 128, 64)}
 # 14b: internlm2-1.8b at full width cut to 12 of its 24 layers (the full
 # depth's flat round — islands, their Adam lanes, server, gradient and
 # B3's outputs — needs ~68 GB before activations)
@@ -3252,10 +3307,11 @@ TRAIN_CMP_LEAF, TRAIN_CMP_F32 = 1e-3, 1e-4
 TRAIN_CMP_LOSS, TRAIN_CMP_GNORM, TRAIN_CMP_LEAF_BF16 = 0.02, 0.005, 0.1
 TRAIN_FAULTS = {"dq = 0": (0, 0.0, "wq"), "dk = 0": (1, 0.0, "wk"),
                 "dv = 0": (2, 0.0, "wv"), "dq x 1.01": (0, 1.01, "wq")}
-# 14d: granite at full width and depth; mixtral at full width cut to 2
-# layers, a prompt past its 4,096-token window
+# 14d: granite at full width and depth; mixtral at full width cut to 1
+# layer (its card-vs-CPU check too: cut from 2 to hold the script's time),
+# a prompt past its 4,096-token window
 GRANITE_SERVE = (4, 2048, 96)
-MIXTRAL_SERVE = (2, 6144, 32)
+MIXTRAL_SERVE, MIXTRAL_LAYERS = (2, 6144, 32), 1
 MOE_CMP_STEPS, MIXTRAL_CMP_PROMPT = 8, 128
 
 
@@ -3282,17 +3338,23 @@ def _bwd_share(torch, got, want, dt: str, label: str) -> tuple:
 
 
 def attention_bwd_parity(torch, np, FK, R) -> dict:
-    """Phase 14a: B13's backward (csrc/flash_attention_bwd.cu) against
-    the autograd of its plain forward at every case of f32 / bf16 x
-    causal / causal + window x GQA groups 1, 2, 4 x sq = skv in BWD_SQS x
-    hd in BWD_HDS, and at the BWD_TIMED shapes (the training path's own
-    grid, causal) in both dtypes, q / k / v as transposed views of
-    [b, s, h, hd] (the model's layout); each case run twice, bit-equal.
-    Then timed at BWD_TIMED beside the plain formula
-    (``ref.attention_bwd``, against which the timed outputs are checked
-    too), SDPA's backward (the library yardstick, never called by the
-    port) and the bound.  Returns the record of the training shape."""
+    """Phase 14a: B13's backward against the autograd of its plain
+    forward at every case of f32 / bf16 x causal / causal + window x GQA
+    groups 1, 2, 4 x sq = skv in BWD_SQS x hd in BWD_HDS, and at the
+    BWD_TIMED shapes (the training path's own grid, causal) in both
+    dtypes, q / k / v as transposed views of [b, s, h, hd] (the model's
+    layout); each case run twice, bit-equal, on the route ``bwd_route``
+    picks (bf16 at hd 64 and 128: the wgmma kernel,
+    csrc/flash_attention_bwd_sm90.cu; the rest: the SIMT kernel,
+    csrc/flash_attention_bwd.cu), counted by ``route_counts``.  Then
+    timed at BWD_TIMED beside the SIMT kernel on the same inputs, the
+    plain formula (``ref.attention_bwd``, against which the timed outputs
+    are checked too), SDPA's backward (the library yardstick, never
+    called by the port) and the bound, with the wgmma kernel's device
+    time from a CUDA graph (no host).  Returns the record of the training
+    shape."""
     import math
+    from repro_torch.benchmarks import wrapper_cost as WC
     dev = torch.device("cuda")
     grid = [(dt, window, 2, 2 * grp, 2, sq, hd)
             for dt in ("float32", "bfloat16") for window in (None, BWD_WINDOW)
@@ -3301,14 +3363,19 @@ def attention_bwd_parity(torch, np, FK, R) -> dict:
             for dt, w, b, h, kvh, sq, hd in grid]
     grid += [(dt, None) + shape for shape in BWD_TIMED.values()
              for dt in ("float32", "bfloat16")]
-    worst = {}
+    worst, routes = {}, {}
     for cases, (dt, window, b, h, kvh, sq, hd) in enumerate(grid):
         q, k, v, do = _grad_inputs(torch, dev, b, h, kvh, sq, hd,
                                    getattr(torch, dt), cases)
         kw = dict(causal=True, window=window)
         o = FK.flash_attention(q, k, v, **kw)
+        LA.reset_launch_count()
         got = FK.flash_attention_bwd(q, k, v, o, do, **kw)
         again = FK.flash_attention_bwd(q, k, v, o, do, **kw)
+        route = FK.bwd_route(q)
+        check_attn_route(2, route, f"B13 bwd {dt} hd {hd}",
+                         "flash_attention_bwd")
+        routes[route] = routes.get(route, 0) + 1
         req = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
         want = torch.autograd.grad(R.attention(*req, **kw), req, do.float())
         torch.cuda.synchronize()
@@ -3316,28 +3383,32 @@ def attention_bwd_parity(torch, np, FK, R) -> dict:
         for g_, a_ in zip(got, again):
             check(bits_equal(torch, g_, a_), f"{label}: two runs differ")
         share, err = _bwd_share(torch, got, want, dt, label)
-        if share > worst.get(dt, (0.0,))[0]:
-            worst[dt] = (share, err, label)
+        if share > worst.get((dt, route), (0.0,))[0]:
+            worst[dt, route] = (share, err, label)
         del q, k, v, do, o, got, again, req, want
     torch.cuda.empty_cache()
-    for dt, (share, err, label) in worst.items():
+    for (dt, route), (share, err, label) in worst.items():
         atol, rtol = BWD_TOL[dt]
-        say(f"B13 bwd parity {dt}: worst {share:.3f} of the limit (atol "
-            f"{atol:g} + rtol {rtol:g} |plain|), max abs err {err:.4g} at "
-            f"{label}")
+        say(f"B13 bwd parity {dt}, route {route}: worst {share:.3f} of the "
+            f"limit (atol {atol:g} + rtol {rtol:g} |plain|), max abs err "
+            f"{err:.4g} at {label}")
     say(f"B13 bwd parity: {len(grid)} cases held to the plain forward's "
-        f"autograd, each bit-equal run to run")
+        f"autograd, each bit-equal run to run; cases by route {routes}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = None
     for name, (b, h, kvh, s, hd) in BWD_TIMED.items():
         q, k, v, do = _grad_inputs(torch, dev, b, h, kvh, s, hd,
                                    torch.bfloat16, 99)
-        o = FK.flash_attention(q, k, v, causal=True)
-        got = FK.flash_attention_bwd(q, k, v, o, do)
+        lse = FK.lse_buffer(q)          # what FlashAttention saves
+        o = FK.flash_attention(q, k, v, causal=True, lse=lse)
+        got = FK.flash_attention_bwd(q, k, v, o, do, lse=lse)
         plain = R.attention_bwd(q, k, v, o, do)
         _, err = _bwd_share(torch, got, plain, "bfloat16",
                             f"B13 bwd {name} vs ref.attention_bwd")
-        del got, plain
+        simt = FK.flash_attention_bwd(q, k, v, o, do, kernel="simt")
+        _bwd_share(torch, simt, plain, "bfloat16",
+                   f"B13 bwd {name}, the SIMT kernel, vs ref.attention_bwd")
+        del got, plain, simt
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
         so = sdpa(qs, ks, vs, is_causal=True, scale=1.0 / math.sqrt(hd),
                   enable_gqa=True)
@@ -3347,21 +3418,28 @@ def attention_bwd_parity(torch, np, FK, R) -> dict:
         rec = {"max_abs_err": err, "bound_ms": 1e3 * max(t_mem, t_ops),
                "bound_by": "bytes" if t_mem >= t_ops else "operations",
                "ms": KB.cuda_ms(lambda: FK.flash_attention_bwd(
-                   q, k, v, o, do), 10),
+                   q, k, v, o, do, lse=lse), 10),
                "plain_ms": KB.cuda_ms(lambda: R.attention_bwd(
                    q, k, v, o, do), 3),
                "library_ms": KB.cuda_ms(lambda: torch.autograd.grad(
                    so, (qs, ks, vs), do, retain_graph=True), 10)}
         fwd_ms = KB.cuda_ms(lambda: FK.flash_attention(q, k, v,
                                                        causal=True), 10)
-        say(f"B13 bwd {name} [{b},{h}/{kvh},{s},{hd}] bf16 causal: kernel "
-            f"{rec['ms']:.4f} ms (forward {fwd_ms:.4f} ms, route "
-            f"{FK.route(q)}), plain {rec['plain_ms']:.4f} ms, SDPA backward "
+        simt_ms = KB.cuda_ms(lambda: FK.flash_attention_bwd(
+            q, k, v, o, do, kernel="simt"), 3)
+        dev_us = WC.graph_us(torch, lambda: FK.flash_attention_bwd(
+            q, k, v, o, do, lse=lse), 20)
+        say(f"B13 bwd {name} [{b},{h}/{kvh},{s},{hd}] bf16 causal, route "
+            f"{FK.bwd_route(q)}: kernel {rec['ms']:.4f} ms (device "
+            f"{dev_us / 1e3:.4f} ms in a CUDA graph; forward {fwd_ms:.4f} "
+            f"ms, route {FK.route(q)}), the SIMT kernel {simt_ms:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms, SDPA backward "
             f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}: {ops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB), {100 * rec['bound_ms'] / rec['ms']:.1f}"
-            f"% of the bound; max abs err vs plain {err:.4g}")
-        del q, k, v, do, o, qs, ks, vs, so
+            f"% of the bound ({100 * rec['bound_ms'] * 1e3 / dev_us:.1f}% of "
+            f"it on the device time); max abs err vs plain {err:.4g}")
+        del q, k, v, do, o, qs, ks, vs, so, lse
         torch.cuda.empty_cache()
         if out is None:
             out = rec
@@ -3436,6 +3514,8 @@ def train_full_width(torch, VK, tmp: Path) -> dict:
             "adam_update_flat": steps, "assimilate_flat": TRAIN_ROUNDS}
     check(counts == want, f"train: launches {counts}, want {want}")
     check_attn_route(2 * TRAIN_LAYERS * steps, "wgmma", "train")
+    check_attn_route(TRAIN_LAYERS * steps, "wgmma", "train",
+                     "flash_attention_bwd")
     check(all(math.isfinite(r["loss"]) for r in run.rounds)
           and bool(torch.isfinite(run.server.buf).all()),
           "train: a non-finite loss or server")
@@ -3735,21 +3815,22 @@ def _serve_moe(torch, VK, cfg, shape, route: str, label: str) -> dict:
 def serve_moe_on_card(torch, VK) -> None:
     """Phase 14d: the MoE family served.  granite-moe-1b-a400m at full
     width and depth (batch 4 x 2,048 prompt, 96 decode steps: its hd 64
-    takes B13's SIMT route); mixtral-8x7b at full width cut to 2 layers
-    (batch 2 x a 6,144-token prompt, past its 4,096-token window: the
-    old tier holds the window; 32 decode steps slide it).  Then each at
-    full width and 2 layers card vs CPU as 6c does (the CPU fed the card's
-    MoE routes), mixtral at a 128-token prompt and 8 decode steps (its
-    decode gathers whole 14,336-wide experts, slow on the CPU)."""
+    takes B13's wgmma route in bf16); mixtral-8x7b at full width cut to
+    MIXTRAL_LAYERS (batch 2 x a 6,144-token prompt, past its 4,096-token
+    window: the old tier holds the window; 32 decode steps slide it).
+    Then each at full width card vs CPU as 6c does (the CPU fed the card's
+    MoE routes), granite at 2 layers, mixtral at MIXTRAL_LAYERS with a
+    128-token prompt and 8 decode steps (its decode gathers whole
+    14,336-wide experts, slow on the CPU)."""
     from repro_torch.configs import get_config
     granite = get_config("granite-moe-1b-a400m")
-    _serve_moe(torch, VK, granite, GRANITE_SERVE, "simt", "granite serve")
-    mixtral = depth_cut("mixtral-8x7b", CMP_LAYERS)
+    _serve_moe(torch, VK, granite, GRANITE_SERVE, "wgmma", "granite serve")
+    mixtral = depth_cut("mixtral-8x7b", MIXTRAL_LAYERS)
     _serve_moe(torch, VK, mixtral, MIXTRAL_SERVE, "wgmma", "mixtral serve")
     serve_card_vs_cpu(torch, VK, depth_cut("granite-moe-1b-a400m"),
-                      {"flash_attention": CMP_LAYERS},
-                      {"float32": "simt", "bfloat16": "simt"})
-    serve_card_vs_cpu(torch, VK, mixtral, {"flash_attention": CMP_LAYERS},
+                      {"flash_attention": CMP_LAYERS}, ATTN_ROUTES)
+    serve_card_vs_cpu(torch, VK, mixtral,
+                      {"flash_attention": MIXTRAL_LAYERS},
                       ATTN_ROUTES, prompt=MIXTRAL_CMP_PROMPT,
                       steps=MOE_CMP_STEPS)
 
@@ -4007,6 +4088,7 @@ def main() -> int:
 
     # ---- 14. LLM VC training: B13's backward, internlm2, the MoE configs
     phases.start("14a")
+    say_ptxas(build, "flash_attention_bwd_sm90", "B13 wgmma backward")
     numbers["flash_attention_bwd"] = attention_bwd_parity(torch, np, FK,
                                                           R)          # 14a
     phases.start("14b")

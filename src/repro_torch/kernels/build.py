@@ -29,6 +29,7 @@ SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("vc_asgd_update", "topk_mask", "quantize",
                         "sparse_pack", "flash_attention",
                         "flash_attention_sm90", "flash_attention_bwd",
+                        "flash_attention_bwd_sm90",
                         "wkv6", "mamba_scan")}
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

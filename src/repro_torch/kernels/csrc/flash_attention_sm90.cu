@@ -1,13 +1,13 @@
 // Blocked online-softmax attention (flash) forward on Hopper's tensor
-// cores: wgmma on TMA-fed bf16 tiles, head dim 128 (sm_90a).
-// Replaces, for bf16 q / k / v at hd 128, the same Pallas kernel as the
-// SIMT kernel of flash_attention.cu (which keeps f32 and the other head
-// dims):
+// cores: wgmma on TMA-fed bf16 tiles, head dim 64 or 128 (sm_90a).
+// Replaces, for bf16 q / k / v at hd 64 and 128, the same Pallas kernel
+// as the SIMT kernel of flash_attention.cu (which keeps f32 and the other
+// head dims):
 //
 //   fa90_forward <- flash_attention (:78), _attn_kernel (:23)
 //                   of src/repro/kernels/flash_attention.py
 //
-// q [b, h, sq, 128], k / v [b, kvh, skv, 128] bf16 -> o [b, h, sq, 128]
+// q [b, h, sq, hd], k / v [b, kvh, skv, hd] bf16 -> o [b, h, sq, hd]
 // bf16, every input given by its strides with a unit stride on hd (the
 // model's [b, s, h, hd] projections are read in place), o a fresh
 // [b, sq, h, hd] buffer.  Query head hi reads kv head hi / (h / kvh)
@@ -29,40 +29,50 @@
 // leaves a row without one).  Query rows past sq are computed and not
 // stored, so any sq and skv are taken.
 //
+// Under autograd the wrapper also hands a buffer for each row's base-2
+// log-sum-exp of the scaled scores, lse_i = m_i c + log2(max(l_i,
+// 1e-30)) with c = scale log2(e) ([b * h] rows of ``lse_ld`` f32), so
+// that the backward (flash_attention_bwd_sm90.cu) takes P = 2^(s c -
+// lse) without walking the keys again; serving passes a null pointer
+// and nothing more is written.
+//
 // Numbers that differ from the Pallas kernel and from the SIMT kernel:
 // P is rounded to bf16 before the P.V product (the tensor cores take
 // bf16 operands; both other kernels keep p in f32); l sums the f32 P.
-// Causal at hd 128, GQA 2-4, s = 300-2048, with v at N(0,1) and q, k at
-// 0.5 N(0,1) (a flat softmax) or at 2 N(0,1) (peaked: the row max moves
-// between tiles), that moves the output by at most 5e-3 before its bf16
-// rounding and by at most one bf16 ulp of the output after it, so this
-// kernel is held to its plain version within 5e-3 + 2^-7 |plain|
-// (tests/test_torch_attention.py holds both on a CPU emulation of this
-// arithmetic, and the emulation against the reference; the card tests
-// and chip_smoke.py hold the kernel to that bound).
+// Causal at hd 64 and 128, GQA 2-4, s = 300-2048, with v at N(0,1) and
+// q, k at 0.5 N(0,1) (a flat softmax) or at 2 N(0,1) (peaked: the row max
+// moves between tiles), that moves the output by at most 5e-3 before its
+// bf16 rounding and by at most one bf16 ulp of the output after it, so
+// this kernel is held to its plain version within 5e-3 + 2^-7 |plain| at
+// both head dims (tests/test_torch_attention.py holds both on a CPU
+// emulation of this arithmetic, and the emulation against the reference;
+// the card tests and chip_smoke.py hold the kernel to that bound).
 //
 // Design (one CTA of 384 threads per (128-row query tile, b * h)):
 // - warpgroups 0 and 1 are consumers that own 64 query rows each;
 //   warpgroup 2 is the producer, whose first thread issues every TMA
 //   load.  The role branch is on a warp-uniform index (a shuffle), with
 //   setmaxnreg (producer 40, consumers 232) at the top of each role.
-// - shared memory: Q 128 x 128 bf16 (32 KB); K and V in a ring of 2
-//   stages of 128 keys x 128 (2 x 64 KB); 160 KB in all.  Each 128 x 128
-//   tile is two boxes of 128 rows x 64 columns (128 bytes: the widest
-//   box the 128-byte swizzle takes), swizzled by TMA.  Full barriers on
-//   Q and on each stage's K and V (expect_tx), an empty barrier on each
-//   stage (one arrival per consumer warp after its P.V product).
+// - shared memory: Q 128 x hd bf16; K and V in a ring of 128 keys x hd
+//   tiles.  Each tile is hd / 64 boxes of 128 rows x 64 columns (128
+//   bytes: the widest box the 128-byte swizzle takes), swizzled by TMA.
+//   hd 128: 2 stages, 160 KB.  hd 64: a tile is one box (16 KB), and the
+//   room goes to a 4-stage ring, 144 KB: two CTAs an SM would need the
+//   consumers at 112 registers, below the 64 S + 32 O + 32 P values each
+//   holds, so the room buys loads further ahead instead.  Full barriers
+//   on Q and on each stage's K and V (expect_tx), an empty barrier on
+//   each stage (one arrival per consumer warp after its P.V product).
 // - tensor maps: 4-D (hd, s, heads, b) over the tensors' own byte
 //   strides, encoded on the host each call through the driver entry
 //   point cuTensorMapEncodeTiled (nothing is linked), passed as
 //   __grid_constant__ parameters.
 // - S = Q.K^T: wgmma m64n128k16, A (Q) and B (K) from shared memory,
-//   both K-major, 8 steps over hd.  O += P.V: wgmma m64n128k16, A = P
-//   from registers (the S accumulator fragment is the A fragment of the
-//   next product: each thread's two rows and column pairs line up), B =
-//   V from shared memory, MN-major (transposed): the leading byte offset
-//   steps between the two 64-column boxes, the stride byte offset
-//   between 8-key groups.
+//   both K-major, hd / 16 steps (4 in each box).  O += P.V: wgmma
+//   m64n{hd}k16 (m64n128k16 or m64n64k16), A = P from registers (the S
+//   accumulator fragment is the A fragment of the next product: each
+//   thread's two rows and column pairs line up), B = V from shared
+//   memory, MN-major (transposed): the leading byte offset steps between
+//   64-column boxes, the stride byte offset between 8-key groups.
 // - online softmax on the accumulator fragment: a row lives in one quad
 //   (2 shuffles); masks only on tiles cut by the diagonal, the window
 //   edge or skv (a second copy of the loop), softcap a template
@@ -73,17 +83,19 @@
 //   see (wholly above the diagonal, wholly before the window) are never
 //   loaded, as the Pallas kernel skips its causal tiles (:31-36).
 //
-// Bound on the H100: 4 * hd FLOPs per visible (query, key) pair: for
-// internlm2's prefill ([4,16/8,2048,128] bf16, causal) 68.7 GFLOP, 0.0695
-// ms at the dense bf16 tensor-core peak (989 TFLOP/s), against 67 MB
-// moved (0.020 ms): the products bound it.  This design feeds the tensor
-// cores from a 2-stage TMA ring; the two consumer warpgroups overlap one
-// another's softmax with their products only as the warp schedulers
-// interleave them.  Measured on an H100 and left out: a third stage, a
-// ping-pong barrier between the consumers (no gain either), and issuing
-// the next S with this P.V (ptxas spilled and serialised every wgmma:
-// the consumers' code stays at the entry budget of 168 registers; see
-// PERF.md).
+// Bound on the H100: 4 * hd FLOPs per visible (query, key) pair.
+// internlm2's prefill ([4,16/8,2048,128] bf16, causal): 68.7 GFLOP,
+// 0.0695 ms at the dense bf16 tensor-core peak (989 TFLOP/s), against
+// 67 MB moved (0.020 ms).  granite's prefill ([4,16/8,2048,64]): 34.4
+// GFLOP, 0.0348 ms, against 25 MB (0.0075 ms).  The products bound both.
+// This design feeds the tensor cores from a TMA ring; the two consumer
+// warpgroups overlap one another's softmax with their products only as
+// the warp schedulers interleave them; at hd 64 the softmax (the same
+// per pair at either head dim) weighs twice as much against the
+// products.  Measured on an H100 and left out at hd 128: a third stage,
+// a ping-pong barrier between the consumers (no gain either), and
+// issuing the next S with this P.V (ptxas spilled and serialised every
+// wgmma; see PERF.md).
 //
 // The entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError() (or kEncodeError + the
@@ -98,171 +110,47 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "sm90.cuh"
 #include "smem.cuh"
 
 namespace {
 
-constexpr int kHD = 128;                 // the one head dim of this kernel
 constexpr int kBM = 128;                 // query rows per CTA
 constexpr int kBN = 128;                 // keys per kv tile
-constexpr int kStages = 2;               // K / V ring depth
 constexpr int kConsumers = 256;          // 2 consumer warpgroups
 constexpr int kThreads = kConsumers + 128;   // + the producer warpgroup
 constexpr int kBoxCols = 64;             // hd columns per TMA box (128 B)
 constexpr uint32_t kBoxBytes = 128 * kBoxCols * 2;   // 16 KB
-constexpr uint32_t kTileBytes = 2 * kBoxBytes;       // 128 x 128 bf16
-constexpr uint32_t kBarBytes = 8 * (1 + 3 * kStages);   // the mbarriers
-constexpr uint32_t kSmemBytes =
-    (1 + 2 * kStages) * kTileBytes + kBarBytes + 1024;   // + alignment
-constexpr int kEncodeError = 1 << 20;    // + CUresult of a failed encode
-constexpr float kLog2e = 1.4426950408889634f;
+
+// the geometry of one head dim
+template <int HD>
+struct Geo {
+  static_assert(HD == 64 || HD == 128, "wgmma route: hd 64 or 128");
+  static constexpr int kBoxes = HD / kBoxCols;          // boxes a tile
+  static constexpr int kStages = HD == 64 ? 4 : 2;      // K / V ring depth
+  static constexpr int kAcc = HD / 2;                   // O values a thread
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;
+  static constexpr uint32_t kBarBytes = 8 * (1 + 3 * kStages);
+  static constexpr uint32_t kSmemBytes =
+      (1 + 2 * kStages) * kTileBytes + kBarBytes + 1024;   // + alignment
+};
 
 struct Params {
   void* o;
+  float* lse;                            // null: not written
   int64_t ob, oh, os;                    // o's strides, elements
   int h, group, sq, skv, causal, window, n_qtiles;   // window <= 0: none
+  int lse_ld;                            // lse's row stride, floats
   float scale_log2;                      // scale * log2(e)
   float softcap_in, softcap;             // scale / softcap, softcap
 };
-
-// ---- PTX wrappers --------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// wait until the phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// one 64-column x 128-row box of a 4-D (hd, s, heads, b) tensor map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of an accumulator across
-// the wgmma fence / wait around it
-__device__ __forceinline__ void pin(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define FA_D64                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-#define FA_OUT8(i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FA_OUT64                                                         \
-  FA_OUT8(0), FA_OUT8(8), FA_OUT8(16), FA_OUT8(24), FA_OUT8(32),         \
-      FA_OUT8(40), FA_OUT8(48), FA_OUT8(56)
-
-// d (+)= A.B, m64n128k16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FA_OUT64
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A.B, m64n128k16, A (bf16 pairs) from registers, B MN-major
-// (transposed) in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FA_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : FA_OUT64
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // tanh(x) = 1 - 2 / (e^2x + 1), within ~1e-7 of tanhf (absolute)
 __device__ __forceinline__ float tanh_ex2(float x) {
   return 1.0f - __fdividef(2.0f, ex2(x * (2.0f * kLog2e)) + 1.0f);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // ---- the consumer's steps ------------------------------------------------
-//
-// Accumulator fragment of m64n128 (per thread of a warpgroup; warp w,
-// lane = 4 g + t): element r holds row 16 w + g + 8 ((r >> 1) & 1) and
-// column 8 (r >> 2) + 2 t + (r & 1).
 
 // one thread's two rows: running max (of the unscaled scores) and
 // partial sums
@@ -271,10 +159,11 @@ struct Rows {
 };
 
 // S = Q.K^T over hd: 4 k-steps of 16 in each 64-column box (committed)
+template <int HD>
 __device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t sQw,
                                              uint32_t sKs) {
 #pragma unroll
-  for (int kk = 0; kk < kHD / 16; ++kk) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
     wgmma_ss(s, desc_sw128(sQw + off, 16, 1024),
              desc_sw128(sKs + off, 16, 1024), kk > 0);
@@ -283,7 +172,8 @@ __device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t sQw,
 }
 
 // O += P.V over the tile's keys: 8 k-steps of 16 keys (committed)
-__device__ __forceinline__ void issue_pv(float (&o)[64],
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const uint32_t (&pa)[32],
                                          uint32_t sVs) {
 #pragma unroll
@@ -353,9 +243,10 @@ __device__ __forceinline__ void softmax_any(float (&s)[64], const Params& P,
     softmax_tile<false, kSoftcap>(s, P, k0, row0, row1, tq4, st, a0, a1);
 }
 
-__device__ __forceinline__ void rescale(float (&o)[64], float a0, float a1) {
+template <int R>
+__device__ __forceinline__ void rescale(float (&o)[R], float a0, float a1) {
 #pragma unroll
-  for (int r = 0; r < 64; ++r) o[r] *= (r & 2) ? a1 : a0;
+  for (int r = 0; r < R; ++r) o[r] *= (r & 2) ? a1 : a0;
 }
 
 // P in bf16 pairs: the A fragment of P.V (pa[4 kk .. 4 kk + 3] hold keys
@@ -368,11 +259,14 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[32],
 
 // ---- the kernel ----------------------------------------------------------
 
-template <bool kSoftcap>
+template <int HD, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
               __grid_constant__ const CUtensorMap tk,
               __grid_constant__ const CUtensorMap tv, const Params P) {
+  using G = Geo<HD>;
+  constexpr int kStages = G::kStages;
+  constexpr uint32_t kTileBytes = G::kTileBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + kTileBytes;                 // stage s: + s * tile
@@ -401,7 +295,7 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
       mbar_init(v_full(s), 1);
       mbar_init(empty(s), 8);             // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -413,19 +307,21 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == kConsumers) {
       mbar_expect_tx(q_full, kTileBytes);
-      tma_load(sQ, &tq, q_full, 0, q0, hi, bi);
-      tma_load(sQ + kBoxBytes, &tq, q_full, kBoxCols, q0, hi, bi);
+      for (int c = 0; c < G::kBoxes; ++c)
+        tma_load(sQ + c * kBoxBytes, &tq, q_full, c * kBoxCols, q0, hi, bi);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
         const int k0 = (t_lo + i) * kBN;
         const uint32_t dk = sK + s * kTileBytes, dv = sV + s * kTileBytes;
         mbar_expect_tx(k_full(s), kTileBytes);
-        tma_load(dk, &tk, k_full(s), 0, k0, kvi, bi);
-        tma_load(dk + kBoxBytes, &tk, k_full(s), kBoxCols, k0, kvi, bi);
+        for (int c = 0; c < G::kBoxes; ++c)
+          tma_load(dk + c * kBoxBytes, &tk, k_full(s), c * kBoxCols, k0, kvi,
+                   bi);
         mbar_expect_tx(v_full(s), kTileBytes);
-        tma_load(dv, &tv, v_full(s), 0, k0, kvi, bi);
-        tma_load(dv + kBoxBytes, &tv, v_full(s), kBoxCols, k0, kvi, bi);
+        for (int c = 0; c < G::kBoxes; ++c)
+          tma_load(dv + c * kBoxBytes, &tv, v_full(s), c * kBoxCols, k0, kvi,
+                   bi);
       }
     }
   } else {
@@ -438,10 +334,12 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
     const int row0 = rows_lo + 16 * warp + g, row1 = row0 + 8;
     const uint32_t sQw = sQ + 64 * wg * 128;       // 64 rows x 128 bytes in
 
-    float o[64], sacc[64];
+    float o[G::kAcc], sacc[64];
     uint32_t pa[32];
 #pragma unroll
-    for (int r = 0; r < 64; ++r) o[r] = sacc[r] = 0.0f;
+    for (int r = 0; r < G::kAcc; ++r) o[r] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 64; ++r) sacc[r] = 0.0f;
     Rows st = {-INFINITY, -INFINITY, 0.0f, 0.0f};
 
     mbar_wait(q_full, 0);
@@ -452,7 +350,7 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
       mbar_wait(k_full(s), parity);
       pin(sacc);
       wgmma_fence();
-      issue_scores(sacc, sQw, sK + s * kTileBytes);
+      issue_scores<HD>(sacc, sQw, sK + s * kTileBytes);
       wgmma_wait<0>();
       pin(sacc);
       float a0, a1;
@@ -463,19 +361,20 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
       mbar_wait(v_full(s), parity);
       pin(o);
       wgmma_fence();
-      issue_pv(o, pa, sV + s * kTileBytes);
+      issue_pv<HD>(o, pa, sV + s * kTileBytes);
       wgmma_wait<0>();
       pin(o);
       if (lane == 0) mbar_arrive(empty(s));
     }
 
     // o / max(l, 1e-30) in bf16; rows past sq are not stored
-    const float d0 = 1.0f / fmaxf(quad_sum(st.l0), 1e-30f);
-    const float d1 = 1.0f / fmaxf(quad_sum(st.l1), 1e-30f);
+    const float l0 = fmaxf(quad_sum(st.l0), 1e-30f);
+    const float l1 = fmaxf(quad_sum(st.l1), 1e-30f);
+    const float d0 = 1.0f / l0, d1 = 1.0f / l1;
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(P.o) + bi * P.ob +
                          hi * P.oh;
 #pragma unroll
-    for (int r = 0; r < 64; r += 2) {
+    for (int r = 0; r < G::kAcc; r += 2) {
       const int row = (r & 2) ? row1 : row0;
       if (row >= P.sq) continue;
       const float dn = (r & 2) ? d1 : d0;
@@ -483,72 +382,55 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
           out + row * P.os + 8 * (r >> 2) + 2 * tq4) =
           __floats2bfloat162_rn(o[r] * dn, o[r + 1] * dn);
     }
+    if (P.lse != nullptr && tq4 == 0) {
+      const float c = kSoftcap ? kLog2e : P.scale_log2;
+      float* lse = P.lse + static_cast<int64_t>(blockIdx.x) * P.lse_ld;
+      if (row0 < P.sq) lse[row0] = st.m0 * c + log2f(l0);
+      if (row1 < P.sq) lse[row1] = st.m1 * c + log2f(l1);
+    }
   }
 }
 
 // ---- host side -----------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// a bf16 tensor [batch, heads, rows, 128] given by its element strides
-// (batch, head, row), as a 4-D map (hd, rows, heads, batch) of 64 x 128
-// boxes with the 128-byte swizzle; rows past the end read as zeros
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
-           int heads, int rows, const int64_t* strides) {
-  const cuuint64_t dims[4] = {kHD, static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
-                               static_cast<cuuint64_t>(strides[1]) * 2,
-                               static_cast<cuuint64_t>(strides[0]) * 2};
-  const cuuint32_t box[4] = {kBoxCols, 128, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, bytes, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
-}
-
-// the three maps of one call, q's, k's and v's
+// the three maps of one call, q's, k's and v's, of 64 x 128 boxes
 int encode_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
-                const void* v, const int64_t* strides, int b, int h, int kvh,
-                int sq, int skv) {
+                const void* v, const int64_t* strides, int hd, int b, int h,
+                int kvh, int sq, int skv) {
   EncodeTiled fn;
   const cudaError_t err = encoder(&fn);
   if (err != cudaSuccess) return err;
-  int rc = encode(fn, &maps[0], q, b, h, sq, strides);
-  if (rc == 0) rc = encode(fn, &maps[1], k, b, kvh, skv, strides + 3);
-  if (rc == 0) rc = encode(fn, &maps[2], v, b, kvh, skv, strides + 6);
+  int rc = encode(fn, &maps[0], q, hd, b, h, sq, strides, 128);
+  if (rc == 0) rc = encode(fn, &maps[1], k, hd, b, kvh, skv, strides + 3, 128);
+  if (rc == 0) rc = encode(fn, &maps[2], v, hd, b, kvh, skv, strides + 6, 128);
   return rc;
+}
+
+template <int HD>
+cudaError_t configure() {
+  static bool configured[kMaxDevices] = {};
+  return once_a_device(configured, [] {
+    for (auto kernel : {attn_fwd_sm90<HD, false>, attn_fwd_sm90<HD, true>}) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(Geo<HD>::kSmemBytes));
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  });
+}
+
+template <int HD>
+cudaError_t launch_hd(const CUtensorMap (&maps)[3], const Params& p, int bh,
+                      cudaStream_t stream) {
+  const cudaError_t err = configure<HD>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, p.n_qtiles);
+  auto kernel = p.softcap > 0.0f ? attn_fwd_sm90<HD, true>
+                                 : attn_fwd_sm90<HD, false>;
+  kernel<<<grid, kThreads, Geo<HD>::kSmemBytes, stream>>>(maps[0], maps[1],
+                                                         maps[2], p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -567,28 +449,21 @@ const char* fa90_error_string(int code) {
 
 // strides: 12 int64 in elements, (batch, head, seq) of q, k, v, o; every
 // seq / head / batch stride of q, k, v a multiple of 8 elements (16
-// bytes) and the bases 16-byte aligned (the wrapper checks).
+// bytes) and the bases 16-byte aligned (the wrapper checks).  hd 64 or
+// 128; anything else returns cudaErrorInvalidValue (the wrapper routes
+// it to the SIMT kernel).  lse: null, or [b * h] rows of lse_ld f32.
 int fa90_forward(const void* q, const void* k, const void* v, void* o,
-                 const int64_t* strides, int b, int h, int kvh, int sq,
-                 int skv, int causal, int window, float softcap, float scale,
-                 void* stream) {
-  static bool configured[kMaxDevices] = {};
-  const cudaError_t err = once_a_device(configured, [] {
-    for (auto kernel : {attn_fwd_sm90<false>, attn_fwd_sm90<true>}) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(kSmemBytes));
-      if (e != cudaSuccess) return e;
-    }
-    return cudaSuccess;
-  });
-  if (err != cudaSuccess) return err;
+                 float* lse, const int64_t* strides, int b, int h, int kvh,
+                 int sq, int skv, int hd, int lse_ld, int causal, int window,
+                 float softcap, float scale, void* stream) {
+  if (hd != 64 && hd != 128) return cudaErrorInvalidValue;
   CUtensorMap maps[3];
-  const int rc = encode_maps(maps, q, k, v, strides, b, h, kvh, sq, skv);
+  const int rc = encode_maps(maps, q, k, v, strides, hd, b, h, kvh, sq, skv);
   if (rc != 0) return rc;
 
   Params p;
   p.o = o;
+  p.lse = lse;
   p.ob = strides[9];
   p.oh = strides[10];
   p.os = strides[11];
@@ -599,14 +474,13 @@ int fa90_forward(const void* q, const void* k, const void* v, void* o,
   p.causal = causal;
   p.window = window;
   p.n_qtiles = (sq + kBM - 1) / kBM;
+  p.lse_ld = lse_ld;
   p.scale_log2 = scale * kLog2e;
   p.softcap_in = softcap > 0.0f ? scale / softcap : 0.0f;
   p.softcap = softcap;
-  const dim3 grid(b * h, p.n_qtiles);
-  auto kernel = softcap > 0.0f ? attn_fwd_sm90<true> : attn_fwd_sm90<false>;
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], p);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return hd == 64 ? launch_hd<64>(maps, p, b * h, s)
+                  : launch_hd<128>(maps, p, b * h, s);
 }
 
 }  // extern "C"

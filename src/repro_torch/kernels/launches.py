@@ -7,9 +7,9 @@ goes through.  A per-tensor entry counts under its kernel's counter
 tensors' device, raises if the entry returned a CUDA error, and only
 then adds one to that kernel's count.  Nothing else touches the counts:
 they are the evidence that a run went through the kernels.  A kernel
-with more than one hand-written route (``ROUTES``: B13's wgmma kernel
-for bf16 at hd 128 and its SIMT kernel for the rest) also counts each
-launch under the route that ran it.
+with more than one hand-written route (``ROUTES``: B13's wgmma kernels
+for bf16 at hd 64 and 128 and its SIMT kernels for the rest, forward and
+backward) also counts each launch under the route that ran it.
 """
 from __future__ import annotations
 
@@ -81,6 +81,8 @@ REPLACES = {
 ROUTES = {
     "flash_attention": {"wgmma": _CSRC + "flash_attention_sm90.cu",
                         "simt": _CSRC + "flash_attention.cu"},
+    "flash_attention_bwd": {"wgmma": _CSRC + "flash_attention_bwd_sm90.cu",
+                            "simt": _CSRC + "flash_attention_bwd.cu"},
 }
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _route_launches = {k: dict.fromkeys(r, 0) for k, r in ROUTES.items()}

@@ -10,8 +10,8 @@ entry, [b, P=1, s, h, hd]) with the reference's.  The reference's Pallas
 kernel does not run under the installed jax (``pl.load`` is gone; ROADMAP
 queue C), so it is not a party here.
 
-B13's wgmma route (bf16 at hd 128, csrc/flash_attention_sm90.cu) runs only
-on the card; here a test-local emulation of its arithmetic (P rounded to
+B13's wgmma route (bf16 at hd 64 and 128, csrc/flash_attention_sm90.cu)
+runs only on the card; here a test-local emulation of its arithmetic (P rounded to
 bf16 for the P.V product, its tile walk) is held against the reference,
 and its route, its TMA checks and its tile walk are checked directly.
 
@@ -216,7 +216,7 @@ def test_flash_attention_is_registered():
 
 
 # ---------------------------------------------------------------------------
-# B13's wgmma route (bf16 at hd 128, csrc/flash_attention_sm90.cu): its
+# B13's wgmma route (bf16 at hd 64 and 128, csrc/flash_attention_sm90.cu): its
 # arithmetic, emulated here, against the reference; its route; its walk
 # ---------------------------------------------------------------------------
 
@@ -226,7 +226,8 @@ LOG2E = 1.4426950408889634
 def _emulate_wgmma(q, k, v, *, causal, window=None, softcap=None,
                    p_bf16=True):
     """The wgmma kernel's arithmetic on the CPU: bf16 q / k / v (torch
-    tensors [b, h, sq, 128] / [b, kvh, skv, 128]), f32 products, the max
+    tensors [b, h, sq, hd] / [b, kvh, skv, hd], hd 64 or 128), f32
+    products, the max
     over the unscaled scores y (or tanh(s scale / softcap) softcap), p =
     2^(y c - m c) with c = scale log2(e) (or log2(e)), masked keys at
     -inf (keys past skv weigh nothing), P rounded to bf16 for the P.V
@@ -284,10 +285,15 @@ WGMMA_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(WGMMA_CASES))
-def test_wgmma_arithmetic_matches_reference(case):
+# each case at hd 128 (its own id) and at hd 64 (id + "-hd64")
+WGMMA_HD_CASES = [pytest.param(c, hd, id=c if hd == 128 else f"{c}-hd64")
+                  for hd in (128, 64) for c in WGMMA_CASES]
+
+
+@pytest.mark.parametrize("case,hd", WGMMA_HD_CASES)
+def test_wgmma_arithmetic_matches_reference(case, hd):
     h, kvh, sq, skv, causal, window, softcap = WGMMA_CASES[case]
-    q, k, v = _inputs(h, kvh, sq, skv, hd=128, b=1, seed=3)
+    q, k, v = _inputs(h, kvh, sq, skv, hd=hd, b=1, seed=3)
     kw = dict(causal=causal, window=window, softcap=softcap)
     _, got = _emulate_wgmma(_t(q, "bfloat16"), _t(k, "bfloat16"),
                             _t(v, "bfloat16"), **kw)
@@ -313,10 +319,25 @@ def test_wgmma_p_in_bf16_moves_output_within_its_stated_bound(qk, h, kvh, s):
     bf16 for P.V moves the output by at most 4e-3 (flat) or 5e-3 (peaked)
     before its bf16 rounding and by at most one bf16 ulp after it, so the
     rounded output is within WGMMA_TOL of the reference's."""
+    _p_in_bf16_within_bound(qk, h, kvh, s, 128)
+
+
+@pytest.mark.parametrize("h,kvh,s", [(4, 2, 300), (8, 2, 333),
+                                     (4, 2, 1024)])
+@pytest.mark.parametrize("qk", [0.5, 2.0], ids=["flat", "peaked"])
+def test_wgmma_hd64_p_in_bf16_moves_output_within_its_stated_bound(qk, h,
+                                                                   kvh, s):
+    """The same bound at hd 64 (granite's head dim), which the kernel's
+    header states for both head dims: measured at most 3.6e-3 before the
+    output's rounding."""
+    _p_in_bf16_within_bound(qk, h, kvh, s, 64)
+
+
+def _p_in_bf16_within_bound(qk, h, kvh, s, hd):
     rng = np.random.default_rng(0)
-    q = (rng.standard_normal((1, h, s, 128)) * qk).astype(np.float32)
-    k = (rng.standard_normal((1, kvh, s, 128)) * qk).astype(np.float32)
-    v = rng.standard_normal((1, kvh, s, 128)).astype(np.float32)
+    q = (rng.standard_normal((1, h, s, hd)) * qk).astype(np.float32)
+    k = (rng.standard_normal((1, kvh, s, hd)) * qk).astype(np.float32)
+    v = rng.standard_normal((1, kvh, s, hd)).astype(np.float32)
     qt, kt, vt = (_t(a, "bfloat16") for a in (q, k, v))
     o_b, ob_b = _emulate_wgmma(qt, kt, vt, causal=True)
     o_f, _ = _emulate_wgmma(qt, kt, vt, causal=True, p_bf16=False)
@@ -329,13 +350,14 @@ def test_wgmma_p_in_bf16_moves_output_within_its_stated_bound(qk, h, kvh, s):
     np.testing.assert_allclose(_np(ob_b), _np(want), **WGMMA_TOL)
 
 
-@pytest.mark.parametrize("case", [c for c, (_, _, sq, skv, *_) in
-                                  WGMMA_CASES.items() if sq == skv])
-def test_wgmma_arithmetic_matches_blocked_attention(case):
+@pytest.mark.parametrize("case,hd", [
+    p for p in WGMMA_HD_CASES
+    if WGMMA_CASES[p.values[0]][2] == WGMMA_CASES[p.values[0]][3]])
+def test_wgmma_arithmetic_matches_blocked_attention(case, hd):
     """Against the model's online softmax (blocks of 128, the kernel's
     tile), in the model's [b, 1, s, h, hd] layout."""
     h, kvh, s, _, causal, window, softcap = WGMMA_CASES[case]
-    q, k, v = _inputs(h, kvh, s, s, hd=128, b=1, seed=4)
+    q, k, v = _inputs(h, kvh, s, s, hd=hd, b=1, seed=4)
     _, got = _emulate_wgmma(_t(q, "bfloat16"), _t(k, "bfloat16"),
                             _t(v, "bfloat16"), causal=causal, window=window,
                             softcap=softcap)
@@ -352,9 +374,10 @@ def test_wgmma_arithmetic_matches_blocked_attention(case):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_route_depends_on_dtype_and_head_dim_alone(hd, dtype):
     q = torch.zeros(1, 2, 5, hd, dtype=getattr(torch, dtype))
-    want = "wgmma" if (dtype, hd) == ("bfloat16", 128) else "simt"
+    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "simt"
     assert FA.route(q) == want
     assert FA.route(q.transpose(1, 2).contiguous().transpose(1, 2)) == want
+    assert FA.bwd_route(q) == want            # the backward's own table
 
 
 def test_wgmma_route_takes_the_models_strided_views():
@@ -363,6 +386,9 @@ def test_wgmma_route_takes_the_models_strided_views():
     FA.validate_tma(q, kv, kv)
     one = torch.zeros(1, 1, 9, 128, dtype=torch.bfloat16)
     FA.validate_tma(one, one, one)          # size-1 dims: any stride
+    q = torch.zeros(2, 70, 16, 64, dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros(2, 70, 8, 64, dtype=torch.bfloat16).transpose(1, 2)
+    FA.validate_tma(q, kv, kv)              # hd 64: granite's views
 
 
 def _misaligned():

@@ -272,7 +272,8 @@ def test_build_targets_live_in_ignored_build_dir():
     assert set(build.SOURCES) == {"vc_asgd_update", "topk_mask", "quantize",
                                   "sparse_pack", "flash_attention",
                                   "flash_attention_sm90",
-                                  "flash_attention_bwd", "wkv6",
+                                  "flash_attention_bwd",
+                                  "flash_attention_bwd_sm90", "wkv6",
                                   "mamba_scan"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"

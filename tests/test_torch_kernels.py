@@ -667,6 +667,66 @@ def test_flash_attention_wgmma_route_matches_plain(dev, case, strided):
     assert got.transpose(1, 2).is_contiguous()
 
 
+# the wgmma forward at hd 64 (granite's head dim): (b, h, kvh, sq, skv,
+# causal, window, softcap, qk), granite's prefill with peaked scores, on
+# [b, s, h, hd] views too
+WGMMA_HD64_CASES = {
+    "granite-cut": (2, 16, 8, 300, 300, True, None, None, 0.5),
+    "noncausal-cross": (1, 4, 2, 133, 517, False, None, None, 0.5),
+    "window-33-peaked": (2, 4, 2, 300, 300, True, 33, None, 2.0),
+    "softcap-50": (2, 4, 2, 300, 300, True, None, 50.0, 0.5),
+    "granite-prefill-peaked": (4, 16, 8, 2048, 2048, True, None, None, 2.0),
+}
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["bhsd", "bshd-view"])
+@pytest.mark.parametrize("case", list(WGMMA_HD64_CASES))
+def test_flash_attention_wgmma_route_hd64_matches_plain(dev, case, strided):
+    b, h, kvh, sq, skv, causal, window, softcap, qk = WGMMA_HD64_CASES[case]
+    q, k, v = _attn_case(dev, b, h, kvh, sq, skv, 64, torch.bfloat16, qk=qk)
+    if strided:
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    LA.reset_launch_count()
+    got = FK.flash_attention(q, k, v, **kw)
+    assert LA.route_counts("flash_attention") == {"wgmma": 1, "simt": 0}
+    want = R.attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **WGMMA_TOL)
+    # the SIMT kernel, still built for bf16 at hd 64, on the same inputs
+    simt = FK.flash_attention(q, k, v, kernel="simt", **kw)
+    assert LA.route_counts("flash_attention") == {"wgmma": 1, "simt": 1}
+    torch.testing.assert_close(simt.float(), want.float(),
+                               atol=ATTN_TOL[torch.bfloat16],
+                               rtol=ATTN_TOL[torch.bfloat16])
+
+
+def test_flash_attention_lse_is_the_rows_log2_sum_exp(dev):
+    """The wgmma forward's lse (under autograd) is each row's base-2
+    log-sum-exp of the scaled scores, and writing it changes no bit of
+    the output."""
+    import math
+    for hd in (64, 128):
+        q, k, v = _attn_case(dev, 2, 4, 2, 300, 300, hd, torch.bfloat16,
+                             qk=2.0)
+        lse = FK.lse_buffer(q)
+        o = FK.flash_attention(q, k, v, causal=True, window=40, lse=lse)
+        assert torch.equal(o, FK.flash_attention(q, k, v, causal=True,
+                                                 window=40))
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                         k.float().repeat_interleave(2, 1)) / math.sqrt(hd)
+        i = torch.arange(300, device=dev)
+        vis = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - 40)
+        want = torch.logsumexp(s.masked_fill(~vis, -torch.inf), -1) / \
+            math.log(2.0)
+        got = lse.view(2, 4, FK.lse_ld(300))[:, :, :300]
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="wgmma"):
+        FK.flash_attention(q.float(), k.float(), v.float(), lse=lse)
+    with pytest.raises(ValueError, match="not built"):
+        FK.flash_attention(q, k, v, kernel="simt")          # bf16 at hd 128
+
+
 def test_flash_attention_wgmma_route_refuses_what_tma_cannot_address(dev):
     q, k, v = _attn_case(dev, 1, 4, 2, 64, 64, 128, torch.bfloat16)
     bad = torch.zeros(1, 4, 64, 132, dtype=torch.bfloat16,
@@ -1256,9 +1316,13 @@ def test_flash_attention_bwd_matches_plain_autograd(dev, dtype, shape):
     b, h, kvh, s, hd, causal, window = shape
     q, k, v, do = _bwd_inputs(dev, b, h, kvh, s, hd, dtype, sum(shape[:5]))
     o = FK.flash_attention(q, k, v, causal=causal, window=window)
+    LA.reset_launch_count()
     got = FK.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
     again = FK.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                    window=window)
+    route = FK.bwd_route(q)                      # bf16 at hd 64, 128: wgmma
+    assert LA.route_counts("flash_attention_bwd") == {
+        r: 2 * (r == route) for r in ("wgmma", "simt")}
     req = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
     want = torch.autograd.grad(R.attention(*req, causal=causal,
                                            window=window), req, do.float())
@@ -1285,6 +1349,39 @@ def test_flash_attention_autograd_runs_both_kernels(dev):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="softcap"):
         ops.flash_attention(*req, causal=True, softcap=30.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 2, 63, 64, None),
+                                   (1, 8, 2, 300, 64, 48),
+                                   (8, 16, 8, 128, 64, None),
+                                   (1, 16, 4, 333, 128, None),
+                                   (8, 16, 8, 128, 128, 48)])
+def test_flash_attention_bwd_wgmma_route_against_simt_and_formula(dev,
+                                                                   shape):
+    """The wgmma backward (bf16 at hd 64 and 128) given the forward's lse
+    equals its run that recomputes it, bit for bit, and stays within
+    BWD_TOL of the plain formula on the same o, as the SIMT kernel does
+    on the same inputs (causal, granite's and internlm2's training
+    shapes among them)."""
+    b, h, kvh, s, hd, window = shape
+    q, k, v, do = _bwd_inputs(dev, b, h, kvh, s, hd, torch.bfloat16,
+                              sum(shape[:5]))
+    lse = FK.lse_buffer(q)
+    o = FK.flash_attention(q, k, v, causal=True, window=window, lse=lse)
+    LA.reset_launch_count()
+    got = FK.flash_attention_bwd(q, k, v, o, do, window=window, lse=lse)
+    assert LA.launch_count("flash_attention") == 0
+    again = FK.flash_attention_bwd(q, k, v, o, do, window=window)
+    simt = FK.flash_attention_bwd(q, k, v, o, do, window=window,
+                                  kernel="simt")
+    assert LA.route_counts("flash_attention_bwd") == {"wgmma": 2, "simt": 1}
+    plain = R.attention_bwd(q.float(), k.float(), v.float(), o.float(),
+                            do.float(), window=window)
+    for g, a, sm, w in zip(got, again, simt, plain):
+        assert torch.equal(g, a)
+        for x in (g, sm):
+            err = ((x.float() - w).abs() / (1 + w.abs())).max()
+            assert float(err) <= BWD_TOL[torch.bfloat16], float(err)
 
 
 def test_scans_refuse_autograd_on_the_card(dev):
