@@ -112,8 +112,9 @@ a card, or outside a checkout.  Phases:
    b. serve.run at rwkv6-1.6b's full width and depth (24 layers,
       1,599,819,776 parameters from the port's init, --seed 0): batch 4
       x 2,048 prompt tokens, 96 greedy decode steps against the O(1)
-      recurrent state; finite logits, 24 B14 launches in prefill, none in
-      decode, no compaction; prefill (cold and warm) and decode times,
+      recurrent state; finite logits, 24 B14 launches in prefill (none
+      writing chunk states, none of its backward), none in decode, no
+      compaction; prefill (cold and warm) and decode times,
       tokens/s, peak device memory and the profiler's device-busy share
       of the warm prefill and of 8 further decode steps;
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
@@ -129,13 +130,13 @@ a card, or outside a checkout.  Phases:
       plain and bound ms at each (the bound counts bytes, the exps at
       the SFU's rate and the FMAs; no PyTorch call computes the scan);
       the kernel's ptxas lines (registers, spills, shared memory);
-   b. serve.serve at jamba-v0.1's full width cut to blocks 2-5 of its
+   b. serve.serve at jamba-v0.1's full width cut to blocks 2-4 of its
       published 8-layer period (mamba + dense, mamba + MoE, attention +
-      dense, mamba + MoE; 6,884,372,480 parameters from the port's init,
-      seed 0, cast to bf16 as each layer is placed): batch 4 x 2,048
-      prompt tokens, 96 greedy decode steps; finite logits, 3 B15 and 1
-      B13 launches in prefill (the wgmma route), none in decode, one
-      compaction; init
+      dense; 3,960,418,304 parameters from the port's init, seed 0, cast
+      to bf16 as each layer is placed): batch 4 x 2,048 prompt tokens, 96
+      greedy decode steps; finite logits, 2 B15 and 1
+      B13 launches in prefill (the wgmma route; no B15 launch writing
+      chunk states, no backward), none in decode, one compaction; init
       seconds, prefill (cold and warm), decode and compaction times,
       tokens/s, peak device memory and the profiler's device-busy share
       of the warm prefill and of 8 further decode steps;
@@ -296,7 +297,7 @@ a card, or outside a checkout.  Phases:
       tokens/s, peak memory; a resume from the round-3 record gives
       round 4's loss and server bus bit-equal; one more step profiled
       (device-busy share, top device items);
-   c. the same model cut to 2 layers: one round of 2 islands x 1 step of
+   c. the same model cut to 2 layers: one round of 1 island x 1 step of
       2 x 64 tokens, card vs CPU: in f32 every gradient leaf within
       TRAIN_CMP_LEAF, and planted faults in dq / dk / dv refused; in bf16
       the loss, the grad norms and every leaf within their bounds;
@@ -305,7 +306,33 @@ a card, or outside a checkout.  Phases:
       (2 x 6,144 past its 4,096 window, 32 steps, wgmma route), and card
       vs CPU as 6c, granite at 2 layers, mixtral at 1 (128 prompt tokens,
       8 steps).
-15. a ``kernels`` JSON line (all 16 kernels; B13's forward and backward
+15. rwkv6 and jamba VC training (the same trainer):
+   a. B14's backward (csrc/wkv6_bwd.cu) and B15's (csrc/mamba_scan_bwd.cu)
+      from their forwards' chunk states against the plain backwards
+      (ref.wkv6_bwd / ref.mamba_scan_bwd) per element, each case twice and
+      bit-equal: B14 at rwkv6's training shape [8, 32, 128, 64] and at T
+      63, 128, 300 with hd 16 and 64 (30% exact-0 decays in some), as
+      [b, T, h, hd] strided views; B15 at jamba's training shape [8, 128,
+      8,192] ds 16 (u bf16) and at ds 4 and 16, di no multiple of a
+      block, u f32 and bf16, B / C column views; each timed at its
+      training shape beside the plain backward and the bound (no PyTorch
+      call computes either); their ptxas lines;
+   b. rwkv6-1.6b at full width cut to 12 of its 24 layers (934,129,664
+      parameters) as 14b: 4 rounds, island 0 preempted in round 2, killed
+      after round 3 and resumed bit-equal; a step launches B14 24 times
+      (with the remat recompute) and its backward 12 times; one step
+      profiled;
+   c. jamba-v0.1 at full width, blocks (0, 2, 4) of its period (mamba +
+      dense twice, attention + dense; 1,317,941,248 parameters), 2
+      rounds; a step launches B15 4 times and its backward twice, B13 2
+      and its backward once, all B13 on the wgmma routes; one step
+      profiled;
+   d. card vs CPU as 14c at full width, rwkv6 layers 0-1 and jamba
+      blocks (2, 4), one island: f32 leaf by leaf, with planted faults in
+      B14's backward (dk = 0, dw x 1.01) and B15's (dC = 0, dA x 1.01)
+      refused; bf16: each leaf no farther from the CPU's f32 gradient than
+      twice the CPU's own bf16 gradient is.
+16. a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
    each name their main path's route's source and, under ``sources``,
    both routes'), the nvidia-smi
    line, and the last line ``{"ok": true, "device": {...}}``.
@@ -500,7 +527,9 @@ def implied_launches(scheme, res) -> dict:
         "flash_attention": 0,
         "flash_attention_bwd": 0,
         "wkv6": 0,
+        "wkv6_bwd": 0,
         "mamba_scan": 0,
+        "mamba_scan_bwd": 0,
         "blocked_topk_stats": 0,         # the MLP bus takes the global sort
         "threshold_sparsify_exact": 0,
         "vc_asgd_dc_lerp_flat": 0,       # the bench's kernels (phase 10)
@@ -1693,12 +1722,25 @@ def serve_rwkv_full_width(torch, VK) -> dict:
     Returns the run's launches."""
     from repro_torch.launch import serve
     from repro_torch.models.rwkv import RWKVState
+    from repro_torch.kernels import rwkv6_scan as WK
     zero = dict.fromkeys(VK.KERNELS, 0)
     torch.cuda.reset_peak_memory_stats()
     VK.reset_launch_count()
+    real, stores = WK.wkv6, []
+
+    def spy(*a, states=None):           # serving writes no chunk states
+        stores.append(states is not None)
+        return real(*a, states=states)
+    WK.wkv6 = spy
     t0 = time.perf_counter()
-    res = serve.run(RWKV_ARGS)
+    try:
+        res = serve.run(RWKV_ARGS)
+    finally:
+        WK.wkv6 = real
     wall = time.perf_counter() - t0
+    check(len(stores) == RWKV_LAYERS and not any(stores),
+          f"rwkv serve: chunk states written by {sum(stores)} of "
+          f"{len(stores)} B14 launches")
     counts = VK.launch_counts()
     arg = lambda flag: int(RWKV_ARGS[RWKV_ARGS.index(flag) + 1])
     b, s, gen = arg("--batch"), arg("--prompt-len"), arg("--gen")
@@ -1754,12 +1796,13 @@ SCAN_SHAPES = {
 SFU_PER_CLOCK = 16               # exp results a clock per SM (sm_90)
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 4, 2048, 96
 # one layer group (8 layers) at full width: what tests/test_torch_jamba.py
-# holds jamba_config() to; 8b serves blocks 2-5 of it (cut from the whole
-# group to hold the script's time: the CPU draws every weight)
+# holds jamba_config() to; 8b serves blocks 2-4 of it (cut from the whole
+# group to blocks 2-5, then 2-4, to hold the script's time: the CPU draws
+# every weight)
 JAMBA_PARAMS = 13_295_235_072
-JAMBA_SERVE_BLOCKS = (2, 3, 4, 5)   # Md Me Ad Me
-JAMBA_SERVE_PARAMS = 6_884_372_480
-JAMBA_SCANS, JAMBA_ATTNS = 3, 1  # B15 / B13 launches per 8b prefill
+JAMBA_SERVE_BLOCKS = (2, 3, 4)      # Md Me Ad
+JAMBA_SERVE_PARAMS = 3_960_418_304
+JAMBA_SCANS, JAMBA_ATTNS = 2, 1  # B15 / B13 launches per 8b prefill
 JAMBA_CMP_BLOCKS = (3, 4)        # mamba + MoE, then attention + dense
 
 
@@ -1858,13 +1901,26 @@ def serve_jamba_full_width(torch, VK) -> dict:
     from repro_torch.models.mamba import MambaState
     cfg = jamba_config(JAMBA_SERVE_BLOCKS)
     b, s, gen = JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN
+    from repro_torch.kernels import mamba_scan as MK
     zero = dict.fromkeys(VK.KERNELS, 0)
     torch.cuda.reset_peak_memory_stats()
     VK.reset_launch_count()
+    real, stores = MK.mamba_scan, []
+
+    def spy(*a, h_ck=None):             # serving writes no chunk states
+        stores.append(h_ck is not None)
+        return real(*a, h_ck=h_ck)
+    MK.mamba_scan = spy
     t0 = time.perf_counter()
-    res = serve.serve(cfg, b, s, gen, seed=0, device="cuda")
+    try:
+        res = serve.serve(cfg, b, s, gen, seed=0, device="cuda")
+    finally:
+        MK.mamba_scan = real
     wall = time.perf_counter() - t0
     counts = VK.launch_counts()
+    check(len(stores) == JAMBA_SCANS and not any(stores),
+          f"jamba serve: chunk states written by {sum(stores)} of "
+          f"{len(stores)} B15 launches")
     check_attn_route(JAMBA_ATTNS, "wgmma", "jamba serve")
     n_params = sum(t.numel() for t in _leaves(res.params))
     check(n_params == JAMBA_SERVE_PARAMS,
@@ -3289,7 +3345,8 @@ TRAIN_PARAMS = 1_134_086_144     # 379,062,272 + 12 x 62,918,656
 TRAIN_KW = dict(islands=2, local_steps=2, batch=8, seq=128, alpha="var",
                 lr=1e-3, seed=0)
 TRAIN_ROUNDS, TRAIN_PREEMPT, TRAIN_KILL = 4, 1, 3   # round 2 is index 1
-# 14c: one round card vs CPU at full width, 2 layers, batch 2 x 64.
+# 14c: one round card vs CPU at full width, 2 layers, one island (two
+# until PR 30: the CPU's round is most of the phase), batch 2 x 64.
 # f32 compute: each step's gradient leaf by leaf, ||card - cpu|| / ||cpu||
 # <= TRAIN_CMP_LEAF (f32 sums in other orders: cuBLAS without TF32, the
 # card's SIMT attention forward and the backward kernel against the CPU's
@@ -3299,14 +3356,15 @@ TRAIN_ROUNDS, TRAIN_PREEMPT, TRAIN_KILL = 4, 1, 3   # round 2 is index 1
 # per-leaf check must refuse at the faulted projection of every layer.
 # bf16 (the shipped compute): bf16 matmuls accumulate in other orders on
 # the two devices and the card's attention rounds P to bf16 (the CPU's
-# plain attention keeps f32); the loss averages 2 x 2 x 63 tokens, so
+# plain attention keeps f32); the loss averages 2 x 63 tokens, so
 # within 0.02 of ~11.8; the global grad norm and each leaf's grad norm
 # within TRAIN_CMP_GNORM relative (measured 7.4e-4 per leaf), each leaf
 # within TRAIN_CMP_LEAF_BF16 as the f32 check measures it (measured 0.019)
-TRAIN_CMP_LEAF, TRAIN_CMP_F32 = 1e-3, 1e-4
+TRAIN_CMP_LEAF, TRAIN_CMP_F32, TRAIN_CMP_ISLANDS = 1e-3, 1e-4, 1
 TRAIN_CMP_LOSS, TRAIN_CMP_GNORM, TRAIN_CMP_LEAF_BF16 = 0.02, 0.005, 0.1
-TRAIN_FAULTS = {"dq = 0": (0, 0.0, "wq"), "dk = 0": (1, 0.0, "wk"),
-                "dv = 0": (2, 0.0, "wv"), "dq x 1.01": (0, 1.01, "wq")}
+TRAIN_FAULTS = {"dq = 0": (0, 0.0, "attn/wq"), "dk = 0": (1, 0.0, "attn/wk"),
+                "dv = 0": (2, 0.0, "attn/wv"),
+                "dq x 1.01": (0, 1.01, "attn/wq")}
 # 14d: granite at full width and depth; mixtral at full width cut to 1
 # layer (its card-vs-CPU check too: cut from 2 to hold the script's time),
 # a prompt past its 4,096-token window
@@ -3463,27 +3521,29 @@ def _span(torch, spans: dict, owner, name: str, key: str):
     return fn
 
 
-def train_full_width(torch, VK, tmp: Path) -> dict:
-    """Phase 14b: launch/train.py's ``train`` at internlm2-1.8b's full
-    width cut to TRAIN_LAYERS layers (TRAIN_PARAMS parameters, the port's
-    init, seed 0), the launcher's defaults (2 islands, 2 local steps,
-    batch 8 x 128 tokens, var alpha), TRAIN_ROUNDS rounds, island 0
-    preempted in round 2, a checkpoint after round 3.  Every step runs
-    B13 forward (and its remat recompute) and the backward kernel in
-    each layer and B3 once; B2 once a round.  Then a new ``train`` call
-    resumes from the round-3 record (what a process killed after round 3
-    would find) and its round 4 must equal the run's bit for bit: loss
-    and server bus.  Prints round walls, each step's time split (host
-    clock between synchronisations: forward + backward, clip, B3; B2 a
-    round), tokens/s, launches and peak memory.  Returns the run's
-    launches."""
+def train_full_width(torch, VK, tmp: Path, cfg, label: str, n_want: int,
+                     per_step: dict, attn: int = 0, rounds=TRAIN_ROUNDS,
+                     kill=TRAIN_KILL) -> dict:
+    """Phases 14b, 15b, 15c: launch/train.py's ``train`` at ``cfg`` (a
+    full width, its depth cut; ``n_want`` parameters, the port's init,
+    seed 0), the launcher's defaults (2 islands, 2 local steps, batch 8 x
+    128 tokens, var alpha), ``rounds`` rounds, island 0 preempted in round
+    2.  Every step launches ``per_step`` (the mixers' kernels, forward
+    with its remat recompute and backward; ``attn`` of them B13 forwards,
+    each on the wgmma route, half as many B13 backwards) and B3 once; B2
+    once a round.  With ``kill``, a checkpoint after round ``kill``, and a
+    new ``train`` call resumes from that record (what a process killed
+    after it would find): its last round must equal the run's bit for
+    bit, loss and server bus.  Prints round walls, each step's time split
+    (host clock between synchronisations: forward + backward, clip, B3; B2
+    a round), tokens/s, launches and peak memory; then one step
+    profiled.  Returns the run's launches."""
     import math
     import shutil
     from repro_torch.launch import train as LT
     from repro_torch.optim.optimizers import Adam
     from repro_torch.runtime import vc_runtime as VR
-    cfg = depth_cut("internlm2-1.8b", TRAIN_LAYERS)
-    ckdir = tmp / "train14b"
+    ckdir = tmp / label.replace(" ", "_")
     shutil.rmtree(ckdir, ignore_errors=True)
     spans = {}
     wrapped = [(VR, "_lane_loss_and_grad", "forward+backward"),
@@ -3494,11 +3554,11 @@ def train_full_width(torch, VK, tmp: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     VK.reset_launch_count()
     t0 = time.perf_counter()
+    ck = dict(ckpt_dir=str(ckdir), ckpt_every=kill, keep=1) if kill else {}
     try:
-        run = LT.train(cfg, rounds=TRAIN_ROUNDS, ckpt_dir=str(ckdir),
-                       ckpt_every=TRAIN_KILL, keep=1,
-                       preempt_round=TRAIN_PREEMPT, device="cuda",
-                       log=lambda m: say(f"14b {m}"), **TRAIN_KW)
+        run = LT.train(cfg, rounds=rounds, preempt_round=TRAIN_PREEMPT,
+                       device="cuda", log=lambda m: say(f"{label} {m}"),
+                       **ck, **TRAIN_KW)
     finally:
         for owner, name, fn in originals:
             setattr(owner, name, fn)
@@ -3506,73 +3566,80 @@ def train_full_width(torch, VK, tmp: Path) -> dict:
     counts = VK.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_params = run.server.spec.n
-    steps = TRAIN_KW["islands"] * TRAIN_KW["local_steps"] * TRAIN_ROUNDS
-    check(n_params == TRAIN_PARAMS, f"train: {n_params} parameters")
+    steps = TRAIN_KW["islands"] * TRAIN_KW["local_steps"] * rounds
+    check(n_params == n_want, f"{label}: {n_params} parameters")
     want = {**dict.fromkeys(VK.KERNELS, 0),
-            "flash_attention": 2 * TRAIN_LAYERS * steps,   # + the recompute
-            "flash_attention_bwd": TRAIN_LAYERS * steps,
-            "adam_update_flat": steps, "assimilate_flat": TRAIN_ROUNDS}
-    check(counts == want, f"train: launches {counts}, want {want}")
-    check_attn_route(2 * TRAIN_LAYERS * steps, "wgmma", "train")
-    check_attn_route(TRAIN_LAYERS * steps, "wgmma", "train",
-                     "flash_attention_bwd")
+            **{k: n * steps for k, n in per_step.items()},
+            "adam_update_flat": steps, "assimilate_flat": rounds}
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+    if attn:
+        check_attn_route(attn * steps, "wgmma", label)
+        check_attn_route(attn // 2 * steps, "wgmma", label,
+                         "flash_attention_bwd")
     check(all(math.isfinite(r["loss"]) for r in run.rounds)
           and bool(torch.isfinite(run.server.buf).all()),
-          "train: a non-finite loss or server")
+          f"{label}: a non-finite loss or server")
     tokens = TRAIN_KW["islands"] * TRAIN_KW["local_steps"] * \
         TRAIN_KW["batch"] * TRAIN_KW["seq"]
-    say(f"train {cfg.describe()}, {n_params:,} parameters (f32 bus), "
+    say(f"{label} {cfg.describe()}, {n_params:,} parameters (f32 bus), "
         f"{TRAIN_KW['islands']} islands x {TRAIN_KW['local_steps']} steps "
         f"of {TRAIN_KW['batch']}x{TRAIN_KW['seq']} tokens a round")
     for r in run.rounds:
-        say(f"train round {r['round'] + 1}: wall {r['wall_s']:.3f} s, "
+        say(f"{label} round {r['round'] + 1}: wall {r['wall_s']:.3f} s, "
             f"{tokens / r['wall_s']:.1f} tokens/s, loss {r['loss']:.6f}")
     for key, sec in spans.items():
-        per = TRAIN_ROUNDS if key.startswith("B2") else steps
+        per = rounds if key.startswith("B2") else steps
         unit = "round" if key.startswith("B2") else "step"
-        say(f"train {key}: {1e3 * sec / per:.3f} ms a {unit} (host clock "
+        say(f"{label} {key}: {1e3 * sec / per:.3f} ms a {unit} (host clock "
             f"between synchronisations)")
-    say(f"train launches per step: B13 forward "
-        f"{counts['flash_attention'] / steps:g} (remat included), B13 "
-        f"backward {counts['flash_attention_bwd'] / steps:g}, B3 "
-        f"{counts['adam_update_flat'] / steps:g}; B2 per round "
-        f"{counts['assimilate_flat'] / TRAIN_ROUNDS:g}")
-    say(f"train peak device memory (max_memory_allocated) "
-        f"{peak / 1e9:.3f} GB; train() wall {wall:.3f} s (init and the "
-        f"round-{TRAIN_KILL} checkpoint's write included)")
-    # the kill: a process that stopped after round 3 leaves this record
-    recs = sorted(p.name for p in ckdir.iterdir())
-    check(recs == [f"ckpt_{TRAIN_KILL:08d}.msgpack"], f"train: records {recs}")
-    size = (ckdir / recs[0]).stat().st_size
-    clean_loss, clean_bus = run.rounds[-1]["loss"], run.server.buf
-    del run
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    resumed = LT.train(cfg, rounds=TRAIN_ROUNDS, ckpt_dir=str(ckdir),
-                       ckpt_every=TRAIN_KILL, keep=1,
-                       preempt_round=TRAIN_PREEMPT, device="cuda",
-                       log=lambda m: say(f"14b resume {m}"), **TRAIN_KW)
-    rwall = time.perf_counter() - t0
-    check(resumed.start_round == TRAIN_KILL and len(resumed.rounds) == 1,
-          f"train resume: started at {resumed.start_round}")
-    check(resumed.rounds[0]["loss"] == clean_loss,
-          f"train resume: round 4 loss {resumed.rounds[0]['loss']} != "
-          f"{clean_loss}")
-    check(bits_equal(torch, resumed.server.buf, clean_bus),
-          "train resume: server bus differs from the run's")
-    say(f"train kill after round {TRAIN_KILL} and resume: round "
-        f"{TRAIN_ROUNDS} loss {clean_loss!r} and the server bus "
-        f"({clean_bus.numel():,} f32) bit-equal; record {size / 1e9:.3f} GB "
-        f"(server + 2 islands' m and v); resume wall {rwall:.3f} s (load "
-        f"included)")
-    profile_train_step(torch, cfg, resumed.server)
-    del resumed, clean_bus
+    say(f"{label} launches per step: " + ", ".join(
+        f"{k} {counts[k] / steps:g}" for k in per_step)
+        + f" (remat included), B3 {counts['adam_update_flat'] / steps:g}; "
+        f"B2 per round {counts['assimilate_flat'] / rounds:g}")
+    say(f"{label} peak device memory (max_memory_allocated) "
+        f"{peak / 1e9:.3f} GB; train() wall {wall:.3f} s (init"
+        + (f" and the round-{kill} checkpoint's write" if kill else "")
+        + " included)")
+    server = run.server
+    if kill:
+        # the kill: a process that stopped after round `kill` leaves this
+        recs = sorted(p.name for p in ckdir.iterdir())
+        check(recs == [f"ckpt_{kill:08d}.msgpack"],
+              f"{label}: records {recs}")
+        size = (ckdir / recs[0]).stat().st_size
+        clean_loss, clean_bus = run.rounds[-1]["loss"], run.server.buf
+        del run, server
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = LT.train(cfg, rounds=rounds, ckpt_dir=str(ckdir),
+                           ckpt_every=kill, keep=1,
+                           preempt_round=TRAIN_PREEMPT, device="cuda",
+                           log=lambda m: say(f"{label} resume {m}"),
+                           **TRAIN_KW)
+        rwall = time.perf_counter() - t0
+        check(resumed.start_round == kill and len(resumed.rounds) == 1,
+              f"{label} resume: started at {resumed.start_round}")
+        check(resumed.rounds[0]["loss"] == clean_loss,
+              f"{label} resume: round {rounds} loss "
+              f"{resumed.rounds[0]['loss']} != {clean_loss}")
+        check(bits_equal(torch, resumed.server.buf, clean_bus),
+              f"{label} resume: server bus differs from the run's")
+        say(f"{label} kill after round {kill} and resume: round {rounds} "
+            f"loss {clean_loss!r} and the server bus ({clean_bus.numel():,} "
+            f"f32) bit-equal; record {size / 1e9:.3f} GB (server + 2 "
+            f"islands' m and v); resume wall {rwall:.3f} s (load included)")
+        server = resumed.server
+        del resumed, clean_bus
+    else:
+        del run
+    profile_train_step(torch, cfg, server, label)
+    del server
     shutil.rmtree(ckdir, ignore_errors=True)
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_train_step(torch, cfg, server) -> None:
+def profile_train_step(torch, cfg, server, label: str) -> None:
     """One island's local step and its round's B2 from ``server`` (a round
     of ``make_vc_round`` with 1 island x 1 step, the 14b batch), warm
     once, then under torch.profiler: the device-busy share and the top
@@ -3595,7 +3662,7 @@ def profile_train_step(torch, cfg, server) -> None:
         go()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, f"train step + B2 (1 island x 1 step of "
+    report_profile(prof, f"{label} step + B2 (1 island x 1 step of "
                    f"{TRAIN_KW['batch']}x{TRAIN_KW['seq']}, profiled wall "
                    f"{wall:.3f} s)", wall)
     del isl, opts
@@ -3615,8 +3682,9 @@ def _leaf_names(tree, path: str = "") -> list:
 
 
 def _cmp_round(torch, VK, model, master, batches, dev: str) -> dict:
-    """One round of ``make_vc_round`` (2 islands x 1 step) from ``master``
-    on ``dev``: the mean loss, each step's global grad norm and flat
+    """One round of ``make_vc_round`` (an island a row of ``batches``, 1
+    step each) from ``master`` on ``dev``: the mean loss, each step's
+    global grad norm and flat
     gradient before the clip (a copy on ``dev``), the server bus (on the
     host), the launches and the wall."""
     from repro_torch.optim.optimizers import Adam
@@ -3634,10 +3702,11 @@ def _cmp_round(torch, VK, model, master, batches, dev: str) -> dict:
     VK.reset_launch_count()
     t0 = time.perf_counter()
     try:
+        n_isl = int(batches["tokens"].shape[0])
         server = master.with_buf(master.buf.to(dev))
-        isl, opts = VR.init_islands(server, 2, Adam(lr=1e-3))
-        s, isl, opts, m = VR.make_vc_round(model, 2, 1, Adam(lr=1e-3))(
-            server, isl, opts, batches, 0.5, [True, True])
+        isl, opts = VR.init_islands(server, n_isl, Adam(lr=1e-3))
+        s, isl, opts, m = VR.make_vc_round(model, n_isl, 1, Adam(lr=1e-3))(
+            server, isl, opts, batches, 0.5, [True] * n_isl)
         loss = float(m["loss"])
     finally:
         VR.clip_by_global_norm = real
@@ -3661,109 +3730,135 @@ def _leaf_diffs(torch, spec, got: list, want: list) -> tuple:
     return rel, rel_norm
 
 
-def train_card_vs_cpu(torch, VK) -> None:
-    """Phase 14c: one round of ``make_vc_round`` (2 islands x 1 step,
-    batch 2 x 64 tokens) at internlm2-1.8b's full width cut to 2 layers,
-    on the card and on the CPU from one set of weights (the port's init,
-    drawn once); the CPU launches nothing.  In f32 compute each step's
-    gradient is held to the CPU's leaf by leaf (TRAIN_CMP_LEAF), and each
-    planted fault of TRAIN_FAULTS in the backward kernel's dq / dk / dv
-    must fail that check at its projection in every layer.  In the
-    shipped bf16 compute: the mean loss (TRAIN_CMP_LOSS), the global and
-    each leaf's grad norm (TRAIN_CMP_GNORM) and each leaf's gradient
-    (TRAIN_CMP_LEAF_BF16)."""
+def train_card_vs_cpu(torch, VK, cut, label: str, per_step: dict,
+                      faults: dict, bf16=None) -> None:
+    """Phases 14c and 15d: one round of ``make_vc_round``
+    (TRAIN_CMP_ISLANDS islands x 1 step, batch 2 x 64 tokens) at ``cut``
+    (a full width cut to a few layers), on the card and on the CPU from
+    one set of weights (the port's init, drawn once); the card launches
+    ``per_step`` a step (and B3, B2), the CPU nothing.  In f32 compute
+    each step's gradient is held to the CPU's leaf by leaf
+    (TRAIN_CMP_LEAF), and each planted fault of ``faults`` in a backward
+    kernel's output must fail that check at its leaf in every layer.  In
+    the shipped bf16 compute the mean loss within TRAIN_CMP_LOSS, and then
+    with ``bf16`` (grad norms, per leaf) the global and each leaf's grad
+    norm and each leaf's gradient within those bounds of the CPU's bf16
+    round; without it, each leaf's gradient no farther from the CPU's f32
+    gradient than TRAIN_CMP_NOISE times the CPU's own bf16 gradient is
+    (plus TRAIN_CMP_LEAF): the card's bf16 round adds no error beyond
+    bf16's own rounding."""
     from repro_torch.core import flat as F
-    from repro_torch.kernels import flash_attention as FK
     from repro_torch.launch.train import _round_batches
     from repro_torch.models.registry import build_model
-    cut = depth_cut("internlm2-1.8b", CMP_LAYERS)
     init = build_model(cut).init(0, device="cpu")
     names = _leaf_names(init)
     master = F.flatten(init)
     del init
     spec = master.spec
-    batches = _round_batches(cut, 2, 1, 2, 64, seed=0)
+    islands = TRAIN_CMP_ISLANDS
+    batches = _round_batches(cut, islands, 1, 2, 64, seed=0)
     want = {**dict.fromkeys(VK.KERNELS, 0),
-            "flash_attention": 2 * CMP_LAYERS * 2,
-            "flash_attention_bwd": CMP_LAYERS * 2,
-            "adam_update_flat": 2, "assimilate_flat": 1}
+            **{k: islands * n for k, n in per_step.items()},
+            "adam_update_flat": islands, "assimilate_flat": 1}
+    cpu_f32 = None
     for dt in ("float32", "bfloat16"):
         model = build_model(cut.replace(compute_dtype=dt))
         card = _cmp_round(torch, VK, model, master, batches, "cuda")
         cpu = _cmp_round(torch, VK, model, master, batches, "cpu")
         cpu["grads"] = [g.cuda() for g in cpu["grads"]]
         check(card["launches"] == want,
-              f"train card vs cpu {dt}: card launches {card['launches']}")
+              f"{label} {dt}: card launches {card['launches']}")
         check(sum(cpu["launches"].values()) == 0,
-              f"train card vs cpu {dt}: cpu launched {cpu['launches']}")
+              f"{label} {dt}: cpu launched {cpu['launches']}")
         check(all(bool(torch.isfinite(g).all()) for g in card["grads"])
               and bool(torch.isfinite(card["bus"]).all()),
-              f"train card vs cpu {dt}: non-finite gradient or server")
+              f"{label} {dt}: non-finite gradient or server")
         rel, rel_norm = _leaf_diffs(torch, spec, card["grads"], cpu["grads"])
         gl, cl, gn, cn = card["loss"], cpu["loss"], card["norms"], \
             cpu["norms"]
         grel = max(abs(a - b) / b for a, b in zip(gn, cn))
         i, j = max(range(len(rel)), key=rel.__getitem__), \
             max(range(len(rel)), key=rel_norm.__getitem__)
-        say(f"train card vs cpu {cut.describe()} {dt}, 2 islands x 1 step "
-            f"of 2x64: loss card {gl:.6f} cpu {cl:.6f} (|diff| "
-            f"{abs(gl - cl):.4g}); grad norms card {gn} cpu {cn} (max "
-            f"relative diff {grel:.4g}); per leaf worst ||card - cpu|| / "
-            f"||cpu|| {rel[i]:.4g} ({names[i]}), worst relative grad-norm "
-            f"diff {rel_norm[j]:.4g} ({names[j]}); server bus max abs diff "
+        say(f"{label} {cut.describe()} {dt}, {islands} island(s) x 1 step "
+            f"of 2x64: "
+            f"loss card {gl:.6f} cpu {cl:.6f} (|diff| {abs(gl - cl):.4g}); "
+            f"grad norms card {gn} cpu {cn} (max relative diff "
+            f"{grel:.4g}); per leaf worst ||card - cpu|| / ||cpu|| "
+            f"{rel[i]:.4g} ({names[i]}), worst relative grad-norm diff "
+            f"{rel_norm[j]:.4g} ({names[j]}); server bus max abs diff "
             f"{float((card['bus'] - cpu['bus']).abs().max()):.4g}; wall "
             f"card {card['wall']:.2f} s, cpu {cpu['wall']:.2f} s")
         if dt == "float32":
             bad = [names[k] for k, r in enumerate(rel) if r > TRAIN_CMP_LEAF]
-            check(not bad, f"train card vs cpu f32: gradient leaves past "
+            check(not bad, f"{label} f32: gradient leaves past "
                   f"{TRAIN_CMP_LEAF}: {bad}")
             check(abs(gl - cl) <= TRAIN_CMP_F32 and grel <= TRAIN_CMP_F32,
-                  f"train card vs cpu f32: loss {gl} vs {cl}, grad norms "
-                  f"{gn} vs {cn}")
-            _planted_faults(torch, VK, FK, model, master, batches, names,
-                            cpu["grads"])
+                  f"{label} f32: loss {gl} vs {cl}, grad norms {gn} vs "
+                  f"{cn}")
+            _planted_faults(torch, VK, model, master, batches, names,
+                            cpu["grads"], faults, label)
+            cpu_f32 = cpu["grads"]
         else:
             check(abs(gl - cl) <= TRAIN_CMP_LOSS,
-                  f"train card vs cpu: loss {gl} vs {cl}")
-            bad = [names[k] for k in range(len(rel))
-                   if rel_norm[k] > TRAIN_CMP_GNORM
-                   or rel[k] > TRAIN_CMP_LEAF_BF16]
-            check(grel <= TRAIN_CMP_GNORM and not bad,
-                  f"train card vs cpu bf16: grad norms {gn} vs {cn}; leaves "
-                  f"past their bounds: {bad}")
+                  f"{label} bf16: loss {gl} vs {cl}")
+            if bf16 is not None:
+                gnorm, leaf = bf16
+                bad = [names[k] for k in range(len(rel))
+                       if rel_norm[k] > gnorm or rel[k] > leaf]
+                check(grel <= gnorm and not bad,
+                      f"{label} bf16: grad norms {gn} vs {cn}; leaves past "
+                      f"their bounds: {bad}")
+            else:
+                d_card, _ = _leaf_diffs(torch, spec, card["grads"], cpu_f32)
+                d_cpu, _ = _leaf_diffs(torch, spec, cpu["grads"], cpu_f32)
+                lim = [TRAIN_CMP_NOISE * c + TRAIN_CMP_LEAF for c in d_cpu]
+                k = max(range(len(lim)), key=lambda k: d_card[k] / lim[k])
+                say(f"{label} bf16 against the CPU's f32 gradient, per leaf: "
+                    f"card {max(d_card):.4g}, the CPU's bf16 "
+                    f"{max(d_cpu):.4g}; worst {d_card[k]:.4g} of its limit "
+                    f"{lim[k]:.4g} ({names[k]})")
+                bad = [names[k] for k in range(len(lim)) if d_card[k] > lim[k]]
+                check(not bad, f"{label} bf16: leaves farther from the f32 "
+                      f"gradient than {TRAIN_CMP_NOISE} x the CPU's bf16: "
+                      f"{bad}")
         del card, cpu
-    say(f"train card vs cpu: bounds f32 per-leaf {TRAIN_CMP_LEAF}, loss "
-        f"and grad norm {TRAIN_CMP_F32}; bf16 loss {TRAIN_CMP_LOSS}, grad "
-        f"norms (global and per leaf) {TRAIN_CMP_GNORM}, per-leaf "
-        f"{TRAIN_CMP_LEAF_BF16}")
+    bounds = (f"grad norms (global and per leaf) {bf16[0]}, per-leaf "
+              f"{bf16[1]}" if bf16 is not None else
+              f"per leaf to the f32 gradient {TRAIN_CMP_NOISE} x the CPU's "
+              f"bf16 + {TRAIN_CMP_LEAF}")
+    say(f"{label}: bounds f32 per-leaf {TRAIN_CMP_LEAF}, loss and grad norm "
+        f"{TRAIN_CMP_F32}; bf16 loss {TRAIN_CMP_LOSS}, {bounds}")
+    del cpu_f32
     torch.cuda.empty_cache()
 
 
-def _planted_faults(torch, VK, FK, model, master, batches, names: list,
-                    cpu_grads: list) -> None:
-    """The f32 card round again with each TRAIN_FAULTS fault planted in
-    the backward kernel's output (the launch runs, its dq, dk or dv is
-    then scaled): the per-leaf check must refuse the faulted projection
-    of every layer."""
-    real = FK.flash_attention_bwd
-    for label, (which, scale, proj) in TRAIN_FAULTS.items():
-        def faulty(*a, which=which, scale=scale, **k):
+def _planted_faults(torch, VK, model, master, batches, names: list,
+                    cpu_grads: list, faults: dict, label: str) -> None:
+    """The f32 card round again with each fault of ``faults`` planted in
+    a backward kernel's output (``{label: (module, wrapper name, output
+    index, scale, leaf suffix, layers)}``: the launch runs, that output is
+    then scaled): the per-leaf check must refuse the faulted leaf of every
+    one of its ``layers`` layers."""
+    for fault, (mod, fn, which, scale, leaf, layers) in faults.items():
+        real = getattr(mod, fn)
+
+        def faulty(*a, which=which, scale=scale, real=real, **k):
             out = list(real(*a, **k))
             out[which] = out[which] * scale
             return tuple(out)
-        FK.flash_attention_bwd = faulty
+        setattr(mod, fn, faulty)
         try:
             run = _cmp_round(torch, VK, model, master, batches, "cuda")
         finally:
-            FK.flash_attention_bwd = real
+            setattr(mod, fn, real)
         rel, _ = _leaf_diffs(torch, master.spec, run["grads"], cpu_grads)
-        hit = [k for k, n in enumerate(names) if n.endswith(f"/attn/{proj}")]
+        hit = [k for k, n in enumerate(names) if n.endswith(f"/{leaf}")]
         caught = [n for k, n in enumerate(names) if rel[k] > TRAIN_CMP_LEAF]
-        check(len(hit) == CMP_LAYERS
+        check(len(hit) == layers
               and all(rel[k] > TRAIN_CMP_LEAF for k in hit),
-              f"train planted fault {label}: {proj} not refused "
+              f"{label} planted fault {fault}: {leaf} not refused "
               f"({[rel[k] for k in hit]})")
-        say(f"train planted fault {label}: refused; {proj} per-leaf "
+        say(f"{label} planted fault {fault}: refused; {leaf} per-leaf "
             f"{[round(rel[k], 6) for k in hit]} (bound {TRAIN_CMP_LEAF}); "
             f"{len(caught)} of {len(names)} leaves past the bound")
         del run
@@ -3833,6 +3928,234 @@ def serve_moe_on_card(torch, VK) -> None:
                       {"flash_attention": MIXTRAL_LAYERS},
                       ATTN_ROUTES, prompt=MIXTRAL_CMP_PROMPT,
                       steps=MOE_CMP_STEPS)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: rwkv6 and jamba VC training on the card
+# ---------------------------------------------------------------------------
+
+# B14's and B15's backward kernels against their plain backwards
+# (ref.wkv6_bwd / ref.mamba_scan_bwd), per element: |kernel - plain| <=
+# atol + rtol |plain|, atol SCAN_BWD_TOL[0] times the output's largest
+# |plain| (f32 sums in other orders: the states from the forward's chunk
+# checkpoints, the row and column sums by butterflies and warps; the
+# cuda tests' bound); du in bf16 within SCAN_BWD_BF16 (one bf16 ulp)
+SCAN_BWD_TOL, SCAN_BWD_BF16 = (1e-5, 1e-4), 2e-2
+# B14's backward: (b, h, T, hd, share of exact-0 decays); [b, T, h, hd]
+# strided views (the model's), the training shape (rwkv6-1.6b, 8 x 128)
+# first and timed
+WKV_BWD_SHAPES = {
+    "a rwkv6 train": (8, 32, 128, 64, 0.0),
+    "b T=63 hd16": (2, 4, 63, 16, 0.3), "c T=128 hd16": (2, 4, 128, 16, 0.0),
+    "d T=300 hd16": (2, 4, 300, 16, 0.3), "e T=63": (2, 4, 63, 64, 0.3),
+    "f T=300": (2, 4, 300, 64, 0.3),
+}
+# B15's backward: (b, T, di, ds, u dtype); B / C column views of an
+# x_proj output; the training shape (jamba, 8 x 128, bf16) first and timed
+SCAN_BWD_SHAPES = {
+    "a jamba train": (8, 128, 8192, 16, "bfloat16"),
+    "b ds16 ragged f32": (2, 63, 200, 16, "float32"),
+    "c ds16 ragged bf16": (2, 300, 100, 16, "bfloat16"),
+    "d ds4 f32": (2, 37, 130, 4, "float32"),
+    "e ds4 bf16": (2, 128, 37, 4, "bfloat16"),
+}
+# 15b: rwkv6-1.6b at full width cut to 12 of its 24 layers; 14b's
+# launcher defaults, rounds, preemption and kill
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 12, 934_129_664
+# 15c: jamba-v0.1 at full width, blocks (0, 2, 4) of its period (mamba +
+# dense twice, attention + dense), 2 rounds
+JAMBA_TRAIN_BLOCKS, JAMBA_TRAIN_PARAMS = (0, 2, 4), 1_317_941_248
+JAMBA_TRAIN_ROUNDS = 2
+# 15d: card vs CPU, rwkv6 layers 0-1 and jamba blocks (2, 4), one island
+# as 14c; f32 as 14c; bf16: the loss as 14c, and each leaf's
+# gradient no farther from the CPU's f32 gradient than TRAIN_CMP_NOISE
+# times the CPU's own bf16 gradient is (rwkv6's bf16 gradients of the
+# small leaves, u above all, carry bf16's rounding: card vs CPU in bf16
+# 0.15 at u, 1.4% on the global norm, where f32 agrees to 2.9e-5)
+JAMBA_TRAIN_CMP_BLOCKS, TRAIN_CMP_NOISE = (2, 4), 2.0
+
+
+def _bwd_check(torch, got, want, names, label: str) -> float:
+    """Each of ``got`` against ``want`` per element (SCAN_BWD_TOL; a bf16
+    output within SCAN_BWD_BF16); returns the max abs err."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype
+              and bool(torch.isfinite(g).all()),
+              f"{label}: d{name} {g.dtype} {tuple(g.shape)}, not finite or "
+              f"not {w.dtype} {tuple(w.shape)}")
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        atol = SCAN_BWD_TOL[0] * max(float(w.abs().max()), 1.0)
+        lim = atol + SCAN_BWD_TOL[1] * w.abs()
+        err = float(d.max())
+        check(bool((d <= lim).all()), f"{label}: d{name} max abs err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def wkv6_bwd_parity(torch, WK, R) -> dict:
+    """Phase 15a: B14's backward (csrc/wkv6_bwd.cu) from the forward's
+    chunk states against ``ref.wkv6_bwd`` at WKV_BWD_SHAPES, each run
+    twice, bit-equal; then timed at the training shape beside the plain
+    backward and the bound.  Returns the record of the training shape."""
+    dev = torch.device("cuda")
+    out = None
+    for name, (b, h, T, hd, zeros) in WKV_BWD_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(T + hd)
+        rnd = lambda: torch.randn(b, T, h, hd, generator=g, device=dev)
+        r, k, v = rnd() * 0.4, rnd() * 0.4, rnd()
+        w = torch.sigmoid(rnd()) * 0.6 + 0.35
+        if zeros:
+            hit = torch.rand(b, T, h, hd, generator=g, device=dev) < zeros
+            w = torch.where(hit, torch.zeros((), device=dev), w)
+        r, k, v, w = (t.transpose(1, 2) for t in (r, k, v, w))
+        u = torch.randn(h, hd, generator=g, device=dev) * 0.2
+        do = torch.randn(b, h, T, hd, generator=g, device=dev)
+        states = WK.chunk_states(r)
+        WK.wkv6(r, k, v, w, u, states=states)
+        got = WK.wkv6_bwd(r, k, v, w, u, do, states)
+        again = WK.wkv6_bwd(r, k, v, w, u, do, states)
+        torch.cuda.synchronize()
+        label = f"B14 bwd {name} [{b},{h},{T},{hd}]"
+        check(all(bits_equal(torch, x, y) for x, y in zip(got, again)),
+              f"{label}: two runs differ")
+        err = _bwd_check(torch, got, R.wkv6_bwd(r, k, v, w, u, do), "rkvwu",
+                         label)
+        say(f"{label} f32, {zeros:.0%} zero decays: max abs err {err:.3g} "
+            f"vs the plain backward; bit-equal run to run")
+        del got, again
+        if out is None:
+            n = b * h * T * hd
+            nch = -(-T // WK.CHUNK)
+            nbytes = 4 * (9 * n + b * h * nch * hd * hd + 2 * h * hd)
+            ops = 12 * n * hd      # 6 FMAs per (i, j) and step
+            bound, by = bound_ms(nbytes, ops)
+            out = {"max_abs_err": err, "bound_ms": bound, "bound_by": by,
+                   "ms": KB.cuda_ms(lambda: WK.wkv6_bwd(
+                       r, k, v, w, u, do, states), 10),
+                   "plain_ms": KB.cuda_ms(lambda: R.wkv6_bwd(
+                       r, k, v, w, u, do), 1),
+                   "library_ms": None}   # no PyTorch call computes it
+            fwd = KB.cuda_ms(lambda: WK.wkv6(r, k, v, w, u, states=states),
+                             10)
+            say(f"{label} timed: kernel {out['ms']:.4f} ms (the forward "
+                f"writing its chunk states {fwd:.4f} ms), plain "
+                f"{out['plain_ms']:.4f} ms, library none, bound "
+                f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.3f} GFLOP), {100 * bound / out['ms']:.1f}% of "
+                f"it")
+        del r, k, v, w, u, do, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba_scan_bwd_parity(torch, MK, R) -> dict:
+    """Phase 15a: B15's backward (csrc/mamba_scan_bwd.cu) from the
+    forward's chunk states against ``ref.mamba_scan_bwd`` at
+    SCAN_BWD_SHAPES, each run twice, bit-equal; then timed at the
+    training shape beside the plain backward and the bound.  Returns the
+    record of the training shape."""
+    dev = torch.device("cuda")
+    exp_rate = sfu_exps_per_s(torch)
+    out = None
+    for name, (b, T, di, ds, dt) in SCAN_BWD_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(T + di + ds)
+        rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+        dtype = getattr(torch, dt)
+        u = (rnd(b, T, di) * 0.4).to(dtype)
+        dts = torch.nn.functional.softplus(rnd(b, T, di))
+        xdbc = rnd(b, T, 256 + 2 * ds) * 0.4
+        B, C = xdbc[..., 256:256 + ds], xdbc[..., 256 + ds:]
+        A = -torch.exp(rnd(di, ds) * 0.3)
+        D = rnd(di)
+        dy = rnd(b, T, di).to(dtype)
+        args = (u, dts, B, C, A, D)
+        h_ck = MK.chunk_states(u, ds)
+        MK.mamba_scan(*args, h_ck=h_ck)
+        got = MK.mamba_scan_bwd(*args, dy, h_ck)
+        again = MK.mamba_scan_bwd(*args, dy, h_ck)
+        torch.cuda.synchronize()
+        label = f"B15 bwd {name} [{b},{T},{di}] ds {ds} u {dt}"
+        check(all(bits_equal(torch, x, y) for x, y in zip(got, again)),
+              f"{label}: two runs differ")
+        want = R.mamba_scan_bwd(*args, dy)
+        names = ["u", "dt", "B", "C", "A", "D"]
+        err = 0.0
+        if dtype == torch.bfloat16:
+            d = (got[0].float() - want[0].float()).abs()
+            err = float(d.max())
+            check(bool((d <= SCAN_BWD_BF16 * (1 + want[0].float().abs()))
+                       .all()), f"{label}: du (bf16) max abs err {err}")
+            got, want, names = got[1:], want[1:], names[1:]
+        err = max(err, _bwd_check(torch, got, want, names, label))
+        say(f"{label}: max abs err {err:.3g} vs the plain backward; "
+            f"bit-equal run to run")
+        del got, again, want
+        if out is None:
+            n, es = b * T * di, u.element_size()
+            nch = -(-T // MK.CHUNK)
+            nbytes = (3 * es * n + 4 * 2 * n + 4 * 4 * b * T * ds
+                      + 4 * b * nch * di * ds + 4 * 2 * (di * ds + di))
+            t_mem = nbytes / KB.HBM_BYTES_PER_S
+            t_exp = n * ds / exp_rate          # a_t, once a state-step
+            t_fma = 20 * n * ds / F32_OPS_PER_S   # ~10 FMAs a state-step
+            bound = 1e3 * max(t_mem, t_exp, t_fma)
+            out = {"max_abs_err": err, "bound_ms": bound,
+                   "bound_by": "bytes" if t_mem >= max(t_exp, t_fma)
+                   else "operations",
+                   "ms": KB.cuda_ms(lambda: MK.mamba_scan_bwd(
+                       *args, dy, h_ck), 10),
+                   "plain_ms": KB.cuda_ms(lambda: R.mamba_scan_bwd(
+                       *args, dy), 1),
+                   "library_ms": None}   # no PyTorch call computes it
+            fwd = KB.cuda_ms(lambda: MK.mamba_scan(*args, h_ck=h_ck), 10)
+            say(f"{label} timed: kernel {out['ms']:.4f} ms (the forward "
+                f"writing its chunk states {fwd:.4f} ms), plain "
+                f"{out['plain_ms']:.4f} ms, library none, bound "
+                f"{bound:.4f} ms ({out['bound_by']}: {nbytes / 1e6:.1f} MB "
+                f"{1e3 * t_mem:.4f} ms, {n * ds / 1e9:.3f} G exps "
+                f"{1e3 * t_exp:.4f} ms, {20 * n * ds / 1e9:.2f} GFLOP "
+                f"{1e3 * t_fma:.4f} ms), {100 * bound / out['ms']:.1f}% of "
+                f"it")
+        del args, u, dts, xdbc, B, C, dy, h_ck
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_rwkv_jamba(torch, VK, tmp: Path, WK, MK, phases) -> tuple:
+    """Phases 15b-15d: rwkv6-1.6b at full width cut to RWKV_TRAIN_LAYERS
+    layers trained as 14b (4 rounds, island 0 preempted in round 2, killed
+    after round 3 and resumed bit-equal); jamba-v0.1 at full width,
+    blocks JAMBA_TRAIN_BLOCKS, JAMBA_TRAIN_ROUNDS rounds; then each at
+    full width and 2 layers card vs CPU as 14c, with planted faults in
+    B14's backward (dk, dw) and B15's (dC, dA).  Returns the launches of
+    15b and 15c."""
+    phases.start("15b")
+    layers = RWKV_TRAIN_LAYERS
+    rwkv = train_full_width(torch, VK, tmp, depth_cut("rwkv6-1.6b", layers),
+                            "rwkv train", RWKV_TRAIN_PARAMS,
+                            {"wkv6": 2 * layers, "wkv6_bwd": layers})
+    phases.start("15c")
+    jamba = train_full_width(
+        torch, VK, tmp, jamba_config(JAMBA_TRAIN_BLOCKS), "jamba train",
+        JAMBA_TRAIN_PARAMS, {"mamba_scan": 4, "mamba_scan_bwd": 2,
+                             "flash_attention": 2, "flash_attention_bwd": 1},
+        attn=2, rounds=JAMBA_TRAIN_ROUNDS, kill=None)
+    phases.start("15d")
+    train_card_vs_cpu(
+        torch, VK, depth_cut("rwkv6-1.6b"), "rwkv train card vs cpu",
+        {"wkv6": 2 * CMP_LAYERS, "wkv6_bwd": CMP_LAYERS},
+        {"dk = 0": (WK, "wkv6_bwd", 1, 0.0, "rwkv_tm/wk", CMP_LAYERS),
+         "dw x 1.01": (WK, "wkv6_bwd", 3, 1.01, "rwkv_tm/w0", CMP_LAYERS)})
+    train_card_vs_cpu(
+        torch, VK, jamba_config(JAMBA_TRAIN_CMP_BLOCKS),
+        "jamba train card vs cpu",
+        {"mamba_scan": 2, "mamba_scan_bwd": 1, "flash_attention": 2,
+         "flash_attention_bwd": 1},
+        {"dC = 0": (MK, "mamba_scan_bwd", 3, 0.0, "mamba/x_proj", 1),
+         "dA x 1.01": (MK, "mamba_scan_bwd", 4, 1.01, "mamba/a_log", 1)})
+    return rwkv, jamba
 
 
 def _leaves(node):
@@ -4092,13 +4415,31 @@ def main() -> int:
     numbers["flash_attention_bwd"] = attention_bwd_parity(torch, np, FK,
                                                           R)          # 14a
     phases.start("14b")
-    train_counts = train_full_width(torch, VK, tmp)                   # 14b
+    train_counts = train_full_width(                                  # 14b
+        torch, VK, tmp, depth_cut("internlm2-1.8b", TRAIN_LAYERS), "train",
+        TRAIN_PARAMS, {"flash_attention": 2 * TRAIN_LAYERS,
+                       "flash_attention_bwd": TRAIN_LAYERS},
+        attn=2 * TRAIN_LAYERS)
     phases.start("14c")
-    train_card_vs_cpu(torch, VK)                                      # 14c
+    train_card_vs_cpu(                                                # 14c
+        torch, VK, depth_cut("internlm2-1.8b"), "train card vs cpu",
+        {"flash_attention": 2 * CMP_LAYERS, "flash_attention_bwd": CMP_LAYERS},
+        {k: (FK, "flash_attention_bwd", i, sc, leaf, CMP_LAYERS)
+         for k, (i, sc, leaf) in TRAIN_FAULTS.items()},
+        (TRAIN_CMP_GNORM, TRAIN_CMP_LEAF_BF16))
     phases.start("14d")
     serve_moe_on_card(torch, VK)                                      # 14d
 
-    # ---- 15. result lines -------------------------------------------------
+    # ---- 15. rwkv6 and jamba VC training: B14's and B15's backwards ----
+    phases.start("15a")
+    say_ptxas(build, "wkv6_bwd", "B14 backward")
+    say_ptxas(build, "mamba_scan_bwd", "B15 backward")
+    numbers["wkv6_bwd"] = wkv6_bwd_parity(torch, WK, R)               # 15a
+    numbers["mamba_scan_bwd"] = mamba_scan_bwd_parity(torch, MK, R)
+    rwkv_train_counts, jamba_train_counts = train_rwkv_jamba(     # 15b-d
+        torch, VK, tmp, WK, MK, phases)
+
+    # ---- 16. result lines -------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
@@ -4106,7 +4447,9 @@ def main() -> int:
                    "flash_attention": serve_counts,      # 6b
                    "flash_attention_bwd": train_counts,  # 14b
                    "wkv6": rwkv_counts,                  # 7b
+                   "wkv6_bwd": rwkv_train_counts,        # 15b
                    "mamba_scan": jamba_counts,           # 8b
+                   "mamba_scan_bwd": jamba_train_counts,  # 15c
                    "blocked_topk_stats": pod_counts,     # 9c
                    "threshold_sparsify_exact": pod_counts,
                    "vc_asgd_dc_lerp_flat": bench_counts,  # 10b

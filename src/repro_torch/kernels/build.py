@@ -30,7 +30,8 @@ SOURCES = {name: CSRC / f"{name}.cu"
                         "sparse_pack", "flash_attention",
                         "flash_attention_sm90", "flash_attention_bwd",
                         "flash_attention_bwd_sm90",
-                        "wkv6", "mamba_scan")}
+                        "wkv6", "wkv6_bwd", "mamba_scan",
+                        "mamba_scan_bwd")}
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _libs: Dict[str, ctypes.CDLL] = {}

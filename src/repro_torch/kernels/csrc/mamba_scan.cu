@@ -90,6 +90,7 @@ struct Params {
   const float* D;              // [di]
   void* y;                     // [b, T, di] contiguous, u's dtype
   float* h_out;                // [b, di, ds]
+  float* h_ck;                 // [b, chunks, di, ds] or null
   int64_t st[8];               // (b, t) strides of u, dt, B, C
   int di, seq;
   int rows16;                  // u, dt and y rows in 16-byte pieces
@@ -242,6 +243,17 @@ mamba_scan_fwd(const Params P) {
   stage(0, 0);
   for (int ci = 0; ci < chunks; ++ci) {
     const int buf = ci & 1, t0 = ci * kChunk;
+    // under autograd: the state at the start of each chunk, for the
+    // backward (csrc/mamba_scan_bwd.cu)
+    if (P.h_ck != nullptr && live) {
+      float4* hc = reinterpret_cast<float4*>(
+          P.h_ck + ((static_cast<int64_t>(bi) * chunks + ci) * P.di + d) * DS
+          + kSt * q);
+#pragma unroll
+      for (int v = 0; v < kSt / 4; ++v)
+        hc[v] = make_float4(h[4 * v], h[4 * v + 1], h[4 * v + 2],
+                            h[4 * v + 3]);
+    }
     if (ci + 1 < chunks)
       stage(buf ^ 1, t0 + kChunk);            // in flight during compute
     else
@@ -348,13 +360,16 @@ const char* mamba_scan_error_string(int code) {
 
 // strides: 8 int64 in elements, (batch, time) of u, dt, B, C.  u and y:
 // 0 f32, 1 bf16; dt, B, C, A, D and h_out are f32; y and h_out fresh
-// (16-byte aligned).  ds in {4, 16} (jamba's reduced and published
-// d_state); other values return cudaErrorInvalidValue (the wrapper
-// refuses them first).
-int mamba_scan_forward(const void* u, const float* dt, const float* B,
-                       const float* C, const float* A, const float* D,
-                       void* y, float* h_out, const int64_t* strides,
-                       int bf16, int b, int T, int di, int ds, void* stream) {
+// (16-byte aligned).  h_ck: null, or [b, ceil(T / 16), di, ds] f32
+// (16-byte aligned) that the launch fills with the state at the start of
+// each chunk (what the backward, csrc/mamba_scan_bwd.cu, steps forward
+// from).  ds in {4, 16} (jamba's reduced and published d_state); other
+// values return cudaErrorInvalidValue (the wrapper refuses them first).
+int mamba_scan_forward_ck(const void* u, const float* dt, const float* B,
+                          const float* C, const float* A, const float* D,
+                          void* y, float* h_out, float* h_ck,
+                          const int64_t* strides, int bf16, int b, int T,
+                          int di, int ds, void* stream) {
   Params p;
   p.u = u;
   p.dt = dt;
@@ -364,6 +379,7 @@ int mamba_scan_forward(const void* u, const float* dt, const float* B,
   p.D = D;
   p.y = y;
   p.h_out = h_out;
+  p.h_ck = h_ck;
   for (int i = 0; i < 8; ++i) p.st[i] = strides[i];
   p.di = di;
   p.seq = T;
@@ -378,7 +394,8 @@ int mamba_scan_forward(const void* u, const float* dt, const float* B,
   p.bc16 = aligned16(B) && aligned16(C) && (strides[4] * 4) % 16 == 0 &&
            (strides[5] * 4) % 16 == 0 && (strides[6] * 4) % 16 == 0 &&
            (strides[7] * 4) % 16 == 0;
-  if (reinterpret_cast<uintptr_t>(h_out) % 16)
+  if (reinterpret_cast<uintptr_t>(h_out) % 16 ||
+      reinterpret_cast<uintptr_t>(h_ck) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ds) {
@@ -386,6 +403,15 @@ int mamba_scan_forward(const void* u, const float* dt, const float* B,
     case 16: return launch_ds<16>(p, bf16, b, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// mamba_scan_forward_ck without the chunk states (what serving launches)
+int mamba_scan_forward(const void* u, const float* dt, const float* B,
+                       const float* C, const float* A, const float* D,
+                       void* y, float* h_out, const int64_t* strides,
+                       int bf16, int b, int T, int di, int ds, void* stream) {
+  return mamba_scan_forward_ck(u, dt, B, C, A, D, y, h_out, nullptr, strides,
+                               bf16, b, T, di, ds, stream);
 }
 
 }  // extern "C"

@@ -112,6 +112,7 @@ struct Params {
   const float* u;              // [h, hd]
   void* out;
   float* s_out;                // [b, h, hd, hd]
+  float* states;               // [b * h, chunks, hd, hd] or null
   int64_t st[15];              // (b, h, t) strides of r, k, v, w, out
   int h, seq;
 };
@@ -582,6 +583,19 @@ wkv6_chunked(const Params P) {
   // the pipeline, two barriers a chunk: [2 and 3a of chunk c] | [3b of
   // chunk c, 1 of chunk c+1]; inputs two chunks ahead in registers
   const int chunks = (P.seq + C - 1) / C;
+  // under autograd: the state at the start of each chunk, for the
+  // backward (csrc/wkv6_bwd.cu); chunk 0 starts from 0
+  float* const ck = P.states == nullptr ? nullptr
+      : P.states + static_cast<int64_t>(bh) * chunks * HD * HD;
+  auto checkpoint = [&](int ch, bool zero) {
+#pragma unroll
+    for (int a = 0; a < IR; ++a)
+#pragma unroll
+      for (int c = 0; c < JE; ++c)
+        ck[(static_cast<int64_t>(ch) * HD + ig * IR + a) * HD + je * JE + c] =
+            zero ? 0.0f : S[a][c];
+  };
+  if (ck != nullptr) checkpoint(0, true);
   fetch(0);
   stash(0);
   __syncthreads();
@@ -591,6 +605,7 @@ wkv6_chunked(const Params P) {
   for (int ch = 0; ch < chunks; ++ch) {
     const int buf = ch & 1;
     phase2(buf);
+    if (ck != nullptr && ch + 1 < chunks) checkpoint(ch + 1, false);
     phase3a(buf);
     if (ch + 1 < chunks) stash(buf ^ 1);
     __syncthreads();
@@ -639,13 +654,16 @@ const char* wkv6_error_string(int code) {
 
 // strides: 15 int64 in elements, (batch, head, time) of r, k, v, w, out.
 // dtype of r, k, v, w and out: 0 f32, 1 bf16; u and s_out are f32.
-// hd in {16, 64} (rwkv6's reduced and published head dims); other values
-// return cudaErrorInvalidValue (the wrapper refuses them first).  The
-// grid is b * h blocks.
-int wkv6_forward(const void* r, const void* k, const void* v, const void* w,
-                 const float* u, void* out, float* s_out,
-                 const int64_t* strides, int bf16, int b, int h, int T,
-                 int hd, void* stream) {
+// states: null, or [b * h, ceil(T / 16), hd, hd] f32 that the launch
+// fills with the state at the start of each chunk (what the backward,
+// csrc/wkv6_bwd.cu, steps forward from).  hd in {16, 64} (rwkv6's
+// reduced and published head dims); other values return
+// cudaErrorInvalidValue (the wrapper refuses them first).  The grid is
+// b * h blocks.
+int wkv6_forward_states(const void* r, const void* k, const void* v,
+                        const void* w, const float* u, void* out,
+                        float* s_out, float* states, const int64_t* strides,
+                        int bf16, int b, int h, int T, int hd, void* stream) {
   Params p;
   p.r = r;
   p.k = k;
@@ -654,6 +672,7 @@ int wkv6_forward(const void* r, const void* k, const void* v, const void* w,
   p.u = u;
   p.out = out;
   p.s_out = s_out;
+  p.states = states;
   for (int i = 0; i < 15; ++i) p.st[i] = strides[i];
   p.h = h;
   p.seq = T;
@@ -664,6 +683,15 @@ int wkv6_forward(const void* r, const void* k, const void* v, const void* w,
     case 64: return launch_hd<64>(p, bf16, blocks, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// wkv6_forward_states without the chunk states (what serving launches)
+int wkv6_forward(const void* r, const void* k, const void* v, const void* w,
+                 const float* u, void* out, float* s_out,
+                 const int64_t* strides, int bf16, int b, int h, int T,
+                 int hd, void* stream) {
+  return wkv6_forward_states(r, k, v, w, u, out, s_out, nullptr, strides,
+                             bf16, b, h, T, hd, stream);
 }
 
 }  // extern "C"

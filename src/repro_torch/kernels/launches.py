@@ -34,11 +34,14 @@ KERNELS = (
     "flash_attention",          # B13, csrc/flash_attention.cu
     "flash_attention_bwd",      # B13's backward, csrc/flash_attention_bwd.cu
     "wkv6",                     # B14, csrc/wkv6.cu
+    "wkv6_bwd",                 # B14's backward, csrc/wkv6_bwd.cu
     "mamba_scan",               # B15, csrc/mamba_scan.cu
+    "mamba_scan_bwd",           # B15's backward, csrc/mamba_scan_bwd.cu
 )
 _CSRC = "src/repro_torch/kernels/csrc/"
 # each kernel's source in the repo, and the Pallas kernel it replaces (the
-# backward of B13: the reference code whose autodiff it replaces)
+# backwards of B13, B14 and B15: the reference code whose autodiff each
+# replaces)
 SOURCE = {
     "vc_asgd_lerp_flat": _CSRC + "vc_asgd_update.cu",
     "assimilate_flat": _CSRC + "vc_asgd_update.cu",
@@ -55,7 +58,9 @@ SOURCE = {
     "flash_attention": _CSRC + "flash_attention.cu",
     "flash_attention_bwd": _CSRC + "flash_attention_bwd.cu",
     "wkv6": _CSRC + "wkv6.cu",
+    "wkv6_bwd": _CSRC + "wkv6_bwd.cu",
     "mamba_scan": _CSRC + "mamba_scan.cu",
+    "mamba_scan_bwd": _CSRC + "mamba_scan_bwd.cu",
 }
 REPLACES = {
     "vc_asgd_lerp_flat": "src/repro/kernels/vc_asgd_update.py:49",
@@ -75,7 +80,11 @@ REPLACES = {
     # jnp blocked attention with XLA; the backward replaces that autodiff
     "flash_attention_bwd": "src/repro/models/layers.py:186",
     "wkv6": "src/repro/kernels/rwkv6_scan.py:19",
+    # the reference's training differentiates its chunked time mix and
+    # chunked scan (jnp) with XLA; the two backwards replace that autodiff
+    "wkv6_bwd": "src/repro/models/rwkv.py:132",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:20",
+    "mamba_scan_bwd": "src/repro/models/mamba.py:84",
 }
 # kernels with more than one hand-written route: route -> its source
 ROUTES = {

@@ -6,11 +6,10 @@ it does not take); a CPU tensor goes to the plain PyTorch version in
 never touches the kernel build.
 
 Under autograd (grad mode on and an input that requires grad) on the
-card, attention goes through ``FlashAttention`` (B13's forward, then its
-hand-written backward kernel), and WKV6 and the selective scan raise:
-their wrappers return outputs without a ``grad_fn``, and training rwkv6
-and jamba is queued (ROADMAP.md).  On the CPU the plain versions are
-differentiated by autograd.
+card, attention, WKV6 and the selective scan go through their autograd
+Functions (``FlashAttention``, ``WKV6``, ``MambaScan``): the forward
+kernel, then the hand-written backward kernel.  On the CPU the plain
+versions are differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -148,15 +147,6 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _refuse_grad(kernel: str, family: str, *tensors) -> None:
-    if _needs_grad(*tensors):
-        raise RuntimeError(
-            f"{kernel} has no backward on the card: its wrapper's outputs "
-            f"carry no grad_fn, so training {family} is refused (queued in "
-            f"ROADMAP.md: {family} training); call it under torch.no_grad() "
-            f"to serve")
-
-
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     softcap=None):
     """q [b, h, sq, hd], k / v [b, kvh, skv, hd] -> [b, h, sq, hd]:
@@ -179,9 +169,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 def wkv6(r, k, v, w, u):
     """r / k / v / w [b, h, T, hd], u [h, hd] -> (out [b, h, T, hd] in r's
     dtype, final state [b, h, hd, hd] f32): the WKV6 recurrence from a
-    zero state — ONE launch.  Raises under autograd on the card."""
+    zero state — ONE launch.  Under autograd on the card: ``WKV6`` (the
+    same launch, also writing the chunk states; the backward kernel in
+    backward; f32 only)."""
     if _on_cuda(r):
-        _refuse_grad("wkv6", "rwkv6", r, k, v, w, u)
+        if _needs_grad(r, k, v, w, u):
+            return _rw.WKV6.apply(r, k, v, w, u)
         return _rw.wkv6(r, k, v, w, u)
     return R.wkv6(r, k, v, w, u)
 
@@ -189,9 +182,11 @@ def wkv6(r, k, v, w, u):
 def mamba_scan(u, dt, B, C, A, D):
     """u / dt [b, T, di], B / C [b, T, ds], A [di, ds], D [di] -> (y
     [b, T, di] in u's dtype, final state h_T [b, di, ds] f32): the
-    selective scan from a zero state — ONE launch.  Raises under autograd
-    on the card."""
+    selective scan from a zero state — ONE launch.  Under autograd on the
+    card: ``MambaScan`` (the same launch, also writing the chunk states;
+    the backward kernel in backward)."""
     if _on_cuda(u):
-        _refuse_grad("mamba_scan", "jamba", u, dt, B, C, A, D)
+        if _needs_grad(u, dt, B, C, A, D):
+            return _ms.MambaScan.apply(u, dt, B, C, A, D)
         return _ms.mamba_scan(u, dt, B, C, A, D)
     return R.mamba_scan(u, dt, B, C, A, D)

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the flat-bus updates and
 DC-ASGD's corrected lerp, the two passes of the blocked top-k and the
 threshold pass, the int8 codec, the sparse-body pack and the fused
-quantize + pack, attention, the WKV6 recurrence and the selective scan):
-what ``ops`` runs for CPU tensors and what ``chip_smoke.py`` holds each
-CUDA kernel against.
+quantize + pack, attention, the WKV6 recurrence and the selective scan,
+and the backwards of attention and of the two scans): what ``ops`` runs
+for CPU tensors and what ``chip_smoke.py`` holds each CUDA kernel
+against.
 
 Each mirrors the reference's arithmetic operation by operation — separate
 f32 multiplies and adds (eager PyTorch fuses nothing, so there is no FMA),
@@ -299,6 +300,50 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return torch.stack(outs, dim=2).to(r.dtype), S
 
 
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, do: torch.Tensor):
+    """The gradients of ``wkv6``'s out (not of its final state) against
+    ``do`` [b, h, T, hd], by the explicit reverse recurrence the backward
+    kernel computes, all in f32.  With S_{t-1} the state before step t
+    and G_t the gradient w.r.t. S_t (G_{T-1} = 0,
+    G_{t-1} = w_t G_t + r_t do_t^T, row-scaled):
+
+        dr_t = (S_{t-1} + u k_t v_t^T) do_t
+        dk_t = (G_t + u r_t do_t^T) v_t
+        dv_t = (G_t + u r_t do_t^T)^T k_t
+        dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+        du = sum_{b,t} r_t k_t (v_t . do_t)
+
+    The states are stepped forward, never recovered by dividing by w (a
+    decay of 0 leaves nothing to divide).  Returns (dr, dk, dv, dw
+    [b, h, T, hd] in r's dtype, du [h, hd] f32)."""
+    b, h, T, hd = r.shape
+    rf, kf, vf, wf, dof = (t.to(_F32) for t in (r, k, v, w, do))
+    uf = u.to(_F32)[None, :, :, None]                   # [1, h, hd, 1]
+    S = torch.zeros(b, h, hd, hd, dtype=_F32, device=r.device)
+    prev = []
+    for t in range(T):
+        prev.append(S)
+        S = (wf[:, :, t, :, None] * S
+             + kf[:, :, t, :, None] * vf[:, :, t, None, :])
+    G = torch.zeros_like(S)
+    grads = [torch.empty(b, h, T, hd, dtype=_F32, device=r.device)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros(b, h, hd, dtype=_F32, device=r.device)
+    for t in range(T - 1, -1, -1):
+        rt, kt, vt, dot = (x[:, :, t] for x in (rf, kf, vf, dof))
+        s_hat = prev[t] + uf * (kt[..., :, None] * vt[..., None, :])
+        g_hat = G + uf * (rt[..., :, None] * dot[..., None, :])
+        dr[:, :, t] = (s_hat * dot[..., None, :]).sum(-1)
+        dk[:, :, t] = (g_hat * vt[..., None, :]).sum(-1)
+        dv[:, :, t] = (g_hat * kt[..., :, None]).sum(-2)
+        dw[:, :, t] = (G * prev[t]).sum(-1)
+        du = du + rt * kt * (vt * dot).sum(-1, keepdim=True)
+        G = wf[:, :, t, :, None] * G + rt[..., :, None] * dot[..., None, :]
+    return (*(g.to(r.dtype) for g in grads), du.sum(0))
+
+
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor, A: torch.Tensor, D: torch.Tensor):
     """The selective scan, step by step from h = 0, all in f32 — the
@@ -316,3 +361,52 @@ def mamba_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         h = a_bar * h + (dtf[:, t] * uf[:, t])[:, :, None] * Bf[:, t, None, :]
         outs.append((h * Cf[:, t, None, :]).sum(-1) + D * uf[:, t])
     return torch.stack(outs, dim=1).to(u.dtype), h
+
+
+def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                   dy: torch.Tensor):
+    """The gradients of ``mamba_scan``'s y (not of its final state)
+    against ``dy`` [b, T, di], by the explicit reverse recurrence the
+    backward kernel computes, all in f32.  With a_t = exp(dt_t A), h_{t-1}
+    the state before step t and g_t the gradient w.r.t. h_t
+    (g_t = C_t dy_t + a_{t+1} g_{t+1}, g_T = 0):
+
+        du_t  = D dy_t + dt_t sum_s g_t B_t
+        ddt_t = u_t sum_s g_t B_t + sum_s g_t A a_t h_{t-1}
+        dA    = sum_{b,t} g_t dt_t a_t h_{t-1}
+        dB_t  = sum_d g_t dt_t u_t,   dC_t = sum_d dy_t h_t
+        dD    = sum_{b,t} dy_t u_t
+
+    Returns (du in u's dtype, ddt [b, T, di], dB, dC [b, T, ds], dA
+    [di, ds], dD [di], all f32)."""
+    b, T, di = u.shape
+    A, D = A.to(_F32), D.to(_F32)
+    uf, dtf, Bf, Cf, dyf = (t.to(_F32) for t in (u, dt, B, C, dy))
+    h = torch.zeros(b, di, A.shape[1], dtype=_F32, device=u.device)
+    prev = []
+    for t in range(T):
+        prev.append(h)
+        h = (torch.exp(dtf[:, t, :, None] * A) * h
+             + (dtf[:, t] * uf[:, t])[:, :, None] * Bf[:, t, None, :])
+    du = torch.empty(b, T, di, dtype=_F32, device=u.device)
+    ddt = torch.empty_like(du)
+    dB = torch.empty(b, T, A.shape[1], dtype=_F32, device=u.device)
+    dC = torch.empty_like(dB)
+    dA = torch.zeros(b, di, A.shape[1], dtype=_F32, device=u.device)
+    carry = torch.zeros_like(h)                         # a_{t+1} g_{t+1}
+    for t in range(T - 1, -1, -1):
+        a = torch.exp(dtf[:, t, :, None] * A)
+        ht = (a * prev[t]
+              + (dtf[:, t] * uf[:, t])[:, :, None] * Bf[:, t, None, :])
+        g = Cf[:, t, None, :] * dyf[:, t, :, None] + carry
+        gB = (g * Bf[:, t, None, :]).sum(-1)
+        gah = g * a * prev[t]
+        du[:, t] = D * dyf[:, t] + dtf[:, t] * gB
+        ddt[:, t] = uf[:, t] * gB + (gah * A).sum(-1)
+        dA = dA + gah * dtf[:, t, :, None]
+        dB[:, t] = (g * (dtf[:, t] * uf[:, t])[:, :, None]).sum(1)
+        dC[:, t] = (ht * dyf[:, t, :, None]).sum(1)
+        carry = a * g
+    dD = (dyf * uf).sum((0, 1))
+    return du.to(u.dtype), ddt, dB, dC, dA.sum(0), dD

@@ -121,8 +121,9 @@ def assimilate_flat(server_buf: torch.Tensor, islands_buf: torch.Tensor,
 def redistribute_flat(server_buf: torch.Tensor, n_pods: int) -> torch.Tensor:
     """Step-3 redistribution on the bus: server [N] -> islands [n_pods, N],
     every island restarting from the server snapshot (a copy each, so an
-    island trained in place never writes into the server)."""
-    return server_buf.unsqueeze(0).expand(n_pods, -1).contiguous()
+    island trained in place never writes into the server: one island
+    too, where a contiguous view would be the server's own storage)."""
+    return server_buf.repeat(n_pods, 1)
 
 
 def islands_leading_dim(islands) -> int:

@@ -126,14 +126,17 @@ def test_entry_points_raise_without_gpu(no_gpu):
                        VCASGD(alpha=0.9), cfg)
 
 
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "rwkv6-1.6b",
+                                  "jamba-v0.1-52b"])
 def test_llm_training_runs_on_the_card_unless_told(no_gpu, no_build,
-                                                   tmp_path):
+                                                   tmp_path, arch):
     """The trainer and the island round: without a GPU the default
-    raises; ``device="cpu"`` trains (the plain attention under autograd,
-    B3 and B2 as their plain versions) and launches nothing."""
+    raises; ``device="cpu"`` trains (the plain attention, WKV6 and scan
+    under autograd, B3 and B2 as their plain versions) and launches
+    nothing."""
     from repro_torch.configs import get_reduced
     from repro_torch.launch.train import train
-    cfg = get_reduced("internlm2-1.8b")
+    cfg = get_reduced(arch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(cfg, rounds=1, log=lambda m: None)
     VK.reset_launch_count()
@@ -229,6 +232,32 @@ def test_ops_route_cpu_tensors_to_plain_versions(no_build):
     assert VK.launch_count() == 0
 
 
+def test_ops_differentiate_the_plain_scans_on_the_cpu(no_build):
+    """Under autograd a CPU tensor takes the plain WKV6 and scan, which
+    autograd differentiates: the plain backwards' gradients, no launch."""
+    from repro_torch.kernels import ref as R
+    VK.reset_launch_count()
+    g = torch.Generator().manual_seed(0)
+    r, k, v, do = (torch.randn(1, 2, 5, 16, generator=g) for _ in range(4))
+    w = torch.rand(1, 2, 5, 16, generator=g)
+    u = torch.randn(2, 16, generator=g)
+    req = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    out, _ = ops.wkv6(*req)
+    got = torch.autograd.grad(out, req, do)
+    for a, b in zip(got, R.wkv6_bwd(r, k, v, w, u, do)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    x = [torch.randn(1, 5, 8, generator=g), torch.rand(1, 5, 8, generator=g),
+         torch.randn(1, 5, 4, generator=g), torch.randn(1, 5, 4, generator=g),
+         -torch.rand(8, 4, generator=g), torch.randn(8, generator=g)]
+    dy = torch.randn(1, 5, 8, generator=g)
+    req = [t.clone().requires_grad_(True) for t in x]
+    y, _ = ops.mamba_scan(*req)
+    got = torch.autograd.grad(y, req, dy)
+    for a, b in zip(got, R.mamba_scan_bwd(*x, dy)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert VK.launch_count() == 0
+
+
 def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
     s = torch.zeros(BLOCK)
     with pytest.raises(ValueError, match="CUDA"):
@@ -249,9 +278,14 @@ def test_kernel_wrappers_refuse_cpu_and_other_devices(no_build):
     r = torch.zeros(1, 2, 3, 16)
     with pytest.raises(ValueError, match="CUDA"):
         WK.wkv6(r, r, r, r, torch.zeros(2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        WK.wkv6_bwd(r, r, r, r, torch.zeros(2, 16), r, WK.chunk_states(r))
     u, bc = torch.zeros(1, 3, 8), torch.zeros(1, 3, 4)
     with pytest.raises(ValueError, match="CUDA"):
         MK.mamba_scan(u, u, bc, bc, torch.zeros(8, 4), torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        MK.mamba_scan_bwd(u, u, bc, bc, torch.zeros(8, 4), torch.zeros(8),
+                          u, MK.chunk_states(u, 4))
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         FK.flash_attention_bwd(q, q, q, q, q)
@@ -274,7 +308,8 @@ def test_build_targets_live_in_ignored_build_dir():
                                   "flash_attention_sm90",
                                   "flash_attention_bwd",
                                   "flash_attention_bwd_sm90", "wkv6",
-                                  "mamba_scan"}
+                                  "wkv6_bwd", "mamba_scan",
+                                  "mamba_scan_bwd"}
     for src in build.SOURCES.values():
         assert src.is_file() and src.suffix == ".cu"
 

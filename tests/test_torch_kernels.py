@@ -1384,16 +1384,166 @@ def test_flash_attention_bwd_wgmma_route_against_simt_and_formula(dev,
             assert float(err) <= BWD_TOL[torch.bfloat16], float(err)
 
 
-def test_scans_refuse_autograd_on_the_card(dev):
+# B14's and B15's backward kernels against their plain backwards
+# (ref.wkv6_bwd / ref.mamba_scan_bwd, explicit reverse recurrences), per
+# element: |kernel - plain| <= atol + rtol |plain| with atol scaled by
+# the tensor's largest |plain|.  Both sum in f32 in other orders (the
+# kernels' states from the forward's chunk checkpoints, their row and
+# column sums by butterflies and warps).  bf16 u: du rounded once to bf16
+# on both sides (one bf16 ulp, 2^-8 relative, as 2e-2 above).
+SCAN_BWD_TOL = (1e-5, 1e-4)
+SCAN_BWD_BF16 = 2e-2
+
+
+def _close_bwd(got, want, what, tol=SCAN_BWD_TOL):
+    for name, g, w in zip(what, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (name, g.dtype)
+        g, w = g.float(), w.float()
+        atol = tol[0] * max(float(w.abs().max()), 1.0)
+        err = (g - w).abs() - (atol + tol[1] * w.abs())
+        assert bool(torch.isfinite(g).all()), name
+        assert float(err.max()) <= 0.0, (name, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("strided", [False, True],
+                         ids=["contiguous", "strided"])
+@pytest.mark.parametrize("hd,T", [(16, 1), (16, 17), (16, 63), (64, 63),
+                                  (64, 128), (64, 300), (16, 300)])
+def test_wkv6_bwd_matches_plain_and_repeats_bit_equal(dev, hd, T, strided):
+    """B14's backward (csrc/wkv6_bwd.cu) from the forward's chunk states:
+    dr, dk, dv, dw and du within SCAN_BWD_TOL of the plain backward, with
+    30% of the decays exactly 0 at T 63 and 300; a second run bit-equal
+    (no atomics); ONE backward launch and the forward's one."""
+    r, k, v, w, u = _wkv_case(dev, 2, 3, T, hd, strided=strided, seed=T)
+    if T in (63, 300):
+        hit = torch.rand(w.shape, generator=torch.Generator(
+            device=dev).manual_seed(T), device=dev) < 0.3
+        w = torch.where(hit, torch.zeros((), device=dev), w)
+    do = _rand(dev, 2, 3, T, hd, seed=T + 1)
+    states = WK.chunk_states(r)
+    VK.reset_launch_count()
+    out, _ = WK.wkv6(r, k, v, w, u, states=states)
+    got = WK.wkv6_bwd(r, k, v, w, u, do, states)
+    again = WK.wkv6_bwd(r, k, v, w, u, do, states)
+    assert VK.launch_count("wkv6") == 1 and VK.launch_count("wkv6_bwd") == 2
+    torch.testing.assert_close(out, R.wkv6(r, k, v, w, u)[0], rtol=2e-5,
+                               atol=2e-5)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert got[0].transpose(1, 2).is_contiguous()     # [b, T, h, hd]
+    _close_bwd(got, R.wkv6_bwd(r, k, v, w, u, do), "rkvwu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("di,ds,T", [(128, 4, 37), (200, 16, 128),
+                                     (100, 16, 17), (37, 4, 300),
+                                     (64, 16, 1), (130, 4, 16)])
+def test_mamba_scan_bwd_matches_plain_and_repeats_bit_equal(dev, di, ds, T,
+                                                            dtype):
+    """B15's backward (csrc/mamba_scan_bwd.cu) from the forward's chunk
+    states, B and C as column views of an x_proj output, di no multiple of
+    a block's channels: du, ddt, dB, dC, dA, dD within SCAN_BWD_TOL of the
+    plain backward (du in bf16 within SCAN_BWD_BF16); a second run
+    bit-equal; dB and dC contiguous."""
+    u, dt, B, C, A, D = _scan_case(dev, 2, T, di, ds, dtype=dtype,
+                                   strided=True, seed=di + T)
+    D = _rand(dev, di, seed=3)
+    dy = _rand(dev, 2, T, di, dtype=dtype, seed=T)
+    h_ck = MK.chunk_states(u, ds)
+    VK.reset_launch_count()
+    MK.mamba_scan(u, dt, B, C, A, D, h_ck=h_ck)
+    got = MK.mamba_scan_bwd(u, dt, B, C, A, D, dy, h_ck)
+    again = MK.mamba_scan_bwd(u, dt, B, C, A, D, dy, h_ck)
+    assert VK.launch_count("mamba_scan") == 1
+    assert VK.launch_count("mamba_scan_bwd") == 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert got[2].is_contiguous() and got[3].is_contiguous()
+    want = R.mamba_scan_bwd(u, dt, B, C, A, D, dy)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=SCAN_BWD_BF16, atol=SCAN_BWD_BF16)
+        got, want = got[1:], want[1:]
+    _close_bwd(got, want, ["u", "dt", "B", "C", "A", "D"][-len(got):])
+
+
+def _grads(fn, args, cot):
+    req = [a.detach().clone().requires_grad_(True) for a in args]
+    out, _ = fn(*req)
+    return out, torch.autograd.grad(out, req, cot)
+
+
+@pytest.mark.parametrize("hd", WK.HEAD_DIMS)
+def test_wkv6_function_matches_autograd_of_plain(dev, hd):
+    """``ops.wkv6`` under autograd on the card (``WKV6``: the forward that
+    writes the chunk states, then the backward kernel) against autograd
+    of the plain forward, on the model's strided [b, T, h, hd] views;
+    under no_grad the serving path: one forward launch, no backward, no
+    grad_fn."""
     from repro_torch.kernels import ops
-    r = _rand(dev, 1, 2, 8, 16).requires_grad_(True)
-    w = torch.rand(1, 2, 8, 16, device=dev)
-    with pytest.raises(RuntimeError, match="rwkv6 training"):
-        ops.wkv6(r, r, r, w, torch.zeros(2, 16, device=dev))
-    u = _rand(dev, 1, 8, 16).requires_grad_(True)
-    bc = _rand(dev, 1, 8, 4)
-    with pytest.raises(RuntimeError, match="jamba training"):
-        ops.mamba_scan(u, u.abs(), bc, bc, -torch.ones(16, 4, device=dev),
-                       torch.zeros(16, device=dev))
-    with torch.no_grad():                          # serving is unchanged
-        ops.wkv6(r, r, r, w, torch.zeros(2, 16, device=dev))
+    args = _wkv_case(dev, 2, 4, 40, hd, strided=True, seed=hd)
+    do = _rand(dev, 2, 4, 40, hd, seed=7)
+    VK.reset_launch_count()
+    out, got = _grads(ops.wkv6, args, do)
+    assert VK.launch_count("wkv6") == 1 and VK.launch_count("wkv6_bwd") == 1
+    want_out, want = _grads(R.wkv6, args, do)
+    torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
+    _close_bwd(got, want, "rkvwu")
+    VK.reset_launch_count()
+    with torch.no_grad():
+        o, S = ops.wkv6(*(a.requires_grad_(True) for a in args))
+    assert o.grad_fn is None and S.grad_fn is None
+    assert VK.launch_counts() == {**dict.fromkeys(VK.KERNELS, 0), "wkv6": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ds", MK.STATE_DIMS)
+def test_mamba_scan_function_matches_autograd_of_plain(dev, ds, dtype):
+    """``ops.mamba_scan`` under autograd on the card (``MambaScan``)
+    against autograd of the plain forward, B and C as column views of an
+    x_proj output (their gradients land in it); under no_grad the serving
+    path: one forward launch, no backward."""
+    from repro_torch.kernels import ops
+    args = _scan_case(dev, 2, 40, 96, ds, dtype=dtype, strided=True, seed=ds)
+    dy = _rand(dev, 2, 40, 96, dtype=dtype, seed=5)
+    xdbc = args[2]._base.detach().clone().requires_grad_(True)
+    leaves = [args[i].detach().clone().requires_grad_(True)
+              for i in (0, 1, 4, 5)]
+
+    def grads(fn):
+        u, dt, A, D = leaves
+        y, _ = fn(u, dt, xdbc[..., 32:32 + ds], xdbc[..., 32 + ds:], A, D)
+        return torch.autograd.grad(y, [*leaves, xdbc], dy)
+    VK.reset_launch_count()
+    got = grads(ops.mamba_scan)
+    assert VK.launch_count("mamba_scan") == 1
+    assert VK.launch_count("mamba_scan_bwd") == 1
+    want = grads(R.mamba_scan)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=SCAN_BWD_BF16, atol=SCAN_BWD_BF16)
+        got, want = got[1:], want[1:]
+    _close_bwd(got, want, ["u", "dt", "A", "D", "x_proj"][-len(got):])
+    VK.reset_launch_count()
+    with torch.no_grad():
+        y, h = ops.mamba_scan(*(a.requires_grad_(True) for a in args))
+    assert y.grad_fn is None and h.grad_fn is None
+    assert VK.launch_counts() == {**dict.fromkeys(VK.KERNELS, 0),
+                                  "mamba_scan": 1}
+
+
+def test_scan_backwards_reject_what_they_do_not_take(dev):
+    r, k, v, w, u = _wkv_case(dev, 1, 2, 20, 64, dtype=torch.bfloat16)
+    do = _rand(dev, 1, 2, 20, 64)
+    with pytest.raises(ValueError, match="float32"):
+        WK.wkv6_bwd(r, k, v, w, u, do, WK.chunk_states(r))
+    r, k, v, w, u = _wkv_case(dev, 1, 2, 20, 64)
+    with pytest.raises(ValueError, match="chunk_states"):
+        WK.wkv6_bwd(r, k, v, w, u, do, WK.chunk_states(r)[:, :1])
+    args = _scan_case(dev, 1, 20, 64, 16)
+    with pytest.raises(ValueError, match="dy"):
+        MK.mamba_scan_bwd(*args, _rand(dev, 1, 64, 20).transpose(1, 2),
+                          MK.chunk_states(args[0], 16))
+    with pytest.raises(ValueError, match="chunk_states"):
+        MK.mamba_scan_bwd(*args, _rand(dev, 1, 20, 64),
+                          MK.chunk_states(args[0], 4))

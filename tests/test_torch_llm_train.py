@@ -15,11 +15,19 @@ shards.
 * ``make_vc_round`` against the reference's (a 1x1 mesh in-process, as
   tests/test_runtime_vc.py builds it): 3 rounds of 2 islands x 2 local
   steps, island 1 dead in round 2 (index 1), alpha 0.5, for the reduced
-  internlm2 and granite: in f32 the mean loss within 1e-5 relative and
-  the server leaves within the bound above; in the shipped bf16 compute
-  the losses within 0.03 (measured at most 0.0096 on losses of ~6: the
-  two frameworks round bf16 matmul outputs and elementwise ops at other
-  points).
+  internlm2, granite, rwkv6 and jamba: in f32 the mean loss within 1e-5
+  relative and the server leaves within the bound above; in the shipped
+  bf16 compute the losses within 0.03 (measured at most 0.0096 on losses
+  of ~6: the two frameworks round bf16 matmul outputs and elementwise
+  ops at other points).  Jamba is held otherwise (``JAMBA_ROUND``): its
+  reduced model amplifies any f32 rounding across Adam steps, so its
+  round losses sit within 2e-3 relative (measured 3.6e-4) and its server
+  leaves within 5e-3 (measured 1.8e-3, most elements past 1e-5).  The
+  reference does the same against itself: with only its scan
+  re-associated (the step-by-step recurrence for the associative scan)
+  four train steps move its loss by up to 4.9e-4 relative and its grad
+  norm by 18%, and these 3 rounds its server leaves by up to 1.24e-3
+  (``tools/jamba_grad_spread.py`` prints these beside the port's).
 * The round's own contract: the dead island trains (its optimizer state
   advances and carries) but moves the server not at all; the flat
   gradient it takes (each leaf's ``.grad`` a view of one zeroed bus
@@ -56,6 +64,7 @@ torch.set_num_threads(2)
 LR = 1e-3
 PARAM_ATOL, LOOSE_SHARE = 5e-4, 1e-3
 BF16_LOSS_TOL = 0.03
+JAMBA_ROUND = {"loss_rtol": 2e-3, "param_atol": 5e-3}
 
 
 def _models(arch, dtype="float32"):
@@ -135,13 +144,20 @@ def _run_rounds(arch, dtype, n_rounds=3, n_pods=2, k=2):
     return out, got, rserver, pisl, popts, pserver
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m",
+                                  "rwkv6-1.6b", "jamba-v0.1-52b"])
 def test_vc_round_matches_the_reference_f32(arch):
     losses, got, want, pisl, popts, pserver = _run_rounds(arch, "float32")
-    for r, p in losses:
-        np.testing.assert_allclose(p, r, rtol=1e-5)
-    _close_params(got, jax.tree.map(lambda a: torch.from_numpy(
-        np.array(a)), want))
+    want = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), want)
+    if arch.startswith("jamba"):
+        for r, p in losses:
+            np.testing.assert_allclose(p, r, rtol=JAMBA_ROUND["loss_rtol"])
+        for g, w in zip(F.tree_flatten(got)[0], F.tree_flatten(want)[0]):
+            assert float((g - w).abs().max()) <= JAMBA_ROUND["param_atol"]
+    else:
+        for r, p in losses:
+            np.testing.assert_allclose(p, r, rtol=1e-5)
+        _close_params(got, want)
     # redistribution: every island restarts from the server snapshot
     assert all(torch.equal(row, pserver.buf) for row in pisl)
     assert [o.step for o in popts] == [6, 6]       # both islands trained
@@ -172,6 +188,29 @@ def test_dead_island_trains_but_moves_nothing():
         assert torch.equal(isl[0], s.buf) and torch.equal(isl[1], s.buf)
     assert torch.equal(outs[0], outs[1])
     assert bool(torch.isfinite(outs[1]).all())
+
+
+def test_one_island_round_never_writes_the_server():
+    """One island: its row of the island matrix is a copy of the server
+    bus, not the bus itself, so the round trains it without touching the
+    server it folds into (``redistribute_flat``); the round equals one
+    fed an explicit copy."""
+    cfg = get_reduced("internlm2-1.8b").replace(compute_dtype="float32")
+    model = build_model(cfg)
+    server = F.flatten(model.init(0, device="cpu"))
+    before = server.buf.clone()
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (1, 1, 2, 16)).astype(np.int32))
+    isl, opts = VR.init_islands(server, 1, Adam(lr=LR))
+    assert isl.data_ptr() != server.buf.data_ptr()
+    rnd = VR.make_vc_round(model, 1, 1, Adam(lr=LR))
+    got, *_ = rnd(server, isl, opts, {"tokens": toks}, 0.5, [True])
+    assert torch.equal(server.buf, before)
+    copy = server.with_buf(before.clone())
+    _, opts2 = VR.init_islands(copy, 1, Adam(lr=LR))
+    want, *_ = rnd(copy, before.clone()[None], opts2, {"tokens": toks}, 0.5,
+                   [True])
+    assert torch.equal(got.buf, want.buf)
 
 
 def test_lane_gradient_equals_autograd_of_the_buffer():

@@ -6,10 +6,22 @@ the CPU.
   MoE aux loss) and its gradient for every parameter leaf against
   ``jax.value_and_grad(model.loss)`` on the same weights and tokens, for
   the reduced internlm2 (dense), granite (32 -> 8 experts, tied
-  embeddings, padded vocab) and mixtral (SWA): seq 64 crosses mixtral's
-  reduced window of 32.  f32 compute; the loss within 1e-5 relative and
-  every gradient within 1e-5 absolute (measured at most 7.2e-7): the
-  packages sum in other orders, nothing else differs.
+  embeddings, padded vocab), mixtral (SWA), rwkv6 (WKV6 time mix) and
+  jamba (mamba, MoE and attention layers): seq 64 crosses mixtral's
+  reduced window of 32 and four 16-step chunks of the scans.  f32
+  compute; the loss within 1e-5 relative and every gradient within
+  ``GRAD_LIMITS``: the packages sum in other orders, nothing else
+  differs.  The attention families within 1e-5 absolute (measured at
+  most 7.2e-7); rwkv6 within 2e-5 absolute (measured 1.14e-5); jamba
+  within 1e-3 relative per leaf, ||port - ref|| / ||ref|| (measured up
+  to 2.7e-4).  Jamba's spread is the model's amplification of f32
+  rounding, not the scan: its mamba block alone agrees within 2e-6
+  relative per leaf (measured 6.8e-7), while changing only the
+  reference's association of its scan (an associative scan over chunks
+  against the step-by-step recurrence) moves the reference's own
+  whole-model gradients by up to 5.9e-5 per leaf
+  (``test_jamba_gradient_spread``), and a one-ulp change of its weights
+  by up to 1.07e-4 (``tools/jamba_grad_spread.py`` prints both).
 * Remat changes nothing: the loss and gradients with and without the
   checkpoints are bit-equal, and the chunk count follows the reference's
   rule (the largest count <= 8 that divides the 63 predicted positions).
@@ -50,8 +62,18 @@ from repro_torch.optim import optimizers as PO
 
 torch.set_num_threads(2)
 
-ARCHS = ("internlm2-1.8b", "granite-moe-1b-a400m", "mixtral-8x7b")
+ARCHS = ("internlm2-1.8b", "granite-moe-1b-a400m", "mixtral-8x7b",
+         "rwkv6-1.6b", "jamba-v0.1-52b")
 SEQ, BATCH = 64, 2
+# each gradient leaf against the reference's: ("abs", max |port - ref|)
+# or ("rel", ||port - ref|| / ||ref||), with what each measured
+GRAD_LIMITS = {
+    "internlm2-1.8b": ("abs", 1e-5),      # 7.2e-7 at most, all three
+    "granite-moe-1b-a400m": ("abs", 1e-5),
+    "mixtral-8x7b": ("abs", 1e-5),
+    "rwkv6-1.6b": ("abs", 2e-5),          # 1.14e-5
+    "jamba-v0.1-52b": ("rel", 1e-3),      # 2.7e-4 (x_proj of block 2)
+}
 
 
 def _setup(arch):
@@ -94,8 +116,14 @@ def test_loss_and_every_gradient_match_the_reference(arch):
     got_l, td = F.tree_flatten(pg)
     want_l, td2 = F.tree_flatten(want)
     assert td == td2
+    kind, bound = GRAD_LIMITS[arch]
     for g, w in zip(got_l, want_l):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+        if kind == "abs":
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=bound)
+        else:
+            assert float(torch.linalg.vector_norm(g - w)) <= \
+                bound * float(torch.linalg.vector_norm(w))
     # the padded vocab rows get exactly no gradient, as in the reference
     table = pg["embed"]["table"]
     v = pmodel.cfg.vocab_size
@@ -227,3 +255,62 @@ def test_plain_backward_matches_jax_grad_of_blocked_attention(case):
         np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=1e-5,
                                    atol=1e-5)
     assert math.isfinite(float(sum(x.abs().sum() for x in got)))
+
+
+def _stepwise_chunk_scan(p, u_c, dtr_c, B_c, C_c, h_prev, cfg):
+    """The reference's ``_chunk_scan`` with its associative scan replaced
+    by the step-by-step recurrence of ``ref.mamba_scan``."""
+    dt_ = cfg.cdtype
+    dt = jax.nn.softplus((dtr_c @ p["dt_proj"].astype(dt_))
+                         .astype(jnp.float32)
+                         + p["dt_bias"].astype(jnp.float32))
+    A = -jnp.exp(p["a_log"])
+    uf = u_c.astype(jnp.float32)
+    h, ys = h_prev, []
+    for t in range(u_c.shape[1]):
+        h = (jnp.exp(dt[:, t, :, None] * A) * h
+             + (dt[:, t] * uf[:, t])[:, :, None] * B_c[:, t, None, :])
+        ys.append((h * C_c[:, t, None, :]).sum(-1))
+    return jnp.stack(ys, 1), h
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / np.linalg.norm(np.asarray(b)))
+
+
+def test_jamba_gradient_spread(monkeypatch):
+    """Jamba's whole-model gradients sit up to 2.7e-4 per leaf from the
+    reference's (GRAD_LIMITS); this pins where that comes from.  The
+    port's mamba block alone, under one cotangent, agrees with the
+    reference's ``mamba_chunked`` within 2e-6 relative per leaf (measured
+    6.8e-7; the reference's own step-by-step scan sits 2e-7 from its
+    associative one).  The whole model amplifies any f32 rounding: the
+    reference against itself with only its scan's association changed
+    differs by up to 5.9e-5 per leaf (the bound here 2e-4; never 0)."""
+    from repro.models import mamba as JM
+    from repro_torch.models import mamba as PM
+    rmodel, rparams, pmodel, pparams, tokens = _setup("jamba-v0.1-52b")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((BATCH, SEQ, pmodel.cfg.d_model)).astype(
+        np.float32)
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+    pp = pparams["blocks"][0]["mamba"]
+
+    def block(p, x_):
+        return jnp.sum(JM.mamba_chunked(p, x_, rmodel.cfg)[0] * cot)
+    want = jax.grad(block)({k: jnp.asarray(v.numpy()) for k, v in pp.items()},
+                           jnp.asarray(x))
+    req = {k: v.detach().clone().requires_grad_(True) for k, v in pp.items()}
+    out, _ = PM.mamba_forward(req, torch.from_numpy(x), pmodel.cfg)
+    (out * torch.from_numpy(cot)).sum().backward()
+    for k in pp:
+        assert _rel(req[k].grad.numpy(), want[k]) <= 2e-6, k
+
+    def loss(p):
+        return rmodel.loss(p, {"tokens": jnp.asarray(tokens)})[0]
+    assoc = jax.tree.leaves(jax.grad(loss)(rparams))
+    monkeypatch.setattr(JM, "_chunk_scan", _stepwise_chunk_scan)
+    step = jax.tree.leaves(jax.grad(loss)(rparams))
+    spread = [_rel(s, a) for s, a in zip(step, assoc)]
+    assert 0 < max(spread) <= 2e-4, max(spread)
