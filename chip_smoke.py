@@ -3943,22 +3943,25 @@ def serve_moe_on_card(torch, VK) -> None:
 SCAN_BWD_TOL, SCAN_BWD_BF16 = (1e-5, 1e-4), 2e-2
 # B14's backward: (b, h, T, hd, share of exact-0 decays); [b, T, h, hd]
 # strided views (the model's), the training shape (rwkv6-1.6b, 8 x 128)
-# first and timed
+# first, its record; it and the long shape (b * h = 128 < 132 SMs) timed
 WKV_BWD_SHAPES = {
     "a rwkv6 train": (8, 32, 128, 64, 0.0),
     "b T=63 hd16": (2, 4, 63, 16, 0.3), "c T=128 hd16": (2, 4, 128, 16, 0.0),
     "d T=300 hd16": (2, 4, 300, 16, 0.3), "e T=63": (2, 4, 63, 64, 0.3),
-    "f T=300": (2, 4, 300, 64, 0.3),
+    "f T=300": (2, 4, 300, 64, 0.3), "g long": (4, 32, 2048, 64, 0.0),
 }
 # B15's backward: (b, T, di, ds, u dtype); B / C column views of an
-# x_proj output; the training shape (jamba, 8 x 128, bf16) first and timed
+# x_proj output; the training shape (jamba, 8 x 128, bf16) first, its
+# record; it and the long shape timed
 SCAN_BWD_SHAPES = {
     "a jamba train": (8, 128, 8192, 16, "bfloat16"),
     "b ds16 ragged f32": (2, 63, 200, 16, "float32"),
     "c ds16 ragged bf16": (2, 300, 100, 16, "bfloat16"),
     "d ds4 f32": (2, 37, 130, 4, "float32"),
     "e ds4 bf16": (2, 128, 37, 4, "bfloat16"),
+    "f long": (2, 2048, 8192, 16, "bfloat16"),
 }
+SCAN_BWD_TIMED = ("a rwkv6 train", "g long", "a jamba train", "f long")
 # 15b: rwkv6-1.6b at full width cut to 12 of its 24 layers; 14b's
 # launcher defaults, rounds, preemption and kill
 RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 12, 934_129_664
@@ -3997,10 +4000,14 @@ def _bwd_check(torch, got, want, names, label: str) -> float:
 def wkv6_bwd_parity(torch, WK, R) -> dict:
     """Phase 15a: B14's backward (csrc/wkv6_bwd.cu) from the forward's
     chunk states against ``ref.wkv6_bwd`` at WKV_BWD_SHAPES, each run
-    twice, bit-equal; then timed at the training shape beside the plain
-    backward and the bound.  Returns the record of the training shape."""
+    twice, bit-equal; then timed at the training and long shapes beside
+    the bound (the training shape also beside the plain backward), and
+    the CTAs an SM holds.  Returns the record of the training shape."""
     dev = torch.device("cuda")
     out = None
+    per_sm = WK._library("wkv6_bwd").wkv6_bwd_blocks_per_sm(64)
+    say(f"B14 bwd at hd 64: {per_sm} CTAs an SM of 256 threads "
+        f"({8 * per_sm} warps), clusters of 4 CTAs a (b, h)")
     for name, (b, h, T, hd, zeros) in WKV_BWD_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(T + hd)
         rnd = lambda: torch.randn(b, T, h, hd, generator=g, device=dev)
@@ -4025,26 +4032,30 @@ def wkv6_bwd_parity(torch, WK, R) -> dict:
         say(f"{label} f32, {zeros:.0%} zero decays: max abs err {err:.3g} "
             f"vs the plain backward; bit-equal run to run")
         del got, again
-        if out is None:
+        if name in SCAN_BWD_TIMED:
             n = b * h * T * hd
             nch = -(-T // WK.CHUNK)
             nbytes = 4 * (9 * n + b * h * nch * hd * hd + 2 * h * hd)
             ops = 12 * n * hd      # 6 FMAs per (i, j) and step
             bound, by = bound_ms(nbytes, ops)
-            out = {"max_abs_err": err, "bound_ms": bound, "bound_by": by,
-                   "ms": KB.cuda_ms(lambda: WK.wkv6_bwd(
-                       r, k, v, w, u, do, states), 10),
-                   "plain_ms": KB.cuda_ms(lambda: R.wkv6_bwd(
-                       r, k, v, w, u, do), 1),
-                   "library_ms": None}   # no PyTorch call computes it
+            ms = KB.cuda_ms(lambda: WK.wkv6_bwd(r, k, v, w, u, do, states),
+                            10)
             fwd = KB.cuda_ms(lambda: WK.wkv6(r, k, v, w, u, states=states),
                              10)
-            say(f"{label} timed: kernel {out['ms']:.4f} ms (the forward "
-                f"writing its chunk states {fwd:.4f} ms), plain "
-                f"{out['plain_ms']:.4f} ms, library none, bound "
-                f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-                f"{ops / 1e9:.3f} GFLOP), {100 * bound / out['ms']:.1f}% of "
-                f"it")
+            rec = {"max_abs_err": err, "bound_ms": bound, "bound_by": by,
+                   "ms": ms, "plain_ms": None,
+                   "library_ms": None}   # no PyTorch call computes it
+            if out is None:
+                rec["plain_ms"] = KB.cuda_ms(lambda: R.wkv6_bwd(
+                    r, k, v, w, u, do), 1)
+                out = rec
+            plain = ("not timed" if rec["plain_ms"] is None
+                     else f"{rec['plain_ms']:.4f} ms")
+            say(f"{label} timed: kernel {ms:.4f} ms (the forward "
+                f"writing its chunk states {fwd:.4f} ms), plain {plain}, "
+                f"library none, bound {bound:.4f} ms ({by}: "
+                f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), "
+                f"{100 * bound / ms:.1f}% of it")
         del r, k, v, w, u, do, states
     torch.cuda.empty_cache()
     return out
@@ -4053,12 +4064,18 @@ def wkv6_bwd_parity(torch, WK, R) -> dict:
 def mamba_scan_bwd_parity(torch, MK, R) -> dict:
     """Phase 15a: B15's backward (csrc/mamba_scan_bwd.cu) from the
     forward's chunk states against ``ref.mamba_scan_bwd`` at
-    SCAN_BWD_SHAPES, each run twice, bit-equal; then timed at the
-    training shape beside the plain backward and the bound.  Returns the
-    record of the training shape."""
+    SCAN_BWD_SHAPES, each run twice, bit-equal; then timed at the training
+    and long shapes beside the bound (bytes, one exp a state-step and the
+    FMAs side by side; the training shape also beside the plain
+    backward), and the CTAs an SM holds.  Returns the record of the
+    training shape."""
     dev = torch.device("cuda")
     exp_rate = sfu_exps_per_s(torch)
     out = None
+    lib = MK._library("mamba_scan_bwd")
+    per_sm = lib.mamba_scan_bwd_blocks_per_sm(16, 1)
+    say(f"B15 bwd at ds 16, u bf16: {per_sm} CTAs an SM of 128 threads "
+        f"({4 * per_sm} warps), clusters of {MK._BWD_CLUSTER} CTAs")
     for name, (b, T, di, ds, dt) in SCAN_BWD_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(T + di + ds)
         rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
@@ -4092,7 +4109,7 @@ def mamba_scan_bwd_parity(torch, MK, R) -> dict:
         say(f"{label}: max abs err {err:.3g} vs the plain backward; "
             f"bit-equal run to run")
         del got, again, want
-        if out is None:
+        if name in SCAN_BWD_TIMED:
             n, es = b * T * di, u.element_size()
             nch = -(-T // MK.CHUNK)
             nbytes = (3 * es * n + 4 * 2 * n + 4 * 4 * b * T * ds
@@ -4101,23 +4118,27 @@ def mamba_scan_bwd_parity(torch, MK, R) -> dict:
             t_exp = n * ds / exp_rate          # a_t, once a state-step
             t_fma = 20 * n * ds / F32_OPS_PER_S   # ~10 FMAs a state-step
             bound = 1e3 * max(t_mem, t_exp, t_fma)
-            out = {"max_abs_err": err, "bound_ms": bound,
-                   "bound_by": "bytes" if t_mem >= max(t_exp, t_fma)
-                   else "operations",
-                   "ms": KB.cuda_ms(lambda: MK.mamba_scan_bwd(
-                       *args, dy, h_ck), 10),
-                   "plain_ms": KB.cuda_ms(lambda: R.mamba_scan_bwd(
-                       *args, dy), 1),
-                   "library_ms": None}   # no PyTorch call computes it
+            ms = KB.cuda_ms(lambda: MK.mamba_scan_bwd(*args, dy, h_ck), 10)
             fwd = KB.cuda_ms(lambda: MK.mamba_scan(*args, h_ck=h_ck), 10)
-            say(f"{label} timed: kernel {out['ms']:.4f} ms (the forward "
-                f"writing its chunk states {fwd:.4f} ms), plain "
-                f"{out['plain_ms']:.4f} ms, library none, bound "
-                f"{bound:.4f} ms ({out['bound_by']}: {nbytes / 1e6:.1f} MB "
-                f"{1e3 * t_mem:.4f} ms, {n * ds / 1e9:.3f} G exps "
-                f"{1e3 * t_exp:.4f} ms, {20 * n * ds / 1e9:.2f} GFLOP "
-                f"{1e3 * t_fma:.4f} ms), {100 * bound / out['ms']:.1f}% of "
-                f"it")
+            rec = {"max_abs_err": err, "bound_ms": bound,
+                   "bound_by": "bytes" if t_mem >= max(t_exp, t_fma)
+                   else "operations", "ms": ms, "plain_ms": None,
+                   "library_ms": None}   # no PyTorch call computes it
+            if out is None:
+                rec["plain_ms"] = KB.cuda_ms(lambda: R.mamba_scan_bwd(
+                    *args, dy), 1)
+                out = rec
+            plain = ("not timed" if rec["plain_ms"] is None
+                     else f"{rec['plain_ms']:.4f} ms")
+            say(f"{label} timed: kernel {ms:.4f} ms (the forward "
+                f"writing its chunk states {fwd:.4f} ms), plain {plain}, "
+                f"library none, bound {bound:.4f} ms ({rec['bound_by']}: "
+                f"bytes {nbytes / 1e6:.1f} MB {1e3 * t_mem:.4f} ms "
+                f"({100 * 1e3 * t_mem / ms:.1f}% of the kernel), one exp a "
+                f"state-step {n * ds / 1e9:.3f} G exps {1e3 * t_exp:.4f} ms "
+                f"({100 * 1e3 * t_exp / ms:.1f}%), {20 * n * ds / 1e9:.2f} "
+                f"GFLOP {1e3 * t_fma:.4f} ms), {100 * bound / ms:.1f}% of "
+                f"the bound")
         del args, u, dts, xdbc, B, C, dy, h_ck
     torch.cuda.empty_cache()
     return out

@@ -33,40 +33,66 @@
 // 64): r, k, v, w, do in and dr, dk, dv, dw out, 8.4 MB each, and the
 // checkpoints 33.6 MB: 109 MB, 0.033 ms at 3.35 TB/s; about 6 FMAs per
 // (i, j) and step (the state step, G's step, dr, dk, dv, dw), 1.6 GFLOP,
-// 0.024 ms at 67 TFLOP/s on the CUDA cores.  Measured (chip_smoke.py
-// 15a, PERF.md): 0.353 ms, 9% of the bound.
+// 0.024 ms at 67 TFLOP/s on the CUDA cores.  An earlier design (one CTA
+// a (b, h), 140 registers, one CTA of 8 warps an SM) took 0.353 ms, 9% of
+// the bound; probes that left one part out each (PERF.md) put 42% of it
+// in staging loads issued between chunks and waited on at once, ~6% each
+// in the column rounds, the stash and the recompute.
 //
-// Design: a simple one first.  One block a (b, h) walks the chunks in
-// reverse; 4 lanes a row i of the state, each holding hd / 4 columns j =
-// 4 (c + 4 q) + e (c the lane's quarter) of G in registers, so a warp
-// covers 8 rows and its float4 loads of v_t and do_t fall in distinct
-// banks.  A chunk's r, k, w, v, do are staged in shared memory (identity
-// steps past T: r = k = v = do = 0, w = 1).  A chunk is walked in kSub
-// steps at a time: each lane steps its own tile of the state forward from
-// the chunk's checkpoint (S <- w_t S + k_t v_t^T), stashes S_{t-1} for the
-// sub-walk's steps in shared memory (its own slots: no barrier), then
-// walks them in reverse.  Per step a lane forms its partial sums over its
+// Design.  Each row i of the state evolves on its own (S and G are both
+// row-scaled), and dr, dk, dw, du of row i need only row i; only dv sums
+// over the rows.  So a (b, h) is a cluster of kRanks CTAs (kCluster = 4
+// at hd 64: 16 rows a CTA, 256 threads), 16 lanes a row, each lane 4
+// columns of S and G (one float4).  A chunk is walked in sub-walks of
+// kSub steps, the last first: each steps the lane's columns of S forward
+// from the chunk's checkpoint to its first step, stashes S_{t-1} of its
+// steps in registers (no shared-memory stash) and walks them in reverse,
+// fully unrolled (the only chain across steps is G's FMA).  kSub = 8
+// recomputes the first half of a chunk once (24 state steps a chunk of
+// 16) and holds a lane to 80 registers, so 3 CTAs (24 warps) share an
+// SM; kSub = 16 (no recompute) needs 128 and fits 2, and measured 18%
+// slower (PERF.md).  Per step a lane forms its partials over its 4
 // columns; the row sums (dr, dk, dw and v . do) take a transposed
-// butterfly over the row's 4 lanes (3 shuffles: each lane ends with one
-// of the four), the column sums (dv) one over the warp's 8 rows, then
-// the warps' partials are summed in warp order after the sub-walk.  The
-// second sub-walk of a chunk recomputes the first's steps: 24 state
-// steps a chunk of 16.  At hd 64 the stash of 8 states takes 128 KB, one
-// block an SM.
+// butterfly over the row's 16 lanes (5 shuffles: each lane ends with one
+// of the four), the column sums (dv) one round across the warp's 2 rows
+// (2 shuffles); the warps' partials are summed in warp order once a
+// chunk, and the cluster's CTAs' partials in rank order through
+// distributed shared memory: each CTA sums a quarter of the chunk's
+// steps over the ranks and stores them.  The cluster barrier is split: a
+// CTA arrives once its chunk partials are written and waits only after
+// walking the next chunk, so the barrier's latency hides behind a walk;
+// the partials are double-buffered.  The next chunk's r, k, w (the CTA's
+// rows) and v, do are staged by cp.async while this one walks (16-byte
+// copies where every base and stride allows, else 4-byte), and its
+// checkpoint rows are loaded into registers a chunk ahead.  hd 16: one
+// CTA a (b, h), 4 lanes a row.  Shared memory ~66 KB a CTA at hd 64.
 //
 // The entry point launches on the caller's stream, never synchronises,
 // allocates nothing and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bwd_walk.cuh"
 #include "smem.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kChunk = 16;   // csrc/wkv6.cu's chunk: the checkpoint spacing
-constexpr int kSub = 8;      // steps stashed and walked at a time
-constexpr int kRowLanes = 4;  // lanes a row of the state
+constexpr int kChunk = 16;    // csrc/wkv6.cu's chunk: the checkpoint spacing
+constexpr int kCluster = 4;   // CTAs a (b, h) at hd 64
+constexpr int kColsLane = 4;  // state columns a lane (one float4)
+constexpr int kSub = 8;       // steps stashed at a time (divides kChunk)
+constexpr int kMinBlocks = 3;  // CTAs an SM the launch bound asks for
+
+template <int HD>
+struct Geometry;
+template <>
+struct Geometry<16> { static constexpr int kRanks = 1; };
+template <>
+struct Geometry<64> { static constexpr int kRanks = kCluster; };
 
 struct Params {
   const float* in[5];          // r, k, w, v, do by (b, h, t) strides
@@ -80,221 +106,272 @@ struct Params {
 
 template <int HD>
 struct Layout {
-  static constexpr int NT = HD * kRowLanes;       // threads a block
-  static constexpr int JW = HD / kRowLanes;       // columns a lane
-  static constexpr int NV = JW / 4;               // float4s a lane
-  static constexpr int NW = NT / 32;              // warps
-  static constexpr int C = kChunk, L = kSub;
-  // shared memory in floats: the chunk's inputs [5][C][HD]; the stash
-  // [L][NV][NT] float4s; the row sums [3][L][HD] (dr, dk, dw); the warps'
-  // column partials [L][NW][HD] (dv)
-  static constexpr int kIn = 0, kStash = 5 * C * HD;
-  static constexpr int kRows = kStash + L * HD * HD;
-  static constexpr int kCols = kRows + 3 * L * HD;
-  static constexpr int kFloats = kCols + L * NW * HD;
+  static constexpr int NC = Geometry<HD>::kRanks;   // CTAs a (b, h)
+  static constexpr int R = HD / NC;                 // rows a CTA
+  static constexpr int LR = HD / kColsLane;         // lanes a row
+  static constexpr int NT = R * LR;                 // threads a CTA
+  static constexpr int NW = NT / 32;                // warps
+  static constexpr int C = kChunk;
+  // shared memory in floats: two staging buffers, each r, k, w [3][C][R]
+  // (the CTA's rows) then v, do [2][C][HD]; the row sums [3][C][R] (dr,
+  // dk, dw); the warps' dv partials [C][NW][HD]; the CTA's dv partials
+  // [2][C][HD], read by the cluster
+  static constexpr int kStage = 3 * C * R + 2 * C * HD;
+  static constexpr int kRows = 2 * kStage;
+  static constexpr int kWarps = kRows + 3 * C * R;
+  static constexpr int kCta = kWarps + C * NW * HD;
+  static constexpr int kFloats = kCta + 2 * C * HD;
   static constexpr size_t kBytes = sizeof(float) * kFloats;
-  static_assert(JW % 4 == 0 && C % L == 0 && NT % 32 == 0,
-                "whole float4s a lane, whole sub-walks a chunk");
+  static_assert(HD % NC == 0 && R % 4 == 0 && LR >= 4 && LR <= 32 &&
+                    (LR & (LR - 1)) == 0 && NT % 32 == 0 && NT <= 1024 &&
+                    (C * HD) % NC == 0 && C % kSub == 0,
+                "whole 16-byte rows a CTA, 4 to 32 lanes a row, whole "
+                "sub-walks a chunk");
 };
 
-// the column sums of a warp: round R halves the N values left across
-// lane xor (4 << R) (the warp's rows), keeping the lower or upper half by
-// that lane bit; once one value is left, a plain sum.  base gains the
-// offset of the half kept.
-template <int N, int R>
-__device__ __forceinline__ void column_rounds(float* x, int lane, int& base) {
-  if constexpr (R < 3) {
-    constexpr int bit = 4 << R;
-    if constexpr (N > 1) {
-      constexpr int half = N / 2;
-      const bool upper = lane & bit;
-#pragma unroll
-      for (int m = 0; m < half; ++m) {
-        const float send = upper ? x[m] : x[m + half];
-        const float keep = upper ? x[m + half] : x[m];
-        x[m] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
-      }
-      if (upper) base += half;
-      column_rounds<half, R + 1>(x, lane, base);
-    } else {
-      x[0] += __shfl_xor_sync(0xffffffffu, x[0], bit);
-      column_rounds<1, R + 1>(x, lane, base);
-    }
-  }
-}
-
 template <int HD>
-__global__ void __launch_bounds__(Layout<HD>::NT, 1)
+__global__ void __launch_bounds__(Layout<HD>::NT, kMinBlocks)
 wkv6_bwd_kernel(const Params P) {
   using Lt = Layout<HD>;
-  constexpr int NT = Lt::NT, JW = Lt::JW, NV = Lt::NV, NW = Lt::NW;
-  constexpr int C = Lt::C, L = Lt::L;
-  // values left a lane after the column rounds, and whether a lane's are
-  // another lane's copies (a plain round over lane bit 16)
-  constexpr int kLeft = JW >= 8 ? JW / 8 : 1;
-  constexpr bool kDup16 = JW < 8;
+  constexpr int NC = Lt::NC, R = Lt::R, LR = Lt::LR, NT = Lt::NT;
+  constexpr int NW = Lt::NW, C = Lt::C;
+  // the column rounds across the warp's rows: values left a lane, and
+  // the lane bits whose lanes hold copies
+  constexpr int kLeft = fold_left<kColsLane, LR, 32>();
+  constexpr int kCopies = fold_copies<kColsLane, LR, 32>();
   extern __shared__ __align__(16) float sm[];
-  float* const in_s = sm + Lt::kIn;
-  float4* const stash = reinterpret_cast<float4*>(sm + Lt::kStash);
   float* const rows_s = sm + Lt::kRows;
-  float* const cols_s = sm + Lt::kCols;
+  float* const warp_s = sm + Lt::kWarps;
+  float* const cta_s = sm + Lt::kCta;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = tid / kRowLanes, cq = tid % kRowLanes;
-  const int bh = blockIdx.x, bi = bh / P.h, hi = bh % P.h;
+  const int il = tid / LR, cq = tid % LR;        // local row, lane of the row
+  const int rank = blockIdx.x % NC, bh = blockIdx.x / NC;
+  const int bi = bh / P.h, hi = bh % P.h;
+  const int row0 = rank * R, i = row0 + il;
   const int seq = P.seq, chunks = (seq + C - 1) / C;
-  const float* src[5];
-  int64_t ts[5];
-#pragma unroll
-  for (int a = 0; a < 5; ++a) {
-    src[a] = P.in[a] + bi * P.st[3 * a] + hi * P.st[3 * a + 1];
-    ts[a] = P.st[3 * a + 2];
-  }
-  float* dst[4];
-  int64_t tds[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    dst[a] = P.out[a] + bi * P.st[15 + 3 * a] + hi * P.st[16 + 3 * a];
-    tds[a] = P.st[17 + 3 * a];
-  }
   const float ui = P.u[hi * HD + i];
   const float* const ck =
-      P.states + static_cast<int64_t>(bh) * chunks * HD * HD;
-  // this lane's column of float4 q
-  auto col = [&](int q) { return 4 * (cq + kRowLanes * q); };
-  auto row_of = [&](int a, int t) { return in_s + (a * C + t) * HD; };
-  auto cols4 = [&](const float* p, float (&x)[JW]) {
+      P.states + (static_cast<int64_t>(bh) * chunks * HD + i) * HD
+      + kColsLane * cq;
+  // 16-byte copies need every base and (b, h, t) stride on 16 bytes
+  bool vec = true;
 #pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      const float4 y = *reinterpret_cast<const float4*>(p + col(q));
-      x[4 * q] = y.x;
-      x[4 * q + 1] = y.y;
-      x[4 * q + 2] = y.z;
-      x[4 * q + 3] = y.w;
+  for (int a = 0; a < 5; ++a)
+    vec = vec && reinterpret_cast<uintptr_t>(P.in[a]) % 16 == 0 &&
+          P.st[3 * a] % 4 == 0 && P.st[3 * a + 1] % 4 == 0 &&
+          P.st[3 * a + 2] % 4 == 0;
+
+  // chunk c's inputs into staging buffer s (identity steps past T: r = k
+  // = v = do = 0, w = 1)
+  auto stage = [&](int c, int s) {
+    float* const buf = sm + s * Lt::kStage;
+    const int t0 = c * C;
+#pragma unroll
+    for (int a = 0; a < 5; ++a) {
+      const int width = a < 3 ? R : HD;            // floats a step
+      const int pieces = C * width / 4;
+      float* const dst =
+          buf + (a < 3 ? a * C * R : 3 * C * R + (a - 3) * C * HD);
+      const float* const src = P.in[a] + bi * P.st[3 * a]
+                               + hi * P.st[3 * a + 1] + (a < 3 ? row0 : 0);
+      const int64_t ts = P.st[3 * a + 2];
+      for (int n = tid; n < pieces; n += NT) {
+        const int l = n / (width / 4), j = 4 * (n % (width / 4));
+        float* const d = dst + l * width + j;
+        if (t0 + l < seq) {
+          const float* const g = src + (t0 + l) * ts + j;
+          if (vec) {
+            copy_async<16>(d, g);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) copy_async<4>(d + e, g + e);
+          }
+        } else {
+          const float fill = a == 2 ? 1.0f : 0.0f;
+          *reinterpret_cast<float4*>(d) = make_float4(fill, fill, fill, fill);
+        }
+      }
+    }
+    copy_commit();
+  };
+  // the cluster's sums of chunk c's dv partials: this rank's share of the
+  // chunk's steps, the ranks in order
+  auto cluster_sum = [&](int c) {
+    constexpr int per = C * HD / NC;
+    cg::cluster_group cluster = cg::this_cluster();
+    const float* part[NC];
+#pragma unroll
+    for (int q = 0; q < NC; ++q)
+      part[q] = cluster.map_shared_rank(cta_s + (c & 1) * C * HD, q);
+    float* const dv = P.out[3] + bi * P.st[24] + hi * P.st[25];
+    for (int n = rank * per + tid; n < (rank + 1) * per; n += NT) {
+      const int t = c * C + n / HD;
+      float sum = 0.0f;
+#pragma unroll
+      for (int q = 0; q < NC; ++q) sum += part[q][n];
+      if (t < seq) dv[t * P.st[26] + n % HD] = sum;
     }
   };
-  // S <- w_t S + k_t v_t^T on this lane's tile
-  auto step = [&](float (&S)[JW], int t) {
-    float v[JW];
-    cols4(row_of(3, t), v);
-    const float kk = row_of(1, t)[i], ww = row_of(2, t)[i];
-#pragma unroll
-    for (int e = 0; e < JW; ++e) S[e] = fmaf(ww, S[e], kk * v[e]);
-  };
 
-  float G[JW];
+  float G[kColsLane];
 #pragma unroll
-  for (int e = 0; e < JW; ++e) G[e] = 0.0f;
+  for (int e = 0; e < kColsLane; ++e) G[e] = 0.0f;
   float du_acc = 0.0f;
+  stage(chunks - 1, (chunks - 1) & 1);
+  float4 S0 = *reinterpret_cast<const float4*>(ck + (chunks - 1) * HD * HD);
 
   for (int ch = chunks - 1; ch >= 0; --ch) {
-    const int t0 = ch * C;
-    __syncthreads();                  // the last chunk's readers are done
-    for (int n = tid; n < 5 * C * HD; n += NT) {
-      const int a = n / (C * HD), t = t0 + (n / HD) % C, j = n % HD;
-      in_s[n] = t < seq ? src[a][t * ts[a] + j] : (a == 2 ? 1.0f : 0.0f);
+    const float* const in_s = sm + (ch & 1) * Lt::kStage;
+    const float* const r_s = in_s;
+    const float* const k_s = in_s + C * R;
+    const float* const w_s = in_s + 2 * C * R;
+    const float* const v_s = in_s + 3 * C * R;
+    const float* const do_s = v_s + C * HD;
+    copy_wait_all();
+    __syncthreads();        // chunk ch staged; the last chunk's readers done
+    float4 S0n = S0;
+    if (ch > 0) {
+      stage(ch - 1, (ch - 1) & 1);
+      S0n = *reinterpret_cast<const float4*>(ck + (ch - 1) * HD * HD);
     }
-    float S0[JW];
-    {
-      const float* p = ck + (static_cast<int64_t>(ch) * HD + i) * HD;
-      cols4(p, S0);
-    }
-    __syncthreads();
-    for (int sw = C / L - 1; sw >= 0; --sw) {
-      float S[JW];
+    // S <- w_t S + k_t v_t^T at the chunk's step l, on this lane's columns
+    auto step = [&](const float4 S, int l) {
+      const float4 v = *reinterpret_cast<const float4*>(v_s + l * HD
+                                                        + kColsLane * cq);
+      const float kk = k_s[l * R + il], ww = w_s[l * R + il];
+      return make_float4(fmaf(ww, S.x, kk * v.x), fmaf(ww, S.y, kk * v.y),
+                         fmaf(ww, S.z, kk * v.z), fmaf(ww, S.w, kk * v.w));
+    };
+    // the chunk in sub-walks of kSub steps, the last first: each steps the
+    // state from the checkpoint to its first step, stashes S_{t-1} of its
+    // steps in registers and walks them in reverse
 #pragma unroll
-      for (int e = 0; e < JW; ++e) S[e] = S0[e];
-      for (int t = 0; t < sw * L; ++t) step(S, t);
+    for (int sw = C / kSub - 1; sw >= 0; --sw) {
+      float4 Sp[kSub];
+      Sp[0] = S0;
 #pragma unroll
-      for (int l = 0; l < L; ++l) {   // stash S_{t-1} of the sub-walk
+      for (int l = 0; l < sw * kSub; ++l) Sp[0] = step(Sp[0], l);
 #pragma unroll
-        for (int q = 0; q < NV; ++q)
-          stash[(l * NV + q) * NT + tid] =
-              make_float4(S[4 * q], S[4 * q + 1], S[4 * q + 2], S[4 * q + 3]);
-        if (l + 1 < L) step(S, sw * L + l);
-      }
-#pragma unroll 1
-      for (int l = L - 1; l >= 0; --l) {
-        const int t = sw * L + l;
-        const float rr = row_of(0, t)[i], kk = row_of(1, t)[i];
-        const float ww = row_of(2, t)[i];
-        float v[JW], dd[JW], Sp[JW], dv[JW];
-        cols4(row_of(3, t), v);
-        cols4(row_of(4, t), dd);
+      for (int m = 0; m + 1 < kSub; ++m)
+        Sp[m + 1] = step(Sp[m], sw * kSub + m);
 #pragma unroll
-        for (int q = 0; q < NV; ++q) {
-          const float4 y = stash[(l * NV + q) * NT + tid];
-          Sp[4 * q] = y.x;
-          Sp[4 * q + 1] = y.y;
-          Sp[4 * q + 2] = y.z;
-          Sp[4 * q + 3] = y.w;
-        }
+      for (int m = kSub - 1; m >= 0; --m) {
+        const int l = sw * kSub + m;
+        const float rr = r_s[l * R + il], kk = k_s[l * R + il];
+        const float ww = w_s[l * R + il];
+        const float4 v4 = *reinterpret_cast<const float4*>(v_s + l * HD
+                                                           + kColsLane * cq);
+        const float4 d4 = *reinterpret_cast<const float4*>(do_s + l * HD
+                                                           + kColsLane * cq);
+        const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+        const float dd[4] = {d4.x, d4.y, d4.z, d4.w};
+        const float S[4] = {Sp[m].x, Sp[m].y, Sp[m].z, Sp[m].w};
         const float uk = ui * kk, ur = ui * rr;
-        float pr = 0.0f, pk = 0.0f, pw = 0.0f, pvd = 0.0f;
+        float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // dr, dk, dw, v . do
+        float dv[kColsLane];
 #pragma unroll
-        for (int e = 0; e < JW; ++e) {
-          const float sh = fmaf(uk, v[e], Sp[e]);      // S_{t-1} + u k v
-          const float gh = fmaf(ur, dd[e], G[e]);      // G_t + u r do
-          pr = fmaf(sh, dd[e], pr);
-          pk = fmaf(gh, v[e], pk);
-          pw = fmaf(G[e], Sp[e], pw);
-          pvd = fmaf(v[e], dd[e], pvd);
+        for (int e = 0; e < kColsLane; ++e) {
+          const float sh = fmaf(uk, v[e], S[e]);      // S_{t-1} + u k v
+          const float gh = fmaf(ur, dd[e], G[e]);     // G_t + u r do
+          x[0] = fmaf(sh, dd[e], x[0]);
+          x[1] = fmaf(gh, v[e], x[1]);
+          x[2] = fmaf(G[e], S[e], x[2]);
+          x[3] = fmaf(v[e], dd[e], x[3]);
           dv[e] = gh * kk;
           G[e] = fmaf(ww, G[e], rr * dd[e]);
         }
-        // the row's 4 lanes: quarter 0 ends with dr, 2 with dk, 1 with
-        // dw, 3 with v . do
-        const bool up1 = cq & 1, up2 = cq & 2;
-        const float x0 = (up1 ? pw : pr)
-                         + __shfl_xor_sync(0xffffffffu, up1 ? pr : pw, 1);
-        const float x1 = (up1 ? pvd : pk)
-                         + __shfl_xor_sync(0xffffffffu, up1 ? pk : pvd, 1);
-        const float y = (up2 ? x1 : x0)
-                        + __shfl_xor_sync(0xffffffffu, up2 ? x0 : x1, 2);
-        if (cq == 3)
-          du_acc = fmaf(rr * kk, y, du_acc);
-        else
-          rows_s[((cq == 0 ? 0 : cq == 2 ? 1 : 2) * L + l) * HD + i] = y;
-        // the warp's 8 rows, then the warps in order after the sub-walk
+        // the row's lanes: lane cq ends with x[2 (cq & 1) + (cq >> 1 & 1)]
+        int slot = 0;
+        fold_rounds<4, 1, LR>(x, lane, slot);
+        if (cq < 4) {
+          if (slot == 3)
+            du_acc = fmaf(rr * kk, x[0], du_acc);
+          else
+            rows_s[(slot * C + l) * R + il] = x[0];
+        }
+        // the warp's rows, then the warps in order once a chunk
         int base = 0;
-        column_rounds<JW, 0>(dv, lane, base);
-        if (!kDup16 || !(lane & 16))
+        fold_rounds<kColsLane, LR, 32>(dv, lane, base);
+        if (!(lane & kCopies)) {
 #pragma unroll
-          for (int m = 0; m < kLeft; ++m) {
-            const int s = base + m;
-            cols_s[(l * NW + warp) * HD + 4 * (cq + kRowLanes * (s / 4))
-                   + s % 4] = dv[m];
-          }
+          for (int e = 0; e < kLeft; ++e)
+            warp_s[(l * NW + warp) * HD + kColsLane * cq + base + e] = dv[e];
+        }
       }
-      __syncthreads();
-      for (int n = tid; n < 3 * L * HD; n += NT) {
-        const int a = n / (L * HD), t = t0 + sw * L + (n / HD) % L;
-        if (t < seq) dst[a][t * tds[a] + n % HD] = rows_s[n];
-      }
-      for (int n = tid; n < L * HD; n += NT) {
-        const int l = n / HD, j = n % HD, t = t0 + sw * L + l;
-        float sum = 0.0f;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) sum += cols_s[(l * NW + w) * HD + j];
-        if (t < seq) dst[3][t * tds[3] + j] = sum;
-      }
-      __syncthreads();
     }
+    __syncthreads();        // the chunk's row sums and warp partials
+    if (ch + 1 < chunks) {  // chunk ch + 1's partials, the walk behind us
+      cluster_wait();
+      cluster_sum(ch + 1);
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float* const dst = P.out[a] + bi * P.st[15 + 3 * a]
+                         + hi * P.st[16 + 3 * a] + row0;
+      for (int n = tid; n < C * R; n += NT) {
+        const int t = ch * C + n / R;
+        if (t < seq) dst[t * P.st[17 + 3 * a] + n % R] = rows_s[a * C * R + n];
+      }
+    }
+    float* const cta = cta_s + (ch & 1) * C * HD;
+    for (int n = tid; n < C * HD; n += NT) {
+      const int l = n / HD, j = n % HD;
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) sum += warp_s[(l * NW + w) * HD + j];
+      cta[n] = sum;
+    }
+    cluster_arrive();
+    S0 = S0n;
   }
+  cluster_wait();
+  cluster_sum(0);
+  cluster_arrive();         // no CTA leaves while another reads its partials
+  cluster_wait();
   if (cq == 3) P.du_part[static_cast<int64_t>(bh) * HD + i] = du_acc;
 }
 
 template <int HD>
-cudaError_t launch_hd(const Params& p, int blocks, cudaStream_t stream) {
-  using Lt = Layout<HD>;
+cudaError_t configure() {
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = once_a_device(configured, [] {
+  return once_a_device(configured, [] {
     return cudaFuncSetAttribute(wkv6_bwd_kernel<HD>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(Lt::kBytes));
+                                static_cast<int>(Layout<HD>::kBytes));
   });
+}
+
+template <int HD>
+int blocks_per_sm() {
+  int n = 0;
+  if (configure<HD>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, wkv6_bwd_kernel<HD>, Layout<HD>::NT, Layout<HD>::kBytes)
+          != cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int HD>
+cudaError_t launch_hd(const Params& p, int bh, cudaStream_t stream) {
+  using Lt = Layout<HD>;
+  cudaError_t err = configure<HD>();
   if (err != cudaSuccess) return err;
-  wkv6_bwd_kernel<HD><<<blocks, Lt::NT, Lt::kBytes, stream>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh * Lt::NC);
+  cfg.blockDim = dim3(Lt::NT);
+  cfg.dynamicSmemBytes = Lt::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Lt::NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, wkv6_bwd_kernel<HD>, p);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -306,12 +383,18 @@ const char* wkv6_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// CTAs of the kernel an SM holds at hd (registers and shared memory;
+// 0 for another hd or on an error)
+int wkv6_bwd_blocks_per_sm(int hd) {
+  return hd == 16 ? blocks_per_sm<16>() : hd == 64 ? blocks_per_sm<64>() : 0;
+}
+
 // strides: 27 int64 in elements, (batch, head, time) of r, k, w, v, do,
 // dr, dk, dw, dv (each with a unit stride on hd); every tensor f32.
 // states: [b * h, ceil(T / 16), hd, hd], the forward's chunk-start
-// states; du_part [b * h, hd].  hd in {16, 64}; other values return
-// cudaErrorInvalidValue (the wrapper refuses them first).  The grid is
-// b * h blocks.
+// states (16-byte aligned); du_part [b * h, hd].  hd in {16, 64}; other
+// values return cudaErrorInvalidValue (the wrapper refuses them first).
+// The grid is b * h clusters of Geometry<hd>::kRanks CTAs.
 int wkv6_backward(const float* r, const float* k, const float* w,
                   const float* v, const float* dout, const float* u,
                   const float* states, float* dr, float* dk, float* dw,
@@ -333,6 +416,8 @@ int wkv6_backward(const float* r, const float* k, const float* w,
   for (int n = 0; n < 27; ++n) p.st[n] = strides[n];
   p.h = h;
   p.seq = T;
+  if (reinterpret_cast<uintptr_t>(states) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch_hd<16>(p, b * h, s);

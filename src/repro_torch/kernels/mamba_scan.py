@@ -37,8 +37,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launches import bind_error_string, launch
 
 STATE_DIMS = (4, 16)             # jamba's reduced and published d_state
-# channels a block at each state dim (csrc: kThreads / (ds / kStates))
+# channels a block of the forward at each state dim (csrc/mamba_scan.cu:
+# kThreads / (ds / kStates))
 _CHANNELS = {4: 128, 16: 64}
+# the backward's (csrc/mamba_scan_bwd.cu): channels a CTA, CTAs a cluster
+_BWD_CHANNELS = {4: 128, 16: 32}
+_BWD_CLUSTER = 8
 CHUNK = 16                       # steps between the forward's checkpoints
 _MAX_BLOCKS = 2 ** 31 - 1
 _F32 = torch.float32
@@ -176,8 +180,9 @@ def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     ``h_ck``: (du [b, T, di] in u's dtype, ddt [b, T, di], dB, dC
     [b, T, ds] contiguous, dA [di, ds], dD [di], all f32), in ONE launch
     of csrc/mamba_scan_bwd.cu; dB and dC are the sums of the kernel's
-    per-block partials over its blocks, dA and dD of its per-row partials
-    over b, each taken in a fixed order."""
+    per-cluster partials over its clusters (each _BWD_CLUSTER CTAs of
+    _BWD_CHANNELS[ds] channels along a batch row), dA and dD of its
+    per-row partials over b, each taken in a fixed order."""
     args = (("u", u), ("dt", dt), ("B", B), ("C", C), ("A", A), ("D", D),
             ("dy", dy), ("h_ck", h_ck))
     _on_card(args)
@@ -189,10 +194,13 @@ def mamba_scan_bwd(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"dy must be a contiguous {(b, T, di)} {u.dtype} "
                          f"tensor, got {tuple(dy.shape)} {dy.dtype}")
     _check_states(h_ck, u, ds)
-    nblk = -(-di // _CHANNELS[ds])
+    ncl = -(-di // (_BWD_CHANNELS[ds] * _BWD_CLUSTER))
+    if b * ncl * _BWD_CLUSTER > _MAX_BLOCKS:
+        raise ValueError(f"b * di = {b * di} needs more than {_MAX_BLOCKS} "
+                         f"blocks of the backward")
     du = torch.empty(b, T, di, dtype=u.dtype, device=u.device)
     ddt = torch.empty(b, T, di, dtype=_F32, device=u.device)
-    dbc = torch.empty(b, T, nblk, 2 * ds, dtype=_F32, device=u.device)
+    dbc = torch.empty(b, T, ncl, 2 * ds, dtype=_F32, device=u.device)
     dA = torch.empty(b, di, ds, dtype=_F32, device=u.device)
     dD = torch.empty(b, di, dtype=_F32, device=u.device)
     strides = (ctypes.c_int64 * 8)(*(s for t in (u, dt, B, C)

@@ -128,9 +128,9 @@ def _check_states(states: torch.Tensor, r: torch.Tensor) -> None:
     shape = (b * h, -(-T // CHUNK), hd, hd)
     if (not isinstance(states, torch.Tensor) or states.dtype != _F32
             or tuple(states.shape) != shape or not states.is_contiguous()
-            or states.device != r.device):
-        raise ValueError(f"states must be a contiguous f32 tensor {shape} on "
-                         f"{r.device} (chunk_states)")
+            or states.device != r.device or states.data_ptr() % 16):
+        raise ValueError(f"states must be a contiguous, 16-byte aligned f32 "
+                         f"tensor {shape} on {r.device} (chunk_states)")
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

@@ -1467,6 +1467,102 @@ def test_mamba_scan_bwd_matches_plain_and_repeats_bit_equal(dev, di, ds, T,
     _close_bwd(got, want, ["u", "dt", "B", "C", "A", "D"][-len(got):])
 
 
+# the backwards at rwkv6's and jamba's training shapes, at a long sequence
+# (b * h = 128 < 132 SMs for B14) and at a few (b, h) / channels
+WKV_BWD_SIZES = {"train": (8, 32, 128), "long": (4, 32, 2048),
+                 "few heads": (2, 3, 100)}
+SCAN_BWD_SIZES = {"train": (8, 128, 8192, torch.bfloat16),
+                  "long": (2, 2048, 8192, torch.bfloat16),
+                  "few channels": (1, 300, 1000, torch.float32)}
+
+
+@pytest.mark.parametrize("size", list(WKV_BWD_SIZES))
+def test_wkv6_bwd_at_path_sizes(dev, size):
+    """B14's backward at hd 64 where rwkv6's training and longer sequences
+    take it: within SCAN_BWD_TOL of the plain backward, bit-equal run to
+    run."""
+    b, h, T = WKV_BWD_SIZES[size]
+    r, k, v, w, u = _wkv_case(dev, b, h, T, 64, strided=True, seed=T)
+    do = _rand(dev, b, h, T, 64, seed=T + 1)
+    states = WK.chunk_states(r)
+    WK.wkv6(r, k, v, w, u, states=states)
+    got = WK.wkv6_bwd(r, k, v, w, u, do, states)
+    again = WK.wkv6_bwd(r, k, v, w, u, do, states)
+    for g, a in zip(got, again):
+        assert _bits_equal(g, a)
+    _close_bwd(got, R.wkv6_bwd(r, k, v, w, u, do), "rkvwu")
+
+
+@pytest.mark.parametrize("size", list(SCAN_BWD_SIZES))
+def test_mamba_scan_bwd_at_path_sizes(dev, size):
+    """B15's backward at ds 16 where jamba's training and longer sequences
+    take it (B and C column views of an x_proj output): within
+    SCAN_BWD_TOL of the plain backward (bf16 du within SCAN_BWD_BF16),
+    bit-equal run to run."""
+    b, T, di, dtype = SCAN_BWD_SIZES[size]
+    u, dt, B, C, A, D = _scan_case(dev, b, T, di, 16, dtype=dtype,
+                                   strided=True, seed=di + T)
+    D = _rand(dev, di, seed=3)
+    dy = _rand(dev, b, T, di, dtype=dtype, seed=T)
+    h_ck = MK.chunk_states(u, 16)
+    MK.mamba_scan(u, dt, B, C, A, D, h_ck=h_ck)
+    got = MK.mamba_scan_bwd(u, dt, B, C, A, D, dy, h_ck)
+    again = MK.mamba_scan_bwd(u, dt, B, C, A, D, dy, h_ck)
+    for g, a in zip(got, again):
+        assert _bits_equal(g, a)
+    want = R.mamba_scan_bwd(u, dt, B, C, A, D, dy)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=SCAN_BWD_BF16, atol=SCAN_BWD_BF16)
+        got, want = got[1:], want[1:]
+    _close_bwd(got, want, ["u", "dt", "B", "C", "A", "D"][-len(got):])
+
+
+@pytest.mark.parametrize("hd", WK.HEAD_DIMS)
+def test_wkv6_bwd_inputs_off_16_bytes(dev, hd):
+    """Inputs whose rows are not on 16 bytes (views one element into
+    their buffers) take the kernel's 4-byte staging copies: the same
+    limits as the aligned ones."""
+    b, h, T = 2, 3, 45
+
+    def off16(x):               # x's values one element into a buffer
+        y = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+        return y.copy_(x)
+    r, k, v, w, _ = _wkv_case(dev, b, h, T, hd, seed=hd)
+    r, k, v, w = (off16(x) for x in (r, k, v, w))
+    do = off16(_rand(dev, b, h, T, hd, seed=8))
+    u = _rand(dev, h, hd, seed=9) * 0.2
+    assert all(x.data_ptr() % 16 for x in (r, k, v, w, do))
+    states = WK.chunk_states(r)
+    WK.wkv6(r, k, v, w, u, states=states)
+    got = WK.wkv6_bwd(r, k, v, w, u, do, states)
+    _close_bwd(got, R.wkv6_bwd(r, k, v, w, u, do), "rkvwu")
+
+
+@pytest.mark.parametrize("ds", MK.STATE_DIMS)
+def test_mamba_scan_bwd_rows_off_16_bytes(dev, ds):
+    """B and C column views one element off 16 bytes, u and dt views one
+    element into their buffers: the kernel's plain staging loads, the
+    same limits."""
+    b, T, di = 2, 40, 100
+    g = torch.Generator(device=dev).manual_seed(ds)
+    xdbc = torch.randn(b, T, 33 + 2 * ds, generator=g, device=dev) * 0.4
+    B, C = xdbc[..., 33:33 + ds], xdbc[..., 33 + ds:]
+    u = (torch.randn(b * T * di + 1, generator=g, device=dev)
+         * 0.4)[1:].view(b, T, di)
+    dt = torch.nn.functional.softplus(torch.randn(
+        b * T * di + 1, generator=g, device=dev))[1:].view(b, T, di)
+    A = -torch.exp(torch.randn(di, ds, generator=g, device=dev) * 0.3)
+    D = torch.randn(di, generator=g, device=dev)
+    dy = torch.randn(b, T, di, generator=g, device=dev)
+    assert B.data_ptr() % 16 and u.data_ptr() % 16 and dt.data_ptr() % 16
+    h_ck = MK.chunk_states(u, ds)
+    MK.mamba_scan(u, dt, B, C, A, D, h_ck=h_ck)
+    got = MK.mamba_scan_bwd(u, dt, B, C, A, D, dy, h_ck)
+    _close_bwd(got, R.mamba_scan_bwd(u, dt, B, C, A, D, dy),
+               ["u", "dt", "B", "C", "A", "D"])
+
+
 def _grads(fn, args, cot):
     req = [a.detach().clone().requires_grad_(True) for a in args]
     out, _ = fn(*req)
