@@ -54,7 +54,8 @@ a card, or outside a checkout.  Phases:
    c. the full quickstart configuration on the card, its 10 epochs cut
       to QUICKSTART_EPOCHS = 2: counts, accuracy table, wall time and
       where the host time goes (B3's share: the span of Adam.update_flat,
-      inside client_train);
+      inside client_train); the smoke run's first PROFILE_TASKS client
+      tasks under the profiler first (device-busy share, top items);
    d. the pinned replay: the 12 flat MLP cases of
       results/PINNED_sim_regression.json (every server scheme, dense and
       compressed uploads; configurations of tools/pin_sim_regression.py)
@@ -79,20 +80,22 @@ a card, or outside a checkout.  Phases:
       ([4,32/8,2048,128] bf16, causal), granite's prefill
       ([4,16/8,2048,64] bf16, causal), both prefill shapes and granite's
       again with peaked scores (q, k at 2 N(0,1)), ragged cross and
-      windowed hd-64 cases, and the SIMT route's prefills at stablelm-3b
-      (hd 80) and gemma3-4b (hd 256), 4 x 2,048; each shape names the
-      route that took it (bf16 at hd 64 and 128: the wgmma kernel,
+      windowed hd-64 cases, and the prefills of stablelm-3b ([4, 32/32,
+      2,048, 80]) and gemma3-4b's global layers ([4, 8/4, 2,048, 256]),
+      flat and peaked; each shape names the route that took it (bf16 at
+      hd 64, 80, 128 and 256: the wgmma kernel,
       csrc/flash_attention_sm90.cu, held within 5e-3 + 2^-7 |plain|, the
-      SIMT kernel timed beside it at hd 64; the rest: the SIMT kernel,
-      csrc/flash_attention.cu, 2e-5 in f32 and 2e-2 in bf16); the wgmma
-      kernel's ptxas lines (registers, spills, static shared memory) and
-      the host cost of a call on each route;
+      SIMT kernel timed beside it at hd 64, 80 and 256; the rest: the
+      SIMT kernel, csrc/flash_attention.cu, 2e-5 in f32 and 2e-2 in
+      bf16); the wgmma kernel's ptxas lines (registers, spills, static
+      shared memory; every instance: hd 64, 80, 128, 256, with and
+      without softcap) and the host cost of a call on each route;
    b. serve.run at internlm2-1.8b's full width (24 layers, 1.89B
       parameters from the port's init, --seed 0): batch 4 x 2,048 prompt
       tokens, 96 greedy decode steps; finite logits, 24 B13 launches in
       prefill, all on the wgmma route, none in decode, one compaction
       (after step 64); prefill and decode times and tokens/s, the
-      compaction's time, and the profiler's device-busy share of 8
+      compaction's time, and the profiler's device-busy share of 4
       further decode steps;
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
       prompt tokens and 72 decode steps (one compaction) on the card and
@@ -116,7 +119,7 @@ a card, or outside a checkout.  Phases:
       writing chunk states, none of its backward), none in decode, no
       compaction; prefill (cold and warm) and decode times,
       tokens/s, peak device memory and the profiler's device-busy share
-      of the warm prefill and of 8 further decode steps;
+      of the warm prefill and of 4 further decode steps;
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
       prompt tokens and 72 decode steps on the card and on the CPU from
       the same weights, as 6c.
@@ -130,20 +133,20 @@ a card, or outside a checkout.  Phases:
       plain and bound ms at each (the bound counts bytes, the exps at
       the SFU's rate and the FMAs; no PyTorch call computes the scan);
       the kernel's ptxas lines (registers, spills, shared memory);
-   b. serve.serve at jamba-v0.1's full width cut to blocks 2-4 of its
-      published 8-layer period (mamba + dense, mamba + MoE, attention +
-      dense; 3,960,418,304 parameters from the port's init, seed 0, cast
-      to bf16 as each layer is placed): batch 4 x 2,048 prompt tokens, 96
-      greedy decode steps; finite logits, 2 B15 and 1
-      B13 launches in prefill (the wgmma route; no B15 launch writing
-      chunk states, no backward), none in decode, one compaction; init
-      seconds, prefill (cold and warm), decode and compaction times,
-      tokens/s, peak device memory and the profiler's device-busy share
-      of the warm prefill and of 8 further decode steps;
+   b. serve.serve at jamba-v0.1's full width cut to blocks 2 and 4 of
+      its published 8-layer period (mamba + dense, attention + dense;
+      1,036,464,128 parameters from the port's init, seed 0, cast to bf16
+      as each layer is placed): batch 4 x 2,048 prompt tokens, 96 greedy
+      decode steps; finite logits, 1 B15 and 1 B13 launch in prefill (the
+      wgmma route; no B15 launch writing chunk states, no backward), none
+      in decode, one compaction; init seconds, prefill (cold and warm),
+      decode and compaction times, tokens/s, peak device memory and the
+      profiler's device-busy share of the warm prefill and of 4 further
+      decode steps;
    c. blocks 3 and 4 of the period (mamba + MoE, then attention + dense)
-      at full width on the card and on the CPU, as 6c (B13 on the SIMT
-      route in f32, the wgmma route in bf16), with the MoE routes that
-      differ between card and CPU counted.
+      at full width on the card and on the CPU, as 6c but with 8 decode
+      steps (B13 on the SIMT route in f32, the wgmma route in bf16), with
+      the MoE routes that differ between card and CPU counted.
 9. the pod runtime's compressed cross-pod round
    (runtime/vc_runtime.py::compressed_assimilate) on the bench model of
    benchmarks/kernel_bench.py:370-383 (24 leaves, 2,101,504 parameters on
@@ -276,19 +279,21 @@ a card, or outside a checkout.  Phases:
 14. LLM VC training (launch/train.py, runtime/vc_runtime.py::
     make_vc_round) and the MoE configs:
    a. B13's backward against the autograd of the plain forward, on the
-      route each case takes (bf16 at hd 64 and 128: the wgmma kernel,
-      csrc/flash_attention_bwd_sm90.cu; the rest: the SIMT kernel,
-      csrc/flash_attention_bwd.cu; counted by route): f32 and bf16,
-      causal and causal + window, GQA groups 1, 2, 4, sq = skv in {1, 63,
-      128, 2048}, hd 16, 64, 128, and at internlm2's training shape
-      [8, 16/8, 128, 128], its prefill shape [4, 16/8, 2,048, 128] and
-      granite's training shape [8, 16/8, 128, 64] in both dtypes, each
-      case twice and bit-equal; timed at those three shapes (the outputs
-      of both routes checked against the plain formula too) beside the
-      SIMT kernel, the plain formula, SDPA's backward and the bound, with
-      the wgmma kernel's device time in a CUDA graph;
-   b. internlm2-1.8b at full width cut to 12 of its 24 layers
-      (1,134,086,144 parameters on an f32 bus): 4 rounds of 2 islands x 2
+      route each case takes (bf16 at hd 64, 80, 128 and 256: the wgmma
+      kernel, csrc/flash_attention_bwd_sm90.cu; the rest: the SIMT
+      kernel, csrc/flash_attention_bwd.cu; counted by route): f32 and
+      bf16, causal and causal + window, sq = skv in {1, 63, 128, 2048},
+      hd 16, 64, 128 at GQA groups 1, 2, 4 and hd 80, 256 at groups 1,
+      2, and at the training shapes of internlm2 [8, 16/8, 128, 128],
+      granite [8, 16/8, 128, 64], stablelm-3b [8, 32/32, 128, 80] and
+      gemma3-4b [8, 8/4, 128, 256] and the prefill shapes [4, 16/8,
+      2,048, 128], [4, 32/32, 2,048, 80], [4, 8/4, 2,048, 256] in both
+      dtypes, each case twice and bit-equal; timed at those seven shapes
+      (the outputs of both routes checked against the plain formula too)
+      beside the SIMT kernel, the plain formula, SDPA's backward and the
+      bound, with the wgmma kernel's device time in a CUDA graph;
+   b. internlm2-1.8b at full width cut to 6 of its 24 layers
+      (756,574,208 parameters on an f32 bus): 4 rounds of 2 islands x 2
       local steps of 8 x 128 tokens, island 0 preempted in round 2, a
       checkpoint after round 3; every step B13 forward + recompute and
       backward in each layer (all on the wgmma routes) and B3, B2 once a
@@ -297,8 +302,9 @@ a card, or outside a checkout.  Phases:
       tokens/s, peak memory; a resume from the round-3 record gives
       round 4's loss and server bus bit-equal; one more step profiled
       (device-busy share, top device items);
-   c. the same model cut to 2 layers: one round of 1 island x 1 step of
-      2 x 64 tokens, card vs CPU: in f32 every gradient leaf within
+   c. the same model cut to 2 layers and a vocabulary of TRAIN_CMP_VOCAB
+      (16,384): one round of 1 island x 1 step of 2 x 64 tokens, card vs
+      CPU: in f32 every gradient leaf within
       TRAIN_CMP_LEAF, and planted faults in dq / dk / dv refused; in bf16
       the loss, the grad norms and every leaf within their bounds;
    d. granite-moe-1b-a400m served at full width and depth (4 x 2,048,
@@ -317,27 +323,55 @@ a card, or outside a checkout.  Phases:
       block, u f32 and bf16, B / C column views; each timed at its
       training shape beside the plain backward and the bound (no PyTorch
       call computes either); their ptxas lines;
-   b. rwkv6-1.6b at full width cut to 12 of its 24 layers (934,129,664
+   b. rwkv6-1.6b at full width cut to 6 of its 24 layers (601,284,608
       parameters) as 14b: 4 rounds, island 0 preempted in round 2, killed
-      after round 3 and resumed bit-equal; a step launches B14 24 times
-      (with the remat recompute) and its backward 12 times; one step
+      after round 3 and resumed bit-equal; a step launches B14 12 times
+      (with the remat recompute) and its backward 6 times; one step
       profiled;
    c. jamba-v0.1 at full width, blocks (0, 2, 4) of its period (mamba +
       dense twice, attention + dense; 1,317,941,248 parameters), 2
       rounds; a step launches B15 4 times and its backward twice, B13 2
       and its backward once, all B13 on the wgmma routes; one step
       profiled;
-   d. card vs CPU as 14c at full width, rwkv6 layers 0-1 and jamba
-      blocks (2, 4), one island: f32 leaf by leaf, with planted faults in
+   d. card vs CPU as 14c (vocabulary TRAIN_CMP_VOCAB), rwkv6 layers 0-1
+      and jamba block 2 (mamba + dense), one island: f32 leaf by leaf,
+      with planted faults in
       B14's backward (dk = 0, dw x 1.01) and B15's (dC = 0, dA x 1.01)
       refused; bf16: each leaf no farther from the CPU's f32 gradient than
       twice the CPU's own bf16 gradient is.
-16. a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
-   each name their main path's route's source and, under ``sources``,
-   both routes'), the nvidia-smi
-   line, and the last line ``{"ok": true, "device": {...}}``.
+16. stablelm-3b (hd 80) and gemma3-4b (hd 256), whose bf16 attention
+   the wgmma route took in PR 32:
+   a. launch/serve.py's serve at full width, batch 4 x 2,048 prompt
+      tokens, 96 greedy decode steps: stablelm-3b cut to 8 of its 32
+      layers (892,032,000 parameters), gemma3-4b to its first layer
+      group (5 local layers, window 1,024, and 1 global: 1,237,356,032
+      parameters); one B13 launch a layer in prefill, all on the wgmma
+      route, none in decode; prefill (cold and warm) and decode times,
+      tokens/s, peak device memory, the warm prefill's device-busy share;
+   b. each at 2 layers (gemma3: one local, one global) card vs CPU as
+      6c (B13 on the SIMT route in f32, the wgmma route in bf16), at full
+      width but for gemma3's vocabulary, cut to TRAIN_CMP_VOCAB (its
+      262,144-row tied embedding would be 78% of the cut's parameters,
+      which the CPU's work scales with);
+   c. each trained with the launcher's defaults (2 islands x 2 steps of
+      8 x 128 tokens) for 2 rounds, as 14b without the checkpoint and the
+      profile: stablelm-3b cut to 12 layers (1,209,267,200 parameters),
+      gemma3-4b to its first group; every B13 forward, remat recompute
+      and backward counted by route, all wgmma; B3 a step, B2 a round;
+      round walls, tokens/s, peak memory;
+   d. each at 16b's 2 layers card vs CPU as 14c: f32 leaf by leaf within
+      TRAIN_CMP_LEAF (B13 on the SIMT routes), the four planted faults
+      (dq, dk, dv zeroed; dq x 1.01) refused at hd 80 and at hd 256; bf16
+      within 14c's bounds.
+17. a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
+   each name their main path's route's source, under ``sources`` both
+   routes', and under ``route_by_head_dim`` the route bf16 takes at each
+   head dim), the nvidia-smi line, and the last line ``{"ok": true,
+   "device": {...}}``.
 
-Each phase's wall time is printed on its own line as the next begins.
+Each phase's wall time is printed on its own line as the next begins,
+and at the end the sum of phases 1-13 (a slow host shows there) and the
+total.
 """
 from __future__ import annotations
 
@@ -364,6 +398,7 @@ MAIN_K = (656, 1313)             # sparse payload at densities 0.05 / 0.1
 # 4c: examples/quickstart.py's full configuration, its depth (10 epochs)
 # cut to 2 to hold the script's time; every epoch does the same work
 QUICKSTART_EPOCHS = 2
+PROFILE_TASKS = 2                # 4c: client tasks under the profiler
 BIG_K = int(BIG_N * 0.05)        # 6,710,886
 QBLOCK = 256
 # B2's client counts in phase 3: its instances for 1-8 clients and its
@@ -560,15 +595,22 @@ class Phases:
     def __init__(self):
         self.t0 = self.t = time.perf_counter()
         self.name = None
+        self.walls = {}
 
     def start(self, name) -> None:
         now = time.perf_counter()
         if self.name is not None:
             say(f"phase {self.name} wall: {now - self.t:.3f} s")
+            self.walls[self.name] = now - self.t
         self.name, self.t = name, now
 
     def end(self) -> None:
+        """The total, and the sum of phases 1-13 (the same work since PR
+        27: a slow host shows there before any later phase)."""
         self.start(None)
+        early = sum(w for n, w in self.walls.items()
+                    if int(re.match(r"\d+", n).group()) <= 13)
+        say(f"phases 1-13 wall: {early:.3f} s")
         say(f"total wall: {time.perf_counter() - self.t0:.3f} s")
 
 
@@ -1008,14 +1050,35 @@ def check_counts(VK, res, label: str) -> dict:
 
 
 def profile_smoke(torch, VK):
-    """The first epoch of the smoke run on the card under torch.profiler
-    (its second epoch cut to hold the script's time): device busy share
-    and the top kernels/ops."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = run("cuda", smoke=True, epochs=1)
-    report_profile(prof, f"smoke, 1 epoch (profiled wall {wall:.3f} s)",
-                   wall)
+    """The smoke run's first PROFILE_TASKS client tasks on the card under
+    torch.profiler (the rest of its first epoch runs unrecorded; the
+    whole first epoch until PR 32, whose post-processing took 35 s of
+    the script): device busy share and the top kernels/ops."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.core.tasks import MLPTask
+    real, ends = MLPTask.client_train, []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=0, active=PROFILE_TASKS,
+                                   repeat=1)) as prof:
+        t0 = time.perf_counter()
+
+        def stepped(*a, **k):
+            out = real(*a, **k)
+            if len(ends) < PROFILE_TASKS:
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+            prof.step()
+            return out
+        MLPTask.client_train = stepped
+        try:
+            run("cuda", smoke=True, epochs=1)
+        finally:
+            MLPTask.client_train = real
+    check(len(ends) == PROFILE_TASKS, f"the smoke run took {len(ends)} "
+          f"client tasks, fewer than {PROFILE_TASKS}")
+    wall = ends[-1] - t0
+    report_profile(prof, f"smoke, its first {PROFILE_TASKS} client tasks "
+                   f"(profiled wall {wall:.3f} s)", wall)
 
 
 def host_breakdown(run_fn, targets=None):
@@ -1166,9 +1229,10 @@ def comparison(torch, VK) -> None:
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16, tensor cores
 # kernel vs plain, as (atol, rtol) by route.  SIMT: 2e-5 in f32 (the
 # reference's blocked-vs-plain tolerance), tests/test_kernels.py TOL in
-# bf16 (outputs rounded to bf16).  wgmma (bf16 at hd 64 and 128, P
-# rounded to bf16 for P.V): the bound its source states, 5e-3 before the
-# output's rounding plus one bf16 ulp of |plain| (at most 2^-7 |plain|)
+# bf16 (outputs rounded to bf16).  wgmma (bf16 at hd 64, 80, 128 and 256,
+# P rounded to bf16 for P.V): the bound its source states, 5e-3 before
+# the output's rounding plus one bf16 ulp of |plain| (at most 2^-7
+# |plain|)
 ATTN_TOL = {("simt", "float32"): (2e-5, 2e-5),
             ("simt", "bfloat16"): (2e-2, 2e-2),
             ("wgmma", "bfloat16"): (5e-3, 2 ** -7)}
@@ -1199,12 +1263,17 @@ ATTN_SHAPES = {
                             None, 0.5),
     "h hd64 window": (2, 16, 8, 2300, 2300, 64, "bfloat16", True, 1024,
                       None, 2.0),
-    # the SIMT route at the prefills it still serves: stablelm-3b (hd 80)
-    # and gemma3-4b's global layers (hd 256), 4 x 2,048 bf16
+    # stablelm-3b's prefill (hd 80: hd 128's wgmma instance on tiles
+    # zero-filled past column 80) and gemma3-4b's global layers (hd 256:
+    # 64-key tiles), 4 x 2,048 bf16, flat and peaked
     "i stablelm-3b prefill": (4, 32, 32, 2048, 2048, 80, "bfloat16", True,
                               None, None, 0.5),
+    "i2 stablelm-3b prefill, peaked": (4, 32, 32, 2048, 2048, 80,
+                                       "bfloat16", True, None, None, 2.0),
     "j gemma3-4b prefill": (4, 8, 4, 2048, 2048, 256, "bfloat16", True,
                             None, None, 0.5),
+    "j2 gemma3-4b prefill, peaked": (4, 8, 4, 2048, 2048, 256, "bfloat16",
+                                     True, None, None, 2.0),
 }
 # host cost of one wrapper call, at a shape whose kernel is shorter than
 # the call: (b, h, kvh, s)
@@ -1212,9 +1281,9 @@ HOST_SHAPE, HOST_CALLS = (1, 4, 2, 128), 200
 SERVE_ARGS = ["--arch", "internlm2-1.8b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "96"]
 SERVE_LAYERS = 24                # internlm2-1.8b: one B13 launch a layer
-# decode steps under the profiler (cut from 32: the profiler's
-# post-processing costs ~12 s per second of profiled decode)
-PROFILE_STEPS = 8
+# decode steps under the profiler (cut from 32, then from 8 in PR 32: the
+# profiler's post-processing costs ~12 s per second of profiled decode)
+PROFILE_STEPS = 4
 # card vs CPU: internlm2-1.8b's full width, depth cut to 2 layers
 CMP_LAYERS, CMP_BATCH, CMP_PROMPT, CMP_STEPS = 2, 2, 256, 72
 # logits, card vs CPU: 2e-3 in f32 compute (the reference's own
@@ -1300,8 +1369,9 @@ def attention_parity(torch, np, FK, R) -> dict:
                 enable_gqa=h != kvh), 10)
         simt = ""
         # the SIMT forward beside the wgmma one where both are built: bf16
-        # at hd 64, granite's route before the wgmma kernel took hd 64
-        if FK.route(q) == "wgmma" and hd == 64:
+        # at hd 64, 80 and 256, the routes of granite's, stablelm-3b's and
+        # gemma3-4b's prefills before the wgmma kernel took them
+        if FK.route(q) == "wgmma" and hd != 128:
             got = FK.flash_attention(q, k, v, kernel="simt", **kw)
             plain = R.attention(q, k, v, **kw)
             atol, rtol = ATTN_TOL["simt", dt]
@@ -1796,14 +1866,20 @@ SCAN_SHAPES = {
 SFU_PER_CLOCK = 16               # exp results a clock per SM (sm_90)
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_GEN = 4, 2048, 96
 # one layer group (8 layers) at full width: what tests/test_torch_jamba.py
-# holds jamba_config() to; 8b serves blocks 2-4 of it (cut from the whole
-# group to blocks 2-5, then 2-4, to hold the script's time: the CPU draws
-# every weight)
+# holds jamba_config() to; 8b serves blocks 2 and 4 of it (cut from the
+# whole group to blocks 2-5, then 2-4, then in PR 32 to 2 and 4, to hold
+# the script's time: the CPU draws every weight, 31 s for blocks 2-4, whose
+# MoE layer is 2.9B of the 4.0B; the MoE is served at full width in 8c
+# and 14d)
 JAMBA_PARAMS = 13_295_235_072
-JAMBA_SERVE_BLOCKS = (2, 3, 4)      # Md Me Ad
-JAMBA_SERVE_PARAMS = 3_960_418_304
-JAMBA_SCANS, JAMBA_ATTNS = 2, 1  # B15 / B13 launches per 8b prefill
+JAMBA_SERVE_BLOCKS = (2, 4)      # Md Ad
+JAMBA_SERVE_PARAMS = 1_036_464_128
+JAMBA_SCANS, JAMBA_ATTNS = 1, 1  # B15 / B13 launches per 8b prefill
 JAMBA_CMP_BLOCKS = (3, 4)        # mamba + MoE, then attention + dense
+# 8c's decode steps (72 until PR 32: the CPU's MoE decode gathers whole
+# 14,336-wide experts, 66 s in f32 and 38 s in bf16 of 8c's 131 s; the
+# compaction at step 64 stays held card vs CPU in 6c, 7c and 14d)
+JAMBA_CMP_STEPS = 8
 
 
 def jamba_config(blocks=None):
@@ -3332,16 +3408,24 @@ def examples_and_cnn_on_card(torch, VK) -> None:
 BWD_TOL = {"float32": (5e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
 BWD_GROUPS, BWD_SQS, BWD_HDS, BWD_WINDOW = (1, 2, 4), (1, 63, 128, 2048), \
     (16, 64, 128), 48
+# stablelm-3b's and gemma3-4b's head dims, at GQA groups 1 and 2
+BWD_HDS_NEW, BWD_GROUPS_NEW = (80, 256), (1, 2)
 # timed: internlm2's training step ([batch 8, 16/8 heads, seq 128, 128])
 # and its prefill shape, and granite's training step (hd 64), bf16,
 # causal; "train" is the main path's
 BWD_TIMED = {"train": (8, 16, 8, 128, 128), "prefill": (4, 16, 8, 2048, 128),
-             "granite train": (8, 16, 8, 128, 64)}
-# 14b: internlm2-1.8b at full width cut to 12 of its 24 layers (the full
+             "granite train": (8, 16, 8, 128, 64),
+             "stablelm train": (8, 32, 32, 128, 80),
+             "gemma3 train": (8, 8, 4, 128, 256),
+             "stablelm prefill": (4, 32, 32, 2048, 80),
+             "gemma3 prefill": (4, 8, 4, 2048, 256)}
+# 14b: internlm2-1.8b at full width cut to 6 of its 24 layers (the full
 # depth's flat round — islands, their Adam lanes, server, gradient and
-# B3's outputs — needs ~68 GB before activations)
-TRAIN_LAYERS = 12
-TRAIN_PARAMS = 1_134_086_144     # 379,062,272 + 12 x 62,918,656
+# B3's outputs — needs ~68 GB before activations; 12 layers until PR 32:
+# the CPU's draw of the weights and the 22.7 GB record's write and read
+# were most of the phase's 63-75 s)
+TRAIN_LAYERS = 6
+TRAIN_PARAMS = 756_574_208       # 379,062,272 + 6 x 62,918,656
 TRAIN_KW = dict(islands=2, local_steps=2, batch=8, seq=128, alpha="var",
                 lr=1e-3, seed=0)
 TRAIN_ROUNDS, TRAIN_PREEMPT, TRAIN_KILL = 4, 1, 3   # round 2 is index 1
@@ -3361,6 +3445,13 @@ TRAIN_ROUNDS, TRAIN_PREEMPT, TRAIN_KILL = 4, 1, 3   # round 2 is index 1
 # within TRAIN_CMP_GNORM relative (measured 7.4e-4 per leaf), each leaf
 # within TRAIN_CMP_LEAF_BF16 as the f32 check measures it (measured 0.019)
 TRAIN_CMP_LEAF, TRAIN_CMP_F32, TRAIN_CMP_ISLANDS = 1e-3, 1e-4, 1
+# the vocabulary of every training card-vs-CPU check (14c, 15d, 16d) and
+# of gemma3's serving one (16b), cut from the published 50,304-262,144
+# since PR 32: no hand-written kernel reads it, the CPU's round is
+# memory-bound on the flat bus, and the embedding and LM head were 46-78%
+# of the 2-layer cuts' parameters (14c, 15d and 16d took 62, 165 and 97 s
+# on a slow host, ~80% of it the CPU's rounds)
+TRAIN_CMP_VOCAB = 16384
 TRAIN_CMP_LOSS, TRAIN_CMP_GNORM, TRAIN_CMP_LEAF_BF16 = 0.02, 0.005, 0.1
 TRAIN_FAULTS = {"dq = 0": (0, 0.0, "attn/wq"), "dk = 0": (1, 0.0, "attn/wk"),
                 "dv = 0": (2, 0.0, "attn/wv"),
@@ -3398,12 +3489,12 @@ def _bwd_share(torch, got, want, dt: str, label: str) -> tuple:
 def attention_bwd_parity(torch, np, FK, R) -> dict:
     """Phase 14a: B13's backward against the autograd of its plain
     forward at every case of f32 / bf16 x causal / causal + window x GQA
-    groups 1, 2, 4 x sq = skv in BWD_SQS x hd in BWD_HDS, and at the
-    BWD_TIMED shapes (the training path's own grid, causal) in both
-    dtypes, q / k / v as transposed views of [b, s, h, hd] (the model's
-    layout); each case run twice, bit-equal, on the route ``bwd_route``
-    picks (bf16 at hd 64 and 128: the wgmma kernel,
-    csrc/flash_attention_bwd_sm90.cu; the rest: the SIMT kernel,
+    groups 1, 2, 4 x sq = skv in BWD_SQS x hd in BWD_HDS (and groups 1, 2
+    at BWD_HDS_NEW), and at the BWD_TIMED shapes (the training path's own
+    grid, causal) in both dtypes, q / k / v as transposed views of [b, s,
+    h, hd] (the model's layout); each case run twice, bit-equal, on the
+    route ``bwd_route`` picks (bf16 at hd 64, 80, 128 and 256: the wgmma
+    kernel, csrc/flash_attention_bwd_sm90.cu; the rest: the SIMT kernel,
     csrc/flash_attention_bwd.cu), counted by ``route_counts``.  Then
     timed at BWD_TIMED beside the SIMT kernel on the same inputs, the
     plain formula (``ref.attention_bwd``, against which the timed outputs
@@ -3417,6 +3508,10 @@ def attention_bwd_parity(torch, np, FK, R) -> dict:
     grid = [(dt, window, 2, 2 * grp, 2, sq, hd)
             for dt in ("float32", "bfloat16") for window in (None, BWD_WINDOW)
             for grp in BWD_GROUPS for sq in BWD_SQS for hd in BWD_HDS]
+    grid += [(dt, window, 2, 2 * grp, 2, sq, hd)
+             for dt in ("float32", "bfloat16")
+             for window in (None, BWD_WINDOW) for grp in BWD_GROUPS_NEW
+             for sq in BWD_SQS for hd in BWD_HDS_NEW]
     grid = [(dt, w, 1 if sq > 1024 else b, h, kvh, sq, hd)
             for dt, w, b, h, kvh, sq, hd in grid]
     grid += [(dt, None) + shape for shape in BWD_TIMED.values()
@@ -3523,7 +3618,7 @@ def _span(torch, spans: dict, owner, name: str, key: str):
 
 def train_full_width(torch, VK, tmp: Path, cfg, label: str, n_want: int,
                      per_step: dict, attn: int = 0, rounds=TRAIN_ROUNDS,
-                     kill=TRAIN_KILL) -> dict:
+                     kill=TRAIN_KILL, profile: bool = True) -> dict:
     """Phases 14b, 15b, 15c: launch/train.py's ``train`` at ``cfg`` (a
     full width, its depth cut; ``n_want`` parameters, the port's init,
     seed 0), the launcher's defaults (2 islands, 2 local steps, batch 8 x
@@ -3536,8 +3631,8 @@ def train_full_width(torch, VK, tmp: Path, cfg, label: str, n_want: int,
     after it would find): its last round must equal the run's bit for
     bit, loss and server bus.  Prints round walls, each step's time split
     (host clock between synchronisations: forward + backward, clip, B3; B2
-    a round), tokens/s, launches and peak memory; then one step
-    profiled.  Returns the run's launches."""
+    a round), tokens/s, launches and peak memory; then (``profile``) one
+    step profiled.  Returns the run's launches."""
     import math
     import shutil
     from repro_torch.launch import train as LT
@@ -3632,7 +3727,8 @@ def train_full_width(torch, VK, tmp: Path, cfg, label: str, n_want: int,
         del resumed, clean_bus
     else:
         del run
-    profile_train_step(torch, cfg, server, label)
+    if profile:
+        profile_train_step(torch, cfg, server, label)
     del server
     shutil.rmtree(ckdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3732,9 +3828,10 @@ def _leaf_diffs(torch, spec, got: list, want: list) -> tuple:
 
 def train_card_vs_cpu(torch, VK, cut, label: str, per_step: dict,
                       faults: dict, bf16=None) -> None:
-    """Phases 14c and 15d: one round of ``make_vc_round``
+    """Phases 14c, 15d and 16d: one round of ``make_vc_round``
     (TRAIN_CMP_ISLANDS islands x 1 step, batch 2 x 64 tokens) at ``cut``
-    (a full width cut to a few layers), on the card and on the CPU from
+    (a full width cut to a few layers, its vocabulary to
+    TRAIN_CMP_VOCAB), on the card and on the CPU from
     one set of weights (the port's init, drawn once); the card launches
     ``per_step`` a step (and B3, B2), the CPU nothing.  In f32 compute
     each step's gradient is held to the CPU's leaf by leaf
@@ -3750,6 +3847,7 @@ def train_card_vs_cpu(torch, VK, cut, label: str, per_step: dict,
     from repro_torch.core import flat as F
     from repro_torch.launch.train import _round_batches
     from repro_torch.models.registry import build_model
+    cut = cut.replace(vocab_size=TRAIN_CMP_VOCAB)
     init = build_model(cut).init(0, device="cpu")
     names = _leaf_names(init)
     master = F.flatten(init)
@@ -3864,7 +3962,13 @@ def _planted_faults(torch, VK, model, master, batches, names: list,
         del run
 
 
-def _serve_moe(torch, VK, cfg, shape, route: str, label: str) -> dict:
+def _serve_lm(torch, VK, cfg, shape, route: str, label: str,
+              profile: bool = False) -> dict:
+    """serve.serve at ``cfg`` (batch, prompt, decode steps = ``shape``):
+    one B13 launch a layer in prefill, all on ``route``, none in decode,
+    a compaction every 64 steps; with ``profile``, the warm prefill
+    again, timed and profiled (``profile_prefill``).  Returns the run's
+    launches."""
     from repro_torch.launch import serve
     b, s, gen = shape
     zero = dict.fromkeys(VK.KERNELS, 0)
@@ -3902,6 +4006,8 @@ def _serve_moe(torch, VK, cfg, shape, route: str, label: str) -> dict:
         f"compaction, {b * gen / res.decode_s:.1f} tok/s; compactions "
         f"{res.compactions}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; wall {wall:.3f} s")
+    if profile:
+        profile_prefill(torch, res, b, s)
     del res
     torch.cuda.empty_cache()
     return counts
@@ -3919,9 +4025,9 @@ def serve_moe_on_card(torch, VK) -> None:
     14,336-wide experts, slow on the CPU)."""
     from repro_torch.configs import get_config
     granite = get_config("granite-moe-1b-a400m")
-    _serve_moe(torch, VK, granite, GRANITE_SERVE, "wgmma", "granite serve")
+    _serve_lm(torch, VK, granite, GRANITE_SERVE, "wgmma", "granite serve")
     mixtral = depth_cut("mixtral-8x7b", MIXTRAL_LAYERS)
-    _serve_moe(torch, VK, mixtral, MIXTRAL_SERVE, "wgmma", "mixtral serve")
+    _serve_lm(torch, VK, mixtral, MIXTRAL_SERVE, "wgmma", "mixtral serve")
     serve_card_vs_cpu(torch, VK, depth_cut("granite-moe-1b-a400m"),
                       {"flash_attention": CMP_LAYERS}, ATTN_ROUTES)
     serve_card_vs_cpu(torch, VK, mixtral,
@@ -3962,20 +4068,22 @@ SCAN_BWD_SHAPES = {
     "f long": (2, 2048, 8192, 16, "bfloat16"),
 }
 SCAN_BWD_TIMED = ("a rwkv6 train", "g long", "a jamba train", "f long")
-# 15b: rwkv6-1.6b at full width cut to 12 of its 24 layers; 14b's
-# launcher defaults, rounds, preemption and kill
-RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 12, 934_129_664
+# 15b: rwkv6-1.6b at full width cut to 6 of its 24 layers (12 until PR
+# 32, as 14b); 14b's launcher defaults, rounds, preemption and kill
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 6, 601_284_608
 # 15c: jamba-v0.1 at full width, blocks (0, 2, 4) of its period (mamba +
 # dense twice, attention + dense), 2 rounds
 JAMBA_TRAIN_BLOCKS, JAMBA_TRAIN_PARAMS = (0, 2, 4), 1_317_941_248
 JAMBA_TRAIN_ROUNDS = 2
-# 15d: card vs CPU, rwkv6 layers 0-1 and jamba blocks (2, 4), one island
-# as 14c; f32 as 14c; bf16: the loss as 14c, and each leaf's
+# 15d: card vs CPU, rwkv6 layers 0-1 and jamba block 2 (mamba + dense;
+# blocks (2, 4) until PR 32: B13's backward is held card vs CPU in 14c
+# and 16d), one island as 14c; f32 as 14c; bf16: the loss as 14c, and
+# each leaf's
 # gradient no farther from the CPU's f32 gradient than TRAIN_CMP_NOISE
 # times the CPU's own bf16 gradient is (rwkv6's bf16 gradients of the
 # small leaves, u above all, carry bf16's rounding: card vs CPU in bf16
 # 0.15 at u, 1.4% on the global norm, where f32 agrees to 2.9e-5)
-JAMBA_TRAIN_CMP_BLOCKS, TRAIN_CMP_NOISE = (2, 4), 2.0
+JAMBA_TRAIN_CMP_BLOCKS, TRAIN_CMP_NOISE = (2,), 2.0
 
 
 def _bwd_check(torch, got, want, names, label: str) -> float:
@@ -4171,12 +4279,94 @@ def train_rwkv_jamba(torch, VK, tmp: Path, WK, MK, phases) -> tuple:
          "dw x 1.01": (WK, "wkv6_bwd", 3, 1.01, "rwkv_tm/w0", CMP_LAYERS)})
     train_card_vs_cpu(
         torch, VK, jamba_config(JAMBA_TRAIN_CMP_BLOCKS),
-        "jamba train card vs cpu",
-        {"mamba_scan": 2, "mamba_scan_bwd": 1, "flash_attention": 2,
-         "flash_attention_bwd": 1},
+        "jamba train card vs cpu", {"mamba_scan": 2, "mamba_scan_bwd": 1},
         {"dC = 0": (MK, "mamba_scan_bwd", 3, 0.0, "mamba/x_proj", 1),
          "dA x 1.01": (MK, "mamba_scan_bwd", 4, 1.01, "mamba/a_log", 1)})
     return rwkv, jamba
+
+
+# ---------------------------------------------------------------------------
+# phase 16: stablelm-3b and gemma3-4b (B13 at hd 80 and 256)
+# ---------------------------------------------------------------------------
+
+# 16a: served at full width, batch 4 x 2,048 prompt tokens, 96 greedy
+# decode steps: stablelm-3b cut to 8 of its 32 layers, gemma3-4b to its
+# first layer group (5 local layers, window 1,024, then 1 global); the
+# weights are drawn on the CPU at ~100M parameters a second, which the
+# full depths' 2.8B and 3.9B would take ~65 s of
+DENSE_SERVE = (4, 2048, 96)
+STABLELM_SERVE_LAYERS = 8
+# 16c: trained as 14b (the launcher's defaults) for 2 rounds, no
+# checkpoint: stablelm-3b cut to 12 layers, gemma3-4b to its first group
+STABLELM_TRAIN_LAYERS = 12
+STABLELM_TRAIN_PARAMS = 1_209_267_200    # 257,561,600 + 12 x 79,308,800
+GEMMA3_GROUP_PARAMS = 1_237_356_032      # 671,088,640 tied + 6 x
+                                         # 94,377,472 + 2,560 (final norm)
+DENSE_TRAIN_ROUNDS = 2
+
+
+def gemma3_group(blocks=None):
+    """gemma3-4b at full width, its first layer group once (5 local
+    layers and 1 global), or the group's blocks at ``blocks``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import LayerGroup
+    full = get_config("gemma3-4b")
+    group = full.layer_groups[0].blocks
+    if blocks is not None:
+        group = tuple(group[i] for i in blocks)
+    return full.replace(layer_groups=(LayerGroup(group, 1),))
+
+
+def dense_hd_paths(torch, VK, FK, tmp: Path, phases) -> None:
+    """Phase 16: the dense models whose head dims the wgmma route took in
+    PR 32.  16a: stablelm-3b (hd 80) and gemma3-4b (hd 256) served at
+    full width (DENSE_SERVE; depth cut as above): one B13 launch a layer
+    in prefill, all on the wgmma route, none in decode; warm prefill ms
+    and tokens/s, decode ms a step, peak memory and the warm prefill's
+    device-busy share.  16b: each at 2 layers (gemma3: one local, one
+    global) card vs CPU as 6c.  16c: each trained at full width as 14b
+    for DENSE_TRAIN_ROUNDS rounds (every B13 forward, recompute and
+    backward counted by route, all wgmma; B3 a step, B2 a round).  16d:
+    each at 2 layers card vs CPU as 14c: f32 leaf by leaf, the four
+    planted faults in B13's backward refused at hd 80 and at hd 256,
+    bf16 within 14c's bounds."""
+    phases.start("16a")
+    _serve_lm(torch, VK, depth_cut("stablelm-3b", STABLELM_SERVE_LAYERS),
+              DENSE_SERVE, "wgmma", "stablelm serve", profile=True)
+    _serve_lm(torch, VK, gemma3_group(), DENSE_SERVE, "wgmma",
+              "gemma3 serve", profile=True)
+    # gemma3's tied embedding would be 78% of its 2-layer cut's 860M
+    # parameters, which the CPU's work scales with (at full vocabulary
+    # 16d's gemma3 CPU rounds took 25.5 s f32 + 48.3 s bf16): its
+    # vocabulary is TRAIN_CMP_VOCAB here as in 16d, every other width as
+    # published (16a and 16c run the full vocabulary on the card)
+    cmp_cuts = (("stablelm", depth_cut("stablelm-3b")),
+                ("gemma3", gemma3_group((0, 5)).replace(
+                    vocab_size=TRAIN_CMP_VOCAB)))
+    phases.start("16b")
+    for _, cut in cmp_cuts:
+        serve_card_vs_cpu(torch, VK, cut, {"flash_attention": CMP_LAYERS},
+                          ATTN_ROUTES)
+    phases.start("16c")
+    for cfg, label, n in (
+            (depth_cut("stablelm-3b", STABLELM_TRAIN_LAYERS),
+             "stablelm train", STABLELM_TRAIN_PARAMS),
+            (gemma3_group(), "gemma3 train", GEMMA3_GROUP_PARAMS)):
+        layers = cfg.n_layers
+        train_full_width(torch, VK, tmp, cfg, label, n,
+                         {"flash_attention": 2 * layers,
+                          "flash_attention_bwd": layers},
+                         attn=2 * layers, rounds=DENSE_TRAIN_ROUNDS,
+                         kill=None, profile=False)
+    phases.start("16d")
+    for name, cut in cmp_cuts:
+        train_card_vs_cpu(
+            torch, VK, cut, f"{name} train card vs cpu",
+            {"flash_attention": 2 * CMP_LAYERS,
+             "flash_attention_bwd": CMP_LAYERS},
+            {k: (FK, "flash_attention_bwd", i, sc, leaf, CMP_LAYERS)
+             for k, (i, sc, leaf) in TRAIN_FAULTS.items()},
+            (TRAIN_CMP_GNORM, TRAIN_CMP_LEAF_BF16))
 
 
 def _leaves(node):
@@ -4381,7 +4571,8 @@ def main() -> int:
     say_ptxas(build, "mamba_scan", "B15")
     jamba_counts = serve_jamba_full_width(torch, VK)                  # 8b
     serve_card_vs_cpu(torch, VK, jamba_config(JAMBA_CMP_BLOCKS),      # 8c
-                      {"mamba_scan": 1, "flash_attention": 1}, ATTN_ROUTES)
+                      {"mamba_scan": 1, "flash_attention": 1}, ATTN_ROUTES,
+                      steps=JAMBA_CMP_STEPS)
 
     # ---- 9. the pod runtime's compressed cross-pod round ----------------
     phases.start("9")
@@ -4460,7 +4651,10 @@ def main() -> int:
     rwkv_train_counts, jamba_train_counts = train_rwkv_jamba(     # 15b-d
         torch, VK, tmp, WK, MK, phases)
 
-    # ---- 16. result lines -------------------------------------------------
+    # ---- 16. stablelm-3b and gemma3-4b: B13 at hd 80 and 256 -----------
+    dense_hd_paths(torch, VK, FK, tmp, phases)                        # 16a-d
+
+    # ---- 17. result lines -------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
@@ -4493,6 +4687,11 @@ def main() -> int:
         if name in ROUTES:          # B13: the main path's route, and both
             entry["source"] = ROUTES[name]["wgmma"]
             entry["sources"] = ROUTES[name]
+            # the route (and so the source) of the bf16 main paths at
+            # each head dim: every model the port serves or trains
+            entry["route_by_head_dim"] = {
+                str(hd): "wgmma" if hd in FK.WGMMA_HEAD_DIMS else "simt"
+                for hd in FK.HEAD_DIMS}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,8 @@
 // Blocked online-softmax attention (flash) forward on Hopper's tensor
-// cores: wgmma on TMA-fed bf16 tiles, head dim 64 or 128 (sm_90a).
-// Replaces, for bf16 q / k / v at hd 64 and 128, the same Pallas kernel
-// as the SIMT kernel of flash_attention.cu (which keeps f32 and the other
-// head dims):
+// cores: wgmma on TMA-fed bf16 tiles, head dim 64, 80, 128 or 256
+// (sm_90a).  Replaces, for bf16 q / k / v at those head dims, the same
+// Pallas kernel as the SIMT kernel of flash_attention.cu (which keeps f32
+// and hd 16 / 32):
 //
 //   fa90_forward <- flash_attention (:78), _attn_kernel (:23)
 //                   of src/repro/kernels/flash_attention.py
@@ -39,36 +39,48 @@
 // Numbers that differ from the Pallas kernel and from the SIMT kernel:
 // P is rounded to bf16 before the P.V product (the tensor cores take
 // bf16 operands; both other kernels keep p in f32); l sums the f32 P.
-// Causal at hd 64 and 128, GQA 2-4, s = 300-2048, with v at N(0,1) and
-// q, k at 0.5 N(0,1) (a flat softmax) or at 2 N(0,1) (peaked: the row max
-// moves between tiles), that moves the output by at most 5e-3 before its
-// bf16 rounding and by at most one bf16 ulp of the output after it, so
-// this kernel is held to its plain version within 5e-3 + 2^-7 |plain| at
-// both head dims (tests/test_torch_attention.py holds both on a CPU
-// emulation of this arithmetic, and the emulation against the reference;
-// the card tests and chip_smoke.py hold the kernel to that bound).
+// Causal at hd 64, 80, 128 and 256, GQA 2-4, s = 300-2048, with v at
+// N(0,1) and q, k at 0.5 N(0,1) (a flat softmax) or at 2 N(0,1) (peaked:
+// the row max moves between tiles), that moves the output by at most 5e-3
+// before its bf16 rounding and by at most one bf16 ulp of the output
+// after it, so this kernel is held to its plain version within 5e-3 +
+// 2^-7 |plain| at every head dim (tests/test_torch_attention.py holds
+// each on a CPU emulation of this arithmetic, and the emulation against
+// the reference; the card tests and chip_smoke.py hold the kernel to that
+// bound).
 //
-// Design (one CTA of 384 threads per (128-row query tile, b * h)):
+// Design (one CTA of 384 threads per (128-row query tile, b * h); the
+// geometry of each head dim in ``Geo``):
 // - warpgroups 0 and 1 are consumers that own 64 query rows each;
 //   warpgroup 2 is the producer, whose first thread issues every TMA
 //   load.  The role branch is on a warp-uniform index (a shuffle), with
 //   setmaxnreg (producer 40, consumers 232) at the top of each role.
-// - shared memory: Q 128 x hd bf16; K and V in a ring of 128 keys x hd
-//   tiles.  Each tile is hd / 64 boxes of 128 rows x 64 columns (128
+// - shared memory: Q 128 x hd bf16; K and V in a ring of kv tiles of
+//   kBN keys x hd.  Each tile is hd / 64 boxes of rows x 64 columns (128
 //   bytes: the widest box the 128-byte swizzle takes), swizzled by TMA.
-//   hd 128: 2 stages, 160 KB.  hd 64: a tile is one box (16 KB), and the
-//   room goes to a 4-stage ring, 144 KB: two CTAs an SM would need the
-//   consumers at 112 registers, below the 64 S + 32 O + 32 P values each
-//   holds, so the room buys loads further ahead instead.  Full barriers
-//   on Q and on each stage's K and V (expect_tx), an empty barrier on
-//   each stage (one arrival per consumer warp after its P.V product).
+//   hd 128: 128-key tiles, 2 stages, 160 KB.  hd 64: a tile is one box
+//   (16 KB), and the room goes to a 4-stage ring, 144 KB: two CTAs an SM
+//   would need the consumers at 112 registers, below the 64 S + 32 O +
+//   32 P values each holds, so the room buys loads further ahead
+//   instead.  hd 256: 64-key tiles (S m64n64, O += P.V m64n256): a
+//   consumer thread holds 128 O + 32 S + 16 P values (at 128 keys it
+//   would hold 128 + 64 + 32, past its 232 registers); Q 64 KB + 2
+//   stages x (K + V) 64 KB = 192 KB.  hd 80 runs the hd-128 geometry on
+//   tensor maps whose inner dimension is 80: TMA zero-fills columns
+//   80-127 of every Q, K and V box, so the scores stay exact (S's three
+//   k-steps over the zero columns are skipped), O's columns 80-127 come
+//   out 0 and are never stored, and the scale is 1/sqrt(80) from the
+//   wrapper; P.V still runs m64n128 (an MN-major operand of 80 columns is
+//   no whole number of 64-column swizzle atoms).  Full barriers on Q and
+//   on each stage's K and V (expect_tx), an empty barrier on each stage
+//   (one arrival per consumer warp after its P.V product).
 // - tensor maps: 4-D (hd, s, heads, b) over the tensors' own byte
 //   strides, encoded on the host each call through the driver entry
 //   point cuTensorMapEncodeTiled (nothing is linked), passed as
 //   __grid_constant__ parameters.
-// - S = Q.K^T: wgmma m64n128k16, A (Q) and B (K) from shared memory,
+// - S = Q.K^T: wgmma m64n{kBN}k16, A (Q) and B (K) from shared memory,
 //   both K-major, hd / 16 steps (4 in each box).  O += P.V: wgmma
-//   m64n{hd}k16 (m64n128k16 or m64n64k16), A = P from registers (the S
+//   m64n{hd}k16 (m64n64k16 to m64n256k16), A = P from registers (the S
 //   accumulator fragment is the A fragment of the next product: each
 //   thread's two rows and column pairs line up), B = V from shared
 //   memory, MN-major (transposed): the leading byte offset steps between
@@ -87,7 +99,15 @@
 // internlm2's prefill ([4,16/8,2048,128] bf16, causal): 68.7 GFLOP,
 // 0.0695 ms at the dense bf16 tensor-core peak (989 TFLOP/s), against
 // 67 MB moved (0.020 ms).  granite's prefill ([4,16/8,2048,64]): 34.4
-// GFLOP, 0.0348 ms, against 25 MB (0.0075 ms).  The products bound both.
+// GFLOP, 0.0348 ms, against 25 MB (0.0075 ms).  gemma3-4b's global
+// layers ([4,8/4,2048,256]): 68.7 GFLOP, 0.0695 ms.  stablelm-3b's
+// prefill ([4,32/32,2048,80]): 85.9 GFLOP, 0.0869 ms at hd 80, which
+// this kernel runs as 2 x 80 + 2 x 128 = 416 of the 320 FLOPs a pair
+// the bound counts (1.3x).  The products bound all four.  Measured on an
+// H100 80GB HBM3 at 700 W (chip_smoke.py phase 6a; PERF.md's B13 row):
+// 38.6% of the bound at hd 128, 28.8% at hd 64, 43-44% at hd 256 (0.154-
+// 0.161 ms, SDPA 0.151) and 27.0% of the hd-80 bound at hd 80 (0.317-
+// 0.322 ms, SDPA 0.254).
 // This design feeds the tensor cores from a TMA ring; the two consumer
 // warpgroups overlap one another's softmax with their products only as
 // the warp schedulers interleave them; at hd 64 the softmax (the same
@@ -116,23 +136,30 @@
 namespace {
 
 constexpr int kBM = 128;                 // query rows per CTA
-constexpr int kBN = 128;                 // keys per kv tile
 constexpr int kConsumers = 256;          // 2 consumer warpgroups
 constexpr int kThreads = kConsumers + 128;   // + the producer warpgroup
 constexpr int kBoxCols = 64;             // hd columns per TMA box (128 B)
-constexpr uint32_t kBoxBytes = 128 * kBoxCols * 2;   // 16 KB
+constexpr uint32_t kQBox = kBM * 128;    // a Q box: 128 rows x 128 B
 
 // the geometry of one head dim
 template <int HD>
 struct Geo {
-  static_assert(HD == 64 || HD == 128, "wgmma route: hd 64 or 128");
-  static constexpr int kBoxes = HD / kBoxCols;          // boxes a tile
+  static_assert(HD == 64 || HD == 80 || HD == 128 || HD == 256,
+                "wgmma route: hd 64, 80, 128 or 256");
+  static constexpr int kPad = HD == 80 ? 128 : HD;     // columns a tile holds
+  static constexpr int kBoxes = kPad / kBoxCols;        // boxes a tile
+  static constexpr int kSteps = (HD + 15) / 16;         // S's k-steps
+  static constexpr int kBN = HD == 256 ? 64 : 128;      // keys a kv tile
   static constexpr int kStages = HD == 64 ? 4 : 2;      // K / V ring depth
-  static constexpr int kAcc = HD / 2;                   // O values a thread
-  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kAcc = kPad / 2;                 // O values a thread
+  static constexpr int kS = kBN / 2;                    // S values a thread
+  static constexpr uint32_t kKBox = kBN * 128;          // a K or V box
+  static constexpr uint32_t kQBytes = kBoxes * kQBox;
+  static constexpr uint32_t kTileBytes = kBoxes * kKBox;
   static constexpr uint32_t kBarBytes = 8 * (1 + 3 * kStages);
-  static constexpr uint32_t kSmemBytes =
-      (1 + 2 * kStages) * kTileBytes + kBarBytes + 1024;   // + alignment
+  static constexpr uint32_t kSmemBytes = kQBytes + 2 * kStages * kTileBytes +
+                                         kBarBytes + 1024;   // + alignment
+  static_assert(kSmemBytes <= 227 * 1024, "one CTA an SM");
 };
 
 struct Params {
@@ -158,28 +185,31 @@ struct Rows {
   float m0, m1, l0, l1;
 };
 
-// S = Q.K^T over hd: 4 k-steps of 16 in each 64-column box (committed)
+// S = Q.K^T over hd: 4 k-steps of 16 in each 64-column box, none over
+// the zero-filled columns past HD (committed)
 template <int HD>
-__device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t sQw,
-                                             uint32_t sKs) {
+__device__ __forceinline__ void issue_scores(float (&s)[Geo<HD>::kS],
+                                             uint32_t sQw, uint32_t sKs) {
+  using G = Geo<HD>;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss(s, desc_sw128(sQw + off, 16, 1024),
-             desc_sw128(sKs + off, 16, 1024), kk > 0);
+  for (int kk = 0; kk < G::kSteps; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss(s, desc_sw128(sQw + (kk / 4) * kQBox + col, 16, 1024),
+             desc_sw128(sKs + (kk / 4) * G::kKBox + col, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P.V over the tile's keys: 8 k-steps of 16 keys (committed)
+// O += P.V over the tile's keys: kBN / 16 k-steps of 16 keys (committed)
 template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&pa)[32],
+__device__ __forceinline__ void issue_pv(float (&o)[Geo<HD>::kAcc],
+                                         const uint32_t (&pa)[Geo<HD>::kS / 2],
                                          uint32_t sVs) {
+  using G = Geo<HD>;
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
+  for (int kk = 0; kk < G::kBN / 16; ++kk)
     wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-             desc_sw128(sVs + kk * 16 * 128, kBoxBytes, 1024));
+             desc_sw128(sVs + kk * 16 * 128, G::kKBox, 1024));
   wgmma_commit();
 }
 
@@ -189,14 +219,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 // log2(e)) as one FMA.  Updates the rows' max and sums and gives the
 // factors a0, a1 that rescale their earlier sums.  A row that has seen
 // no key yet keeps m = -inf: its p and factors are 0.
-template <bool kCut, bool kSoftcap>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], const Params& P,
+template <bool kCut, bool kSoftcap, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], const Params& P,
                                              int k0, int row0, int row1,
                                              int tq4, Rows& st, float& a0,
                                              float& a1) {
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int r = 0; r < 64; ++r) {
+  for (int r = 0; r < N; ++r) {
     float y = kSoftcap ? tanh_ex2(s[r] * P.softcap_in) * P.softcap : s[r];
     if (kCut) {
       const int kp = k0 + 8 * (r >> 2) + 2 * tq4 + (r & 1);
@@ -219,7 +249,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], const Params& P,
   st.m1 = n1;
   float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll
-  for (int r = 0; r < 64; ++r) {
+  for (int r = 0; r < N; ++r) {
     const float p = ex2(fmaf(s[r], c, (r & 2) ? -b1 : -b0));
     s[r] = p;
     if (r & 2) s1 += p; else s0 += p;
@@ -228,15 +258,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], const Params& P,
   st.l1 = st.l1 * a1 + s1;
 }
 
-// softmax_tile with the mask only where the tile is cut
-template <bool kSoftcap>
-__device__ __forceinline__ void softmax_any(float (&s)[64], const Params& P,
+// softmax_tile with the mask only where the tile is cut (a tile of 2 N
+// keys)
+template <bool kSoftcap, int N>
+__device__ __forceinline__ void softmax_any(float (&s)[N], const Params& P,
                                             int k0, int rows_lo, int row0,
                                             int row1, int tq4, Rows& st,
                                             float& a0, float& a1) {
-  const bool cut = (P.causal && k0 + kBN - 1 > rows_lo) ||
+  const bool cut = (P.causal && k0 + 2 * N - 1 > rows_lo) ||
                    (P.window > 0 && k0 <= rows_lo + 63 - P.window) ||
-                   k0 + kBN > P.skv;
+                   k0 + 2 * N > P.skv;
   if (cut)
     softmax_tile<true, kSoftcap>(s, P, k0, row0, row1, tq4, st, a0, a1);
   else
@@ -251,10 +282,11 @@ __device__ __forceinline__ void rescale(float (&o)[R], float a0, float a1) {
 
 // P in bf16 pairs: the A fragment of P.V (pa[4 kk .. 4 kk + 3] hold keys
 // 16 kk .. 16 kk + 15 of the thread's two rows)
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[32],
-                                       const float (&s)[64]) {
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 2],
+                                       const float (&s)[N]) {
 #pragma unroll
-  for (int j = 0; j < 32; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+  for (int j = 0; j < N / 2; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
 }
 
 // ---- the kernel ----------------------------------------------------------
@@ -266,10 +298,11 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
               __grid_constant__ const CUtensorMap tv, const Params P) {
   using G = Geo<HD>;
   constexpr int kStages = G::kStages;
+  constexpr int kBN = G::kBN;
   constexpr uint32_t kTileBytes = G::kTileBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + kTileBytes;                 // stage s: + s * tile
+  const uint32_t sK = sQ + G::kQBytes;                 // stage s: + s * tile
   const uint32_t sV = sK + kStages * kTileBytes;
   const uint32_t bar = sV + kStages * kTileBytes;
   const uint32_t q_full = bar;
@@ -306,9 +339,9 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
     // ---- producer: its first thread issues every load ------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == kConsumers) {
-      mbar_expect_tx(q_full, kTileBytes);
+      mbar_expect_tx(q_full, G::kQBytes);
       for (int c = 0; c < G::kBoxes; ++c)
-        tma_load(sQ + c * kBoxBytes, &tq, q_full, c * kBoxCols, q0, hi, bi);
+        tma_load(sQ + c * kQBox, &tq, q_full, c * kBoxCols, q0, hi, bi);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
@@ -316,11 +349,11 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
         const uint32_t dk = sK + s * kTileBytes, dv = sV + s * kTileBytes;
         mbar_expect_tx(k_full(s), kTileBytes);
         for (int c = 0; c < G::kBoxes; ++c)
-          tma_load(dk + c * kBoxBytes, &tk, k_full(s), c * kBoxCols, k0, kvi,
+          tma_load(dk + c * G::kKBox, &tk, k_full(s), c * kBoxCols, k0, kvi,
                    bi);
         mbar_expect_tx(v_full(s), kTileBytes);
         for (int c = 0; c < G::kBoxes; ++c)
-          tma_load(dv + c * kBoxBytes, &tv, v_full(s), c * kBoxCols, k0, kvi,
+          tma_load(dv + c * G::kKBox, &tv, v_full(s), c * kBoxCols, k0, kvi,
                    bi);
       }
     }
@@ -334,12 +367,12 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
     const int row0 = rows_lo + 16 * warp + g, row1 = row0 + 8;
     const uint32_t sQw = sQ + 64 * wg * 128;       // 64 rows x 128 bytes in
 
-    float o[G::kAcc], sacc[64];
-    uint32_t pa[32];
+    float o[G::kAcc], sacc[G::kS];
+    uint32_t pa[G::kS / 2];
 #pragma unroll
     for (int r = 0; r < G::kAcc; ++r) o[r] = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 64; ++r) sacc[r] = 0.0f;
+    for (int r = 0; r < G::kS; ++r) sacc[r] = 0.0f;
     Rows st = {-INFINITY, -INFINITY, 0.0f, 0.0f};
 
     mbar_wait(q_full, 0);
@@ -367,7 +400,8 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
       if (lane == 0) mbar_arrive(empty(s));
     }
 
-    // o / max(l, 1e-30) in bf16; rows past sq are not stored
+    // o / max(l, 1e-30) in bf16; rows past sq and columns past HD (hd
+    // 80's zero-filled ones) are not stored
     const float l0 = fmaxf(quad_sum(st.l0), 1e-30f);
     const float l1 = fmaxf(quad_sum(st.l1), 1e-30f);
     const float d0 = 1.0f / l0, d1 = 1.0f / l1;
@@ -376,7 +410,7 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
     for (int r = 0; r < G::kAcc; r += 2) {
       const int row = (r & 2) ? row1 : row0;
-      if (row >= P.sq) continue;
+      if (8 * (r >> 2) >= HD || row >= P.sq) continue;
       const float dn = (r & 2) ? d1 : d0;
       *reinterpret_cast<__nv_bfloat162*>(
           out + row * P.os + 8 * (r >> 2) + 2 * tq4) =
@@ -393,16 +427,19 @@ attn_fwd_sm90(__grid_constant__ const CUtensorMap tq,
 
 // ---- host side -----------------------------------------------------------
 
-// the three maps of one call, q's, k's and v's, of 64 x 128 boxes
+// the three maps of one call: q's of 128-row boxes, k's and v's of
+// ``kv_rows``-row boxes, 64 columns each
 int encode_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
                 const void* v, const int64_t* strides, int hd, int b, int h,
-                int kvh, int sq, int skv) {
+                int kvh, int sq, int skv, int kv_rows) {
   EncodeTiled fn;
   const cudaError_t err = encoder(&fn);
   if (err != cudaSuccess) return err;
-  int rc = encode(fn, &maps[0], q, hd, b, h, sq, strides, 128);
-  if (rc == 0) rc = encode(fn, &maps[1], k, hd, b, kvh, skv, strides + 3, 128);
-  if (rc == 0) rc = encode(fn, &maps[2], v, hd, b, kvh, skv, strides + 6, 128);
+  int rc = encode(fn, &maps[0], q, hd, b, h, sq, strides, kBM);
+  if (rc == 0)
+    rc = encode(fn, &maps[1], k, hd, b, kvh, skv, strides + 3, kv_rows);
+  if (rc == 0)
+    rc = encode(fn, &maps[2], v, hd, b, kvh, skv, strides + 6, kv_rows);
   return rc;
 }
 
@@ -421,10 +458,16 @@ cudaError_t configure() {
 }
 
 template <int HD>
-cudaError_t launch_hd(const CUtensorMap (&maps)[3], const Params& p, int bh,
-                      cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v,
+              const int64_t* strides, int b, int kvh, const Params& p,
+              cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const int rc = encode_maps(maps, q, k, v, strides, HD, b, p.h, kvh, p.sq,
+                             p.skv, Geo<HD>::kBN);
+  if (rc != 0) return rc;
   const cudaError_t err = configure<HD>();
   if (err != cudaSuccess) return err;
+  const int bh = b * p.h;
   const dim3 grid(bh, p.n_qtiles);
   auto kernel = p.softcap > 0.0f ? attn_fwd_sm90<HD, true>
                                  : attn_fwd_sm90<HD, false>;
@@ -449,18 +492,14 @@ const char* fa90_error_string(int code) {
 
 // strides: 12 int64 in elements, (batch, head, seq) of q, k, v, o; every
 // seq / head / batch stride of q, k, v a multiple of 8 elements (16
-// bytes) and the bases 16-byte aligned (the wrapper checks).  hd 64 or
-// 128; anything else returns cudaErrorInvalidValue (the wrapper routes
-// it to the SIMT kernel).  lse: null, or [b * h] rows of lse_ld f32.
+// bytes) and the bases 16-byte aligned (the wrapper checks).  hd 64, 80,
+// 128 or 256; anything else returns cudaErrorInvalidValue (the wrapper
+// routes it to the SIMT kernel).  lse: null, or [b * h] rows of lse_ld
+// f32.
 int fa90_forward(const void* q, const void* k, const void* v, void* o,
                  float* lse, const int64_t* strides, int b, int h, int kvh,
                  int sq, int skv, int hd, int lse_ld, int causal, int window,
                  float softcap, float scale, void* stream) {
-  if (hd != 64 && hd != 128) return cudaErrorInvalidValue;
-  CUtensorMap maps[3];
-  const int rc = encode_maps(maps, q, k, v, strides, hd, b, h, kvh, sq, skv);
-  if (rc != 0) return rc;
-
   Params p;
   p.o = o;
   p.lse = lse;
@@ -479,8 +518,13 @@ int fa90_forward(const void* q, const void* k, const void* v, void* o,
   p.softcap_in = softcap > 0.0f ? scale / softcap : 0.0f;
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd == 64 ? launch_hd<64>(maps, p, b * h, s)
-                  : launch_hd<128>(maps, p, b * h, s);
+  switch (hd) {
+    case 64: return launch_hd<64>(q, k, v, strides, b, kvh, p, s);
+    case 80: return launch_hd<80>(q, k, v, strides, b, kvh, p, s);
+    case 128: return launch_hd<128>(q, k, v, strides, b, kvh, p, s);
+    case 256: return launch_hd<256>(q, k, v, strides, b, kvh, p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of B13's tensor-core kernels
 // (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers, TMA
 // tile and bulk loads, wgmma shared-memory descriptors and the wgmma
-// products at n = 64 and n = 128, and the host-side tensor-map encoder.
+// products at n = 32, 64, 128 (both operands in shared memory) and n =
+// 64, 128, 256 (A from registers), and the host-side tensor-map encoder.
 //
 // Accumulator fragment of m64nN (per thread of a warpgroup; warp w,
 // lane = 4 g + t): element r holds row 16 w + g + 8 ((r >> 1) & 1) and
@@ -129,14 +130,38 @@ __device__ __forceinline__ void pin(float (&d)[R]) {
 #define SM90_OUT32 SM90_OUT8(0), SM90_OUT8(8), SM90_OUT8(16), SM90_OUT8(24)
 #define SM90_OUT64                                                       \
   SM90_OUT32, SM90_OUT8(32), SM90_OUT8(40), SM90_OUT8(48), SM90_OUT8(56)
+#define SM90_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define SM90_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
+#define SM90_OUT16 SM90_OUT8(0), SM90_OUT8(8)
+#define SM90_OUT128                                                      \
+  SM90_OUT64, SM90_OUT8(64), SM90_OUT8(72), SM90_OUT8(80), SM90_OUT8(88), \
+      SM90_OUT8(96), SM90_OUT8(104), SM90_OUT8(112), SM90_OUT8(120)
 
 // d (+)= A.B, m64nNk16 (N = 2 x the accumulator's length), A and B
 // K-major in shared memory
 template <int R>
 __device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t da,
                                          uint64_t db, int accumulate) {
-  static_assert(R == 32 || R == 64, "m64n64 or m64n128");
-  if constexpr (R == 32) {
+  static_assert(R == 16 || R == 32 || R == 64, "m64n32, m64n64 or m64n128");
+  if constexpr (R == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SM90_D16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : SM90_OUT16
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else if constexpr (R == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
@@ -159,7 +184,8 @@ template <int R>
 __device__ __forceinline__ void wgmma_rs(float (&d)[R], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t db) {
-  static_assert(R == 32 || R == 64, "m64n64 or m64n128");
+  static_assert(R == 32 || R == 64 || R == 128,
+                "m64n64, m64n128 or m64n256");
   if constexpr (R == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -167,12 +193,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[R], uint32_t a0,
         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : SM90_OUT32
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-  } else {
+  } else if constexpr (R == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
         ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : SM90_OUT64
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_D128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : SM90_OUT128
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
   }
 }

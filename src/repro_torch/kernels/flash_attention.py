@@ -9,16 +9,24 @@ Two hand-written kernels compute the forward, and two the backward;
 ``route`` and ``bwd_route`` pick one from the dtype and the head dim
 alone, never by trying:
 
-- ``"wgmma"``: bf16 at hd 64 and 128, the serving prefills' and bf16
-  training's attention.  Tensor cores fed by TMA: the forward
+- ``"wgmma"``: bf16 at hd 64, 80, 128 and 256, the serving prefills' and
+  bf16 training's attention.  Tensor cores fed by TMA: the forward
   csrc/flash_attention_sm90.cu (P rounded to bf16 for the P.V product),
   the backward csrc/flash_attention_bwd_sm90.cu (P and dS rounded to bf16
   for the products they feed).  Their inputs must be addressable by TMA:
   16-byte aligned bases, and batch / head / seq strides that are
   positive multiples of 8 elements (16 bytes) where the dim has more
   than one entry; anything else raises ``ValueError``.
-- ``"simt"``: f32, and every other head dim: csrc/flash_attention.cu and
-  csrc/flash_attention_bwd.cu.
+- ``"simt"``: f32, and hd 16 and 32: csrc/flash_attention.cu and
+  csrc/flash_attention_bwd.cu.  ``kernel="simt"`` also times the SIMT
+  forward on the bf16 inputs it is built for beside the wgmma route
+  (every head dim but 128).
+
+Each head dim's wgmma geometry (``fwd_keys``, ``bwd_tiles``) sets the
+walks ``tile_walk``, ``bwd_dq_walk`` and ``bwd_dkv_walk`` describe: hd
+256 streams 64-key tiles in the forward and 32-row tiles in the
+backward, whose dk / dv pass keeps 64 keys a CTA; hd 80 runs hd 128's
+geometry on tiles that TMA zero-fills past column 80.
 
 It takes CUDA tensors only (``ops`` routes CPU tensors to
 ``ref.attention``): q [b, h, sq, hd] and k / v [b, kvh, skv, hd], f32 or
@@ -41,15 +49,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launches import bind_error_string, launch
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
+BWD_HEAD_DIMS = HEAD_DIMS        # every forward head dim has a backward
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535              # simt: b * h blocks along the grid's y axis
-WGMMA_HEAD_DIMS = (64, 128)      # the wgmma routes' head dims (bf16)
-WGMMA_TILE = 128                 # wgmma forward: query rows a CTA, keys a tile
-BWD_ROWS = 128                   # wgmma backward: resident rows a CTA
-BWD_TILE = 64                    # wgmma backward: rows a streamed tile
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)   # the wgmma routes' head dims (bf16)
+WGMMA_TILE = 128                 # wgmma forward: query rows a CTA (and keys
+                                 # a tile but at hd 256: ``fwd_keys``)
+BWD_ROWS = 128                   # wgmma backward: resident rows a dq CTA
+BWD_TILE = 64                    # wgmma backward: rows a streamed tile (32
+                                 # at hd 256: ``bwd_tiles``)
 _TMA_ALIGN = 8                   # bf16 elements in 16 bytes
-_TMA_WHAT = "bf16 at hd 64 or 128"
+_TMA_WHAT = "bf16 at hd 64, 80, 128 or 256"
 
 _libs: dict = {}
 
@@ -90,15 +100,30 @@ def _wgmma_takes(q: torch.Tensor) -> bool:
 
 def route(q: torch.Tensor) -> str:
     """The kernel that takes ``q``'s attention: ``"wgmma"`` for bf16 at
-    hd 64 and 128, ``"simt"`` for everything else."""
+    hd 64, 80, 128 and 256, ``"simt"`` for everything else."""
     return "wgmma" if _wgmma_takes(q) else "simt"
 
 
 def bwd_route(q: torch.Tensor) -> str:
     """The kernel that takes the backward of ``q``'s attention:
-    ``"wgmma"`` (csrc/flash_attention_bwd_sm90.cu) for bf16 at hd 64 and
-    128, ``"simt"`` (csrc/flash_attention_bwd.cu) for everything else."""
+    ``"wgmma"`` (csrc/flash_attention_bwd_sm90.cu) for bf16 at hd 64, 80,
+    128 and 256, ``"simt"`` (csrc/flash_attention_bwd.cu) for everything
+    else."""
     return "wgmma" if _wgmma_takes(q) else "simt"
+
+
+def fwd_keys(hd: int) -> int:
+    """Keys a kv tile of the wgmma forward at head dim ``hd`` (``Geo<HD>
+    ::kBN`` in csrc/flash_attention_sm90.cu)."""
+    return 64 if hd == 256 else WGMMA_TILE
+
+
+def bwd_tiles(hd: int) -> tuple:
+    """The wgmma backward's geometry at head dim ``hd`` (``Geo<HD>`` in
+    csrc/flash_attention_bwd_sm90.cu): (resident query rows a dq CTA,
+    rows a streamed tile, keys a dk / dv CTA)."""
+    return (BWD_ROWS, 32, 64) if hd == 256 else (BWD_ROWS, BWD_TILE,
+                                                 BWD_ROWS)
 
 
 def _tma_addressable(t: torch.Tensor) -> bool:
@@ -146,12 +171,14 @@ def validate_tma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list:
     return strides
 
 
-def tile_walk(sq: int, skv: int, causal: bool, window: Optional[int]):
-    """The wgmma forward's walk, in launch order: ``(q_tile, t_lo, t_hi)``
-    per query tile of ``WGMMA_TILE`` rows, heaviest (bottom) first, with
-    the kv tiles ``[t_lo, t_hi)`` of ``WGMMA_TILE`` keys that its rows can
-    see (csrc/flash_attention_sm90.cu computes the same range)."""
-    return _walk(sq, skv, causal, window, WGMMA_TILE, WGMMA_TILE)
+def tile_walk(sq: int, skv: int, causal: bool, window: Optional[int],
+              hd: int = 128):
+    """The wgmma forward's walk at head dim ``hd``, in launch order:
+    ``(q_tile, t_lo, t_hi)`` per query tile of ``WGMMA_TILE`` rows,
+    heaviest (bottom) first, with the kv tiles ``[t_lo, t_hi)`` of
+    ``fwd_keys(hd)`` keys that its rows can see
+    (csrc/flash_attention_sm90.cu computes the same range)."""
+    return _walk(sq, skv, causal, window, WGMMA_TILE, fwd_keys(hd))
 
 
 def _walk(sq, skv, causal, window, rows, keys):
@@ -168,29 +195,34 @@ def _walk(sq, skv, causal, window, rows, keys):
     return walk
 
 
-def bwd_dq_walk(sq: int, skv: int, causal: bool, window: Optional[int]):
-    """The wgmma backward's dq pass, in launch order: ``(q_tile, t_lo,
-    t_hi)`` per query tile of ``BWD_ROWS`` rows, heaviest first, with the
-    key tiles ``[t_lo, t_hi)`` of ``BWD_TILE`` keys its rows can see
+def bwd_dq_walk(sq: int, skv: int, causal: bool, window: Optional[int],
+                hd: int = 128):
+    """The wgmma backward's dq pass at head dim ``hd``, in launch order:
+    ``(q_tile, t_lo, t_hi)`` per query tile of ``bwd_tiles(hd)[0]`` rows,
+    heaviest first, with the key tiles ``[t_lo, t_hi)`` of
+    ``bwd_tiles(hd)[1]`` keys its rows can see
     (csrc/flash_attention_bwd_sm90.cu computes the same range)."""
-    return _walk(sq, skv, causal, window, BWD_ROWS, BWD_TILE)
+    rows, tile, _ = bwd_tiles(hd)
+    return _walk(sq, skv, causal, window, rows, tile)
 
 
 def bwd_dkv_walk(sq: int, skv: int, group: int, causal: bool,
-                 window: Optional[int]):
-    """The wgmma backward's dk / dv pass, in launch order: ``(k_tile,
-    steps)`` per key tile of ``BWD_ROWS`` keys, with ``steps`` the
-    ``(g, q_tile)`` it walks — for each query head g of the GQA group in
-    order, the query tiles of ``BWD_TILE`` rows that see one of its keys
-    (csrc/flash_attention_bwd_sm90.cu computes the same range)."""
+                 window: Optional[int], hd: int = 128):
+    """The wgmma backward's dk / dv pass at head dim ``hd``, in launch
+    order: ``(k_tile, steps)`` per key tile of ``bwd_tiles(hd)[2]`` keys,
+    with ``steps`` the ``(g, q_tile)`` it walks — for each query head g of
+    the GQA group in order, the query tiles of ``bwd_tiles(hd)[1]`` rows
+    that see one of its keys (csrc/flash_attention_bwd_sm90.cu computes
+    the same range)."""
+    _, tile, keys = bwd_tiles(hd)
     walk = []
-    for kt in range(-(-skv // BWD_ROWS)):
-        k0 = kt * BWD_ROWS
-        k_last = min(k0 + BWD_ROWS, skv) - 1
+    for kt in range(-(-skv // keys)):
+        k0 = kt * keys
+        k_last = min(k0 + keys, skv) - 1
         q_lo = k0 if causal else 0
         q_hi = min(sq, k_last + window) if window else sq
-        t_lo = q_lo // BWD_TILE
-        n_qt = max(-(-q_hi // BWD_TILE) - t_lo, 0)
+        t_lo = q_lo // tile
+        n_qt = max(-(-q_hi // tile) - t_lo, 0)
         walk.append((kt, [(g, t_lo + j) for g in range(group)
                           for j in range(n_qt)]))
     return walk
@@ -355,9 +387,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"dim, got strides {t.stride()}")
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
-    if hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"the backward kernel takes head dims "
-                         f"{BWD_HEAD_DIMS}, got {hd}")
     which = _chosen(kernel, q, bwd_route(q))
     dev, dt = q.device, q.dtype
     dq = torch.empty(b, sq, h, hd, dtype=dt, device=dev).permute(0, 2, 1, 3)
@@ -367,10 +396,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         tma = []
         for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
             tma += _tma_strides(name, t)
-        for n in (sq, skv):
-            if -(-n // BWD_ROWS) > _MAX_GRID_Y:
+        rows, _, keys = bwd_tiles(hd)
+        for n, per in ((sq, rows), (skv, keys)):
+            if -(-n // per) > _MAX_GRID_Y:
                 raise ValueError(f"{n} rows need more than {_MAX_GRID_Y} "
-                                 f"tiles of {BWD_ROWS}")
+                                 f"tiles of {per}")
         if lse is None:
             lse = lse_buffer(q)
             flash_attention(q, k, v, causal=causal, window=window, lse=lse)

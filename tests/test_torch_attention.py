@@ -10,10 +10,12 @@ entry, [b, P=1, s, h, hd]) with the reference's.  The reference's Pallas
 kernel does not run under the installed jax (``pl.load`` is gone; ROADMAP
 queue C), so it is not a party here.
 
-B13's wgmma route (bf16 at hd 64 and 128, csrc/flash_attention_sm90.cu)
-runs only on the card; here a test-local emulation of its arithmetic (P rounded to
-bf16 for the P.V product, its tile walk) is held against the reference,
-and its route, its TMA checks and its tile walk are checked directly.
+B13's wgmma route (bf16 at hd 64, 80, 128 and 256,
+csrc/flash_attention_sm90.cu) runs only on the card; here a test-local
+emulation of its arithmetic (P rounded to bf16 for the P.V product, its
+tile walk at each head dim: 128 x 128 tiles, 128 x 64 at hd 256) is held
+against the reference, and its route, its TMA checks and its tile walk
+are checked directly.
 
 Inputs are drawn with numpy from a seed.  Tolerances: 2e-5 in f32 (the
 reference's own for blocked vs plain attention, tests/test_models.py) and
@@ -216,8 +218,9 @@ def test_flash_attention_is_registered():
 
 
 # ---------------------------------------------------------------------------
-# B13's wgmma route (bf16 at hd 64 and 128, csrc/flash_attention_sm90.cu): its
-# arithmetic, emulated here, against the reference; its route; its walk
+# B13's wgmma route (bf16 at hd 64, 80, 128 and 256,
+# csrc/flash_attention_sm90.cu): its arithmetic, emulated here, against the
+# reference; its route; its walk
 # ---------------------------------------------------------------------------
 
 LOG2E = 1.4426950408889634
@@ -226,14 +229,16 @@ LOG2E = 1.4426950408889634
 def _emulate_wgmma(q, k, v, *, causal, window=None, softcap=None,
                    p_bf16=True):
     """The wgmma kernel's arithmetic on the CPU: bf16 q / k / v (torch
-    tensors [b, h, sq, hd] / [b, kvh, skv, hd], hd 64 or 128), f32
-    products, the max
+    tensors [b, h, sq, hd] / [b, kvh, skv, hd], hd 64, 80, 128 or 256;
+    hd 80's zero-filled columns add exact zeros), f32 products, the max
     over the unscaled scores y (or tanh(s scale / softcap) softcap), p =
     2^(y c - m c) with c = scale log2(e) (or log2(e)), masked keys at
     -inf (keys past skv weigh nothing), P rounded to bf16 for the P.V
     product (kept in f32 with ``p_bf16=False``, as the Pallas and SIMT
-    kernels do) and l summed from the f32 P, over the kernel's 128 x 128
-    tile walk.  Returns (o in f32 before its bf16 rounding, o in bf16)."""
+    kernels do) and l summed from the f32 P, over the kernel's tile walk
+    at that head dim (``FA.tile_walk``: 128-row query tiles over kv tiles
+    of ``FA.fwd_keys(hd)`` keys).  Returns (o in f32 before its bf16
+    rounding, o in bf16)."""
     b, h, sq, hd = q.shape
     rep = h // k.shape[1]
     skv = k.shape[2]
@@ -243,14 +248,14 @@ def _emulate_wgmma(q, k, v, *, causal, window=None, softcap=None,
     scale = 1.0 / np.sqrt(hd)
     c = np.float32(LOG2E if softcap else scale * LOG2E)
     o = torch.zeros(b, h, sq, hd)
-    T = FA.WGMMA_TILE
-    for qt, t_lo, t_hi in FA.tile_walk(sq, skv, causal, window):
+    T, KT = FA.WGMMA_TILE, FA.fwd_keys(hd)
+    for qt, t_lo, t_hi in FA.tile_walk(sq, skv, causal, window, hd):
         rows = torch.arange(qt * T, min(sq, qt * T + T))
         m = torch.full((b, h, len(rows)), -torch.inf)
         l = torch.zeros(b, h, len(rows))
         acc = torch.zeros(b, h, len(rows), hd)
         for t in range(t_lo, t_hi):
-            keys = torch.arange(t * T, min(skv, t * T + T))
+            keys = torch.arange(t * KT, min(skv, t * KT + KT))
             y = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
             if softcap is not None:
                 y = torch.tanh(y * np.float32(scale / softcap)) * np.float32(
@@ -285,9 +290,10 @@ WGMMA_CASES = {
 }
 
 
-# each case at hd 128 (its own id) and at hd 64 (id + "-hd64")
-WGMMA_HD_CASES = [pytest.param(c, hd, id=c if hd == 128 else f"{c}-hd64")
-                  for hd in (128, 64) for c in WGMMA_CASES]
+# each case at hd 128 (its own id) and at hd 64, 80 and 256 (id +
+# "-hd64" ...)
+WGMMA_HD_CASES = [pytest.param(c, hd, id=c if hd == 128 else f"{c}-hd{hd}")
+                  for hd in (128, 64, 80, 256) for c in WGMMA_CASES]
 
 
 @pytest.mark.parametrize("case,hd", WGMMA_HD_CASES)
@@ -333,6 +339,17 @@ def test_wgmma_hd64_p_in_bf16_moves_output_within_its_stated_bound(qk, h,
     _p_in_bf16_within_bound(qk, h, kvh, s, 64)
 
 
+@pytest.mark.parametrize("hd", [80, 256])
+@pytest.mark.parametrize("h,kvh,s", [(4, 2, 300), (8, 2, 333),
+                                     (4, 2, 1024)])
+@pytest.mark.parametrize("qk", [0.5, 2.0], ids=["flat", "peaked"])
+def test_wgmma_hd80_hd256_p_in_bf16_moves_output_within_its_stated_bound(
+        qk, h, kvh, s, hd):
+    """The same bound at stablelm-3b's hd 80 (the hd-128 instance on
+    zero-filled tiles) and gemma3-4b's hd 256 (64-key tiles)."""
+    _p_in_bf16_within_bound(qk, h, kvh, s, hd)
+
+
 def _p_in_bf16_within_bound(qk, h, kvh, s, hd):
     rng = np.random.default_rng(0)
     q = (rng.standard_normal((1, h, s, hd)) * qk).astype(np.float32)
@@ -354,14 +371,14 @@ def _p_in_bf16_within_bound(qk, h, kvh, s, hd):
     p for p in WGMMA_HD_CASES
     if WGMMA_CASES[p.values[0]][2] == WGMMA_CASES[p.values[0]][3]])
 def test_wgmma_arithmetic_matches_blocked_attention(case, hd):
-    """Against the model's online softmax (blocks of 128, the kernel's
-    tile), in the model's [b, 1, s, h, hd] layout."""
+    """Against the model's online softmax (blocks of the kernel's kv
+    tile: 128, 64 at hd 256), in the model's [b, 1, s, h, hd] layout."""
     h, kvh, s, _, causal, window, softcap = WGMMA_CASES[case]
     q, k, v = _inputs(h, kvh, s, s, hd=hd, b=1, seed=4)
     _, got = _emulate_wgmma(_t(q, "bfloat16"), _t(k, "bfloat16"),
                             _t(v, "bfloat16"), causal=causal, window=window,
                             softcap=softcap)
-    want = _blocked(causal, window, softcap, s=s, block=FA.WGMMA_TILE)(
+    want = _blocked(causal, window, softcap, s=s, block=FA.fwd_keys(hd))(
         _j(q.transpose(0, 2, 1, 3)[:, None], "bfloat16"),
         _j(k.transpose(0, 2, 1, 3), "bfloat16"),
         _j(v.transpose(0, 2, 1, 3), "bfloat16"))
@@ -374,7 +391,8 @@ def test_wgmma_arithmetic_matches_blocked_attention(case, hd):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_route_depends_on_dtype_and_head_dim_alone(hd, dtype):
     q = torch.zeros(1, 2, 5, hd, dtype=getattr(torch, dtype))
-    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "simt"
+    want = ("wgmma" if dtype == "bfloat16" and hd in (64, 80, 128, 256)
+            else "simt")
     assert FA.route(q) == want
     assert FA.route(q.transpose(1, 2).contiguous().transpose(1, 2)) == want
     assert FA.bwd_route(q) == want            # the backward's own table
@@ -389,6 +407,13 @@ def test_wgmma_route_takes_the_models_strided_views():
     q = torch.zeros(2, 70, 16, 64, dtype=torch.bfloat16).transpose(1, 2)
     kv = torch.zeros(2, 70, 8, 64, dtype=torch.bfloat16).transpose(1, 2)
     FA.validate_tma(q, kv, kv)              # hd 64: granite's views
+    qkv = torch.zeros(2, 70, 3 * 32 * 80, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(2, 70, 32, 80).transpose(1, 2)
+               for t in qkv.split(32 * 80, dim=-1))
+    FA.validate_tma(q, k, v)                # hd 80: a fused projection's
+    q = torch.zeros(2, 70, 8, 256, dtype=torch.bfloat16).transpose(1, 2)
+    kv = torch.zeros(2, 70, 4, 256, dtype=torch.bfloat16).transpose(1, 2)
+    FA.validate_tma(q, kv, kv)              # hd 256: gemma3's views
 
 
 def _misaligned():
@@ -420,19 +445,38 @@ def _attn_pairs(sq, skv, causal, window):
     return int(np.maximum(hi - lo, 0).sum())
 
 
-@pytest.mark.parametrize("sq,skv,causal,window", [
+WALK_CASES = [
     (2048, 2048, True, None), (300, 300, True, None), (333, 333, True, 100),
     (520, 520, True, 33), (300, 333, False, None), (333, 517, False, 40),
-    (1, 1, True, None), (129, 128, True, None), (2300, 2300, True, 1024)])
+    (1, 1, True, None), (129, 128, True, None), (2300, 2300, True, 1024)]
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", WALK_CASES)
 def test_tile_walk_covers_exactly_the_visible_pairs(sq, skv, causal, window):
-    T = FA.WGMMA_TILE
-    walk = FA.tile_walk(sq, skv, causal, window)
+    """The forward's walk at hd 64 / 80 / 128 (128-key tiles): every
+    visible pair once, no tile all masked, heaviest first."""
+    assert FA.tile_walk(sq, skv, causal, window) == FA.tile_walk(
+        sq, skv, causal, window, 80)
+    _walk_covers(sq, skv, causal, window, 128)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", WALK_CASES)
+def test_tile_walk_hd256_covers_exactly_the_visible_pairs(sq, skv, causal,
+                                                          window):
+    """The same at hd 256 (64-key tiles)."""
+    assert FA.fwd_keys(256) == 64
+    _walk_covers(sq, skv, causal, window, 256)
+
+
+def _walk_covers(sq, skv, causal, window, hd):
+    T, KT = FA.WGMMA_TILE, FA.fwd_keys(hd)
+    walk = FA.tile_walk(sq, skv, causal, window, hd)
     assert [qt for qt, _, _ in walk] == list(range(-(-sq // T)))[::-1]
     seen = 0
     for qt, t_lo, t_hi in walk:
         rows = np.arange(qt * T, min(sq, qt * T + T))[:, None]
         for t in range(t_lo, t_hi):
-            keys = np.arange(t * T, min(skv, t * T + T))[None, :]
+            keys = np.arange(t * KT, min(skv, t * KT + KT))[None, :]
             vis = np.ones((rows.size, keys.size), bool)
             if causal:
                 vis &= keys <= rows

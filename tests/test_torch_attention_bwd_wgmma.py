@@ -1,15 +1,17 @@
-"""B13's wgmma backward route (bf16 at hd 64 and 128,
+"""B13's wgmma backward route (bf16 at hd 64, 80, 128 and 256,
 csrc/flash_attention_bwd_sm90.cu) by an emulation of its arithmetic, on
 the CPU, against the JAX package.
 
 The kernel runs only on the card.  Here a test-local emulation repeats
 what it computes: the forward's base-2 log-sum-exp of each row (the
-wgmma forward's walk of 128-key tiles, its running max over the
-unscaled scores and its sum of the f32 P), delta = rowsum(dO o) in f32
-from the bf16 values, and the two passes in their tile walks and sum
-order (``bwd_dq_walk``: 128-row query tiles over 64-key tiles;
-``bwd_dkv_walk``: 128-key tiles over each query head of the group and
-its 64-row query tiles), with P = 2^(s c - lse), dS = P (dP - delta),
+wgmma forward's walk of 128-key tiles, 64 at hd 256, its running max
+over the unscaled scores and its sum of the f32 P), delta = rowsum(dO o)
+in f32 from the bf16 values, and the two passes in their tile walks and
+sum order at each head dim (``bwd_dq_walk``: 128-row query tiles over
+64-key tiles, 32 at hd 256; ``bwd_dkv_walk``: 128-key tiles, 64 at hd
+256, over each query head of the group and its 64-row query tiles, 32
+at hd 256; hd 80's zero-filled columns add exact zeros), with P = 2^(s c
+- lse), dS = P (dP - delta),
 and P and dS rounded to bf16 for the products they feed (dV, dQ, dK),
 every accumulator in f32.  The emulation is held to the reference's
 ``repro.kernels.ref``-style plain formula (the port's
@@ -66,7 +68,7 @@ def emulate_forward(q, k, v, *, causal, window=None):
     """The wgmma forward on bf16 q / k / v: (o in bf16, lse [b, h, sq]
     f32), lse = m c + log2(max(l, 1e-30)) with m the max of the unscaled
     scores, c = scale log2(e) and l the sum of the f32 P, over the
-    forward's 128 x 128 tile walk."""
+    forward's tile walk at that head dim."""
     b, h, sq, hd = q.shape
     rep = h // k.shape[1]
     skv = k.shape[2]
@@ -76,14 +78,14 @@ def emulate_forward(q, k, v, *, causal, window=None):
     c = np.float32(LOG2E / math.sqrt(hd))
     o = torch.zeros(b, h, sq, hd)
     lse = torch.zeros(b, h, sq)
-    T = FA.WGMMA_TILE
-    for qt, t_lo, t_hi in FA.tile_walk(sq, skv, causal, window):
+    T, KT = FA.WGMMA_TILE, FA.fwd_keys(hd)
+    for qt, t_lo, t_hi in FA.tile_walk(sq, skv, causal, window, hd):
         rows = np.arange(qt * T, min(sq, qt * T + T))
         m = torch.full((b, h, len(rows)), -torch.inf)
         l = torch.zeros(b, h, len(rows))
         acc = torch.zeros(b, h, len(rows), hd)
         for t in range(t_lo, t_hi):
-            keys = np.arange(t * T, min(skv, t * T + T))
+            keys = np.arange(t * KT, min(skv, t * KT + KT))
             y = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
             y = y.masked_fill(~_visible(rows, keys, causal, window),
                               -torch.inf)
@@ -114,8 +116,8 @@ def emulate_backward(q, k, v, o, do, lse, *, causal, window=None):
     kh = kf.repeat_interleave(group, dim=1)
     vh = vf.repeat_interleave(group, dim=1)
     dq = torch.zeros(b, h, sq, hd)
-    BR, BT = FA.BWD_ROWS, FA.BWD_TILE
-    for qt, t_lo, t_hi in FA.bwd_dq_walk(sq, skv, causal, window):
+    BR, BT, BK = FA.bwd_tiles(hd)
+    for qt, t_lo, t_hi in FA.bwd_dq_walk(sq, skv, causal, window, hd):
         rows = np.arange(qt * BR, min(sq, qt * BR + BR))
         acc = torch.zeros(b, h, len(rows), hd)
         for t in range(t_lo, t_hi):
@@ -129,8 +131,8 @@ def emulate_backward(q, k, v, o, do, lse, *, causal, window=None):
         dq[:, :, rows] = acc * scale
     dk = torch.zeros(b, kvh, skv, hd)
     dv = torch.zeros(b, kvh, skv, hd)
-    for kt, steps in FA.bwd_dkv_walk(sq, skv, group, causal, window):
-        keys = np.arange(kt * BR, min(skv, kt * BR + BR))
+    for kt, steps in FA.bwd_dkv_walk(sq, skv, group, causal, window, hd):
+        keys = np.arange(kt * BK, min(skv, kt * BK + BK))
         ak = torch.zeros(b, kvh, len(keys), hd)
         av = torch.zeros(b, kvh, len(keys), hd)
         for g, qt in steps:
@@ -195,7 +197,7 @@ def _share(got, want, atol=BWD_TOL["atol"]) -> float:
 
 # (h, kvh) for GQA groups 1, 2, 4; sq = skv
 GROUPS = {1: (4, 4), 2: (4, 2), 4: (8, 2)}
-CASES = [(hd, grp, s, w) for hd in (64, 128) for grp in GROUPS
+CASES = [(hd, grp, s, w) for hd in (64, 128, 80, 256) for grp in GROUPS
          for s in (63, 128, 300) for w in (None, 48)]
 IDS = [f"hd{hd}-g{g}-s{s}-{'w48' if w else 'causal'}"
        for hd, g, s, w in CASES]
@@ -230,9 +232,10 @@ def test_emulated_backward_matches_plain_formula(hd, grp, s, window, qk):
 E2E_ATOL = {0.5: 2e-2, 1.0: 2e-2, 2.0: 6e-2}
 # every head dim, group and mode at the ragged length, and the other
 # lengths at GQA 2
-JAX_CASES = ([(hd, grp, 300, w) for hd in (64, 128) for grp in GROUPS
-              for w in (None, 48)]
-             + [(hd, 2, s, None) for hd in (64, 128) for s in (63, 128)])
+JAX_CASES = ([(hd, grp, 300, w) for hd in (64, 128, 80, 256)
+              for grp in GROUPS for w in (None, 48)]
+             + [(hd, 2, s, None) for hd in (64, 128, 80, 256)
+                for s in (63, 128)])
 
 
 @pytest.mark.parametrize("qk", [0.5, 1.0, 2.0], ids=["flat", "unit",
@@ -282,13 +285,29 @@ def _pairs(sq, skv, causal, window):
 def test_dkv_walk_visits_each_visible_pair_once(sq, skv, causal, window,
                                                 group):
     """Each (query head, query, key) pair the mask leaves is visited by
-    exactly one step of one key tile, and every step sees a pair."""
+    exactly one step of one key tile, and every step sees a pair (hd 64,
+    80 and 128: 128-key tiles over 64-row query tiles)."""
+    assert FA.bwd_dkv_walk(sq, skv, group, causal, window) == \
+        FA.bwd_dkv_walk(sq, skv, group, causal, window, 80)
+    _dkv_walk_once(sq, skv, causal, window, group, 128)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("sq,skv,causal,window", WALKS)
+def test_dkv_walk_hd256_visits_each_visible_pair_once(sq, skv, causal,
+                                                      window, group):
+    """The same at hd 256: 64-key tiles over 32-row query tiles."""
+    assert FA.bwd_tiles(256) == (128, 32, 64)
+    _dkv_walk_once(sq, skv, causal, window, group, 256)
+
+
+def _dkv_walk_once(sq, skv, causal, window, group, hd):
     seen = np.zeros((group, sq, skv), np.int32)
-    BR, BT = FA.BWD_ROWS, FA.BWD_TILE
-    walk = FA.bwd_dkv_walk(sq, skv, group, causal, window)
-    assert [kt for kt, _ in walk] == list(range(-(-skv // BR)))
+    _, BT, BK = FA.bwd_tiles(hd)
+    walk = FA.bwd_dkv_walk(sq, skv, group, causal, window, hd)
+    assert [kt for kt, _ in walk] == list(range(-(-skv // BK)))
     for kt, steps in walk:
-        keys = np.arange(kt * BR, min(skv, kt * BR + BR))
+        keys = np.arange(kt * BK, min(skv, kt * BK + BK))
         assert [g for g, _ in steps] == sorted(g for g, _ in steps)
         for g, qt in steps:
             rows = np.arange(qt * BT, min(sq, qt * BT + BT))
@@ -301,9 +320,22 @@ def test_dkv_walk_visits_each_visible_pair_once(sq, skv, causal, window,
 
 @pytest.mark.parametrize("sq,skv,causal,window", WALKS)
 def test_dq_walk_visits_each_visible_pair_once(sq, skv, causal, window):
+    assert FA.bwd_dq_walk(sq, skv, causal, window) == FA.bwd_dq_walk(
+        sq, skv, causal, window, 80)
+    _dq_walk_once(sq, skv, causal, window, 128)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", WALKS)
+def test_dq_walk_hd256_visits_each_visible_pair_once(sq, skv, causal,
+                                                     window):
+    """hd 256: 128-row query tiles over 32-key tiles."""
+    _dq_walk_once(sq, skv, causal, window, 256)
+
+
+def _dq_walk_once(sq, skv, causal, window, hd):
     seen = np.zeros((sq, skv), np.int32)
-    BR, BT = FA.BWD_ROWS, FA.BWD_TILE
-    walk = FA.bwd_dq_walk(sq, skv, causal, window)
+    BR, BT, _ = FA.bwd_tiles(hd)
+    walk = FA.bwd_dq_walk(sq, skv, causal, window, hd)
     assert [qt for qt, _, _ in walk] == list(range(-(-sq // BR)))[::-1]
     for qt, t_lo, t_hi in walk:
         rows = np.arange(qt * BR, min(sq, qt * BR + BR))
@@ -320,11 +352,14 @@ def test_dq_walk_visits_each_visible_pair_once(sq, skv, causal, window):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_route_table(hd, dtype):
     """The backward's route from dtype and head dim alone: the wgmma
-    kernel for bf16 at hd 64 and 128 (the forward's wgmma set), the SIMT
-    kernel for the rest; ``launches.ROUTES`` names both sources."""
+    kernel for bf16 at hd 64, 80, 128 and 256 (the forward's wgmma set),
+    the SIMT kernel for the rest; every head dim of the forward has a
+    backward; ``launches.ROUTES`` names both sources."""
     from repro_torch.kernels import launches
     q = torch.zeros(1, 2, 5, hd, dtype=getattr(torch, dtype))
-    want = "wgmma" if dtype == "bfloat16" and hd in (64, 128) else "simt"
+    want = ("wgmma" if dtype == "bfloat16" and hd in (64, 80, 128, 256)
+            else "simt")
+    assert FA.BWD_HEAD_DIMS == FA.HEAD_DIMS
     assert FA.bwd_route(q) == want
     assert FA.bwd_route(q.transpose(1, 2).contiguous().transpose(1, 2)) == \
         want
@@ -357,7 +392,7 @@ def test_wrappers_refuse_a_route_or_lse_that_does_not_fit():
     with pytest.raises(ValueError, match="wgmma route takes"):
         FA._chosen("wgmma", q.float(), "simt")
     with pytest.raises(ValueError, match="wgmma route takes"):
-        FA._chosen("wgmma", torch.zeros(1, 4, 70, 80, dtype=torch.bfloat16),
+        FA._chosen("wgmma", torch.zeros(1, 4, 70, 32, dtype=torch.bfloat16),
                    "simt")
     FA._check_stats("lse", FA.lse_buffer(q), q)
     for bad in (torch.zeros(4 * 127), FA.lse_buffer(q).double(),

@@ -701,12 +701,55 @@ def test_flash_attention_wgmma_route_hd64_matches_plain(dev, case, strided):
                                rtol=ATTN_TOL[torch.bfloat16])
 
 
+# the wgmma forward at stablelm-3b's hd 80 (hd 128's instance on tiles
+# zero-filled past column 80) and gemma3-4b's hd 256 (64-key tiles):
+# (b, h, kvh, sq, skv, causal, window, softcap, qk), each model's prefill
+# with peaked scores among them, on [b, s, h, hd] views too
+WGMMA_HD80_256_CASES = {
+    "cut": (2, 8, 4, 300, 300, True, None, None, 0.5),
+    "noncausal-cross": (1, 4, 2, 133, 517, False, None, None, 0.5),
+    "window-33-peaked": (2, 4, 2, 300, 300, True, 33, None, 2.0),
+    "softcap-50": (2, 4, 2, 300, 300, True, None, 50.0, 0.5),
+    "one-token": (1, 2, 1, 1, 1, True, None, None, 0.5),
+}
+WGMMA_PREFILLS = {80: (4, 32, 32, 2048, 2048, True, None, None, 2.0),
+                  256: (4, 8, 4, 2048, 2048, True, None, None, 2.0)}
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["bhsd", "bshd-view"])
+@pytest.mark.parametrize("case", list(WGMMA_HD80_256_CASES) + ["prefill"])
+@pytest.mark.parametrize("hd", [80, 256])
+def test_flash_attention_wgmma_route_hd80_hd256_matches_plain(dev, hd, case,
+                                                             strided):
+    shape = (WGMMA_PREFILLS[hd] if case == "prefill"
+             else WGMMA_HD80_256_CASES[case])
+    b, h, kvh, sq, skv, causal, window, softcap, qk = shape
+    q, k, v = _attn_case(dev, b, h, kvh, sq, skv, hd, torch.bfloat16, qk=qk)
+    if strided:
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    LA.reset_launch_count()
+    got = FK.flash_attention(q, k, v, **kw)
+    assert LA.route_counts("flash_attention") == {"wgmma": 1, "simt": 0}
+    want = R.attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **WGMMA_TOL)
+    assert got.transpose(1, 2).is_contiguous()
+    # the SIMT kernel, still built for bf16 at hd 80 and 256, beside it
+    simt = FK.flash_attention(q, k, v, kernel="simt", **kw)
+    assert LA.route_counts("flash_attention") == {"wgmma": 1, "simt": 1}
+    torch.testing.assert_close(simt.float(), want.float(),
+                               atol=ATTN_TOL[torch.bfloat16],
+                               rtol=ATTN_TOL[torch.bfloat16])
+
+
 def test_flash_attention_lse_is_the_rows_log2_sum_exp(dev):
     """The wgmma forward's lse (under autograd) is each row's base-2
     log-sum-exp of the scaled scores, and writing it changes no bit of
-    the output."""
+    the output, at every head dim of the route."""
     import math
-    for hd in (64, 128):
+    for hd in FK.WGMMA_HEAD_DIMS:
         q, k, v = _attn_case(dev, 2, 4, 2, 300, 300, hd, torch.bfloat16,
                              qk=2.0)
         lse = FK.lse_buffer(q)
@@ -723,6 +766,7 @@ def test_flash_attention_lse_is_the_rows_log2_sum_exp(dev):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     with pytest.raises(ValueError, match="wgmma"):
         FK.flash_attention(q.float(), k.float(), v.float(), lse=lse)
+    q, k, v = _attn_case(dev, 2, 4, 2, 300, 300, 128, torch.bfloat16)
     with pytest.raises(ValueError, match="not built"):
         FK.flash_attention(q, k, v, kernel="simt")          # bf16 at hd 128
 
@@ -1311,7 +1355,10 @@ def _bwd_inputs(dev, b, h, kvh, s, hd, dtype, seed):
                                    (1, 8, 2, 128, 64, True, 48),
                                    (2, 4, 4, 1, 128, True, None),
                                    (1, 16, 8, 300, 128, False, None),
-                                   (1, 8, 2, 200, 80, True, 64)])
+                                   (1, 8, 2, 200, 80, True, 64),
+                                   (1, 4, 2, 200, 256, True, 64),
+                                   (2, 8, 4, 63, 256, True, None),
+                                   (1, 2, 1, 333, 256, False, None)])
 def test_flash_attention_bwd_matches_plain_autograd(dev, dtype, shape):
     b, h, kvh, s, hd, causal, window = shape
     q, k, v, do = _bwd_inputs(dev, b, h, kvh, s, hd, dtype, sum(shape[:5]))
@@ -1320,7 +1367,7 @@ def test_flash_attention_bwd_matches_plain_autograd(dev, dtype, shape):
     got = FK.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
     again = FK.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                    window=window)
-    route = FK.bwd_route(q)                      # bf16 at hd 64, 128: wgmma
+    route = FK.bwd_route(q)              # bf16 at hd 64, 80, 128, 256: wgmma
     assert LA.route_counts("flash_attention_bwd") == {
         r: 2 * (r == route) for r in ("wgmma", "simt")}
     req = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
@@ -1355,14 +1402,19 @@ def test_flash_attention_autograd_runs_both_kernels(dev):
                                    (1, 8, 2, 300, 64, 48),
                                    (8, 16, 8, 128, 64, None),
                                    (1, 16, 4, 333, 128, None),
-                                   (8, 16, 8, 128, 128, 48)])
+                                   (8, 16, 8, 128, 128, 48),
+                                   (8, 32, 32, 128, 80, None),
+                                   (1, 8, 2, 333, 80, 48),
+                                   (8, 8, 4, 128, 256, None),
+                                   (1, 8, 2, 333, 256, 48),
+                                   (2, 4, 4, 1, 256, None)])
 def test_flash_attention_bwd_wgmma_route_against_simt_and_formula(dev,
                                                                    shape):
-    """The wgmma backward (bf16 at hd 64 and 128) given the forward's lse
-    equals its run that recomputes it, bit for bit, and stays within
-    BWD_TOL of the plain formula on the same o, as the SIMT kernel does
-    on the same inputs (causal, granite's and internlm2's training
-    shapes among them)."""
+    """The wgmma backward (bf16 at hd 64, 80, 128 and 256) given the
+    forward's lse equals its run that recomputes it, bit for bit, and
+    stays within BWD_TOL of the plain formula on the same o, as the SIMT
+    kernel does on the same inputs (causal, granite's, internlm2's,
+    stablelm-3b's and gemma3-4b's training shapes among them)."""
     b, h, kvh, s, hd, window = shape
     q, k, v, do = _bwd_inputs(dev, b, h, kvh, s, hd, torch.bfloat16,
                               sum(shape[:5]))

@@ -145,7 +145,8 @@ def _run_rounds(arch, dtype, n_rounds=3, n_pods=2, k=2):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m",
-                                  "rwkv6-1.6b", "jamba-v0.1-52b"])
+                                  "rwkv6-1.6b", "jamba-v0.1-52b",
+                                  "qwen2.5-14b", "stablelm-3b", "gemma3-4b"])
 def test_vc_round_matches_the_reference_f32(arch):
     losses, got, want, pisl, popts, pserver = _run_rounds(arch, "float32")
     want = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), want)

@@ -63,7 +63,8 @@ from repro_torch.optim import optimizers as PO
 torch.set_num_threads(2)
 
 ARCHS = ("internlm2-1.8b", "granite-moe-1b-a400m", "mixtral-8x7b",
-         "rwkv6-1.6b", "jamba-v0.1-52b")
+         "rwkv6-1.6b", "jamba-v0.1-52b", "qwen2.5-14b", "stablelm-3b",
+         "gemma3-4b")
 SEQ, BATCH = 64, 2
 # each gradient leaf against the reference's: ("abs", max |port - ref|)
 # or ("rel", ||port - ref|| / ||ref||), with what each measured
@@ -73,6 +74,9 @@ GRAD_LIMITS = {
     "mixtral-8x7b": ("abs", 1e-5),
     "rwkv6-1.6b": ("abs", 2e-5),          # 1.14e-5
     "jamba-v0.1-52b": ("rel", 1e-3),      # 2.7e-4 (x_proj of block 2)
+    "qwen2.5-14b": ("abs", 1e-5),
+    "stablelm-3b": ("abs", 1e-5),
+    "gemma3-4b": ("abs", 1e-5),
 }
 
 
