@@ -52,7 +52,7 @@ a card, or outside a checkout.  Phases:
       batch, folded by assimilate_many_flat (one Eq. 2 launch), held
       against folding Eq. 1 four times;
    c. the full quickstart configuration on the card, its 10 epochs cut
-      to QUICKSTART_EPOCHS = 2: counts, accuracy table, wall time and
+      to QUICKSTART_EPOCHS = 1: counts, accuracy table, wall time and
       where the host time goes (B3's share: the span of Adam.update_flat,
       inside client_train); the smoke run's first PROFILE_TASKS client
       tasks under the profiler first (device-busy share, top items);
@@ -82,7 +82,9 @@ a card, or outside a checkout.  Phases:
       again with peaked scores (q, k at 2 N(0,1)), ragged cross and
       windowed hd-64 cases, and the prefills of stablelm-3b ([4, 32/32,
       2,048, 80]) and gemma3-4b's global layers ([4, 8/4, 2,048, 256]),
-      flat and peaked; each shape names the route that took it (bf16 at
+      flat and peaked, and whisper-tiny's encoder ([4, 6/6, 1,500, 64],
+      not causal) and cross-attention (376 rows against 1,500 keys);
+      each shape names the route that took it (bf16 at
       hd 64, 80, 128 and 256: the wgmma kernel,
       csrc/flash_attention_sm90.cu, held within 5e-3 + 2^-7 |plain|, the
       SIMT kernel timed beside it at hd 64, 80 and 256; the rest: the
@@ -95,7 +97,7 @@ a card, or outside a checkout.  Phases:
       tokens, 96 greedy decode steps; finite logits, 24 B13 launches in
       prefill, all on the wgmma route, none in decode, one compaction
       (after step 64); prefill and decode times and tokens/s, the
-      compaction's time, and the profiler's device-busy share of 4
+      compaction's time, and the profiler's device-busy share of 2
       further decode steps;
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
       prompt tokens and 72 decode steps (one compaction) on the card and
@@ -119,7 +121,7 @@ a card, or outside a checkout.  Phases:
       writing chunk states, none of its backward), none in decode, no
       compaction; prefill (cold and warm) and decode times,
       tokens/s, peak device memory and the profiler's device-busy share
-      of the warm prefill and of 4 further decode steps;
+      of the warm prefill and of 2 further decode steps;
    c. the same architecture at full width cut to 2 layers, batch 2 x 256
       prompt tokens and 72 decode steps on the card and on the CPU from
       the same weights, as 6c.
@@ -141,7 +143,7 @@ a card, or outside a checkout.  Phases:
       wgmma route; no B15 launch writing chunk states, no backward), none
       in decode, one compaction; init seconds, prefill (cold and warm),
       decode and compaction times, tokens/s, peak device memory and the
-      profiler's device-busy share of the warm prefill and of 4 further
+      profiler's device-busy share of the warm prefill and of 2 further
       decode steps;
    c. blocks 3 and 4 of the period (mamba + MoE, then attention + dense)
       at full width on the card and on the CPU, as 6c but with 8 decode
@@ -289,11 +291,13 @@ a card, or outside a checkout.  Phases:
       gemma3-4b [8, 8/4, 128, 256] and the prefill shapes [4, 16/8,
       2,048, 128], [4, 32/32, 2,048, 80], [4, 8/4, 2,048, 256] in both
       dtypes, each case twice and bit-equal; timed at those seven shapes
-      (the outputs of both routes checked against the plain formula too)
-      beside the SIMT kernel, the plain formula, SDPA's backward and the
-      bound, with the wgmma kernel's device time in a CUDA graph;
-   b. internlm2-1.8b at full width cut to 6 of its 24 layers
-      (756,574,208 parameters on an f32 bus): 4 rounds of 2 islands x 2
+      and whisper-tiny's training shapes (not causal: [8, 6/6, 1,500,
+      64] and 128 rows against 1,500 keys), the outputs of both routes
+      checked against the plain formula too, beside the SIMT kernel, the
+      plain formula, SDPA's backward and the bound, with the wgmma
+      kernel's device time in a CUDA graph;
+   b. internlm2-1.8b at full width cut to 4 of its 24 layers
+      (630,736,896 parameters on an f32 bus): 4 rounds of 2 islands x 2
       local steps of 8 x 128 tokens, island 0 preempted in round 2, a
       checkpoint after round 3; every step B13 forward + recompute and
       backward in each layer (all on the wgmma routes) and B3, B2 once a
@@ -323,10 +327,10 @@ a card, or outside a checkout.  Phases:
       block, u f32 and bf16, B / C column views; each timed at its
       training shape beside the plain backward and the bound (no PyTorch
       call computes either); their ptxas lines;
-   b. rwkv6-1.6b at full width cut to 6 of its 24 layers (601,284,608
+   b. rwkv6-1.6b at full width cut to 4 of its 24 layers (490,336,256
       parameters) as 14b: 4 rounds, island 0 preempted in round 2, killed
-      after round 3 and resumed bit-equal; a step launches B14 12 times
-      (with the remat recompute) and its backward 6 times; one step
+      after round 3 and resumed bit-equal; a step launches B14 8 times
+      (with the remat recompute) and its backward 4 times; one step
       profiled;
    c. jamba-v0.1 at full width, blocks (0, 2, 4) of its period (mamba +
       dense twice, attention + dense; 1,317,941,248 parameters), 2
@@ -363,7 +367,30 @@ a card, or outside a checkout.  Phases:
       TRAIN_CMP_LEAF (B13 on the SIMT routes), the four planted faults
       (dq, dk, dv zeroed; dq x 1.01) refused at hd 80 and at hd 256; bf16
       within 14c's bounds.
-17. a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
+17. whisper-tiny and the internvl2-2b VLM stub served and trained, and
+   granite-moe trained:
+   a. whisper-tiny served at full size (launch/serve.py's serve: batch
+      4, 1,500 frames a row, a 376-token prompt, 72 decode steps; 448
+      positions, the published decoder context): 12 B13 launches a
+      prefill (4 encoder, 4 causal, 4 cross-attention), all on the
+      wgmma route, none a decode step, no compaction (the ring wraps at
+      step 64 and holds the last 64 positions); then card vs CPU at full
+      width and depth as 6c (2e-3 f32, 0.15 bf16);
+   b. whisper-tiny trained as 14b (2 islands x 2 steps of 8 x 128
+      tokens and 8 x 1,500 frames, 68,977,152 parameters) for 2 rounds:
+      24 B13 forwards (remat included) and 12 backwards a step, all
+      wgmma; then card vs CPU as 14c, the planted faults refused at the
+      cross-attention's projections, bf16 held as 15d;
+   c. internvl2-2b at full width cut to 6 of its 24 layers, served at 4 x
+      2,048 (256 patches + 1,792 tokens), 96 decode steps at the
+      reference's positions (n_patches past the prompt), one
+      compaction; its 2-layer training round card vs CPU as 14c at 2 x
+      320 positions (vis_proj's gradient printed);
+   d. granite-moe-1b-a400m trained at full width and depth (1,334,641,664
+      parameters) for 2 rounds: B13 48 forwards and 24 backwards a step
+      (hd 64, wgmma), B3 a step, B2 a round; round walls, tokens/s, the
+      step split and peak memory.
+18. a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
    each name their main path's route's source, under ``sources`` both
    routes', and under ``route_by_head_dim`` the route bf16 takes at each
    head dim), the nvidia-smi line, and the last line ``{"ok": true,
@@ -396,9 +423,9 @@ BIG_N = 2 ** 27                  # order of the ~100M-parameter demo LM
 ACC_BAND = 0.03                  # card vs CPU epoch accuracy (6 of 200)
 MAIN_K = (656, 1313)             # sparse payload at densities 0.05 / 0.1
 # 4c: examples/quickstart.py's full configuration, its depth (10 epochs)
-# cut to 2 to hold the script's time; every epoch does the same work
-QUICKSTART_EPOCHS = 2
-PROFILE_TASKS = 2                # 4c: client tasks under the profiler
+# cut to 1 to hold the script's time; every epoch does the same work
+QUICKSTART_EPOCHS = 1
+PROFILE_TASKS = 1                # 4c: client tasks under the profiler
 BIG_K = int(BIG_N * 0.05)        # 6,710,886
 QBLOCK = 256
 # B2's client counts in phase 3: its instances for 1-8 clients and its
@@ -1274,6 +1301,13 @@ ATTN_SHAPES = {
                             None, None, 0.5),
     "j2 gemma3-4b prefill, peaked": (4, 8, 4, 2048, 2048, 256, "bfloat16",
                                      True, None, None, 2.0),
+    # whisper-tiny served (MHA 6 / 6, hd 64, not causal): the encoder over
+    # 1,500 frames (the last kv tile 92 keys) and the decoder's 376-row
+    # prompt against them in cross-attention
+    "k whisper encoder": (4, 6, 6, 1500, 1500, 64, "bfloat16", False, None,
+                          None, 0.5),
+    "k2 whisper cross": (4, 6, 6, 376, 1500, 64, "bfloat16", False, None,
+                         None, 0.5),
 }
 # host cost of one wrapper call, at a shape whose kernel is shorter than
 # the call: (b, h, kvh, s)
@@ -1281,9 +1315,9 @@ HOST_SHAPE, HOST_CALLS = (1, 4, 2, 128), 200
 SERVE_ARGS = ["--arch", "internlm2-1.8b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "96"]
 SERVE_LAYERS = 24                # internlm2-1.8b: one B13 launch a layer
-# decode steps under the profiler (cut from 32, then from 8 in PR 32: the
-# profiler's post-processing costs ~12 s per second of profiled decode)
-PROFILE_STEPS = 4
+# decode steps under the profiler (the profiler's post-processing costs
+# ~12 s per second of profiled decode)
+PROFILE_STEPS = 2
 # card vs CPU: internlm2-1.8b's full width, depth cut to 2 layers
 CMP_LAYERS, CMP_BATCH, CMP_PROMPT, CMP_STEPS = 2, 2, 256, 72
 # logits, card vs CPU: 2e-3 in f32 compute (the reference's own
@@ -1612,10 +1646,11 @@ def routes_differing(ref: "RouteLog", run: "RouteLog") -> tuple:
 def serve_card_vs_cpu(torch, VK, cut, launches: dict,
                       attn_routes=None, prompt: int = CMP_PROMPT,
                       steps: int = CMP_STEPS) -> None:
-    """Phases 6c, 7c, 8c and 14d: the depth-cut config ``cut`` (full
-    width) at batch 2 x ``prompt`` tokens (256), then ``steps`` decode
-    steps (72: across step 64, where attention caches are compacted), on
-    the card and on the CPU
+    """Phases 6c, 7c, 8c, 14d and 17a: the depth-cut config ``cut`` (full
+    width) at batch 2 x ``prompt`` tokens (256; with ``make_batch_for``'s
+    frame or patch embeddings), then ``steps`` decode steps (72: across
+    step 64, where attention caches are compacted, but an
+    encoder-decoder's, as in launch/serve.py), on the card and on the CPU
     from one set of weights (drawn once, in f32), in f32 and in the
     shipped bf16 compute.  The f32 card run decodes greedily; the other
     three runs are fed its tokens, so every run sees one schedule, and an
@@ -1633,8 +1668,9 @@ def serve_card_vs_cpu(torch, VK, cut, launches: dict,
     from repro_torch.models.registry import build_model
     t0 = time.perf_counter()
     master = build_model(cut).init(0, device="cpu")     # parameter dtype
-    tokens = make_batch_for(cut, CMP_BATCH, prompt, 0)["tokens"]
+    inputs = make_batch_for(cut, CMP_BATCH, prompt, 0)
     t_init = time.perf_counter() - t0
+    prefix = cut.vision.n_patches if cut.vision is not None else 0
     fed, f32_cpu = [], None
     for dt in ("float32", "bfloat16"):
         cfg = cut.replace(compute_dtype=dt)
@@ -1648,17 +1684,18 @@ def serve_card_vs_cpu(torch, VK, cut, launches: dict,
             t0 = time.perf_counter()
             replay = runs["card"][3] if run == "cpu" else None
             with RouteLog(replay) as routes:
-                lg, caches = model.prefill(params,
-                                           {"tokens": tokens.to(dev)})
+                lg, caches = model.prefill(
+                    params, {k: v.to(dev) for k, v in inputs.items()})
                 logits = [lg.float().cpu()]
                 for i in range(steps):
                     if len(fed) == i:       # the f32 card run's greedy
                         fed.append(greedy(lg, cfg).cpu())
+                    pos = prompt + prefix + i       # as launch/serve.py
                     lg, caches = model.decode_step(
-                        params, caches, fed[i].to(dev), prompt + i)
+                        params, caches, fed[i].to(dev), pos)
                     logits.append(lg.float().cpu())
-                    if (i + 1) % RECENT_RING == 0:
-                        caches = compact_all(caches, prompt + i)
+                    if (i + 1) % RECENT_RING == 0 and not cut.is_enc_dec:
+                        caches = compact_all(caches, pos)
             runs[run] = (logits, VK.launch_counts(),
                          time.perf_counter() - t0, routes)
             if run == "card" and attn_routes:
@@ -3419,13 +3456,18 @@ BWD_TIMED = {"train": (8, 16, 8, 128, 128), "prefill": (4, 16, 8, 2048, 128),
              "gemma3 train": (8, 8, 4, 128, 256),
              "stablelm prefill": (4, 32, 32, 2048, 80),
              "gemma3 prefill": (4, 8, 4, 2048, 256)}
-# 14b: internlm2-1.8b at full width cut to 6 of its 24 layers (the full
+# whisper-tiny's training step (MHA 6 / 6, hd 64, not causal): (b, h,
+# kvh, sq, skv, hd) of the encoder over 8 x 1,500 frames and the
+# decoder's 128 rows against them in cross-attention
+BWD_TIMED_WHISPER = {"whisper encoder train": (8, 6, 6, 1500, 1500, 64),
+                     "whisper cross train": (8, 6, 6, 128, 1500, 64)}
+# 14b: internlm2-1.8b at full width cut to 4 of its 24 layers (the full
 # depth's flat round — islands, their Adam lanes, server, gradient and
-# B3's outputs — needs ~68 GB before activations; 12 layers until PR 32:
-# the CPU's draw of the weights and the 22.7 GB record's write and read
-# were most of the phase's 63-75 s)
-TRAIN_LAYERS = 6
-TRAIN_PARAMS = 756_574_208       # 379,062,272 + 6 x 62,918,656
+# B3's outputs — needs ~68 GB before activations; the CPU's draw of the
+# weights and the record's write and read, 12.6 GB at 4 layers, are most
+# of the phase)
+TRAIN_LAYERS = 4
+TRAIN_PARAMS = 630_736_896       # 379,062,272 + 4 x 62,918,656
 TRAIN_KW = dict(islands=2, local_steps=2, batch=8, seq=128, alpha="var",
                 lr=1e-3, seed=0)
 TRAIN_ROUNDS, TRAIN_PREEMPT, TRAIN_KILL = 4, 1, 3   # round 2 is index 1
@@ -3464,10 +3506,13 @@ MIXTRAL_SERVE, MIXTRAL_LAYERS = (2, 6144, 32), 1
 MOE_CMP_STEPS, MIXTRAL_CMP_PROMPT = 8, 128
 
 
-def _grad_inputs(torch, dev, b, h, kvh, s, hd, dtype, seed):
+def _grad_inputs(torch, dev, b, h, kvh, s, hd, dtype, seed, skv=None):
+    """q / k / v as [b, s, h, hd] views (``skv`` keys, default s) and dO,
+    N(0,1) in ``dtype``."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(b, s, n, hd, generator=g, device=dev).to(dtype)
-               .transpose(1, 2) for n in (h, kvh, kvh))
+    skv = s if skv is None else skv
+    q, k, v = (torch.randn(b, n_s, n, hd, generator=g, device=dev).to(dtype)
+               .transpose(1, 2) for n_s, n in ((s, h), (skv, kvh), (skv, kvh)))
     do = torch.randn(b, h, s, hd, generator=g, device=dev).to(dtype)
     return q, k, v, do
 
@@ -3496,7 +3541,8 @@ def attention_bwd_parity(torch, np, FK, R) -> dict:
     route ``bwd_route`` picks (bf16 at hd 64, 80, 128 and 256: the wgmma
     kernel, csrc/flash_attention_bwd_sm90.cu; the rest: the SIMT kernel,
     csrc/flash_attention_bwd.cu), counted by ``route_counts``.  Then
-    timed at BWD_TIMED beside the SIMT kernel on the same inputs, the
+    timed at BWD_TIMED (causal) and BWD_TIMED_WHISPER (not causal, sq
+    and skv apart) beside the SIMT kernel on the same inputs, the
     plain formula (``ref.attention_bwd``, against which the timed outputs
     are checked too), SDPA's backward (the library yardstick, never
     called by the port) and the bound, with the wgmma kernel's device
@@ -3549,40 +3595,46 @@ def attention_bwd_parity(torch, np, FK, R) -> dict:
         f"autograd, each bit-equal run to run; cases by route {routes}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = None
-    for name, (b, h, kvh, s, hd) in BWD_TIMED.items():
+    timed = {name: (b, h, kvh, s, s, hd, True)
+             for name, (b, h, kvh, s, hd) in BWD_TIMED.items()}
+    timed.update({name: shape + (False,)
+                  for name, shape in BWD_TIMED_WHISPER.items()})
+    for name, (b, h, kvh, s, skv, hd, causal) in timed.items():
         q, k, v, do = _grad_inputs(torch, dev, b, h, kvh, s, hd,
-                                   torch.bfloat16, 99)
+                                   torch.bfloat16, 99, skv)
+        kw = dict(causal=causal)
         lse = FK.lse_buffer(q)          # what FlashAttention saves
-        o = FK.flash_attention(q, k, v, causal=True, lse=lse)
-        got = FK.flash_attention_bwd(q, k, v, o, do, lse=lse)
-        plain = R.attention_bwd(q, k, v, o, do)
+        o = FK.flash_attention(q, k, v, lse=lse, **kw)
+        got = FK.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+        plain = R.attention_bwd(q, k, v, o, do, **kw)
         _, err = _bwd_share(torch, got, plain, "bfloat16",
                             f"B13 bwd {name} vs ref.attention_bwd")
-        simt = FK.flash_attention_bwd(q, k, v, o, do, kernel="simt")
+        simt = FK.flash_attention_bwd(q, k, v, o, do, kernel="simt", **kw)
         _bwd_share(torch, simt, plain, "bfloat16",
                    f"B13 bwd {name}, the SIMT kernel, vs ref.attention_bwd")
         del got, plain, simt
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-        so = sdpa(qs, ks, vs, is_causal=True, scale=1.0 / math.sqrt(hd),
+        so = sdpa(qs, ks, vs, is_causal=causal, scale=1.0 / math.sqrt(hd),
                   enable_gqa=True)
-        ops = 10 * hd * b * h * attn_pairs(np, s, s, True, None)
-        nbytes = 2 * (4 * b * h * s * hd + 4 * b * kvh * s * hd)
+        ops = 10 * hd * b * h * attn_pairs(np, s, skv, causal, None)
+        nbytes = 2 * (4 * b * h * s * hd + 4 * b * kvh * skv * hd)
         t_mem, t_ops = nbytes / KB.HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
         rec = {"max_abs_err": err, "bound_ms": 1e3 * max(t_mem, t_ops),
                "bound_by": "bytes" if t_mem >= t_ops else "operations",
                "ms": KB.cuda_ms(lambda: FK.flash_attention_bwd(
-                   q, k, v, o, do, lse=lse), 10),
+                   q, k, v, o, do, lse=lse, **kw), 10),
                "plain_ms": KB.cuda_ms(lambda: R.attention_bwd(
-                   q, k, v, o, do), 3),
+                   q, k, v, o, do, **kw), 3),
                "library_ms": KB.cuda_ms(lambda: torch.autograd.grad(
                    so, (qs, ks, vs), do, retain_graph=True), 10)}
-        fwd_ms = KB.cuda_ms(lambda: FK.flash_attention(q, k, v,
-                                                       causal=True), 10)
+        fwd_ms = KB.cuda_ms(lambda: FK.flash_attention(q, k, v, **kw), 10)
         simt_ms = KB.cuda_ms(lambda: FK.flash_attention_bwd(
-            q, k, v, o, do, kernel="simt"), 3)
+            q, k, v, o, do, kernel="simt", **kw), 3)
         dev_us = WC.graph_us(torch, lambda: FK.flash_attention_bwd(
-            q, k, v, o, do, lse=lse), 20)
-        say(f"B13 bwd {name} [{b},{h}/{kvh},{s},{hd}] bf16 causal, route "
+            q, k, v, o, do, lse=lse, **kw), 20)
+        shape = f"{s}" if s == skv else f"{s}x{skv}"
+        say(f"B13 bwd {name} [{b},{h}/{kvh},{shape},{hd}] bf16 "
+            f"{'causal' if causal else 'not causal'}, route "
             f"{FK.bwd_route(q)}: kernel {rec['ms']:.4f} ms (device "
             f"{dev_us / 1e3:.4f} ms in a CUDA graph; forward {fwd_ms:.4f} "
             f"ms, route {FK.route(q)}), the SIMT kernel {simt_ms:.4f} ms, "
@@ -3827,9 +3879,11 @@ def _leaf_diffs(torch, spec, got: list, want: list) -> tuple:
 
 
 def train_card_vs_cpu(torch, VK, cut, label: str, per_step: dict,
-                      faults: dict, bf16=None) -> None:
-    """Phases 14c, 15d and 16d: one round of ``make_vc_round``
-    (TRAIN_CMP_ISLANDS islands x 1 step, batch 2 x 64 tokens) at ``cut``
+                      faults: dict, bf16=None, seq: int = 64,
+                      show: tuple = ()) -> None:
+    """Phases 14c, 15d, 16d and 17b-c: one round of ``make_vc_round``
+    (TRAIN_CMP_ISLANDS islands x 1 step, batch 2 x ``seq`` tokens, a
+    VLM's patches among them, whisper's frames beside them) at ``cut``
     (a full width cut to a few layers, its vocabulary to
     TRAIN_CMP_VOCAB), on the card and on the CPU from
     one set of weights (the port's init, drawn once); the card launches
@@ -3843,7 +3897,8 @@ def train_card_vs_cpu(torch, VK, cut, label: str, per_step: dict,
     round; without it, each leaf's gradient no farther from the CPU's f32
     gradient than TRAIN_CMP_NOISE times the CPU's own bf16 gradient is
     (plus TRAIN_CMP_LEAF): the card's bf16 round adds no error beyond
-    bf16's own rounding."""
+    bf16's own rounding.  ``show``: leaf-name suffixes whose f32
+    per-leaf distance is printed."""
     from repro_torch.core import flat as F
     from repro_torch.launch.train import _round_batches
     from repro_torch.models.registry import build_model
@@ -3854,7 +3909,7 @@ def train_card_vs_cpu(torch, VK, cut, label: str, per_step: dict,
     del init
     spec = master.spec
     islands = TRAIN_CMP_ISLANDS
-    batches = _round_batches(cut, islands, 1, 2, 64, seed=0)
+    batches = _round_batches(cut, islands, 1, 2, seq, seed=0)
     want = {**dict.fromkeys(VK.KERNELS, 0),
             **{k: islands * n for k, n in per_step.items()},
             "adam_update_flat": islands, "assimilate_flat": 1}
@@ -3878,7 +3933,7 @@ def train_card_vs_cpu(torch, VK, cut, label: str, per_step: dict,
         i, j = max(range(len(rel)), key=rel.__getitem__), \
             max(range(len(rel)), key=rel_norm.__getitem__)
         say(f"{label} {cut.describe()} {dt}, {islands} island(s) x 1 step "
-            f"of 2x64: "
+            f"of 2x{seq}: "
             f"loss card {gl:.6f} cpu {cl:.6f} (|diff| {abs(gl - cl):.4g}); "
             f"grad norms card {gn} cpu {cn} (max relative diff "
             f"{grel:.4g}); per leaf worst ||card - cpu|| / ||cpu|| "
@@ -3887,6 +3942,10 @@ def train_card_vs_cpu(torch, VK, cut, label: str, per_step: dict,
             f"{float((card['bus'] - cpu['bus']).abs().max()):.4g}; wall "
             f"card {card['wall']:.2f} s, cpu {cpu['wall']:.2f} s")
         if dt == "float32":
+            for k, n in enumerate(names):
+                if n.endswith(show) and show:
+                    say(f"{label} f32 {n}: ||card - cpu|| / ||cpu|| "
+                        f"{rel[k]:.4g} (bound {TRAIN_CMP_LEAF})")
             bad = [names[k] for k, r in enumerate(rel) if r > TRAIN_CMP_LEAF]
             check(not bad, f"{label} f32: gradient leaves past "
                   f"{TRAIN_CMP_LEAF}: {bad}")
@@ -3962,13 +4021,23 @@ def _planted_faults(torch, VK, model, master, batches, names: list,
         del run
 
 
+def prefill_attn(cfg) -> int:
+    """B13 launches a prefill: one an attention layer; an
+    encoder-decoder's encoder layers and its decoder's self- and
+    cross-attention each."""
+    if cfg.is_enc_dec:
+        return cfg.encoder.n_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def _serve_lm(torch, VK, cfg, shape, route: str, label: str,
               profile: bool = False) -> dict:
     """serve.serve at ``cfg`` (batch, prompt, decode steps = ``shape``):
-    one B13 launch a layer in prefill, all on ``route``, none in decode,
-    a compaction every 64 steps; with ``profile``, the warm prefill
-    again, timed and profiled (``profile_prefill``).  Returns the run's
-    launches."""
+    one B13 launch an attention layer in prefill (``prefill_attn``), all
+    on ``route``, none in decode, a compaction every 64 steps (none for an
+    encoder-decoder, whose ring wraps), the decode positions of
+    launch/serve.py; with ``profile``, the warm prefill again, timed and
+    profiled (``profile_prefill``).  Returns the run's launches."""
     from repro_torch.launch import serve
     b, s, gen = shape
     zero = dict.fromkeys(VK.KERNELS, 0)
@@ -3978,7 +4047,7 @@ def _serve_lm(torch, VK, cfg, shape, route: str, label: str,
     res = serve.serve(cfg, b, s, gen, seed=0, device="cuda")
     wall = time.perf_counter() - t0
     counts = VK.launch_counts()
-    n_attn = cfg.n_layers
+    n_attn = prefill_attn(cfg)
     check_attn_route(n_attn, route, label)
     check(res.logits_finite, f"{label}: non-finite logits")
     check(tuple(res.tokens.shape) == (b, gen + 1)
@@ -3988,11 +4057,18 @@ def _serve_lm(torch, VK, cfg, shape, route: str, label: str,
           f"{label}: prefill launches {res.launches_prefill}")
     check(res.launches_decode == zero,
           f"{label}: decode launches {res.launches_decode}")
-    check(res.compactions == gen // 64, f"{label}: {res.compactions} "
-          f"compactions")
+    check(res.compactions == (0 if cfg.is_enc_dec else gen // 64),
+          f"{label}: {res.compactions} compactions")
+    prefix = cfg.vision.n_patches if cfg.vision is not None else 0
+    check(res.next_pos == s + prefix + gen - 1,
+          f"{label}: the last token at position {res.next_pos}")
     n_params = sum(t.numel() for t in _leaves(res.params))
     step_s = (res.decode_s - res.compact_s) / gen
-    cache = res.caches[0]
+    cache = res.caches.self_cache[0] if cfg.is_enc_dec else res.caches[0]
+    if cfg.is_enc_dec:          # the ring wrapped: the last 64 positions
+        want = list(range(max(s, s + gen - 64), s + gen))
+        check(sorted(int(p) for p in cache.rec_pos if p >= 0) == want,
+              f"{label}: the ring holds {cache.rec_pos.tolist()}")
     spec = cfg.all_blocks[0]
     slots = cache.k_old.shape[2] * cache.k_old.shape[3]
     check(slots == (min(s, spec.window) if spec.attn_kind == "swa" else s),
@@ -4068,9 +4144,10 @@ SCAN_BWD_SHAPES = {
     "f long": (2, 2048, 8192, 16, "bfloat16"),
 }
 SCAN_BWD_TIMED = ("a rwkv6 train", "g long", "a jamba train", "f long")
-# 15b: rwkv6-1.6b at full width cut to 6 of its 24 layers (12 until PR
-# 32, as 14b); 14b's launcher defaults, rounds, preemption and kill
-RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 6, 601_284_608
+# 15b: rwkv6-1.6b at full width cut to 4 of its 24 layers, as 14b;
+# 14b's launcher defaults, rounds, preemption and kill; 268,439,552 + 4
+# x 55,474,176 parameters
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 4, 490_336_256
 # 15c: jamba-v0.1 at full width, blocks (0, 2, 4) of its period (mamba +
 # dense twice, attention + dense), 2 rounds
 JAMBA_TRAIN_BLOCKS, JAMBA_TRAIN_PARAMS = (0, 2, 4), 1_317_941_248
@@ -4369,6 +4446,91 @@ def dense_hd_paths(torch, VK, FK, tmp: Path, phases) -> None:
             (TRAIN_CMP_GNORM, TRAIN_CMP_LEAF_BF16))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: whisper-tiny and the internvl2-2b VLM stub, served and trained;
+# granite-moe-1b-a400m trained at full size
+# ---------------------------------------------------------------------------
+
+# 17a: whisper-tiny served at full size: batch 4, 1,500 frames, a 376-token
+# prompt and 72 decode steps (448 positions: the published decoder
+# context; the recent ring wraps at step 64, an encoder-decoder's ring is
+# never compacted)
+WHISPER_SERVE = (4, 376, 72)
+# 17b: trained at the launcher's defaults (8 x 128 tokens and 8 x 1,500
+# frames a step), 2 rounds; card vs CPU as 14c, but bf16 held as 15d
+# (each leaf no farther from the CPU's f32 gradient than TRAIN_CMP_NOISE
+# times the CPU's own bf16 gradient is): the last decoder layer's
+# self-attention gradients differ card vs CPU in bf16 by 0.9% in norm
+# (14c's 0.5% was set on internlm2), where f32 agrees to 1.3e-5.
+# Parameters: the embedding and unembedding 2 x 19,918,848,
+# the learned position table 12,607,488 (32,832 x 384), 4 encoder layers
+# of 1,771,008, 4 decoder layers of 2,361,600 and two final norms
+WHISPER_PARAMS = 68_977_152
+PHASE17_ROUNDS = 2
+# 17c: internvl2-2b at full width cut to 6 of its 24 layers, batch 4 x
+# 2,048 (256 patches + 1,792 tokens), 96 decode steps (a compaction); its
+# training round card vs CPU at 2 layers and TRAIN_CMP_VOCAB, 2 x 320
+# positions (256 patches + 64 tokens)
+VLM_SERVE, VLM_LAYERS, VLM_CMP_SEQ = (4, 2048, 96), 6, 320
+# 17d: granite-moe-1b-a400m trained at full width and depth (24 layers,
+# the 32-expert MoE in each; its tied embedding), 2 rounds
+GRANITE_PARAMS = 1_334_641_664
+
+
+def whisper_and_vlm(torch, VK, FK, tmp: Path, phases) -> None:
+    """Phase 17: whisper-tiny and the VLM stub, and granite-moe's
+    training.
+    17a: whisper-tiny served at full size (WHISPER_SERVE): 12 B13
+    launches a prefill (4 encoder, 4 causal, 4 cross), all wgmma, none a
+    decode step; then card vs CPU at full width and depth as 6c (batch 2
+    x 256 + 72 steps: 2e-3 in f32, 0.15 in bf16).  17b: whisper trained
+    as 14b for PHASE17_ROUNDS rounds (B13's forward, recompute and
+    backward counted by route, all wgmma; B3 a step, B2 a round), then
+    card vs CPU as 14c with the planted faults refused at the non-causal
+    cross-attention's projections.  17c: internvl2-2b served at full
+    width (VLM_SERVE, VLM_LAYERS) at the reference's decode positions,
+    and its 2-layer training round card vs CPU (vis_proj's gradient
+    among the leaves).  17d: granite-moe-1b-a400m trained at full size
+    for PHASE17_ROUNDS rounds (B13's backward at hd 64 on the wgmma
+    route, B3 a step, B2 a round): round walls, tokens/s, peak memory."""
+    from repro_torch.configs import get_config
+    whisper = get_config("whisper-tiny")
+    n_attn = prefill_attn(whisper)
+    phases.start("17a")
+    _serve_lm(torch, VK, whisper, WHISPER_SERVE, "wgmma", "whisper serve")
+    serve_card_vs_cpu(torch, VK, whisper, {"flash_attention": n_attn},
+                      ATTN_ROUTES)
+    phases.start("17b")
+    train_full_width(torch, VK, tmp, whisper, "whisper train",
+                     WHISPER_PARAMS, {"flash_attention": 2 * n_attn,
+                                      "flash_attention_bwd": n_attn},
+                     attn=2 * n_attn, rounds=PHASE17_ROUNDS, kill=None,
+                     profile=False)
+    train_card_vs_cpu(
+        torch, VK, whisper, "whisper train card vs cpu",
+        {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn},
+        {k: (FK, "flash_attention_bwd", i, sc, "x" + leaf, whisper.n_layers)
+         for k, (i, sc, leaf) in TRAIN_FAULTS.items()})
+    phases.start("17c")
+    _serve_lm(torch, VK, depth_cut("internvl2-2b", VLM_LAYERS), VLM_SERVE,
+              "wgmma", "internvl2 serve")
+    train_card_vs_cpu(
+        torch, VK, depth_cut("internvl2-2b"), "internvl2 train card vs cpu",
+        {"flash_attention": 2 * CMP_LAYERS, "flash_attention_bwd": CMP_LAYERS},
+        {k: (FK, "flash_attention_bwd", i, sc, leaf, CMP_LAYERS)
+         for k, (i, sc, leaf) in TRAIN_FAULTS.items()},
+        (TRAIN_CMP_GNORM, TRAIN_CMP_LEAF_BF16), seq=VLM_CMP_SEQ,
+        show=("vis_proj/w1", "vis_proj/w2"))
+    phases.start("17d")
+    granite = get_config("granite-moe-1b-a400m")
+    train_full_width(torch, VK, tmp, granite, "granite train",
+                     GRANITE_PARAMS,
+                     {"flash_attention": 2 * granite.n_layers,
+                      "flash_attention_bwd": granite.n_layers},
+                     attn=2 * granite.n_layers, rounds=PHASE17_ROUNDS,
+                     kill=None, profile=False)
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -4654,7 +4816,10 @@ def main() -> int:
     # ---- 16. stablelm-3b and gemma3-4b: B13 at hd 80 and 256 -----------
     dense_hd_paths(torch, VK, FK, tmp, phases)                        # 16a-d
 
-    # ---- 17. result lines -------------------------------------------------
+    # ---- 17. whisper and the VLM served and trained, granite trained ----
+    whisper_and_vlm(torch, VK, FK, tmp, phases)                       # 17a-d
+
+    # ---- 18. result lines -------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c

@@ -1,16 +1,16 @@
-"""Architecture configs (port of ``repro/configs``): the dense family,
-rwkv6 (the SSM family), jamba (the hybrid mamba/attention/MoE family) and
-the MoE family (granite-moe, mixtral).
+"""Architecture configs (port of ``repro/configs``): every family of the
+reference — the dense family, the VLM stub (internvl2), the audio
+encoder-decoder (whisper), the MoE family (granite-moe, mixtral), jamba
+(the hybrid mamba/attention/MoE family) and rwkv6 (the SSM family).
 
 Each module exposes ``config()`` (the published configuration) and
 ``reduced()`` (a tiny same-family config for CPU tests), copied field for
-field from the reference.  The other families of the reference (VLM,
-audio) are not ported yet: asking for one raises a
-``KeyError`` that says where they stand.
+field from the reference.
 """
 from __future__ import annotations
 
 from importlib import import_module
+from typing import Dict
 
 from repro_torch.models.common import ModelConfig
 
@@ -19,28 +19,21 @@ _ARCH_MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
-    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
-    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
-}
-# the reference's other architectures, by family
-_NOT_PORTED = {
-    "internvl2-2b": "vlm",
-    "whisper-tiny": "audio",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 
 ARCHS = tuple(_ARCH_MODULES)
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise KeyError(f"{arch} ({_NOT_PORTED[arch]} family) is not ported "
-                       f"yet: the port runs {list(ARCHS)}; see ROADMAP.md "
-                       f"queue A for the order of the other families")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown architecture {arch!r}; the port has "
-                       f"{list(ARCHS)} (ROADMAP.md queue A)")
+                       f"{list(ARCHS)} (see ROADMAP.md)")
     return import_module(_ARCH_MODULES[arch])
 
 
@@ -50,3 +43,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCHS}

@@ -5,7 +5,8 @@ checkpoint either package reads) takes the reference's objects as numpy
 arrays or anything ``np.asarray`` reads (a tree of them, a flat bus
 buffer with its ``TreeSpec.meta()``, a ``CompressedDelta``, a scheme
 state, an LM's parameter tree — attention, mamba, rwkv and MoE leaves
-alike — or its decode states), so the two packages can be started from
+alike, a vision stub's projection, whisper's encoder-decoder — or its
+decode states), so the two packages can be started from
 the same state and compared.  Nothing here imports the reference: its
 objects are read by attribute.
 """
@@ -22,6 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import DecodeCache
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.rwkv import RWKVState
+from repro_torch.models.whisper import CrossCache, WhisperDecCache
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -97,10 +99,14 @@ def state_from_reference(ref_state, port_state, device="cuda"):
 def lm_params_from_reference(tree_of_numpy, cfg, device="cuda") -> dict:
     """A reference ``init_lm`` tree (leaves readable by ``np.asarray``, or
     torch tensors, as a checkpoint in that layout loads) ->
-    the port's LM parameters on ``device``: ``embed`` and ``final_norm``
-    as they are, and each ``group{gi}`` — a list over the group's blocks
-    of dicts stacked ``[repeats, ...]`` for ``lax.scan`` — unstacked into
-    one dict per layer, in ``cfg.all_blocks`` order."""
+    the port's LM parameters on ``device``: ``embed``, ``final_norm`` and
+    a vision stub's ``vis_proj`` as they are, and each ``group{gi}`` — a
+    list over the group's blocks of dicts stacked ``[repeats, ...]`` for
+    ``lax.scan`` — unstacked into one dict per layer, in
+    ``cfg.all_blocks`` order.  For an encoder-decoder (``init_whisper``'s
+    tree): ``enc`` and ``dec``, stacked ``[layers, ...]``, unstacked into
+    one dict a layer; ``embed``, ``pos_table``, ``enc_norm`` and
+    ``final_norm`` as they are."""
     dev = resolve_device(device)
 
     def conv(node, pick=None):
@@ -111,25 +117,35 @@ def lm_params_from_reference(tree_of_numpy, cfg, device="cuda") -> dict:
         a = np.asarray(node)
         return _tensor(a if pick is None else a[pick], dev)
 
+    if cfg.is_enc_dec:
+        out = {k: conv(tree_of_numpy[k])
+               for k in ("embed", "pos_table", "enc_norm", "final_norm")}
+        for k, n in (("enc", cfg.encoder.n_layers), ("dec", cfg.n_layers)):
+            out[k] = [conv(tree_of_numpy[k], i) for i in range(n)]
+        return out
     blocks = []
     for gi, g in enumerate(cfg.layer_groups):
         group = tree_of_numpy[f"group{gi}"]
         for r in range(g.repeats):
             blocks.extend(conv(group[bi], r) for bi in range(len(g.blocks)))
-    return {"embed": conv(tree_of_numpy["embed"]),
-            "final_norm": conv(tree_of_numpy["final_norm"]),
-            "blocks": blocks}
+    out = {"embed": conv(tree_of_numpy["embed"]),
+           "final_norm": conv(tree_of_numpy["final_norm"]),
+           "blocks": blocks}
+    if cfg.vision is not None:
+        out["vis_proj"] = conv(tree_of_numpy["vis_proj"])
+    return out
 
 
 def lm_params_to_reference(params: dict, cfg, device=None) -> dict:
     """The inverse of ``lm_params_from_reference``: the port's LM
-    parameters -> the reference's ``init_lm`` tree layout, as torch
-    tensors on ``device`` (None: where they are): ``embed`` and
-    ``final_norm`` as they are, and per layer group ``group{gi}``, a list
-    over the group's blocks of dicts whose leaves stack the group's
-    repeats ``[repeats, ...]``.  Flattened in sorted-key order it gives
-    the reference's ``jax.tree.leaves`` order, so a checkpoint of it is
-    read by either package."""
+    parameters -> the reference's ``init_lm`` (or ``init_whisper``) tree
+    layout, as torch tensors on ``device`` (None: where they are):
+    ``embed``, ``final_norm`` and ``vis_proj`` as they are, and per layer
+    group ``group{gi}``, a list over the group's blocks of dicts whose
+    leaves stack the group's repeats ``[repeats, ...]`` (whisper: ``enc``
+    and ``dec`` stacked ``[layers, ...]``).  Flattened in sorted-key
+    order it gives the reference's ``jax.tree.leaves`` order, so a
+    checkpoint of it is read by either package."""
     def move(t):
         return t if device is None else t.to(device)
 
@@ -138,8 +154,11 @@ def lm_params_to_reference(params: dict, cfg, device=None) -> dict:
             return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
         return torch.stack([move(n) for n in nodes])
 
-    out = {"embed": F.tree_map(move, params["embed"]),
-           "final_norm": F.tree_map(move, params["final_norm"])}
+    if cfg.is_enc_dec:
+        return {k: (stack(v) if k in ("enc", "dec") else F.tree_map(move, v))
+                for k, v in params.items()}
+    out = {k: F.tree_map(move, params[k])
+           for k in ("embed", "final_norm", "vis_proj") if k in params}
     blocks, i = params["blocks"], 0
     for gi, g in enumerate(cfg.layer_groups):
         nb = len(g.blocks)
@@ -160,8 +179,16 @@ def caches_from_reference(caches, cfg, device="cuda") -> list:
     over the group's blocks of ``DecodeCache``s (attention),
     ``MambaState``s (mamba) or ``RWKVState``s (rwkv) stacked
     ``[repeats, ...]`` — -> the port's list of one such state per layer
-    on ``device``."""
+    on ``device``.  For an encoder-decoder: the reference's
+    ``WhisperDecCache`` (a ``DecodeCache`` and a ``CrossCache`` stacked
+    ``[layers, ...]``) -> the port's, one of each a layer."""
     dev = resolve_device(device)
+    if cfg.is_enc_dec:
+        per_layer = lambda state, stacked: [
+            state(*(_tensor(np.asarray(f)[i], dev) for f in stacked))
+            for i in range(cfg.n_layers)]
+        return WhisperDecCache(per_layer(DecodeCache, caches.self_cache),
+                               per_layer(CrossCache, caches.cross))
     out = []
     for gi, g in enumerate(cfg.layer_groups):
         for r in range(g.repeats):

@@ -1,7 +1,8 @@
-"""Synthetic token streams and the work generator's dataset split (port
-of ``repro/data/pipeline.py``, the tokens branch), with host prefetch.
-The source is numpy in both packages, so the tokens are bit-identical to
-the reference's for the same vocabulary, seed, shard and step.
+"""Synthetic token streams, the stub modalities' inputs and the work
+generator's dataset split (port of ``repro/data/pipeline.py``), with host
+prefetch.  The source is numpy in both packages, so the tokens and the
+frame / patch embeddings are bit-identical to the reference's for the
+same config, seed, shard and step.
 
 The paper's work generator splits the training set into n_t subsets
 (§III-A); ``ShardedTokenDataset`` is that split for LM training — each
@@ -59,17 +60,34 @@ class ShardedTokenDataset:
                                   offset=shard * 10_000_019 + step)
 
 
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    """A float64 array rounded to bf16 as the reference's
+    ``jnp.asarray(a, jnp.bfloat16)`` rounds it: through f32 (ml_dtypes
+    casts a double to float, then to bf16, each to nearest even)."""
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+
 def make_batch_for(cfg: ModelConfig, batch: int, seq_len: int,
                    seed: int = 0) -> Dict[str, torch.Tensor]:
-    """One model-ready batch: ``{"tokens": int32 [batch, seq_len]}`` on the
-    CPU (the caller moves it).  Only token inputs are ported: a config
-    with an encoder or a vision stub raises."""
-    if cfg.encoder is not None or cfg.vision is not None:
-        raise NotImplementedError(
-            f"{cfg.arch}: encoder and vision inputs are not ported "
-            f"(ROADMAP.md queue A: whisper and the VLM stub)")
+    """One model-ready batch on the CPU (the caller moves it), the
+    reference's draws: ``tokens`` int32 [batch, seq_len]; with an encoder
+    also ``frame_embeds`` bf16 [batch, n_frames, d_enc], with a vision
+    stub ``patch_embeds`` bf16 [batch, n_patches, vit_dim] and the tokens
+    ``seq_len - n_patches`` long (the patches come first), both from
+    ``np.random.default_rng(seed + 1)``."""
     src = SyntheticTokenSource(cfg.vocab_size, seed)
-    return {"tokens": torch.from_numpy(src.sample(batch, seq_len))}
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.encoder is not None:
+        rng = np.random.default_rng(seed + 1)
+        out["frame_embeds"] = _bf16(rng.standard_normal(
+            (batch, cfg.encoder.n_frames, cfg.encoder.d_model)))
+    elif cfg.vision is not None:
+        rng = np.random.default_rng(seed + 1)
+        out["patch_embeds"] = _bf16(rng.standard_normal(
+            (batch, cfg.vision.n_patches, cfg.vision.vit_dim)))
+        seq_len -= cfg.vision.n_patches
+    out["tokens"] = torch.from_numpy(src.sample(batch, seq_len))
+    return out
 
 
 def subtask_batches(cfg: ModelConfig, ds: ShardedTokenDataset, shard: int,

@@ -241,8 +241,20 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled, looked up at run time (nothing is linked)
+// cuTensorMapEncodeTiled, looked up at run time (nothing is linked).
+// It needs a current context, which a thread that has made no runtime
+// call yet lacks: PyTorch's autograd worker thread, where the
+// backward of a graph whose first CUDA work is B13's backward runs.
+// cudaFree(nullptr), once a thread, binds the current device's primary
+// context (not capturable: the package captures a graph only of calls a
+// thread has already made, as benchmarks/wrapper_cost.py's graph_us).
 cudaError_t encoder(EncodeTiled* fn) {
+  static thread_local bool bound = false;
+  if (!bound) {
+    const cudaError_t e = cudaFree(nullptr);
+    if (e != cudaSuccess) return e;
+    bound = true;
+  }
   static EncodeTiled cached = nullptr;
   if (cached == nullptr) {
     void* p = nullptr;

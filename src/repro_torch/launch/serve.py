@@ -10,6 +10,8 @@ rwkv layer.  One card, no mesh.
       --reduced --batch 4 --prompt-len 64 --gen 96 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --reduced --batch 4 --prompt-len 64 --gen 96 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --batch 4 --prompt-len 376 --gen 72                 # on the card
 
 Prefill runs every attention layer through the hand-written flash
 kernel, every rwkv layer's WKV6 recurrence through the hand-written
@@ -18,10 +20,16 @@ hand-written scan kernel (one launch per layer on the card); decode
 (attention against the cache, the one-step recurrences, the MoE's
 gathered experts), the norms, rope, the MLPs, the MoE dispatch and the
 cache compaction are PyTorch ops, as they are jnp outside any Pallas
-kernel in the reference.  ``serve`` runs a given ``ModelConfig`` (a
-caller may cut a published config's depth); ``run`` parses the command
-line and calls it.  Times are host clocks around work that ends in
-``torch.cuda.synchronize()``.
+kernel in the reference.  The batch is ``make_batch_for``'s: whisper's
+prefill encodes its ``frame_embeds``, the VLM's prepends its
+``patch_embeds`` (``prompt_len`` counts them).  As in the reference, an
+encoder-decoder's ring is never compacted (from step 64 on each step
+overwrites the oldest ring slot), and the VLM decodes at
+``prompt_len + n_patches + i``: positions start n_patches past the
+prompt's last (ROADMAP.md, "Reference defects").  ``serve`` runs a
+given ``ModelConfig`` (a caller may cut a published config's depth);
+``run`` parses the command line and calls it.  Times are host clocks
+around work that ends in ``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
 
@@ -94,12 +102,13 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
     params = model.init(seed, device=dev, cast=True)
     _sync(dev)
     t_init = time.perf_counter() - t0
-    tokens = make_batch_for(cfg, batch, prompt_len, seed)["tokens"].to(dev)
+    inputs = {k: v.to(dev) for k, v in
+              make_batch_for(cfg, batch, prompt_len, seed).items()}
 
     _sync(dev)
     before = launch_counts()
     t0 = time.perf_counter()
-    lg, caches = model.prefill(params, {"tokens": tokens})
+    lg, caches = model.prefill(params, inputs)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     launches_prefill = _delta(before)
@@ -110,17 +119,19 @@ def serve(cfg: ModelConfig, batch: int, prompt_len: int, gen: int,
     finite = torch.isfinite(lg).all()
     out_tokens = [tok]
     compact_s, compactions = 0.0, 0
-    has_cache = any(isinstance(c, DecodeCache) for c in caches)
+    compacts = not cfg.is_enc_dec and any(isinstance(c, DecodeCache)
+                                          for c in caches)
+    prefix = cfg.vision.n_patches if cfg.vision is not None else 0
     pos = prompt_len - 1
     before = launch_counts()
     t0 = time.perf_counter()
     for i in range(gen):
-        pos = prompt_len + i
+        pos = prompt_len + prefix + i
         lg, caches = model.decode_step(params, caches, tok, pos)
         finite = finite & torch.isfinite(lg).all()
         tok = greedy(lg, cfg)
         out_tokens.append(tok)
-        if has_cache and (i + 1) % RECENT_RING == 0:
+        if compacts and (i + 1) % RECENT_RING == 0:
             _sync(dev)
             tc = time.perf_counter()
             caches = compact_all(caches, pos)

@@ -46,6 +46,7 @@ from repro_torch.core.vc_asgd import const_alpha, var_alpha
 from repro_torch.data import make_batch_for
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build_model
 from repro_torch.optim.optimizers import Adam
@@ -65,18 +66,22 @@ class TrainResult:
 
 def _round_batches(cfg: ModelConfig, n_pods: int, local_steps: int,
                    batch: int, seq: int, seed: int) -> dict:
-    """``{"tokens": int32 [n_pods, local_steps, batch, seq]}`` on the CPU,
-    the reference's draws (seed ``seed * 31 + p * 7 + s``)."""
-    toks = [[make_batch_for(cfg, batch, seq, seed=seed * 31 + p * 7 + s)
-             ["tokens"] for s in range(local_steps)] for p in range(n_pods)]
-    return {"tokens": torch.stack([torch.stack(t) for t in toks])}
+    """Every key of ``make_batch_for``'s batch (``tokens``, and whisper's
+    ``frame_embeds`` or the VLM's ``patch_embeds``) stacked
+    ``[n_pods, local_steps, ...]`` on the CPU, the reference's draws
+    (seed ``seed * 31 + p * 7 + s``)."""
+    steps = [[make_batch_for(cfg, batch, seq, seed=seed * 31 + p * 7 + s)
+              for s in range(local_steps)] for p in range(n_pods)]
+    return {k: torch.stack([torch.stack([b[k] for b in pod])
+                            for pod in steps]) for k in steps[0][0]}
 
 
 def _skeleton(cfg: ModelConfig) -> dict:
     """The port's parameter tree on the meta device: shapes and dtypes,
     no storage, no draws."""
+    init = W.init_whisper if cfg.is_enc_dec else T.init_lm
     with torch.device("meta"):
-        return T.init_lm(0, cfg, device="meta")
+        return init(0, cfg, device="meta")
 
 
 def train(cfg: ModelConfig, *, islands: int = 2, rounds: int = 10,

@@ -113,6 +113,25 @@ def apply_rope(x: torch.Tensor, positions: Union[torch.Tensor, int],
     return torch.cat([y.to(x.dtype), xp], dim=-1)
 
 
+@functools.lru_cache(maxsize=8)       # one entry per (seq, dim)
+def _sinusoidal_cpu(seq: int, dim: int) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=_F32)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=_F32)
+                    * torch.tensor(-math.log(10000.0) / dim, dtype=_F32))
+    pe = torch.zeros(seq, dim, dtype=_F32)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def sinusoidal_pos(seq: int, dim: int, device="cpu") -> torch.Tensor:
+    """[seq, dim] f32 sinusoidal positions, the reference's ops in f32
+    (the scale constant rounded to f32 first, as JAX's weak float is),
+    computed on the CPU once per shape and copied to ``device``, so the
+    card and the CPU add the same bits."""
+    return _sinusoidal_cpu(int(seq), int(dim)).to(device)
+
+
 # ---------------------------------------------------------------------------
 # attention parameters
 # ---------------------------------------------------------------------------

@@ -1,13 +1,15 @@
 """Model facade (port of ``repro/models/registry.py``): the same entry
-points for every architecture the port runs — so far the dense
-transformer family, the MoE family, rwkv6 and the hybrid mamba /
-attention / MoE stack of jamba."""
+points for every architecture — the decoder-only stacks of
+``transformer.py`` (the dense and MoE families, the VLM stub, rwkv6 and
+jamba's hybrid mamba / attention / MoE stack) and the encoder-decoder of
+``whisper.py``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.plan import NULL_PLAN
 
@@ -24,7 +26,8 @@ class Model:
         the matmul weights arrive in the compute dtype, as
         ``compute_params`` would give them, never held on ``device`` in
         the parameter dtype."""
-        return T.init_lm(seed, self.cfg, resolve_device(device), cast)
+        init = W.init_whisper if self.cfg.is_enc_dec else T.init_lm
+        return init(seed, self.cfg, resolve_device(device), cast)
 
     def compute_params(self, params):
         """Matmul weights cast to the compute dtype once (see
@@ -32,16 +35,26 @@ class Model:
         return T.compute_params(params, self.cfg)
 
     def loss(self, params, batch, plan=NULL_PLAN, remat: bool = True):
-        """(loss, {"ce", "aux"}): ``transformer.lm_loss``."""
+        """(loss, {"ce", "aux"}): ``transformer.lm_loss`` or
+        ``whisper.whisper_loss``."""
+        if self.cfg.is_enc_dec:
+            return W.whisper_loss(params, self.cfg, batch, plan, remat=remat)
         return T.lm_loss(params, self.cfg, batch, plan, remat=remat)
 
     def forward(self, params, batch, plan=NULL_PLAN):
+        if self.cfg.is_enc_dec:
+            return W.whisper_forward(params, self.cfg, batch, plan)
         return T.lm_forward(params, self.cfg, batch, plan)[0]
 
     def prefill(self, params, batch, plan=NULL_PLAN):
+        if self.cfg.is_enc_dec:
+            return W.whisper_prefill(params, self.cfg, batch, plan)
         return T.lm_prefill(params, self.cfg, batch, plan)
 
     def decode_step(self, params, caches, token, pos, plan=NULL_PLAN):
+        if self.cfg.is_enc_dec:
+            return W.whisper_decode_step(params, self.cfg, caches, token,
+                                         pos, plan)
         return T.lm_decode_step(params, self.cfg, caches, token, pos, plan)
 
 

@@ -12,13 +12,17 @@ layer group's repeats for ``lax.scan``; the port loops over layers
 one decode state per layer: a ``DecodeCache`` for an attention block, a
 ``MambaState`` for a mamba block, an ``RWKVState`` for an rwkv block.
 Attention and mamba mixers with dense, MoE or no FFN, and rwkv blocks
-(time mix + channel mix) are ported; other blocks raise.
+(time mix + channel mix) are ported; other blocks raise.  A config with a
+vision stub (internvl2) prepends its projected patch embeddings to the
+token embeddings (``vis_proj``; the loss skips them); the encoder-decoder
+(whisper) is ``models/whisper.py``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
@@ -36,7 +40,7 @@ _MATMUL_WEIGHTS = frozenset(("wq", "wk", "wv", "wo", "bq", "bk", "bv",
                              "wi", "wg", "table", "unembed",
                              "wr", "lora_a", "lora_b", "w_a", "w_b",
                              "in_proj", "x_proj", "dt_proj", "out_proj",
-                             "router"))
+                             "router", "w1", "w2"))
 
 
 def _ported(spec: BlockSpec) -> bool:
@@ -48,16 +52,23 @@ def _ported(spec: BlockSpec) -> bool:
 def check_ported(cfg: ModelConfig) -> None:
     """Raise unless every layer is an attention or mamba block with a
     dense, MoE or no FFN, or an rwkv block (time mix + channel mix), and
-    the inputs are tokens only: what the port runs so far."""
+    the positions are rope or none — or, for an encoder-decoder, every
+    decoder layer an attention block with a dense FFN and the positions
+    the learned table: what the port runs."""
     for spec in cfg.all_blocks:
         if not _ported(spec):
             raise NotImplementedError(
                 f"{cfg.arch}: block {spec} is not ported (the port runs "
                 f"attention and mamba blocks with dense or MoE FFNs, and "
-                f"rwkv blocks with their channel mix; ROADMAP.md queue A)")
-    if cfg.is_enc_dec or cfg.vision is not None:
-        raise NotImplementedError(f"{cfg.arch}: encoder/vision inputs are "
-                                  f"not ported")
+                f"rwkv blocks with their channel mix)")
+    if cfg.is_enc_dec:
+        if (any(s != BlockSpec() for s in cfg.all_blocks)
+                or cfg.pos_emb != "learned" or cfg.vision is not None):
+            raise NotImplementedError(
+                f"{cfg.arch}: an encoder-decoder is ported with full "
+                f"attention and dense FFNs in every decoder layer, a learned "
+                f"position table and no vision stub (models/whisper.py)")
+        return
     if (any(s.ffn == "moe" for s in cfg.all_blocks)
             and cfg.mlp_act != "swiglu"):
         raise NotImplementedError(f"{cfg.arch}: a {cfg.mlp_act} MoE is not "
@@ -114,12 +125,15 @@ def init_lm(seed: int, cfg: ModelConfig, device="cpu", cast: bool = False
     check_ported(cfg)
     gen = torch.Generator().manual_seed(int(seed))
     place = lambda tree: _place(tree, cfg, torch.device(device), cast)
-    return {
-        "embed": place(L.init_embedding(gen, cfg)),
-        "final_norm": place(L.init_norm(cfg)),
-        "blocks": [place(init_block(gen, cfg, spec))
-                   for spec in cfg.all_blocks],
-    }
+    params = {"embed": place(L.init_embedding(gen, cfg)),
+              "final_norm": place(L.init_norm(cfg))}
+    if cfg.vision is not None:
+        vd, d, pd = cfg.vision.vit_dim, cfg.d_model, cfg.pdtype
+        params["vis_proj"] = place({"w1": L.he_normal(gen, (vd, d), pd),
+                                    "w2": L.he_normal(gen, (d, d), pd)})
+    params["blocks"] = [place(init_block(gen, cfg, spec))
+                        for spec in cfg.all_blocks]
+    return params
 
 
 def compute_params(params, cfg: ModelConfig):
@@ -194,8 +208,16 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """tokens -> x [b, s, d]."""
-    return L.embed(params["embed"], batch["tokens"], cfg)
+    """tokens (+ the vision stub's patch embeddings) -> x [b, s, d]: with
+    a vision stub, ``patch_embeds`` [b, n_patches, vit_dim] through
+    ``vis_proj`` (w1, tanh-GELU, w2, in the compute dtype) come first."""
+    x = L.embed(params["embed"], batch["tokens"], cfg)
+    if cfg.vision is None:
+        return x
+    dt, vp = cfg.cdtype, params["vis_proj"]
+    pe = batch["patch_embeds"].to(device=x.device, dtype=dt)
+    v = F.gelu(pe @ vp["w1"].to(dt), approximate="tanh") @ vp["w2"].to(dt)
+    return torch.cat([v, x], dim=1)                      # image-first
 
 
 def lm_forward(params, cfg: ModelConfig, batch, plan=NULL_PLAN):
@@ -270,12 +292,12 @@ def chunked_ce(embed_params, cfg: ModelConfig, hidden: torch.Tensor,
 def lm_loss(params, cfg: ModelConfig, batch, plan=NULL_PLAN,
             aux_weight: float = 0.01, remat: bool = True,
             ce_chunks: int = 8):
-    """Next-token cross-entropy (labels = tokens shifted by one) plus
-    ``aux_weight`` times the MoE aux loss.  Returns (loss, {"ce", "aux"}),
-    f32 0-dim tensors."""
+    """Next-token cross-entropy (labels = tokens shifted by one; a vision
+    prefix is excluded) plus ``aux_weight`` times the MoE aux loss.
+    Returns (loss, {"ce", "aux"}), f32 0-dim tensors."""
     x, aux = lm_hidden(params, cfg, batch, plan, remat=remat)
     tokens = batch["tokens"].to(device=x.device, dtype=torch.long)
-    prefix = x.shape[1] - tokens.shape[1]        # no stub modality: 0
+    prefix = x.shape[1] - tokens.shape[1]        # the vision prefix (or 0)
     h = x[:, prefix: prefix + tokens.shape[1] - 1]           # predicts t+1
     tgt = tokens[:, 1:]
     nll_sum = chunked_ce(params["embed"], cfg, h, tgt, plan, ce_chunks)

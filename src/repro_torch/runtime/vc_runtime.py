@@ -259,9 +259,11 @@ def make_vc_round(model, n_pods: int, local_steps: int = 4, optimizer=None,
     [n_pods, padded] f32 matrix of the island replicas on its layout and
     ``opts`` a list of one ``FlatOptState`` an island, both updated in
     place (a state is replaced as soon as its step has made the next, so
-    no island's old moments outlive it) and returned; ``batches`` is
-    ``{"tokens": [n_pods, local_steps, b, s]}``, ``alpha`` a float and
-    ``survivors`` [n_pods] bools (host or device).
+    no island's old moments outlive it) and returned; ``batches`` holds
+    every key of ``make_batch_for``'s batch stacked ``[n_pods,
+    local_steps, ...]`` (``tokens`` [n_pods, local_steps, b, s], and
+    whisper's ``frame_embeds`` or the VLM's ``patch_embeds``), ``alpha``
+    a float and ``survivors`` [n_pods] bools (host or device).
 
     1. ``local_steps`` steps on each island in turn (no cross-island sync):
        loss and flat gradient, ``clip_by_global_norm`` on the flat

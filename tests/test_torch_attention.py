@@ -350,19 +350,36 @@ def test_wgmma_hd80_hd256_p_in_bf16_moves_output_within_its_stated_bound(
     _p_in_bf16_within_bound(qk, h, kvh, s, hd)
 
 
-def _p_in_bf16_within_bound(qk, h, kvh, s, hd):
+# whisper-tiny's attention (MHA, 6 / 6 heads, hd 64, not causal): the
+# encoder's self-attention over 1,500 frames (11 full 128-key tiles and a
+# ragged 92), the decoder's cross-attention of 376 serving and 128
+# training rows against them
+WHISPER_SHAPES = [(1500, 1500), (376, 1500), (128, 1500)]
+
+
+@pytest.mark.parametrize("sq,skv", WHISPER_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in WHISPER_SHAPES])
+@pytest.mark.parametrize("qk", [0.5, 2.0], ids=["flat", "peaked"])
+def test_wgmma_whisper_shapes_within_the_stated_bound(qk, sq, skv):
+    """The same bound at whisper's shapes, not causal: every query row
+    sees all 1,500 keys, the last kv tile ragged."""
+    _p_in_bf16_within_bound(qk, 6, 6, sq, 64, skv=skv, causal=False)
+
+
+def _p_in_bf16_within_bound(qk, h, kvh, s, hd, skv=None, causal=True):
     rng = np.random.default_rng(0)
+    skv = s if skv is None else skv
     q = (rng.standard_normal((1, h, s, hd)) * qk).astype(np.float32)
-    k = (rng.standard_normal((1, kvh, s, hd)) * qk).astype(np.float32)
-    v = rng.standard_normal((1, kvh, s, hd)).astype(np.float32)
+    k = (rng.standard_normal((1, kvh, skv, hd)) * qk).astype(np.float32)
+    v = rng.standard_normal((1, kvh, skv, hd)).astype(np.float32)
     qt, kt, vt = (_t(a, "bfloat16") for a in (q, k, v))
-    o_b, ob_b = _emulate_wgmma(qt, kt, vt, causal=True)
-    o_f, _ = _emulate_wgmma(qt, kt, vt, causal=True, p_bf16=False)
+    o_b, ob_b = _emulate_wgmma(qt, kt, vt, causal=causal)
+    o_f, _ = _emulate_wgmma(qt, kt, vt, causal=causal, p_bf16=False)
     assert float((o_b - o_f).abs().max()) <= (4e-3 if qk < 1 else 5e-3)
     ulp = torch.finfo(torch.bfloat16).eps * o_f.abs().clamp_min(1.0)
     assert bool(((ob_b.float() - o_f.bfloat16().float()).abs()
                  <= ulp).all())
-    want = jax.jit(functools.partial(JR.attention, causal=True))(
+    want = jax.jit(functools.partial(JR.attention, causal=causal))(
         _j(q, "bfloat16"), _j(k, "bfloat16"), _j(v, "bfloat16"))
     np.testing.assert_allclose(_np(ob_b), _np(want), **WGMMA_TOL)
 
@@ -448,7 +465,9 @@ def _attn_pairs(sq, skv, causal, window):
 WALK_CASES = [
     (2048, 2048, True, None), (300, 300, True, None), (333, 333, True, 100),
     (520, 520, True, 33), (300, 333, False, None), (333, 517, False, 40),
-    (1, 1, True, None), (129, 128, True, None), (2300, 2300, True, 1024)]
+    (1, 1, True, None), (129, 128, True, None), (2300, 2300, True, 1024),
+    (1500, 1500, False, None), (376, 1500, False, None),
+    (128, 1500, False, None)]
 
 
 @pytest.mark.parametrize("sq,skv,causal,window", WALK_CASES)

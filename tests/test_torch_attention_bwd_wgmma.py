@@ -44,13 +44,15 @@ LOG2E = 1.4426950408889634
 BWD_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
-def _inputs(b, h, kvh, s, hd, qk, seed):
+def _inputs(b, h, kvh, s, hd, qk, seed, skv=None):
     """q, k at qk N(0,1) (0.5: flat softmax; 2: peaked), v and dO at
-    N(0,1), all rounded to bf16 values, as f32 numpy arrays."""
+    N(0,1), all rounded to bf16 values, as f32 numpy arrays: s queries,
+    ``skv`` (default s) keys."""
     rng = np.random.default_rng(seed)
+    skv = s if skv is None else skv
     arr = [rng.standard_normal(shape) * sc for shape, sc in (
-        ((b, h, s, hd), qk), ((b, kvh, s, hd), qk), ((b, kvh, s, hd), 1.0),
-        ((b, h, s, hd), 1.0))]
+        ((b, h, s, hd), qk), ((b, kvh, skv, hd), qk),
+        ((b, kvh, skv, hd), 1.0), ((b, h, s, hd), 1.0))]
     return [torch.from_numpy(a.astype(np.float32)).bfloat16().float().numpy()
             for a in arr]
 
@@ -167,21 +169,23 @@ def _plain(q, k, v, o, do, causal, window):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_grad_fn(causal, window):
-    """jax.grad of the reference's blocked_attention (f32, blocks of 64)
-    against the output gradient, jitted once per mask."""
+def _jax_grad_fn(causal, window, block=64):
+    """jax.grad of the reference's blocked_attention (f32, blocks of
+    ``block``) against the output gradient, jitted once per mask."""
     def f(q_, k_, v_, do_):
         pos = np.arange(q_.shape[1], dtype=np.int32)   # trace-time constants
+        kpos = np.arange(k_.shape[1], dtype=np.int32)
         o = JL.blocked_attention(q_[:, None], k_, v_, causal=causal,
                                  window=window, q_positions=pos[None],
-                                 kv_positions=pos, q_block=64, kv_block=64)
+                                 kv_positions=kpos, q_block=block,
+                                 kv_block=block)
         return jnp.sum(o[:, 0] * do_)
     return jax.jit(jax.grad(f, argnums=(0, 1, 2)))
 
 
-def _jax_grad(q, k, v, do, causal, window):
+def _jax_grad(q, k, v, do, causal, window, block=64):
     """``_jax_grad_fn`` in the port's [b, h, s, hd] layout."""
-    g = _jax_grad_fn(causal, window)(
+    g = _jax_grad_fn(causal, window, block)(
         *(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v, do)))
     return [np.asarray(x).transpose(0, 2, 1, 3) for x in g]
 
@@ -254,6 +258,32 @@ def test_emulated_backward_matches_jax_grad_of_blocked_attention(
         assert share <= 1.0, (name, share)
 
 
+# whisper-tiny's training attention (MHA, 6 / 6 heads, hd 64, not
+# causal): the encoder's 1,500 frames (the dk / dv pass's last key tile
+# holds 92 keys, the dq pass's 28) and the decoder's 128 rows against
+# them in cross-attention (each of the 12 key tiles walks both 64-row
+# query tiles); against the plain formula (BWD_TOL) and jax.grad
+# (E2E_ATOL; blocks of 512, which XLA compiles in seconds at 1,500) as
+# above
+WHISPER_BWD = [(1500, 1500), (128, 1500)]
+
+
+@pytest.mark.parametrize("qk", [0.5, 1.0], ids=["flat", "unit"])
+@pytest.mark.parametrize("sq,skv", WHISPER_BWD,
+                         ids=[f"{a}x{b}" for a, b in WHISPER_BWD])
+def test_emulated_backward_at_whispers_shapes(sq, skv, qk):
+    q, k, v, do = _inputs(1, 6, 6, sq, 64, qk, seed=sq + 3, skv=skv)
+    qt, kt, vt, dot = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    o, lse = emulate_forward(qt, kt, vt, causal=False)
+    got = emulate_backward(qt, kt, vt, o, dot, lse, causal=False)
+    plain = _plain(q, k, v, o, do, False, None)
+    jgrad = _jax_grad(q, k, v, do, False, None, block=512)
+    for name, g_, w_, j_ in zip(("dq", "dk", "dv"), got, plain, jgrad):
+        assert tuple(g_.shape) == tuple(w_.shape) == j_.shape
+        assert _share(g_, w_) <= 1.0, (name, _share(g_, w_))
+        assert _share(g_, j_, E2E_ATOL[qk]) <= 1.0, (name, "jax")
+
+
 def test_emulated_lse_normalises_every_row():
     """2^(s c - lse) sums to 1 over each row's visible keys (the backward's
     P is the forward's softmax)."""
@@ -270,7 +300,8 @@ def test_emulated_lse_normalises_every_row():
 WALKS = [(63, 63, True, None), (128, 128, True, None), (300, 300, True, 48),
          (300, 300, True, None), (129, 128, True, None), (300, 333, False, None),
          (333, 517, False, 40), (520, 520, True, 33), (1, 1, True, None),
-         (2300, 2300, True, 1024)]
+         (2300, 2300, True, 1024), (1500, 1500, False, None),
+         (128, 1500, False, None), (376, 1500, False, None)]
 
 
 def _pairs(sq, skv, causal, window):

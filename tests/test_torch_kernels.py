@@ -744,6 +744,37 @@ def test_flash_attention_wgmma_route_hd80_hd256_matches_plain(dev, hd, case,
                                rtol=ATTN_TOL[torch.bfloat16])
 
 
+# whisper-tiny's attention on the wgmma route (MHA, 6 / 6 heads, hd 64,
+# not causal): the encoder's self-attention over 1,500 frames (its last
+# 128-key tile holds 92), the decoder's cross-attention of the serving
+# prompt's 376 rows and of the training step's 128 rows against them:
+# (b, sq, skv), q and k flat and peaked, on [b, s, h, hd] views too
+WHISPER_FWD = {"encoder": (4, 1500, 1500), "cross-serve": (4, 376, 1500),
+               "cross-train": (8, 128, 1500)}
+
+
+@pytest.mark.parametrize("qk", [0.5, 2.0], ids=["flat", "peaked"])
+@pytest.mark.parametrize("strided", [False, True], ids=["bhsd", "bshd-view"])
+@pytest.mark.parametrize("case", list(WHISPER_FWD))
+def test_flash_attention_wgmma_at_whispers_shapes(dev, case, strided, qk):
+    b, sq, skv = WHISPER_FWD[case]
+    q, k, v = _attn_case(dev, b, 6, 6, sq, skv, 64, torch.bfloat16, qk=qk)
+    if strided:
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    LA.reset_launch_count()
+    got = FK.flash_attention(q, k, v, causal=False)
+    assert LA.route_counts("flash_attention") == {"wgmma": 1, "simt": 0}
+    want = R.attention(q, k, v, causal=False)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **WGMMA_TOL)
+    simt = FK.flash_attention(q, k, v, causal=False, kernel="simt")
+    assert LA.route_counts("flash_attention") == {"wgmma": 1, "simt": 1}
+    torch.testing.assert_close(simt.float(), want.float(),
+                               atol=ATTN_TOL[torch.bfloat16],
+                               rtol=ATTN_TOL[torch.bfloat16])
+
+
 def test_flash_attention_lse_is_the_rows_log2_sum_exp(dev):
     """The wgmma forward's lse (under autograd) is each row's base-2
     log-sum-exp of the scaled scores, and writing it changes no bit of
@@ -1434,6 +1465,77 @@ def test_flash_attention_bwd_wgmma_route_against_simt_and_formula(dev,
         for x in (g, sm):
             err = ((x.float() - w).abs() / (1 + w.abs())).max()
             assert float(err) <= BWD_TOL[torch.bfloat16], float(err)
+
+
+# whisper-tiny's training attention on the wgmma backward (MHA, 6 / 6
+# heads, hd 64, not causal), at the training shapes: the encoder's
+# [8, 6/6, 1,500, 64] and the cross-attention's 128 decoder rows against
+# 1,500 frames; (b, sq, skv), inputs in the model's [b, s, h, hd] layout
+WHISPER_BWD = {"encoder": (8, 1500, 1500), "cross-train": (8, 128, 1500)}
+
+
+@pytest.mark.parametrize("case", list(WHISPER_BWD))
+def test_flash_attention_bwd_wgmma_at_whispers_shapes(dev, case):
+    """The wgmma backward against the SIMT kernel and the plain formula
+    on the same o, bit-equal run to run, and under autograd
+    (``FlashAttention``: one forward and one backward launch, both
+    wgmma) equal to the direct call."""
+    from repro_torch.kernels import ops
+    b, sq, skv = WHISPER_BWD[case]
+    q, k, v = (_rand(dev, b, n, 6, 64, dtype=torch.bfloat16, seed=i)
+               .transpose(1, 2) for i, n in enumerate((sq, skv, skv)))
+    do = _rand(dev, b, 6, sq, 64, dtype=torch.bfloat16, seed=3)
+    lse = FK.lse_buffer(q)
+    o = FK.flash_attention(q, k, v, causal=False, lse=lse)
+    LA.reset_launch_count()
+    got = FK.flash_attention_bwd(q, k, v, o, do, causal=False, lse=lse)
+    again = FK.flash_attention_bwd(q, k, v, o, do, causal=False, lse=lse)
+    simt = FK.flash_attention_bwd(q, k, v, o, do, causal=False,
+                                  kernel="simt")
+    assert LA.route_counts("flash_attention_bwd") == {"wgmma": 2, "simt": 1}
+    plain = R.attention_bwd(q.float(), k.float(), v.float(), o.float(),
+                            do.float(), causal=False)
+    for g, a, sm, w in zip(got, again, simt, plain):
+        assert g.shape == w.shape and torch.equal(g, a)
+        for x in (g, sm):
+            err = ((x.float() - w).abs() / (1 + w.abs())).max()
+            assert float(err) <= BWD_TOL[torch.bfloat16], float(err)
+    req = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    LA.reset_launch_count()
+    grads = torch.autograd.grad(ops.flash_attention(*req, causal=False),
+                                req, do)
+    torch.cuda.synchronize()
+    assert LA.route_counts("flash_attention") == {"wgmma": 1, "simt": 0}
+    assert LA.route_counts("flash_attention_bwd") == {"wgmma": 1, "simt": 0}
+    for gr, g in zip(grads, got):
+        assert torch.equal(gr, g)
+
+
+def test_wgmma_kernels_launch_from_a_thread_with_no_cuda_work(dev):
+    """The wgmma forward and backward encode their tensor maps with
+    cuTensorMapEncodeTiled, which needs a current context: a fresh
+    thread, as PyTorch's autograd worker is when B13's backward is the
+    first CUDA work of its graph, gets the same results as this one."""
+    import threading
+    q, k, v, do = _bwd_inputs(dev, 2, 4, 2, 200, 64, torch.bfloat16, 5)
+    lse = FK.lse_buffer(q)
+    o = FK.flash_attention(q, k, v, causal=True, lse=lse)
+    want = FK.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    got = {}
+
+    def run():
+        got["o"] = FK.flash_attention(q, k, v, causal=True)
+        got["g"] = FK.flash_attention_bwd(q, k, v, o, do, lse=lse)
+        torch.cuda.synchronize()
+    for _ in range(2):
+        got.clear()
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive() and set(got) == {"o", "g"}
+        assert torch.equal(got["o"], o)
+        for a, b in zip(got["g"], want):
+            assert torch.equal(a, b)
 
 
 # B14's and B15's backward kernels against their plain backwards

@@ -15,8 +15,10 @@ shards.
 * ``make_vc_round`` against the reference's (a 1x1 mesh in-process, as
   tests/test_runtime_vc.py builds it): 3 rounds of 2 islands x 2 local
   steps, island 1 dead in round 2 (index 1), alpha 0.5, for the reduced
-  internlm2, granite, rwkv6 and jamba: in f32 the mean loss within 1e-5
-  relative and the server leaves within the bound above; in the shipped
+  internlm2, granite, rwkv6, jamba, qwen2.5, stablelm, gemma3, whisper
+  (frame embeddings in every batch) and internvl2 (patch embeddings): in
+  f32 the mean loss within 1e-5 relative and the server leaves within the
+  bound above; in the shipped
   bf16 compute the losses within 0.03 (measured at most 0.0096 on losses
   of ~6: the two frameworks round bf16 matmul outputs and elementwise
   ops at other points).  Jamba is held otherwise (``JAMBA_ROUND``): its
@@ -54,6 +56,7 @@ from repro_torch import convert as C
 from repro_torch.configs import get_reduced
 from repro_torch.core import flat as F
 from repro_torch.data import pipeline as PP
+from repro_torch.data.pipeline import _bf16
 from repro_torch.models.registry import build_model
 from repro_torch.optim.optimizers import Adam, OptState
 from repro_torch.runtime import vc_runtime as VR
@@ -128,17 +131,27 @@ def _run_rounds(arch, dtype, n_rounds=3, n_pods=2, k=2):
     pserver = F.flatten(_port_tree(rparams, pmodel.cfg))
     pisl, popts = VR.init_islands(pserver, n_pods, Adam(lr=LR))
     rng = np.random.default_rng(0)
+    cfg = pmodel.cfg
     out = []
     for rnd in range(n_rounds):
-        toks = rng.integers(0, 256, (n_pods, k, 4, 32)).astype(np.int32)
+        toks = rng.integers(0, min(256, cfg.vocab_size),
+                            (n_pods, k, 4, 32)).astype(np.int32)
+        rb, pb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(
+            toks)}
+        stub = (("frame_embeds", cfg.encoder.n_frames, cfg.encoder.d_model)
+                if cfg.encoder is not None else
+                ("patch_embeds", cfg.vision.n_patches, cfg.vision.vit_dim)
+                if cfg.vision is not None else None)
+        if stub is not None:            # the stub modality, bf16 as drawn
+            x = rng.standard_normal((n_pods, k, 4) + stub[1:])
+            rb[stub[0]], pb[stub[0]] = jnp.asarray(x, jnp.bfloat16), _bf16(x)
         surv = np.array([True, rnd != 1])
         with mesh:
             rserver, risl, ropts, rm = rround(
-                rserver, risl, ropts, {"tokens": jnp.asarray(toks)},
-                jnp.asarray(0.5, jnp.float32), jnp.asarray(surv))
-        pserver, pisl, popts, pm = pround(
-            pserver, pisl, popts, {"tokens": torch.from_numpy(toks)}, 0.5,
-            surv)
+                rserver, risl, ropts, rb, jnp.asarray(0.5, jnp.float32),
+                jnp.asarray(surv))
+        pserver, pisl, popts, pm = pround(pserver, pisl, popts, pb, 0.5,
+                                          surv)
         out.append((float(rm["loss"]), float(pm["loss"])))
     got = C.lm_params_to_reference(F.unflatten(pserver), pmodel.cfg)
     return out, got, rserver, pisl, popts, pserver
@@ -146,7 +159,8 @@ def _run_rounds(arch, dtype, n_rounds=3, n_pods=2, k=2):
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m",
                                   "rwkv6-1.6b", "jamba-v0.1-52b",
-                                  "qwen2.5-14b", "stablelm-3b", "gemma3-4b"])
+                                  "qwen2.5-14b", "stablelm-3b", "gemma3-4b",
+                                  "whisper-tiny", "internvl2-2b"])
 def test_vc_round_matches_the_reference_f32(arch):
     losses, got, want, pisl, popts, pserver = _run_rounds(arch, "float32")
     want = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), want)

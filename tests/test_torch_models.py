@@ -34,13 +34,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import all_configs as ref_all_configs
 from repro.configs import get_config as ref_get_config
 from repro.configs import get_reduced as ref_get_reduced
 from repro.launch.serve import _compact_all as ref_compact_all
 from repro.models import layers as JL
 from repro.models.registry import build_model as ref_build_model
 from repro_torch import convert as C
-from repro_torch.configs import ARCHS, get_config, get_reduced
+from repro_torch.configs import ARCHS, all_configs, get_config, get_reduced
 from repro_torch.launch.serve import compact_all
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -65,12 +66,16 @@ def _np32(x):
 
 def test_port_has_the_dense_family():
     assert set(ARCHS) == set(DENSE) | {"rwkv6-1.6b", "jamba-v0.1-52b",
-                                       "granite-moe-1b-a400m", "mixtral-8x7b"}
+                                       "granite-moe-1b-a400m", "mixtral-8x7b",
+                                       "whisper-tiny", "internvl2-2b"}
+    assert set(ARCHS) == set(ref_all_configs())
+    assert all_configs() == {a: get_config(a) for a in ARCHS}
 
 
 @pytest.mark.parametrize("arch", DENSE + ("jamba-v0.1-52b",
                                           "granite-moe-1b-a400m",
-                                          "mixtral-8x7b"))
+                                          "mixtral-8x7b", "whisper-tiny",
+                                          "internvl2-2b"))
 def test_configs_equal_the_reference(arch):
     for port, ref in ((get_config(arch), ref_get_config(arch)),
                       (get_reduced(arch), ref_get_reduced(arch))):
@@ -80,8 +85,7 @@ def test_configs_equal_the_reference(arch):
         assert port.cdtype == torch_dtype(ref.compute_dtype)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1", "whisper-tiny",
-                                  "internvl2-2b", "no-such-arch"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1", "no-such-arch"])
 def test_other_families_raise_naming_the_roadmap(arch):
     for get in (get_config, get_reduced):
         with pytest.raises(KeyError, match="ROADMAP"):

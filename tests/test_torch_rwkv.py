@@ -410,11 +410,13 @@ def test_other_blocks_still_raise():
     cases = [base.replace(layer_groups=uniform_groups(2, spec))
              for spec in (BlockSpec(mixer="rwkv", ffn="moe"),
                           BlockSpec(mixer="rwkv", ffn="none"))]
-    cases += [base.replace(pos_emb="learned"),
-              base.replace(vision=VisionStubConfig(n_patches=4, vit_dim=32))]
+    cases += [base.replace(pos_emb="learned")]
     for cfg in cases:
         with pytest.raises(NotImplementedError, match="not ported"):
             T.check_ported(cfg)
+    # a vision stub prepends its patches to any ported stack
+    T.check_ported(base.replace(vision=VisionStubConfig(n_patches=4,
+                                                        vit_dim=32)))
     # rwkv, attention, mamba and MoE blocks mix in one stack
     mixed = base.replace(layer_groups=uniform_groups(
         2, BlockSpec(mixer="rwkv")) + uniform_groups(1, BlockSpec())
