@@ -390,7 +390,37 @@ a card, or outside a checkout.  Phases:
       parameters) for 2 rounds: B13 48 forwards and 24 backwards a step
       (hd 64, wgmma), B3 a step, B2 a round; round walls, tokens/s, the
       step split and peak memory.
-18. a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
+18. the pod mesh and the sharded flat bus; the mesh plans' one-card
+   forms (context-parallel attention, expert-parallel MoE); the
+   weights of b-e are drawn on the CPU in threads beside a:
+   a. pod meshes of 1, 2, 4 and 8 shards on the one card: Eq. 1 (B1),
+      Eq. 2 (B2, 4 clients), Adam (B3), the elastic EASGD round (B5, 3
+      replicas), the redistribution broadcast and the masked Eq. 2 with
+      a dead (nan) island, a shard at a time, on the bench bus (laid out
+      for 8 shards) and at 2^27: each bit-equal to the whole-bus kernel
+      call, on the bench bus also to the CPU's plain version; B1, B2,
+      B3 and B5 launched once a shard; the per-shard route timed in
+      turns against the whole call;
+   b. internlm2-1.8b's VC round at full width, 4 layers (14b's cut), 2
+      islands x 2 steps of 8 x 128, 3 rounds, island 1 dead in round 2,
+      unsharded and with ``flat_shard_axis`` over a 4-shard pod mesh
+      (B2 4 times a round): losses and server bit-equal; tokens/s and
+      peak memory of both;
+   c. qwen2.5-14b at full width, 2 layers, vocabulary 16,384: prefill 4
+      x 2,048 under ``NullPlan(attn_mode="cp", cp=4)`` against cp = 1,
+      within 0.15 in bf16, every B13 launch on the wgmma route; the
+      reduced qwen2.5 under cp = 4 card vs CPU within 2e-3 in f32;
+   d. gemma3-4b's first layer group at full width, vocabulary 16,384:
+      prefill 2 x 4,096 under cp = 4 with the window gather (one B13
+      launch: the global layer) and without it (six), within 0.15; one
+      training step under cp = 4 (B13's backward on the global layer)
+      against cp = 1, each leaf's gradient within 16d's bf16 bounds;
+   e. granite-moe-1b-a400m in full after ``ep_tune(cfg, 4)``: prefill 4
+      x 2,048 under ``NullPlan(moe_ep=True, ep=4)`` against the dense
+      dispatch at capacity factor 8.0, within 0.15; at its own capacity
+      factor the (token, choice) assignments each dispatch drops; one
+      training step under EP.
+19. a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
    each name their main path's route's source, under ``sources`` both
    routes', and under ``route_by_head_dim`` the route bf16 takes at each
    head dim), the nvidia-smi line, and the last line ``{"ok": true,
@@ -4531,6 +4561,534 @@ def whisper_and_vlm(torch, VK, FK, tmp: Path, phases) -> None:
                      kill=None, profile=False)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the pod mesh and the sharded flat bus; the mesh plans' one-card
+# forms (context-parallel attention, expert-parallel MoE)
+# ---------------------------------------------------------------------------
+
+# 18a: the pod meshes' shard counts; the bench bus laid out for the
+# largest (the reference's fixed layout: every count divides it), and
+# 2^27; Eq. 2 over 4 clients, B5 over 3 replicas
+POD_SHARDS = (1, 2, 4, 8)
+POD_CLIENTS, POD_REPLICAS = 4, 3
+POD_ITERS = {"bench": 50, "big": 5}
+# 18b: internlm2-1.8b at 14b's cut, the launcher's defaults, 3 rounds,
+# island 1 dead in round 2 (index 1), the bus over a 4-shard pod mesh
+POD_ROUND_SHARDS, POD_ROUNDS, POD_DEAD_ROUND = 4, 3, 1
+# 18c: qwen2.5-14b (40 / 8 heads: the reference's planner sends it to CP,
+# 40 heads do not divide 16) at 2 layers and TRAIN_CMP_VOCAB; 18d:
+# gemma3-4b's first layer group (window 1,024: each 1,024-token chunk
+# sees its neighbour); 18e: granite-moe in full
+CP_CHUNKS, CP_QWEN_PREFILL, CP_GEMMA_SEQ = 4, (4, 2048), (2, 4096)
+EP_DEGREE, EP_PREFILL, EP_CAPACITY = 4, (4, 2048), 8.0
+PLAN_TOL = 0.15                   # the port's bf16 logit bound (CMP_TOL)
+
+
+def _pod_inputs(torch, n: int, seed: int, device: str) -> dict:
+    """A bus and its companions on ``device``: server, 4 clients (server
+    + 0.01 N(0, 1)), a gradient and a second moment.  ``n`` KB.N_PADDED:
+    the bench model laid out for the largest shard count, its clients
+    from ``bench_clients``; else ``n`` N(0, 1) values drawn on
+    ``device``."""
+    from repro_torch.core import flat as F
+    if n == KB.N_PADDED:
+        tree = KB.bench_model(device, seed)
+        fp = F.flatten_sharded(tree, max(POD_SHARDS))
+        s = fp.buf
+        cl = torch.stack([F.flatten_like(c, fp.spec)
+                          for c in KB.bench_clients(tree)])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    if n != KB.N_PADDED:
+        s = draw(n)
+        cl = s + 0.01 * draw(POD_CLIENTS, n)
+    return {"s": s, "clients": cl, "g": 0.01 * draw(s.numel()),
+            "v": draw(s.numel()).abs()}
+
+
+def _pod_ops(torch, K, S, VR, x: dict, mesh) -> dict:
+    """Every flat op once over ``x`` (whole tensors), a shard at a time on
+    ``mesh`` (None: the whole-bus call); results gathered whole."""
+    s, cl, g, v = x["s"], x["clients"], x["g"], x["v"]
+    w = [0.2, 0.1, 0.15, 0.25, 0.3]
+    wi, ws = VR.island_weights(POD_CLIENTS, 0.6, torch.tensor(
+        [True, False, True, True]))
+    dead = cl.clone()
+    dead[1] = float("nan")
+    rep = cl[:POD_REPLICAS]
+    adam = (1e-3, 0.9, 0.999, 1e-8, 0.01, 0.1, 0.001)
+    if mesh is None:
+        out = {"vc_asgd_lerp_flat": [K.fused_lerp_flat(s, cl[0], 0.7)],
+               "assimilate_flat": [K.fused_assimilate_flat(s, cl, w)],
+               "adam_update_flat": list(K.fused_adam_flat(
+                   s, g, g, v, *adam)),
+               "easgd_elastic_flat": list(K.fused_easgd_flat(s, rep, 0.3)),
+               "broadcast": [VR.redistribute_flat(s, 3)],
+               "masked": [VR.assimilate_flat(s, dead, wi, ws)]}
+    else:
+        out = {"vc_asgd_lerp_flat": [S.sharded_lerp_flat(s, cl[0], 0.7,
+                                                         mesh)],
+               "assimilate_flat": [S.sharded_assimilate_flat(s, cl, w,
+                                                             mesh)],
+               "adam_update_flat": list(S.sharded_adam_update_flat(
+                   s, g, g, v, *adam, mesh)),
+               "easgd_elastic_flat": list(S.sharded_easgd_flat(
+                   s, rep, 0.3, mesh)),
+               "broadcast": [VR.redistribute_flat(s, 3, mesh=mesh,
+                                                  shard_axis="pod")],
+               "masked": [VR.assimilate_flat(s, dead, wi, ws, mesh=mesh,
+                                             shard_axis="pod")]}
+    return {k: [S.gather_flat(t) for t in ts] for k, ts in out.items()}
+
+
+def sharded_bus_parity(torch, VK) -> dict:
+    """Phase 18a: every sharded op at every shard count against the
+    whole-bus kernel call (and, on the bench bus, the CPU's plain
+    version), bit for bit; each kernel's launches a sharded op (one a
+    shard); the per-shard route timed in turns against the whole call.
+    Returns B1's, B2's, B3's and B5's launches over the checks."""
+    from repro_torch.benchmarks import wrapper_cost as WC
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.runtime import sharding as S
+    from repro_torch.runtime import vc_runtime as VR
+    flat_ops = ("vc_asgd_lerp_flat", "assimilate_flat", "adam_update_flat",
+                "easgd_elastic_flat")
+    adam = (1e-3, 0.9, 0.999, 1e-8, 0.01, 0.1, 0.001)
+    w = [0.2, 0.1, 0.15, 0.25, 0.3]
+    total = dict.fromkeys(flat_ops, 0)
+    for label, n in (("bench", KB.N_PADDED), ("big", BIG_N)):
+        plain = None
+        if label == "bench":
+            host = _pod_inputs(torch, n, 18, "cpu")
+            plain = _pod_ops(torch, K, S, VR, host, None)
+            x = {k: t.cuda() for k, t in host.items()}
+            del host
+        else:
+            x = _pod_inputs(torch, n, 18, "cuda")
+        n = x["s"].numel()
+        whole = _pod_ops(torch, K, S, VR, x, None)
+        for shards in POD_SHARDS:
+            mesh = make_pod_mesh(shards, device="cuda")
+            VK.reset_launch_count()
+            got = _pod_ops(torch, K, S, VR, x, mesh)
+            torch.cuda.synchronize()
+            counts = VK.launch_counts()
+            # lerp, Eq. 2 (plain and masked), Adam, EASGD: one a shard each
+            want = {**dict.fromkeys(VK.KERNELS, 0),
+                    **dict.fromkeys(flat_ops, shards),
+                    "assimilate_flat": 2 * shards}
+            check(counts == want, f"18a {label} x{shards}: launches "
+                  f"{counts}, want {want}")
+            for k in flat_ops:
+                total[k] += counts[k]
+            for op, outs in got.items():
+                for i, t in enumerate(outs):
+                    check(bits_equal(torch, t, whole[op][i]),
+                          f"18a {label} x{shards}: {op}[{i}] differs from "
+                          f"the whole-bus call")
+                    if plain is not None:
+                        check(bits_equal(torch, t.cpu(), plain[op][i]),
+                              f"18a {label} x{shards}: {op}[{i}] differs "
+                              f"from the CPU's plain version")
+            del got
+        check(bool(torch.isfinite(whole["masked"][0]).all()),
+              f"18a {label}: the dead island reached the server")
+        say(f"18a {label} bus ({n:,} f32): lerp, Eq. 2 ({POD_CLIENTS} "
+            f"clients), Adam, EASGD ({POD_REPLICAS} replicas), the "
+            f"broadcast and the masked Eq. 2 with a dead island at "
+            f"{POD_SHARDS} shards bit-equal to the whole-bus kernel call"
+            + (" and to the CPU's plain version" if plain is not None
+               else "") + "; B1, B2 (twice: plain and masked), B3, B5 "
+            "launched once a shard")
+        del whole, plain
+        # the per-shard route against the whole call, in turns
+        k8 = max(POD_SHARDS)
+        mesh = make_pod_mesh(k8, device="cuda")
+        s, cl, g, v = x["s"], x["clients"], x["g"], x["v"]
+        rep = cl[:POD_REPLICAS]
+        ss, cs, gs, vs, c0s, rs = (S.shard_buf(t, mesh) for t in
+                                   (s, cl, g, v, cl[0], rep))
+        fns = {
+            "B1 whole": lambda: K.fused_lerp_flat(s, cl[0], 0.7),
+            f"B1 x{k8}": lambda: S.sharded_lerp_flat(ss, c0s, 0.7, mesh),
+            "B2 whole": lambda: K.fused_assimilate_flat(s, cl, w),
+            f"B2 x{k8}": lambda: S.sharded_assimilate_flat(ss, cs, w, mesh),
+            "B3 whole": lambda: K.fused_adam_flat(s, g, g, v, *adam),
+            f"B3 x{k8}": lambda: S.sharded_adam_update_flat(
+                ss, gs, gs, vs, *adam, mesh),
+            "B5 whole": lambda: K.fused_easgd_flat(s, rep, 0.3),
+            f"B5 x{k8}": lambda: S.sharded_easgd_flat(ss, rs, 0.3, mesh)}
+        ms = WC.event_ms(torch, fns, POD_ITERS[label])
+        say(f"18a {label} bus ({n:,} f32) CUDA-event ms a call, in turns, "
+            f"whole / {k8} shards: " + "; ".join(
+                f"{b} {ms[b + ' whole']:.4f} / {ms[f'{b} x{k8}']:.4f} "
+                f"({ms[f'{b} x{k8}'] / ms[b + ' whole']:.2f}x)"
+                for b in ("B1", "B2", "B3", "B5")))
+        del x, s, cl, g, v, rep, ss, cs, gs, vs, c0s, rs, fns
+        torch.cuda.empty_cache()
+    return total
+
+
+def _draw_in_threads(cfgs: dict):
+    """Each config's port init (seed 0) drawn on the CPU in its own
+    thread (the draws release the GIL), beside the card's work: name ->
+    a future of the parameter tree."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.models.registry import build_model
+    pool = ThreadPoolExecutor(max_workers=len(cfgs))
+    futures = {k: pool.submit(build_model(c).init, 0, "cpu")
+               for k, c in cfgs.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def sharded_round_on_card(torch, VK, tree) -> dict:
+    """Phase 18b: internlm2's VC round unsharded and with
+    ``flat_shard_axis`` over a POD_ROUND_SHARDS-shard pod mesh, from one
+    server (``tree`` on the CPU, the bus padded to BLOCK x shards):
+    every loss and the server bit-equal; launches (B13 forward with its
+    recompute and backward a layer and step, B3 a step, B2 once a
+    round unsharded and once a shard sharded); round walls, tokens/s
+    and peak memory of both.  Returns the sharded run's launches."""
+    from repro_torch.core import flat as F
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.launch.train import _round_batches
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizers import Adam
+    from repro_torch.runtime import vc_runtime as VR
+    cfg = depth_cut("internlm2-1.8b", TRAIN_LAYERS)
+    model = build_model(cfg)
+    master = F.flatten(tree, pad_to=F.BLOCK * POD_ROUND_SHARDS)
+    check(master.spec.n == TRAIN_PARAMS, f"18b: {master.spec.n} parameters")
+    kw = TRAIN_KW
+    n_isl, k = kw["islands"], kw["local_steps"]
+    batches = [_round_batches(cfg, n_isl, k, kw["batch"], kw["seq"],
+                              seed=r) for r in range(POD_ROUNDS)]
+    tokens = n_isl * k * kw["batch"] * kw["seq"]
+    mesh = make_pod_mesh(POD_ROUND_SHARDS, device="cuda")
+    runs = {}
+    for axis in (None, "pod"):
+        torch.cuda.reset_peak_memory_stats()
+        server = F.FlatParams(master.buf.cuda(), master.spec)
+        isl, opts = VR.init_islands(server, n_isl, Adam(lr=1e-3))
+        rnd = VR.make_vc_round(model, n_isl, k, Adam(lr=1e-3),
+                               flat_shard_axis=axis,
+                               mesh=mesh if axis else None)
+        VK.reset_launch_count()
+        losses, walls = [], []
+        for r in range(POD_ROUNDS):
+            surv = [True, r != POD_DEAD_ROUND]
+            t0 = time.perf_counter()
+            server, isl, opts, m = rnd(server, isl, opts, batches[r], 0.5,
+                                       surv)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t0)
+        counts = VK.launch_counts()
+        steps = n_isl * k * POD_ROUNDS
+        shards = POD_ROUND_SHARDS if axis else 1
+        want = {**dict.fromkeys(VK.KERNELS, 0),
+                "flash_attention": 2 * TRAIN_LAYERS * steps,
+                "flash_attention_bwd": TRAIN_LAYERS * steps,
+                "adam_update_flat": steps,
+                "assimilate_flat": shards * POD_ROUNDS}
+        label = f"18b {'sharded x%d' % shards if axis else 'unsharded'}"
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        check_attn_route(2 * TRAIN_LAYERS * steps, "wgmma", label)
+        check(all(torch.isfinite(torch.tensor(losses)))
+              and bool(torch.isfinite(server.buf).all()),
+              f"{label}: a non-finite loss or server")
+        say(f"{label} {cfg.describe()}, {master.spec.n:,} parameters: "
+            + "; ".join(f"round {r + 1} loss {losses[r]!r}, wall "
+                        f"{walls[r]:.3f} s, {tokens / walls[r]:.1f} tokens/s"
+                        for r in range(POD_ROUNDS))
+            + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+            f"B2 {counts['assimilate_flat'] // POD_ROUNDS} a round")
+        runs[axis] = (losses, server.buf.clone(), counts, walls)
+        del server, isl, opts, rnd
+        torch.cuda.empty_cache()
+    (l0, b0, _, w0), (l1, b1, c1, w1) = runs[None], runs["pod"]
+    check(l0 == l1, f"18b: losses {l1} sharded, {l0} unsharded")
+    check(bits_equal(torch, b0, b1), "18b: the sharded round's server "
+          "differs from the unsharded round's")
+    warm = lambda w: tokens * (POD_ROUNDS - 1) / sum(w[1:])
+    say(f"18b: the round over {POD_ROUND_SHARDS} shards bit-equal to the "
+        f"unsharded round (losses and the {b0.numel():,}-element server); "
+        f"rounds 2-{POD_ROUNDS} {warm(w1):.1f} tokens/s sharded, "
+        f"{warm(w0):.1f} unsharded (round 1 is the card's first at this "
+        f"width: cold)")
+    del runs, b0, b1
+    torch.cuda.empty_cache()
+    return c1
+
+
+def _prefill(torch, VK, model, params, tokens, plan):
+    """(prefill logits [b, vocab] in f32, the cold wall, the launches, B13's
+    launches by route) of one prefill on the card."""
+    VK.reset_launch_count()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, _ = model.prefill(params, {"tokens": tokens}, plan=plan)
+    lg = lg.float()
+    torch.cuda.synchronize()
+    return (lg, time.perf_counter() - t0, VK.launch_counts(),
+            LA.route_counts("flash_attention"))
+
+
+def _all_wgmma(routes: dict, n: int) -> bool:
+    return routes == {r: (n if r == "wgmma" else 0) for r in routes}
+
+
+def _plan_compare(torch, label: str, a, b, tol: float) -> float:
+    d = float((a - b).abs().max())
+    check(bool(torch.isfinite(a).all()) and d <= tol,
+          f"{label}: max |diff| {d} > {tol}")
+    return d
+
+
+def _grads(torch, VK, model, params, batch, plan) -> tuple:
+    """(loss, the gradient of every leaf, the launches) of ``model.loss``
+    under ``plan`` on the card."""
+    from repro_torch.core import flat as F
+    leaves, td = F.tree_flatten(params)
+    req = [t.detach().requires_grad_(True) for t in leaves]
+    VK.reset_launch_count()
+    loss, _ = model.loss(F.tree_unflatten(td, req), batch, plan=plan)
+    grads = torch.autograd.grad(loss, req)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads, VK.launch_counts()
+
+
+def _grad_bounds(torch, label: str, got, want) -> None:
+    """Each leaf of ``got`` against ``want`` within 16d's bf16 bounds:
+    ||got - want|| / ||want|| <= TRAIN_CMP_LEAF_BF16 and the norms within
+    TRAIN_CMP_GNORM relative, and the global norms within it too."""
+    lv = torch.linalg.vector_norm
+    rel = rn = 0.0
+    for g, w in zip(got, want):
+        wn = float(lv(w.float()))
+        if wn == 0.0:
+            check(float(lv(g.float())) == 0.0, f"{label}: a zero leaf moved")
+            continue
+        rel = max(rel, float(lv((g - w).float())) / wn)
+        rn = max(rn, abs(float(lv(g.float())) - wn) / wn)
+    gg = float(torch.sqrt(sum(lv(g.float()) ** 2 for g in got)))
+    gw = float(torch.sqrt(sum(lv(w.float()) ** 2 for w in want)))
+    check(rel <= TRAIN_CMP_LEAF_BF16 and rn <= TRAIN_CMP_GNORM
+          and abs(gg - gw) / gw <= TRAIN_CMP_GNORM,
+          f"{label}: per-leaf {rel:.4g} (bound {TRAIN_CMP_LEAF_BF16}), "
+          f"leaf norms {rn:.4g}, global norms {gg} vs {gw} (bound "
+          f"{TRAIN_CMP_GNORM})")
+    say(f"{label}: per leaf worst ||a - b|| / ||b|| {rel:.4g} (bound "
+        f"{TRAIN_CMP_LEAF_BF16}), worst relative leaf-norm diff {rn:.4g}, "
+        f"global grad norms {gg:.6g} / {gw:.6g} (bound {TRAIN_CMP_GNORM})")
+
+
+def context_parallel_on_card(torch, np, VK, futures, phases) -> dict:
+    """Phases 18c-d: context parallelism at full width.  Returns B13's
+    forward and backward launches under cp = 4."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.plan import NULL_PLAN, NullPlan
+    from repro_torch.models.registry import build_model
+    cp = NullPlan(attn_mode="cp", cp=CP_CHUNKS)
+    out = {"flash_attention": 0, "flash_attention_bwd": 0}
+    # 18c: qwen2.5-14b prefill under cp = 4 against cp = 1
+    cfg = depth_cut("qwen2.5-14b").replace(vocab_size=TRAIN_CMP_VOCAB)
+    model = build_model(cfg)
+    params = model.compute_params(_tree_to(futures["qwen"].result(),
+                                           "cuda"))
+    b, s = CP_QWEN_PREFILL
+    tok = torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    lg1, w1, _, _ = _prefill(torch, VK, model, params, tok, NULL_PLAN)
+    lg4, w4, c4, r4 = _prefill(torch, VK, model, params, tok, cp)
+    check(c4["flash_attention"] == cfg.n_layers
+          and _all_wgmma(r4, cfg.n_layers),
+          f"18c: B13 launches {c4['flash_attention']}, routes {r4}")
+    out["flash_attention"] += c4["flash_attention"]
+    d = _plan_compare(torch, "18c qwen2.5 cp=4 vs cp=1", lg4, lg1, PLAN_TOL)
+    say(f"18c {cfg.describe()}: prefill {b}x{s} under cp={CP_CHUNKS} "
+        f"({1e3 * w4:.3f} ms cold) vs cp=1 ({1e3 * w1:.3f} ms): logits max "
+        f"|diff| {d:.4g} (bound {PLAN_TOL}); B13 {c4['flash_attention']} "
+        f"launches, routes {r4}")
+    del params, lg1, lg4
+    torch.cuda.empty_cache()
+    red = get_reduced("qwen2.5-14b").replace(compute_dtype="float32")
+    rmodel = build_model(red)
+    rp = rmodel.init(0, device="cpu")
+    rtok = torch.from_numpy(np.random.default_rng(19).integers(
+        0, red.vocab_size, (2, 64)).astype(np.int32))
+    card, *_ = _prefill(torch, VK, rmodel, _tree_to(rp, "cuda"), rtok.cuda(),
+                        cp)
+    with torch.no_grad():
+        cpu, _ = rmodel.prefill(rp, {"tokens": rtok}, plan=cp)
+    d = _plan_compare(torch, "18c reduced qwen2.5 card vs cpu",
+                      card.cpu(), cpu.float(), CMP_TOL["float32"])
+    say(f"18c reduced qwen2.5 (f32) prefill 2x64 under cp={CP_CHUNKS}: card "
+        f"vs CPU max |diff| {d:.4g} (bound {CMP_TOL['float32']})")
+    # 18d: gemma3's SWA gather and a training step under cp = 4
+    phases.start("18d")
+    cfg = gemma3_group().replace(vocab_size=TRAIN_CMP_VOCAB)
+    model = build_model(cfg)
+    master = _tree_to(futures["gemma"].result(), "cuda")
+    params = model.compute_params(master)
+    b, s = CP_GEMMA_SEQ
+    tok = torch.from_numpy(np.random.default_rng(20).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    n_global = sum(sp.attn_kind != "swa" for sp in cfg.all_blocks)
+    res = {}
+    for gather in (True, False):
+        plan = NullPlan(attn_mode="cp", cp=CP_CHUNKS, window_gather=gather)
+        lg, w, c, r = _prefill(torch, VK, model, params, tok, plan)
+        want = n_global if gather else cfg.n_layers
+        check(c["flash_attention"] == want and _all_wgmma(r, want),
+              f"18d gather={gather}: B13 {c['flash_attention']}, routes {r}")
+        out["flash_attention"] += c["flash_attention"]
+        res[gather] = (lg, w, c["flash_attention"])
+    d = _plan_compare(torch, "18d gemma3 gather vs full", res[True][0],
+                      res[False][0], PLAN_TOL)
+    say(f"18d {cfg.describe()}: prefill {b}x{s} under cp={CP_CHUNKS} with "
+        f"the window gather ({1e3 * res[True][1]:.3f} ms cold, "
+        f"{res[True][2]} B13) vs without ({1e3 * res[False][1]:.3f} ms, "
+        f"{res[False][2]} B13): logits max |diff| {d:.4g} (bound "
+        f"{PLAN_TOL})")
+    del res, params
+    torch.cuda.empty_cache()
+    batch = {"tokens": tok}
+    l4, g4, c4 = _grads(torch, VK, model, master, batch, cp)
+    check(c4["flash_attention_bwd"] == n_global
+          and c4["flash_attention"] == 2 * n_global,
+          f"18d train step cp={CP_CHUNKS}: launches {c4}")
+    check_attn_route(n_global, "wgmma", "18d train step",
+                     "flash_attention_bwd")
+    out["flash_attention"] += c4["flash_attention"]
+    out["flash_attention_bwd"] += c4["flash_attention_bwd"]
+    l1, g1, _ = _grads(torch, VK, model, master, batch, NULL_PLAN)
+    say(f"18d training step {b}x{s}: loss cp={CP_CHUNKS} {l4:.6f}, cp=1 "
+        f"{l1:.6f}; B13 {c4['flash_attention']} forwards (remat included) "
+        f"and {c4['flash_attention_bwd']} backward under cp={CP_CHUNKS}")
+    check(abs(l4 - l1) <= TRAIN_CMP_LOSS, f"18d: losses {l4} vs {l1}")
+    _grad_bounds(torch, f"18d gradients cp={CP_CHUNKS} vs cp=1", g4, g1)
+    del master, g4, g1
+    torch.cuda.empty_cache()
+    return out
+
+
+def expert_parallel_on_card(torch, np, VK, tree) -> dict:
+    """Phase 18e: granite-moe-1b-a400m in full after ``ep_tune``: prefill
+    under EP against the dense dispatch at EP_CAPACITY (no drops: the
+    logits within PLAN_TOL); at the config's own capacity factor the
+    assignments each dispatch drops, counted from each MoE layer's input
+    (at the prefill's 4 x 2,048 and the training batch); one training
+    step under EP (the launcher's 8 x 128).  Returns B13's launches of
+    the EP prefill and the step."""
+    import dataclasses as dc
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.plan import NULL_PLAN, NullPlan
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import ep_tune
+    base = ep_tune(get_config("granite-moe-1b-a400m"), EP_DEGREE)
+    ep = NullPlan(moe_ep=True, ep=EP_DEGREE)
+    master = _tree_to(tree, "cuda")
+    b, s = EP_PREFILL
+    tok = torch.from_numpy(np.random.default_rng(21).integers(
+        0, base.vocab_size, (b, s)).astype(np.int32)).cuda()
+    cfg = base.replace(moe=dc.replace(base.moe, capacity_factor=EP_CAPACITY))
+    model = build_model(cfg)
+    params = model.compute_params(master)
+    lgd, wd, _, _ = _prefill(torch, VK, model, params, tok, NULL_PLAN)
+    lge, we, ce, re_ = _prefill(torch, VK, model, params, tok, ep)
+    check(ce["flash_attention"] == cfg.n_layers
+          and _all_wgmma(re_, cfg.n_layers),
+          f"18e: B13 {ce['flash_attention']}, routes {re_}")
+    d = _plan_compare(torch, "18e EP vs dense", lge, lgd, PLAN_TOL)
+    say(f"18e {cfg.describe()}, ep_virtual {cfg.moe.ep_virtual}: prefill "
+        f"{b}x{s} under ep={EP_DEGREE} ({1e3 * we:.3f} ms cold) vs the "
+        f"dense dispatch ({1e3 * wd:.3f} ms) at capacity factor "
+        f"{EP_CAPACITY}: logits max |diff| {d:.4g} (bound {PLAN_TOL})")
+    # the drops at the config's own capacity factor
+    model = build_model(base)
+    drops = {"dense": 0, "ep": 0}
+    total = [0]
+    real = (L.apply_moe, L.apply_moe_ep)
+
+    def dense(p, x, c):
+        kept = L.moe_kept(p, x, c)
+        drops["dense"] += int((~kept).sum())
+        total[0] += kept.numel()
+        return real[0](p, x, c)
+
+    def expert(p, x, c, plan):
+        drops["ep"] += int((~L.moe_kept(p, x, c, ep=plan.ep)).sum())
+        return real[1](p, x, c, plan)
+    kw = TRAIN_KW
+    ttok = torch.from_numpy(np.random.default_rng(22).integers(
+        0, base.vocab_size, (kw["batch"], kw["seq"])).astype(
+        np.int32)).cuda()
+    L.apply_moe, L.apply_moe_ep = dense, expert
+    try:
+        for t in (tok, ttok):
+            for k in drops:
+                drops[k] = 0
+            total[0] = 0
+            _prefill(torch, VK, model, params, t, NULL_PLAN)
+            _prefill(torch, VK, model, params, t, ep)
+            g = t.shape[0] // EP_DEGREE
+            say(f"18e at capacity factor {base.moe.capacity_factor}, "
+                f"{t.shape[0]}x{t.shape[1]} tokens: of {total[0]:,} (token, "
+                f"choice) assignments over {cfg.n_layers} layers the dense "
+                f"dispatch (a capacity a row) drops {drops['dense']:,}, the "
+                f"EP dispatch ({EP_DEGREE} groups of {g} row(s), a "
+                f"capacity a group) {drops['ep']:,}")
+    finally:
+        L.apply_moe, L.apply_moe_ep = real
+    del params, lgd, lge
+    torch.cuda.empty_cache()
+    loss, grads, c = _grads(torch, VK, model, master, {"tokens": ttok}, ep)
+    gn = float(torch.sqrt(sum(torch.linalg.vector_norm(g.float()) ** 2
+                              for g in grads)))
+    check(c["flash_attention_bwd"] == cfg.n_layers and math.isfinite(loss)
+          and math.isfinite(gn), f"18e train step: loss {loss}, grad norm "
+          f"{gn}, launches {c}")
+    say(f"18e training step under ep={EP_DEGREE} ({kw['batch']}x"
+        f"{kw['seq']}): loss {loss:.6f}, grad norm {gn:.6g}, B13 "
+        f"{c['flash_attention']} forwards and {c['flash_attention_bwd']} "
+        f"backwards")
+    del master, grads
+    torch.cuda.empty_cache()
+    return {"flash_attention": ce["flash_attention"] + c["flash_attention"],
+            "flash_attention_bwd": c["flash_attention_bwd"]}
+
+
+def pod_mesh_and_plans(torch, np, VK, phases) -> dict:
+    """Phase 18 (a-e).  Returns each kernel's launches over the phase's
+    checks and paths (18b the sharded round's)."""
+    from repro_torch.configs import get_config
+    cuts = {"internlm2": depth_cut("internlm2-1.8b", TRAIN_LAYERS),
+            "qwen": depth_cut("qwen2.5-14b").replace(
+                vocab_size=TRAIN_CMP_VOCAB),
+            "gemma": gemma3_group().replace(vocab_size=TRAIN_CMP_VOCAB),
+            "granite": get_config("granite-moe-1b-a400m")}
+    phases.start("18a")
+    counts = sharded_bus_parity(torch, VK)
+    futures = _draw_in_threads(cuts)
+    phases.start("18b")
+    rounds = sharded_round_on_card(torch, VK, futures.pop("internlm2")
+                                   .result())
+    phases.start("18c")
+    cp = context_parallel_on_card(torch, np, VK, futures, phases)
+    phases.start("18e")
+    ep = expert_parallel_on_card(torch, np, VK,
+                                 futures.pop("granite").result())
+    for part in (rounds, cp, ep):
+        for k, n in part.items():
+            if n:
+                counts[k] = counts.get(k, 0) + n
+    return counts
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -4819,7 +5377,10 @@ def main() -> int:
     # ---- 17. whisper and the VLM served and trained, granite trained ----
     whisper_and_vlm(torch, VK, FK, tmp, phases)                       # 17a-d
 
-    # ---- 18. result lines -------------------------------------------------
+    # ---- 18. the pod mesh, the sharded bus, the plans' one-card forms -
+    pod_counts18 = pod_mesh_and_plans(torch, np, VK, phases)          # 18a-e
+
+    # ---- 19. result lines -------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
@@ -4846,6 +5407,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if name in pod_counts18:    # phase 18's launches of the kernel
+            entry["launches_phase18"] = pod_counts18[name]
         if "host_us" in r:          # host us a wrapper call, where taken
             entry["host_us"] = r["host_us"]
             entry["library_host_us"] = r["library_host_us"]

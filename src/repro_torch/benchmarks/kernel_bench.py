@@ -1,7 +1,8 @@
 """Kernel benchmarks of the port: the counterpart of the reference's
 ``benchmarks/kernel_bench.py`` suites ``bench_kernels``,
-``bench_flat_assimilate``, ``bench_flat_adam`` and ``bench_compression``,
-on the same models, buses, shapes and densities.
+``bench_flat_assimilate``, ``bench_flat_adam``, ``bench_compression``
+and ``bench_sharded_flat``, on the same models, buses, shapes and
+densities.
 
 Every suite runs on one device.  On the card a row is timed with CUDA
 events after a warm-up; on the CPU (the plain PyTorch versions) with the
@@ -12,7 +13,8 @@ of one call (``launches`` in the JSON, ``launches=<kernel>:<n>`` in
 
 The suites with a fused-launch story keep the reference's ``_launches``
 dicts (``flat``: flat / per_leaf; ``flat_adam``: flat; ``compression``:
-blocked_topk / quantize_pack / pack_body), which ``run.py --check`` holds
+blocked_topk / quantize_pack / pack_body; ``sharded_flat``: sharded /
+single / per_leaf, ``sharded`` counted a shard), which ``run.py --check`` holds
 to ``results/BASELINE_launches.json`` on the card.  The port counts real
 launches, not traced ``pallas_call``s: ``per_leaf`` 96 is 24 leaves x 4
 clients, one per-tensor Eq. 1 launch each.  On the CPU every count is 0.
@@ -278,6 +280,73 @@ def bench_flat_assimilate(device) -> Dict[str, Row]:
             us_cflat, f"speedup={us_cleaf / max(us_cflat, 1e-9):.2f}x",
             ln_cflat),
         "_launches": {"flat": flat, "per_leaf": per},
+    }
+
+
+# ---------------------------------------------------------------------------
+# bench_sharded_flat
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4
+
+
+def bench_sharded_flat(device) -> Dict[str, Row]:
+    """The sharded flat bus (``runtime/sharding.py``) against the
+    single-device flat path on the bench model: the flatten into the
+    single layout and into ``N_SHARDS`` BLOCK-padded shards, and Eq. 2
+    over the 4 clients whole and once a shard on a pod mesh of
+    ``N_SHARDS`` positions on ``device`` (the server and clients placed
+    on the mesh before the clock starts: the sharded bus lives
+    sharded).  ``_launches``: ``sharded`` counts B2's launches a shard
+    of one sharded call (1: the op partitions the one launch, it does
+    not multiply it), ``single`` those of the whole-bus call, ``per_leaf``
+    the per-tensor Eq. 1 launches of the tree fold (24 leaves x 4
+    clients)."""
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.runtime import sharding as S
+    tm = Timer(device)
+    tree = bench_model(device)
+    clients = bench_clients(tree)
+    n_leaves = len(F.tree_flatten(tree)[0])
+    mesh = make_pod_mesh(N_SHARDS, device=device)
+    fp = F.flatten_sharded(tree, N_SHARDS)
+    cbuf = torch.stack([F.flatten_like(c, fp.spec) for c in clients])
+    w = V.assimilation_weights(N_CLIENTS, ALPHA)
+    sh = S.shard_flat(fp, mesh)
+    csh = S.shard_buf(cbuf, mesh)
+
+    us_flat, _ = tm.run(lambda: F.flatten(tree).buf, 20)
+    us_shard, _ = tm.run(lambda: F.flatten_sharded(tree, N_SHARDS).buf, 20)
+    us_single, ln_single = tm.run(
+        lambda: V.assimilate_many_flat(fp, cbuf, ALPHA), 20)
+    us_sharded, ln_sharded = tm.run(
+        lambda: S.sharded_assimilate_flat(sh.buf, csh, w, mesh), 20)
+
+    def per_leaf():
+        folded = tree
+        for c in clients:
+            folded = V.vc_asgd_update(folded, c, ALPHA)
+        return folded
+
+    _, ln_tree = tm.run(per_leaf, 1)
+    single = sum(ln_single.values())
+    sharded = sum(ln_sharded.values()) // N_SHARDS
+    per = sum(ln_tree.values())
+    return {
+        "model": row(0.0, f"{n_leaves} leaves / {N_SHARDS} shards x "
+                          f"{fp.spec.shard_len} elems / 1 device"),
+        "flatten_single": row(us_flat,
+                              f"padded={F.flatten(tree).spec.padded}"),
+        "flatten_sharded": row(us_shard, f"padded={fp.spec.padded}"),
+        "assimilate_single": row(us_single, f"{N_CLIENTS} clients",
+                                 ln_single),
+        "assimilate_sharded": row(
+            us_sharded,
+            f"speedup={us_single / max(us_sharded, 1e-9):.2f}x", ln_sharded),
+        "pallas_launches": row(0.0, f"sharded={sharded} single={single} "
+                                    f"per_leaf={per}"),
+        "_launches": {"sharded": sharded, "single": single,
+                      "per_leaf": per},
     }
 
 

@@ -1,6 +1,6 @@
 """The port's bench: the reference's ``benchmarks/run.py`` suites
-kernels, flat, flat_adam and compression, plus the per-kernel roofline
-table (run by default), the paper's figure suites fig2, fig3, fig4,
+kernels, flat, flat_adam, compression and sharded_flat, plus the
+per-kernel roofline table (run by default), the paper's figure suites fig2, fig3, fig4,
 fig6, consistency and cost (``paper_figs.py``), the fleet and handout
 scenario suites (``fleet_bench.py``, ``handout_bench.py``) and the
 cost/throughput frontier (``frontier_bench.py``), run when named.  Prints the reference's CSV rows: ``name,us_per_call,derived`` a
@@ -10,7 +10,7 @@ scenario suite by one ``suite.row,wall_us,events_per_sec=...`` row a
 scenario run.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run \\
-      [--only kernels,flat,flat_adam,compression,roofline,
+      [--only kernels,flat,flat_adam,compression,sharded_flat,roofline,
               fig2,fig3,fig4,fig6,consistency,cost,fleet,handout,
               frontier] [--full] \\
       [--device cuda|cpu] [--check] [--write]
@@ -23,7 +23,8 @@ of the quick one, the scenario suites with fleet_100k and the
 the launch gate: every suite run that carries a ``_launches`` dict must
 equal its entry of ``results/BASELINE_launches.json`` exactly (flat 1 /
 per_leaf 96, flat_adam 1, compression blocked_topk 2 / quantize_pack 1 /
-pack_body 1): a higher count is a fused pass broken apart, a lower one a
+pack_body 1, sharded_flat sharded 1 / single 1 / per_leaf 96): a
+higher count is a fused pass broken apart, a lower one a
 path that bypassed a kernel.  With the fleet or handout suite it also
 holds their floors, measured on the card and pinned in
 ``results/BASELINE_torch_fleet.json``: the fleet_smoke scenario's
@@ -59,6 +60,7 @@ SUITES = {
     "flat": KB.bench_flat_assimilate,
     "flat_adam": KB.bench_flat_adam,
     "compression": KB.bench_compression,
+    "sharded_flat": KB.bench_sharded_flat,
     "roofline": bench_roofline,
 }
 # suites that print one claims row (paper figures, scenario suites)

@@ -73,14 +73,18 @@ def adam_update(p, g, m, v, *, lr, b1, b2, eps, c1, c2, weight_decay=0.0):
     """One Adam step (bias-corrected; ``c1 = 1-b1^t``, ``c2 = 1-b2^t``
     precomputed).  Returns (p', m', v') with m/v in f32 and p' in p's
     dtype.  Python-float scalars combine in double before rounding to
-    f32, as they do in the reference's ``ref.adam_update``."""
+    f32, as they do in the reference's ``ref.adam_update``.  The square
+    root is the correctly rounded f32 one (B3's ``__fsqrt_rn``, XLA's):
+    taken in f64 and rounded once, since ``torch.sqrt`` of f32 on the CPU
+    (MKL's vector math) is 1 ulp off on ~0.7% of elements."""
     dev = p.device
     g = g.to(_F32)
     m = f32(b1) * m.to(_F32) + f32(1 - b1) * g
     v = f32(b2) * v.to(_F32) + f32(1 - b2) * g * g
     c1t = torch.tensor(f32(c1), dtype=_F32, device=dev)
     c2t = torch.tensor(f32(c2), dtype=_F32, device=dev)
-    step = f32(lr) * (m / c1t) / (torch.sqrt(v / c2t) + f32(eps))
+    root = torch.sqrt((v / c2t).double()).to(_F32)
+    step = f32(lr) * (m / c1t) / (root + f32(eps))
     if weight_decay:
         step = step + f32(lr * weight_decay) * p.to(_F32)
     return (p.to(_F32) - step).to(p.dtype), m, v

@@ -197,8 +197,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
         raise NotImplementedError(
-            f"--mesh {args.mesh}: an island is one card; the mesh plans "
-            f"are not ported (ROADMAP.md: the mesh plans)")
+            f"--mesh {args.mesh}: an island is one card; the mesh plans' "
+            f"layouts over several cards are not ported (ROADMAP.md queue "
+            f"A item 2b)")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="vctorch_ckpt_")
     train(cfg, islands=args.islands, rounds=args.rounds,

@@ -1,6 +1,6 @@
 """Building blocks of the transformer (port of ``repro/models/layers.py``:
-the dense path and the MoE; the expert-parallel ``apply_moe_ep`` waits
-for the mesh plans).
+the dense path, the MoE with its dense and expert-parallel dispatches,
+and blocked attention over context-parallel chunks).
 
 Plain functions over parameter dicts, in the reference's layouts:
 activations [b, s, d], attention heads [b, s, h, hd], decode caches in
@@ -20,6 +20,7 @@ import functools
 import math
 from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -193,25 +194,86 @@ def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 # attention (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _positions(pos, n: int) -> np.ndarray:
+    """``pos`` (numpy, a tensor or a sequence) as an int64 numpy array,
+    or ``arange(n)`` when it is None: the reference's trace-time-constant
+    positions."""
+    if pos is None:
+        return np.arange(n, dtype=np.int64)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.detach().cpu().numpy()
+    return np.asarray(pos, dtype=np.int64)
+
+
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, window: Optional[int] = None,
+                      q_positions=None, kv_positions=None,
                       softcap: Optional[float] = None) -> torch.Tensor:
-    """Online-softmax attention in the reference's layout.
+    """Attention in the reference's layout, with its position masks.
 
-    q:   [b, P, sq, h, hd]  (P = 1: the port has no context parallelism)
+    q:   [b, P, sq, h, hd]  (P = the CP chunk dim; 1 when not chunked)
     k,v: [b, skv, kvh, hd]
-    Returns [b, P, sq, h, hd].  Query and key positions are the aranges
-    of their lengths (the reference's single-chunk default).  One call of
-    ``ops.flash_attention`` on [b, h, s, hd] views (no copy on the card).
-    """
-    if q.shape[1] != 1:
+    q_positions: [P, sq] global query positions (default: the arange of
+    sq, P = 1); kv_positions: [skv] (default: the arange).  A query sees
+    the keys at or before it (``causal``) and within ``window``.  Returns
+    [b, P, sq, h, hd].
+
+    When the query positions are the contiguous chunk layout (chunk p
+    holds p*sq ... p*sq + sq - 1) and the keys the arange, this is one
+    call of ``ops.flash_attention`` on the [b, h, P*sq, hd] views (no
+    copy on the card; the kernel's forward and, under autograd, its
+    backward).  Other positions (the strided CP layout, masked
+    duplicates) run the plain masked softmax on the CPU and raise on the
+    card, which has no kernel for them."""
+    b, P, sq, h, hd = q.shape
+    skv = k.shape[1]
+    if q_positions is None and P != 1:
+        raise ValueError(f"{P} query chunks need q_positions")
+    qpos = _positions(q_positions, sq).reshape(P, sq)
+    kpos = _positions(kv_positions, skv).reshape(skv)
+    if (np.array_equal(qpos.reshape(-1), np.arange(P * sq))
+            and np.array_equal(kpos, np.arange(skv))):
+        o = ops.flash_attention(q.reshape(b, P * sq, h, hd).transpose(1, 2),
+                                k.transpose(1, 2), v.transpose(1, 2),
+                                causal=causal, window=window,
+                                softcap=softcap)
+        return o.transpose(1, 2).reshape(b, P, sq, h, hd)
+    if q.is_cuda:
         raise NotImplementedError(
-            f"context-parallel chunks (P = {q.shape[1]}) are not ported: "
-            f"the port's plan is single-card (ROADMAP.md queue A: the mesh plans)")
-    o = ops.flash_attention(q[:, 0].transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal, window=window,
-                            softcap=softcap)
-    return o.transpose(1, 2)[:, None]
+            f"attention at query positions {qpos.tolist()[:2]}... (not the "
+            f"contiguous chunk layout) or key positions other than the "
+            f"arange has no kernel on the card: only the contiguous CP "
+            f"layout runs B13")
+    return _masked_attention(q, k, v, torch.from_numpy(qpos),
+                             torch.from_numpy(kpos), causal=causal,
+                             window=window, softcap=softcap)
+
+
+def _masked_attention(q, k, v, qpos, kpos, *, causal: bool, window,
+                      softcap) -> torch.Tensor:
+    """The plain attention of ``blocked_attention`` at arbitrary
+    positions: scores in f32, masked at -1e30, softmax, all in f32."""
+    h, hd = q.shape[3], q.shape[4]
+    kh = repeat_kv(k, h).to(_F32)
+    vh = repeat_kv(v, h).to(_F32)
+    s = torch.einsum("bpqhd,bkhd->bphqk", q.to(_F32), kh) / math.sqrt(hd)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    mask = torch.ones(qpos.shape + kpos.shape, dtype=torch.bool)
+    if causal:
+        mask = mask & (qpos[:, :, None] >= kpos[None, None, :])
+    if window is not None:
+        mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
+    s = s.masked_fill(~mask[None, :, None].to(s.device), NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bphqk,bkhd->bpqhd", w, vh)
+    return o.to(q.dtype)
+
+
+def strided_positions(P: int, sq_local: int) -> np.ndarray:
+    """Strided CP layout: chunk p owns global positions p, p+P, p+2P, ..."""
+    return (np.arange(P, dtype=np.int32)[:, None]
+            + P * np.arange(sq_local, dtype=np.int32)[None, :])
 
 
 # ---------------------------------------------------------------------------
@@ -472,6 +534,94 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig):
     frac_tok = F.one_hot(top_i[..., 0], e).to(_F32).mean(1)    # [b, e]
     aux = e * (frac_tok * probs.mean(1)).sum(-1)
     return out.to(x.dtype), aux
+
+
+def _ep_groups(x: torch.Tensor, cfg: ModelConfig, ep: int):
+    """x [b, s, d] as the EP layout's ``ep`` source groups [D, T_l, d]
+    (consecutive batch rows), and each group's capacity."""
+    m = cfg.moe
+    b, s, d = x.shape
+    if m.n_virtual % ep:
+        raise ValueError(f"{m.n_virtual} (virtual) experts do not divide "
+                         f"the {ep}-way EP axis: see sharding.ep_tune")
+    if b % ep:
+        raise ValueError(f"batch {b} does not divide the {ep}-way EP axis")
+    xl = x.reshape(ep, (b // ep) * s, d)
+    return xl, moe_capacity(xl.shape[1], cfg)
+
+
+def apply_moe_ep(p, x: torch.Tensor, cfg: ModelConfig, plan):
+    """Expert-parallel MoE for train / prefill, on one device.
+
+    The batch is cut into ``plan.ep`` source groups of consecutive rows
+    (the data shards of the reference's layout), each routed on its own
+    with a capacity of ``moe_capacity(T_l)`` for its T_l = (b / ep) * s
+    tokens, so it drops other assignments than the dense dispatch's
+    per-row capacity does.  The groups' capacity buffers [D, E, cap, d]
+    are permuted to the experts' home groups (the reference's dispatch
+    all-to-all: expert E = home * E / D + local), the experts apply to
+    [E, D * cap, d] as one batched matmul a weight, and the outputs are
+    permuted back and combined with the gates (the return all-to-all).
+    Virtual experts (``ep_virtual``) split each expert's f dim; their
+    partial outputs sum in the combine.
+
+    x: [b, s, d] -> (out [b, s, d], the Switch aux loss averaged over the
+    groups)."""
+    m = cfg.moe
+    D = plan.ep
+    E, kv, e = m.n_virtual, m.top_k * m.ep_virtual, m.n_experts
+    b, s, d = x.shape
+    dt = cfg.cdtype
+    xl, cap = _ep_groups(x, cfg, D)
+    Tl = xl.shape[1]
+
+    probs, top_p, top_i = route(p, xl, cfg)                    # [D, Tl, k]
+    vt_i, vt_p = _virtual_assignments(top_i, top_p, m.ep_virtual)
+    flat_e = vt_i.reshape(D, Tl * kv)
+    pos, valid = moe_dispatch(flat_e, E, cap)
+
+    tok = torch.arange(Tl, device=x.device).repeat_interleave(kv)
+    slot = torch.where(valid, flat_e * cap + pos, E * cap)
+    slot_tok = torch.full((D, E * cap + 1), Tl, dtype=torch.long,
+                          device=x.device)
+    slot_tok.scatter_(1, slot, tok.expand(D, -1))
+    x_pad = torch.cat([xl, xl.new_zeros(D, 1, d)], dim=1)
+    xe = x_pad.gather(1, slot_tok[:, :E * cap, None].expand(-1, -1, d))
+
+    # dispatch: [D_src, D_home, e_loc, cap, d] -> [D_home, e_loc, D_src, ...]
+    y = (xe.reshape(D, D, E // D, cap, d).permute(1, 2, 0, 3, 4)
+         .reshape(E, D * cap, d))
+    h = F.silu(torch.bmm(y, p["wg"].to(dt))) * torch.bmm(y, p["wi"].to(dt))
+    ye = torch.bmm(h, p["wo"].to(dt))                          # [E, D*cap, d]
+    # return: [D_home, e_loc, D_src, cap, d] -> [D_src, E * cap, d]
+    back = (ye.reshape(D, E // D, D, cap, d).permute(2, 0, 1, 3, 4)
+            .reshape(D, E * cap, d))
+
+    src = flat_e * cap + torch.clamp(pos, max=cap - 1)
+    gath = back.gather(1, src[..., None].expand(-1, -1, d))    # [D, Tl*kv, d]
+    gath = torch.where(valid[..., None], gath, gath.new_zeros(()))
+    w = vt_p.reshape(D, Tl * kv, 1).to(gath.dtype)
+    out = (gath * w).reshape(D, Tl, kv, d).sum(2)
+
+    frac_tok = F.one_hot(top_i[..., 0], e).to(_F32).mean(1)    # [D, e]
+    aux = e * (frac_tok * probs.mean(1)).sum(-1)
+    return out.reshape(b, s, d).to(x.dtype), aux.mean()
+
+
+def moe_kept(p, x: torch.Tensor, cfg: ModelConfig, ep: Optional[int] = None
+             ) -> torch.Tensor:
+    """The kept (token, choice) assignments of a dispatch, [groups,
+    T * k * v] bools in token-major order: the dense dispatch's (each
+    batch row a group, ``ep`` None) or the expert-parallel one's (``ep``
+    source groups); the others are dropped by capacity."""
+    m = cfg.moe
+    if ep is None:
+        xg, cap = x, moe_capacity(x.shape[1], cfg)
+    else:
+        xg, cap = _ep_groups(x, cfg, ep)
+    _, top_p, top_i = route(p, xg, cfg)
+    vt_i, _ = _virtual_assignments(top_i, top_p, m.ep_virtual)
+    return moe_dispatch(vt_i.reshape(xg.shape[0], -1), m.n_virtual, cap)[1]
 
 
 def moe_decode_gathered(p, x: torch.Tensor, cfg: ModelConfig

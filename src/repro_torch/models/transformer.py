@@ -19,8 +19,10 @@ token embeddings (``vis_proj``; the loss skips them); the encoder-decoder
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -159,25 +161,99 @@ def _window(spec: BlockSpec) -> Optional[int]:
 
 def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
                  plan=NULL_PLAN, return_kv: bool = False):
-    """x: [b, s, d] -> (out [b, s, d], (k, v) [b, s, kv, hd] or None)."""
-    b, s, _ = x.shape
+    """x: [b, s, d] ("local" / "head_tp") or [b, P, sl, d] ("cp") -> (out
+    in x's layout, (k, v) in the natural [b, s, kv, hd] layout or None).
+
+    Context parallelism (contiguous chunks: chunk p holds positions
+    p*sl ... p*sl + sl - 1): the projections and rope run on the chunked
+    layout; a global layer, or a local one without ``window_gather``,
+    attends over the whole key sequence (``blocked_attention`` at the
+    contiguous positions: one B13 call on the card); a sliding-window
+    layer with ``window_gather`` gives each query chunk only its
+    neighbour key chunks (``_attn_per_chunk``)."""
     theta = _rope_theta_for(cfg, spec)
-    q, k, v = L.qkv_proj(p, x, cfg)                       # [b,s,h/kv,hd]
-    pos = torch.arange(s, dtype=torch.int32, device=x.device)
-    q = L.apply_rope(q, pos, cfg, theta)
-    k = L.apply_rope(k, pos, cfg, theta)
-    o = L.blocked_attention(q[:, None], k, v, causal=True,
-                            window=_window(spec))
-    o = o[:, 0].reshape(b, s, cfg.n_heads * cfg.hd)
-    out = o @ p["wo"].to(cfg.cdtype)
-    return out, ((k, v) if return_kv else None)
+    window = _window(spec)
+    if x.dim() == 3:
+        b, s, _ = x.shape
+        q, k, v = L.qkv_proj(p, x, cfg)                   # [b,s,h/kv,hd]
+        pos = torch.arange(s, dtype=torch.int32, device=x.device)
+        q = L.apply_rope(q, pos, cfg, theta)
+        k = L.apply_rope(k, pos, cfg, theta)
+        o = L.blocked_attention(q[:, None], k, v, causal=True, window=window)
+        o = o[:, 0].reshape(b, s, cfg.n_heads * cfg.hd)
+        out = o @ p["wo"].to(cfg.cdtype)
+        return out, ((k, v) if return_kv else None)
+
+    b, P, sl, _ = x.shape
+    s, kvh, hd = P * sl, cfg.n_kv_heads, cfg.hd
+    q, k, v = L.qkv_proj(p, x, cfg)                       # [b,P,sl,*,hd]
+    pos = (np.arange(P, dtype=np.int64)[:, None] * sl
+           + np.arange(sl, dtype=np.int64)[None, :])      # [P, sl]
+    pos_t = torch.from_numpy(pos).to(x.device)
+    q = L.apply_rope(q, pos_t, cfg, theta)
+    k = L.apply_rope(k, pos_t, cfg, theta)
+    if window is not None and plan.window_gather and P > 1:
+        # each query chunk gathers only the key chunks it can see
+        nw = min(P, int(math.ceil(window / sl)) + 1)
+        idx = np.arange(P)[:, None] - (nw - 1) + np.arange(nw)[None, :]
+        valid = idx >= 0                                  # [P, nw]
+        idxc = np.clip(idx, 0, P - 1)
+        sel = torch.from_numpy(idxc.reshape(-1)).to(x.device)
+        kg = k.index_select(1, sel).reshape(b, P, nw * sl, kvh, hd)
+        vg = v.index_select(1, sel).reshape(b, P, nw * sl, kvh, hd)
+        kpos = idxc[:, :, None] * sl + np.arange(sl)[None, None, :]
+        kpos = np.where(valid[:, :, None], kpos, -10 ** 9)   # clipped dups
+        o = _attn_per_chunk(q, kg, vg, pos, kpos.reshape(P, nw * sl), cfg,
+                            window=window)
+    else:
+        o = L.blocked_attention(q, k.reshape(b, s, kvh, hd),
+                                v.reshape(b, s, kvh, hd), causal=True,
+                                window=window, q_positions=pos,
+                                kv_positions=np.arange(s))
+    out = o.reshape(b, P, sl, cfg.n_heads * hd) @ p["wo"].to(cfg.cdtype)
+    if return_kv:
+        return out, (k.reshape(b, s, kvh, hd), v.reshape(b, s, kvh, hd))
+    return out, None
+
+
+def _attn_per_chunk(q, kg, vg, qpos, kpos, cfg: ModelConfig, window):
+    """Attention where each query chunk has its own key set, as the
+    reference computes it (plain PyTorch on the card too: the reference
+    runs it in jnp, outside any Pallas kernel).  q: [b, P, sl, h, hd];
+    kg / vg: [b, P, skv, kv, hd]; qpos [P, sl], kpos [P, skv] numpy.
+    Products of compute-dtype operands accumulate in f32 (the
+    reference's ``preferred_element_type``), the softmax in f32 with its
+    weights rounded to the compute dtype for the product with v."""
+    h, hd = q.shape[3], q.shape[4]
+    f32 = torch.float32
+    kh = L.repeat_kv(kg, h).to(f32)
+    vh = L.repeat_kv(vg, h)
+    sc = torch.einsum("bpqhd,bpkhd->bphqk", q.to(f32), kh) / math.sqrt(hd)
+    qp = torch.from_numpy(np.asarray(qpos)).to(q.device)
+    kp = torch.from_numpy(np.asarray(kpos)).to(q.device)
+    mask = qp[:, None, :, None] >= kp[:, None, None, :]
+    if window is not None:
+        mask = mask & (kp[:, None, None, :] > qp[:, None, :, None] - window)
+    sc = sc.masked_fill(~mask[None], L.NEG_INF)
+    w = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bphqk,bpkhd->bpqhd", w.to(vh.dtype).to(f32),
+                     vh.to(f32))
+    return o.to(q.dtype)
 
 
 def block_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
                   plan=NULL_PLAN, return_kv: bool = False):
     """Returns (x_out, the MoE aux loss (0.0 without an MoE), the state
     for decode or None): (k, v) for an attention block, a ``MambaState``
-    for a mamba block, (S, x_last, cm_last) for an rwkv block."""
+    for a mamba block, (S, x_last, cm_last) for an rwkv block.  ``x`` is
+    [b, s, d], or [b, P, sl, d] under context parallelism (attention
+    blocks only).  An MoE FFN takes the expert-parallel dispatch under
+    ``plan.moe_ep`` on a 3-D ``x``, else the dense one over each batch
+    row's tokens (all chunks of a row together)."""
+    if x.dim() == 4 and spec.mixer != "attn":
+        raise NotImplementedError(
+            f"{cfg.arch}: a {spec.mixer} block under context parallelism "
+            f"(the reference's CP form runs attention blocks only)")
     aux = 0.0
     h = L.apply_norm(p["norm1"], x, cfg)
     if spec.mixer == "rwkv":
@@ -193,9 +269,13 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
         return x, aux, kv
     h = L.apply_norm(p["norm2"], x, cfg)
     if spec.ffn == "moe":
-        out, aux_rows = L.apply_moe(p["moe"], h, cfg)
+        if plan.moe_ep and x.dim() == 3:
+            out, aux = L.apply_moe_ep(p["moe"], h, cfg, plan)
+        else:
+            out, aux_rows = L.apply_moe(
+                p["moe"], h.reshape(h.shape[0], -1, h.shape[-1]), cfg)
+            out, aux = out.reshape(x.shape), aux_rows.mean()
         x = x + out
-        aux = aux_rows.mean()
     elif spec.mixer == "rwkv":
         prev = torch.cat([h.new_zeros(h.shape[0], 1, h.shape[2]),
                           h[:, :-1]], dim=1)
@@ -205,6 +285,21 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
     else:
         x = x + L.apply_mlp(p["mlp"], h, cfg)
     return x, aux, kv
+
+
+def _to_chunks(x: torch.Tensor, plan) -> torch.Tensor:
+    """[b, s, d] -> [b, cp, s / cp, d] under ``attn_mode="cp"``, else x."""
+    if plan.attn_mode != "cp":
+        return x
+    b, s, d = x.shape
+    if s % plan.cp:
+        raise ValueError(f"sequence {s} does not divide into {plan.cp} CP "
+                         f"chunks")
+    return x.reshape(b, plan.cp, s // plan.cp, d)
+
+
+def _from_chunks(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1, x.shape[-1]) if x.dim() == 4 else x
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
@@ -223,12 +318,12 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 def lm_forward(params, cfg: ModelConfig, batch, plan=NULL_PLAN):
     """Returns (logits [b, s, vocab_pad], the MoE aux loss summed over
     layers: 0.0 without MoE layers)."""
-    x = _embed_inputs(params, cfg, batch)
+    x = _to_chunks(_embed_inputs(params, cfg, batch), plan)
     aux_total = 0.0
     for p, spec in zip(params["blocks"], cfg.all_blocks):
         x, aux, _ = block_forward(p, x, cfg, spec, plan)
         aux_total = aux_total + aux
-    x = L.apply_norm(params["final_norm"], x, cfg)
+    x = L.apply_norm(params["final_norm"], _from_chunks(x), cfg)
     return L.logits(params["embed"], x, cfg), aux_total
 
 
@@ -248,7 +343,7 @@ def lm_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     runs under ``torch.utils.checkpoint`` (``use_reentrant=False``), its
     activations recomputed in backward, as the reference's
     ``jax.checkpoint`` around each scanned superblock does."""
-    x = _embed_inputs(params, cfg, batch)
+    x = _to_chunks(_embed_inputs(params, cfg, batch), plan)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in zip(params["blocks"], cfg.all_blocks):
         if remat:
@@ -257,7 +352,8 @@ def lm_hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         else:
             x, aux = _block_train(p, x, cfg, spec, plan)
         aux_total = aux_total + aux
-    return L.apply_norm(params["final_norm"], x, cfg), aux_total
+    return (L.apply_norm(params["final_norm"], _from_chunks(x), cfg),
+            aux_total)
 
 
 def _chunk_nll(embed_params, h, t, cfg: ModelConfig):
@@ -317,11 +413,12 @@ def lm_prefill(params, cfg: ModelConfig, batch, plan=NULL_PLAN
     keeps the last row: row for row the same product)."""
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
+    x = _to_chunks(x, plan)
     caches = []
     for p, spec in zip(params["blocks"], cfg.all_blocks):
         x, _, kv = block_forward(p, x, cfg, spec, plan, return_kv=True)
         caches.append(_to_decode_state(kv, spec, cfg, s, plan))
-    x = L.apply_norm(params["final_norm"], x[:, -1], cfg)
+    x = L.apply_norm(params["final_norm"], _from_chunks(x)[:, -1], cfg)
     return L.logits(params["embed"], x, cfg), caches
 
 

@@ -167,6 +167,24 @@ class Adam:
         return fp.with_buf(new_buf), FlatOptState(m=m, v=v, step=t,
                                                   spec=state.spec)
 
+    def update_flat_sharded(self, grad_buf, state: FlatOptState,
+                            fp: FlatParams, *, mesh, axis: str = "pod"
+                            ) -> Tuple[FlatParams, FlatOptState]:
+        """``update_flat`` on the pod mesh: the (p, g, m, v) lanes are cut
+        into contiguous per-device segments (a ``ShardedTreeSpec``
+        layout, or any bus the axis divides) and the fused update runs
+        once a shard (``runtime/sharding.py``; B3 a shard on the card),
+        with the same host scalars — no gather, and bit-equal to the
+        whole-bus pass.  The new params and moments are ``ShardedBuf``s
+        (``sharding.gather_flat`` joins them)."""
+        from repro_torch.runtime.sharding import sharded_adam_update_flat
+        t, lr, c1, c2 = self._scalars(state.step)
+        new_buf, m, v = sharded_adam_update_flat(
+            fp.buf, grad_buf, state.m, state.v, lr, self.b1, self.b2,
+            self.eps, self.weight_decay, c1, c2, mesh, axis)
+        return fp.with_buf(new_buf), FlatOptState(m=m, v=v, step=t,
+                                                  spec=state.spec)
+
 
 def flat_opt_from_tree(state: OptState, spec: TreeSpec) -> FlatOptState:
     """Lift a tree OptState onto the bus layout ``spec`` (m and v share

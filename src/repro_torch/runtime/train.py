@@ -1,20 +1,16 @@
 """Train steps (port of ``repro/runtime/train.py``): ``make_train_step``
-over a parameter tree, with gradient accumulation, and
-``make_flat_train_step`` over the flat bus."""
+over a parameter tree, with gradient accumulation, under any one-card
+plan (``models/plan.py``: local, context-parallel or expert-parallel
+forms), and ``make_flat_train_step`` over the flat bus, whole or
+sharded over a pod mesh."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import flat as F
-from repro_torch.models.plan import NULL_PLAN
+from repro_torch.models.plan import NULL_PLAN, require_one_card_plan
 from repro_torch.optim.optimizers import Adam, clip_by_global_norm
-
-
-def _require_null_plan(plan) -> None:
-    if plan is not NULL_PLAN:
-        raise NotImplementedError(
-            "the port's train steps take NULL_PLAN only: a mesh plan is not "
-            "ported (ROADMAP.md: the mesh plans)")
+from repro_torch.runtime.sharding import gather_flat
 
 
 def make_train_step(model, plan=NULL_PLAN, optimizer=None,
@@ -30,7 +26,7 @@ def make_train_step(model, plan=NULL_PLAN, optimizer=None,
     norm ``clip_norm`` and the optimizer steps.  ``metrics``: "loss"
     (the mean over microbatches), "grad_norm" (before clipping), "ce" and
     "aux", each an f32 0-dim tensor on the params' device."""
-    _require_null_plan(plan)
+    require_one_card_plan(plan)
     optimizer = optimizer or Adam(lr=3e-4)
 
     def grads_of(params, mbatch):
@@ -67,7 +63,8 @@ def make_train_step(model, plan=NULL_PLAN, optimizer=None,
     return train_step
 
 
-def make_flat_train_step(loss_fn, optimizer):
+def make_flat_train_step(loss_fn, optimizer, *, mesh=None,
+                         shard_axis: str = "pod"):
     """(FlatParams, FlatOptState, batch) -> (FlatParams', FlatOptState',
     loss).
 
@@ -75,13 +72,25 @@ def make_flat_train_step(loss_fn, optimizer):
     it sees is views of the buffer (``F.unflatten``), so autograd returns
     the gradient lane directly, with an exactly-zero padding tail.  The
     optimizer then updates all three lanes in one pass (one fused kernel
-    launch on the card)."""
+    launch on the card).
+
+    With ``mesh`` (``launch/mesh.py``) the (p, g, m, v) lanes are cut into
+    contiguous per-device segments along ``shard_axis`` (lay the bus out
+    with ``flat.flatten_sharded`` so the length divides) and the update
+    runs once a shard (``Adam.update_flat_sharded``) — bit-equal to the
+    whole-bus step.  The params and moments come back as ``ShardedBuf``s
+    and may be passed back in as they are: the loss reads the params
+    gathered onto shard 0's device."""
 
     def step(fp: F.FlatParams, fos: F.FlatOptState, batch):
-        buf = fp.buf.detach().requires_grad_(True)
+        buf = gather_flat(fp.buf).detach().requires_grad_(True)
         loss = loss_fn(F.unflatten(fp.with_buf(buf)), batch)
         (gbuf,) = torch.autograd.grad(loss, buf)
-        new_fp, new_fos = optimizer.update_flat(gbuf, fos, fp)
+        if mesh is not None:
+            new_fp, new_fos = optimizer.update_flat_sharded(
+                gbuf, fos, fp, mesh=mesh, axis=shard_axis)
+        else:
+            new_fp, new_fos = optimizer.update_flat(gbuf, fos, fp)
         return new_fp, new_fos, loss.detach()
 
     return step

@@ -28,8 +28,12 @@ B3 (``Adam.update_flat``: ONE launch); the assimilation is B2 over the
 island matrix in place (ONE launch a round) and the redistribution a copy
 of the server back into every row.
 
-Not ported yet: the sharded forms (the reference's ``mesh=`` /
-``shard_axis=``, ROADMAP: the mesh plans).
+The sharded forms (the reference's ``mesh=`` / ``shard_axis=``): the
+masked Eq. 2 and the redistribution run once a contiguous shard of the
+bus on a pod mesh (``launch/mesh.py``, ``runtime/sharding.py``: B2 once
+a shard on the card), bit-equal to the whole-bus pass; ``make_vc_round``
+takes ``flat_shard_axis`` with the mesh beside it, and any one-card plan
+(``models/plan.py``: context-parallel attention, expert-parallel MoE).
 """
 from __future__ import annotations
 
@@ -42,8 +46,9 @@ from repro_torch.core import compression as C
 from repro_torch.core import flat as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as K
-from repro_torch.models.plan import NULL_PLAN
+from repro_torch.models.plan import NULL_PLAN, require_one_card_plan
 from repro_torch.optim.optimizers import Adam, clip_by_global_norm
+from repro_torch.runtime import sharding as S
 from repro_torch.transfer import wire
 from repro_torch.transfer.transport import Transport
 
@@ -84,8 +89,8 @@ def island_weights(n_pods: int, alpha: float, survivors
             torch.tensor(w_s, dtype=_F32, device=dev))
 
 
-def assimilate_flat(server_buf: torch.Tensor, islands_buf: torch.Tensor,
-                    w, w_s, *, in_place: bool = False) -> torch.Tensor:
+def assimilate_flat(server_buf, islands_buf: torch.Tensor, w, w_s, *,
+                    in_place: bool = False, mesh=None, shard_axis=None):
     """Eq. 2 over the FLAT bus with survivor masking: server [N] + islands
     [n_pods, N] -> [N], stored in the server's dtype.  ``w`` [n_pods] and
     ``w_s`` are ``island_weights``' results, best on the host (a CPU
@@ -103,7 +108,12 @@ def assimilate_flat(server_buf: torch.Tensor, islands_buf: torch.Tensor,
     ``use_kernel=True`` order, not its jnp path's (which sums the weighted
     islands first).  ``in_place``: an f32 ``islands_buf`` has its dead
     rows zeroed where it lies (the caller overwrites them next) instead
-    of in a copy of the whole matrix."""
+    of in a copy of the whole matrix.
+
+    With ``mesh`` / ``shard_axis`` the reduction runs once a contiguous
+    shard (``sharding.sharded_assimilate_flat``: B2 a shard on the card;
+    the server may be a ``ShardedBuf`` already) and returns a
+    ``ShardedBuf``, bit-equal to the whole-bus pass."""
     wl = [float(v) for v in (w.tolist() if isinstance(w, torch.Tensor)
                              else w)]
     islands = islands_buf.to(_F32)
@@ -113,16 +123,35 @@ def assimilate_flat(server_buf: torch.Tensor, islands_buf: torch.Tensor,
             islands = islands.clone()
         for j in dead:
             islands[j].zero_()
-    out = K.fused_assimilate_flat(server_buf.to(_F32), islands,
-                                  [float(w_s)] + wl)
+    weights = [float(w_s)] + wl
+    if mesh is not None:
+        if isinstance(server_buf, S.ShardedBuf):
+            if server_buf.dtype != _F32:
+                raise ValueError(f"a sharded server bus must be f32, got "
+                                 f"{server_buf.dtype}")
+            s32 = server_buf
+        else:
+            s32 = server_buf.to(_F32)
+        out = S.sharded_assimilate_flat(s32, islands, weights, mesh,
+                                        shard_axis)
+        return S.ShardedBuf([o.to(server_buf.dtype) for o in out.shards],
+                            out.sharding)
+    out = K.fused_assimilate_flat(server_buf.to(_F32), islands, weights)
     return out.to(server_buf.dtype)
 
 
-def redistribute_flat(server_buf: torch.Tensor, n_pods: int) -> torch.Tensor:
+def redistribute_flat(server_buf, n_pods: int, *, mesh=None,
+                      shard_axis=None):
     """Step-3 redistribution on the bus: server [N] -> islands [n_pods, N],
     every island restarting from the server snapshot (a copy each, so an
     island trained in place never writes into the server: one island
-    too, where a contiguous view would be the server's own storage)."""
+    too, where a contiguous view would be the server's own storage).
+    With ``mesh`` / ``shard_axis`` each shard broadcasts only its own
+    segment (``sharding.sharded_broadcast_flat``) into a ``ShardedBuf``
+    of [n_pods, N / n] blocks — copies, bit-equal to the whole
+    broadcast."""
+    if mesh is not None:
+        return S.sharded_broadcast_flat(server_buf, n_pods, mesh, shard_axis)
     return server_buf.repeat(n_pods, 1)
 
 
@@ -251,7 +280,8 @@ def _lane_loss_and_grad(model, spec: F.TreeSpec, lane: torch.Tensor, batch,
 
 
 def make_vc_round(model, n_pods: int, local_steps: int = 4, optimizer=None,
-                  clip_norm: float = 1.0, plan=NULL_PLAN):
+                  clip_norm: float = 1.0, plan=NULL_PLAN,
+                  flat_shard_axis: Optional[str] = None, mesh=None):
     """Returns ``vc_round(server, islands, opts, batches, alpha, survivors)
     -> (server', islands, opts', metrics)``.
 
@@ -274,14 +304,28 @@ def make_vc_round(model, n_pods: int, local_steps: int = 4, optimizer=None,
        (dead rows zeroed first).
     3. redistribution: the server copied back into every row.
 
+    ``plan``: any one-card plan (``NullPlan``; its context-parallel and
+    expert-parallel forms change the loss the islands train on); a mesh
+    plan raises.  ``flat_shard_axis``: steps 2 and 3 run once a
+    contiguous shard of the bus along that axis of ``mesh`` (the
+    reference takes the mesh from ``plan.mesh``; until the port has a
+    ``MeshPlan`` it takes ``mesh`` here): B2 a shard, the per-shard
+    broadcast copied back into the island rows, the server gathered from
+    its shards — bit-equal to the unsharded round on the same layout.
+    The bus must divide into BLOCK-multiple shards (the reference pads
+    it to BLOCK x shards: ``flat.flatten(tree, pad_to=BLOCK * n)`` or
+    ``flat.flatten_sharded``).
+
     ``metrics["loss"]``: the mean over islands of each island's mean loss
     over its steps (f32 0-dim).  The arithmetic is the reference's (its
     tree Adam is bit-equal to the flat one) but for the clip norm's
     summation order and B2's order of the Eq. 2 sum."""
-    if plan is not NULL_PLAN:
-        raise NotImplementedError(
-            "make_vc_round takes NULL_PLAN only: a mesh plan is not ported "
-            "(ROADMAP.md: the mesh plans)")
+    require_one_card_plan(plan)
+    if (flat_shard_axis is None) != (mesh is None):
+        raise ValueError("flat_shard_axis and mesh go together")
+    n_shards = 1
+    if mesh is not None:
+        n_shards = S.flat_sharding(mesh, flat_shard_axis).n_shards
     optimizer = optimizer or Adam(lr=3e-4)
 
     def vc_round(server: F.FlatParams, islands: torch.Tensor, opts: list,
@@ -290,6 +334,10 @@ def make_vc_round(model, n_pods: int, local_steps: int = 4, optimizer=None,
         if tuple(islands.shape) != (n_pods, spec.padded):
             raise ValueError(f"islands must be [{n_pods}, {spec.padded}], "
                              f"got {tuple(islands.shape)}")
+        if spec.padded % (F.BLOCK * n_shards):
+            raise ValueError(f"a bus of {spec.padded} does not divide into "
+                             f"{n_shards} BLOCK-multiple shards: pad it to "
+                             f"BLOCK x {n_shards}")
         dev = islands.device
         island_losses = []
         for j in range(n_pods):
@@ -306,8 +354,18 @@ def make_vc_round(model, n_pods: int, local_steps: int = 4, optimizer=None,
                 losses.append(loss)
             island_losses.append(torch.stack(losses).mean())
         w, w_s = _host_island_weights(n_pods, alpha, survivors)
-        out = assimilate_flat(server.buf, islands, w, w_s, in_place=True)
-        islands.copy_(out.unsqueeze(0).expand_as(islands))
+        out = assimilate_flat(server.buf, islands, w, w_s, in_place=True,
+                              mesh=mesh, shard_axis=flat_shard_axis)
+        if mesh is None:
+            islands.copy_(out.unsqueeze(0).expand_as(islands))
+        else:
+            seg = spec.padded // n_shards
+            back = redistribute_flat(out, n_pods, mesh=mesh,
+                                     shard_axis=flat_shard_axis)
+            for i, blk in enumerate(back.shards):
+                islands[:, i * seg:(i + 1) * seg].copy_(blk)
+            del back
+            out = S.gather_flat(out, dev)
         return (F.FlatParams(out, spec), islands, opts,
                 {"loss": torch.stack(island_losses).mean()})
 

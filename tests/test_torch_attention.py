@@ -141,10 +141,19 @@ def test_plain_attention_matches_blocked_attention_noncausal_softcap():
 
 
 def test_blocked_attention_refuses_context_parallel_chunks():
-    q = torch.zeros(1, 2, 8, 4, 16)
-    kv = torch.zeros(1, 16, 2, 16)
-    with pytest.raises(NotImplementedError, match="context-parallel"):
+    """P > 1 query chunks without their positions are refused (the
+    reference asserts P == 1 then); at the contiguous chunk positions
+    they are the one-chunk call on the same rows."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 2, 8, 4, 16, generator=g)
+    kv = torch.randn(1, 16, 2, 16, generator=g)
+    with pytest.raises(ValueError, match="q_positions"):
         L.blocked_attention(q, kv, kv, causal=True)
+    got = L.blocked_attention(q, kv, kv, causal=True,
+                              q_positions=np.arange(16).reshape(2, 8))
+    want = L.blocked_attention(q.reshape(1, 1, 16, 4, 16), kv, kv,
+                               causal=True)
+    assert torch.equal(got.reshape(want.shape), want)
 
 
 @pytest.fixture

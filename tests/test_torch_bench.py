@@ -1,7 +1,8 @@
 """The port's kernel bench on the CPU: ``python -m repro_torch.benchmarks.run
 --device cpu`` runs each suite (the plain versions, host-clock times) and
 keeps the reference's row names and ``_launches`` keys
-(``results/BENCH_{kernels,flat_assimilate,flat_adam,compression}.json``),
+(``results/BENCH_{kernels,flat_assimilate,flat_adam,compression,
+sharded_flat}.json``),
 apart from the rows the port adds (B4, B8 and B11 in ``kernels``); its
 CSV has no comma in ``derived``; the CPU route never builds a kernel; ``--check`` on the
 CPU is an error, and the launch gate itself compares exactly.
@@ -32,7 +33,8 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 REFERENCE = {"kernels": "BENCH_kernels", "flat": "BENCH_flat_assimilate",
              "flat_adam": "BENCH_flat_adam",
-             "compression": "BENCH_compression"}
+             "compression": "BENCH_compression",
+             "sharded_flat": "BENCH_sharded_flat"}
 ADDED = {"kernels": {"dc_lerp_flat_16M", "threshold_sparsify_2M",
                      "quantize_pack_105k"}}
 NOT_PORTED: dict = {}

@@ -1797,3 +1797,81 @@ def test_scan_backwards_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="chunk_states"):
         MK.mamba_scan_bwd(*args, _rand(dev, 1, 20, 64),
                           MK.chunk_states(args[0], 4))
+
+
+# ---------------------------------------------------------------------------
+# the sharded flat bus and B13 over context-parallel chunks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_sharded_flat_ops_launch_once_a_shard_bit_equal(dev, n_shards):
+    """Each sharded op launches its kernel once a shard, at the shard's
+    segment offset of the bus, and gathers to the whole-bus call's bits."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.runtime import sharding as S
+    n = 8 * 3 * BLOCK
+    s = _rand(dev, n, seed=1)
+    cl = s + 0.01 * _rand(dev, 4, n, seed=2)
+    g, v = 0.01 * _rand(dev, n, seed=3), _rand(dev, n, seed=4).abs()
+    mesh = make_pod_mesh(n_shards, device=dev)
+    sh = S.shard_buf(s, mesh)
+    assert [t.data_ptr() for t in sh.shards] == [
+        s.data_ptr() + 4 * i * (n // n_shards) for i in range(n_shards)]
+    w = [0.2, 0.1, 0.15, 0.25, 0.3]
+    adam = (1e-3, 0.9, 0.999, 1e-8, 0.01, 0.1, 0.001)
+    cases = {
+        "vc_asgd_lerp_flat": (lambda: [S.sharded_lerp_flat(
+            sh, cl[0], 0.7, mesh)], lambda: [ops.fused_lerp_flat(
+                s, cl[0], 0.7)]),
+        "assimilate_flat": (lambda: [S.sharded_assimilate_flat(
+            sh, cl, w, mesh)], lambda: [ops.fused_assimilate_flat(s, cl, w)]),
+        "adam_update_flat": (lambda: list(S.sharded_adam_update_flat(
+            sh, g, g, v, *adam, mesh)), lambda: list(ops.fused_adam_flat(
+                s, g, g, v, *adam))),
+        "easgd_elastic_flat": (lambda: list(S.sharded_easgd_flat(
+            sh, cl[:3], 0.3, mesh)), lambda: list(ops.fused_easgd_flat(
+                s, cl[:3], 0.3)))}
+    for name, (sharded, whole) in cases.items():
+        VK.reset_launch_count()
+        got = sharded()
+        assert VK.launch_counts() == {**dict.fromkeys(VK.KERNELS, 0),
+                                      name: n_shards}
+        for a, b in zip(got, whole()):
+            assert torch.equal(S.gather_flat(a), b), name
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 64),
+                                      (torch.float32, 64)])
+def test_flash_attention_over_cp_chunks_equals_one_chunk(dev, dtype, hd):
+    """``blocked_attention`` over 4 contiguous chunks is one B13 call on
+    the [b, h, P*sl, hd] view: the P = 1 call's bits, forward and (under
+    autograd) backward; the strided layout has no kernel and raises."""
+    from repro_torch.models import layers as L
+    b, P, sl, h, kvh = 2, 4, 128, 8, 4
+    q = _rand(dev, b, P * sl, h, hd, dtype=dtype, seed=5)
+    k = _rand(dev, b, P * sl, kvh, hd, dtype=dtype, seed=6)
+    v = _rand(dev, b, P * sl, kvh, hd, dtype=dtype, seed=7)
+    pos = np.arange(P * sl).reshape(P, sl)
+
+    def run(chunks, window):
+        qq, kk, vv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        qc = qq.reshape(b, P, sl, h, hd) if chunks else qq[:, None]
+        o = L.blocked_attention(qc, kk, vv, causal=True, window=window,
+                                q_positions=pos if chunks else None)
+        o.float().square().sum().backward()
+        return [o.reshape(b, P * sl, h, hd).detach(), qq.grad, kk.grad,
+                vv.grad]
+
+    for window in (None, 200):
+        VK.reset_launch_count()
+        got = run(True, window)
+        assert VK.launch_count("flash_attention") == 1
+        assert VK.launch_count("flash_attention_bwd") == 1
+        for a, w_ in zip(got, run(False, window)):
+            assert torch.equal(a, w_)
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        L.blocked_attention(q.reshape(b, P, sl, h, hd), k, v, causal=True,
+                            q_positions=L.strided_positions(P, sl))

@@ -245,10 +245,22 @@ def test_lane_gradient_equals_autograd_of_the_buffer():
 
 
 def test_vc_round_refuses_a_mesh_plan_and_a_bad_island_matrix():
+    from repro_torch.models.plan import NullPlan
     cfg = get_reduced("internlm2-1.8b")
     model = build_model(cfg)
     with pytest.raises(NotImplementedError, match="mesh plans"):
         VR.make_vc_round(model, 2, 1, plan=object())
+    # the one-card forms of the plans train: a context-parallel round
+    server = F.flatten(model.init(0, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (2, 1, 2, 16)).astype(np.int32))
+    outs = []
+    for plan in (VR.NULL_PLAN, NullPlan(attn_mode="cp", cp=4)):
+        isl, opts = VR.init_islands(server, 2, Adam(lr=LR))
+        rnd = VR.make_vc_round(model, 2, 1, Adam(lr=LR), plan=plan)
+        outs.append(rnd(server, isl, opts, {"tokens": toks}, 0.5,
+                        [True, True])[3]["loss"])
+    np.testing.assert_allclose(float(outs[1]), float(outs[0]), rtol=1e-5)
     server = F.flatten(model.init(0, device="cpu"))
     with pytest.raises(ValueError, match="islands must be"):
         VR.make_vc_round(model, 3, 1)(server, server.buf[None], [], {}, 0.5,

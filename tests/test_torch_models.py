@@ -311,9 +311,14 @@ def test_caches_from_reference_unstack_groups():
 
 def test_mesh_plans_and_other_blocks_raise():
     from repro_torch.models.common import BlockSpec, uniform_groups
-    from repro_torch.models.plan import NullPlan
+    from repro_torch.models.plan import NullPlan, require_one_card_plan
+    plan = NullPlan(attn_mode="cp", cp=4, moe_ep=True, ep=2)
+    require_one_card_plan(plan)                 # the one-card forms run
+    assert (plan.window_gather, plan.act(3, "bsd")) == (True, 3)
+    with pytest.raises(ValueError, match="attn_mode"):
+        NullPlan(attn_mode="ring")
     with pytest.raises(NotImplementedError, match="mesh plans"):
-        NullPlan(attn_mode="cp", cp=4)
+        require_one_card_plan(object())
     rwkv_moe = get_reduced("rwkv6-1.6b").replace(
         layer_groups=uniform_groups(2, BlockSpec(mixer="rwkv", ffn="moe")))
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -143,7 +143,7 @@ def test_port_record_resumes_bit_equal(tmp_path, arch):
 
 
 def test_mesh_and_device_are_refused(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh plans"):
+    with pytest.raises(NotImplementedError, match="mesh plans' layouts"):
         LT.main([*_common(ARCH), "--mesh", "1,2", "--device", "cpu",
                  "--ckpt-dir", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
