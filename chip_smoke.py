@@ -420,11 +420,33 @@ a card, or outside a checkout.  Phases:
       dispatch at capacity factor 8.0, within 0.15; at its own capacity
       factor the (token, choice) assignments each dispatch drops; one
       training step under EP.
-19. a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
-   each name their main path's route's source, under ``sources`` both
-   routes', and under ``route_by_head_dim`` the route bf16 takes at each
-   head dim), the nvidia-smi line, and the last line ``{"ok": true,
-   "device": {...}}``.
+19. the abstract shapes and the mesh plans as data; the production
+   plans' chunked decode caches (its wall printed; gemma3's weights
+   drawn on the CPU in a thread beside a-b):
+   a. every arch at full size on the meta device: ``param_specs`` and
+      ``param_count``, ``MeshPlan.build`` on 16 x 16 and 2 x 16 x 16 for
+      every applicable shape cell with its parameter, batch and cache
+      tables, every cell's ``input_specs``; ``memory_allocated``
+      unchanged; a line an arch with its count, bytes and the
+      decode_32k / long_500k plans' attn_mode, cache_mode and chunks;
+   b. internlm2-1.8b at full width, 2 layers, initialised on the card
+      without cast: its tree equals ``param_specs()`` in shape and dtype
+      and the bytes it asks the allocator for equal the specs'; prefill
+      4 x 2,048 through ``make_prefill_step`` under a ``MeshPlan`` over
+      a one-position mesh (caches equal ``cache_specs``), 96 decode
+      steps through ``make_decode_step``: B13 twice, wgmma;
+   c. the production plans' computing fields on one card
+      (``one_card_plan()``): internlm2 (b's weights) under its
+      decode_32k plan (16 chunks) at 4 x 2,048, gemma3-4b cut to blocks
+      0 and 5 of its first group under its long_500k plan (cp 16, 256
+      chunks) at 1 x 4,096; 70 teacher-forced decode steps across the
+      compaction, the logits within 0.15 of one chunk without cp.
+Then a ``kernels`` JSON line (all 18 kernels; B13's forward and backward
+each name their main path's route's source, under ``sources`` both
+routes', and under ``route_by_head_dim`` the route bf16 takes at each
+head dim; ``launches_phase18`` / ``launches_phase19`` their launches in
+those phases), the nvidia-smi line, and the last line ``{"ok": true,
+"device": {...}}``.
 
 Each phase's wall time is printed on its own line as the next begins,
 and at the end the sum of phases 1-13 (a slow host shows there) and the
@@ -5089,6 +5111,283 @@ def pod_mesh_and_plans(torch, np, VK, phases) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the abstract shapes and the mesh plans as data; the production
+# plans' chunked decode caches served on the card
+# ---------------------------------------------------------------------------
+
+# 19b: internlm2-1.8b at full width cut to CMP_LAYERS, initialised on the
+# card in the parameter dtype (no cast), prefilled b x s under a mesh plan
+# over one position, then `steps` greedy decode steps (the compaction
+# after step 64)
+SPEC_SERVE = (4, 2048, 96)
+# 19c: the production plans' chunked decode caches on one card, each run
+# CHUNK_STEPS teacher-forced decode steps across the compaction against
+# the same weights at one chunk (NullPlan()): internlm2 (19b's weights)
+# under its decode_32k plan at SPEC_SERVE's prompt; gemma3-4b's first
+# group cut to its first local and its global layer (as phase 8 picks
+# jamba's blocks) under its long_500k plan at CHUNK_GEMMA
+CHUNK_STEPS = 70
+CHUNK_GEMMA = (1, 4096)
+GEMMA_CHUNK_BLOCKS = (0, 5)
+
+
+def _requested(torch) -> int:
+    """Bytes the live tensors asked the caching allocator for (before its
+    rounding to blocks and segments)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _spec_str(t) -> str:
+    return f"{tuple(t.shape)} {t.dtype}"
+
+
+def _state_leaves(caches):
+    """The tensors of a list of decode states (or a WhisperDecCache)."""
+    if hasattr(caches, "self_cache"):
+        caches = [*caches.self_cache, *caches.cross]
+    return [t for state in caches for t in state]
+
+
+def shapes_and_plans_on_meta(torch) -> None:
+    """Phase 19a: every arch at full size on the meta device: its
+    parameter specs and count, ``MeshPlan.build`` on both production
+    meshes for every applicable cell (as the reference's dry run builds
+    them: the cell's tuning, bf16 serving weights without FSDP,
+    ``decode_batch`` for a decode cell) with its parameter, batch and
+    cache tables, and every cell's input specs; the card's allocation
+    unchanged."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs import shapes as PS
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.common import param_count
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import MeshPlan
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    meshes = {"16x16": (make_production_mesh(), "data"),
+              "2x16x16": (make_production_mesh(multi_pod=True),
+                          ("pod", "data"))}
+    specs = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        leaves = list(_leaves(build_model(cfg).param_specs()))
+        n = param_count(cfg)
+        check(all(t.is_meta for t in leaves)
+              and n == sum(t.numel() for t in leaves),
+              f"19a {arch}: specs not meta or {n} parameters miscounted")
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        told, n_tables = {}, 0
+        for mname, (mesh, data_axis) in meshes.items():
+            for cname, cell in PS.SHAPES.items():
+                if PS.cell_applicable(cfg, cell):
+                    continue
+                tuned = PS.tune_for_shape(cfg, cell)
+                serve = cell.kind != "train"
+                if serve:
+                    tuned = tuned.replace(param_dtype="bfloat16")
+                plan = MeshPlan.build(
+                    tuned, mesh, data_axis=data_axis,
+                    decode_batch=(cell.global_batch if cell.kind == "decode"
+                                  else None))
+                plan.fsdp = not serve
+                model = build_model(tuned)
+                if tuned not in specs:
+                    specs[tuned] = model.param_specs()
+                p_sh = list(_leaves(plan.param_shardings(specs[tuned])))
+                inputs = PS.input_specs(tuned, cell, plan)
+                batch = {k: v for k, v in inputs.items() if k != "caches"}
+                b_sh = plan.batch_shardings(batch)
+                ok = (len(p_sh) == len(leaves) and len(b_sh) == len(batch)
+                      and all(t.is_meta for t in batch.values()))
+                if serve:
+                    caches = inputs.get("caches") or model.cache_specs(
+                        cell.global_batch, cell.seq_len, plan)
+                    c_leaves = _state_leaves(caches)
+                    c_sh = _state_leaves(plan.cache_shardings(caches))
+                    ok = ok and len(c_sh) == len(c_leaves) and all(
+                        t.is_meta for t in c_leaves)
+                check(ok, f"19a {arch} {mname} {cname}: a table's leaves")
+                n_tables += 1
+                if cell.kind == "decode" and mname == "16x16":
+                    told[cname] = (f"{plan.attn_mode}/{plan.cache_mode}/"
+                                   f"{plan.cache_chunks}")
+        say(f"19a {arch}: {n:,} parameters, {nbytes:,} bytes "
+            f"({cfg.param_dtype}); {n_tables} plans with their tables; "
+            f"16x16 attn_mode/cache_mode/cache_chunks: decode_32k "
+            f"{told['decode_32k']}, long_500k "
+            f"{told.get('long_500k', 'not applicable')}")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(after == before, f"19a: memory_allocated {before} -> {after}")
+    say(f"19a: torch.cuda.memory_allocated {before} before, {after} after")
+
+
+def specs_on_card(torch, np, VK) -> tuple:
+    """Phase 19b: internlm2-1.8b (CMP_LAYERS at full width) initialised
+    on the card without cast: its tree equals ``param_specs()`` in shape
+    and dtype, and the bytes it asks the allocator for equal the specs'
+    bytes; a prefill through
+    ``make_prefill_step`` under a mesh plan over one position gives
+    caches equal to ``cache_specs``; SPEC_SERVE's decode steps through
+    ``make_decode_step``.  Returns (the model, its parameters, the
+    path's launches)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import compact_all, greedy
+    from repro_torch.models.layers import RECENT_RING
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import MeshPlan
+    from repro_torch.runtime.train import (make_decode_step,
+                                           make_prefill_step, padded_vocab_of)
+    cfg = depth_cut("internlm2-1.8b")
+    model = build_model(cfg)
+    specs = list(_leaves(model.param_specs()))
+    torch.cuda.synchronize()
+    req0, alloc0 = _requested(torch), torch.cuda.memory_allocated()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    added = _requested(torch) - req0
+    blocks = torch.cuda.memory_allocated() - alloc0
+    live = list(_leaves(params))
+    check([_spec_str(t) for t in live] == [_spec_str(t) for t in specs]
+          and all(t.is_cuda for t in live),
+          "19b: the live tree differs from param_specs()")
+    nbytes = sum(t.numel() * t.element_size() for t in specs)
+    check(added == nbytes, f"19b: init requested {added} bytes, the specs "
+          f"hold {nbytes}")
+    plan = MeshPlan.build(cfg, Mesh(("data", "model"), (1, 1)))
+    b, s, steps = SPEC_SERVE
+    tok = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    prefill, decode = make_prefill_step(model, plan), make_decode_step(
+        model, plan)
+    VK.reset_launch_count()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, caches = prefill(params, {"tokens": tok})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        want = model.cache_specs(b, s, plan)
+        check([_spec_str(t) for t in _state_leaves(caches)] ==
+              [_spec_str(t) for t in _state_leaves(want)],
+              "19b: the prefill's caches differ from cache_specs()")
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, caches = decode(params, caches, greedy(lg, cfg), s + i)
+            if (i + 1) % RECENT_RING == 0:
+                caches = compact_all(caches, s + i)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    counts = VK.launch_counts()
+    routes = LA.route_counts("flash_attention")
+    check(counts["flash_attention"] == cfg.n_layers
+          and _all_wgmma(routes, cfg.n_layers),
+          f"19b: B13 {counts['flash_attention']} launches, routes {routes}")
+    check(bool(torch.isfinite(lg).all())
+          and tuple(lg.shape) == (b, padded_vocab_of(model)),
+          "19b: decode logits not finite or of the wrong shape")
+    say(f"19b {cfg.describe()}: init on the card requested {added:,} "
+        f"bytes = the specs' {nbytes:,} (memory_allocated +{blocks:,}: the "
+        f"allocator's blocks); plan over "
+        f"mesh {plan.mesh.shape} ({plan.attn_mode}, {plan.cache_mode}, "
+        f"{plan.cache_chunks} chunk); prefill {b}x{s} {1e3 * t_prefill:.3f} "
+        f"ms cold, caches = cache_specs; {steps} decode steps "
+        f"{1e3 * t_decode / steps:.3f} ms a step; B13 "
+        f"{counts['flash_attention']} launches, routes {routes}")
+    return model, params, counts
+
+
+def _teacher_forced(torch, model, params, tok, plan, feed):
+    """Prefill ``tok`` under ``plan`` and CHUNK_STEPS decode steps fed
+    ``feed`` (or the run's own greedy tokens when None), compacting after
+    step 64.  Returns (the logit rows in f32, the tokens fed, the final
+    states, B13's launches by route)."""
+    from repro_torch.launch.serve import compact_all, greedy
+    from repro_torch.models.layers import RECENT_RING
+    cfg = model.cfg
+    s = tok.shape[1]
+    LA.reset_launch_count()
+    with torch.no_grad():
+        lg, caches = model.prefill(params, {"tokens": tok}, plan)
+        routes = LA.route_counts("flash_attention")
+        rows, fed = [lg.float()], []
+        for i in range(CHUNK_STEPS):
+            t = feed[i] if feed is not None else greedy(lg, cfg)
+            fed.append(t)
+            lg, caches = model.decode_step(params, caches, t, s + i, plan)
+            rows.append(lg.float())
+            if (i + 1) % RECENT_RING == 0:
+                caches = compact_all(caches, s + i)
+    torch.cuda.synchronize()
+    return rows, fed, caches, routes
+
+
+def chunked_decode_on_card(torch, np, model, master, gemma_future) -> None:
+    """Phase 19c: the production plans' chunked decode caches served on
+    one card (their computing fields as ``one_card_plan()``), each against
+    the same weights at one chunk: logits within CMP_TOL's bf16 bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.plan import NULL_PLAN
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import MeshPlan
+    mesh = make_production_mesh()
+    b, s, _ = SPEC_SERVE
+    gcfg = gemma3_group(GEMMA_CHUNK_BLOCKS)
+    runs = (("internlm2-1.8b", "decode_32k", model,
+             model.compute_params(master), (b, s), 128),
+            ("gemma3-4b", "long_500k", build_model(gcfg),
+             build_model(gcfg).compute_params(_tree_to(
+                 gemma_future.result(), "cuda")), CHUNK_GEMMA, 1))
+    for arch, cell, mdl, params, (bb, ss), dbatch in runs:
+        plan = MeshPlan.build(get_config(arch), mesh, decode_batch=dbatch)
+        one_card = plan.one_card_plan()
+        tok = torch.from_numpy(np.random.default_rng(191).integers(
+            0, mdl.cfg.vocab_size, (bb, ss)).astype(np.int32)).cuda()
+        t0 = time.perf_counter()
+        want, fed, _, r1 = _teacher_forced(torch, mdl, params, tok,
+                                           NULL_PLAN, None)
+        t1 = time.perf_counter()
+        got, _, caches, rc = _teacher_forced(torch, mdl, params, tok,
+                                             one_card, fed)
+        t2 = time.perf_counter()
+        chunks = {int(c.k_old.shape[2]) for c in caches}
+        check(chunks == {plan.cache_chunks},
+              f"19c {arch}: cache chunks {chunks}, plan "
+              f"{plan.cache_chunks}")
+        v = mdl.cfg.vocab_size
+        d = max(float((a[:, :v] - w[:, :v]).abs().max())
+                for a, w in zip(got, want))
+        check(all(bool(torch.isfinite(a).all()) for a in got)
+              and d <= CMP_TOL["bfloat16"],
+              f"19c {arch}: logits max |diff| {d} > {CMP_TOL['bfloat16']}")
+        say(f"19c {mdl.cfg.describe()}: its {cell} plan on 16x16 "
+            f"({plan.attn_mode}, cp {plan.cp}, {plan.cache_mode} cache in "
+            f"{plan.cache_chunks} chunks) on one card, prefill {bb}x{ss} + "
+            f"{CHUNK_STEPS} decode steps across the compaction "
+            f"({t2 - t1:.3f} s; B13 routes {rc}) vs one chunk, no cp "
+            f"({t1 - t0:.3f} s; B13 routes {r1}): logits max |diff| {d:.4g} "
+            f"(bound {CMP_TOL['bfloat16']})")
+        del params, got, want, caches
+        torch.cuda.empty_cache()
+
+
+def shapes_and_plans(torch, np, VK, phases) -> dict:
+    """Phase 19 (a-c), with its wall.  Returns 19b's launches."""
+    t0 = time.perf_counter()
+    gemma = _draw_in_threads({"gemma": gemma3_group(GEMMA_CHUNK_BLOCKS)})
+    phases.start("19a")
+    shapes_and_plans_on_meta(torch)
+    phases.start("19b")
+    model, master, counts = specs_on_card(torch, np, VK)
+    phases.start("19c")
+    chunked_decode_on_card(torch, np, model, master, gemma["gemma"])
+    del master
+    torch.cuda.empty_cache()
+    say(f"phase 19 (a-c) wall: {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 def _leaves(node):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(node, (dict, list)):
@@ -5380,7 +5679,10 @@ def main() -> int:
     # ---- 18. the pod mesh, the sharded bus, the plans' one-card forms -
     pod_counts18 = pod_mesh_and_plans(torch, np, VK, phases)          # 18a-e
 
-    # ---- 19. result lines -------------------------------------------------
+    # ---- 19. the abstract shapes and plans; the chunked decode caches ---
+    counts19 = shapes_and_plans(torch, np, VK, phases)                # 19a-c
+
+    # ---- result lines -----------------------------------------------------
     phases.end()
     path_counts = {"assimilate_flat": eq2_counts,        # 4b
                    "vc_asgd_lerp_flat": main_counts,     # 4c
@@ -5409,6 +5711,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         if name in pod_counts18:    # phase 18's launches of the kernel
             entry["launches_phase18"] = pod_counts18[name]
+        if counts19.get(name):      # phase 19b's path (B13 only)
+            entry["launches_phase19"] = counts19[name]
         if "host_us" in r:          # host us a wrapper call, where taken
             entry["host_us"] = r["host_us"]
             entry["library_host_us"] = r["library_host_us"]

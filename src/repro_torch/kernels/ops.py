@@ -10,9 +10,19 @@ card, attention, WKV6 and the selective scan go through their autograd
 Functions (``FlashAttention``, ``WKV6``, ``MambaScan``): the forward
 kernel, then the hand-written backward kernel.  On the CPU the plain
 versions are differentiated by autograd.
+
+Inside ``with meta_route():`` attention, WKV6 and the selective scan
+also take meta tensors, for a shape-only run the caller names
+(``Model.param_specs`` and a prefill over them): a call whose inputs are
+all meta tensors returns empty outputs of the right shapes and dtypes and
+runs neither a kernel nor a plain version.  A cuda or cpu input never
+takes the route, a mix of meta and other inputs raises, and outside the
+block a meta tensor raises as any other device does.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
@@ -143,6 +153,37 @@ def fused_quantize_pack(sel, idx, block: int = 256):
     return R.quantize_pack(sel, idx, block)
 
 
+_META = threading.local()
+
+
+@contextlib.contextmanager
+def meta_route():
+    """Within the block (on this thread), attention, WKV6 and the scan
+    give meta outputs for all-meta inputs."""
+    prev = getattr(_META, "on", False)
+    _META.on = True
+    try:
+        yield
+    finally:
+        _META.on = prev
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """True when the meta route is on and every input is a meta tensor;
+    False when it is off or none is; a mix raises."""
+    if not getattr(_META, "on", False):
+        return False
+    kinds = {t.device.type == "meta" for t in tensors}
+    if len(kinds) > 1:
+        raise ValueError(f"meta and non-meta inputs mixed: "
+                         f"{[str(t.device) for t in tensors]}")
+    return kinds.pop()
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -153,6 +194,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     online-softmax attention with GQA, causal mask, window, softcap —
     ONE launch.  Under autograd on the card: ``FlashAttention`` (the same
     launch, and the backward kernel in backward; no softcap)."""
+    if _on_meta(q, k, v):
+        if q.dim() != 4 or k.shape != v.shape or q.shape[1] % k.shape[1]:
+            raise ValueError(f"attention of q {tuple(q.shape)} over k "
+                             f"{tuple(k.shape)}, v {tuple(v.shape)}")
+        return _meta(q.shape, q.dtype)
     if _on_cuda(q):
         if _needs_grad(q, k, v):
             if softcap is not None:
@@ -172,6 +218,9 @@ def wkv6(r, k, v, w, u):
     zero state — ONE launch.  Under autograd on the card: ``WKV6`` (the
     same launch, also writing the chunk states; the backward kernel in
     backward; f32 only)."""
+    if _on_meta(r, k, v, w, u):
+        b, h, _, hd = r.shape
+        return _meta(r.shape, r.dtype), _meta((b, h, hd, hd), torch.float32)
     if _on_cuda(r):
         if _needs_grad(r, k, v, w, u):
             return _rw.WKV6.apply(r, k, v, w, u)
@@ -185,6 +234,10 @@ def mamba_scan(u, dt, B, C, A, D):
     selective scan from a zero state — ONE launch.  Under autograd on the
     card: ``MambaScan`` (the same launch, also writing the chunk states;
     the backward kernel in backward)."""
+    if _on_meta(u, dt, B, C, A, D):
+        b, _, di = u.shape
+        return (_meta(u.shape, u.dtype),
+                _meta((b, di, A.shape[1]), torch.float32))
     if _on_cuda(u):
         if _needs_grad(u, dt, B, C, A, D):
             return _ms.MambaScan.apply(u, dt, B, C, A, D)

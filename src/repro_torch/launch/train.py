@@ -45,11 +45,12 @@ from repro_torch.core import flat as F
 from repro_torch.core.vc_asgd import const_alpha, var_alpha
 from repro_torch.data import make_batch_for
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer as T
-from repro_torch.models import whisper as W
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.plan import NULL_PLAN, require_one_card_plan
 from repro_torch.models.registry import build_model
 from repro_torch.optim.optimizers import Adam
+from repro_torch.runtime.sharding import MeshPlan
 from repro_torch.runtime.vc_runtime import (init_islands, make_vc_round,
                                             redistribute_flat)
 
@@ -78,29 +79,29 @@ def _round_batches(cfg: ModelConfig, n_pods: int, local_steps: int,
 
 def _skeleton(cfg: ModelConfig) -> dict:
     """The port's parameter tree on the meta device: shapes and dtypes,
-    no storage, no draws."""
-    init = W.init_whisper if cfg.is_enc_dec else T.init_lm
-    with torch.device("meta"):
-        return init(0, cfg, device="meta")
+    no storage, no draws (``Model.param_specs``)."""
+    return build_model(cfg).param_specs()
 
 
 def train(cfg: ModelConfig, *, islands: int = 2, rounds: int = 10,
           local_steps: int = 4, batch: int = 8, seq: int = 128,
           alpha="var", lr: float = 1e-3, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 1, keep: int = 3, preempt_round: int = -1,
-          seed: int = 0, device="cuda",
+          seed: int = 0, device="cuda", plan=NULL_PLAN,
           log: Callable[[str], None] = print) -> TrainResult:
     """Train ``cfg`` (a published config, a reduced one, or one a caller
     cut in depth) for rounds ``[start, rounds)``, resuming from the newest
     record in ``ckpt_dir`` (None: no checkpoints).  The weights are the
     port's init from ``seed``, on ``device`` (the card unless the caller
-    names the CPU)."""
+    names the CPU).  ``plan``: a one-card plan (``models/plan.py``), or
+    a mesh plan over one mesh position (``--mesh 1,1``)."""
     dev = resolve_device(device)
     model = build_model(cfg)
     n_pods = islands
     optimizer = Adam(lr=lr)
     alpha_fn = var_alpha() if alpha == "var" else const_alpha(float(alpha))
-    vc_round = make_vc_round(model, n_pods, local_steps, optimizer)
+    vc_round = make_vc_round(model, n_pods, local_steps, optimizer,
+                             plan=plan)
 
     skel = _skeleton(cfg)
     spec = F.tree_spec(skel)
@@ -184,7 +185,9 @@ def main(argv=None) -> int:
                     help="'var' (paper schedule) or a float")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--mesh", default="1,1",
-                    help="data,model mesh inside each island: only 1,1")
+                    help="data,model mesh inside each island: one position "
+                         "(1,1); larger meshes wait for the layouts across "
+                         "cards")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (default: a fresh temp dir)")
     ap.add_argument("--ckpt-every", type=int, default=1,
@@ -195,18 +198,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: an island is one card; the mesh plans' "
-            f"layouts over several cards are not ported (ROADMAP.md queue "
-            f"A item 2b)")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    plan = MeshPlan.build(cfg, Mesh(("data", "model"), tuple(
+        int(x) for x in args.mesh.split(","))))
+    require_one_card_plan(plan)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="vctorch_ckpt_")
     train(cfg, islands=args.islands, rounds=args.rounds,
           local_steps=args.local_steps, batch=args.batch, seq=args.seq,
           alpha=args.alpha, lr=args.lr, ckpt_dir=ckpt_dir,
           ckpt_every=args.ckpt_every, preempt_round=args.preempt_round,
-          seed=args.seed, device=args.device,
+          seed=args.seed, device=args.device, plan=plan,
           log=lambda m: print(m, flush=True))
     return 0
 

@@ -11,6 +11,7 @@ attention / MoE stack run in the port so far.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Literal, Optional, Tuple
 
@@ -177,6 +178,25 @@ class ModelConfig:
     def is_enc_dec(self) -> bool:
         return self.encoder is not None
 
+    @property
+    def is_attention_free(self) -> bool:
+        return all(b.mixer != "attn" for b in self.all_blocks)
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """True when the per-step decode state is bounded or sub-quadratic:
+        attention-free, all sliding-window (a rolling cache), or full
+        attention in at most a quarter of the layers (jamba, gemma3).  A
+        pure full-attention stack returns False (long_500k is skipped)."""
+        blocks = self.all_blocks
+        attn_blocks = [b for b in blocks if b.mixer == "attn"]
+        if not attn_blocks:
+            return True
+        full = [b for b in attn_blocks if b.attn_kind == "full"]
+        if not full:
+            return True
+        return len(full) <= len(blocks) // 4
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -195,3 +215,17 @@ def uniform_groups(n_layers: int, block: BlockSpec, superblock: int = 1
                          f"of {superblock}")
     return (LayerGroup(blocks=(block,) * superblock,
                        repeats=n_layers // superblock),)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Exact parameter count from the shapes of ``Model.param_specs()``
+    (meta tensors: nothing is drawn or allocated), summed in Python
+    integers.  The reference's ``param_count`` takes each leaf's size as
+    an int32 product, which wraps for leaves of 2^31 elements and more
+    (jamba-v0.1's expert stacks): it gives 30,707,712 for the full jamba,
+    this 51,570,315,264."""
+    from repro_torch.core.flat import tree_flatten
+    from repro_torch.models.registry import build_model
+
+    leaves, _ = tree_flatten(build_model(cfg).param_specs())
+    return sum(math.prod(t.shape) for t in leaves)

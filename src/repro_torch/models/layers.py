@@ -315,6 +315,28 @@ def make_decode_cache(b: int, kv: int, chunks: int, chunk_len: int, hd: int,
     )
 
 
+def meta_spec(shape, dtype) -> torch.Tensor:
+    """A shape-and-dtype stand-in (the reference's ``ShapeDtypeStruct``):
+    a tensor on the meta device, which allocates nothing."""
+    return torch.empty(tuple(int(n) for n in shape), dtype=dtype,
+                       device="meta")
+
+
+def cache_specs(b: int, kv: int, chunks: int, chunk_len: int, hd: int,
+                dtype, recent: int = RECENT_RING) -> DecodeCache:
+    """Meta tensors mirroring ``make_decode_cache`` (the dry-run's and the
+    mesh plans' cache shapes)."""
+    i32 = torch.int32
+    return DecodeCache(
+        k_old=meta_spec((b, kv, chunks, chunk_len, hd), dtype),
+        v_old=meta_spec((b, kv, chunks, chunk_len, hd), dtype),
+        old_pos=meta_spec((chunks, chunk_len), i32),
+        k_rec=meta_spec((b, kv, recent, hd), dtype),
+        v_rec=meta_spec((b, kv, recent, hd), dtype),
+        rec_pos=meta_spec((recent,), i32),
+    )
+
+
 def decode_attention(q: torch.Tensor, cache: DecodeCache, pos: int, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None) -> torch.Tensor:

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import he_normal
+from repro_torch.models.layers import he_normal, meta_spec
 
 _F32 = torch.float32
 
@@ -116,6 +116,13 @@ def mamba_decode_state(b: int, cfg: ModelConfig, device="cpu") -> MambaState:
     return MambaState(
         conv=torch.zeros(b, di, dc - 1, dtype=cfg.cdtype, device=device),
         ssm=torch.zeros(b, di, ds, dtype=_F32, device=device))
+
+
+def mamba_state_specs(b: int, cfg: ModelConfig, dtype) -> MambaState:
+    """Meta tensors of ``mamba_decode_state``'s shapes (conv in ``dtype``)."""
+    di, ds, dc, _ = _dims(cfg)
+    return MambaState(conv=meta_spec((b, di, dc - 1), dtype),
+                      ssm=meta_spec((b, di, ds), _F32))
 
 
 def mamba_decode(p, x: torch.Tensor, state: MambaState, cfg: ModelConfig

@@ -6,13 +6,15 @@ parallelism (``attn_mode="cp"``, ``cp`` chunks, the SWA layers gathering
 only neighbour kv chunks when ``window_gather``) and the expert-parallel
 MoE dispatch (``moe_ep``, ``ep`` source groups with a capacity each).
 ``"head_tp"`` computes what ``"local"`` computes on one device.  ``act``
-is the identity: the layouts of the mesh plans (``MeshPlan``: parameter,
-activation and cache specs over several cards) are not ported, and the
-port's entry points refuse any plan that is not a ``NullPlan``
-(``require_one_card_plan``).
+is the identity.  The mesh plan (``runtime/sharding.py::MeshPlan``, a
+``NullPlan`` with a mesh and its parameter, activation and cache specs)
+is ported as data; the models take one whose mesh has one position, and
+``require_one_card_plan`` refuses one over several (its layouts across
+cards wait in ROADMAP queue A item 2b).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 ATTN_MODES = ("local", "head_tp", "cp")
@@ -48,11 +50,22 @@ NULL_PLAN = NullPlan()
 
 
 def require_one_card_plan(plan) -> None:
-    """Raise unless ``plan`` is a ``NullPlan``: the one-card forms are
-    ported, the mesh plans' layouts over several cards are not (ROADMAP
-    queue A item 2b)."""
+    """Raise unless ``plan`` runs on one device: a ``NullPlan``, or a mesh
+    plan (a ``NullPlan`` with a ``mesh``) whose mesh has one position.  A
+    mesh plan over several positions needs its layouts applied across
+    cards, which is not ported (ROADMAP queue A item 2b); its computing
+    fields run on one card as ``plan.one_card_plan()``."""
     if not isinstance(plan, NullPlan):
         raise NotImplementedError(
-            f"{type(plan).__name__}: only the one-card plans (NullPlan: "
-            f"local, head_tp, cp, moe_ep) are ported; the mesh plans' "
-            f"layouts over several cards wait in ROADMAP queue A item 2b")
+            f"{type(plan).__name__}: the models take a NullPlan (local, "
+            f"head_tp, cp, moe_ep), or one of the mesh plans over one mesh "
+            f"position")
+    mesh = getattr(plan, "mesh", None)
+    if mesh is not None:
+        n = math.prod(mesh.axis_sizes)
+        if n != 1:
+            raise NotImplementedError(
+                f"{type(plan).__name__} over a mesh of {n} positions "
+                f"{dict(mesh.shape)}: the mesh plans' layouts across cards "
+                f"are not ported (ROADMAP queue A item 2b); run its computing "
+                f"fields on one card with plan.one_card_plan()")

@@ -7,11 +7,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.plan import NULL_PLAN
+from repro_torch.models.plan import NULL_PLAN, require_one_card_plan
 
 
 @dataclass(frozen=True)
@@ -29,6 +31,23 @@ class Model:
         init = W.init_whisper if self.cfg.is_enc_dec else T.init_lm
         return init(seed, self.cfg, resolve_device(device), cast)
 
+    def param_specs(self):
+        """The parameter tree of ``init`` (its layout, shapes and dtypes)
+        as meta tensors: the init runs under the meta device, so nothing
+        is drawn and nothing is allocated, at any size (the dry run's and
+        the mesh plans' input)."""
+        init = W.init_whisper if self.cfg.is_enc_dec else T.init_lm
+        meta = torch.device("meta")
+        with meta:
+            return init(0, self.cfg, meta, False)
+
+    def cache_specs(self, b: int, seq_len: int, plan=NULL_PLAN):
+        """Meta tensors of the decode states ``prefill`` emits for ``b``
+        prompts of ``seq_len`` positions under ``plan``."""
+        if self.cfg.is_enc_dec:
+            return W.whisper_cache_specs(self.cfg, b, seq_len, plan)
+        return T.decode_cache_specs(self.cfg, b, seq_len, plan)
+
     def compute_params(self, params):
         """Matmul weights cast to the compute dtype once (see
         ``transformer.compute_params``)."""
@@ -37,21 +56,25 @@ class Model:
     def loss(self, params, batch, plan=NULL_PLAN, remat: bool = True):
         """(loss, {"ce", "aux"}): ``transformer.lm_loss`` or
         ``whisper.whisper_loss``."""
+        require_one_card_plan(plan)
         if self.cfg.is_enc_dec:
             return W.whisper_loss(params, self.cfg, batch, plan, remat=remat)
         return T.lm_loss(params, self.cfg, batch, plan, remat=remat)
 
     def forward(self, params, batch, plan=NULL_PLAN):
+        require_one_card_plan(plan)
         if self.cfg.is_enc_dec:
             return W.whisper_forward(params, self.cfg, batch, plan)
         return T.lm_forward(params, self.cfg, batch, plan)[0]
 
     def prefill(self, params, batch, plan=NULL_PLAN):
+        require_one_card_plan(plan)
         if self.cfg.is_enc_dec:
             return W.whisper_prefill(params, self.cfg, batch, plan)
         return T.lm_prefill(params, self.cfg, batch, plan)
 
     def decode_step(self, params, caches, token, pos, plan=NULL_PLAN):
+        require_one_card_plan(plan)
         if self.cfg.is_enc_dec:
             return W.whisper_decode_step(params, self.cfg, caches, token,
                                          pos, plan)

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import he_normal, lecun_normal
+from repro_torch.models.layers import he_normal, lecun_normal, meta_spec
 
 _F32 = torch.float32
 
@@ -183,6 +183,14 @@ def rwkv_state_init(b: int, cfg: ModelConfig, device="cpu") -> RWKVState:
         wkv=torch.zeros(b, h, hd, hd, dtype=_F32, device=device),
         tm_prev=torch.zeros(b, cfg.d_model, dtype=cfg.cdtype, device=device),
         cm_prev=torch.zeros(b, cfg.d_model, dtype=cfg.cdtype, device=device))
+
+
+def rwkv_state_specs(b: int, cfg: ModelConfig) -> RWKVState:
+    """Meta tensors of ``rwkv_state_init``'s shapes."""
+    h, hd = _dims(cfg)
+    return RWKVState(wkv=meta_spec((b, h, hd, hd), _F32),
+                     tm_prev=meta_spec((b, cfg.d_model), cfg.cdtype),
+                     cm_prev=meta_spec((b, cfg.d_model), cfg.cdtype))
 
 
 def time_mix_recurrent_ref(p, x: torch.Tensor, cfg: ModelConfig

@@ -432,6 +432,13 @@ def _to_decode_state(kv, spec: BlockSpec, cfg: ModelConfig, s: int, plan):
     b, dev, dt = k.shape[0], k.device, cfg.cdtype
     C = plan.cache_chunks
     cache_len = _cache_len(cfg, spec, s, plan)
+    if cache_len > s:
+        raise ValueError(
+            f"{cfg.arch}: a {s}-token prompt at cache_chunks={C}: the old "
+            f"tier rounds up to {cache_len} positions, more than the prompt "
+            f"holds (the reference fails on it too, and padding would "
+            f"compute something else); give a prompt length that {C} "
+            f"divides")
     ln = cache_len // C
     kc = k.transpose(1, 2)[:, :, -cache_len:].to(dt)      # [b, kv, S, hd]
     vc = v.transpose(1, 2)[:, :, -cache_len:].to(dt)
@@ -456,6 +463,27 @@ def _cache_len(cfg: ModelConfig, spec: BlockSpec, total: int, plan) -> int:
     n = min(total, spec.window) if (spec.attn_kind == "swa"
                                     and spec.window is not None) else total
     return -(-n // C) * C
+
+
+def decode_cache_specs(cfg: ModelConfig, b: int, seq_len: int,
+                       plan=NULL_PLAN) -> List[Any]:
+    """Meta tensors of the decode states ``lm_prefill`` emits for ``b``
+    prompts of ``seq_len`` positions under ``plan``: one state a layer, in
+    ``cfg.all_blocks`` order (the reference stacks each layer group's
+    repeats; ``convert.caches_from_reference`` unstacks).  Nothing is
+    allocated."""
+    out = []
+    for spec in cfg.all_blocks:
+        if spec.mixer == "attn":
+            C = plan.cache_chunks
+            ln = _cache_len(cfg, spec, seq_len, plan) // C
+            out.append(L.cache_specs(b, cfg.n_kv_heads, C, ln, cfg.hd,
+                                     cfg.cdtype))
+        elif spec.mixer == "mamba":
+            out.append(M.mamba_state_specs(b, cfg, cfg.cdtype))
+        else:
+            out.append(R.rwkv_state_specs(b, cfg))
+    return out
 
 
 # ---------------------------------------------------------------------------

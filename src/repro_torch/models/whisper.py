@@ -251,6 +251,23 @@ def whisper_prefill(params, cfg: ModelConfig, batch, plan=NULL_PLAN):
                                                              cross)
 
 
+def whisper_cache_specs(cfg: ModelConfig, b: int, seq_len: int,
+                        plan=NULL_PLAN) -> WhisperDecCache:
+    """Meta tensors of the ``WhisperDecCache`` ``whisper_prefill`` emits
+    for ``b`` prompts of ``seq_len`` tokens: per decoder layer the
+    self-attention cache (``ceil(seq_len / cache_chunks)`` slots a chunk)
+    and the encoder's K/V.  Nothing is allocated."""
+    C = plan.cache_chunks
+    ln = -(-seq_len // C)
+    kvh, hd, dt = cfg.n_kv_heads, cfg.hd, cfg.cdtype
+    nf = cfg.encoder.n_frames
+    return WhisperDecCache(
+        [L.cache_specs(b, kvh, C, ln, hd, dt) for _ in range(cfg.n_layers)],
+        [CrossCache(k=L.meta_spec((b, kvh, nf, hd), dt),
+                    v=L.meta_spec((b, kvh, nf, hd), dt))
+         for _ in range(cfg.n_layers)])
+
+
 def _xattn_decode(p, h: torch.Tensor, cross: CrossCache, cfg: ModelConfig):
     """One token's cross attention against the encoder's K/V, h: [b, d]:
     scores in f32 over the compute-dtype operands, the softmax in f32,

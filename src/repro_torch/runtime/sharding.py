@@ -1,5 +1,16 @@
-"""The sharded flat bus (port of the flat half of
-``repro/runtime/sharding.py``: ``flat_sharding`` ... ``ep_tune``).
+"""The sharding planner as data, and the sharded flat bus (port of
+``repro/runtime/sharding.py``).
+
+``MeshPlan`` decides, for a config on a mesh (``launch/mesh.py``), how
+every parameter, batch input, decode cache and named activation is laid
+out, as ``PartitionSpec``s over the mesh's axes, by the reference's rules:
+head-TP attention where the heads divide the model axis, else
+context-parallel (local below d_model 1024); FFNs TP over the model axis;
+vocab over the model axis; FSDP of the other dim over data where it
+divides; decode caches by kv head, else in sequence chunks.  The plan is
+data: no process group, and no layout applied to a tensor.  Its
+computing fields run on one card as a ``NullPlan`` (``one_card_plan``),
+and the models take a plan whose mesh has one position.
 
 The FlatParams bus (``core/flat.py``) partitioned along a mesh axis: with
 a ``ShardedTreeSpec`` layout (or any bus whose length the axis divides
@@ -20,15 +31,12 @@ because B2 and B5 read contiguous [k, n] rows.  Results stay sharded;
 
 ``ep_tune`` picks the MoE's virtual-expert factor for an expert-parallel
 degree (``models/layers.py::apply_moe_ep``).
-
-The layouts of the mesh plans (``MeshPlan``: parameter, activation and
-cache specs, FSDP, head-TP) are not ported: they need collectives across
-cards.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import math
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,7 +44,383 @@ from repro_torch.core import flat as F
 from repro_torch.kernels import ops as K
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import DecodeCache
+from repro_torch.models.mamba import MambaState
+from repro_torch.models.plan import NullPlan, require_one_card_plan
+from repro_torch.models.rwkv import RWKVState
+from repro_torch.models.whisper import CrossCache, WhisperDecCache
 
+
+# ---------------------------------------------------------------------------
+# MeshPlan: the sharding planner, as data (what it chooses and its specs)
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """One mesh-axis entry a tensor dim: None (replicated), an axis name,
+    or a tuple of axis names (the dim split over their product), as the
+    reference's ``jax.sharding.PartitionSpec`` holds them."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's layout: ``spec`` over the axes of ``mesh`` (the
+    reference's ``NamedSharding``).  A record only: nothing is placed."""
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+def _divides(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+def _tup(x) -> tuple:
+    if x is None:
+        return ()
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _map_with_path(fn, node, path=()):
+    """``fn(path, leaf)`` over a tree of dicts, lists, tuples and
+    NamedTuples (``path`` the keys, indices and field names down to the
+    leaf), keeping the tree's structure."""
+    if isinstance(node, dict):
+        return {k: _map_with_path(fn, v, path + (k,))
+                for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_map_with_path(fn, v, path + (f,))
+                            for f, v in zip(node._fields, node)))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(node))
+    return fn(path, node)
+
+
+@dataclasses.dataclass
+class MeshPlan(NullPlan):
+    """The plan of ``cfg`` on ``mesh`` (the reference's ``MeshPlan``): the
+    computing fields of a ``NullPlan`` chosen for the mesh (``build``),
+    and the layouts of every parameter (``param_shardings``), batch input
+    (``batch_shardings``), decode cache (``cache_shardings``) and named
+    activation (``act_spec``) as ``PartitionSpec``s over its axes.
+
+    Data only: no process group, and no layout is applied to a tensor.
+    The models take a plan whose mesh has one position (``act`` is the
+    identity there); one over several positions is refused
+    (``models/plan.py::require_one_card_plan``), and its computing fields
+    run on one card as ``one_card_plan()``."""
+    mesh: Mesh = None
+    cfg: ModelConfig = None
+    data_axis: Any = "data"          # ("pod", "data") for multi-pod DP
+    model_axis: Any = "model"
+    tp: int = 1
+    dp: int = 1
+    fsdp: bool = True
+    kv_sharded: bool = False         # kv heads divide tp
+    cache_mode: str = "seq"          # "heads" | "seq"
+
+    @classmethod
+    def build(cls, cfg: ModelConfig, mesh: Mesh, data_axis="data",
+              model_axis="model", attn_mode: Optional[str] = None,
+              decode_batch: Optional[int] = None, moe_ep: bool = False,
+              zero_dp: bool = False) -> "MeshPlan":
+        """Attention: replicated below d_model 1024 ("local"), head-TP
+        where the heads divide the model axis, else context-parallel over
+        it; the kv heads sharded when they divide too.  Decode caches: by
+        kv head when sharded, else the old tier in ``tp`` sequence chunks
+        (``tp * dp`` for a decode batch the data axis does not divide).
+        ``moe_ep``: experts over the data axis (``ep_tune`` first).
+        ``zero_dp``: the model axis folded into data (pure DP with fully
+        sharded parameters, attention local)."""
+        if zero_dp:
+            data_axis = (*_tup(data_axis), *_tup(model_axis))
+            model_axis = None
+            attn_mode = attn_mode or "local"
+        tp = math.prod(mesh.shape[a] for a in _tup(model_axis))
+        dp = math.prod(mesh.shape[a] for a in _tup(data_axis))
+        if moe_ep and (cfg.moe is None or cfg.moe.n_virtual % dp):
+            raise ValueError("set cfg.moe.ep_virtual so n_virtual divides "
+                             "the data axis (use ep_tune)")
+        if attn_mode is None:
+            if cfg.d_model < 1024:
+                attn_mode = "local"
+            elif _divides(cfg.n_heads, tp):
+                attn_mode = "head_tp"
+            else:
+                attn_mode = "cp"
+        kv_sharded = attn_mode == "head_tp" and _divides(cfg.n_kv_heads, tp)
+        cache_mode = "heads" if kv_sharded else "seq"
+        chunks = tp if cache_mode == "seq" else 1
+        # batch-1 long-context decode: nothing to shard over data, so the
+        # cache chunk dim takes both axes
+        if (decode_batch is not None and not _divides(decode_batch, dp)
+                and cache_mode == "seq"):
+            chunks = tp * dp
+        return cls(mesh=mesh, cfg=cfg, data_axis=data_axis,
+                   model_axis=model_axis, tp=tp, dp=dp,
+                   attn_mode=attn_mode, cp=(tp if attn_mode == "cp" else 1),
+                   kv_sharded=kv_sharded, cache_mode=cache_mode,
+                   cache_chunks=chunks, moe_ep=moe_ep,
+                   ep=(dp if moe_ep else 1))
+
+    def one_card_plan(self) -> NullPlan:
+        """The computing fields as a ``NullPlan``: what this plan computes,
+        run on one device through the one-card forms (CP chunks, the
+        chunked decode cache, the expert-parallel dispatch)."""
+        return NullPlan(attn_mode=self.attn_mode, cp=self.cp,
+                        cache_chunks=self.cache_chunks,
+                        window_gather=self.window_gather,
+                        moe_ep=self.moe_ep, ep=self.ep)
+
+    def _axis_size(self, a) -> int:
+        return math.prod(self.mesh.shape[x] for x in _tup(a))
+
+    def _fit(self, spec: PartitionSpec, shape) -> PartitionSpec:
+        """Drop the sharding of any dim the shape does not divide (a
+        batch of 1)."""
+        out = []
+        for i, a in enumerate(spec):
+            if a is None or i >= len(shape):
+                out.append(a)
+                continue
+            out.append(a if shape[i] % self._axis_size(a) == 0 else None)
+        return P(*out)
+
+    @property
+    def chunk_axes(self):
+        """The mesh axes carrying the decode cache's chunk dim."""
+        if self.cache_chunks > self.tp:
+            return (*_tup(self.data_axis), *_tup(self.model_axis))
+        return self.model_axis
+
+    def _ns(self, spec: PartitionSpec) -> NamedSharding:
+        return NamedSharding(self.mesh, spec)
+
+    def act(self, x, kind: str):
+        """The identity on a mesh of one position; over several it raises
+        (``require_one_card_plan``: the layouts across cards are not
+        ported)."""
+        require_one_card_plan(self)
+        return x
+
+    def act_spec(self, kind: str, ndim: Optional[int] = None
+                 ) -> Optional[PartitionSpec]:
+        D, M = self.data_axis, self.model_axis
+        table = {
+            "bsd": P(D, None, None),
+            "enc_bsd": P(D, None, None),
+            "cp_bpsd": P(D, M, None, None),
+            "q_bshd": P(D, None, M if self.attn_mode == "head_tp" else None,
+                        None),
+            "kv_bshd": P(D, None, M if self.kv_sharded else None, None),
+            "q_bpshd": P(D, M, None, None, None),
+            "kv_rep": P(D, None, None, None),
+            "kv_gather": P(D, M, None, None, None, None),
+            "logits": P(D, None, M),
+            "dec_x": P(D, None),
+            "dec_q": P(D, M if self.kv_sharded else None, None),
+            "dec_logits": P(D, M),
+            "cache_old": (P(D, M, None, None, None)
+                          if self.cache_mode == "heads"
+                          else P(D, None, M, None, None)),
+            "cache_old_L": (P(None, D, M, None, None, None)
+                            if self.cache_mode == "heads"
+                            else P(None, D, None, M, None, None)),
+            # expert-parallel MoE layouts
+            "ep_tokens": P(D, None, None),
+            "ep_dispatched": P(D, None, None, None, None),
+            "ep_returned": P(D, None, None, None),
+            "ep_w_in": P(D, None, None, M),
+            "ep_w_out": P(D, None, M, None),
+        }
+        return table.get(kind)
+
+    def param_spec(self, path: str, shape: Tuple[int, ...]) -> PartitionSpec:
+        """The spec of the parameter at ``path`` ("blocks/3/attn/wq"), by
+        its leaf name and the block kind in its path, as the reference's
+        rules read its own paths: TP over the model axis, FSDP of the
+        other dim over data where it divides (leaves of 65,536 elements
+        and more)."""
+        D, M = self.data_axis, self.model_axis
+        tp, dp = self.tp, self.dp
+        name = path.split("/")[-1]
+
+        def fsdp_ok(dim: int) -> bool:
+            return (self.fsdp and _divides(shape[dim], dp)
+                    and math.prod(shape) >= 65536)
+
+        def with_fsdp(spec: Tuple, free_dim: int) -> PartitionSpec:
+            s = list(spec)
+            if s[free_dim] is None and fsdp_ok(free_dim):
+                s[free_dim] = D
+            return P(*s)
+
+        if len(shape) <= 1:
+            return P(*([None] * len(shape)))           # 1D: replicated
+        attn_tp = self.attn_mode == "head_tp"
+        # embeddings
+        if name == "table":                            # [Vp, d]
+            return (with_fsdp((M, None), 1) if _divides(shape[0], tp)
+                    else with_fsdp((None, None), 1))
+        if name == "unembed":                          # [d, Vp]
+            return with_fsdp((None, M), 0)
+        if name == "pos_table":
+            return P(None, None)
+        # attention
+        if name == "wq":                               # [d, h*hd]
+            return (with_fsdp((None, M), 0) if attn_tp
+                    else with_fsdp((None, None), 0))
+        # (read before the rwkv rules, as in the reference: an rwkv
+        # block's wk / wv take this rule too)
+        if name in ("wk", "wv"):                       # [d, kv*hd]
+            return (with_fsdp((None, M), 0) if self.kv_sharded
+                    else with_fsdp((None, None), 0))
+        if name == "wo" and "attn" in path:            # [h*hd, d]
+            return (with_fsdp((M, None), 1) if attn_tp
+                    else with_fsdp((None, None), 1))
+        # rwkv time mix (head-TP always: rwkv6's heads divide)
+        if "rwkv_tm" in path:
+            if name in ("wr", "wk", "wv", "wg"):       # [d, d]
+                return with_fsdp((None, M), 0)
+            if name == "wo":                           # [d, d]
+                return with_fsdp((M, None), 1)
+            if name in ("lora_a", "w_a"):
+                return with_fsdp((None, None), 0)
+            if name in ("lora_b", "w_b"):
+                return P(*([None] * len(shape)))
+            if name == "u":
+                return P(M, None) if _divides(shape[0], tp) else P(None, None)
+            return P(*([None] * len(shape)))
+        if "rwkv_cm" in path:
+            if name == "wk":                           # [d, f]
+                return with_fsdp((None, M), 0)
+            if name == "wv":                           # [f, d]
+                return with_fsdp((M, None), 1)
+            if name == "wr":
+                return with_fsdp((None, None), 0)
+        # mamba
+        if "mamba" in path:
+            if name == "in_proj":                      # [d, 2*di]
+                return with_fsdp((None, M), 0)
+            if name == "conv_w":                       # [dc, di]
+                return P(None, M)
+            if name == "x_proj":                       # [di, dtr+2ds]
+                return P(M, None)
+            if name == "dt_proj":                      # [dtr, di]
+                return P(None, M)
+            if name == "a_log":                        # [di, ds]
+                return P(M, None)
+            if name == "out_proj":                     # [di, d]
+                return with_fsdp((M, None), 1)
+        # MoE
+        if name == "router":                           # [d, e]
+            return with_fsdp((None, None), 0)
+        if "moe" in path and name in ("wi", "wg"):     # [E, d, fv]
+            if self.moe_ep:
+                return P(D, None, M)                   # experts over data
+            s = [None, None, M]
+            if fsdp_ok(1):
+                s[1] = D
+            return P(*s)
+        if "moe" in path and name == "wo":             # [E, fv, d]
+            if self.moe_ep:
+                return P(D, M, None)
+            s = [None, M, None]
+            if fsdp_ok(2):
+                s[2] = D
+            return P(*s)
+        # dense mlp
+        if name in ("wi", "wg"):                       # [d, f]
+            return with_fsdp((None, M), 0)
+        if name == "wo":                               # [f, d]
+            return with_fsdp((M, None), 1)
+        if name in ("w1", "w2"):                       # vis_proj
+            return with_fsdp((None, None), 0)
+        return P(*([None] * len(shape)))
+
+    def param_shardings(self, params_tree) -> Any:
+        """A ``NamedSharding`` for every leaf of ``params_tree`` (the
+        port's init tree, or ``Model.param_specs()``), in its structure.
+        The port's leaves are one a layer: the reference's stacked
+        leaves carry a leading repeats dim that takes None before the
+        same inner spec."""
+        def spec_for(path, leaf):
+            pstr = "/".join(str(k) for k in path)
+            return self._ns(self.param_spec(pstr, tuple(leaf.shape)))
+        return _map_with_path(spec_for, params_tree)
+
+    def batch_shardings(self, batch_tree, lead_dims: int = 0) -> Any:
+        """Every leaf's dim ``lead_dims`` over the data axis, where it
+        divides (``lead_dims`` 1 for [accum, b, ...] microbatches)."""
+        D = self.data_axis
+
+        def spec_for(_, leaf):
+            nd = len(leaf.shape)
+            spec = P(*([None] * lead_dims), D,
+                     *([None] * (nd - 1 - lead_dims)))
+            return self._ns(self._fit(spec, tuple(leaf.shape)))
+        return _map_with_path(spec_for, batch_tree)
+
+    def cache_shardings(self, cache_tree) -> Any:
+        """The decode states' shardings, by state type: the attention
+        cache's old tier by kv head ("heads") or by chunk over
+        ``chunk_axes`` ("seq"), its ring over data; mamba and rwkv states
+        over data and, where the heads divide, the model axis; whisper's
+        cross K/V over data."""
+        D, M = self.data_axis, self.model_axis
+
+        def pad(leaf, spec):
+            nd = len(leaf.shape)
+            full = (*([None] * (nd - len(spec))), *spec)[-nd:]
+            return self._ns(self._fit(P(*full), tuple(leaf.shape)))
+
+        CH = self.chunk_axes
+
+        def walk(node):
+            if isinstance(node, DecodeCache):
+                old = ((D, M, None, None, None) if self.cache_mode == "heads"
+                       else (D, None, CH, None, None))
+                return DecodeCache(
+                    k_old=pad(node.k_old, old), v_old=pad(node.v_old, old),
+                    old_pos=pad(node.old_pos, (None, None)),
+                    k_rec=pad(node.k_rec, (D, None, None, None)),
+                    v_rec=pad(node.v_rec, (D, None, None, None)),
+                    rec_pos=pad(node.rec_pos, (None,)))
+            if isinstance(node, MambaState):
+                return MambaState(conv=pad(node.conv, (D, M, None)),
+                                  ssm=pad(node.ssm, (D, M, None)))
+            if isinstance(node, RWKVState):
+                hs = (self.cfg.rwkv is not None and
+                      _divides(self.cfg.d_model // self.cfg.rwkv.head_dim,
+                               self.tp))
+                wkv = (D, M, None, None) if hs else (D, None, None, None)
+                return RWKVState(wkv=pad(node.wkv, wkv),
+                                 tm_prev=pad(node.tm_prev, (D, None)),
+                                 cm_prev=pad(node.cm_prev, (D, None)))
+            if isinstance(node, CrossCache):
+                return CrossCache(k=pad(node.k, (D, None, None, None)),
+                                  v=pad(node.v, (D, None, None, None)))
+            if isinstance(node, WhisperDecCache):
+                return WhisperDecCache(self_cache=walk(node.self_cache),
+                                       cross=walk(node.cross))
+            if isinstance(node, (tuple, list)):
+                return type(node)(walk(c) for c in node)
+            raise TypeError(f"unknown cache node {type(node)}")
+
+        return walk(cache_tree)
+
+
+# ---------------------------------------------------------------------------
+# the sharded flat bus
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class FlatSharding:

@@ -1,13 +1,16 @@
-"""Train steps (port of ``repro/runtime/train.py``): ``make_train_step``
-over a parameter tree, with gradient accumulation, under any one-card
-plan (``models/plan.py``: local, context-parallel or expert-parallel
-forms), and ``make_flat_train_step`` over the flat bus, whole or
-sharded over a pod mesh."""
+"""Train and serve steps (port of ``repro/runtime/train.py``):
+``make_train_step`` over a parameter tree, with gradient accumulation,
+under any one-card plan (``models/plan.py``: local, context-parallel or
+expert-parallel forms, or a mesh plan over one position);
+``make_flat_train_step`` over the flat bus, whole or sharded over a pod
+mesh; ``make_prefill_step`` / ``make_decode_step``, the serving steps;
+``microbatch_specs`` and ``padded_vocab_of``, the dry run's shapes."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import flat as F
+from repro_torch.models.layers import meta_spec, padded_vocab
 from repro_torch.models.plan import NULL_PLAN, require_one_card_plan
 from repro_torch.optim.optimizers import Adam, clip_by_global_norm
 from repro_torch.runtime.sharding import gather_flat
@@ -94,3 +97,36 @@ def make_flat_train_step(loss_fn, optimizer, *, mesh=None,
         return new_fp, new_fos, loss.detach()
 
     return step
+
+
+def microbatch_specs(batch_specs, accum: int):
+    """[b, ...] specs (meta tensors) -> [accum, b / accum, ...]."""
+    def split(s):
+        if s.shape[0] % accum:
+            raise ValueError(f"batch {s.shape[0]} does not split into "
+                             f"{accum} microbatches")
+        return meta_spec((accum, s.shape[0] // accum, *s.shape[1:]),
+                         s.dtype)
+    return F.tree_map(split, batch_specs)
+
+
+def make_prefill_step(model, plan=NULL_PLAN):
+    """(params, batch) -> (last-position logits, decode states)."""
+    require_one_card_plan(plan)
+
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, plan=plan)
+    return prefill_step
+
+
+def make_decode_step(model, plan=NULL_PLAN):
+    """(params, caches, token, pos) -> (logits, decode states)."""
+    require_one_card_plan(plan)
+
+    def decode_step(params, caches, token, pos):
+        return model.decode_step(params, caches, token, pos, plan=plan)
+    return decode_step
+
+
+def padded_vocab_of(model) -> int:
+    return padded_vocab(model.cfg)
